@@ -1,0 +1,13 @@
+"""HiStore in PyTorch for an NVIDIA H100: the port of ``src/repro``.
+
+The healthy single-node store: ``HiStoreClient`` over ``LocalBackend``
+(PUT/GET/DELETE/SCAN and the asynchronous log->sorted apply).  The index
+hot path runs through hand-written CUDA kernels (``kernels/csrc``) for
+tensors on the card and through plain PyTorch for tensors on the CPU.
+
+    from repro_torch.core.client import HiStoreClient, LocalBackend
+    client = HiStoreClient(LocalBackend(1 << 20, DEFAULT))     # on cuda
+
+Keys are int32 (``key_inf`` = 2**31 - 1 is reserved).  This package
+imports torch and numpy only.
+"""

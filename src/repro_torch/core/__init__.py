@@ -1,0 +1,15 @@
+"""HiStore core in PyTorch: hybrid index (hash table + sorted index).
+
+Modules (the same names as the JAX package's ``core``):
+  hashing       — 32-bit key mixing (shared with the CUDA kernels)
+  hash_index    — chained bucket hash table (primary index)
+  sorted_index  — hierarchical-directory sorted array
+  log           — append-only update log with an applied prefix
+  index_group   — 1 hash + N sorted replicas + logs, healthy path
+  data_plane    — the value-slot allocator LocalBackend uses
+  client        — HiStoreClient over LocalBackend
+  results       — PutResult/GetResult/DeleteResult/ScanResult
+
+Nothing is imported here, so ``import repro_torch.core.hashing`` pulls
+in only what it needs.
+"""
