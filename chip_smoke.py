@@ -13,15 +13,29 @@
    answer is checked against a sorted-array model kept here: every
    acknowledged write reads back with its value, deleted keys are not
    found, every SCAN equals the model's range.  The kernels' launch
-   counts are set to 0 just before this phase and must all be > 0 after.
-4. Each kernel against its plain PyTorch version on the card, on the
-   loaded state at the main path's shapes (equality of every output),
-   with its time per call (CUDA events), its device time (launches
-   queued behind a GPU sleep, so host time is hidden), its plain
-   version's time, its bound (bytes over 3.35 TB/s; for the search also
-   the latency of its dependent levels) and, for the search,
+   counts are set to 0 just before this phase, and the probe's, the
+   search's and the merge's must be > 0 after.
+4. Each of those kernels against its plain PyTorch version on the card,
+   on the loaded state at the main path's shapes (equality of every
+   output), with its time per call (CUDA events), its device time
+   (launches queued behind a GPU sleep, so host time is hidden), its
+   plain version's time, its bound (bytes over 3.35 TB/s; for the search
+   also the latency of its dependent levels) and, for the search,
    torch.searchsorted.
-5. The last two lines: the kernels as JSON, then the device as JSON.
+5. The failure and recovery path on the same store, launch counts set
+   to 0 before it and all four > 0 after: a pending window of 2 chunks
+   that straddles the end of the 65536-entry backup-log ring, then the
+   primary fails (its hash is wiped); a degraded read-back of every key
+   (timed) and 4 degraded mixed rounds; the primary rebuilt online
+   (timed) and every key read back; backup 0 fails, PUTs report one
+   replica fewer and SCANs come from replica 1; backup 0 re-cloned
+   (timed); a drain, then the parity audit: every replica holds exactly
+   the hash's live items with equal addrs, the slot bitmap one slot per
+   live item.  Every answer is checked against the model.
+6. The backup probe against its plain version on the group as the
+   primary's failure left it (Q = 16384, R = 2, the wrapped window), timed
+   as in 4; its bound also counts the window scan's compares at 67e12/s.
+7. The last two lines: the kernels as JSON, then the device as JSON.
 
 Exits nonzero, printing no result, without CUDA or outside a checkout.
 """
@@ -38,10 +52,17 @@ import numpy as np
 
 ROOT = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM HBM3, NVIDIA's data sheet
+# the data sheet's float32 rate outside the tensor cores; it has no int32
+# row, and the card's int32 rate is not above it, so the compare bound it
+# gives is a lower bound on the time
+SCALAR_OPS_PER_S = 67e12
 CAPACITY = 1 << 24
 ROUNDS = 8                       # mixed rounds after the load
+DEGRADED_ROUNDS = 4              # mixed rounds with the primary dead
 CHUNK = 16384                    # the client's max_batch: one chunk per op
 SCANS = 4                        # SCANs per mixed round
+FAIL_FRESH = 4 * CHUNK           # fresh keys the fail/recover phase writes
+MAIN_KERNELS = ("hash_probe", "sorted_search", "merge")
 FUSED = "src/repro/kernels/_fused.py"
 
 
@@ -141,48 +162,129 @@ def max_abs_err(torch, got, want, label):
     return float(err)
 
 
-def main_path(torch, args, cfg, rng):
-    from repro_torch.core.client import HiStoreClient, LocalBackend
-    from repro_torch.kernels import ops
+class Workload:
+    """The client under test, the model it is checked against, and the
+    seeded draws of keys and values both phases use."""
 
-    W = cfg.value_words
-    n_load = args.keys
-    n_fresh = ROUNDS * CHUNK // 2
-    need = n_load + n_fresh
-    uniq = np.unique(rng.integers(0, 2 ** 31 - 1, int(need * 1.02) + 1024))
-    check(len(uniq) >= need, "not enough distinct keys drawn")
-    keys_all = uniq[rng.permutation(len(uniq))[:need]].astype(np.int32)
-    load_keys, fresh = keys_all[:n_load], keys_all[n_load:]
-    model = Model(keys_all, W)
+    def __init__(self, torch, client, model, rng, fresh):
+        self.torch = torch
+        self.client = client
+        self.model = model
+        self.rng = rng
+        self.fresh = fresh           # drawn keys not yet written
+        self.W = model.vals.shape[1]
 
-    def absent(n):
+    def take_fresh(self, n):
+        check(len(self.fresh) >= n, "out of fresh keys")
+        out, self.fresh = self.fresh[:n], self.fresh[n:]
+        return out
+
+    def absent(self, n):
         out = np.empty(0, np.int32)
         while len(out) < n:
-            c = rng.integers(0, 2 ** 31 - 1, 2 * n).astype(np.int32)
-            out = np.concatenate([out, c[~model.known(c)]])
+            c = self.rng.integers(0, 2 ** 31 - 1, 2 * n).astype(np.int32)
+            out = np.concatenate([out, c[~self.model.known(c)]])
         return out[:n]
 
-    def sample(keys, n):
+    def sample(self, keys, n):
         """n distinct entries of ``keys`` (a full permutation of 8 M keys,
         as rng.choice(replace=False) makes, costs about a second)."""
-        i = np.unique(rng.integers(0, len(keys), 2 * n))
+        i = np.unique(self.rng.integers(0, len(keys), 2 * n))
         check(len(i) >= n, "sample: not enough distinct draws")
-        return keys[rng.permutation(i)[:n]]
+        return keys[self.rng.permutation(i)[:n]]
 
-    def new_vals(n):
-        return rng.integers(1, 2 ** 31 - 1, (n, W)).astype(np.int32)
+    def new_vals(self, n):
+        return self.rng.integers(1, 2 ** 31 - 1, (n, self.W)).astype(np.int32)
 
-    def check_get(client, keys, label):
-        r = client.get(keys)
-        want_found, i = model.is_live(keys)
+    def live_keys(self):
+        return self.model.keys[self.model.live]
+
+    def get_mix(self, B, extra=None):
+        """B GET keys: live, deleted and never-written keys (and
+        ``extra`` keys, a quarter, when given), shuffled."""
+        m = self.model
+        dead_keys = m.keys[~m.live]
+        parts = [self.rng.choice(self.live_keys(), B // 2 if extra is None
+                                 else B // 4)]
+        if extra is not None:
+            parts.append(self.rng.choice(extra, B // 4))
+        parts.append(self.rng.choice(dead_keys, B // 4) if len(dead_keys)
+                     else self.absent(B // 4))
+        g = np.concatenate(parts)
+        g = np.concatenate([g, self.absent(B - len(g))])
+        self.rng.shuffle(g)
+        return g
+
+    def check_get(self, keys, label):
+        r = self.client.get(keys)
+        want_found, i = self.model.is_live(keys)
         found = r.found.cpu().numpy()
         check(np.array_equal(found, want_found),
               f"{label}: found differs on {(found != want_found).sum()} keys")
         vals = r.values.cpu().numpy()
-        check(np.array_equal(vals[found], model.vals[i[found]]),
+        check(np.array_equal(vals[found], self.model.vals[i[found]]),
               f"{label}: values differ")
         check(not vals[~found].any(), f"{label}: values on a miss")
         return int(found.sum())
+
+    def put(self, keys, label, replicas=None):
+        vals = self.new_vals(len(keys))
+        r = self.client.put(keys, vals)
+        check(bool(r.ok.all()), f"{label}: PUT not acknowledged")
+        if replicas is not None:
+            check(bool((r.replicas == replicas).all()),
+                  f"{label}: PUT replicas != {replicas}")
+        self.model.put(keys, vals)
+
+    def delete(self, keys, label):
+        want, _ = self.model.is_live(keys)
+        r = self.client.delete(keys)
+        check(bool(r.ok.all()), f"{label}: DELETE not acknowledged")
+        check(np.array_equal(r.found.cpu().numpy(), want),
+              f"{label}: DELETE found differs")
+        self.model.delete(keys[want])
+        return int(want.sum())
+
+    def scan(self, label):
+        lo = int(self.rng.choice(self.model.keys))
+        hi = lo + int(self.rng.integers(1, 2 ** 16))
+        s = self.client.scan(lo, hi, 128)
+        n = int(s.count)
+        want_keys = self.model.scan(lo, hi, 128)
+        check(n == len(want_keys) and np.array_equal(
+            s.keys[:n].cpu().numpy(), want_keys),
+            f"{label}: SCAN [{lo}, {hi}] differs")
+        return n
+
+    def read_back(self, label):
+        """GET every key the run drew; returns (live hits, seconds)."""
+        torch = self.torch
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        hits = self.check_get(self.model.keys, label)
+        torch.cuda.synchronize()
+        t = time.perf_counter() - t0
+        check(hits == int(self.model.live.sum()), f"{label}: hit count")
+        return hits, t
+
+
+def zero_launches(ops):
+    for k in ops.LAUNCHES:
+        ops.LAUNCHES[k] = 0
+
+
+def main_path(torch, args, cfg, rng):
+    from repro_torch.core.client import HiStoreClient, LocalBackend
+    from repro_torch.kernels import ops
+
+    n_load = args.keys
+    n_fresh = ROUNDS * CHUNK // 2 + FAIL_FRESH
+    need = n_load + n_fresh
+    uniq = np.unique(rng.integers(0, 2 ** 31 - 1, int(need * 1.02) + 1024))
+    check(len(uniq) >= need, "not enough distinct keys drawn")
+    keys_all = uniq[rng.permutation(len(uniq))[:need]].astype(np.int32)
+    load_keys = keys_all[:n_load]
+    model = Model(keys_all, cfg.value_words)
 
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
@@ -192,12 +294,12 @@ def main_path(torch, args, cfg, rng):
     log(f"main: LocalBackend({CAPACITY}) created in "
         f"{time.perf_counter() - t0:.3f} s, "
         f"{torch.cuda.memory_allocated() / 2**20:.1f} MiB allocated")
-    for k in ops.LAUNCHES:
-        ops.LAUNCHES[k] = 0
+    wl = Workload(torch, client, model, rng, keys_all[n_load:])
+    zero_launches(ops)
 
     # -- load ------------------------------------------------------------
     t0 = time.perf_counter()
-    vals = new_vals(n_load)
+    vals = wl.new_vals(n_load)
     r = client.put(load_keys, vals)
     ok = r.ok.cpu().numpy()
     torch.cuda.synchronize()
@@ -210,62 +312,32 @@ def main_path(torch, args, cfg, rng):
     # -- mixed rounds: one client chunk of each op per round ---------------
     B = CHUNK
     check(client.max_batch == B, f"client chunk {client.max_batch}")
-    fresh_at = 0
     stats = {"get_hits": 0, "gets": 0, "puts": 0, "deletes": 0,
              "deleted_found": 0, "scans": 0, "scanned": 0}
     t0 = time.perf_counter()
     for rnd in range(ROUNDS):
-        live_keys = model.keys[model.live]
-        dead_keys = model.keys[~model.live]
-        dead = (rng.choice(dead_keys, B // 4) if len(dead_keys)
-                else absent(B // 4))
-        g = np.concatenate([rng.choice(live_keys, B // 2), dead,
-                            absent(B - B // 2 - B // 4)])
-        rng.shuffle(g)
-        stats["get_hits"] += check_get(client, g, f"round {rnd} GET")
+        g = wl.get_mix(B)
+        stats["get_hits"] += wl.check_get(g, f"round {rnd} GET")
         stats["gets"] += len(g)
-        p = np.concatenate([sample(live_keys, B // 2),
-                            fresh[fresh_at:fresh_at + B // 2]])
-        fresh_at += B // 2
-        pv = new_vals(len(p))
-        r = client.put(p, pv)
-        check(bool(r.ok.all()), f"round {rnd}: PUT not acknowledged")
-        model.put(p, pv)
+        p = np.concatenate([wl.sample(wl.live_keys(), B // 2),
+                            wl.take_fresh(B // 2)])
+        wl.put(p, f"round {rnd}")
         stats["puts"] += len(p)
-        live_keys = model.keys[model.live]
-        d = np.concatenate([sample(live_keys, 3 * B // 16),
-                            absent(B // 16)])
+        d = np.concatenate([wl.sample(wl.live_keys(), 3 * B // 16),
+                            wl.absent(B // 16)])
         rng.shuffle(d)
-        want, _ = model.is_live(d)
-        r = client.delete(d)
-        check(bool(r.ok.all()), f"round {rnd}: DELETE not acknowledged")
-        check(np.array_equal(r.found.cpu().numpy(), want),
-              f"round {rnd}: DELETE found differs")
-        model.delete(d[want])
+        stats["deleted_found"] += wl.delete(d, f"round {rnd}")
         stats["deletes"] += len(d)
-        stats["deleted_found"] += int(want.sum())
         client.apply()
         for _ in range(SCANS):
-            lo = int(rng.choice(model.keys))
-            hi = lo + int(rng.integers(1, 2 ** 16))
-            s = client.scan(lo, hi, 128)
-            n = int(s.count)
-            want_keys = model.scan(lo, hi, 128)
-            check(n == len(want_keys) and np.array_equal(
-                s.keys[:n].cpu().numpy(), want_keys),
-                f"round {rnd}: SCAN [{lo}, {hi}] differs")
+            stats["scanned"] += wl.scan(f"round {rnd}")
             stats["scans"] += 1
-            stats["scanned"] += n
-        check_get(client, d, f"round {rnd} GET after DELETE")
+        wl.check_get(d, f"round {rnd} GET after DELETE")
     torch.cuda.synchronize()
     t_mixed = time.perf_counter() - t0
 
     # -- every acknowledged write reads back -------------------------------
-    t0 = time.perf_counter()
-    hits = check_get(client, model.keys, "final read-back")
-    torch.cuda.synchronize()
-    t_read = time.perf_counter() - t0
-    check(hits == int(model.live.sum()), "final read-back count")
+    hits, t_read = wl.read_back("final read-back")
     launches = dict(ops.LAUNCHES)
     peak = torch.cuda.max_memory_allocated()
     log(f"main: {ROUNDS} mixed rounds in {t_mixed:.3f} s: {stats}")
@@ -274,25 +346,167 @@ def main_path(torch, args, cfg, rng):
     log(f"main: launches {launches}")
     log(f"main: torch.cuda.max_memory_allocated() = {peak} B "
         f"({peak / 2**30:.3f} GiB)")
-    for k, n in launches.items():
-        check(n > 0, f"kernel {k} was not launched on the main path")
+    for k in MAIN_KERNELS:
+        check(launches[k] > 0, f"kernel {k} was not launched on the main path")
+    log_metrics(client, "main")
+    return wl, launches
+
+
+def log_metrics(client, label):
     m = client.metrics()
-    log(f"main: telemetry {json.dumps(m.counters, sort_keys=True)} "
+    log(f"{label}: telemetry {json.dumps(m.counters, sort_keys=True)} "
         f"gauges {json.dumps(m.gauges, sort_keys=True)}")
     for op, lat in sorted(m.latency.items()):
-        log(f"main: latency {op}: {lat.count} calls, mean "
+        log(f"{label}: latency {op}: {lat.count} calls, mean "
             f"{lat.mean * 1e3:.3f} ms, p50 <= {lat.p50 * 1e3:.3f} ms, "
             f"p99 <= {lat.p99 * 1e3:.3f} ms, max {lat.max * 1e3:.3f} ms")
-    return backend, model, launches
 
 
-def compare_kernels(torch, backend, model, cfg, rng, launches):
+def fail_recover(torch, wl, cfg):
+    """The failure and recovery path on the loaded store: the primary
+    dies with a wrapped pending window, degraded rounds, online rebuild;
+    a backup dies, degraded writes and SCANs, re-clone; then the parity
+    audit.  Returns (the group right after the primary failed, the keys
+    of its pending window, launches, timings)."""
+    from repro_torch.core import hash_index as hix
+    from repro_torch.core import index_group as ig
+    from repro_torch.core import log as lg
+    from repro_torch.core import sorted_index as six
+    from repro_torch.kernels import ops
+
+    client, model, rng = wl.client, wl.model, wl.rng
+    backend = client.backend
+    B = CHUNK
+    lcap = cfg.log_capacity
+    nb = cfg.n_backups
+    zero_launches(ops)
+    t_phase = time.perf_counter()
+
+    # 1. a pending window of 2 chunks that straddles the end of the ring
+    client.drain()
+    while int(backend.group.blogs[0].applied) % lcap <= lcap - 2 * B:
+        wl.put(wl.sample(wl.live_keys(), B), "align the ring")
+        client.drain()
+    window = np.concatenate([wl.sample(wl.live_keys(), B // 2),
+                             wl.take_fresh(B // 2),
+                             wl.sample(wl.live_keys(), B // 2),
+                             wl.take_fresh(B // 2)])
+    wl.put(window[:B], "window chunk 0")
+    wl.put(window[B:], "window chunk 1")
+    blog = backend.group.blogs[0]
+    applied, tail = int(blog.applied), int(blog.tail)
+    check(tail - applied == 2 * B and applied % lcap + 2 * B > lcap,
+          f"window [{applied}, {tail}) does not wrap the ring of {lcap}")
+    client.fail_server(0)
+    failed_group = backend.group
+    gauges = client.metrics().gauges
+    check(gauges["live_index_servers"] == nb, f"gauges {gauges}")
+    log(f"fail: primary failed with backup window [{applied}, {tail}) "
+        f"in a ring of {lcap}")
+
+    # 2. degraded: read-back of every key, then mixed rounds
+    hits, t_deg = wl.read_back("degraded read-back")
+    log(f"fail: degraded read-back of {len(model.keys)} keys ({hits} live)"
+        f" in {t_deg:.3f} s ({len(model.keys) / t_deg:.0f} GET/s)")
+    t0 = time.perf_counter()
+    for rnd in range(DEGRADED_ROUNDS):
+        p = np.concatenate([wl.sample(wl.live_keys(), B // 2),
+                            wl.take_fresh(B // 2)])
+        wl.put(p, f"degraded round {rnd}")
+        d = np.concatenate([wl.sample(wl.live_keys(), 3 * B // 16),
+                            wl.absent(B // 16)])
+        rng.shuffle(d)
+        wl.delete(d, f"degraded round {rnd}")
+        wl.check_get(wl.get_mix(B, extra=np.concatenate([p, d])),
+                     f"degraded round {rnd} GET")
+        client.apply()
+        for _ in range(SCANS):
+            wl.scan(f"degraded round {rnd}")
+        wl.check_get(d, f"degraded round {rnd} GET after DELETE")
+    # a pending window for the online rebuild to replay
+    wl.put(np.concatenate([wl.sample(wl.live_keys(), B // 2),
+                           wl.take_fresh(B // 2)]), "before recovery")
+    wl.delete(wl.sample(wl.live_keys(), B // 8), "before recovery")
+    torch.cuda.synchronize()
+    t_rounds = time.perf_counter() - t0
+    pend = ig.pending_max(backend.group)
+    check(pend > 0, "no pending window before the rebuild")
+
+    # 3. online rebuild of the primary
+    t0 = time.perf_counter()
+    client.recover_server(0)
+    torch.cuda.synchronize()
+    t_rec0 = time.perf_counter() - t0
+    hits, t_read0 = wl.read_back("read-back after the rebuild")
+    log(f"recover: primary rebuilt online in {t_rec0:.3f} s "
+        f"({int(hix.n_items(backend.group.hash))} items, {pend} pending "
+        f"replayed); read back {len(model.keys)} keys in {t_read0:.3f} s")
+
+    # 4. backup 0 dies: PUTs reach one replica fewer, SCANs use replica 1
+    client.fail_server(1)
+    p = np.concatenate([wl.sample(wl.live_keys(), B // 2),
+                        wl.take_fresh(B // 2)])
+    wl.put(p, "backup 0 down", replicas=nb - 1)
+    d = wl.sample(wl.live_keys(), B // 4)
+    wl.delete(d, "backup 0 down")
+    for _ in range(SCANS):
+        wl.scan("backup 0 down")
+    wl.check_get(wl.get_mix(B, extra=np.concatenate([p, d])),
+                 "backup 0 down GET")
+
+    # 5. re-clone backup 0, then drain
+    t0 = time.perf_counter()
+    client.recover_server(1)
+    torch.cuda.synchronize()
+    t_rec1 = time.perf_counter() - t0
+    client.drain()
+    torch.cuda.synchronize()
+    t_phase = time.perf_counter() - t_phase
+    launches = dict(ops.LAUNCHES)
+    log(f"recover: backup 0 re-cloned online in {t_rec1:.3f} s; "
+        f"{DEGRADED_ROUNDS} degraded rounds in {t_rounds:.3f} s; "
+        f"phase {t_phase:.3f} s; launches {launches}")
+    for k, n in launches.items():
+        check(n > 0, f"kernel {k} was not launched on the fail/recover path")
+    log_metrics(client, "fail")
+
+    # 6. parity: every replica holds exactly the hash's live items with
+    # equal addrs; the slot bitmap holds one slot per live item
+    g = backend.group
+    mask = hix.valid_mask(g.hash)
+    n_hash = int(mask.sum())
+    for r, srt in enumerate(g.sorted):
+        keys, addrs, valid = six.items(srt)
+        n = int(valid.sum())
+        check(n == n_hash, f"parity: replica {r} holds {n}, hash {n_hash}")
+        a_h, f_h, _ = ops.probe(cfg, g.hash, keys[valid])
+        check(bool(f_h.all()) and torch.equal(a_h, addrs[valid]),
+              f"parity: replica {r} disagrees with the hash")
+        check(int(lg.pending_count(g.blogs[r])) == 0, "parity: not drained")
+    addrs = g.hash.addr[mask]
+    used = backend.used
+    check(int(used.sum()) == n_hash
+          and int(torch.unique(addrs).numel()) == n_hash
+          and bool(used[addrs.long()].all()),
+          "parity: the slot bitmap disagrees with the live items")
+    check(n_hash == int(model.live.sum()), "parity: live count != model")
+    log(f"parity: {nb} replicas and the slot bitmap agree with the hash "
+        f"({n_hash} live items)")
+    times = dict(degraded_get_per_s=len(model.keys) / t_deg,
+                 degraded_read_s=t_deg, recover_primary_s=t_rec0,
+                 recover_backup_s=t_rec1, degraded_rounds_s=t_rounds)
+    return failed_group, window, launches, times
+
+
+def compare_kernels(torch, wl, cfg, launches):
     from repro_torch.core import hash_index as hix
     from repro_torch.core import sorted_index as six
     from repro_torch.kernels import ops
 
+    backend, rng = wl.client.backend, wl.rng
     dev = backend.device
     g = backend.group
+    model = wl.model
     out = []
 
     # -- hash probe, Q = 16384 (one client chunk) ---------------------------
@@ -418,6 +632,89 @@ def compare_kernels(torch, backend, model, cfg, rng, launches):
     return out
 
 
+def compare_backup_probe(torch, wl, cfg, group, window, launches):
+    """The backup probe against its plain version on the group as the
+    primary's failure left it (the wrapped window of 2 chunks pending),
+    Q = 16384, R = 2, cap 2^24: random replica selects, then the
+    path's select (the first live replica for every lane), timed."""
+    from repro_torch.core import index_group as ig
+    from repro_torch.core import log as lg
+    from repro_torch.core import sorted_index as six
+    from repro_torch.kernels import ops
+
+    dev = wl.client.backend.device
+    model, rng = wl.model, wl.rng
+    Q = CHUNK
+    R = len(group.sorted)
+    q = np.concatenate([rng.choice(window, Q // 4),
+                        rng.choice(model.keys, Q // 2),
+                        rng.integers(0, 2 ** 31 - 1, Q // 4 - 2),
+                        [2 ** 31 - 1, 0]]).astype(np.int32)
+    rng.shuffle(q)
+    qt = torch.as_tensor(q, device=dev)
+    srt, blogs = group.sorted, group.blogs
+    err = 0.0
+    sel_rand = torch.as_tensor(rng.integers(0, 2, (Q, R)).astype(np.int32),
+                               device=dev)
+    sel_path = (torch.arange(R, device=dev) == 0).to(torch.int32
+                                                       ).expand(Q, R)
+    sel_path = sel_path.contiguous()
+    for label, sel in (("random selects", sel_rand), ("path", sel_path)):
+        got = ops.backup_probe_cuda(qt, sel, srt, blogs, cfg.fanout)
+        want = ops.backup_probe_plain(cfg, srt, blogs, qt, sel)
+        err = max(err, max_abs_err(
+            torch, (got[0], got[1].bool(), got[2]), want,
+            f"backup_probe {label}"))
+
+    def kern():
+        return ops.backup_probe_cuda(qt, sel_path, srt, blogs, cfg.fanout)
+
+    ms = time_ms(torch, kern, 100)
+    dev_ms = device_ms(torch, kern, 100)
+    plain = time_ms(torch, lambda: ops.backup_probe_plain(
+        cfg, srt, blogs, qt, sel_path), 5, warmup=1)
+    routed = time_ms(torch, lambda: ig.replica_probe(group, qt, cfg), 100)
+
+    # the bound, from this run's data: each input read once and each
+    # output written once, for the one selected replica; the window scan's
+    # comparisons run from the newest entry down to the match (the whole
+    # window on a miss; none for q = 2**31 - 1 with a window shorter than
+    # the ring)
+    blog = blogs[0]
+    lkeys, _, _ = lg.pending_entries_np(blog)
+    n_win = len(lkeys)
+    newest = {}
+    for pos, k in enumerate(lkeys.tolist()):
+        newest[k] = pos
+    in_log = np.array([k in newest for k in q.tolist()])
+    depth = np.array([n_win - newest[k] if k in newest else n_win
+                      for k in q.tolist()], np.int64)
+    quirk = (q == 2 ** 31 - 1) & (n_win < cfg.log_capacity)
+    depth[quirk] = 0
+    hit = in_log | quirk
+    compares = int(depth.sum())
+    cap = srt[0].keys.shape[0]
+    levels = six.directory_levels(cap, cfg.fanout)
+    nbytes = (Q * 4 + Q * R * 4 + n_win * 4 + 8 + int(hit.sum()) * 5
+              + int((~hit).sum()) * (levels * cfg.fanout * 4 + 4) + Q * 12)
+    b_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    b_ops = compares / SCALAR_OPS_PER_S * 1e3
+    bound = max(b_bytes, b_ops)
+    log(f"kernel backup_probe: Q={Q}, R={R}, cap {cap}, window {n_win} of "
+        f"{cfg.log_capacity} ({int(in_log.sum())} lanes in it): equal; "
+        f"{ms:.4f} ms per call, device {dev_ms:.4f} ms, plain {plain:.4f} "
+        f"ms, routed ig.replica_probe {routed:.4f} ms; bound "
+        f"{bound:.6f} ms (bytes {b_bytes:.6f} ms for {nbytes} B, "
+        f"compares {b_ops:.6f} ms for {compares})")
+    return dict(name="backup_probe", route="cuda",
+                source="src/repro_torch/kernels/csrc/backup_probe.cu",
+                replaces=f"{FUSED}:283", launches=launches["backup_probe"],
+                max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=bound,
+                bound_by="bytes" if b_bytes >= b_ops else "operations",
+                library_ms=None, device_ms=dev_ms, routed_ms=routed,
+                window=n_win, compares=compares)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -450,8 +747,14 @@ def main(argv=None) -> int:
     cfg = DEFAULT
     log(f"config: {cfg}")
     rng = np.random.default_rng(args.seed)
-    backend, model, launches = main_path(torch, args, cfg, rng)
-    kernels = compare_kernels(torch, backend, model, cfg, rng, launches)
+    wl, launches = main_path(torch, args, cfg, rng)
+    kernels = compare_kernels(torch, wl, cfg, launches)
+    group, window, fr_launches, times = fail_recover(torch, wl, cfg)
+    log(f"fail: {json.dumps(times)}")
+    kernels.append(compare_backup_probe(torch, wl, cfg, group, window,
+                                        fr_launches))
+    for k in kernels:
+        k["launches_fail_recover"] = fr_launches[k["name"]]
     torch.cuda.synchronize()
     log(f"total: {time.perf_counter() - t_start:.1f} s")
     print(smi)

@@ -48,8 +48,10 @@ def backend_from_numpy(group, vals, used, cfg, device, *,
                        pending_bound: int | None = None):
     """A LocalBackend on ``device`` holding a JAX LocalBackend's state:
     its group plus the value shard ``vals`` [cap, W] and the slot bitmap
-    ``used`` [cap].  ``pending_bound`` is the host-side bound on the
-    backup logs' pending entries (default: their exact count)."""
+    ``used`` [cap].  The servers' liveness comes from ``group.alive``, so
+    a store in the middle of a failure carries across whole.
+    ``pending_bound`` is the host-side bound on the backup logs' pending
+    entries (default: their exact count)."""
     from repro_torch.core.client import LocalBackend
 
     vals = np.asarray(vals)
@@ -57,6 +59,9 @@ def backend_from_numpy(group, vals, used, cfg, device, *,
     be.group = group_from_numpy(group, be.device)
     be.vals = _t(vals, be.device)
     be.used = _t(used, be.device).bool()
+    alive = [bool(a) for a in np.asarray(group.alive)]
+    be._primary_alive = alive[0]
+    be._backups_alive = alive[1:]
     be._pending_bound = (be.pending_ops() if pending_bound is None
                          else pending_bound)
     return be

@@ -8,8 +8,9 @@ Three member groups:
     background value migration (``migrate_values``);
   * observability — ``telemetry_gauges`` and ``lease_stalled``;
   * fault injection / recovery — ``fail_*``, ``sever_*``, ``recover_*``
-    (the port's LocalBackend raises NotImplementedError for these until
-    the slice that brings them).
+    (the port's LocalBackend serves ``fail_server`` and
+    ``recover_server``; the data-server and severing calls raise
+    NotImplementedError until slice 2, as the JAX LocalBackend's do).
 """
 from __future__ import annotations
 

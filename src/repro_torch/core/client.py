@@ -9,16 +9,19 @@ the LocalBackend part of ``repro/core/client.py``).
     res = client.delete(keys)            # DeleteResult(ok, found, retries)
     res = client.scan(lo, hi, limit)     # ScanResult(keys, addrs, count)
 
+    client.fail_server(0)                # primary down: degraded reads
+    client.recover_server(0)             # hash rebuilt, online
+
 The client pads requests to power-of-two batch sizes and splits oversize
 ones into ``max_batch`` chunks, turns capacity push-back into a bounded
-retry loop with async-apply drains in between, and runs the backups'
-log->sorted merges every ``apply_every_n_ops`` mutating ops.  The port
-runs eagerly: ``jax.jit`` has no counterpart here.
+retry loop with async-apply drains in between, runs the backups'
+log->sorted merges every ``apply_every_n_ops`` mutating ops, and runs
+the value migration after every recovery (``migrate_on_recover``).  The
+port runs eagerly: ``jax.jit`` has no counterpart here.
 
-Left for later slices: failure and recovery (``fail_server`` /
-``recover_server``, slice 1b), and the distributed store with its lease
-ticker, heartbeat severing, data-server failures and value migration
-(slice 2).  Those calls raise NotImplementedError naming their slice.
+Left for slice 2: the distributed store with its lease ticker, heartbeat
+severing and data-server failures.  Those calls raise
+NotImplementedError naming the slice.
 """
 from __future__ import annotations
 
@@ -37,7 +40,6 @@ from repro_torch.core.results import (DeleteResult, GetResult, PutResult,
                                       ScanResult)
 from repro_torch.core.scatter import drop_set
 
-SLICE_1B = "index-server failure and recovery come with slice 1b"
 SLICE_2 = "the distributed store (slice 2)"
 
 
@@ -54,12 +56,13 @@ def _resolve_device(device) -> torch.device:
 # ---------------------------------------------------------------------------
 # Local backend: one index group + the node's data shard
 # ---------------------------------------------------------------------------
-def _local_put(cfg, g, vals, used, keys, vs, valid, backups_alive):
+def _local_put(cfg, g, vals, used, keys, vs, valid, backups_alive,
+               primary_alive):
     dcap = vals.shape[0]
     # one slot per key per batch (last writer wins, like the hash insert);
     # overwrites update their old slot in place (the data-server GC)
     winner = dpl.winner_mask(keys, valid)
-    old_a, old_f = ig.owner_addr_probe(g, keys, cfg)
+    old_a, old_f = ig.owner_addr_probe(g, keys, cfg, primary_alive)
     inplace = winner & old_f & (old_a >= 0) & (old_a < dcap)
     used, slot, aok = dpl.alloc(used, winner & ~inplace)
     wslot = torch.where(inplace, old_a, torch.where(aok, slot, dcap))
@@ -85,8 +88,8 @@ def _row_lanes(rows, nrows: int, width: int):
     return torch.where(rows[:, None] < nrows, flat, nrows * width).reshape(-1)
 
 
-def _local_get(cfg, g, dvals, keys, valid):
-    addr, found, acc = ig.get(g, keys, cfg)
+def _local_get(cfg, g, dvals, keys, valid, primary_alive):
+    addr, found, acc = ig.get(g, keys, cfg, primary_alive=primary_alive)
     found = found & valid
     dcap = dvals.shape[0]
     slot = torch.where(found & (addr >= 0) & (addr < dcap), addr, dcap)
@@ -97,13 +100,14 @@ def _local_get(cfg, g, dvals, keys, valid):
             valid.to(I32))      # single shard: every read is one hop
 
 
-def _local_delete(cfg, g, used, keys, valid, backups_alive):
+def _local_delete(cfg, g, used, keys, valid, backups_alive, primary_alive):
     # data-server GC: a committed DELETE frees its value slot (winner-
     # deduped so a double-delete within one batch frees exactly once)
     winner = dpl.winner_mask(keys, valid)
-    old_a, old_f = ig.owner_addr_probe(g, keys, cfg)
+    old_a, old_f = ig.owner_addr_probe(g, keys, cfg, primary_alive)
     dcap = used.shape[0]
-    g, found = ig.delete(g, keys, cfg, valid, backups_alive=backups_alive)
+    g, found = ig.delete(g, keys, cfg, valid, backups_alive=backups_alive,
+                         primary_alive=primary_alive)
     freed = winner & found & old_f & (old_a >= 0) & (old_a < dcap)
     used = dpl.free_slots(used, old_a, freed)
     return g, used, found & valid
@@ -114,7 +118,10 @@ class LocalBackend:
     the value shard a single-node deployment owns, slot-allocated and
     GC'd by the data plane's bitmap.  All state lives on ``device``: the
     card unless the caller passes another (``device="cpu"`` takes the
-    plain PyTorch path, as the tests do)."""
+    plain PyTorch path, as the tests do).  Server liveness is tracked on
+    the host (the paper's client knows which servers are up): a healthy
+    primary's GETs run the hash probe alone, a dead one's also the
+    replica probe."""
 
     def __init__(self, capacity: int, cfg, value_words: Optional[int] = None,
                  *, device=None):
@@ -131,7 +138,8 @@ class LocalBackend:
                                 device=self.device)
         self.batch_multiple = 1
         self.max_mutation_batch = cfg.log_capacity
-        self._backups_alive = (True,) * cfg.n_backups
+        self._primary_alive = True
+        self._backups_alive = [True] * cfg.n_backups
         self._pending_bound = 0   # host-side upper bound on log pending
 
     def _ensure_log_room(self, n: int):
@@ -141,27 +149,33 @@ class LocalBackend:
         if self._pending_bound + n > self.cfg.log_capacity:
             self.drain()
 
+    def _hint(self):
+        """The primary_alive routing hint: True while the primary lives,
+        None (run both probes, select by ``alive[0]``) otherwise."""
+        return True if self._primary_alive else None
+
     def put(self, keys, vals, valid):
         n = int(valid.sum())
         self._ensure_log_room(n)
         self._pending_bound += n
         self.group, self.vals, self.used, ok, addrs, nrep = _local_put(
             self.cfg, self.group, self.vals, self.used, keys, vals, valid,
-            self._backups_alive)
+            tuple(self._backups_alive), self._hint())
         return ok, addrs, nrep
 
     def get(self, keys, valid):
-        return _local_get(self.cfg, self.group, self.vals, keys, valid)
+        return _local_get(self.cfg, self.group, self.vals, keys, valid,
+                          self._hint())
 
     def delete(self, keys, valid):
         n = int(valid.sum())
         self._ensure_log_room(n)
         self._pending_bound += n
+        ba = tuple(self._backups_alive)
         self.group, self.used, found = _local_delete(
-            self.cfg, self.group, self.used, keys, valid,
-            self._backups_alive)
+            self.cfg, self.group, self.used, keys, valid, ba, self._hint())
         # room is guaranteed above, so every valid lane is acked
-        return valid, found, valid.to(I32) * sum(self._backups_alive)
+        return valid, found, valid.to(I32) * sum(ba)
 
     def scan(self, lo, hi, limit: int):
         (k, a, n), self.group = ig.scan(self.group, lo, hi, limit, self.cfg)
@@ -182,7 +196,8 @@ class LocalBackend:
 
     def telemetry_gauges(self) -> dict:
         return {
-            "live_index_servers": 1 + sum(map(int, self._backups_alive)),
+            "live_index_servers": (int(self._primary_alive)
+                                   + sum(map(int, self._backups_alive))),
             "live_data_servers": 1,
             "pending_log_ops": self.pending_ops(),
             "freeq_pending": 0,
@@ -193,13 +208,34 @@ class LocalBackend:
         return False   # liveness is host-side: no leases to stall
 
     def migrate_values(self) -> int:
-        raise NotImplementedError(f"value migration: {SLICE_2}")
+        return 0   # one shard: every value is already home
 
     def fail_server(self, server: int = 0):
-        raise NotImplementedError(SLICE_1B)
+        """Index server ``server`` dies (0 the primary, 1 + r backup r)
+        and its index state is wiped."""
+        self.group = ig.fail(self.group, server)
+        if server == 0:
+            self._primary_alive = False
+        else:
+            self._backups_alive[server - 1] = False
+        self.telemetry.count("index_demotions")
+        self.telemetry.span({"event": "demote", "plane": "index",
+                             "server": server, "detected": False})
 
-    def recover_server(self, server: int = 0, **kw):
-        raise NotImplementedError(SLICE_1B)
+    def recover_server(self, server: int = 0, online: bool = True):
+        """Rebuild index server ``server`` from the survivors and re-admit
+        it (``online=False`` drains the logs first)."""
+        if server == 0:
+            self.group = ig.recover_primary(self.group, self.cfg,
+                                            online=online)
+            self._primary_alive = True
+        else:
+            self.group = ig.recover_backup(self.group, server - 1,
+                                           self.cfg, online=online)
+            self._backups_alive[server - 1] = True
+        self.telemetry.count("index_recoveries")
+        self.telemetry.span({"event": "recover", "plane": "index",
+                             "server": server, "online": online})
 
     def sever_server(self, server: int = 0):
         raise NotImplementedError(
@@ -228,7 +264,8 @@ class HiStoreClient:
 
     def __init__(self, backend: Backend, *, batch_quantum: int = 64,
                  max_batch: int = 16384, max_retries: int = 8,
-                 apply_every_n_ops: Optional[int] = None):
+                 apply_every_n_ops: Optional[int] = None,
+                 migrate_on_recover: bool = True):
         self.backend = backend
         self.device = getattr(backend, "device", torch.device("cpu"))
         m = max(getattr(backend, "batch_multiple", 1), 1)
@@ -247,9 +284,10 @@ class HiStoreClient:
             self.max_batch = min(self.max_batch, cap)
         self.max_retries = max_retries
         self.apply_every_n_ops = apply_every_n_ops
+        self.migrate_on_recover = migrate_on_recover
         self._mutations_since_apply = 0
         self.stats = {"puts": 0, "gets": 0, "deletes": 0, "scans": 0,
-                      "retries": 0, "applies": 0}
+                      "retries": 0, "applies": 0, "migrated": 0}
         self.telemetry = (getattr(backend, "telemetry", None)
                           or tm.Telemetry("off"))
 
@@ -364,9 +402,13 @@ class HiStoreClient:
         """Apply ALL pending log entries (SCAN serializability barrier)."""
         self.backend.drain()
 
-    # -- later slices --------------------------------------------------------
+    # -- failures, recovery and migration ------------------------------------
     def migrate(self) -> int:
-        return self.backend.migrate_values()
+        """Run the value migration now.  Returns the values moved (0 on
+        LocalBackend: its one shard is every value's home)."""
+        moved = self.backend.migrate_values()
+        self.stats["migrated"] += moved
+        return moved
 
     def fail_server(self, server: int):
         return self.backend.fail_server(server)
@@ -375,7 +417,12 @@ class HiStoreClient:
         return self.backend.sever_server(server)
 
     def recover_server(self, server: int, **kw):
-        return self.backend.recover_server(server, **kw)
+        """Rebuild and re-admit a server; keyword knobs (``online``) go to
+        the backend.  Migrates afterwards when ``migrate_on_recover``."""
+        r = self.backend.recover_server(server, **kw)
+        if self.migrate_on_recover:
+            self.migrate()
+        return r
 
     def fail_data_server(self, server: int):
         return self.backend.fail_data_server(server)
@@ -384,7 +431,9 @@ class HiStoreClient:
         return self.backend.sever_data_server(server)
 
     def recover_data_server(self, server: int):
-        return self.backend.recover_data_server(server)
+        self.backend.recover_data_server(server)
+        if self.migrate_on_recover:
+            self.migrate()
 
     def start_ticker(self) -> bool:
         raise NotImplementedError(f"the lease ticker: {SLICE_2}")

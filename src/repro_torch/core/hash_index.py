@@ -10,18 +10,22 @@ within bucket, place the rank-th key at the bucket's rank-th free slot.
 
 ``probe_rows`` is the plain PyTorch version of the CUDA probe kernel
 (``kernels/csrc/hash_probe.cu``), which takes the keys' descriptors;
-``lookup`` hashes the keys and calls it.  ``replay_pending`` belongs to
-recovery and is not ported yet.
+``lookup`` hashes the keys and calls it.  ``rebuild`` and
+``replay_pending`` serve recovery: a hash table rebuilt from a sorted
+replica, then brought up to its pending log window.
 """
 from __future__ import annotations
 
 from typing import NamedTuple
 
+import numpy as np
 import torch
 
 from repro_torch.core import hashing
-from repro_torch.core.hashing import I32, next_pow2
+from repro_torch.core import log as lg
+from repro_torch.core.hashing import I32, next_pow2, pad_pow2
 from repro_torch.core.scatter import drop_amax, drop_set
+from repro_torch.core.sorted_index import OP_DEL, OP_PUT
 
 TOMBSTONE = -1
 BIG = 2 ** 30
@@ -191,6 +195,56 @@ def delete(idx: HashIndex, keys, cfg, valid=None):
     return HashIndex(drop_set(idx.sig, tgt, TOMBSTONE),
                      drop_set(idx.fp, tgt, 0),
                      drop_set(idx.addr, tgt, -1), idx.fill), found
+
+
+REBUILD_CHUNK = 1 << 16
+
+
+def rebuild(idx: HashIndex, keys, addrs, cfg, valid) -> HashIndex:
+    """``insert(idx, keys, addrs, cfg, valid)`` for valid keys that are
+    distinct and absent from ``idx`` (a sorted replica's items into a
+    fresh table), in lane-order chunks of REBUILD_CHUNK valid lanes.
+
+    The same slots as the one batch the JAX package inserts: every key is
+    new (the fingerprint is a bijection of the int32 key, so no key
+    matches another's slot), and the rank-th new key of a bucket takes
+    the bucket's rank-th free slot in slot order, which is where it lands
+    when the keys before it come in earlier chunks.  One batch of 2^24
+    lanes would build [2^24, chain_slots] intermediates (4 GiB for the
+    argsort alone); a chunk builds [REBUILD_CHUNK, chain_slots]."""
+    lanes = torch.nonzero(valid).flatten()        # one host sync
+    for s in range(0, lanes.shape[0], REBUILD_CHUNK):
+        at = lanes[s:s + REBUILD_CHUNK]
+        idx, _ = insert(idx, keys[at], addrs[at], cfg)
+    return idx
+
+
+def replay_pending(idx: HashIndex, log, cfg) -> HashIndex:
+    """Online-recovery helper: apply a log's pending window to a
+    snapshot-built hash table (net effect, last writer wins per key;
+    deletes first, then puts, each in the order of the key's first
+    pending entry, as the JAX package's dict gives them).  Host-side;
+    batches padded to powers of two as the JAX package pads them."""
+    k, a, o = lg.pending_entries_np(log)
+    live = o != 0
+    k, a, o = k[live], a[live], o[live]
+    if len(k) == 0:
+        return idx
+    _, first = np.unique(k, return_index=True)
+    _, last_rev = np.unique(k[::-1], return_index=True)
+    last = (len(k) - 1 - last_rev)[np.argsort(first, kind="stable")]
+    nk, na, no = k[last], a[last], o[last]
+    dev = idx.sig.device
+    dels = nk[no == OP_DEL]
+    if len(dels):
+        kp, vm = pad_pow2(dels, 0, dev)
+        idx, _ = delete(idx, kp, cfg, vm)
+    puts = no == OP_PUT
+    if puts.any():
+        kp, vm = pad_pow2(nk[puts], 0, dev)
+        ap, _ = pad_pow2(na[puts].astype(np.int32), -1, dev)
+        idx, _ = insert(idx, kp, ap, cfg, vm)
+    return idx
 
 
 def valid_mask(idx: HashIndex):

@@ -1,7 +1,8 @@
 """Build and load the CUDA kernels of ``kernels/csrc``.
 
-Each ``.cu`` source is compiled at first use into a shared library with a
-plain C interface, one ``nvcc`` per source, all started together:
+Each ``.cu`` source (with the ``.cuh`` headers it includes) is compiled
+at first use into a shared library with a plain C interface, one
+``nvcc`` per source, all started together:
 
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \
          -Xcompiler -fPIC -o <name>.so <name>.cu
@@ -44,6 +45,10 @@ SIGNATURES = {
         "histore_merge_scratch_bytes": ([I64, I64], I64),
         "histore_merge": ([P] * 9 + [I64, INT, INT, P], INT),
     },
+    "backup_probe": {
+        "histore_backup_probe": ([P] * 7 + [I64, INT, I64, I64, INT, INT, P],
+                                 INT),
+    },
 }
 
 _lock = threading.Lock()
@@ -63,8 +68,10 @@ def _nvcc() -> str:
 
 
 def _digest() -> str:
+    """Hash of the flags and of every source and header in csrc, so an
+    edit to a shared ``.cuh`` builds anew too."""
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in sorted(CSRC.glob("*.cu")):
+    for src in sorted([*CSRC.glob("*.cu"), *CSRC.glob("*.cuh")]):
         h.update(src.name.encode())
         h.update(src.read_bytes())
     return h.hexdigest()[:16]

@@ -2,13 +2,15 @@
 ``repro/kernels/ops.py``).
 
 Every routed op body calls THESE functions — ``probe`` / ``search`` /
-``range_query`` / ``merge`` — never a kernel directly.  Each takes the
+``range_query`` / ``merge`` / ``backup_probe`` — never a kernel
+directly.  Each takes the
 HiStoreConfig and routes by the device of the tensors it is given:
 
   * a CUDA tensor launches the hand-written CUDA kernel
     (``kernels/csrc``), or raises — there is no fallback;
   * a CPU tensor takes the plain PyTorch version in
-    ``core/hash_index.py`` / ``core/sorted_index.py``.
+    ``core/hash_index.py`` / ``core/sorted_index.py`` (the backup
+    probe's, ``backup_probe_plain``, is here).
 
 ``cfg.use_kernels`` keeps its values so configs compare field for field
 with the JAX package: "on" and "auto" allow the routing above, "off"
@@ -23,15 +25,19 @@ stream, raises on a nonzero launch status, and adds one to
 """
 from __future__ import annotations
 
+import ctypes
+
 import torch
 
 from repro_torch.core import hash_index as hix
+from repro_torch.core import log as lg
 from repro_torch.core import sorted_index as six
 from repro_torch.core.hashing import I32
 
 # launches of each CUDA kernel in this process (reset by callers that
 # count the launches of one run)
-LAUNCHES = {"hash_probe": 0, "sorted_search": 0, "merge": 0}
+LAUNCHES = {"hash_probe": 0, "sorted_search": 0, "merge": 0,
+            "backup_probe": 0}
 
 
 def kernels_enabled(cfg, device) -> bool:
@@ -169,6 +175,79 @@ def merge_cuda(ekeys, eaddrs, bkeys, baddrs, bops):
     return nk, na, size
 
 
+BACKUP_MAX_REPLICAS = 8
+
+
+def backup_probe_cuda(keys, rep_sel, sorted_r, blogs_r, fanout: int):
+    """keys: [Q] int32; rep_sel: [Q, R] int32; sorted_r / blogs_r: R
+    SortedIndex / UpdateLog states (keys and addrs int32, ops int8,
+    applied and tail 0-d int32 on the card, read there).  One call takes
+    the R pointer sets: nothing is stacked.  Returns (addr, found int32,
+    n_accesses), each [Q] int32."""
+    R = len(sorted_r)
+    if R < 1 or R > BACKUP_MAX_REPLICAS or len(blogs_r) != R:
+        raise ValueError(f"backup_probe: 1..{BACKUP_MAX_REPLICAS} replicas "
+                         f"with one log each, got {R} and {len(blogs_r)}")
+    _check("keys", keys, I32)
+    _check("rep_sel", rep_sel, I32, 2)
+    Q = keys.shape[0]
+    cap = sorted_r[0].keys.shape[0]
+    lcap = blogs_r[0].keys.shape[0]
+    if rep_sel.shape != (Q, R) or cap < 1 or lcap < 1:
+        raise ValueError("backup_probe: inconsistent shapes")
+    ptrs = []
+    for srt, blog in zip(sorted_r, blogs_r):
+        for n, t, dtype, shape in (
+                ("sorted keys", srt.keys, I32, (cap,)),
+                ("sorted addrs", srt.addrs, I32, (cap,)),
+                ("log keys", blog.keys, I32, (lcap,)),
+                ("log addrs", blog.addrs, I32, (lcap,)),
+                ("log ops", blog.ops, torch.int8, (lcap,)),
+                ("log applied", blog.applied, I32, ()),
+                ("log tail", blog.tail, I32, ())):
+            _check(n, t, dtype, len(shape))
+            if tuple(t.shape) != shape:
+                raise ValueError(f"backup_probe: {n} has shape "
+                                 f"{tuple(t.shape)}, expected {shape}")
+            ptrs.append(t.data_ptr())
+    host_ptrs = (ctypes.c_void_p * len(ptrs))(*ptrs)
+    levels = six.directory_levels(cap, fanout)
+    out = torch.empty((4, Q), dtype=I32, device=keys.device)
+    with torch.cuda.device(keys.device):
+        st = _c("backup_probe", "histore_backup_probe")(
+            keys.data_ptr(), rep_sel.data_ptr(),
+            ctypes.cast(host_ptrs, ctypes.c_void_p),
+            out[0].data_ptr(), out[1].data_ptr(), out[2].data_ptr(),
+            out[3].data_ptr(), Q, R, cap, lcap, fanout, levels,
+            _stream(keys))
+    _raise_on(st, "backup_probe")
+    LAUNCHES["backup_probe"] += 1
+    return out[0], out[1], out[2]
+
+
+def backup_probe_plain(cfg, sorted_r, blogs_r, keys, rep_sel):
+    """The plain PyTorch version of the backup probe (mirror of the JAX
+    package's ``_backup_probe_jnp``): for each replica r, the newest-wins
+    pending-log lookup, else the sorted search; a lane takes the answer
+    of each selected replica in turn, so the LAST selected one wins, with
+    n_accesses = search levels + 1.  Returns (addr, found bool,
+    n_accesses)."""
+    addr_b = torch.full(keys.shape, -1, dtype=I32, device=keys.device)
+    found_b = torch.zeros(keys.shape, dtype=torch.bool, device=keys.device)
+    acc_b = torch.zeros(keys.shape, dtype=I32, device=keys.device)
+    for r, (srt, blog) in enumerate(zip(sorted_r, blogs_r)):
+        a_s, f_s, c_s = six.search(srt, keys, cfg.fanout)
+        hit, op, praw = lg.pending_lookup(blog, keys)
+        put = op == six.OP_PUT
+        a_r = torch.where(hit, torch.where(put, praw, -1), a_s)
+        f_r = torch.where(hit, put, f_s)
+        sel = rep_sel[:, r] != 0
+        addr_b = torch.where(sel, a_r, addr_b)
+        found_b = torch.where(sel, f_r, found_b)
+        acc_b = torch.where(sel, c_s + 1, acc_b)
+    return addr_b, found_b, acc_b
+
+
 # ---------------------------------------------------------------------------
 # the routed ops
 # ---------------------------------------------------------------------------
@@ -213,3 +292,16 @@ def range_query(cfg, index, lo, hi, limit: int):
     q = torch.as_tensor(lo, dtype=I32, device=index.keys.device).reshape(1)
     *_, lbound = sorted_search_cuda(q, index.keys, index.addrs, cfg.fanout)
     return six.range_from_start(index, lbound[0], hi, limit)
+
+
+def backup_probe(cfg, sorted_r, blogs_r, keys, rep_sel):
+    """Degraded lookup across the R sorted replicas and their pending
+    logs, combined by ``rep_sel`` [Q, R] (later selected replicas
+    overwrite earlier ones) -> (addr, found bool, n_accesses).
+    Bit-exact with backup_probe_plain."""
+    if not kernels_enabled(cfg, keys.device):
+        return backup_probe_plain(cfg, sorted_r, blogs_r, keys, rep_sel)
+    addr, found, acc = backup_probe_cuda(
+        keys.to(I32).contiguous(), rep_sel.to(I32).contiguous(),
+        sorted_r, blogs_r, cfg.fanout)
+    return addr, found.bool(), acc

@@ -229,13 +229,13 @@ def test_index_group_put_delete_apply_scan():
         same((tok, tn), (jok, jn), f"put {rnd}")
         d = rng.integers(0, 300, 8).astype(np.int32)
         jg, jf = jig.delete(jg, J(d), cfg_j, primary_alive=True)
-        tg, tf = tig.delete(tg, T(d), cfg_t)
+        tg, tf = tig.delete(tg, T(d), cfg_t, primary_alive=True)
         same(tf, jf, f"delete {rnd}")
         jg, tg = jig.apply_async(jg, cfg_j), tig.apply_async(tg, cfg_t)
         q = rng.integers(0, 300, 40).astype(np.int32)
-        same(tig.get(tg, T(q), cfg_t), jig.get(jg, J(q), cfg_j,
-                                              primary_alive=True), "get")
-        same(tig.owner_addr_probe(tg, T(q), cfg_t),
+        same(tig.get(tg, T(q), cfg_t, primary_alive=True),
+             jig.get(jg, J(q), cfg_j, primary_alive=True), "get")
+        same(tig.owner_addr_probe(tg, T(q), cfg_t, primary_alive=True),
              jig.owner_addr_probe(jg, J(q), cfg_j, primary_alive=True))
     (jr, jg) = jig.scan(jg, jnp.int32(20), jnp.int32(250), 32, cfg_j)
     (tr, tg) = tig.scan(tg, torch.tensor(20, dtype=torch.int32),

@@ -2,7 +2,7 @@
 against the JAX package's Pallas kernels.
 
 On the CPU the port's ``probe`` / ``search`` / ``range_query`` / ``merge``
-take their plain PyTorch versions; the JAX side runs its Pallas kernels
+/ ``backup_probe`` take their plain PyTorch versions; the JAX side runs its Pallas kernels
 in interpret mode (``use_kernels="on"``), as tests/test_kernel_dispatch.py
 does.  Every output must be equal.  The CUDA kernels themselves run only
 on the card: ``test_cuda_kernels_match_plain`` is marked
@@ -17,10 +17,13 @@ import torch
 
 from repro.configs.histore import scaled as jscaled
 from repro.core import hash_index as jhix
+from repro.core import log as jlg
 from repro.core import sorted_index as jsix
 from repro.kernels import ops as jops
+from repro.kernels import ref as jref
 from repro_torch.configs.histore import scaled
 from repro_torch.core import hash_index as hix
+from repro_torch.core import log as lg
 from repro_torch.core import sorted_index as six
 from repro_torch.kernels import ops
 
@@ -117,6 +120,106 @@ def test_merge_matches_pallas(cap, n, m):
     _eq(got, want, "merge")
 
 
+def _replica_states(rng, cap, lcap, windows, pool):
+    """R sorted replicas and R logs with the given (applied, tail)
+    windows, from numpy: the ring holds random keys of ``pool`` (stale
+    entries outside the window too), the window PUTs and DELs.  Returns
+    the JAX stacked states and the port's tuples."""
+    R = len(windows)
+    skeys = np.full((R, cap), INF, np.int32)
+    saddrs = np.full((R, cap), -1, np.int32)
+    for r in range(R):
+        n = int(rng.integers(0, min(cap, len(pool)) + 1))
+        ks = np.sort(rng.choice(pool, n, replace=False))
+        skeys[r, :n] = ks
+        saddrs[r, :n] = rng.integers(0, 10 ** 5, n)
+    lkeys = rng.choice(pool, (R, lcap)).astype(np.int32)
+    laddrs = rng.integers(0, 10 ** 5, (R, lcap)).astype(np.int32)
+    lops = rng.choice([0, 1, 1, 2], (R, lcap)).astype(np.int8)
+    win = np.asarray(windows, np.int32)
+    for r, (applied, tail) in enumerate(windows):
+        seq = np.arange(applied, tail)
+        lops[r, seq % lcap] = rng.choice([1, 1, 2], len(seq))
+        if len(seq) >= 4:              # a PUT then a DEL of one key, and
+            k, j = lkeys[r, seq[0] % lcap], lkeys[r, seq[1] % lcap]
+            lkeys[r, seq[-2] % lcap] = k            # a DEL then a PUT
+            lops[r, seq[0] % lcap], lops[r, seq[-2] % lcap] = 1, 2
+            lkeys[r, seq[-1] % lcap] = j
+            lops[r, seq[1] % lcap], lops[r, seq[-1] % lcap] = 2, 1
+    size = (skeys != INF).sum(axis=1).astype(np.int32)
+    js = jsix.SortedIndex(jnp.asarray(skeys), jnp.asarray(saddrs),
+                          jnp.asarray(size))
+    jl = jlg.UpdateLog(jnp.asarray(lkeys), jnp.asarray(laddrs),
+                       jnp.asarray(lops), jnp.asarray(win[:, 1]),
+                       jnp.asarray(win[:, 0]))
+    ts = tuple(six.SortedIndex(_t(skeys[r]), _t(saddrs[r]), _t(size[r]))
+               for r in range(R))
+    tl = tuple(lg.UpdateLog(_t(lkeys[r]), _t(laddrs[r]), _t(lops[r]),
+                            _t(win[r, 1]), _t(win[r, 0]))
+               for r in range(R))
+    return js, jl, ts, tl
+
+
+# (applied, tail) per replica, lcap = 64: wrapped, empty, full, fresh,
+# short, and a single-replica group
+BACKUP_WINDOWS = [[(50, 100), (37, 37)], [(10, 74), (0, 0)],
+                  [(3, 20), (200, 263)], [(5, 6)]]
+
+
+@pytest.mark.parametrize("windows", BACKUP_WINDOWS)
+def test_backup_probe_matches_pallas(windows):
+    """The port's backup probe (its plain version on the CPU) against
+    the JAX Pallas kernel in interpret mode, the JAX jnp path and
+    ref.ref_backup_probe: no, one or several replicas selected per lane,
+    and q = 2**31 - 1 against windows shorter than the ring."""
+    lcap, cap = 64, 4096
+    rng = np.random.default_rng(len(windows) * 100 + windows[0][0])
+    pool = rng.choice(10 ** 6, 3000, replace=False).astype(np.int32)
+    js, jl, ts, tl = _replica_states(rng, cap, lcap, windows, pool)
+    R = len(windows)
+    q = np.concatenate([rng.choice(pool, 300), rng.integers(0, 10 ** 6, 60),
+                        [INF, INF, 0, -1, INF - 1]]).astype(np.int32)
+    sel = rng.integers(0, 2, (len(q), R)).astype(np.int32)
+    sel[:R + 1] = np.tril(np.ones((R + 1, R), np.int32), -1)  # none first
+    sel[-5:-3] = 1                                  # INF with all selected
+    got = ops.backup_probe(CFG, ts, tl, torch.as_tensor(q),
+                           torch.as_tensor(sel))
+    jq, jsel = jnp.asarray(q), jnp.asarray(sel)
+    _eq(got, jops.backup_probe(JCFG, js, jl, jq, jsel), "backup_probe pallas")
+    _eq(got, jops.backup_probe(jscaled(use_kernels="off"), js, jl, jq, jsel),
+        "backup_probe jnp")
+    lwin = jnp.stack([jl.applied, jl.tail], axis=1)
+    want = jref.ref_backup_probe(JCFG, js.keys, js.addrs, jl.keys, jl.addrs,
+                                 jl.ops.astype(jnp.int32), lwin, jq, jsel)
+    _eq((got[0], got[1].to(torch.int32), got[2]), want, "backup_probe ref")
+    assert got[1].any() and not got[1].all()
+    assert (got[2] == 0).any() and (got[2] > 0).any()
+
+
+def test_pending_lookup_key_inf_reads_a_stale_slot():
+    """The reference reads every ring slot outside [applied, tail) as
+    key_inf, so q = 2**31 - 1 "hits" the slot at sequence position
+    applied + lcap - 1 and returns its stale op and addr.  Log of 8,
+    applied 4, tail 6: slot 3 holds an applied PUT with addr 80."""
+    keys = np.array([10, 20, 30, 40, 50, 60, 0, 0], np.int32)
+    addrs = np.array([50, 60, 70, 80, 90, 100, -1, -1], np.int32)
+    ops_ = np.array([1, 1, 1, 1, 1, 1, 0, 0], np.int8)
+    tl = lg.UpdateLog(_t(keys), _t(addrs), _t(ops_), _t(np.int32(6)),
+                      _t(np.int32(4)))
+    jl = jlg.UpdateLog(*[jnp.asarray(a) for a in (keys, addrs, ops_)],
+                       jnp.int32(6), jnp.int32(4))
+    q = np.array([INF, 50, 40], np.int32)
+    hit, op, addr = lg.pending_lookup(tl, torch.as_tensor(q))
+    _eq((hit, op, addr), jlg.pending_lookup(jl, jnp.asarray(q)),
+        "pending_lookup")
+    assert (bool(hit[0]), int(op[0]), int(addr[0])) == (True, 1, 80)
+    assert bool(hit[1]) and not bool(hit[2])
+    srt = six.create(16, "cpu")
+    got = ops.backup_probe(CFG, (srt,), (tl,), torch.as_tensor(q),
+                           torch.ones((3, 1), dtype=torch.int32))
+    assert (int(got[0][0]), bool(got[1][0])) == (80, True)
+
+
 def test_dispatch_follows_the_device():
     assert ops.active_path(CFG, "cpu") == "torch"
     assert ops.active_path(scaled(use_kernels="off"), "cpu") == "torch"
@@ -137,6 +240,9 @@ def test_cuda_wrappers_refuse_cpu_tensors():
         ops.merge_cuda(x, x, x, x, x)
     with pytest.raises(ValueError, match="CUDA tensor"):
         ops.hash_probe_cuda(x, x, x, x[None], x[None], x[None], x[:1], 8)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        ops.backup_probe_cuda(x, x[:, None], (six.create(4, "cpu"),),
+                              (lg.create(4, "cpu"),), 128)
     assert ops.LAUNCHES == before
 
 
@@ -181,4 +287,35 @@ def test_cuda_kernels_match_plain(cuda_device):
                              device=cuda_device)
         _eq(ops.merge(CFG, tsc, bk, ba, bo), six.merge(tsc, bk, ba, bo),
             f"cuda merge m={m}")
+    torch.cuda.synchronize()
+
+
+@pytest.mark.requires_cuda
+def test_cuda_backup_probe_matches_plain(cuda_device):
+    """The backup-probe kernel against its plain version on the card:
+    every window shape of BACKUP_WINDOWS, a ring larger than one
+    shared-memory tile, and 5000 queries with random replica selects."""
+    rng = np.random.default_rng(9)
+    pool = rng.choice(10 ** 6, 60000, replace=False).astype(np.int32)
+    cases = [(64, w) for w in BACKUP_WINDOWS] + [
+        (1 << 14, [(1000, 1000 + (1 << 14) - 7), (30000, 40000)]),
+        (1 << 14, [(5, 9000), (123, 123)])]
+    for lcap, windows in cases:
+        _, _, ts, tl = _replica_states(rng, 1 << 16, lcap, windows, pool)
+        ts = tuple(six.SortedIndex(*[a.to(cuda_device) for a in s])
+                   for s in ts)
+        tl = tuple(lg.UpdateLog(*[a.to(cuda_device) for a in lo])
+                   for lo in tl)
+        q = torch.as_tensor(np.concatenate(
+            [rng.choice(pool, 4000), rng.integers(-5, 10 ** 6, 995),
+             [INF, INF, 0, -1, INF - 1]]).astype(np.int32),
+            device=cuda_device)
+        sel = torch.as_tensor(rng.integers(0, 2, (q.shape[0], len(ts))
+                                           ).astype(np.int32),
+                              device=cuda_device)
+        n0 = ops.LAUNCHES["backup_probe"]
+        _eq(ops.backup_probe(CFG, ts, tl, q, sel),
+            ops.backup_probe_plain(CFG, ts, tl, q, sel),
+            f"cuda backup_probe lcap={lcap} windows={windows}")
+        assert ops.LAUNCHES["backup_probe"] == n0 + 1
     torch.cuda.synchronize()
