@@ -35,7 +35,28 @@
 6. The backup probe against its plain version on the group as the
    primary's failure left it (Q = 16384, R = 2, the wrapped window), timed
    as in 4; its bound also counts the window scan's compares at 67e12/s.
-7. The last two lines: the kernels as JSON, then the device as JSON.
+7. The distributed store: HiStoreClient(DistributedBackend(8, ...)), 8
+   index groups of 2**21 slots on the card (2**24 in all) with the
+   paper's config and lease detection off, launch counts set to 0 before
+   it: 2**22 distinct keys loaded in 16384-key chunks (timed, retries
+   counted), 8 mixed rounds (overwriting and fresh PUTs, DELETEs, GETs
+   that meet the pending log windows, an apply, a GC round, 4 SCANs), a
+   timed read-back of every key, a drain, then ``parity_report`` with
+   its value-slot audit.  Every answer is checked against a model of its
+   own; the group probe, hash probe, merge and search must each have
+   been launched.
+8. The hash probe, search and merge against their plain versions at the
+   distributed path's shapes (one group: a 2**21-slot hash and replica,
+   Q = 8 x 1024, the exchange buffer's width), timed as in 4.
+9. The group probe against its plain version as the distributed GET
+   calls it: the last round's GET chunk routed as that GET routed it,
+   every server's call on its exchange buffer (Q = 8192, mostly key_inf
+   padding) against the state that GET read; the call of the server
+   whose padding lanes select a replica, and the chunk's 8 calls, timed.
+   Then one group at Q = 16384 with replicas selected for about half the
+   lanes, pending windows set to wrap the ring, q = 2**31 - 1 among the
+   queries, timed as in 6.
+10. The last two lines: the kernels as JSON, then the device as JSON.
 
 Exits nonzero, printing no result, without CUDA or outside a checkout.
 """
@@ -63,6 +84,13 @@ CHUNK = 16384                    # the client's max_batch: one chunk per op
 SCANS = 4                        # SCANs per mixed round
 FAIL_FRESH = 4 * CHUNK           # fresh keys the fail/recover phase writes
 MAIN_KERNELS = ("hash_probe", "sorted_search", "merge")
+FAIL_KERNELS = MAIN_KERNELS + ("backup_probe",)
+DIST_GROUPS = 8                  # index groups of the distributed phase
+DIST_CAPACITY = CAPACITY // DIST_GROUPS   # slots per group
+DIST_CAPACITY_Q = 1024           # exchange slots per destination: a
+#                                  16384-key chunk sends ~256 per pair
+DIST_KEYS = 1 << 22               # distinct keys the distributed store loads
+DIST_KERNELS = ("group_probe", "hash_probe", "merge", "sorted_search")
 FUSED = "src/repro/kernels/_fused.py"
 
 
@@ -466,8 +494,9 @@ def fail_recover(torch, wl, cfg):
     log(f"recover: backup 0 re-cloned online in {t_rec1:.3f} s; "
         f"{DEGRADED_ROUNDS} degraded rounds in {t_rounds:.3f} s; "
         f"phase {t_phase:.3f} s; launches {launches}")
-    for k, n in launches.items():
-        check(n > 0, f"kernel {k} was not launched on the fail/recover path")
+    for k in FAIL_KERNELS:
+        check(launches[k] > 0,
+              f"kernel {k} was not launched on the fail/recover path")
     log_metrics(client, "fail")
 
     # 6. parity: every replica holds exactly the hash's live items with
@@ -498,29 +527,28 @@ def fail_recover(torch, wl, cfg):
     return failed_group, window, launches, times
 
 
-def compare_kernels(torch, wl, cfg, launches):
+def compare_kernels(torch, cfg, hidx, srt, live, dead, rng, Q, label):
+    """The hash probe, the search and the merge against their plain
+    versions on one group's hash ``hidx`` and sorted replica ``srt`` (the
+    probe at Q queries: live, dead and random keys; the search at Q = 1,
+    a SCAN's lower bound, and at Q; the merge of one 4096-entry apply
+    batch), each timed.  Returns one record per kernel."""
     from repro_torch.core import hash_index as hix
     from repro_torch.core import sorted_index as six
     from repro_torch.kernels import ops
 
-    backend, rng = wl.client.backend, wl.rng
-    dev = backend.device
-    g = backend.group
-    model = wl.model
+    dev = hidx.sig.device
     out = []
 
-    # -- hash probe, Q = 16384 (one client chunk) ---------------------------
-    Q = 16384
-    live = model.keys[model.live]
-    dead = model.keys[~model.live]
+    # -- hash probe ---------------------------------------------------------
     q = np.concatenate([rng.choice(live, Q // 2), rng.choice(dead, Q // 4),
                         rng.integers(0, 2 ** 31 - 1, Q - Q // 2 - Q // 4)])
     qt = torch.as_tensor(q.astype(np.int32), device=dev)
-    tomb = int((g.hash.sig == hix.TOMBSTONE).sum())
-    err = max_abs_err(torch, ops.probe(cfg, g.hash, qt),
-                      hix.lookup(g.hash, qt, cfg), "hash_probe routed")
-    b, s, f = hix.descriptors(g.hash, qt)
-    tab = (g.hash.sig, g.hash.fp, g.hash.addr, g.hash.fill)
+    tomb = int((hidx.sig == hix.TOMBSTONE).sum())
+    err = max_abs_err(torch, ops.probe(cfg, hidx, qt),
+                      hix.lookup(hidx, qt, cfg), f"{label} hash_probe routed")
+    b, s, f = hix.descriptors(hidx, qt)
+    tab = (hidx.sig, hidx.fp, hidx.addr, hidx.fill)
 
     def kern():
         return ops.hash_probe_cuda(b, s, f, *tab, cfg.slots_per_bucket)
@@ -528,37 +556,38 @@ def compare_kernels(torch, wl, cfg, launches):
     got = kern()
     err = max(err, max_abs_err(
         torch, (got[0], got[1].bool(), got[2]),
-        hix.probe_rows(g.hash, b, s, f, cfg), "hash_probe"))
+        hix.probe_rows(hidx, b, s, f, cfg), f"{label} hash_probe"))
     ms = time_ms(torch, kern, 200)
     dev_ms = device_ms(torch, kern, 200)
-    plain = time_ms(torch, lambda: hix.probe_rows(g.hash, b, s, f, cfg), 50)
-    routed = time_ms(torch, lambda: ops.probe(cfg, g.hash, qt), 200)
-    plain_routed = time_ms(torch, lambda: hix.lookup(g.hash, qt, cfg), 50)
-    cs = g.hash.sig.shape[1]
+    plain = time_ms(torch, lambda: hix.probe_rows(hidx, b, s, f, cfg), 50)
+    routed = time_ms(torch, lambda: ops.probe(cfg, hidx, qt), 200)
+    plain_routed = time_ms(torch, lambda: hix.lookup(hidx, qt, cfg), 50)
+    cs = hidx.sig.shape[1]
     # 3 descriptors in, 3 outputs, the sig and fp rows, one addr, one fill
     nbytes = Q * (12 + 12 + 2 * cs * 4 + 8)
-    log(f"kernel hash_probe: Q={Q}, table [{g.hash.sig.shape[0]}, {cs}] with "
-        f"{tomb} tombstones: equal; kernel {ms:.4f} ms per call, device "
-        f"{dev_ms:.4f} ms, plain {plain:.4f} ms; routed ops.probe (hashing "
-        f"included) {routed:.4f} ms, plain lookup {plain_routed:.4f} ms; "
-        f"bound {nbytes / HBM_BYTES_PER_S * 1e3:.6f} ms ({nbytes} B)")
+    log(f"kernel hash_probe ({label}): Q={Q}, table [{hidx.sig.shape[0]}, "
+        f"{cs}] with {tomb} tombstones: equal; kernel {ms:.4f} ms per call, "
+        f"device {dev_ms:.4f} ms, plain {plain:.4f} ms; routed ops.probe "
+        f"(hashing included) {routed:.4f} ms, plain lookup "
+        f"{plain_routed:.4f} ms; bound "
+        f"{nbytes / HBM_BYTES_PER_S * 1e3:.6f} ms ({nbytes} B)")
     out.append(dict(name="hash_probe", route="cuda",
                     source="src/repro_torch/kernels/csrc/hash_probe.cu",
-                    replaces=f"{FUSED}:204", launches=launches["hash_probe"],
-                    max_abs_err=err, ms=ms, plain_ms=plain,
+                    replaces=f"{FUSED}:204", max_abs_err=err, ms=ms,
+                    plain_ms=plain,
                     bound_ms=nbytes / HBM_BYTES_PER_S * 1e3,
                     bound_by="bytes", library_ms=None, device_ms=dev_ms,
-                    routed_ms=routed, plain_routed_ms=plain_routed))
+                    routed_ms=routed, plain_routed_ms=plain_routed, Q=Q))
 
-    # -- sorted search: Q = 1 (the SCAN lower bound) and Q = 16384 ----------
+    # -- sorted search: Q = 1 (the SCAN lower bound) and Q ------------------
     # Latency bound: `levels` dependent node reads.  One level's device time
     # is the slope between this index and a one-level index (its first
     # fanout keys) at Q = 1; the nodes sit in L2 after the warm-up.
-    srt = g.sorted[0]
-    levels = six.directory_levels(srt.keys.shape[0], cfg.fanout)
+    cap = srt.keys.shape[0]
+    levels = six.directory_levels(cap, cfg.fanout)
     top = (srt.keys[:cfg.fanout].clone(), srt.addrs[:cfg.fanout].clone())
     res = {}
-    for QS in (1, 16384):
+    for QS in (1, Q):
         sq = np.concatenate([rng.choice(live, QS - QS // 2),
                              rng.integers(0, 2 ** 31 - 1, QS // 2)])
         sqt = torch.as_tensor(sq.astype(np.int32), device=dev)
@@ -566,7 +595,7 @@ def compare_kernels(torch, wl, cfg, launches):
         want_lb = torch.searchsorted(srt.keys, sqt).to(torch.int32)
         err = max_abs_err(torch, (got[0], got[1].bool(), got[2], got[4]),
                           (*six.search(srt, sqt, cfg.fanout), want_lb),
-                          f"sorted_search Q={QS}")
+                          f"{label} sorted_search Q={QS}")
         iters = 500 if QS == 1 else 100
 
         def kern(keys=srt.keys, addrs=srt.addrs):
@@ -584,23 +613,22 @@ def compare_kernels(torch, wl, cfg, launches):
                         ) / (levels - 1)
             lat = levels * level_ms
         res[QS] = (err, ms, dev_ms, plain, lib, nbytes, lat)
-        log(f"kernel sorted_search: Q={QS}, cap {srt.keys.shape[0]}, "
-            f"{levels} levels: equal; {ms:.4f} ms per call, device "
-            f"{dev_ms:.4f} ms, plain {plain:.4f} ms, torch.searchsorted "
-            f"{lib:.4f} ms, bound {nbytes / HBM_BYTES_PER_S * 1e3:.6f} ms "
-            f"({nbytes} B)" + ("" if lat is None else
-                               f", latency bound {lat:.6f} ms"))
+        log(f"kernel sorted_search ({label}): Q={QS}, cap {cap}, {levels} "
+            f"levels: equal; {ms:.4f} ms per call, device {dev_ms:.4f} ms, "
+            f"plain {plain:.4f} ms, torch.searchsorted {lib:.4f} ms, bound "
+            f"{nbytes / HBM_BYTES_PER_S * 1e3:.6f} ms ({nbytes} B)"
+            + ("" if lat is None else f", latency bound {lat:.6f} ms"))
     err, ms, dev_ms, plain, lib, nbytes, lat = res[1]
     out.append(dict(name="sorted_search", route="cuda",
                     source="src/repro_torch/kernels/csrc/sorted_search.cu",
                     replaces=f"{FUSED}:246",
-                    launches=launches["sorted_search"], max_abs_err=err,
+                    max_abs_err=max(r[0] for r in res.values()),
                     ms=ms, plain_ms=plain,
                     bound_ms=nbytes / HBM_BYTES_PER_S * 1e3,
                     bound_by="bytes", library_ms=lib, device_ms=dev_ms,
-                    latency_bound_ms=lat))
+                    latency_bound_ms=lat, cap=cap))
 
-    # -- merge: cap = 2^24, m = 4096 ----------------------------------------
+    # -- merge: one apply batch into the replica ----------------------------
     m = cfg.async_apply_batch
     bk = np.concatenate([rng.choice(live, m // 2),
                          rng.integers(0, 2 ** 31 - 1, m - m // 2)])
@@ -608,28 +636,64 @@ def compare_kernels(torch, wl, cfg, launches):
     rng.shuffle(bk)
     bo = rng.choice([0, 1, 1, 2], m).astype(np.int8)   # PUT, DEL, op 0
     bkt = torch.as_tensor(bk.astype(np.int32), device=dev)
-    bat = torch.as_tensor(rng.integers(0, CAPACITY, m).astype(np.int32),
+    bat = torch.as_tensor(rng.integers(0, cap, m).astype(np.int32),
                           device=dev)
     bot = torch.as_tensor(bo, device=dev)
     got = ops.merge(cfg, srt, bkt, bat, bot)
     want = six.merge(srt, bkt, bat, bot)
-    err = max_abs_err(torch, tuple(got), tuple(want), "merge")
+    err = max_abs_err(torch, tuple(got), tuple(want), f"{label} merge")
     ms = time_ms(torch, lambda: ops.merge(cfg, srt, bkt, bat, bot), 20)
     dev_ms = device_ms(torch, lambda: ops.merge(cfg, srt, bkt, bat, bot), 20)
     plain = time_ms(torch, lambda: six.merge(srt, bkt, bat, bot), 5)
-    cap = srt.keys.shape[0]
     nbytes = cap * 8 + m * 12 + cap * 8 + 4
-    log(f"kernel merge: cap {cap} (size {int(srt.size)} -> "
+    log(f"kernel merge ({label}): cap {cap} (size {int(srt.size)} -> "
         f"{int(got.size)}), m={m}: equal; {ms:.4f} ms per call, device "
         f"{dev_ms:.4f} ms, plain {plain:.4f} ms, bound "
         f"{nbytes / HBM_BYTES_PER_S * 1e3:.6f} ms ({nbytes} B)")
     out.append(dict(name="merge", route="cuda",
                     source="src/repro_torch/kernels/csrc/merge.cu",
-                    replaces=f"{FUSED}:404", launches=launches["merge"],
-                    max_abs_err=err, ms=ms, plain_ms=plain,
+                    replaces=f"{FUSED}:404", max_abs_err=err, ms=ms,
+                    plain_ms=plain,
                     bound_ms=nbytes / HBM_BYTES_PER_S * 1e3,
-                    bound_by="bytes", library_ms=None, device_ms=dev_ms))
+                    bound_by="bytes", library_ms=None, device_ms=dev_ms,
+                    cap=cap))
     return out
+
+
+def backup_work(q, sel, blogs, cfg, cap):
+    """Bytes and compares the backup probe needs for this run's data:
+    the queries and selects read once; for each replica some lane
+    decides on (its last selected one), the window's keys and its two
+    bounds, then per such lane the log entry's op and addr on a log hit,
+    else the descent's levels x fanout keys and one addr.  The window
+    scan's compares run from the newest entry down to the match (the
+    whole window on a miss; none for q = 2**31 - 1 with a window shorter
+    than the ring).  Returns (bytes, compares, lanes found in a log)."""
+    from repro_torch.core import log as lg
+    from repro_torch.core import sorted_index as six
+
+    Q, R = sel.shape
+    levels = six.directory_levels(cap, cfg.fanout)
+    chosen = np.where(sel.any(1), R - 1 - np.argmax(sel[:, ::-1] != 0, 1), -1)
+    nbytes, compares, in_logs = Q * 4 + Q * R * 4, 0, 0
+    for r in range(R):
+        lanes = q[chosen == r]
+        if not len(lanes):
+            continue
+        lkeys, _, _ = lg.pending_entries_np(blogs[r])
+        n_win = len(lkeys)
+        newest = dict(zip(lkeys.tolist(), range(n_win)))   # last wins
+        in_log = np.array([k in newest for k in lanes.tolist()], bool)
+        depth = np.array([n_win - newest[k] if k in newest else n_win
+                          for k in lanes.tolist()], np.int64)
+        quirk = (lanes == 2 ** 31 - 1) & (n_win < cfg.log_capacity)
+        depth[quirk] = 0
+        hit = in_log | quirk
+        compares += int(depth.sum())
+        in_logs += int(in_log.sum())
+        nbytes += (n_win * 4 + 8 + int(hit.sum()) * 5
+                   + int((~hit).sum()) * (levels * cfg.fanout * 4 + 4))
+    return nbytes, compares, in_logs
 
 
 def compare_backup_probe(torch, wl, cfg, group, window, launches):
@@ -639,7 +703,6 @@ def compare_backup_probe(torch, wl, cfg, group, window, launches):
     path's select (the first live replica for every lane), timed."""
     from repro_torch.core import index_group as ig
     from repro_torch.core import log as lg
-    from repro_torch.core import sorted_index as six
     from repro_torch.kernels import ops
 
     dev = wl.client.backend.device
@@ -675,33 +738,18 @@ def compare_backup_probe(torch, wl, cfg, group, window, launches):
         cfg, srt, blogs, qt, sel_path), 5, warmup=1)
     routed = time_ms(torch, lambda: ig.replica_probe(group, qt, cfg), 100)
 
-    # the bound, from this run's data: each input read once and each
-    # output written once, for the one selected replica; the window scan's
-    # comparisons run from the newest entry down to the match (the whole
-    # window on a miss; none for q = 2**31 - 1 with a window shorter than
-    # the ring)
-    blog = blogs[0]
-    lkeys, _, _ = lg.pending_entries_np(blog)
-    n_win = len(lkeys)
-    newest = {}
-    for pos, k in enumerate(lkeys.tolist()):
-        newest[k] = pos
-    in_log = np.array([k in newest for k in q.tolist()])
-    depth = np.array([n_win - newest[k] if k in newest else n_win
-                      for k in q.tolist()], np.int64)
-    quirk = (q == 2 ** 31 - 1) & (n_win < cfg.log_capacity)
-    depth[quirk] = 0
-    hit = in_log | quirk
-    compares = int(depth.sum())
+    # the bound, from this run's data (backup_work): the path selects
+    # replica 0 for every lane, plus the three outputs
+    n_win = int(lg.pending_count(blogs[0]))
     cap = srt[0].keys.shape[0]
-    levels = six.directory_levels(cap, cfg.fanout)
-    nbytes = (Q * 4 + Q * R * 4 + n_win * 4 + 8 + int(hit.sum()) * 5
-              + int((~hit).sum()) * (levels * cfg.fanout * 4 + 4) + Q * 12)
+    nbytes, compares, in_log = backup_work(q, sel_path.cpu().numpy(), blogs,
+                                           cfg, cap)
+    nbytes += Q * 12
     b_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     b_ops = compares / SCALAR_OPS_PER_S * 1e3
     bound = max(b_bytes, b_ops)
     log(f"kernel backup_probe: Q={Q}, R={R}, cap {cap}, window {n_win} of "
-        f"{cfg.log_capacity} ({int(in_log.sum())} lanes in it): equal; "
+        f"{cfg.log_capacity} ({in_log} lanes in it): equal; "
         f"{ms:.4f} ms per call, device {dev_ms:.4f} ms, plain {plain:.4f} "
         f"ms, routed ig.replica_probe {routed:.4f} ms; bound "
         f"{bound:.6f} ms (bytes {b_bytes:.6f} ms for {nbytes} B, "
@@ -713,6 +761,308 @@ def compare_backup_probe(torch, wl, cfg, group, window, launches):
                 bound_by="bytes" if b_bytes >= b_ops else "operations",
                 library_ms=None, device_ms=dev_ms, routed_ms=routed,
                 window=n_win, compares=compares)
+
+
+def distributed(torch, cfg, rng):
+    """The distributed store on the card: load, mixed rounds with an
+    apply, a GC round and SCANs, a read-back, then the drain and the
+    parity audit.  Returns (workload, launches, timings, (the store as
+    the last round's GET chunk read it, that chunk's keys))."""
+    from repro_torch.core import kvstore as kv
+    from repro_torch.core.client import DistributedBackend, HiStoreClient
+    from repro_torch.kernels import ops
+
+    n_load = DIST_KEYS
+    need = n_load + ROUNDS * CHUNK // 2
+    uniq = np.unique(rng.integers(0, 2 ** 31 - 1, int(need * 1.02) + 1024))
+    check(len(uniq) >= need, "not enough distinct keys drawn")
+    keys_all = uniq[rng.permutation(len(uniq))[:need]].astype(np.int32)
+    load_keys = keys_all[:n_load]
+    model = Model(keys_all, cfg.value_words)
+
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    backend = DistributedBackend(DIST_GROUPS, cfg, DIST_CAPACITY,
+                                 capacity_q=DIST_CAPACITY_Q, device="cuda")
+    client = HiStoreClient(backend)
+    torch.cuda.synchronize()
+    log(f"dist: DistributedBackend({DIST_GROUPS} groups x {DIST_CAPACITY}, "
+        f"capacity_q {DIST_CAPACITY_Q}) created in "
+        f"{time.perf_counter() - t0:.3f} s, "
+        f"{torch.cuda.memory_allocated() / 2**20:.1f} MiB allocated")
+    wl = Workload(torch, client, model, rng, keys_all[n_load:])
+    B = CHUNK
+    check(client.max_batch == B, f"client chunk {client.max_batch}")
+    zero_launches(ops)
+
+    # -- load ------------------------------------------------------------
+    t0 = time.perf_counter()
+    vals = wl.new_vals(n_load)
+    r = client.put(load_keys, vals)
+    ok = r.ok.cpu().numpy()
+    torch.cuda.synchronize()
+    t_load = time.perf_counter() - t0
+    check(ok.all(), f"dist load: {(~ok).sum()} PUTs not acknowledged")
+    model.put(load_keys, vals)
+    load_retries = client.stats["retries"]
+    log(f"dist: loaded {n_load} keys in {t_load:.3f} s "
+        f"({n_load / t_load:.0f} PUT/s, {load_retries} retries)")
+
+    # -- mixed rounds ------------------------------------------------------
+    stats = {"get_hits": 0, "gets": 0, "puts": 0, "deletes": 0,
+             "deleted_found": 0, "scans": 0, "scanned": 0}
+    t0 = time.perf_counter()
+    for rnd in range(ROUNDS):
+        p = np.concatenate([wl.sample(wl.live_keys(), B // 2),
+                            wl.take_fresh(B // 2)])
+        wl.put(p, f"dist round {rnd}", replicas=cfg.n_backups)
+        stats["puts"] += len(p)
+        d = np.concatenate([wl.sample(wl.live_keys(), 3 * B // 16),
+                            wl.absent(B // 16)])
+        rng.shuffle(d)
+        stats["deleted_found"] += wl.delete(d, f"dist round {rnd}")
+        stats["deletes"] += len(d)
+        # the GETs follow the writes, so they meet pending log windows;
+        # the last round's GET chunk and the state it reads are kept for
+        # the group probe's check (the state is never written in place)
+        g = wl.get_mix(B)
+        if rnd == ROUNDS - 1:
+            probe_at = (backend.store, g)
+        stats["get_hits"] += wl.check_get(g, f"dist round {rnd} GET")
+        stats["gets"] += len(g)
+        client.apply()
+        backend.gc_round()
+        for _ in range(SCANS):
+            stats["scanned"] += wl.scan(f"dist round {rnd}")
+            stats["scans"] += 1
+        wl.check_get(d, f"dist round {rnd} GET after DELETE")
+    torch.cuda.synchronize()
+    t_mixed = time.perf_counter() - t0
+
+    # -- every acknowledged write reads back -------------------------------
+    hits, t_read = wl.read_back("dist read-back")
+    launches = dict(ops.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    log(f"dist: {ROUNDS} mixed rounds in {t_mixed:.3f} s: {stats}")
+    log(f"dist: read back {len(model.keys)} keys ({hits} live) in "
+        f"{t_read:.3f} s ({len(model.keys) / t_read:.0f} GET/s)")
+    log(f"dist: launches {launches}; retries {client.stats['retries']}")
+    log(f"dist: torch.cuda.max_memory_allocated() = {peak} B "
+        f"({peak / 2**30:.3f} GiB)")
+    for k in DIST_KERNELS:
+        check(launches[k] > 0,
+              f"kernel {k} was not launched on the distributed path")
+    log_metrics(client, "dist")
+
+    # -- drain, then the parity audit --------------------------------------
+    t0 = time.perf_counter()
+    client.drain()
+    report = kv.parity_report(backend.store, cfg)
+    t_audit = time.perf_counter() - t0
+    slots = report[-1]
+    check(slots["kind"] == "value_slots" and slots["agree"]
+          and slots["fq_spill"] == 0, f"dist value-slot audit: {slots}")
+    bad = [e for e in report[:-1] if not e["agree"]]
+    check(not bad, f"dist parity: {bad[:3]}")
+    n_live = sum(e["n_hash"] for e in report[:-1] if e["replica"] == 0)
+    check(n_live == int(model.live.sum()) == slots["live"],
+          f"dist parity: {n_live} live items, model {int(model.live.sum())}")
+    log(f"dist: drain + parity_report in {t_audit:.3f} s: {len(report) - 1} "
+        f"(group, replica) entries agree with the hashes; value slots "
+        f"{json.dumps(slots)}")
+    times = dict(load_s=t_load, put_per_s=n_load / t_load,
+                 load_retries=load_retries, mixed_rounds_s=t_mixed,
+                 read_s=t_read, get_per_s=len(model.keys) / t_read,
+                 audit_s=t_audit, peak_bytes=peak,
+                 retries=client.stats["retries"])
+    return wl, launches, times, probe_at
+
+
+def group_work(q, sel, hidx, blogs, cfg, cap):
+    """Bytes and compares one group probe call needs for this run's
+    data: the hash half as hash_probe's (3 descriptors, the sig and fp
+    chain rows, one addr, one fill a query), the backup half as
+    backup_work counts it, and six outputs.  Returns (bytes, compares,
+    lanes found in a log)."""
+    bbytes, compares, in_log = backup_work(q, sel, blogs, cfg, cap)
+    nbytes = len(q) * (12 + 2 * hidx.sig.shape[1] * 4 + 8) + bbytes
+    return nbytes + len(q) * 24, compares, in_log
+
+
+def bound_of(nbytes, compares):
+    """(bound ms, bytes ms, compares ms)."""
+    b_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    b_ops = compares / SCALAR_OPS_PER_S * 1e3
+    return max(b_bytes, b_ops), b_bytes, b_ops
+
+
+def pad_server(torch, G, dev):
+    """The server whose exchange padding (q = 2**31 - 1) selects its
+    replica 0: the one after key_inf's owner group."""
+    from repro_torch.core import kvstore as kv
+    inf = torch.tensor([2 ** 31 - 1], dtype=torch.int32, device=dev)
+    return (int(kv.owner_group(inf, G)[0]) + 1) % G
+
+
+def dist_kernels(torch, wl, cfg):
+    """The hash probe, search and merge at the distributed path's
+    shapes: the pad server's group (its hash, and its replica 0 on the
+    next server, cap 2^21), Q = G * capacity_q, the exchange buffer's
+    width."""
+    from repro_torch.core import kvstore as kv
+    from repro_torch.core import tree
+
+    store, model = wl.client.backend.store, wl.model
+    G = DIST_GROUPS
+    gp = pad_server(torch, G, store.hb.device)
+    own = kv.owner_group(torch.as_tensor(model.keys, device=store.hb.device),
+                         G).cpu().numpy() == gp
+    return compare_kernels(
+        torch, cfg, tree.at(store.hash, gp),
+        tree.at(store.bsorted, 0, (gp + 1) % G), model.keys[own & model.live],
+        model.keys[own & ~model.live], wl.rng, G * DIST_CAPACITY_Q,
+        f"dist group {gp}")
+
+
+def compare_group_probe(torch, wl, cfg, launches, probe_at):
+    """The group probe against its plain version, as the distributed GET
+    calls it: the last mixed round's GET chunk routed as that GET routed
+    it, each server's call on its exchange buffer (Q = G * capacity_q,
+    mostly key_inf padding) against the state that GET read, all G
+    equal; the pad server's call (its padding lanes select replica 0)
+    and the whole chunk's G calls timed.  Then one group's state at
+    Q = 16384 with replicas selected for about half the lanes, the
+    pending windows set back over real past entries so that each holds
+    16384 entries and wraps the end of the ring, q = 2**31 - 1 among the
+    queries; timed, also with no lane selected."""
+    from repro_torch.core import hash_index as hix
+    from repro_torch.core import kvstore as kv
+    from repro_torch.core import log as lg
+    from repro_torch.core import tree
+    from repro_torch.kernels import ops
+
+    model, rng = wl.model, wl.rng
+    G, lcap = DIST_GROUPS, cfg.log_capacity
+    S, fo = cfg.slots_per_bucket, cfg.fanout
+    st, gkeys = probe_at
+    dev = st.hb.device
+    gp = pad_server(torch, G, dev)
+
+    def call(hidx, srt, blogs, q, sel):
+        b, qs, qf = hix.descriptors(hidx, q)
+        return lambda: ops.group_probe_cuda(b, qs, qf, q, sel, hidx.sig,
+                                            hidx.fp, hidx.addr, hidx.fill,
+                                            srt, blogs, S, fo)
+
+    # -- the GET chunk's G calls -------------------------------------------
+    kt = torch.as_tensor(gkeys, device=dev).reshape(G, -1)
+    rk, _, _ = kv.get_exchange(st, kt, torch.ones_like(kt, dtype=torch.bool),
+                               G, DIST_CAPACITY_Q)
+    Q = rk.shape[1]
+    inputs = [kv.probe_inputs(st, rk[g], g, G) for g in range(G)]
+    err, calls, work = 0.0, [], []
+    for g, (hidx, srt, blogs, sel) in enumerate(inputs):
+        err = max(err, max_abs_err(
+            torch, ops.group_probe(cfg, hidx, srt, blogs, rk[g], sel),
+            ops.group_probe_plain(cfg, hidx, srt, blogs, rk[g], sel),
+            f"group_probe GET server {g}"))
+        calls.append(call(hidx, srt, blogs, rk[g], sel))
+        work.append(group_work(rk[g].cpu().numpy(), sel.cpu().numpy(), hidx,
+                               blogs, cfg, srt[0].keys.shape[0]))
+    hidx, srt, blogs, sel = inputs[gp]
+    ms = time_ms(torch, calls[gp], 200)
+    dev_ms = device_ms(torch, calls[gp], 200)
+    plain = time_ms(torch, lambda: ops.group_probe_plain(
+        cfg, hidx, srt, blogs, rk[gp], sel), 5, warmup=1)
+
+    def chunk():
+        for c in calls:
+            c()
+
+    chunk_ms = time_ms(torch, chunk, 50)
+    chunk_dev = device_ms(torch, chunk, 10)     # 80 launches queued
+    routed_chunk = time_ms(torch, lambda: [
+        ops.group_probe(cfg, *inputs[g][:3], rk[g], inputs[g][3])
+        for g in range(G)], 50)
+    bound, b_bytes, b_ops = bound_of(*work[gp][:2])
+    chunk_bound = sum(bound_of(*w[:2])[0] for w in work)
+    n_pad = int((rk[gp] == 2 ** 31 - 1).sum())
+    n_sel = int((sel != 0).any(1).sum())
+    wins = [int(lg.pending_count(b)) for b in blogs]
+    log(f"kernel group_probe: a GET chunk of {len(gkeys)} keys, Q={Q} per "
+        f"server, all {G} servers equal; server {gp}: {n_pad} padding lanes, "
+        f"{n_sel} selecting a replica, windows {wins}: {ms:.4f} ms per call, "
+        f"device {dev_ms:.4f} ms, plain {plain:.4f} ms, bound {bound:.6f} ms "
+        f"(bytes {b_bytes:.6f} ms for {work[gp][0]} B, compares "
+        f"{b_ops:.6f} ms for {work[gp][1]}); the chunk's {G} calls "
+        f"{chunk_ms:.4f} ms, device {chunk_dev:.4f} ms, routed (hashing "
+        f"included) {routed_chunk:.4f} ms, bound {chunk_bound:.6f} ms")
+
+    # -- one group at Q = 16384, half the lanes selecting, wrapped windows --
+    store = wl.client.backend.store
+    QM, R = CHUNK, cfg.n_backups
+    hidx = tree.at(store.hash, gp)
+    srt = tuple(tree.at(store.bsorted, r, gp) for r in range(R))
+    blogs = []
+    for r in range(R):
+        blog = tree.at(store.blog, r, gp)
+        T = int(blog.tail)
+        check(T >= lcap, f"group_probe: log {r} holds {T} < {lcap} entries")
+        # the ring still holds positions [T - lcap, T); a window there
+        # that crosses a multiple of lcap wraps
+        A = next(a for a in range(T - QM, T - lcap - 1, -1)
+                 if a % lcap + QM > lcap)
+        blogs.append(blog._replace(
+            applied=torch.tensor(A, dtype=torch.int32, device=dev),
+            tail=torch.tensor(A + QM, dtype=torch.int32, device=dev)))
+    own = kv.owner_group(torch.as_tensor(model.keys, device=dev),
+                         G).cpu().numpy()
+    mine = model.keys[model.live & (own == gp)]
+    wkeys = np.concatenate([lg.pending_entries_np(b)[0] for b in blogs])
+    q = np.concatenate([rng.choice(mine, QM // 4), rng.choice(wkeys, QM // 4),
+                        rng.choice(model.keys, QM // 4),
+                        rng.integers(0, 2 ** 31 - 1, QM // 4 - 2),
+                        [2 ** 31 - 1, 0]]).astype(np.int32)
+    rng.shuffle(q)
+    msel = rng.integers(0, 2, (QM, R)).astype(np.int32)
+    msel[msel.sum(1) == 0, R - 1] = 1
+    msel[rng.random(QM) < 0.5] = 0
+    msel[q == 2 ** 31 - 1] = 1
+    qt = torch.as_tensor(q, device=dev)
+    selt = torch.as_tensor(msel, device=dev)
+    none = torch.zeros_like(selt)
+    for label, s_ in (("half selected", selt), ("none selected", none)):
+        err = max(err, max_abs_err(
+            torch, ops.group_probe(cfg, hidx, srt, blogs, qt, s_),
+            ops.group_probe_plain(cfg, hidx, srt, blogs, qt, s_),
+            f"group_probe {label}"))
+    m_ms = time_ms(torch, call(hidx, srt, blogs, qt, selt), 100)
+    m_dev = device_ms(torch, call(hidx, srt, blogs, qt, selt), 100)
+    m_none = device_ms(torch, call(hidx, srt, blogs, qt, none), 100)
+    m_plain = time_ms(torch, lambda: ops.group_probe_plain(
+        cfg, hidx, srt, blogs, qt, selt), 5, warmup=1)
+    nbytes, compares, in_log = group_work(q, msel, hidx, blogs, cfg,
+                                          srt[0].keys.shape[0])
+    m_bound, mb_bytes, mb_ops = bound_of(nbytes, compares)
+    log(f"kernel group_probe: group {gp}, Q={QM}, R={R}, windows of {QM} "
+        f"wrapping the ring of {lcap}, {int((msel != 0).any(1).sum())} lanes "
+        f"selecting a replica ({in_log} found in a log): equal; {m_ms:.4f} "
+        f"ms per call, device {m_dev:.4f} ms ({m_none:.4f} ms with none "
+        f"selected), plain {m_plain:.4f} ms; bound {m_bound:.6f} ms (bytes "
+        f"{mb_bytes:.6f} ms for {nbytes} B, compares {mb_ops:.6f} ms for "
+        f"{compares})")
+    return dict(name="group_probe", route="cuda",
+                source="src/repro_torch/kernels/csrc/group_probe.cu",
+                replaces=f"{FUSED}:332", launches=launches["group_probe"],
+                max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=bound,
+                bound_by="bytes" if b_bytes >= b_ops else "operations",
+                library_ms=None, device_ms=dev_ms, Q=Q, padding_lanes=n_pad,
+                get_chunk_ms=chunk_ms, get_chunk_device_ms=chunk_dev,
+                get_chunk_routed_ms=routed_chunk,
+                get_chunk_bound_ms=chunk_bound, mixed_Q=QM, mixed_ms=m_ms,
+                mixed_device_ms=m_dev, mixed_device_ms_none_selected=m_none,
+                mixed_plain_ms=m_plain, mixed_bound_ms=m_bound,
+                mixed_compares=compares)
 
 
 def main(argv=None) -> int:
@@ -728,7 +1078,7 @@ def main(argv=None) -> int:
               "port on an NVIDIA GPU", file=sys.stderr)
         return 1
     sys.path.insert(0, str(ROOT / "src"))
-    from repro_torch.configs.histore import DEFAULT
+    from repro_torch.configs.histore import DEFAULT, scaled
     from repro_torch.kernels import _build
 
     t_start = time.perf_counter()
@@ -748,13 +1098,33 @@ def main(argv=None) -> int:
     log(f"config: {cfg}")
     rng = np.random.default_rng(args.seed)
     wl, launches = main_path(torch, args, cfg, rng)
-    kernels = compare_kernels(torch, wl, cfg, launches)
+    m = wl.model
+    kernels = compare_kernels(
+        torch, cfg, wl.client.backend.group.hash,
+        wl.client.backend.group.sorted[0], m.keys[m.live], m.keys[~m.live],
+        rng, CHUNK, "main")
+    for k in kernels:
+        k["launches"] = launches[k["name"]]
     group, window, fr_launches, times = fail_recover(torch, wl, cfg)
     log(f"fail: {json.dumps(times)}")
     kernels.append(compare_backup_probe(torch, wl, cfg, group, window,
                                         fr_launches))
+    del wl, group                    # the single-node store leaves the card
+    torch.cuda.empty_cache()
+    dist_cfg = scaled(lease_misses=0)
+    log(f"dist config: {dist_cfg}")
+    dwl, d_launches, d_times, probe_at = distributed(torch, dist_cfg, rng)
+    log(f"dist: {json.dumps(d_times)}")
+    for k, dk in zip(kernels, dist_kernels(torch, dwl, dist_cfg)):
+        k["max_abs_err"] = max(k["max_abs_err"], dk["max_abs_err"])
+        k["distributed_shapes"] = {
+            x: v for x, v in dk.items()
+            if x not in ("name", "route", "source", "replaces")}
+    kernels.append(compare_group_probe(torch, dwl, dist_cfg, d_launches,
+                                       probe_at))
     for k in kernels:
         k["launches_fail_recover"] = fr_launches[k["name"]]
+        k["launches_distributed"] = d_launches[k["name"]]
     torch.cuda.synchronize()
     log(f"total: {time.perf_counter() - t_start:.1f} s")
     print(smi)

@@ -1,9 +1,11 @@
 """HiStore in PyTorch for an NVIDIA H100: the port of ``src/repro``.
 
-The healthy single-node store: ``HiStoreClient`` over ``LocalBackend``
-(PUT/GET/DELETE/SCAN and the asynchronous log->sorted apply).  The index
-hot path runs through hand-written CUDA kernels (``kernels/csrc``) for
-tensors on the card and through plain PyTorch for tensors on the CPU.
+The single-node store: ``HiStoreClient`` over ``LocalBackend``
+(PUT/GET/DELETE/SCAN, the asynchronous log->sorted apply, failure and
+recovery), and the healthy distributed store over G index groups on one
+device (``DistributedBackend``).  The index hot path runs through
+hand-written CUDA kernels (``kernels/csrc``) for tensors on the card and
+through plain PyTorch for tensors on the CPU.
 
     from repro_torch.core.client import HiStoreClient, LocalBackend
     client = HiStoreClient(LocalBackend(1 << 20, DEFAULT))     # on cuda

@@ -1,18 +1,21 @@
 """Carry a store's state across from the JAX package (the port's
 counterpart of carrying weights across).
 
-Both functions take the state as numpy leaves with the JAX package's
-field names — e.g. ``jax.tree.map(np.asarray, backend.group)`` — and
-build the port's state on ``device``.  This module reads attributes
-only; it imports nothing of the JAX package.
+Every function takes the state as numpy leaves with the JAX package's
+field names — e.g. ``jax.tree.map(np.asarray, backend.group)`` or
+``jax.tree.map(np.asarray, backend.store)`` — and builds the port's
+state on ``device``.  This module reads attributes only; it imports
+nothing of the JAX package.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
+from repro_torch.core import data_plane as dp
 from repro_torch.core import hash_index as hi
 from repro_torch.core import index_group as ig
+from repro_torch.core import kvstore as kv
 from repro_torch.core import log as lg
 from repro_torch.core import sorted_index as si
 
@@ -62,6 +65,46 @@ def backend_from_numpy(group, vals, used, cfg, device, *,
     alive = [bool(a) for a in np.asarray(group.alive)]
     be._primary_alive = alive[0]
     be._backups_alive = alive[1:]
+    be._pending_bound = (be.pending_ops() if pending_bound is None
+                         else pending_bound)
+    return be
+
+
+def store_from_numpy(store, cfg, device) -> kv.KVStore:
+    """A KVStore on ``device`` from a JAX KVStore's numpy leaves, their
+    [G] and [R, G] layouts kept (hash, primary logs, the shifted sorted
+    replicas and backup logs, the value plane, liveness and
+    heartbeats)."""
+    d = store.data
+    data = dp.DataPlane(**{
+        f: (_state(lg.UpdateLog, d.freeq, device) if f == "freeq"
+            else _t(getattr(d, f), device)) for f in dp.DataPlane._fields})
+    return kv.KVStore(
+        hash=_state(hi.HashIndex, store.hash, device),
+        plog=_state(lg.UpdateLog, store.plog, device),
+        bsorted=_state(si.SortedIndex, store.bsorted, device),
+        blog=_state(lg.UpdateLog, store.blog, device),
+        data=data,
+        alive=_t(store.alive, device).bool(),
+        sever=_t(store.sever, device).bool(),
+        hb=_t(store.hb, device),
+    )
+
+
+def distributed_backend_from_numpy(store, cfg, device, *,
+                                   capacity_q: int = 64,
+                                   scan_limit: int = 128,
+                                   pending_bound: int | None = None):
+    """A DistributedBackend on ``device`` holding a JAX
+    DistributedBackend's store (numpy leaves).  ``pending_bound`` is the
+    host-side bound on the backup logs' pending entries (default: their
+    exact count)."""
+    from repro_torch.core.client import DistributedBackend
+
+    G, dcap = np.asarray(store.data.used).shape
+    be = DistributedBackend(G, cfg, dcap, capacity_q=capacity_q,
+                            scan_limit=scan_limit, device=device)
+    be.store = store_from_numpy(store, cfg, be.device)
     be._pending_bound = (be.pending_ops() if pending_bound is None
                          else pending_bound)
     return be

@@ -5,9 +5,12 @@ Modules (the same names as the JAX package's ``core``):
   hash_index    — chained bucket hash table (primary index)
   sorted_index  — hierarchical-directory sorted array
   log           — append-only update log with an applied prefix
-  index_group   — 1 hash + N sorted replicas + logs, healthy path
-  data_plane    — the value-slot allocator LocalBackend uses
-  client        — HiStoreClient over LocalBackend
+  index_group   — 1 hash + N sorted replicas + logs, failure/recovery
+  data_plane    — the value plane: slot allocator, mirrors, free queues
+  verbs         — the RDMA verbs over G groups stacked on one device
+  kvstore       — the distributed store over G index groups
+  tree          — NamedTuple states stacked along [G] / [R, G] axes
+  client        — HiStoreClient over LocalBackend / DistributedBackend
   results       — PutResult/GetResult/DeleteResult/ScanResult
 
 Nothing is imported here, so ``import repro_torch.core.hashing`` pulls

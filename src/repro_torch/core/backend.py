@@ -9,8 +9,9 @@ Three member groups:
   * observability — ``telemetry_gauges`` and ``lease_stalled``;
   * fault injection / recovery — ``fail_*``, ``sever_*``, ``recover_*``
     (the port's LocalBackend serves ``fail_server`` and
-    ``recover_server``; the data-server and severing calls raise
-    NotImplementedError until slice 2, as the JAX LocalBackend's do).
+    ``recover_server``; its data-server and severing calls raise
+    NotImplementedError, as the JAX LocalBackend's do; the
+    DistributedBackend's raise until slice 2b).
 """
 from __future__ import annotations
 

@@ -1,8 +1,9 @@
 """HiStoreClient: one typed front door over the hybrid index (port of
-the LocalBackend part of ``repro/core/client.py``).
+``repro/core/client.py``).
 
     client = HiStoreClient(LocalBackend(4096, cfg))        # on cuda
     client = HiStoreClient(LocalBackend(4096, cfg, device="cpu"))
+    client = HiStoreClient(DistributedBackend(8, cfg, 4096))  # 8 groups
 
     res = client.put(keys, values)       # PutResult(ok, addrs, retries)
     res = client.get(keys)               # GetResult(addrs, found, acc, vals)
@@ -19,8 +20,10 @@ log->sorted merges every ``apply_every_n_ops`` mutating ops, and runs
 the value migration after every recovery (``migrate_on_recover``).  The
 port runs eagerly: ``jax.jit`` has no counterpart here.
 
-Left for slice 2: the distributed store with its lease ticker, heartbeat
-severing and data-server failures.  Those calls raise
+``DistributedBackend`` runs the healthy distributed store: G index
+groups stacked on one device (``kvstore.py``).  Left for slice 2b: its
+lease detector and ticker, server failures and recovery, heartbeat
+severing, data-server failures and value migration; those calls raise
 NotImplementedError naming the slice.
 """
 from __future__ import annotations
@@ -33,22 +36,25 @@ import torch
 
 from repro_torch.core import data_plane as dpl
 from repro_torch.core import index_group as ig
+from repro_torch.core import kvstore as kv
+from repro_torch.core import log as lg
 from repro_torch.core import telemetry as tm
 from repro_torch.core.backend import Backend  # noqa: F401  (re-export)
-from repro_torch.core.hashing import I32, key_dtype, next_pow2
+from repro_torch.core.hashing import I32, key_dtype, key_inf, next_pow2
 from repro_torch.core.results import (DeleteResult, GetResult, PutResult,
                                       ScanResult)
-from repro_torch.core.scatter import drop_set
+from repro_torch.core.scatter import drop_set_rows
 
 SLICE_2 = "the distributed store (slice 2)"
+SLICE_2B = "the distributed store's failure handling (slice 2b)"
 
 
-def _resolve_device(device) -> torch.device:
+def _resolve_device(device, who: str = "LocalBackend") -> torch.device:
     """The card unless the caller names another device; no silent CPU."""
     dev = torch.device("cuda" if device is None else device)
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(
-            "LocalBackend runs on the card by default and CUDA is not "
+            f"{who} runs on the card by default and CUDA is not "
             "available; pass device='cpu' for the plain PyTorch path")
     return dev
 
@@ -67,9 +73,7 @@ def _local_put(cfg, g, vals, used, keys, vs, valid, backups_alive,
     used, slot, aok = dpl.alloc(used, winner & ~inplace)
     wslot = torch.where(inplace, old_a, torch.where(aok, slot, dcap))
     wmask = inplace | aok
-    wrow = torch.where(wmask, wslot, dcap).long()
-    vals = drop_set(vals.reshape(-1, vals.shape[1]),
-                    _row_lanes(wrow, dcap, vals.shape[1]), vs.reshape(-1))
+    vals = drop_set_rows(vals, torch.where(wmask, wslot, dcap), vs)
     addr_lane = torch.where(wmask, wslot, -1).to(I32)
     addrs = dpl.spread_winner_addr(keys, valid, winner, addr_lane)
     landed = valid & (addrs >= 0)   # shard full -> un-acked, client retries
@@ -79,13 +83,6 @@ def _local_put(cfg, g, vals, used, keys, vs, valid, backups_alive,
     # recorded the entry
     used = dpl.free_slots(used, slot, aok & ~ok & (nrep == 0))
     return g, vals, used, ok & landed, addrs, nrep
-
-
-def _row_lanes(rows, nrows: int, width: int):
-    """Flat element indices of whole rows; row ``nrows`` (out of range)
-    maps every element out of range so the write is dropped."""
-    flat = rows[:, None] * width + torch.arange(width, device=rows.device)
-    return torch.where(rows[:, None] < nrows, flat, nrows * width).reshape(-1)
 
 
 def _local_get(cfg, g, dvals, keys, valid, primary_alive):
@@ -252,6 +249,148 @@ class LocalBackend:
             f"data-server failures are modelled by {SLICE_2}")
 
     recover_data_server = fail_data_server
+
+
+# ---------------------------------------------------------------------------
+# Distributed backend: G index groups on one device
+# ---------------------------------------------------------------------------
+class DistributedBackend:
+    """The kvstore ops over ``groups`` index groups stacked on one device
+    (the JAX package's takes a mesh of G devices; one card has none):
+    routed two-sided PUT/DELETE with log replication, one-sided GET with
+    the second-hop fetch, the all-gathered SCAN, and the value plane's
+    GC flush.  All state lives on ``device``: the card unless the caller
+    passes another.  Healthy path only: lease detection must be off
+    (``cfg.lease_misses = 0``); failures, recovery, severing, migration
+    and the ticker raise NotImplementedError naming slice 2b."""
+
+    def __init__(self, groups: int, cfg, capacity_per_group: int = 4096, *,
+                 capacity_q: int = 64, scan_limit: int = 128, device=None):
+        if int(getattr(cfg, "lease_misses", 0) or 0) > 0:
+            raise NotImplementedError(
+                f"lease-based failure detection (cfg.lease_misses > 0) is "
+                f"{SLICE_2B}; pass lease_misses=0")
+        self.device = _resolve_device(device, "DistributedBackend")
+        self.cfg = cfg
+        self.telemetry = tm.Telemetry(getattr(cfg, "telemetry",
+                                              "counters"))
+        self.G = groups
+        self.store = kv.create(groups, capacity_per_group, cfg, self.device)
+        self.capacity_q = capacity_q
+        self.scan_limit = scan_limit
+        self.ops = kv.make_ops(cfg, groups, capacity_q, scan_limit)
+        self.batch_multiple = groups
+        self.value_words = cfg.value_words
+        self.max_mutation_batch = cfg.log_capacity
+        self._pending_bound = 0        # host-side upper bound, no dev sync
+
+    def _ensure_log_room(self, n: int):
+        # drain up front when a batch might not fit the worst backup log
+        if self._pending_bound + n > self.cfg.log_capacity:
+            self.drain()
+
+    def put(self, keys, vals, valid):
+        n = int(valid.sum())
+        self._ensure_log_room(n)
+        self._pending_bound += n
+        self.store, ok, addrs, nrep = self.ops["put"](self.store, keys,
+                                                      vals, valid)
+        return ok, addrs, nrep
+
+    def get(self, keys, valid):
+        addrs, found, acc, vals, routed, val_ok = self.ops["get"](
+            self.store, keys, valid)
+        found = found & valid
+        hops = valid.to(I32)
+        # second hop: a value homed on another shard (or a dead data
+        # server) is fetched by address
+        need = found & ~val_ok
+        if bool(need.any()):
+            self.store, fvals, fok = self.ops["fetch"](self.store, addrs,
+                                                       need)
+            vals = torch.where(need[:, None], fvals, vals)
+            routed = routed & (~need | fok)
+            hops = hops + need.to(I32)
+        return addrs, found, acc, vals, routed & valid, hops
+
+    def delete(self, keys, valid):
+        n = int(valid.sum())
+        self._ensure_log_room(n)
+        self._pending_bound += n
+        self.store, ok, found, nrep = self.ops["delete"](self.store, keys,
+                                                         valid)
+        return ok, found & valid, nrep
+
+    def scan(self, lo, hi, limit: int):
+        loa = lo.reshape(1).expand(self.G)
+        hia = hi.reshape(1).expand(self.G)
+        # the result width is static: one scan op per distinct limit
+        scan_op = (self.ops if limit == self.scan_limit else kv.make_ops(
+            self.cfg, self.G, self.capacity_q, limit))["scan"]
+        k, a, covered, self.store = scan_op(self.store, loa, hia)
+        n = (k != key_inf(k.dtype)).sum(dtype=I32)
+        self._pending_bound = 0          # scan drained the logs
+        return k, a, n, covered
+
+    def apply_async(self):
+        self.store = self.ops["apply"](self.store)
+        self._pending_bound = max(
+            0, self._pending_bound - self.cfg.async_apply_batch)
+
+    def gc_round(self):
+        """One routed flush of the pending free queues."""
+        self.store = self.ops["gc"](self.store)
+
+    def pending_frees(self) -> int:
+        return int(lg.pending_count(self.store.data.freeq).sum())
+
+    def drain(self):
+        while self.pending_ops() > 0:
+            self.apply_async()
+        self._pending_bound = 0
+        # flush the free queues until empty or stuck
+        prev = -1
+        while True:
+            cur = self.pending_frees()
+            if cur == 0 or cur == prev:
+                break
+            prev = cur
+            self.gc_round()
+
+    def pending_ops(self) -> int:
+        return int((self.store.blog.tail - self.store.blog.applied).max())
+
+    def telemetry_gauges(self) -> dict:
+        return kv.device_counters(self.store)
+
+    def lease_stalled(self) -> bool:
+        return False    # detection is off (lease_misses == 0)
+
+    def migrate_values(self) -> int:
+        raise NotImplementedError(f"value migration: {SLICE_2B}")
+
+    def fail_server(self, server: int):
+        raise NotImplementedError(f"index-server failure: {SLICE_2B}")
+
+    def sever_server(self, server: int):
+        raise NotImplementedError(f"heartbeat severing: {SLICE_2B}")
+
+    def recover_server(self, server: int, **kw):
+        raise NotImplementedError(f"index-server recovery: {SLICE_2B}")
+
+    def fail_data_server(self, server: int):
+        raise NotImplementedError(f"data-server failure: {SLICE_2B}")
+
+    def sever_data_server(self, server: int):
+        raise NotImplementedError(f"data-server severing: {SLICE_2B}")
+
+    def recover_data_server(self, server: int):
+        raise NotImplementedError(f"data-server recovery: {SLICE_2B}")
+
+    def start_ticker(self) -> bool:
+        raise NotImplementedError(f"the lease ticker: {SLICE_2B}")
+
+    stop_ticker = start_ticker
 
 
 # ---------------------------------------------------------------------------
@@ -436,10 +575,16 @@ class HiStoreClient:
             self.migrate()
 
     def start_ticker(self) -> bool:
-        raise NotImplementedError(f"the lease ticker: {SLICE_2}")
+        fn = getattr(self.backend, "start_ticker", None)
+        if fn is None:
+            raise NotImplementedError(f"the lease ticker: {SLICE_2}")
+        return fn()
 
     def stop_ticker(self) -> None:
-        raise NotImplementedError(f"the lease ticker: {SLICE_2}")
+        fn = getattr(self.backend, "stop_ticker", None)
+        if fn is None:
+            raise NotImplementedError(f"the lease ticker: {SLICE_2}")
+        fn()
 
     # -- telemetry ---------------------------------------------------------
     def metrics(self) -> tm.MetricsSnapshot:
@@ -497,8 +642,13 @@ class HiStoreClient:
 
     def _make_room(self):
         """Push-back response between retry rounds: one log->sorted merge
-        (frees backup-log ring room)."""
+        (frees backup-log ring room) and, where the backend has free
+        queues, one GC flush (frees value slots queued on a remote
+        shard)."""
         self.backend.apply_async()
+        gc = getattr(self.backend, "gc_round", None)
+        if gc:
+            gc()
 
     def _put_chunk(self, keys, vals):
         tel = self.telemetry

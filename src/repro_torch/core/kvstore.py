@@ -1,0 +1,701 @@
+"""HiStore: the distributed key-value store over G index groups (port of
+the healthy path of ``repro/core/kvstore.py``).
+
+Topology: group g's primary server holds its hash table, its primary log
+and its data shard; the backup servers of groups g-1 and g-2 sit beside
+it (the SHIFTED layout: slice [r, p] of a backup array holds replica r
+of group (p - r - 1) mod G, so log replication is a shift by r + 1).
+
+The JAX package runs one group per device under ``shard_map``.  Here the
+G servers live on one card: every leaf is stacked along a leading [G]
+axis ([R, G] for the backups), and each op body is written out across
+that axis.  Between collectives it runs the per-server work group by
+group on views of the stacked leaves (the index ops take contiguous
+[g] views, so the kernels are the single-group ones); a collective is
+indexing on the [G] axis (``verbs.py``): ``all_to_all`` a transpose,
+``ppermute`` a roll, ``all_gather`` the stacked tensor itself and
+``axis_index`` the loop's ``g``.  State is functional, as in JAX: an op
+returns a new store.
+
+Ops (``make_ops``), healthy path: routed two-sided PUT and DELETE with
+log replication to the live backups, one-sided GET through the fused
+group probe with a second-hop ``fetch``, the all-gathered SCAN after a
+full drain, the async ``apply``, the free-queue ``gc`` and the
+heartbeat ``tick``.  The degraded PUT and DELETE variants, the control
+plane (fail / sever / recover, ``re_replicate``) and value migration
+belong to slice 2b.
+"""
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+
+from repro_torch.core import data_plane as dp
+from repro_torch.core import hash_index as hix
+from repro_torch.core import log as lg
+from repro_torch.core import sorted_index as six
+from repro_torch.core import tree
+from repro_torch.core.hashing import I32, fmix32, key_inf, key_mix
+from repro_torch.core.scatter import drop_set, drop_set_rows
+from repro_torch.core.verbs import (exchange, replicate_shift, route_build,
+                                    route_return)
+from repro_torch.kernels import ops as kops
+
+RecoveryError = dp.RecoveryError
+
+
+class KVStore(NamedTuple):
+    hash: hix.HashIndex       # leaves [G, ...]
+    plog: lg.UpdateLog        # leaves [G, ...]
+    bsorted: six.SortedIndex  # leaves [R, G, ...] (shifted layout)
+    blog: lg.UpdateLog        # leaves [R, G, ...]
+    data: dp.DataPlane        # value plane (shard + allocator + mirrors)
+    alive: torch.Tensor       # [G] bool: the client's routing view of
+    #                           index-server liveness
+    sever: torch.Tensor       # [G] bool: crashed, not yet detected
+    hb: torch.Tensor          # [G] int32 heartbeat counters
+
+
+def create(G: int, capacity_per_group: int, cfg, device) -> KVStore:
+    R = cfg.n_backups
+    return KVStore(
+        hash=tree.replicate(hix.create(capacity_per_group, cfg, device), G),
+        plog=tree.replicate(lg.create(cfg.log_capacity, device), G),
+        bsorted=tree.replicate(tree.replicate(
+            six.create(capacity_per_group, device), G), R),
+        blog=tree.replicate(tree.replicate(
+            lg.create(cfg.log_capacity, device), G), R),
+        data=dp.create(G, capacity_per_group, cfg, device),
+        alive=torch.ones((G,), dtype=torch.bool, device=device),
+        sever=torch.zeros((G,), dtype=torch.bool, device=device),
+        hb=torch.zeros((G,), dtype=I32, device=device),
+    )
+
+
+def owner_group(keys, G: int):
+    """Group routing hash, decorrelated from the bucket hash: fmix32 of
+    the key's second mix, taken mod G as uint32."""
+    _, h2 = key_mix(keys)
+    return (fmix32(h2 ^ 0xA5A5A5A5) % G).to(I32)
+
+
+def _first_alive_holder(g, alive):
+    """Server to contact for group g (elementwise): the primary g, else
+    the backup holders g + 1, g + 2, the first alive in that order."""
+    G = alive.shape[0]
+    cand = torch.stack([g % G, (g + 1) % G, (g + 2) % G], dim=-1).long()
+    pick = torch.argmax(alive[cand].to(torch.uint8), dim=-1, keepdim=True)
+    return cand.gather(-1, pick)[..., 0].to(I32)
+
+
+def _first_alive_data_holder(s, dalive, Rv: int):
+    """Data server to contact for shard s (elementwise): the shard
+    itself, else the devices hosting its mirrors.  Returns (holder,
+    any_alive)."""
+    G = dalive.shape[0]
+    cand = torch.stack([s % G] + [(s + r + 1) % G for r in range(Rv)],
+                       dim=-1).long()
+    ok = dalive[cand]
+    pick = torch.argmax(ok.to(torch.uint8), dim=-1, keepdim=True)
+    return cand.gather(-1, pick)[..., 0].to(I32), ok.any(dim=-1)
+
+
+# ---------------------------------------------------------------------------
+# op bodies: lanes are stacked [G, n], one row per server
+# ---------------------------------------------------------------------------
+def _me(G: int, device):
+    return torch.arange(G, device=device)[:, None]
+
+
+def _route_to_owner(store, keys, valid, G, capacity, extra=None):
+    """The routing prologue of the mutating ops: invalid (padding) lanes
+    get an out-of-range destination, so they take no exchange capacity
+    and arrive nowhere."""
+    dest_g = owner_group(keys, G)
+    dest = torch.where(valid, _first_alive_holder(dest_g, store.alive), G)
+    payloads = {"k": (keys, 0), "g": (torch.where(valid, dest_g, -1), -1)}
+    if extra:
+        payloads.update(extra)
+    return route_build(dest, payloads, G, capacity)
+
+
+def _queue_remote_frees(freeq, rk, old_addr, mask):
+    """Frees of slots on another device's shard ride each device's free
+    queue (stacked [G]) until the gc op routes them home.  The op bodies
+    gate on queue room first, so ``ok`` False lands in ``fq_spill``."""
+    return lg.append_rows(freeq, torch.zeros_like(rk), old_addr,
+                          torch.where(mask, 1, 0).to(torch.int8), mask)
+
+
+def _fq_pregate(fq, may_queue):
+    """Queue-full push-back of one device: lanes that may queue a remote
+    free are admitted while its free queue has room (cumulative rank in
+    the batch).  Returns the per-lane admit mask."""
+    room = fq.keys.shape[0] - (fq.tail - fq.applied)
+    qrank = torch.cumsum(may_queue.to(I32), 0, dtype=I32) - 1
+    return ~may_queue | (qrank < room)
+
+
+def _bump_hb(store):
+    """Every server advances its index and data heartbeat counters in
+    each routed op, unless its heartbeats are severed."""
+    d = store.data
+    return store._replace(
+        hb=store.hb + torch.where(store.sever, 0, 1).to(I32),
+        data=d._replace(hb=d.hb + torch.where(d.sever, 0, 1).to(I32)))
+
+
+def _key_group_any(rk, valid, flag):
+    """Per valid lane: does a valid lane with the same key have ``flag``?
+    (JAX: ``(same & flag[None, :]).any(axis=1)`` over an [n, n] key
+    equality mask; here a segment maximum over the lanes sorted by key,
+    as ``spread_winner_addr`` takes it.)"""
+    zero = torch.zeros_like(rk, dtype=I32)
+    return dp.spread_winner_addr(rk, valid, flag, zero) >= 0
+
+
+def _put_body(cfg, G, capacity, store: KVStore, keys, vals, valid):
+    """Routed PUT, healthy variant (every index and data server up, so no
+    old-slot replica probe and no value displacement)."""
+    dev = keys.device
+    me = _me(G, dev)
+    bufs, slot, ok_route = _route_to_owner(
+        store, keys, valid, G, capacity, {"v": (vals, 0)})
+    recv = exchange(bufs)
+    rk, rv, rg = recv["k"], recv["v"], recv["g"]
+    # a severed server answers nothing: its lanes are dropped un-acked
+    valid = (rg >= 0) & ~store.sever[:, None]
+    am_primary = rg == me
+    data = store.data
+    dcap = data.vals.shape[1]
+    dalive = data.alive & ~data.sever
+    # --- owner side: place the value, group by group ----------------------
+    cols = {k: [] for k in ("winner", "old_a", "old_f", "inplace", "slot_d",
+                            "aok", "wslot", "wmask", "addr_lane")}
+    used, dvals, dkeys = [], [], []
+    for g in range(G):
+        rk_g, ok_g = rk[g], valid[g]
+        winner = dp.winner_mask(rk_g, ok_g)
+        old_a, old_f, _ = kops.probe(cfg, tree.at(store.hash, g), rk_g)
+        # overwrite whose old slot is on my live shard: in place
+        inplace = winner & old_f & (old_a // dcap == g) & dalive[g]
+        allocw = winner & ~inplace
+        may_queue = allocw & old_f & (old_a >= 0) & (old_a // dcap != g)
+        allocw = allocw & _fq_pregate(tree.at(data.freeq, g), may_queue)
+        u, slot_d, aok = dp.alloc(data.used[g], allocw & dalive[g])
+        wslot = torch.where(inplace, old_a % dcap,
+                            torch.where(aok, slot_d, dcap))
+        wmask = inplace | aok
+        wtgt = torch.where(wmask, wslot, dcap)
+        used.append(u)
+        dvals.append(drop_set_rows(data.vals[g], wtgt, rv[g]))
+        dkeys.append(drop_set(data.keys[g], wtgt, rk_g))
+        addr_lane = torch.where(
+            inplace, old_a, torch.where(aok, g * dcap + slot_d, -1)).to(I32)
+        for k, v in (("winner", winner), ("old_a", old_a), ("old_f", old_f),
+                     ("inplace", inplace), ("slot_d", slot_d), ("aok", aok),
+                     ("wslot", wslot), ("wmask", wmask),
+                     ("addr_lane", addr_lane)):
+            cols[k].append(v)
+    c = {k: torch.stack(v) for k, v in cols.items()}
+    # --- mirror the writes on the next Rv devices -------------------------
+    mirror, kmirror = data.mirror, data.kmirror
+    if mirror.shape[0]:
+        mir, kmir = [], []
+        for r in range(mirror.shape[0]):
+            out = replicate_shift({"s": c["wslot"], "v": rv, "k": rk,
+                                   "m": c["wmask"]}, r + 1)
+            tgt = torch.where(out["m"] & dalive[:, None], out["s"], dcap)
+            mir.append(torch.stack([drop_set_rows(mirror[r, g], tgt[g],
+                                                  out["v"][g])
+                                    for g in range(G)]))
+            kmir.append(torch.stack([drop_set(kmirror[r, g], tgt[g],
+                                              out["k"][g])
+                                     for g in range(G)]))
+        mirror, kmirror = torch.stack(mir), torch.stack(kmir)
+    # superseded duplicate lanes share their winner's address; a failed
+    # allocation (-1) un-acks the whole duplicate group for a retry
+    addr = torch.stack([dp.spread_winner_addr(rk[g], valid[g],
+                                              c["winner"][g],
+                                              c["addr_lane"][g])
+                        for g in range(G)])
+    landed = valid & (addr >= 0)
+    # --- primary log -> backup logs -> hash, commit-gated -----------------
+    ops = torch.where(landed & am_primary, six.OP_PUT, 0).to(torch.int8)
+    plog, ok_p = lg.append_rows(store.plog, rk, addr, ops,
+                                landed & am_primary)
+    # the hash update is synchronous: the primary log's entries are
+    # applied the moment the batch commits
+    plog = plog._replace(applied=plog.tail)
+    blog, ok_rep, nrep, _ = _replicate_logs(
+        store.blog, store.alive & ~store.sever, rk, addr, ops, landed, rg,
+        G, six.OP_PUT)
+    ok_commit = landed & ok_rep & ((am_primary & ok_p) | ~am_primary)
+    hashes, ok_h = [], []
+    for g in range(G):
+        h, ok = hix.insert(tree.at(store.hash, g), rk[g], addr[g], cfg,
+                           ok_commit[g] & am_primary[g])
+        hashes.append(h)
+        ok_h.append(ok)
+    ok_req = ok_commit & (torch.stack(ok_h) | ~am_primary)
+    # --- data-server GC, commit-gated -------------------------------------
+    # a committed move frees the old slot; an un-acked lane rolls its
+    # fresh allocation back only when no log recorded its entry
+    old_a = c["old_a"]
+    moved = (c["winner"] & c["old_f"] & ~c["inplace"] & ok_req
+             & (old_a >= 0))
+    free_local = moved & (old_a // dcap == me) & dalive[:, None]
+    undo = ~ok_req & (nrep == 0)
+    used = torch.stack([
+        dp.free_slots(dp.free_slots(used[g], old_a[g] % dcap,
+                                    free_local[g]),
+                      c["slot_d"][g], c["aok"][g] & undo[g])
+        for g in range(G)])
+    qmask = moved & ~free_local
+    freeq, fq_acc = _queue_remote_frees(data.freeq, rk, old_a, qmask)
+    fq_spill = data.fq_spill + (qmask & ~fq_acc).sum(1, dtype=I32)
+    ret = route_return({"ok": ok_req.to(I32), "addr": addr, "rep": nrep},
+                       slot)
+    new_data = data._replace(
+        vals=torch.stack(dvals), used=used, keys=torch.stack(dkeys),
+        mirror=mirror, kmirror=kmirror, freeq=freeq, fq_spill=fq_spill)
+    new_store = _bump_hb(store._replace(
+        hash=tree.stack(hashes), plog=plog, blog=blog, data=new_data))
+    return (new_store, ret["ok"].bool() & ok_route, ret["addr"],
+            ret["rep"])
+
+
+def _replicate_logs(blog, alive, rk, addr, ops, valid, rg, G, opcode):
+    """Push the owners' batches of log entries to the backup logs.
+    Returns (blog, ok, nrep, ok_local), each lane array [G, n]:
+
+      ok[i]       False when a live backup rejected owner-lane i's append
+                  (ring full), shifted back to the owner for its ack;
+      nrep[i]     how many replica logs recorded the entry (dead backups
+                  are skipped: the honest report of reduced replication);
+      ok_local[i] False when MY OWN backup-log append for a
+                  temporary-primary lane was rejected.
+
+    Healthy path: the primary's entries (``ops``) go to the r+1-hop
+    backup holders.  Degraded path: a request routed to me as a backup
+    holder (its primary dead) is appended to my backup log for that
+    group, and replica-0 entries travel one hop on to the replica-1
+    holder.  Without such a lane (one host read decides) those appends
+    would change nothing and are skipped."""
+    R = blog.tail.shape[0]
+    dev = rk.device
+    me = _me(G, dev)
+    ok = torch.ones(rk.shape, dtype=torch.bool, device=dev)
+    ok_local = torch.ones(rk.shape, dtype=torch.bool, device=dev)
+    nrep = torch.zeros(rk.shape, dtype=I32, device=dev)
+    alive_me = alive[:, None]
+    logs = [tree.at(blog, r) for r in range(R)]
+    for r in range(R):
+        back = (G - (r + 1)) % G
+        pk, pa, po = (replicate_shift(x, r + 1) for x in (rk, addr, ops))
+        should = (po > 0) & alive_me       # dead holders skip the append
+        logs[r], okr = lg.append_rows(logs[r], pk, pa, po, should)
+        ok = ok & replicate_shift(okr, back)
+        nrep = nrep + replicate_shift((should & okr).to(I32), back)
+    temp = valid & (rg != me)
+    if bool(temp.any()):
+        for r in range(R):
+            mine_as_backup = temp & (rg == (me - r - 1) % G)
+            opsb = torch.where(mine_as_backup, opcode, 0).to(torch.int8)
+            logs[r], okb = lg.append_rows(logs[r], rk, addr, opsb,
+                                          mine_as_backup)
+            ok = ok & okb
+            ok_local = ok_local & okb
+            nrep = nrep + (mine_as_backup & okb).to(I32)
+        if R >= 2:
+            ops0 = torch.where(temp & (rg == (me - 1) % G), opcode,
+                               0).to(torch.int8)
+            fk, fa, fo = (replicate_shift(x, 1) for x in (rk, addr, ops0))
+            fshould = (fo > 0) & alive_me
+            logs[1], okf = lg.append_rows(logs[1], fk, fa, fo, fshould)
+            ok = ok & replicate_shift(okf, (G - 1) % G)
+            nrep = nrep + replicate_shift((fshould & okf).to(I32),
+                                          (G - 1) % G)
+    return tree.stack(logs), ok, nrep, ok_local
+
+
+def probe_inputs(store: KVStore, rk, g: int, G: int):
+    """What server g's group_probe call reads for its lanes ``rk``: its
+    hash, its R sorted replicas and backup logs, and ``rep_sel`` [Q, R],
+    where lane i selects replica r iff g holds replica r of lane i's
+    owner group.  Returns (hash, sorted, logs, rep_sel)."""
+    R = store.blog.tail.shape[0]
+    og = owner_group(rk, G)
+    rep_sel = torch.stack([(og == (g - r - 1) % G).to(I32)
+                           for r in range(R)], dim=1)
+    srt = tuple(tree.at(store.bsorted, r, g) for r in range(R))
+    blg = tuple(tree.at(store.blog, r, g) for r in range(R))
+    return tree.at(store.hash, g), srt, blg, rep_sel
+
+
+def _index_probe(cfg, store: KVStore, rk, g: int, G: int):
+    """The fused index probe of server g (one group_probe call): the hash
+    table answers lanes g owns as true primary; lane i is answered on
+    the backup side by its selected replica (its pending log first,
+    newest wins, then the sorted replica).  Returns (addr_p, found_p,
+    acc_p, addr_b, found_b, acc_b)."""
+    hidx, srt, blg, rep_sel = probe_inputs(store, rk, g, G)
+    return kops.group_probe(cfg, hidx, srt, blg, rk, rep_sel)
+
+
+def _delete_body(cfg, G, capacity, store: KVStore, keys, valid):
+    """Routed DELETE, healthy variant: a tombstone through the primary
+    log -> backup logs -> hash delete; the value slot is freed at once
+    (queued for the gc op when it lives on another shard).  The
+    tombstones compact out of the sorted replicas at apply time."""
+    dev = keys.device
+    me = _me(G, dev)
+    bufs, slot, ok_route = _route_to_owner(store, keys, valid, G, capacity)
+    recv = exchange(bufs)
+    rk, rg = recv["k"], recv["g"]
+    valid = (rg >= 0) & ~store.sever[:, None]
+    addr = torch.full(rk.shape, -1, dtype=I32, device=dev)
+    am_primary = rg == me
+    data = store.data
+    dcap = data.vals.shape[1]
+    deff = data.alive & ~data.sever
+    olds, valids = [], []
+    for g in range(G):
+        old_a, old_f, _ = kops.probe(cfg, tree.at(store.hash, g), rk[g])
+        olds.append((old_a, old_f))
+        # free-queue push-back before the tombstone lands; a nacked
+        # winner takes its whole duplicate-key group with it
+        winner0 = dp.winner_mask(rk[g], valid[g])
+        may_queue = (winner0 & old_f & (old_a >= 0)
+                     & ~((old_a // dcap == g) & deff[g]))
+        bad = may_queue & ~_fq_pregate(tree.at(data.freeq, g), may_queue)
+        valids.append(valid[g] & ~_key_group_any(rk[g], valid[g], bad))
+    valid = torch.stack(valids)
+    old_a = torch.stack([o[0] for o in olds])
+    old_f = torch.stack([o[1] for o in olds])
+    ops = torch.where(valid & am_primary, six.OP_DEL, 0).to(torch.int8)
+    plog, ok_p = lg.append_rows(store.plog, rk, addr, ops,
+                                valid & am_primary)
+    plog = plog._replace(applied=plog.tail)
+    hashes, found = [], []
+    for g in range(G):
+        h, f = hix.delete(tree.at(store.hash, g), rk[g], cfg,
+                          valid[g] & am_primary[g])
+        hashes.append(h)
+        found.append(f)
+    found = torch.stack(found)
+    blog, ok_rep, nrep, ok_loc = _replicate_logs(
+        store.blog, store.alive & ~store.sever, rk, addr, ops, valid, rg,
+        G, six.OP_DEL)
+    # data-server GC, commit-gated and winner-deduped: a primary lane
+    # frees once the hash tombstoned the entry; a temporary-primary lane
+    # once my pending log recorded the tombstone
+    gate = torch.where(am_primary, found, ok_loc & old_f)
+    winner = torch.stack([dp.winner_mask(rk[g], valid[g])
+                          for g in range(G)])
+    freed = winner & gate & (old_a >= 0)
+    free_local = freed & (old_a // dcap == me) & deff[:, None]
+    used = torch.stack([dp.free_slots(data.used[g], old_a[g] % dcap,
+                                      free_local[g]) for g in range(G)])
+    qmask = freed & ~free_local
+    freeq, fq_acc = _queue_remote_frees(data.freeq, rk, old_a, qmask)
+    fq_spill = data.fq_spill + (qmask & ~fq_acc).sum(1, dtype=I32)
+    ok_req = valid & ok_rep & ((am_primary & ok_p) | ~am_primary)
+    # no degraded lanes exist on the healthy path: found_b is all False
+    found_req = torch.where(am_primary, found, False)
+    ret = route_return({"ok": ok_req.to(I32), "found": found_req.to(I32),
+                        "rep": nrep}, slot)
+    new_store = _bump_hb(store._replace(
+        hash=tree.stack(hashes), plog=plog, blog=blog,
+        data=data._replace(used=used, freeq=freeq, fq_spill=fq_spill)))
+    return (new_store, ret["ok"].bool() & ok_route, ret["found"].bool(),
+            ret["rep"])
+
+
+def _gather_rows(shard, slot, ok):
+    """``shard[slot]`` where ``ok``, zero rows elsewhere: JAX's gather from
+    the shard with one zero row appended (a masked lane reads that row),
+    without copying the shard."""
+    rows = shard[torch.where(ok, slot, 0).long()]
+    return torch.where(ok[:, None], rows, 0)
+
+
+def get_exchange(store: KVStore, keys, valid, G, capacity):
+    """A GET's route to the first live holder of each key's owner group:
+    the keys each server receives, rk [G, G * capacity] (key_inf in
+    unused slots), with each lane's slot and routed flag."""
+    dest_g = owner_group(keys, G)
+    dest = torch.where(valid, _first_alive_holder(dest_g, store.alive), G)
+    bufs, slot, ok_route = route_build(
+        dest, {"k": (keys, key_inf(keys.dtype))}, G, capacity)
+    return exchange(bufs)["k"], slot, ok_route
+
+
+def _get_body(cfg, G, capacity, store: KVStore, keys, valid):
+    """One-sided GET: route to the first live holder of the owner group,
+    the fused probe there (hash for the primary's lanes, pending log +
+    sorted replica for a backup's), the value gather from the local data
+    shard, and the reverse route.  A value on another shard, or on a
+    dead data server, is flagged for the second-hop fetch."""
+    rk, slot, ok_route = get_exchange(store, keys, valid, G, capacity)
+    data = store.data
+    dcap = data.vals.shape[1]
+    res = {k: [] for k in ("addr", "found", "acc", "val", "vok", "srv")}
+    for g in range(G):
+        a_p, f_p, c_p, a_b, f_b, c_b = _index_probe(cfg, store, rk[g], g, G)
+        am_primary = owner_group(rk[g], G) == g
+        addr = torch.where(am_primary, a_p, a_b)
+        found = torch.where(am_primary, f_p, f_b)
+        acc = torch.where(am_primary, c_p, c_b)
+        val_ok = (found & (addr // dcap == g) & data.alive[g]
+                  & ~data.sever[g])
+        vals = _gather_rows(data.vals[g], addr % dcap, val_ok)
+        srv = torch.where(store.sever[g], 0, 1).to(I32).expand(rk.shape[1])
+        for k, v in (("addr", addr), ("found", found.to(I32)), ("acc", acc),
+                     ("val", vals), ("vok", val_ok.to(I32)), ("srv", srv)):
+            res[k].append(v)
+    back = route_return({k: torch.stack(v) for k, v in res.items()}, slot)
+    # an unrouted lane (queue full) is a push-back the client retries
+    routed = ok_route & back["srv"].bool()
+    return (back["addr"], back["found"].bool() & routed, back["acc"],
+            back["val"], routed, back["vok"].bool())
+
+
+def _fetch_body(G, capacity, store: KVStore, addrs, valid):
+    """Second-hop value read: route each address to the first live data
+    holder of its shard (the shard, else a mirror) and gather the value.
+    Returns (store with the answering round's heartbeats, vals,
+    routed)."""
+    data = store.data
+    dcap = data.vals.shape[1]
+    Rv = data.mirror.shape[0]
+    deff = data.alive & ~data.sever
+    shard = torch.where(addrs >= 0, addrs // dcap, 0)
+    dest, servable = _first_alive_data_holder(shard, deff, Rv)
+    dest = torch.where(valid & (addrs >= 0) & servable, dest, G)
+    bufs, slot, ok_route = route_build(dest, {"a": (addrs, -1)}, G,
+                                       capacity)
+    ra = exchange(bufs)["a"]
+    rs = torch.where(ra >= 0, ra // dcap, G)
+    lslot, has = ra % dcap, ra >= 0
+    out = []
+    for g in range(G):
+        vals = _gather_rows(data.vals[g], lslot[g], has[g])
+        taken = rs[g] == g
+        for r in range(Rv):
+            sel = (rs[g] == (g - r - 1) % G) & ~taken
+            mv = _gather_rows(data.mirror[r, g], lslot[g], has[g])
+            vals = torch.where(sel[:, None], mv, vals)
+            taken = taken | sel
+        out.append(vals)
+    back = route_return({"val": torch.stack(out)}, slot)
+    return (_bump_hb(store), back["val"],
+            ok_route & (servable | ~valid | (addrs < 0)))
+
+
+def _gc_body(G, capacity, store: KVStore):
+    """One flush round of the free queues: each queued address travels
+    to the data shard that owns it, which clears the allocator bit.
+    Frees for a dead shard, or that overflow the exchange, are
+    re-queued."""
+    data = store.data
+    dcap = data.vals.shape[1]
+    B = min(data.freeq.keys.shape[1], G * capacity)
+    taken = [lg.take_pending(tree.at(data.freeq, g), B) for g in range(G)]
+    k = torch.stack([t[0] for t in taken])
+    a = torch.stack([t[1] for t in taken])
+    o = torch.stack([t[2] for t in taken])
+    freeq = tree.stack([t[3] for t in taken])
+    pend = o > 0
+    dest_s = torch.where(pend & (a >= 0), a // dcap, G)
+    deff = data.alive & ~data.sever    # a severed shard's bitmap is gone
+    deliver = pend & (dest_s < G) & deff[torch.clamp(dest_s, 0, G - 1)
+                                         .long()]
+    dest = torch.where(deliver, dest_s, G)
+    bufs, _, okq = route_build(dest, {"a": (a, -1)}, G, capacity)
+    ra = exchange(bufs)["a"]
+    used = torch.stack([
+        dp.free_slots(data.used[g], torch.where(ra[g] >= 0, ra[g] % dcap,
+                                                dcap), ra[g] >= 0)
+        for g in range(G)])
+    requeue = pend & ~(deliver & okq)
+    freeq, okr = lg.append_rows(freeq, k, a,
+                                torch.where(requeue, 1, 0).to(torch.int8),
+                                requeue)
+    fq_spill = data.fq_spill + (requeue & ~okr).sum(1, dtype=I32)
+    return _bump_hb(store._replace(data=data._replace(
+        used=used, freeq=freeq, fq_spill=fq_spill)))
+
+
+def _apply_body(cfg, batch, store: KVStore, servers=None):
+    """One log->sorted merge round of every backup replica on
+    ``servers`` (all by default); only those servers' heartbeats
+    advance."""
+    R, G = store.blog.tail.shape
+    servers = range(G) if servers is None else servers
+    srt = [[tree.at(store.bsorted, r, g) for g in range(G)]
+           for r in range(R)]
+    logs = [[tree.at(store.blog, r, g) for g in range(G)] for r in range(R)]
+    for g in servers:
+        for r in range(R):
+            keys, addrs, ops, logs[r][g] = lg.take_pending(logs[r][g], batch)
+            srt[r][g] = kops.merge(cfg, srt[r][g], keys, addrs, ops)
+    bumped = _bump_hb(store)
+    on = torch.zeros((G,), dtype=torch.bool, device=store.hb.device)
+    on[list(servers)] = True
+    return store._replace(
+        bsorted=tree.stack(srt), blog=tree.stack(logs),
+        hb=torch.where(on, bumped.hb, store.hb),
+        data=store.data._replace(hb=torch.where(on, bumped.data.hb,
+                                                store.data.hb)))
+
+
+def _tick_body(store: KVStore):
+    """Heartbeat-only round."""
+    return _bump_hb(store)
+
+
+def _scan_body(cfg, G, limit, store: KVStore, lo, hi):
+    """Backup-side SCAN: every server drains its replicas (each one its
+    own number of merge rounds, as JAX's per-device ``while_loop`` runs
+    them: here a host loop), range-queries the replicas it should serve,
+    and the all-gathered [G, R, limit] results are merged.  Returns
+    (keys [limit], addrs [limit], covered [G], store)."""
+    R = store.blog.tail.shape[0]
+    rounds = max(1, -(-cfg.log_capacity // cfg.async_apply_batch))
+    st = store
+    for _ in range(rounds):
+        pending = (st.blog.tail - st.blog.applied).amax(0).cpu()
+        servers = [g for g in range(G) if int(pending[g]) > 0]
+        if not servers:
+            break
+        st = _apply_body(cfg, cfg.async_apply_batch, st, servers)
+    # effective liveness: a severed holder cannot serve, and duty falls
+    # through to the next replica
+    eff = store.alive & ~store.sever
+    INF = key_inf(st.bsorted.keys.dtype)
+    ks, as_ = [], []
+    for g in range(G):
+        for r in range(R):
+            k, a, _ = kops.range_query(cfg, tree.at(st.bsorted, r, g),
+                                       lo[g], hi[g], limit)
+            grp = (g - r - 1) % G
+            # serve replica r of group grp iff I am alive and every
+            # lower-replica holder is dead: exactly one live holder serves
+            prev_ok = torch.zeros((), dtype=torch.bool, device=eff.device)
+            for rp in range(r):
+                prev_ok = prev_ok | eff[(grp + rp + 1) % G]
+            serve = eff[g] & ~prev_ok
+            ks.append(torch.where(serve, k, INF))
+            as_.append(torch.where(serve, a, -1))
+    allk = torch.stack(ks).reshape(-1)       # all_gather: [G * R * limit]
+    alla = torch.stack(as_).reshape(-1)
+    order = torch.argsort(allk, stable=True)
+    # group g is covered iff at least one of its R holders is live
+    gidx = torch.arange(G, device=eff.device)
+    covered = torch.zeros((G,), dtype=torch.bool, device=eff.device)
+    for r in range(R):
+        covered = covered | eff[(gidx + r + 1) % G]
+    return allk[order][:limit], alla[order][:limit], covered, _bump_hb(st)
+
+
+# ---------------------------------------------------------------------------
+# Public API
+# ---------------------------------------------------------------------------
+def _rows(x, G):
+    """Global [B, ...] -> [G, B / G, ...]: server d holds lanes
+    [d B / G, (d + 1) B / G), as JAX's P("kv") sharding gives them."""
+    return x.reshape((G, -1) + tuple(x.shape[1:]))
+
+
+def _flat(x):
+    return x.reshape((-1,) + tuple(x.shape[2:]))
+
+
+def make_ops(cfg, G: int, capacity_q: int = 64, scan_limit: int = 128):
+    """The distributed ops over G groups (the port's counterpart of the
+    JAX package's jitted shard_map ops; same names and signatures,
+    global [B] lane arrays, B a multiple of G):
+
+    put(st, keys, vals, valid)  -> (st, ok, addrs, nrep)
+    get(st, keys, valid)        -> (addrs, found, accesses, vals, routed,
+                                    val_ok)
+    fetch(st, addrs, valid)     -> (st, vals, routed)  second-hop read
+    delete(st, keys, valid)     -> (st, ok, found, nrep)
+    apply(st)                   -> st
+    gc(st)                      -> st   one free-queue flush round
+    scan(st, lo, hi)            -> (keys, addrs, covered, st); lo, hi [G]
+    tick(st)                    -> st   heartbeat-only round
+
+    ``put_degraded`` and ``delete_degraded`` are slice 2b's."""
+
+    def put(st, keys, vals, valid):
+        st, ok, addrs, nrep = _put_body(cfg, G, capacity_q, st,
+                                        _rows(keys, G), _rows(vals, G),
+                                        _rows(valid, G))
+        return st, _flat(ok), _flat(addrs), _flat(nrep)
+
+    def get(st, keys, valid):
+        return tuple(_flat(x) for x in _get_body(
+            cfg, G, capacity_q, st, _rows(keys, G), _rows(valid, G)))
+
+    def fetch(st, addrs, valid):
+        st, vals, routed = _fetch_body(G, capacity_q, st, _rows(addrs, G),
+                                       _rows(valid, G))
+        return st, _flat(vals), _flat(routed)
+
+    def delete(st, keys, valid):
+        st, ok, found, nrep = _delete_body(cfg, G, capacity_q, st,
+                                           _rows(keys, G), _rows(valid, G))
+        return st, _flat(ok), _flat(found), _flat(nrep)
+
+    return {"put": put, "get": get, "fetch": fetch, "delete": delete,
+            "apply": lambda st: _apply_body(cfg, cfg.async_apply_batch, st),
+            "gc": lambda st: _gc_body(G, capacity_q, st),
+            "scan": lambda st, lo, hi: _scan_body(cfg, G, scan_limit, st,
+                                                  lo, hi),
+            "tick": _tick_body}
+
+
+def device_counters(store: KVStore) -> dict:
+    """The store's device counters as host ints (snapshot time only):
+    live servers per plane, heartbeat totals, the worst backup log's
+    pending depth, and the value plane's counters."""
+    out = {
+        "live_index_servers": int(store.alive.sum()),
+        "index_heartbeats": int(store.hb.sum()),
+        "pending_log_ops": int((store.blog.tail - store.blog.applied).max()),
+    }
+    out.update(dp.device_counters(store.data))
+    return out
+
+
+def parity_report(store: KVStore, cfg, apply_fn=None) -> list:
+    """Hash/sorted parity + value-slot audit (eager).  For every group g
+    and replica r: drain a COPY of the replica, then check its live item
+    count equals the hash table's, every replica key is found in the
+    hash, and the addresses agree.  A final ``value_slots`` entry audits
+    the data plane's slot accounting.  Entries carry true liveness
+    (``primary_alive`` / ``holder_alive``)."""
+    R, G = store.blog.tail.shape
+    alive = store.alive.cpu().numpy() & ~store.sever.cpu().numpy()
+    out = []
+    for g in range(G):
+        hs = tree.at(store.hash, g)
+        n_hash = int(hix.n_items(hs))
+        for r in range(R):
+            h = (g + r + 1) % G
+            srt, _ = dp.drain_pair(tree.at(store.bsorted, r, h),
+                                   tree.at(store.blog, r, h), cfg)
+            keys, addrs, valid = six.items(srt)
+            a_h, f_h, _ = kops.probe(cfg, hs, keys)
+            out.append({"group": g, "replica": r, "holder": h,
+                        "primary_alive": bool(alive[g]),
+                        "holder_alive": bool(alive[h]),
+                        "n_hash": n_hash, "n_sorted": int(valid.sum()),
+                        "agree": (n_hash == int(valid.sum()))
+                        and bool((f_h | ~valid).all())
+                        and bool(((a_h == addrs) | ~valid).all())})
+    out.append(dp.value_slot_audit(store, cfg, apply_fn))
+    return out

@@ -38,19 +38,30 @@ def create(capacity: int, device, dtype=None) -> UpdateLog:
 def append(log: UpdateLog, keys, addrs, ops, valid=None) -> tuple:
     """Append a batch.  Returns (log, ok): ok=False entries were rejected
     because the pending window would overflow (engine must drain first)."""
-    cap = log.keys.shape[0]
     if valid is None:
         valid = torch.ones(keys.shape, dtype=torch.bool, device=keys.device)
-    offsets = torch.cumsum(valid.to(I32), 0, dtype=I32) - 1
-    pending = log.tail - log.applied
-    fits = valid & (pending + offsets + 1 <= cap)
-    slot = torch.where(fits, (log.tail + offsets) % cap, cap)
+    new, ok = append_rows(UpdateLog(*[a[None] for a in log]), keys[None],
+                          addrs[None], ops[None], valid[None])
+    return UpdateLog(*[a[0] for a in new]), ok[0]
+
+
+def append_rows(logs: UpdateLog, keys, addrs, ops, valid) -> tuple:
+    """``append`` on D logs stacked along a leading axis (leaves [D, cap],
+    tail and applied [D]) with one batch per log (keys [D, n]): the same
+    row computation for every log at once."""
+    D, cap = logs.keys.shape
+    dev = logs.keys.device
+    offsets = torch.cumsum(valid.to(I32), 1, dtype=I32) - 1
+    tail = logs.tail[:, None]
+    fits = valid & ((tail - logs.applied[:, None]) + offsets + 1 <= cap)
+    rows = torch.arange(D, device=dev)[:, None] * cap
+    slot = torch.where(fits, rows + (tail + offsets) % cap, D * cap)
     new = UpdateLog(
-        keys=drop_set(log.keys, slot, keys),
-        addrs=drop_set(log.addrs, slot, addrs),
-        ops=drop_set(log.ops, slot, torch.where(fits, ops, 0)),
-        tail=log.tail + fits.sum(dtype=I32),
-        applied=log.applied,
+        keys=drop_set(logs.keys, slot, keys),
+        addrs=drop_set(logs.addrs, slot, addrs),
+        ops=drop_set(logs.ops, slot, torch.where(fits, ops, 0)),
+        tail=logs.tail + fits.sum(1, dtype=I32),
+        applied=logs.applied,
     )
     return new, fits | ~valid
 

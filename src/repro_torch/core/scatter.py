@@ -42,3 +42,14 @@ def drop_amax(base, idx, vals):
     buf.scatter_reduce_(0, _route(idx, n), vals.to(base.dtype), "amax",
                         include_self=True)
     return buf[:n].view(base.shape)
+
+
+def drop_set_rows(base, rows, vals):
+    """New [n, W] tensor equal to ``base`` with ``base[rows] = vals`` where
+    ``0 <= rows < n``: JAX's ``x.at[rows].set(vals, mode="drop")`` on
+    whole rows."""
+    n, W = base.shape
+    flat = rows.to(torch.int64)[:, None] * W + torch.arange(
+        W, device=base.device)
+    flat = torch.where(((rows >= 0) & (rows < n))[:, None], flat, n * W)
+    return drop_set(base, flat.reshape(-1), vals.reshape(-1))

@@ -1,0 +1,27 @@
+"""NamedTuple states stacked along leading axes: the port's stand-in for
+``jax.tree.map`` over the store's [G] and [R, G] leaves."""
+from __future__ import annotations
+
+import torch
+
+
+def at(state, *idx):
+    """The state of one group (``at(s, g)``) or one replica slot
+    (``at(s, r, g)``): views of every leaf, nothing copied."""
+    return type(state)(*[leaf[idx] for leaf in state])
+
+
+def stack(states):
+    """One state whose leaves stack the leaves of ``states`` along a new
+    leading axis; nested lists stack along several."""
+    if isinstance(states[0], (list, tuple)) and not hasattr(states[0],
+                                                            "_fields"):
+        states = [stack(s) for s in states]
+    return type(states[0])(*[torch.stack(leaves)
+                             for leaves in zip(*states)])
+
+
+def replicate(state, n: int):
+    """``n`` copies of ``state`` stacked along a new leading axis."""
+    return type(state)(*[leaf[None].expand((n,) + tuple(leaf.shape))
+                         .clone() for leaf in state])

@@ -49,6 +49,10 @@ SIGNATURES = {
         "histore_backup_probe": ([P] * 7 + [I64, INT, I64, I64, INT, INT, P],
                                  INT),
     },
+    "group_probe": {
+        "histore_group_probe": ([P] * 17 + [I64, INT, INT, INT, I64, I64, INT,
+                                            INT, P], INT),
+    },
 }
 
 _lock = threading.Lock()

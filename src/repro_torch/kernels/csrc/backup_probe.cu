@@ -4,129 +4,29 @@
 // _backup_combine :112, _pending_lookup :97, _descent :83).  Bit-exact
 // with repro_torch.kernels.ops.backup_probe_plain.
 //
-// Per lane: rep_sel[q, r] != 0 selects replica r, and a later selected
-// replica overwrites an earlier one, so only the LAST selected replica
-// decides the answer.  That replica first looks the key up in its pending
-// log window [applied, tail), newest entry wins: a PUT gives (addr, found),
-// a DEL (-1, not found).  On a miss it descends its sorted replica.  A
-// selected lane reports n_accesses = levels + 1; a lane with no replica
-// selected gives (-1, 0, 0).
-//
-// The reference compares against every ring slot and reads a slot outside
-// the window as KEY_INF.  So for q = KEY_INF and a window shorter than the
-// ring, the newest "match" is the slot at sequence position
-// applied + lcap - 1, whatever stale op and addr it holds.  This kernel
-// answers that case directly and scans only the live window otherwise.
+// Per lane the last selected replica answers: its pending log window,
+// newest entry first, else its sorted replica (the semantics, the
+// reference's KEY_INF quirk and the design are in window_scan.cuh, which
+// group_probe.cu shares).
 //
 // Bound: the descent's node reads (levels x fanout keys per lane that
 // misses the log) in bytes, and the window scan, Q x window int32
 // comparisons, in operations.  Design: a memset and two kernels on one
-// stream.
-//  1. scan_kernel: one thread per query, 128 queries a block, and the
-//     window split into SPLITS slices along blockIdx.y, so 16384 queries
-//     keep 2048 blocks in flight.  For each replica that some lane of the
-//     block selects, the block stages its slice newest first in
-//     shared-memory tiles of 4096 keys; each thread scans a tile four keys
-//     a load and keeps its newest match, and the block stops once every
-//     lane has one.  atomicMax combines the slices: best[q] is 1 + the
-//     newest match's position in the window, 0 for none.  No [Q, lcap]
-//     matrix.
-//  2. finish_kernel: one warp per query.  It answers from the log entry
-//     best[q] names (or the KEY_INF slot), else runs the sorted-search
-//     descent of descent.cuh on its replica.
+// stream: window_scan.cuh's scan_kernel (thread per query, the window
+// split into SPLITS slices along the grid, newest-first shared-memory
+// tiles, atomicMax of the newest match) and finish_kernel (warp per
+// query, histore::backup_finish).
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include "descent.cuh"
+#include "window_scan.cuh"
 
 namespace {
 
-constexpr int MAX_R = 8;
-constexpr int SCAN_THREADS = 128;
-constexpr int SPLITS = 16;
-constexpr int TILE = 4096;
-constexpr int8_t OP_PUT = 1;
-
-// one pointer set per replica; `applied` and `tail` are device scalars
-struct Replicas {
-  const int32_t* skeys[MAX_R];
-  const int32_t* saddrs[MAX_R];
-  const int32_t* lkeys[MAX_R];
-  const int32_t* laddrs[MAX_R];
-  const int8_t* lops[MAX_R];
-  const int32_t* applied[MAX_R];
-  const int32_t* tail[MAX_R];
-};
-
-// the last selected replica of lane qi, -1 for none
-__device__ __forceinline__ int last_selected(const int32_t* rep_sel,
-                                             int64_t qi, int R) {
-  int sel = -1;
-  for (int r = 0; r < R; ++r)
-    if (rep_sel[qi * R + r] != 0) sel = r;
-  return sel;
-}
-
-__global__ void scan_kernel(const int32_t* __restrict__ rkeys,
-                            const int32_t* __restrict__ rep_sel,
-                            Replicas rp, int32_t* __restrict__ best,
-                            int64_t Q, int R, int64_t lcap) {
-  __shared__ __align__(16) int32_t tile[TILE];
-  const int64_t qi = int64_t(blockIdx.x) * blockDim.x + threadIdx.x;
-  const bool live = qi < Q;
-  const int32_t q = live ? rkeys[qi] : 0;
-  const int sel = live ? last_selected(rep_sel, qi, R) : -1;
-  for (int r = 0; r < R; ++r) {
-    const bool mine = sel == r;
-    if (!__syncthreads_or(mine)) continue;  // block-uniform
-    const int64_t applied = *rp.applied[r];
-    const int64_t tail = *rp.tail[r];
-    // the reference looks at sequence positions [applied, applied + lcap)
-    const int64_t end = tail < applied + lcap ? tail : applied + lcap;
-    const int64_t len = end > applied ? end - applied : 0;
-    const int64_t per = (len + SPLITS - 1) / SPLITS;
-    const int64_t s_lo = applied + blockIdx.y * per;
-    const int64_t s_hi = s_lo + per < end ? s_lo + per : end;
-    const int32_t* __restrict__ lk = rp.lkeys[r];
-    bool open = mine;
-    for (int64_t hi = s_hi; hi > s_lo;) {
-      // also the barrier that keeps the last tile until all have read it
-      if (!__syncthreads_or(open)) break;
-      const int64_t lo = hi - TILE > s_lo ? hi - TILE : s_lo;
-      const int n = int(hi - lo);
-      const int64_t newest = (hi - 1) % lcap;
-      for (int i = threadIdx.x; i < n; i += blockDim.x) {
-        int64_t idx = newest - i;  // tile[i] holds position hi - 1 - i
-        if (idx < 0) idx += lcap;
-        tile[i] = lk[idx];
-      }
-      __syncthreads();
-      if (open) {
-        int hit = -1;
-        int i = 0;
-        for (; i + 4 <= n; i += 4) {
-          const int4 v = *reinterpret_cast<const int4*>(tile + i);
-          if (v.x == q) { hit = i; break; }
-          if (v.y == q) { hit = i + 1; break; }
-          if (v.z == q) { hit = i + 2; break; }
-          if (v.w == q) { hit = i + 3; break; }
-        }
-        if (hit < 0)
-          for (; i < n; ++i)
-            if (tile[i] == q) { hit = i; break; }
-        if (hit >= 0) {
-          atomicMax(best + qi, int(hi - 1 - hit - applied) + 1);
-          open = false;
-        }
-      }
-      hi = lo;
-    }
-  }
-}
-
 __global__ void finish_kernel(const int32_t* __restrict__ rkeys,
                               const int32_t* __restrict__ rep_sel,
-                              Replicas rp, const int32_t* __restrict__ best,
+                              histore::Replicas rp,
+                              const int32_t* __restrict__ best,
                               int32_t* __restrict__ out_addr,
                               int32_t* __restrict__ out_found,
                               int32_t* __restrict__ out_acc, int64_t Q,
@@ -135,82 +35,33 @@ __global__ void finish_kernel(const int32_t* __restrict__ rkeys,
   const int lane = threadIdx.x & 31;
   const int64_t qi =
       (int64_t(blockIdx.x) * blockDim.x + threadIdx.x) >> 5;
-  if (qi >= Q) return;  // every branch below is warp-uniform
-  const int sel = last_selected(rep_sel, qi, R);
-  if (sel < 0) {
-    if (lane == 0) {
-      out_addr[qi] = -1;
-      out_found[qi] = 0;
-      out_acc[qi] = 0;
-    }
-    return;
-  }
-  const int32_t q = rkeys[qi];
-  const int64_t applied = *rp.applied[sel];
-  const int64_t tail = *rp.tail[sel];
-  int64_t seq = -1;
-  if (q == histore::KEY_INF && tail - applied < lcap) {
-    // every ring slot outside the window reads as KEY_INF: the newest
-    // position of the reference's range matches, whatever it holds
-    seq = applied + lcap - 1;
-  } else if (best[qi] > 0) {
-    seq = applied + best[qi] - 1;
-  }
-  if (seq >= 0) {
-    if (lane == 0) {
-      const int64_t idx = seq % lcap;
-      const bool put = rp.lops[sel][idx] == OP_PUT;
-      out_addr[qi] = put ? rp.laddrs[sel][idx] : -1;
-      out_found[qi] = put ? 1 : 0;
-      out_acc[qi] = levels + 1;
-    }
-    return;
-  }
-  const int32_t* __restrict__ keys = rp.skeys[sel];
-  const int64_t pos = histore::descent(keys, q, cap, fanout, levels, lane);
+  if (qi >= Q) return;  // warp-uniform
+  const histore::Probe p = histore::backup_finish(
+      rep_sel, rp, best, qi, rkeys[qi], R, cap, lcap, fanout, levels, lane);
   if (lane == 0) {
-    const int64_t at = pos < cap ? pos : cap - 1;
-    const bool found = keys[at] == q;
-    out_addr[qi] = found ? rp.saddrs[sel][at] : -1;
-    out_found[qi] = found ? 1 : 0;
-    out_acc[qi] = levels + 1;
+    out_addr[qi] = p.addr;
+    out_found[qi] = p.found;
+    out_acc[qi] = p.acc;
   }
 }
 
 }  // namespace
 
-// ptrs: a HOST array of 7 * R device pointers, replica by replica:
-// skeys, saddrs, lkeys, laddrs, lops, applied, tail.  best: [Q] int32
-// scratch.
+// ptrs: a HOST array of 7 * R device pointers (histore::unpack_replicas).
+// best: [Q] int32 scratch.
 extern "C" int histore_backup_probe(const void* rkeys, const void* rep_sel,
                                     const void* const* ptrs, void* out_addr,
                                     void* out_found, void* out_acc,
                                     void* best, long long Q, int R,
                                     long long cap, long long lcap,
                                     int fanout, int levels, void* stream) {
-  if (R < 1 || R > MAX_R || cap < 1 || lcap < 1)
+  if (R < 1 || R > histore::MAX_R || cap < 1 || lcap < 1)
     return (int)cudaErrorInvalidValue;
-  Replicas rp{};
-  for (int r = 0; r < R; ++r) {
-    const void* const* p = ptrs + 7 * r;
-    rp.skeys[r] = (const int32_t*)p[0];
-    rp.saddrs[r] = (const int32_t*)p[1];
-    rp.lkeys[r] = (const int32_t*)p[2];
-    rp.laddrs[r] = (const int32_t*)p[3];
-    rp.lops[r] = (const int8_t*)p[4];
-    rp.applied[r] = (const int32_t*)p[5];
-    rp.tail[r] = (const int32_t*)p[6];
-  }
+  const histore::Replicas rp = histore::unpack_replicas(ptrs, R);
   if (Q > 0) {
     cudaStream_t s = (cudaStream_t)stream;
-    cudaError_t e = cudaMemsetAsync(best, 0, size_t(Q) * 4, s);
-    if (e != cudaSuccess) return (int)e;
-    const dim3 sgrid((unsigned)((Q + SCAN_THREADS - 1) / SCAN_THREADS),
-                     SPLITS);
-    scan_kernel<<<sgrid, SCAN_THREADS, 0, s>>>(
-        (const int32_t*)rkeys, (const int32_t*)rep_sel, rp,
-        (int32_t*)best, (int64_t)Q, R, (int64_t)lcap);
-    e = cudaGetLastError();
+    cudaError_t e =
+        histore::launch_window_scan(rkeys, rep_sel, rp, best, Q, R, lcap, s);
     if (e != cudaSuccess) return (int)e;
     const int threads = Q >= 8 ? 256 : 32;  // 8 queries per block
     const long long fblocks = (Q * 32 + threads - 1) / threads;

@@ -1,5 +1,7 @@
-// The directory descent over the sorted index, shared by sorted_search.cu
-// and backup_probe.cu (mirror of _descent, src/repro/kernels/_fused.py:83).
+// The directory descent over the sorted index, shared by sorted_search.cu,
+// backup_probe.cu and group_probe.cu (mirror of _descent,
+// src/repro/kernels/_fused.py:83), and the probe result the hash walk and
+// the backup finish return.
 //
 // Over ascending, INF-padded int32 keys, it descends the implicit
 // fanout-ary directory: at level l (stride fanout^l) the warp reads the
@@ -16,6 +18,13 @@
 namespace histore {
 
 constexpr int32_t KEY_INF = 0x7fffffff;
+
+// one query's answer: value address (-1 on a miss), found, n_accesses
+struct Probe {
+  int32_t addr;
+  int32_t found;
+  int32_t acc;
+};
 
 __device__ __forceinline__ int64_t descent(const int32_t* __restrict__ keys,
                                            int32_t q, int64_t cap,

@@ -6,17 +6,18 @@
 // For each query (bucket b, signature qsig, fingerprint qfp) it walks the
 // [CS] chain row of bucket b, matches sig and fp, and returns the first
 // matching slot's addr (or -1), found, and n_accesses: a hit costs
-// off / S + 1 sub-bucket reads, a miss ceil(max(fill[b], 1) / S).
+// off / S + 1 sub-bucket reads, a miss ceil(max(fill[b], 1) / S).  The
+// walk is histore::hash_walk (hash_walk.cuh), shared with group_probe.cu.
 //
 // Bound: memory.  Per query about 24 B of descriptors in and results out,
 // plus two 128 B rows (sig, fp), one addr and one fill word: every access
 // after the descriptors is a gather at a random bucket, so the card's
 // latency hides only behind many queries in flight.
-// Design: one warp per query.  The 32 lanes cover 32 chain slots a pass
-// (one pass at CS = 32), so each row is read as one coalesced 128 B
-// transaction per array; __ballot_sync + __ffs give the first match.
+// Design: one warp per query, the chain walk of hash_walk.cuh.
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "hash_walk.cuh"
 
 namespace {
 
@@ -35,33 +36,12 @@ __global__ void hash_probe_kernel(const int32_t* __restrict__ bucket,
   const int64_t q =
       (int64_t(blockIdx.x) * blockDim.x + threadIdx.x) >> 5;
   if (q >= Q) return;  // whole warps exit together: Q is per warp
-  const int64_t b = bucket[q];
-  const int32_t s = qsig[q];
-  const int32_t f = qfp[q];
-  const int32_t* srow = sig + b * cs;
-  const int32_t* frow = fp + b * cs;
-  int off = -1;
-  for (int base = 0; base < cs; base += 32) {
-    const int slot = base + lane;
-    bool m = false;
-    if (slot < cs) m = (srow[slot] == s) && (frow[slot] == f);
-    const unsigned hit = __ballot_sync(0xffffffffu, m);
-    if (hit) {
-      off = base + __ffs(hit) - 1;
-      break;
-    }
-  }
+  const histore::Probe p = histore::hash_walk(sig, fp, addr, fill, bucket[q],
+                                              qsig[q], qfp[q], cs, S, lane);
   if (lane == 0) {
-    if (off >= 0) {
-      out_addr[q] = addr[b * cs + off];
-      out_found[q] = 1;
-      out_acc[q] = off / S + 1;
-    } else {
-      const int occ = max(fill[b], 1);
-      out_addr[q] = -1;
-      out_found[q] = 0;
-      out_acc[q] = (occ + S - 1) / S;
-    }
+    out_addr[q] = p.addr;
+    out_found[q] = p.found;
+    out_acc[q] = p.acc;
   }
 }
 

@@ -2,15 +2,16 @@
 ``repro/kernels/ops.py``).
 
 Every routed op body calls THESE functions — ``probe`` / ``search`` /
-``range_query`` / ``merge`` / ``backup_probe`` — never a kernel
-directly.  Each takes the
+``range_query`` / ``merge`` / ``backup_probe`` / ``group_probe`` — never
+a kernel directly.  Each takes the
 HiStoreConfig and routes by the device of the tensors it is given:
 
   * a CUDA tensor launches the hand-written CUDA kernel
     (``kernels/csrc``), or raises — there is no fallback;
   * a CPU tensor takes the plain PyTorch version in
-    ``core/hash_index.py`` / ``core/sorted_index.py`` (the backup
-    probe's, ``backup_probe_plain``, is here).
+    ``core/hash_index.py`` / ``core/sorted_index.py`` (the backup and
+    group probes', ``backup_probe_plain`` and ``group_probe_plain``, are
+    here).
 
 ``cfg.use_kernels`` keeps its values so configs compare field for field
 with the JAX package: "on" and "auto" allow the routing above, "off"
@@ -37,7 +38,7 @@ from repro_torch.core.hashing import I32
 # launches of each CUDA kernel in this process (reset by callers that
 # count the launches of one run)
 LAUNCHES = {"hash_probe": 0, "sorted_search": 0, "merge": 0,
-            "backup_probe": 0}
+            "backup_probe": 0, "group_probe": 0}
 
 
 def kernels_enabled(cfg, device) -> bool:
@@ -178,23 +179,17 @@ def merge_cuda(ekeys, eaddrs, bkeys, baddrs, bops):
 BACKUP_MAX_REPLICAS = 8
 
 
-def backup_probe_cuda(keys, rep_sel, sorted_r, blogs_r, fanout: int):
-    """keys: [Q] int32; rep_sel: [Q, R] int32; sorted_r / blogs_r: R
-    SortedIndex / UpdateLog states (keys and addrs int32, ops int8,
-    applied and tail 0-d int32 on the card, read there).  One call takes
-    the R pointer sets: nothing is stacked.  Returns (addr, found int32,
-    n_accesses), each [Q] int32."""
+def _replica_ptrs(kernel, sorted_r, blogs_r):
+    """(R, cap, lcap, host array of the 7 R device pointers) of the R
+    replica and log states the backup and group probes take."""
     R = len(sorted_r)
     if R < 1 or R > BACKUP_MAX_REPLICAS or len(blogs_r) != R:
-        raise ValueError(f"backup_probe: 1..{BACKUP_MAX_REPLICAS} replicas "
+        raise ValueError(f"{kernel}: 1..{BACKUP_MAX_REPLICAS} replicas "
                          f"with one log each, got {R} and {len(blogs_r)}")
-    _check("keys", keys, I32)
-    _check("rep_sel", rep_sel, I32, 2)
-    Q = keys.shape[0]
     cap = sorted_r[0].keys.shape[0]
     lcap = blogs_r[0].keys.shape[0]
-    if rep_sel.shape != (Q, R) or cap < 1 or lcap < 1:
-        raise ValueError("backup_probe: inconsistent shapes")
+    if cap < 1 or lcap < 1:
+        raise ValueError(f"{kernel}: empty replica or log")
     ptrs = []
     for srt, blog in zip(sorted_r, blogs_r):
         for n, t, dtype, shape in (
@@ -207,10 +202,25 @@ def backup_probe_cuda(keys, rep_sel, sorted_r, blogs_r, fanout: int):
                 ("log tail", blog.tail, I32, ())):
             _check(n, t, dtype, len(shape))
             if tuple(t.shape) != shape:
-                raise ValueError(f"backup_probe: {n} has shape "
+                raise ValueError(f"{kernel}: {n} has shape "
                                  f"{tuple(t.shape)}, expected {shape}")
             ptrs.append(t.data_ptr())
-    host_ptrs = (ctypes.c_void_p * len(ptrs))(*ptrs)
+    return R, cap, lcap, (ctypes.c_void_p * len(ptrs))(*ptrs)
+
+
+def backup_probe_cuda(keys, rep_sel, sorted_r, blogs_r, fanout: int):
+    """keys: [Q] int32; rep_sel: [Q, R] int32; sorted_r / blogs_r: R
+    SortedIndex / UpdateLog states (keys and addrs int32, ops int8,
+    applied and tail 0-d int32 on the card, read there).  One call takes
+    the R pointer sets: nothing is stacked.  Returns (addr, found int32,
+    n_accesses), each [Q] int32."""
+    _check("keys", keys, I32)
+    _check("rep_sel", rep_sel, I32, 2)
+    R, cap, lcap, host_ptrs = _replica_ptrs("backup_probe", sorted_r,
+                                            blogs_r)
+    Q = keys.shape[0]
+    if rep_sel.shape != (Q, R):
+        raise ValueError("backup_probe: inconsistent shapes")
     levels = six.directory_levels(cap, fanout)
     out = torch.empty((4, Q), dtype=I32, device=keys.device)
     with torch.cuda.device(keys.device):
@@ -223,6 +233,43 @@ def backup_probe_cuda(keys, rep_sel, sorted_r, blogs_r, fanout: int):
     _raise_on(st, "backup_probe")
     LAUNCHES["backup_probe"] += 1
     return out[0], out[1], out[2]
+
+
+def group_probe_cuda(bucket, qsig, qfp, rkeys, rep_sel, sig, fp, addr, fill,
+                     sorted_r, blogs_r, slots_per_bucket: int, fanout: int):
+    """The fused GET probe of one group.  bucket/qsig/qfp/rkeys: [Q]
+    int32 (hash descriptors and raw keys); rep_sel: [Q, R] int32;
+    sig/fp/addr: [nb, CS] int32 and fill: [nb] int32 (the hash table);
+    sorted_r / blogs_r: the R replica and log states the device holds
+    (as backup_probe_cuda takes them).  Returns (h_addr, h_found,
+    h_acc, b_addr, b_found, b_acc), each [Q] int32."""
+    for n, t in (("bucket", bucket), ("qsig", qsig), ("qfp", qfp),
+                 ("rkeys", rkeys), ("fill", fill)):
+        _check(n, t, I32)
+    for n, t in (("sig", sig), ("fp", fp), ("addr", addr)):
+        _check(n, t, I32, 2)
+    _check("rep_sel", rep_sel, I32, 2)
+    R, cap, lcap, host_ptrs = _replica_ptrs("group_probe", sorted_r,
+                                            blogs_r)
+    Q = bucket.shape[0]
+    nb, cs = sig.shape
+    if (qsig.shape[0] != Q or qfp.shape[0] != Q or rkeys.shape[0] != Q
+            or rep_sel.shape != (Q, R) or fp.shape != sig.shape
+            or addr.shape != sig.shape or fill.shape[0] != nb):
+        raise ValueError("group_probe: inconsistent shapes")
+    levels = six.directory_levels(cap, fanout)
+    out = torch.empty((7, Q), dtype=I32, device=bucket.device)
+    with torch.cuda.device(bucket.device):
+        st = _c("group_probe", "histore_group_probe")(
+            bucket.data_ptr(), qsig.data_ptr(), qfp.data_ptr(),
+            rkeys.data_ptr(), rep_sel.data_ptr(), sig.data_ptr(),
+            fp.data_ptr(), addr.data_ptr(), fill.data_ptr(),
+            ctypes.cast(host_ptrs, ctypes.c_void_p),
+            *[out[i].data_ptr() for i in range(7)], Q, cs,
+            slots_per_bucket, R, cap, lcap, fanout, levels, _stream(bucket))
+    _raise_on(st, "group_probe")
+    LAUNCHES["group_probe"] += 1
+    return tuple(out[i] for i in range(6))
 
 
 def backup_probe_plain(cfg, sorted_r, blogs_r, keys, rep_sel):
@@ -246,6 +293,15 @@ def backup_probe_plain(cfg, sorted_r, blogs_r, keys, rep_sel):
         found_b = torch.where(sel, f_r, found_b)
         acc_b = torch.where(sel, c_s + 1, acc_b)
     return addr_b, found_b, acc_b
+
+
+def group_probe_plain(cfg, hidx, sorted_r, blogs_r, keys, rep_sel):
+    """The plain PyTorch version of the group probe (mirror of the JAX
+    package's jnp path of ``group_probe``): the hash lookup and the
+    backup probe.  Returns (h_addr, h_found bool, h_acc, b_addr, b_found
+    bool, b_acc)."""
+    return (*hix.lookup(hidx, keys, cfg),
+            *backup_probe_plain(cfg, sorted_r, blogs_r, keys, rep_sel))
 
 
 # ---------------------------------------------------------------------------
@@ -305,3 +361,19 @@ def backup_probe(cfg, sorted_r, blogs_r, keys, rep_sel):
         keys.to(I32).contiguous(), rep_sel.to(I32).contiguous(),
         sorted_r, blogs_r, cfg.fanout)
     return addr, found.bool(), acc
+
+
+def group_probe(cfg, hidx, sorted_r, blogs_r, keys, rep_sel):
+    """The fused GET probe: the hash chain walk and the replica-select
+    backup probe of one group in one kernel call (the op body combines
+    the pair with its own ``am_primary`` mask).  Returns (h_addr,
+    h_found bool, h_acc, b_addr, b_found bool, b_acc).  Bit-exact with
+    group_probe_plain."""
+    if not kernels_enabled(cfg, keys.device):
+        return group_probe_plain(cfg, hidx, sorted_r, blogs_r, keys, rep_sel)
+    b, sig, fp = hix.descriptors(hidx, keys)
+    ha, hf, hc, ba, bf, bc = group_probe_cuda(
+        b, sig, fp, keys.to(I32).contiguous(), rep_sel.to(I32).contiguous(),
+        hidx.sig, hidx.fp, hidx.addr, hidx.fill, sorted_r, blogs_r,
+        cfg.slots_per_bucket, cfg.fanout)
+    return ha, hf.bool(), hc, ba, bf.bool(), bc

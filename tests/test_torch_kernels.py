@@ -196,6 +196,62 @@ def test_backup_probe_matches_pallas(windows):
     assert (got[2] == 0).any() and (got[2] > 0).any()
 
 
+# (applied, tail) per replica, lcap = 64, for the group probe: wrapped,
+# empty, full and short windows
+GROUP_WINDOWS = [[(50, 100), (37, 37)], [(10, 74), (3, 20)],
+                 [(60, 70), (120, 129)]]
+
+
+@pytest.mark.parametrize("windows", GROUP_WINDOWS)
+@pytest.mark.parametrize("select", ["none", "mixed"])
+def test_group_probe_matches_pallas(windows, select):
+    """The port's group probe (its plain version on the CPU) against the
+    JAX package's fused Pallas kernel in interpret mode and its jnp
+    path: all six outputs equal, with rep_sel all zero (the healthy GET's
+    real lanes) or mixed, wrapped windows and q = 2**31 - 1."""
+    lcap, cap = 64, 4096
+    rng = np.random.default_rng(len(windows) * 10 + windows[0][0]
+                                + (select == "mixed"))
+    hkeys, jh, th = _hash_state(rng, cap=2048, n=900, n_del=200)
+    pool = np.concatenate([hkeys[:1500], rng.choice(
+        10 ** 6, 1500, replace=False).astype(np.int32)])
+    pool = np.unique(pool)
+    js, jl, ts, tl = _replica_states(rng, cap, lcap, windows, pool)
+    R = len(windows)
+    q = np.concatenate([rng.choice(hkeys, 200), rng.choice(pool, 200),
+                        rng.integers(0, 2 ** 31 - 1, 60),
+                        [INF, INF, 0, -1, INF - 1]]).astype(np.int32)
+    rng.shuffle(q)
+    if select == "none":
+        sel = np.zeros((len(q), R), np.int32)
+    else:
+        sel = rng.integers(0, 2, (len(q), R)).astype(np.int32)
+        sel[np.flatnonzero(q == INF)] = 1
+    got = ops.group_probe(CFG, th, ts, tl, torch.as_tensor(q),
+                          torch.as_tensor(sel))
+    jq, jsel = jnp.asarray(q), jnp.asarray(sel)
+    _eq(got, jops.group_probe(JCFG, jh, js, jl, jq, jsel),
+        "group_probe pallas")
+    _eq(got, jops.group_probe(jscaled(use_kernels="off"), jh, js, jl, jq,
+                              jsel), "group_probe jnp")
+    _eq(got[:3], ops.probe(CFG, th, torch.as_tensor(q)), "hash half")
+    assert got[1].any() and not got[1].all()
+    if select == "none":
+        assert not got[4].any() and not got[5].any()
+    else:
+        assert got[4].any() and (got[5] > 0).any()
+
+
+def test_group_probe_wrapper_refuses_cpu_tensors():
+    before = dict(ops.LAUNCHES)
+    x = torch.zeros(4, dtype=torch.int32)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        ops.group_probe_cuda(x, x, x, x, x[:, None], x[None], x[None],
+                             x[None], x[:1], (six.create(4, "cpu"),),
+                             (lg.create(4, "cpu"),), 8, 128)
+    assert ops.LAUNCHES == before
+
+
 def test_pending_lookup_key_inf_reads_a_stale_slot():
     """The reference reads every ring slot outside [applied, tail) as
     key_inf, so q = 2**31 - 1 "hits" the slot at sequence position
@@ -318,4 +374,46 @@ def test_cuda_backup_probe_matches_plain(cuda_device):
             ops.backup_probe_plain(CFG, ts, tl, q, sel),
             f"cuda backup_probe lcap={lcap} windows={windows}")
         assert ops.LAUNCHES["backup_probe"] == n0 + 1
+    torch.cuda.synchronize()
+
+
+@pytest.mark.requires_cuda
+def test_cuda_group_probe_matches_plain(cuda_device):
+    """The group-probe kernel against its plain version on the card: the
+    group windows, a ring larger than one shared-memory tile, rep_sel
+    zero and random, 5000 queries with hits of the hash and the logs,
+    then 3000 more lanes of q = 2**31 - 1 that all select a replica (an
+    exchange buffer's padding, whole scan blocks of it)."""
+    rng = np.random.default_rng(11)
+    hkeys, _, th = _hash_state(rng, cap=1 << 14, n=6000, n_del=1000)
+    th = hix.HashIndex(*[a.to(cuda_device) for a in th])
+    pool = np.unique(np.concatenate([hkeys, rng.choice(
+        10 ** 6, 50000, replace=False).astype(np.int32)]))
+    cases = [(64, w) for w in GROUP_WINDOWS] + [
+        (1 << 14, [(1000, 1000 + (1 << 14) - 7), (30000, 40000)])]
+    for lcap, windows in cases:
+        _, _, ts, tl = _replica_states(rng, 1 << 16, lcap, windows, pool)
+        ts = tuple(six.SortedIndex(*[a.to(cuda_device) for a in s])
+                   for s in ts)
+        tl = tuple(lg.UpdateLog(*[a.to(cuda_device) for a in lo])
+                   for lo in tl)
+        q = torch.as_tensor(np.concatenate(
+            [rng.choice(hkeys, 2000), rng.choice(pool, 2000),
+             rng.integers(-5, 10 ** 6, 995), [INF, INF, 0, -1, INF - 1]]
+        ).astype(np.int32), device=cuda_device)
+        R = len(ts)
+        mixed = torch.as_tensor(rng.integers(0, 2, (q.shape[0], R)
+                                             ).astype(np.int32),
+                                device=cuda_device)
+        pad = torch.full((3000,), INF, dtype=torch.int32, device=cuda_device)
+        pad_sel = torch.zeros((3000, R), dtype=torch.int32,
+                              device=cuda_device)
+        pad_sel[:, 0] = 1                  # replica 0's window may be full
+        for qs, sel in ((q, torch.zeros_like(mixed)), (q, mixed),
+                        (torch.cat([q, pad]), torch.cat([mixed, pad_sel]))):
+            n0 = ops.LAUNCHES["group_probe"]
+            _eq(ops.group_probe(CFG, th, ts, tl, qs, sel),
+                ops.group_probe_plain(CFG, th, ts, tl, qs, sel),
+                f"cuda group_probe lcap={lcap} windows={windows}")
+            assert ops.LAUNCHES["group_probe"] == n0 + 1
     torch.cuda.synchronize()
