@@ -56,7 +56,28 @@
    Then one group at Q = 16384 with replicas selected for about half the
    lanes, pending windows set to wrap the ring, q = 2**31 - 1 among the
    queries, timed as in 6.
-10. The last two lines: the kernels as JSON, then the device as JSON.
+10. The serving path of falcon-mamba-7b (configs/falcon_mamba_7b.py) at
+    full width and depth in bf16, the weights drawn on the card from
+    ``--seed`` (parameter count and peak memory logged): a warm-up
+    prefill and the chunked ``ssm_impl="jnp"`` scan at S = 2048 (timed,
+    information only); one sequence of prefill_32k (B = 1, S = 32768)
+    through ``prefill`` with ``ssm_impl="pallas"``, the scan's launch
+    count set to 0 before it and 64 after, finite logits, seconds and
+    tokens/s; the scan kernel against its plain version on layer 0's
+    inputs of that prefill (within one bf16 ulp of the plain value plus
+    2e-5), timed as in 4, its bound the larger of its bytes and its
+    exponentials at the SFU's rate (SMs x 16 a clock x the SM's maximum
+    clock); ``ServingEngine(4 slots, max_len 256, page 16)`` over 8
+    prompts of 16-48 tokens and 2 of them again, 32 new tokens each, the
+    directory's launch counts set to 0 before it: every request
+    completes, prefix hits >= 2, every registered page freed by the
+    release SCANs, the free list whole, the hash holding at most the
+    prefix keys, the hash probe, search and merge launched; decode
+    steps/s and tokens/s.  Then prefill's last-position logits against
+    the engine's decode logits after each first-wave prompt (fresh
+    slots): logged at bf16 over 64 layers, checked within 5e-4 at
+    float32 on a 4-layer model of the same widths.
+11. The last two lines: the kernels as JSON, then the device as JSON.
 
 Exits nonzero, printing no result, without CUDA or outside a checkout.
 """
@@ -1065,6 +1086,322 @@ def compare_group_probe(torch, wl, cfg, launches, probe_at):
                 mixed_compares=compares)
 
 
+SERVE_ARCH = "falcon-mamba-7b"
+SERVE_SLOTS, SERVE_MAX_LEN, SERVE_PAGE = 4, 256, 16
+SERVE_REQUESTS = 8               # first run: two waves over the 4 slots
+SERVE_REPEATS = 2                # prompts of the first wave sent again
+SERVE_MAX_NEW = 32
+INFO_S = 2048                    # the chunked jnp scan's length (info only)
+CROSS_LAYERS = 4                 # depth of the float32 cross-check model
+CROSS_TOL = 5e-4                 # rtol and atol of that cross-check
+# the SFU's exponentials per clock per SM, compute capability 9.0 (CUDA C++
+# Programming Guide, arithmetic instruction throughput table)
+SFU_PER_CLOCK_PER_SM = 16
+
+
+def bf16_ulp(torch, a):
+    """One bf16 ulp at each value of ``a`` (float32)."""
+    e = torch.floor(torch.log2(a.abs().clamp_min(2.0 ** -126)))
+    return torch.exp2(e - 7)
+
+
+def sfu_exp_per_s(torch):
+    """The card's exponentials per second: SMs x 16 a clock x the SM's
+    maximum clock (nvidia-smi)."""
+    mhz = float(subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,"
+         "nounits"], capture_output=True, text=True, check=True,
+        timeout=60).stdout.split()[0])
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    return sms * SFU_PER_CLOCK_PER_SM * mhz * 1e6, sms, mhz
+
+
+def scan_bound(torch, x, B_ssm, sfu_rate):
+    """(bound ms, bytes ms, exps ms, bytes, exps) of one mamba_scan call:
+    x, dt and y read or written once, B and C, A; one exponential per
+    (b, t, d, n)."""
+    Bsz, S, di = x.shape
+    N = B_ssm.shape[-1]
+    xb = x.element_size()
+    nbytes = Bsz * S * di * (xb + 4 + xb) + 2 * Bsz * S * N * xb + di * N * 4
+    exps = Bsz * S * di * N
+    b_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    b_exp = exps / sfu_rate * 1e3
+    return max(b_bytes, b_exp), b_bytes, b_exp, nbytes, exps
+
+
+def prompt_set(rng, vocab):
+    """The engine's requests: SERVE_REQUESTS prompts of 16-48 tokens, then
+    SERVE_REPEATS of the first wave's prompts again."""
+    first = [rng.integers(0, vocab, int(n)).tolist()
+             for n in rng.integers(16, 49, SERVE_REQUESTS)]
+    return first, first[:SERVE_REPEATS]
+
+
+def drive_engine(torch, e, first, again):
+    """Run the first set, then the repeats; returns (requests, per-step
+    (slot -> (rid, pos), logits) log, seconds)."""
+    log, step = [], e._step
+
+    def recorded(m, c, i):
+        who = {s: (r.rid, r.pos) for s, r in enumerate(e.slots)
+               if r is not None}
+        logits, c = step(m, c, i)
+        log.append((who, logits))
+        return logits, c
+
+    e._step = recorded
+    reqs = []
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for batch in (first, again):
+        for prompt in batch:
+            e.submit(prompt, max_new=SERVE_MAX_NEW)
+            reqs.append(e.queue[-1])
+        e.run()
+    torch.cuda.synchronize()
+    return reqs, log, time.perf_counter() - t0
+
+
+def prompt_end_logits(log, rid, n):
+    for who, logits in log:
+        for slot, (r, pos) in who.items():
+            if r == rid and pos == n - 1:
+                return logits[slot]
+    raise RuntimeError(f"request {rid} never fed its prompt's end")
+
+
+def check_engine(e, reqs, label):
+    s = e.stats
+    for r in reqs:
+        check(r.done and (len(r.tokens) >= r.max_new
+                          or r.pos >= e.max_len - 1),
+              f"{label}: request {r.rid} did not complete")
+    check(not e.queue and all(r is None for r in e.slots),
+          f"{label}: requests left in the engine")
+    check(s["prefix_hits"] >= SERVE_REPEATS,
+          f"{label}: prefix hits {s['prefix_hits']}")
+    # the directory drains: every registered page freed by the release
+    # SCANs, the free list whole, the hash at most the prefix keys
+    from repro_torch.core import hash_index as hix
+    n_prefix = len({tuple(r.prompt) for r in reqs})
+    n_hash = int(hix.n_items(e.directory.hash))
+    check(s["pages_freed"] >= s["pages_registered"] > 0
+          and len(e.free_pages) == e.n_pages and n_hash <= n_prefix,
+          f"{label}: directory did not drain: {s}, {len(e.free_pages)} "
+          f"free of {e.n_pages}, {n_hash} hash items > {n_prefix} prefixes")
+    return n_hash
+
+
+def serving(torch, seed):
+    """The serving path of falcon-mamba-7b at full width and depth, bf16,
+    weights drawn on the card from ``seed``: a warm-up prefill and the
+    chunked jnp scan at S = 2048 (info), the 32768-token prefill through
+    the CUDA scan (64 launches), the kernel against its plain version on
+    layer 0's inputs of that prefill, the ServingEngine over its HiStore
+    page directory, and the cross-check of prefill against decode.
+    Returns (the mamba_scan record, timings, the directory's launches)."""
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import SHAPES
+    from repro_torch.kernels import mamba_scan as ms
+    from repro_torch.kernels import ops
+    from repro_torch.models import ssm
+    from repro_torch.models import transformer as tr
+    from repro_torch.serving.engine import ServingEngine
+    from repro_torch.serving.serve_step import prefill
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = get_config(SERVE_ARCH).scaled(ssm_impl="pallas")
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = tr.init_params(cfg, gen, device=dev)
+    torch.cuda.synchronize()
+    t_init = time.perf_counter() - t0
+    n_params = tr.count_params(model)
+    p_bytes = sum(p.numel() * p.element_size() for p in model.parameters())
+    check(6e9 <= n_params <= 9e9 and len(model.layers) == cfg.n_layers,
+          f"serve: {n_params} parameters, {len(model.layers)} layers")
+    log(f"serve: {SERVE_ARCH} built on the card in {t_init:.3f} s: "
+        f"{cfg.n_layers} layers, d_model {cfg.d_model}, vocab "
+        f"{cfg.vocab_size}, {n_params} parameters, {p_bytes} B "
+        f"({cfg.dtype}); peak {torch.cuda.max_memory_allocated()} B")
+
+    # -- warm-up and the chunked jnp scan at S = INFO_S (information) ------
+    tok = torch.randint(0, cfg.vocab_size, (1, INFO_S), generator=gen,
+                        device=dev)
+    info = {}
+    for impl in ("pallas", "jnp", "pallas"):
+        c = cfg.scaled(ssm_impl=impl)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = prefill(c, model, {"tokens": tok})
+        torch.cuda.synchronize()
+        info[impl] = (time.perf_counter() - t0, out)
+    d_info = float((info["jnp"][1] - info["pallas"][1]).abs().max())
+    log(f"serve: prefill at S = {INFO_S} (info): pallas {info['pallas'][0]:.3f}"
+        f" s, jnp (chunked scan, {cfg.ssm_chunk}-step chunks) "
+        f"{info['jnp'][0]:.3f} s; logits differ by at most {d_info:.4g}")
+    del info, out
+
+    # -- the prefill: one sequence of prefill_32k --------------------------
+    shape = SHAPES["prefill_32k"]
+    S = shape.seq_len
+    tok = torch.randint(0, cfg.vocab_size, (1, S), generator=gen, device=dev)
+    captured = []
+    scan = ssm.mamba_scan
+
+    def capture(*args):
+        if not captured:
+            captured.extend(args)        # layer 0's inputs, as passed
+        return scan(*args)
+
+    ssm.mamba_scan = capture
+    torch.cuda.reset_peak_memory_stats()
+    zero_launches(ops)
+    ms.LAUNCHES["mamba_scan"] = 0
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits = prefill(cfg, model, {"tokens": tok})
+        torch.cuda.synchronize()
+        t_prefill = time.perf_counter() - t0
+    finally:
+        ssm.mamba_scan = scan
+    n_scan = ms.LAUNCHES["mamba_scan"]
+    peak_prefill = torch.cuda.max_memory_allocated()
+    check(n_scan == cfg.n_layers,
+          f"serve: mamba_scan launched {n_scan} times, not {cfg.n_layers}")
+    check(logits.shape == (1, cfg.vocab_size)
+          and bool(torch.isfinite(logits).all()), "serve: prefill logits")
+    log(f"serve: prefill of B = 1 x S = {S} (prefill_32k cut from batch "
+        f"{shape.global_batch} to 1) in {t_prefill:.3f} s "
+        f"({S / t_prefill:.0f} tokens/s), mamba_scan launched {n_scan} times,"
+        f" peak {peak_prefill} B ({peak_prefill / 2**30:.3f} GiB)")
+
+    # -- the kernel against its plain version on layer 0's inputs ----------
+    x, dt, B_ssm, C_ssm, A = captured
+    del captured
+    got = ms.mamba_scan_cuda(x, dt, B_ssm, C_ssm, A)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    want = ms.mamba_scan_plain(x, dt, B_ssm, C_ssm, A)
+    torch.cuda.synchronize()
+    plain = (time.perf_counter() - t0) * 1e3
+    g32, w32 = got.float(), want.float()
+    diff = (g32 - w32).abs()
+    tol = bf16_ulp(torch, w32) + 2e-5
+    n_off = int((diff > 0).sum())
+    check(got.dtype == x.dtype == torch.bfloat16 and got.shape == x.shape,
+          "serve: mamba_scan output type or shape")
+    check(bool((diff <= tol).all()),
+          f"serve: mamba_scan differs from its plain version beyond one "
+          f"bf16 ulp: max abs err {float(diff.max()):.4g}")
+    err = float(diff.max())
+    del got, want, g32, w32, diff, tol
+
+    def kern():
+        return ms.mamba_scan_cuda(x, dt, B_ssm, C_ssm, A)
+
+    k_ms = time_ms(torch, kern, 10, warmup=1)
+    k_dev = device_ms(torch, kern, 10)
+    rate, sms, mhz = sfu_exp_per_s(torch)
+    bound, b_bytes, b_exp, nbytes, exps = scan_bound(torch, x, B_ssm, rate)
+    log(f"kernel mamba_scan: layer 0 of the prefill, x {tuple(x.shape)} "
+        f"{x.dtype}, N = {B_ssm.shape[-1]}: within one bf16 ulp of the plain "
+        f"version ({n_off} of {x.numel()} outputs differ, max abs err "
+        f"{err:.4g}); {k_ms:.4f} ms per call, device {k_dev:.4f} ms, plain "
+        f"{plain:.1f} ms; bound {bound:.4f} ms (exponentials {b_exp:.4f} ms "
+        f"for {exps} at {rate:.4g}/s: {sms} SMs x {SFU_PER_CLOCK_PER_SM} a "
+        f"clock x {mhz:.0f} MHz; bytes {b_bytes:.4f} ms for {nbytes} B); "
+        f"library: none (no PyTorch call computes a selective scan)")
+    record = dict(name="mamba_scan", route="cuda",
+                  source="src/repro_torch/kernels/csrc/mamba_scan.cu",
+                  replaces="src/repro/kernels/mamba_scan.py:53",
+                  launches=n_scan, max_abs_err=err, ms=k_ms, plain_ms=plain,
+                  bound_ms=bound,
+                  bound_by="bytes" if b_bytes >= b_exp else "operations",
+                  library_ms=None, device_ms=k_dev, shape=list(x.shape),
+                  N=B_ssm.shape[-1], outputs_differing=n_off,
+                  bound_bytes_ms=b_bytes, bound_exp_ms=b_exp)
+    del x, dt, B_ssm, C_ssm, A, kern
+
+    # -- the engine over its HiStore page directory ------------------------
+    rng = np.random.default_rng(seed)
+    first, again = prompt_set(rng, cfg.vocab_size)
+    e = ServingEngine(cfg, model, batch_slots=SERVE_SLOTS,
+                      max_len=SERVE_MAX_LEN, page_size=SERVE_PAGE,
+                      device=dev)
+    zero_launches(ops)
+    ms.LAUNCHES["mamba_scan"] = 0
+    reqs, steps, t_eng = drive_engine(torch, e, first, again)
+    d_launches = dict(ops.LAUNCHES)
+    n_hash = check_engine(e, reqs, "serve engine")
+    n_tok = sum(len(r.tokens) for r in reqs)
+    n_steps = e.stats["decode_steps"]
+    log(f"serve: ServingEngine({SERVE_SLOTS} slots, max_len {SERVE_MAX_LEN},"
+        f" page {SERVE_PAGE}) answered {len(reqs)} requests in {t_eng:.3f} "
+        f"s: {n_steps} decode steps ({n_steps / t_eng:.2f} steps/s), "
+        f"{n_tok} tokens generated ({n_tok / t_eng:.1f} tokens/s), "
+        f"{sum(len(r.prompt) for r in reqs)} prompt tokens; stats "
+        f"{json.dumps(e.stats)}; directory launches {d_launches}; "
+        f"{n_hash} prefix keys left in the hash")
+    for k in ("hash_probe", "sorted_search", "merge"):
+        check(d_launches[k] > 0, f"serve: the directory never ran {k}")
+    check(ms.LAUNCHES["mamba_scan"] == 0, "serve: decode ran the scan")
+
+    # -- prefill against decode, bf16 at full depth (information) ----------
+    gaps = []
+    for rid in range(SERVE_SLOTS):          # the first wave: fresh slots
+        p = first[rid]
+        want = prefill(cfg, model, {"tokens": torch.tensor([p], device=dev)})
+        got = prompt_end_logits(steps, rid, len(p))
+        gaps.append(float((got - want[0]).abs().max()
+                          / want.abs().max()))
+    log(f"serve: bf16, {cfg.n_layers} layers: decode logits after each "
+        f"first-wave prompt against prefill's, max abs gap over max |logit|"
+        f" {[round(g, 5) for g in gaps]} (information)")
+    peak = torch.cuda.max_memory_allocated()
+    stats = dict(e.stats)
+    del e, steps, model
+    torch.cuda.empty_cache()
+
+    # -- the cross-check at float32, CROSS_LAYERS layers of full width ----
+    ccfg = cfg.scaled(n_layers=CROSS_LAYERS, dtype="float32")
+    cmodel = tr.init_params(ccfg, gen, device=dev)
+    ce = ServingEngine(ccfg, cmodel, batch_slots=SERVE_SLOTS,
+                       max_len=SERVE_MAX_LEN, page_size=SERVE_PAGE,
+                       device=dev)
+    creqs, csteps, _ = drive_engine(torch, ce, first, again)
+    check_engine(ce, creqs, "serve cross-check engine")
+    cross = 0.0
+    for rid in range(SERVE_SLOTS):
+        p = first[rid]
+        want = prefill(ccfg, cmodel, {"tokens": torch.tensor([p],
+                                                             device=dev)})[0]
+        got = prompt_end_logits(csteps, rid, len(p))
+        gap = (got - want).abs()
+        check(bool((gap <= CROSS_TOL + CROSS_TOL * want.abs()).all()),
+              f"serve: request {rid}: decode logits differ from prefill's "
+              f"by {float(gap.max()):.4g} (float32, {CROSS_LAYERS} layers)")
+        cross = max(cross, float(gap.max()))
+    log(f"serve: float32, {CROSS_LAYERS} layers of full width: decode logits"
+        f" after each of the {SERVE_SLOTS} first-wave prompts equal "
+        f"prefill's within {CROSS_TOL} (max abs gap {cross:.4g})")
+    del ce, cmodel, csteps
+    torch.cuda.empty_cache()
+    times = dict(init_s=t_init, params=n_params, param_bytes=p_bytes,
+                 prefill_s=t_prefill, prefill_tokens_per_s=S / t_prefill,
+                 prefill_peak_bytes=peak_prefill, engine_s=t_eng,
+                 requests=len(reqs), decode_steps=n_steps,
+                 decode_steps_per_s=n_steps / t_eng, tokens=n_tok,
+                 tokens_per_s=n_tok / t_eng, peak_bytes=peak,
+                 bf16_gaps=gaps, f32_cross_max_abs=cross, stats=stats)
+    return record, times, d_launches
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1122,9 +1459,15 @@ def main(argv=None) -> int:
             if x not in ("name", "route", "source", "replaces")}
     kernels.append(compare_group_probe(torch, dwl, dist_cfg, d_launches,
                                        probe_at))
+    del dwl, probe_at               # the distributed store leaves the card
+    torch.cuda.empty_cache()
+    scan_rec, s_times, s_launches = serving(torch, args.seed)
+    log(f"serve: {json.dumps(s_times)}")
     for k in kernels:
         k["launches_fail_recover"] = fr_launches[k["name"]]
         k["launches_distributed"] = d_launches[k["name"]]
+        k["launches_serving"] = s_launches[k["name"]]
+    kernels.append(scan_rec)
     torch.cuda.synchronize()
     log(f"total: {time.perf_counter() - t_start:.1f} s")
     print(smi)

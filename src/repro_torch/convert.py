@@ -1,10 +1,11 @@
-"""Carry a store's state across from the JAX package (the port's
-counterpart of carrying weights across).
+"""Carry state across from the JAX package: a store's state, and a
+model's weights and decode cache.
 
 Every function takes the state as numpy leaves with the JAX package's
-field names — e.g. ``jax.tree.map(np.asarray, backend.group)`` or
-``jax.tree.map(np.asarray, backend.store)`` — and builds the port's
-state on ``device``.  This module reads attributes only; it imports
+field names — e.g. ``jax.tree.map(np.asarray, backend.group)``,
+``jax.tree.map(np.asarray, backend.store)`` or
+``jax.tree.map(np.asarray, params)`` — and builds the port's state on
+``device``.  This module reads attributes and keys only; it imports
 nothing of the JAX package.
 """
 from __future__ import annotations
@@ -108,3 +109,87 @@ def distributed_backend_from_numpy(store, cfg, device, *,
     be._pending_bound = (be.pending_ops() if pending_bound is None
                          else pending_bound)
     return be
+
+
+# ---------------------------------------------------------------------------
+# Models
+# ---------------------------------------------------------------------------
+def _tensor(a, device):
+    """A tensor from a numpy leaf; bf16 arrives as ml_dtypes' bfloat16,
+    which torch reads through its bits."""
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16":
+        return torch.from_numpy(a.view(np.uint16).copy()).view(
+            torch.bfloat16).to(device)
+    return _t(a, device)
+
+
+def _layer_leaves(stages, cfg):
+    """One leaf dict per layer, in layer order, from the JAX package's
+    stage list: a "single" stage holds one layer's dict, a "scan" stage a
+    tuple (one entry per pattern position) of dicts stacked [n_rep, ...];
+    repeat r of the pattern runs its positions in order."""
+    from repro_torch.configs.base import layer_plan
+
+    plan = layer_plan(cfg)
+    if len(plan) != len(stages):
+        raise ValueError(f"{len(stages)} stages, the plan has {len(plan)}")
+    out = []
+    for st, sp in zip(plan, stages):
+        if st.kind == "single":
+            out.append(sp)
+            continue
+        for r in range(st.n_rep):
+            for pos in range(len(st.pattern)):
+                out.append(_tree_index(sp[pos], r))
+    return out
+
+
+def _tree_index(tree, r):
+    if isinstance(tree, dict):
+        return {k: _tree_index(v, r) for k, v in tree.items()}
+    return np.asarray(tree)[r]
+
+
+def params_from_numpy(params, cfg, device=None):
+    """A ``Model`` on ``device`` (the card unless the caller names another)
+    holding a JAX ``init_params`` tree's weights (numpy leaves), the
+    scanned stages' [n_rep, ...] leaves unstacked into layers."""
+    from repro_torch.models.transformer import Model
+
+    model = Model(cfg, device=device)
+    dev = model.device
+
+    def load(param, a):
+        t = _tensor(a, dev)
+        if t.shape != param.shape or t.dtype != param.dtype:
+            raise ValueError(f"leaf {tuple(t.shape)} {t.dtype} does not fit "
+                             f"{tuple(param.shape)} {param.dtype}")
+        param.data = t
+
+    if hasattr(model, "embed"):
+        load(model.embed, params["embed"]["table"])
+    if hasattr(model, "lm_head"):
+        load(model.lm_head, params["lm_head"]["table"])
+    load(model.final_norm, params["final_norm"]["scale"])
+    layers = _layer_leaves(params["stages"], cfg)
+    if len(layers) != len(model.layers):
+        raise ValueError(f"{len(layers)} layers, the model has "
+                         f"{len(model.layers)}")
+    for block, leaves in zip(model.layers, layers):
+        load(block.ln1, leaves["ln1"]["scale"])
+        if set(leaves["mixer"]) != set(block.mixer.keys()):
+            raise ValueError(f"mixer leaves {sorted(leaves['mixer'])}")
+        for k, a in leaves["mixer"].items():
+            load(block.mixer[k], a)
+    return model
+
+
+def cache_from_numpy(cache, cfg, device=None):
+    """The port's decode cache (one dict per layer) on ``device`` from a
+    JAX ``init_cache`` / ``decode_step`` cache (numpy leaves)."""
+    from repro_torch.core.client import _resolve_device
+
+    dev = _resolve_device(device, "cache_from_numpy")
+    return [{k: _tensor(v, dev) for k, v in layer.items()}
+            for layer in _layer_leaves(cache, cfg)]

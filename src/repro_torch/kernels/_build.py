@@ -53,6 +53,9 @@ SIGNATURES = {
         "histore_group_probe": ([P] * 17 + [I64, INT, INT, INT, I64, I64, INT,
                                             INT, P], INT),
     },
+    "mamba_scan": {
+        "histore_mamba_scan": ([P] * 6 + [INT] * 5 + [P], INT),
+    },
 }
 
 _lock = threading.Lock()

@@ -417,3 +417,110 @@ def test_cuda_group_probe_matches_plain(cuda_device):
                 f"cuda group_probe lcap={lcap} windows={windows}")
             assert ops.LAUNCHES["group_probe"] == n0 + 1
     torch.cuda.synchronize()
+
+
+# ---------------------------------------------------------------------------
+# mamba_scan (the Mamba-1 selective scan of the model path)
+# ---------------------------------------------------------------------------
+def _scan_inputs(rng, B, S, di, N):
+    """The JAX test's inputs (tests/test_kernels.py:124): x, B, C normal,
+    dt = 0.05 |normal|, A = -exp(uniform)."""
+    return (rng.randn(B, S, di).astype(np.float32),
+            (np.abs(rng.randn(B, S, di)) * 0.05).astype(np.float32),
+            rng.randn(B, S, N).astype(np.float32),
+            rng.randn(B, S, N).astype(np.float32),
+            -np.exp(rng.rand(di, N).astype(np.float32)))
+
+
+@pytest.mark.parametrize("B,S,di,N", [(2, 64, 128, 8), (1, 256, 256, 16),
+                                      (3, 32, 384, 4)])
+def test_mamba_scan_plain_matches_ref_and_pallas(B, S, di, N):
+    """The plain version against ``ref_mamba_scan`` and the Pallas kernel
+    in interpret mode, at the JAX test's shapes and tolerance (2e-5: the
+    same float32 recurrence, exp and sums in another order)."""
+    from repro.kernels.mamba_scan import mamba_scan_kernel
+    from repro_torch.kernels import mamba_scan as ms
+
+    ins = _scan_inputs(np.random.RandomState(B * S), B, S, di, N)
+    want_ref = np.asarray(jref.ref_mamba_scan(*map(jnp.asarray, ins)))
+    want_k = np.asarray(mamba_scan_kernel(
+        *map(jnp.asarray, ins), d_block=min(128, di), seq_chunk=min(64, S),
+        interpret=True))
+    n0 = ms.LAUNCHES["mamba_scan"]
+    got = ms.mamba_scan(*map(torch.as_tensor, ins))
+    assert ms.LAUNCHES["mamba_scan"] == n0     # the CPU takes the plain path
+    assert got.dtype == torch.float32 and got.shape == (B, S, di)
+    for want in (want_ref, want_k):
+        np.testing.assert_allclose(got.numpy(), want, rtol=2e-5, atol=2e-5)
+
+
+def test_mamba_scan_plain_bf16_matches_ref():
+    """bf16 x, B and C: y comes back in bf16, within one bf16 ulp of the
+    reference (the rounding of the same float32 value may land one ulp
+    apart when the float32 sums differ in their last bits)."""
+    from repro_torch.kernels import mamba_scan as ms
+
+    x, dt, Bs, Cs, A = _scan_inputs(np.random.RandomState(5), 2, 48, 96, 16)
+    jb = [jnp.asarray(a, jnp.bfloat16) for a in (x, Bs, Cs)]
+    want = np.asarray(jref.ref_mamba_scan(jb[0], jnp.asarray(dt), jb[1],
+                                          jb[2], jnp.asarray(A)), np.float32)
+    tb = [torch.as_tensor(a).to(torch.bfloat16) for a in (x, Bs, Cs)]
+    got = ms.mamba_scan(tb[0], torch.as_tensor(dt), tb[1], tb[2],
+                        torch.as_tensor(A))
+    assert got.dtype == torch.bfloat16
+    np.testing.assert_allclose(got.float().numpy(), want, rtol=2 ** -7,
+                               atol=2e-5)
+
+
+def test_mamba_scan_cuda_wrapper_refuses():
+    """The CUDA wrapper raises on CPU tensors and launches nothing; the
+    dtype and contiguity checks come first on the card."""
+    from repro_torch.kernels import mamba_scan as ms
+
+    x = torch.zeros((1, 4, 8))
+    n0 = ms.LAUNCHES["mamba_scan"]
+    with pytest.raises(ValueError, match="CUDA"):
+        ms.mamba_scan_cuda(x, x, x[..., :2], x[..., :2], x[0, :, :2].T)
+    assert ms.LAUNCHES["mamba_scan"] == n0
+
+
+def _ulp_bf16(a):
+    """One bf16 ulp at each value of ``a`` (float32 tensor)."""
+    e = torch.floor(torch.log2(a.abs().clamp_min(2.0 ** -126)))
+    return torch.exp2(e - 7)
+
+
+@pytest.mark.requires_cuda
+def test_cuda_mamba_scan_matches_plain(cuda_device):
+    """The CUDA kernel against its plain version on the card, float32
+    (2e-5, the JAX test's tolerance) and bf16 (one bf16 ulp of the plain
+    value, plus 2e-5), at shapes that fill no block evenly: N of 3, 8, 16
+    and 64, S not a multiple of the 32-step chunk, di not a multiple of
+    the 32-channel block.  Strided B and C views are refused."""
+    from repro_torch.kernels import mamba_scan as ms
+
+    rng = np.random.RandomState(3)
+    for B, S, di, N in [(2, 64, 128, 8), (1, 300, 200, 16), (3, 33, 40, 3),
+                        (1, 70, 96, 64)]:
+        ins = [torch.as_tensor(a, device=cuda_device)
+               for a in _scan_inputs(rng, B, S, di, N)]
+        n0 = ms.LAUNCHES["mamba_scan"]
+        got = ms.mamba_scan(*ins)
+        assert ms.LAUNCHES["mamba_scan"] == n0 + 1
+        want = ms.mamba_scan_plain(*ins)
+        np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(),
+                                   rtol=2e-5, atol=2e-5)
+        x, dt, Bs, Cs, A = ins
+        xb, Bb, Cb = (t.to(torch.bfloat16) for t in (x, Bs, Cs))
+        got = ms.mamba_scan(xb, dt, Bb, Cb, A).float()
+        want = ms.mamba_scan_plain(xb, dt, Bb, Cb, A).float()
+        assert bool(((got - want).abs() <= _ulp_bf16(want) + 2e-5).all())
+    dbc = torch.zeros((1, 8, 12), device=cuda_device)
+    x = torch.zeros((1, 8, 16), device=cuda_device)
+    A = -torch.ones((16, 6), device=cuda_device)
+    with pytest.raises(ValueError, match="contiguous"):
+        ms.mamba_scan(x, x, dbc[..., :6], dbc[..., 6:], A)
+    with pytest.raises(TypeError):
+        ms.mamba_scan(x.half(), x, dbc[..., :6].half().contiguous(),
+                      dbc[..., 6:].half().contiguous(), A)
+    torch.cuda.synchronize()
