@@ -22,6 +22,17 @@
    plain version's time, its bound (bytes over 3.35 TB/s; for the search
    also the latency of its dependent levels) and, for the search,
    torch.searchsorted.
+4b. The rest of the dispatch surface on the same loaded store, launch
+   counts set to 0 before it and the four new ones > 0 after:
+   ``ops.hash_probe`` (the legacy probe) on one client chunk of GET keys,
+   ``ops.sorted_search`` (the legacy search) on replica 0 with misses,
+   -1 and 2**31 - 1, ``ops.sort`` and ``ops.sort_pairs`` at [16, 4096],
+   [1, 16384] and [1, 65536] (keys in [0, 1024), distinct payloads), and
+   ``ops.merge`` with a 65536-entry batch.  Each against its plain
+   version (the probe and search also against ``ops.probe`` and
+   ``ops.search``), timed as in 4, with torch.sort(stable) + gather and
+   searchsorted + index as the library calls; the sorts' bound also
+   counts their compare-exchanges at 67e12/s.
 5. The failure and recovery path on the same store, launch counts set
    to 0 before it and all four > 0 after: a pending window of 2 chunks
    that straddles the end of the 65536-entry backup-log ring, then the
@@ -77,7 +88,8 @@
     the engine's decode logits after each first-wave prompt (fresh
     slots): logged at bf16 over 64 layers, checked within 5e-4 at
     float32 on a 4-layer model of the same widths.
-11. The last two lines: the kernels as JSON, then the device as JSON.
+11. The last two lines: the kernels as JSON (ten records, in the order
+    of PERF.md's kernel table), then the device as JSON.
 
 Exits nonzero, printing no result, without CUDA or outside a checkout.
 """
@@ -113,6 +125,13 @@ DIST_CAPACITY_Q = 1024           # exchange slots per destination: a
 DIST_KEYS = 1 << 22               # distinct keys the distributed store loads
 DIST_KERNELS = ("group_probe", "hash_probe", "merge", "sorted_search")
 FUSED = "src/repro/kernels/_fused.py"
+LEGACY = "src/repro/kernels"
+DISPATCH_KERNELS = ("legacy_hash_probe", "legacy_sorted_search",
+                    "sort_stable", "bitonic_sort")
+# [R, T] of the sorts: the distributed store's 8 groups x 2 replicas of one
+# 4096-entry apply batch; one client chunk (the largest shared-memory
+# row); one 65536-entry backup-log ring (the global passes)
+SORT_SHAPES = ((16, 4096), (1, 16384), (1, 65536))
 
 
 def check(cond, msg):
@@ -627,26 +646,28 @@ def compare_kernels(torch, cfg, hidx, srt, live, dead, rng, Q, label):
         plain = time_ms(torch, lambda: six.search(srt, sqt, cfg.fanout),
                         iters // 5)
         lib = time_ms(torch, lambda: torch.searchsorted(srt.keys, sqt), iters)
-        nbytes = QS * (4 + levels * cfg.fanout * 4 + 8 + 5 * 4)
+        nbytes, cmps = search_work(torch, srt.keys, sqt, cfg.fanout, 5)
+        bound, b_bytes, b_ops = bound_of(nbytes, cmps)
         lat = None
         if QS == 1:
             level_ms = (dev_ms - device_ms(torch, lambda: kern(*top), iters)
                         ) / (levels - 1)
             lat = levels * level_ms
-        res[QS] = (err, ms, dev_ms, plain, lib, nbytes, lat)
+        res[QS] = (err, ms, dev_ms, plain, lib, bound,
+                   "bytes" if b_bytes >= b_ops else "operations", lat)
         log(f"kernel sorted_search ({label}): Q={QS}, cap {cap}, {levels} "
             f"levels: equal; {ms:.4f} ms per call, device {dev_ms:.4f} ms, "
             f"plain {plain:.4f} ms, torch.searchsorted {lib:.4f} ms, bound "
-            f"{nbytes / HBM_BYTES_PER_S * 1e3:.6f} ms ({nbytes} B)"
+            f"{bound:.6f} ms (bytes {b_bytes:.6f} ms for {nbytes} B, "
+            f"compares {b_ops:.6f} ms)"
             + ("" if lat is None else f", latency bound {lat:.6f} ms"))
-    err, ms, dev_ms, plain, lib, nbytes, lat = res[1]
+    err, ms, dev_ms, plain, lib, bound, bound_by, lat = res[1]
     out.append(dict(name="sorted_search", route="cuda",
                     source="src/repro_torch/kernels/csrc/sorted_search.cu",
                     replaces=f"{FUSED}:246",
                     max_abs_err=max(r[0] for r in res.values()),
-                    ms=ms, plain_ms=plain,
-                    bound_ms=nbytes / HBM_BYTES_PER_S * 1e3,
-                    bound_by="bytes", library_ms=lib, device_ms=dev_ms,
+                    ms=ms, plain_ms=plain, bound_ms=bound,
+                    bound_by=bound_by, library_ms=lib, device_ms=dev_ms,
                     latency_bound_ms=lat, cap=cap))
 
     # -- merge: one apply batch into the replica ----------------------------
@@ -679,6 +700,242 @@ def compare_kernels(torch, cfg, hidx, srt, live, dead, rng, Q, label):
                     bound_by="bytes", library_ms=None, device_ms=dev_ms,
                     cap=cap))
     return out
+
+
+def sort_bound(R, T):
+    """(bound ms, bytes ms, compares ms) of a [R, T] int32 pair sort: each
+    key and payload read and written once, 16 B an entry; the network's
+    R T / 2 log2 T (log2 T + 1) / 2 compare-exchanges at 67e12/s."""
+    L = max(T.bit_length() - 1, 0)
+    return bound_of(R * T * 16, R * (T // 2) * L * (L + 1) // 2)
+
+
+def dispatch_path(torch, cfg, wl, rng):
+    """Phase 4b: the rest of the kernel dispatch surface, through its
+    public calls, on the loaded store: ``ops.hash_probe`` on the hash
+    (one client chunk of GET keys), ``ops.sorted_search`` on replica 0,
+    ``ops.sort`` and ``ops.sort_pairs`` at three shapes (the distributed
+    store's 16 apply rows, one client chunk, one backup-log ring), and
+    ``ops.merge`` with a 65536-entry batch (a batch the merge took only
+    up to 16384 before).  The launch counts are set to 0 just before and
+    read just after; then each output against its plain version and the
+    cross-checks, and each kernel timed.  Returns (one record per kernel,
+    the 65536-entry merge's numbers)."""
+    from repro_torch.core import hash_index as hix
+    from repro_torch.core import sorted_index as six
+    from repro_torch.kernels import ops
+
+    group = wl.client.backend.group
+    hidx, srt = group.hash, group.sorted[0]
+    dev = hidx.sig.device
+    Q, S, fo = CHUNK, cfg.slots_per_bucket, cfg.fanout
+    live = wl.live_keys()
+    qh = torch.as_tensor(wl.get_mix(Q), device=dev)
+    qs = np.concatenate([rng.choice(live, Q // 2),
+                         rng.choice(live, Q // 4).astype(np.int64) + 1,
+                         rng.integers(0, 2 ** 31 - 1, Q - Q // 2 - Q // 4 - 3),
+                         [-1, 2 ** 31 - 1, 0]]).astype(np.int32)
+    rng.shuffle(qs)
+    qs = torch.as_tensor(qs, device=dev)
+    pairs = {}
+    for R, T in SORT_SHAPES:
+        pairs[(R, T)] = (
+            torch.as_tensor(rng.integers(0, 1024, (R, T)).astype(np.int32),
+                            device=dev),
+            torch.as_tensor(rng.permutation(R * T).astype(np.int32)
+                            .reshape(R, T), device=dev))
+    m = cfg.log_capacity
+    bk = np.concatenate([rng.choice(live, m // 2),
+                         rng.integers(0, 2 ** 31 - 1, m - m // 2)])
+    bk[: m // 8] = bk[m // 8: m // 4]                  # duplicate keys
+    rng.shuffle(bk)
+    bkt = torch.as_tensor(bk.astype(np.int32), device=dev)
+    bat = torch.as_tensor(rng.integers(0, 1 << 24, m).astype(np.int32),
+                          device=dev)
+    bot = torch.as_tensor(rng.choice([0, 1, 1, 2], m).astype(np.int8),
+                          device=dev)
+
+    # -- the path: the public calls, counted ---------------------------------
+    torch.cuda.synchronize()
+    zero_launches(ops)
+    t0 = time.perf_counter()
+    h = ops.hash_probe(hidx, qh, cfg)
+    srch = ops.sorted_search(srt, qs, fanout=fo)
+    sorted_ = {sh: (ops.sort(cfg, k, v), ops.sort_pairs(k, v))
+               for sh, (k, v) in pairs.items()}
+    merged = ops.merge(cfg, srt, bkt, bat, bot)
+    torch.cuda.synchronize()
+    t_path = time.perf_counter() - t0
+    launches = dict(ops.LAUNCHES)
+    log(f"dispatch: the public calls in {t_path:.3f} s; launches "
+        f"{launches}")
+    for k in DISPATCH_KERNELS + ("merge",):
+        check(launches[k] > 0, f"kernel {k} was not launched on the "
+                               f"dispatch path")
+
+    # -- each output against its plain version, and the cross-checks --------
+    b, sg, fp = hix.descriptors(hidx, qh)
+    tab = (hidx.sig, hidx.fp, hidx.addr)
+    err_h = max_abs_err(torch, (h[0], h[1].int(), h[2]),
+                        ops.legacy_hash_probe_plain(b, sg, fp, *tab,
+                                                    slots_per_bucket=S),
+                        "legacy hash_probe")
+    pa, pf, pc = ops.probe(cfg, hidx, qh)
+    max_abs_err(torch, (h[0], h[1]), (pa, pf), "legacy hash_probe vs probe")
+    occ = (hidx.sig != 0).sum(1, dtype=torch.int32)
+    rows_off = int((occ != hidx.fill).sum())
+    same = occ[b.long()] == hidx.fill[b.long()]
+    max_abs_err(torch, (h[2][same],), (pc[same],),
+                "legacy hash_probe acc vs probe where occ == fill")
+    log(f"dispatch: legacy hash_probe Q={Q}: equal to its plain version; "
+        f"addr and found equal to ops.probe's, acc too on the "
+        f"{int(same.sum())} queries whose row has occ == fill; "
+        f"{rows_off} of {hidx.sig.shape[0]} rows have occ != fill")
+    err_s = max_abs_err(torch, (srch[0], srch[1].int(), srch[2]),
+                        ops.legacy_sorted_search_plain(qs, srt.keys,
+                                                       srt.addrs, fanout=fo),
+                        "legacy sorted_search")
+    max_abs_err(torch, srch, ops.search(cfg, srt, qs),
+                "legacy sorted_search vs search")
+    max_abs_err(torch, srch, ops.sorted_search_cuda(
+        qs, srt.keys, srt.addrs, fo)[:3], "legacy vs block sorted_search")
+    err_sort = {}
+    for sh, (k, v) in pairs.items():
+        got_st, got_bi = sorted_[sh]
+        err_sort[sh] = (
+            max_abs_err(torch, got_st, ops.sort_stable_plain(k, v),
+                        f"sort {list(sh)}"),
+            max_abs_err(torch, got_bi, ops.bitonic_sort_plain(k, v),
+                        f"sort_pairs {list(sh)}"))
+        ties = int((got_bi[1] != got_st[1]).sum())
+        log(f"dispatch: sort and sort_pairs {list(sh)}: equal to their "
+            f"plain versions ({ties} payloads where the network's order of "
+            f"tied keys differs from the stable sort's)")
+    want = six.merge(srt, bkt, bat, bot)
+    err_m = max_abs_err(torch, tuple(merged), tuple(want), "merge m=65536")
+
+    # -- timing --------------------------------------------------------------
+    out = []
+    kern_h = lambda: ops.legacy_hash_probe_cuda(b, sg, fp, *tab, S)  # noqa
+    ms = time_ms(torch, kern_h, 200)
+    dev_ms = device_ms(torch, kern_h, 200)
+    plain = time_ms(torch, lambda: ops.legacy_hash_probe_plain(
+        b, sg, fp, *tab, slots_per_bucket=S), 50)
+    routed = time_ms(torch, lambda: ops.hash_probe(hidx, qh, cfg), 200)
+    cs = hidx.sig.shape[1]
+    hits = int(h[1].sum())
+    # descriptors in and outputs out, one sig row a query, the fp and addr
+    # words of each hit
+    nbytes = Q * (12 + 12 + cs * 4) + hits * 8
+    bound, _, _ = bound_of(nbytes, 0)
+    log(f"kernel legacy_hash_probe: Q={Q} ({hits} hits): {ms:.4f} ms per "
+        f"call, device {dev_ms:.4f} ms, plain {plain:.4f} ms, routed "
+        f"ops.hash_probe (hashing included) {routed:.4f} ms; bound "
+        f"{bound:.6f} ms ({nbytes} B)")
+    out.append(dict(name="legacy_hash_probe", route="cuda",
+                    source="src/repro_torch/kernels/csrc/legacy_hash_probe.cu",
+                    replaces=f"{LEGACY}/_hash_probe.py:77",
+                    launches=launches["legacy_hash_probe"], max_abs_err=err_h,
+                    ms=ms, plain_ms=plain, bound_ms=bound, bound_by="bytes",
+                    library_ms=None, device_ms=dev_ms, routed_ms=routed, Q=Q,
+                    rows_occ_ne_fill=rows_off))
+
+    # the search: the bound is the larger of the bytes of the distinct
+    # sectors this run's queries read and their compares (search_work);
+    # beside it, the latency of levels + 1 dependent reads, one level's
+    # device time the slope between this index and its first fanout keys
+    # at Q = 1 (row 2's method)
+    cap = srt.keys.shape[0]
+    levels = six.directory_levels(cap, fo)
+    top = (srt.keys[:fo].clone(), srt.addrs[:fo].clone())
+    q1 = qs[:1].clone()
+
+    def kern_s(q=qs, keys=srt.keys, addrs=srt.addrs):
+        return ops.legacy_sorted_search_cuda(q, keys, addrs, fo)
+
+    ms = time_ms(torch, kern_s, 100)
+    dev_ms = device_ms(torch, kern_s, 100)
+    d1 = device_ms(torch, lambda: kern_s(q1), 500)
+    d1_top = device_ms(torch, lambda: kern_s(q1, *top), 500)
+    lat = (levels + 1) * (d1 - d1_top) / (levels - 1)
+    plain = time_ms(torch, lambda: ops.legacy_sorted_search_plain(
+        qs, srt.keys, srt.addrs, fanout=fo), 20)
+
+    def lib_s():
+        p = torch.clamp(torch.searchsorted(srt.keys, qs, right=True) - 1,
+                        min=0)
+        f = srt.keys[p] == qs
+        return torch.where(f, srt.addrs[p], -1), f
+
+    lib = time_ms(torch, lib_s, 100)
+    routed = time_ms(torch, lambda: ops.sorted_search(srt, qs, fanout=fo),
+                     100)
+    nbytes, cmps = search_work(torch, srt.keys, qs, fo, 3)
+    bound, b_bytes, b_ops = bound_of(nbytes, cmps)
+    log(f"kernel legacy_sorted_search: Q={Q}, cap {cap}, {levels} levels: "
+        f"{ms:.4f} ms per call, device {dev_ms:.4f} ms (Q = 1: {d1:.4f} "
+        f"ms, one level {d1_top:.4f} ms), plain {plain:.4f} ms, "
+        f"searchsorted + index {lib:.4f} ms, routed {routed:.4f} ms; bound "
+        f"{bound:.6f} ms (bytes {b_bytes:.6f} ms for {nbytes} B, compares "
+        f"{b_ops:.6f} ms); latency of {levels + 1} dependent reads "
+        f"{lat:.6f} ms")
+    out.append(dict(name="legacy_sorted_search", route="cuda",
+                    source="src/repro_torch/kernels/csrc/"
+                           "legacy_sorted_search.cu",
+                    replaces=f"{LEGACY}/_sorted_search.py:82",
+                    launches=launches["legacy_sorted_search"],
+                    max_abs_err=err_s, ms=ms, plain_ms=plain,
+                    bound_ms=bound,
+                    bound_by="bytes" if b_bytes >= b_ops else "operations",
+                    library_ms=lib, device_ms=dev_ms, routed_ms=routed,
+                    latency_bound_ms=lat, device_ms_q1=d1, cap=cap, Q=Q))
+
+    # the two sorts at each shape; the record's own numbers are the first
+    # shape's
+    for name, src, rep, call, plain_fn, i in (
+            ("sort_stable", "sort_stable.cu", f"{FUSED}:442",
+             ops.sort_stable_cuda, ops.sort_stable_plain, 0),
+            ("bitonic_sort", "bitonic_sort.cu",
+             f"{LEGACY}/_bitonic_sort.py:60", ops.bitonic_sort_cuda,
+             ops.bitonic_sort_plain, 1)):
+        shapes = {}
+        for (R, T), (k, v) in pairs.items():
+            it = 50 if R * T <= 1 << 16 else 20
+            ms = time_ms(torch, lambda: call(k, v), it)
+            dev_ms = device_ms(torch, lambda: call(k, v), it)
+            plain = time_ms(torch, lambda: plain_fn(k, v), 10)
+            lib = time_ms(torch, lambda: torch.gather(
+                v, 1, torch.sort(k, dim=1, stable=True).indices), it)
+            bound, b_bytes, b_ops = sort_bound(R, T)
+            shapes[f"{R}x{T}"] = dict(
+                max_abs_err=err_sort[(R, T)][i], ms=ms, device_ms=dev_ms,
+                plain_ms=plain, library_ms=lib, bound_ms=bound,
+                bound_by="bytes" if b_bytes >= b_ops else "operations")
+            log(f"kernel {name} [{R}, {T}]: {ms:.4f} ms per call, device "
+                f"{dev_ms:.4f} ms, plain {plain:.4f} ms, torch.sort(stable) "
+                f"+ gather {lib:.4f} ms; bound {bound:.6f} ms (bytes "
+                f"{b_bytes:.6f} ms, compares {b_ops:.6f} ms)")
+        first = shapes[f"{SORT_SHAPES[0][0]}x{SORT_SHAPES[0][1]}"]
+        out.append(dict(name=name, route="cuda",
+                        source=f"src/repro_torch/kernels/csrc/{src}",
+                        replaces=rep, launches=launches[name],
+                        **{x: first[x] for x in (
+                            "ms", "plain_ms", "bound_ms", "bound_by",
+                            "library_ms", "device_ms")},
+                        max_abs_err=max(x["max_abs_err"]
+                                        for x in shapes.values()),
+                        shapes=shapes))
+
+    # the 65536-entry merge (its kernel's time, information)
+    mk = lambda: ops.merge(cfg, srt, bkt, bat, bot)  # noqa: E731
+    m_ms = time_ms(torch, mk, 20)
+    m_dev = device_ms(torch, mk, 20)
+    m_bytes = cap * 16 + m * 12 + 4
+    log(f"kernel merge: m={m} into cap {cap}: equal to six.merge; {m_ms:.4f}"
+        f" ms per call, device {m_dev:.4f} ms, bound "
+        f"{m_bytes / HBM_BYTES_PER_S * 1e3:.6f} ms ({m_bytes} B)")
+    return out, dict(m=m, max_abs_err=err_m, ms=m_ms, device_ms=m_dev,
+                     bound_ms=m_bytes / HBM_BYTES_PER_S * 1e3)
 
 
 def backup_work(q, sel, blogs, cfg, cap):
@@ -915,6 +1172,37 @@ def bound_of(nbytes, compares):
     b_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     b_ops = compares / SCALAR_OPS_PER_S * 1e3
     return max(b_bytes, b_ops), b_bytes, b_ops
+
+
+def search_work(torch, keys, queries, fanout, n_out):
+    """(bytes, compares) the directory descent must do on this run's data.
+    Bytes: each query read once and n_out int32 outputs written, and at
+    each level the distinct 32 B sectors of the node keys the queries
+    read (they share the top levels' nodes, and no key past cap is read),
+    then the sectors of the final key read and of the addr read of each
+    hit.  Compares: one per node key read."""
+    cap = keys.shape[0]
+    Q = queries.shape[0]
+    offs = torch.arange(fanout, device=keys.device)
+    pos = torch.zeros((Q,), dtype=torch.int64, device=keys.device)
+    stride = 1
+    while stride * fanout < cap:
+        stride *= fanout
+    sectors = compares = 0
+    while stride >= 1:
+        gi = torch.unique(pos)[:, None] + offs[None, :] * stride
+        sectors += int(torch.unique(gi[gi < cap] // 8).numel())
+        gq = pos[:, None] + offs[None, :] * stride
+        compares += int((gq < cap).sum())
+        node = torch.where(gq < cap, keys[gq.clamp(max=cap - 1)], 2**31 - 1)
+        cnt = (node <= queries[:, None]).sum(1)
+        pos = pos + (cnt - 1).clamp(min=0) * stride
+        stride //= fanout
+    at = pos.clamp(max=cap - 1)
+    hit = keys[at] == queries
+    sectors += int(torch.unique(at // 8).numel())
+    sectors += int(torch.unique(at[hit] // 8).numel())
+    return Q * 4 * (1 + n_out) + sectors * 32, compares
 
 
 def pad_server(torch, G, dev):
@@ -1442,6 +1730,8 @@ def main(argv=None) -> int:
         rng, CHUNK, "main")
     for k in kernels:
         k["launches"] = launches[k["name"]]
+    dispatch, merge_big = dispatch_path(torch, cfg, wl, rng)
+    kernels[2]["batch_65536"] = merge_big
     group, window, fr_launches, times = fail_recover(torch, wl, cfg)
     log(f"fail: {json.dumps(times)}")
     kernels.append(compare_backup_probe(torch, wl, cfg, group, window,
@@ -1459,6 +1749,7 @@ def main(argv=None) -> int:
             if x not in ("name", "route", "source", "replaces")}
     kernels.append(compare_group_probe(torch, dwl, dist_cfg, d_launches,
                                        probe_at))
+    kernels.extend(dispatch)
     del dwl, probe_at               # the distributed store leaves the card
     torch.cuda.empty_cache()
     scan_rec, s_times, s_launches = serving(torch, args.seed)

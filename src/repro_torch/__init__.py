@@ -9,7 +9,9 @@ family (falcon-mamba-7b): ``configs``, ``models`` (``Model`` with its
 ``serving.engine.ServingEngine``, whose page directory is a
 ``HiStoreClient``.  The index hot path and the Mamba-1 scan run through
 hand-written CUDA kernels (``kernels/csrc``) for tensors on the card and
-through plain PyTorch for tensors on the CPU.
+through plain PyTorch for tensors on the CPU; ``repro_torch.kernels`` is
+the whole dispatch surface of ``repro.kernels``, its legacy wrappers
+and oracles included.
 
     from repro_torch.core.client import HiStoreClient, LocalBackend
     client = HiStoreClient(LocalBackend(1 << 20, DEFAULT))     # on cuda

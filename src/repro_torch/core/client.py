@@ -388,9 +388,10 @@ class DistributedBackend:
         raise NotImplementedError(f"data-server recovery: {SLICE_2B}")
 
     def start_ticker(self) -> bool:
-        raise NotImplementedError(f"the lease ticker: {SLICE_2B}")
+        return False    # no lease to tick (lease_misses == 0), as in JAX
 
-    stop_ticker = start_ticker
+    def stop_ticker(self) -> None:
+        return None     # no ticker was started
 
 
 # ---------------------------------------------------------------------------
@@ -575,16 +576,17 @@ class HiStoreClient:
             self.migrate()
 
     def start_ticker(self) -> bool:
+        """Start the backend's background lease ticker.  True when one is
+        running; False for backends without leases (LocalBackend tracks
+        liveness on the host, the port's DistributedBackend runs with
+        lease_misses=0)."""
         fn = getattr(self.backend, "start_ticker", None)
-        if fn is None:
-            raise NotImplementedError(f"the lease ticker: {SLICE_2}")
-        return fn()
+        return bool(fn()) if fn else False
 
     def stop_ticker(self) -> None:
         fn = getattr(self.backend, "stop_ticker", None)
-        if fn is None:
-            raise NotImplementedError(f"the lease ticker: {SLICE_2}")
-        fn()
+        if fn:
+            fn()
 
     # -- telemetry ---------------------------------------------------------
     def metrics(self) -> tm.MetricsSnapshot:

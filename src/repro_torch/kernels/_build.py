@@ -53,8 +53,21 @@ SIGNATURES = {
         "histore_group_probe": ([P] * 17 + [I64, INT, INT, INT, I64, I64, INT,
                                             INT, P], INT),
     },
+    "sort_stable": {
+        "histore_sort_stable": ([P] * 5 + [I64, I64, I64, P], INT),
+    },
+    "bitonic_sort": {
+        "histore_bitonic_sort": ([P] * 5 + [I64, I64, P], INT),
+    },
+    "legacy_hash_probe": {
+        "histore_legacy_hash_probe": ([P] * 9 + [I64, INT, INT, P], INT),
+    },
+    "legacy_sorted_search": {
+        "histore_legacy_sorted_search": ([P] * 6 + [I64, I64, INT, INT, P],
+                                         INT),
+    },
     "mamba_scan": {
-        "histore_mamba_scan": ([P] * 6 + [INT] * 5 + [P], INT),
+        "histore_mamba_scan": ([P] * 7 + [I64] + [INT] * 4 + [P], INT),
     },
 }
 

@@ -47,7 +47,7 @@ __global__ void finish_kernel(const int32_t* __restrict__ rkeys,
 
 }  // namespace
 
-// ptrs: a HOST array of 7 * R device pointers (histore::unpack_replicas).
+// ptrs: a DEVICE table of 7 * R pointers (histore::Replicas).
 // best: [Q] int32 scratch.
 extern "C" int histore_backup_probe(const void* rkeys, const void* rep_sel,
                                     const void* const* ptrs, void* out_addr,
@@ -55,9 +55,8 @@ extern "C" int histore_backup_probe(const void* rkeys, const void* rep_sel,
                                     void* best, long long Q, int R,
                                     long long cap, long long lcap,
                                     int fanout, int levels, void* stream) {
-  if (R < 1 || R > histore::MAX_R || cap < 1 || lcap < 1)
-    return (int)cudaErrorInvalidValue;
-  const histore::Replicas rp = histore::unpack_replicas(ptrs, R);
+  if (R < 1 || cap < 1 || lcap < 1) return (int)cudaErrorInvalidValue;
+  const histore::Replicas rp{ptrs};
   if (Q > 0) {
     cudaStream_t s = (cudaStream_t)stream;
     cudaError_t e =

@@ -1,7 +1,8 @@
 // The directory descent over the sorted index, shared by sorted_search.cu,
-// backup_probe.cu and group_probe.cu (mirror of _descent,
-// src/repro/kernels/_fused.py:83), and the probe result the hash walk and
-// the backup finish return.
+// legacy_sorted_search.cu, backup_probe.cu and group_probe.cu (mirror of
+// _descent, src/repro/kernels/_fused.py:83), the search kernel and launch
+// the two searches share, and the probe result the hash walk and the
+// backup finish return.
 //
 // Over ascending, INF-padded int32 keys, it descends the implicit
 // fanout-ary directory: at level l (stride fanout^l) the warp reads the
@@ -13,6 +14,7 @@
 // same pos, which runs past the end (to fanout^levels - 1) for q = KEY_INF.
 #pragma once
 
+#include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace histore {
@@ -49,6 +51,58 @@ __device__ __forceinline__ int64_t descent(const int32_t* __restrict__ keys,
     stride /= fanout;
   }
   return pos;
+}
+
+// One warp per query: the descent, then the key and addr at pos, clamped
+// to cap - 1 as the JAX gather is (q = key_inf runs pos past the end).
+// Writes addr (or -1), found and n_accesses = levels; where out_pos is not
+// null also the unclamped pos and the lower bound pos + (keys[pos] < q).
+__global__ void search_kernel(const int32_t* __restrict__ queries,
+                              const int32_t* __restrict__ keys,
+                              const int32_t* __restrict__ addrs,
+                              int32_t* __restrict__ out_addr,
+                              int32_t* __restrict__ out_found,
+                              int32_t* __restrict__ out_acc,
+                              int32_t* __restrict__ out_pos,
+                              int32_t* __restrict__ out_lb, int64_t Q,
+                              int64_t cap, int fanout, int levels) {
+  const int lane = threadIdx.x & 31;
+  const int64_t qi =
+      (int64_t(blockIdx.x) * blockDim.x + threadIdx.x) >> 5;
+  if (qi >= Q) return;  // warp-uniform
+  const int32_t q = queries[qi];
+  const int64_t pos = descent(keys, q, cap, fanout, levels, lane);
+  if (lane == 0) {
+    const int64_t at = pos < cap ? pos : cap - 1;
+    const int32_t k = keys[at];
+    const bool found = k == q;
+    out_addr[qi] = found ? addrs[at] : -1;
+    out_found[qi] = found ? 1 : 0;
+    out_acc[qi] = levels;
+    if (out_pos != nullptr) {
+      out_pos[qi] = (int32_t)pos;
+      out_lb[qi] = (int32_t)(pos + (k < q ? 1 : 0));
+    }
+  }
+}
+
+// launches search_kernel, 8 queries a block; returns the launch status
+inline int launch_search(const void* queries, const void* keys,
+                         const void* addrs, void* out_addr, void* out_found,
+                         void* out_acc, void* out_pos, void* out_lb,
+                         long long Q, long long cap, int fanout, int levels,
+                         void* stream) {
+  if (cap < 1 || fanout < 1) return (int)cudaErrorInvalidValue;
+  if (Q > 0) {
+    const int threads = Q >= 8 ? 256 : 32;
+    const long long blocks = (Q * 32 + threads - 1) / threads;
+    search_kernel<<<(unsigned)blocks, threads, 0, (cudaStream_t)stream>>>(
+        (const int32_t*)queries, (const int32_t*)keys,
+        (const int32_t*)addrs, (int32_t*)out_addr, (int32_t*)out_found,
+        (int32_t*)out_acc, (int32_t*)out_pos, (int32_t*)out_lb, (int64_t)Q,
+        (int64_t)cap, fanout, levels);
+  }
+  return (int)cudaGetLastError();
 }
 
 }  // namespace histore

@@ -63,8 +63,8 @@ __global__ void group_finish_kernel(
 }  // namespace
 
 // bucket/qsig/qfp/rkeys: [Q] int32; rep_sel: [Q, R] int32; sig/fp/haddr:
-// [nb, cs] int32; fill: [nb] int32; ptrs: a HOST array of 7 * R device
-// pointers (histore::unpack_replicas); best: [Q] int32 scratch.
+// [nb, cs] int32; fill: [nb] int32; ptrs: a DEVICE table of 7 * R
+// pointers (histore::Replicas); best: [Q] int32 scratch.
 extern "C" int histore_group_probe(
     const void* bucket, const void* qsig, const void* qfp,
     const void* rkeys, const void* rep_sel, const void* sig, const void* fp,
@@ -72,9 +72,8 @@ extern "C" int histore_group_probe(
     void* out_ha, void* out_hf, void* out_hc, void* out_ba, void* out_bf,
     void* out_bc, void* best, long long Q, int cs, int S, int R,
     long long cap, long long lcap, int fanout, int levels, void* stream) {
-  if (R < 1 || R > histore::MAX_R || cap < 1 || lcap < 1)
-    return (int)cudaErrorInvalidValue;
-  const histore::Replicas rp = histore::unpack_replicas(ptrs, R);
+  if (R < 1 || cap < 1 || lcap < 1) return (int)cudaErrorInvalidValue;
+  const histore::Replicas rp{ptrs};
   if (Q > 0) {
     cudaStream_t s = (cudaStream_t)stream;
     cudaError_t e =

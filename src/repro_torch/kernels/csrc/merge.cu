@@ -8,10 +8,12 @@
 // Bound: memory.  At cap = 2^24 the existing keys and addrs (128 MiB) are
 // read and the new ones (128 MiB) written per apply; the batch (m = 4096)
 // is noise.  Design, four steps on the caller's stream:
-//  (a) sort: one block sorts the batch, padded to MP = next pow2 of m, in
-//      shared memory as uint64 (biased key << 32 | arrival), so the order
-//      is (key, arrival) as in the JAX kernel; op-0 lanes carry key INF.
-//      MP <= 16384 (128 KB of dynamic shared memory).
+//  (a) sort: the batch, padded to MP = next pow2 of m, is packed as uint64
+//      (biased key << 32 | arrival) and sorted by pair_sort.cuh's
+//      sort_rows<FULL>, so the order is (key, arrival) as in the JAX
+//      kernel; op-0 and padding lanes carry key INF.  The stable pair sort
+//      of sort_stable.cu is the same sort: one block in shared memory up
+//      to MP = 16384, global passes above that, so any batch is taken.
 //  (b) merge-path ranks: existing entry i goes to i + #(batch < ek[i]),
 //      batch entry j to j + #(existing <= sk[j]) (binary searches), so an
 //      existing entry comes first on equal keys; both land in L = cap + MP
@@ -26,15 +28,17 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "pair_sort.cuh"
+
 namespace {
 
 constexpr int32_t KEY_INF = 0x7fffffff;
-constexpr int MAX_MP = 16384;
 constexpr int TILE_THREADS = 256;
 constexpr int TILE_ITEMS = 16;
 constexpr int TILE = TILE_THREADS * TILE_ITEMS;
 
 struct Scratch {
+  histore::u64* sp;  // [MP] packed (key, arrival) pairs
   int32_t* sk;       // [MP] sorted batch keys
   int32_t* sa;       // [MP] sorted batch addrs
   uint8_t* sd;       // [MP] sorted batch is-DELETE
@@ -56,6 +60,7 @@ size_t carve(char* base, long long cap, long long MP, Scratch* s) {
     off += align256(bytes);
     return p;
   };
+  s->sp = (histore::u64*)take(MP * 8);
   s->sk = (int32_t*)take(MP * 4);
   s->sa = (int32_t*)take(MP * 4);
   s->sd = (uint8_t*)take(MP);
@@ -68,39 +73,29 @@ size_t carve(char* base, long long cap, long long MP, Scratch* s) {
 }
 
 // (a) ---------------------------------------------------------------------
-__global__ void sort_batch_kernel(const int32_t* __restrict__ bkeys,
-                                  const int32_t* __restrict__ baddrs,
-                                  const int32_t* __restrict__ bops, int m,
-                                  int MP, int32_t* __restrict__ sk,
-                                  int32_t* __restrict__ sa,
-                                  uint8_t* __restrict__ sd) {
-  extern __shared__ unsigned long long s[];
-  for (int i = threadIdx.x; i < MP; i += blockDim.x) {
+__global__ void pack_batch_kernel(const int32_t* __restrict__ bkeys,
+                                  const int32_t* __restrict__ bops,
+                                  long long m, long long MP,
+                                  histore::u64* __restrict__ sp) {
+  for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+       i < MP; i += (long long)gridDim.x * blockDim.x) {
     const int32_t key = (i < m && bops[i] > 0) ? bkeys[i] : KEY_INF;
-    const unsigned long long biased = uint32_t(key) ^ 0x80000000u;
-    s[i] = (biased << 32) | unsigned(i);
+    sp[i] = histore::pack_pair(key, uint32_t(i));
   }
-  __syncthreads();
-  for (int k = 2; k <= MP; k <<= 1) {
-    for (int j = k >> 1; j > 0; j >>= 1) {
-      for (int i = threadIdx.x; i < MP; i += blockDim.x) {
-        const int ixj = i ^ j;
-        if (ixj > i) {
-          const unsigned long long a = s[i], b = s[ixj];
-          const bool up = (i & k) == 0;
-          if ((a > b) == up) {
-            s[i] = b;
-            s[ixj] = a;
-          }
-        }
-      }
-      __syncthreads();
-    }
-  }
-  for (int i = threadIdx.x; i < MP; i += blockDim.x) {
-    const unsigned long long v = s[i];
-    const int idx = int(v & 0xffffffffu);
-    sk[i] = int32_t(uint32_t(v >> 32) ^ 0x80000000u);
+}
+
+__global__ void unpack_batch_kernel(const histore::u64* __restrict__ sp,
+                                    const int32_t* __restrict__ baddrs,
+                                    const int32_t* __restrict__ bops,
+                                    long long m, long long MP,
+                                    int32_t* __restrict__ sk,
+                                    int32_t* __restrict__ sa,
+                                    uint8_t* __restrict__ sd) {
+  for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+       i < MP; i += (long long)gridDim.x * blockDim.x) {
+    const histore::u64 v = sp[i];
+    const long long idx = (long long)uint32_t(v);
+    sk[i] = histore::pair_key(v);
     sa[i] = idx < m ? baddrs[idx] : -1;
     sd[i] = (idx < m && bops[idx] == 2) ? 1 : 0;
   }
@@ -260,20 +255,24 @@ extern "C" int histore_merge(const void* ekeys, const void* eaddrs,
                              const void* bops, void* nkeys, void* naddrs,
                              void* size_out, void* scratch, long long cap,
                              int m, int MP, void* stream) {
-  if (MP > MAX_MP || MP < m || (MP & (MP - 1)) != 0 || cap < 1)
+  if (MP < m || (MP & (MP - 1)) != 0 || cap < 1)
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
   Scratch s;
   carve((char*)scratch, cap, MP, &s);
   const long long L = cap + MP;
   const long long ntiles = (L + TILE - 1) / TILE;
-  const int smem = MP * 8;
-  cudaError_t e = cudaFuncSetAttribute(
-      sort_batch_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  const unsigned bblocks = (unsigned)((MP + 255) / 256 < 65536
+                                          ? (MP + 255) / 256 : 65536);
+  pack_batch_kernel<<<bblocks, 256, 0, st>>>(
+      (const int32_t*)bkeys, (const int32_t*)bops, m, MP, s.sp);
+  cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
-  sort_batch_kernel<<<1, 1024, smem, st>>>(
-      (const int32_t*)bkeys, (const int32_t*)baddrs, (const int32_t*)bops,
-      m, MP, s.sk, s.sa, s.sd);
+  if ((e = histore::sort_rows<true>(s.sp, 1, MP, st)) != cudaSuccess)
+    return (int)e;
+  unpack_batch_kernel<<<bblocks, 256, 0, st>>>(
+      s.sp, (const int32_t*)baddrs, (const int32_t*)bops, m, MP, s.sk, s.sa,
+      s.sd);
   if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
   place_kernel<<<(unsigned)((L + 255) / 256), 256, 0, st>>>(
       (const int32_t*)ekeys, (const int32_t*)eaddrs, cap, s, MP);

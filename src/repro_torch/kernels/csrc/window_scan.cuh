@@ -39,39 +39,38 @@
 
 namespace histore {
 
-constexpr int MAX_R = 8;
 constexpr int SCAN_THREADS = 128;
 constexpr int SPLITS = 16;
 constexpr int TILE = 4096;
 constexpr int8_t OP_PUT = 1;
 
-// one pointer set per replica; `applied` and `tail` are device scalars
+// the replicas' pointer sets, read from a DEVICE table of 7 * R pointers,
+// replica by replica: skeys, saddrs, lkeys, laddrs, lops, applied, tail
+// (`applied` and `tail` are device scalars); nothing bounds R
 struct Replicas {
-  const int32_t* skeys[MAX_R];
-  const int32_t* saddrs[MAX_R];
-  const int32_t* lkeys[MAX_R];
-  const int32_t* laddrs[MAX_R];
-  const int8_t* lops[MAX_R];
-  const int32_t* applied[MAX_R];
-  const int32_t* tail[MAX_R];
-};
-
-// ptrs: a HOST array of 7 * R device pointers, replica by replica:
-// skeys, saddrs, lkeys, laddrs, lops, applied, tail
-inline Replicas unpack_replicas(const void* const* ptrs, int R) {
-  Replicas rp{};
-  for (int r = 0; r < R; ++r) {
-    const void* const* p = ptrs + 7 * r;
-    rp.skeys[r] = (const int32_t*)p[0];
-    rp.saddrs[r] = (const int32_t*)p[1];
-    rp.lkeys[r] = (const int32_t*)p[2];
-    rp.laddrs[r] = (const int32_t*)p[3];
-    rp.lops[r] = (const int8_t*)p[4];
-    rp.applied[r] = (const int32_t*)p[5];
-    rp.tail[r] = (const int32_t*)p[6];
+  const void* const* p;
+  __device__ const int32_t* skeys(int r) const {
+    return (const int32_t*)p[7 * r];
   }
-  return rp;
-}
+  __device__ const int32_t* saddrs(int r) const {
+    return (const int32_t*)p[7 * r + 1];
+  }
+  __device__ const int32_t* lkeys(int r) const {
+    return (const int32_t*)p[7 * r + 2];
+  }
+  __device__ const int32_t* laddrs(int r) const {
+    return (const int32_t*)p[7 * r + 3];
+  }
+  __device__ const int8_t* lops(int r) const {
+    return (const int8_t*)p[7 * r + 4];
+  }
+  __device__ int64_t applied(int r) const {
+    return *(const int32_t*)p[7 * r + 5];
+  }
+  __device__ int64_t tail(int r) const {
+    return *(const int32_t*)p[7 * r + 6];
+  }
+};
 
 // the last selected replica of lane qi, -1 for none
 __device__ __forceinline__ int last_selected(const int32_t* rep_sel,
@@ -94,8 +93,8 @@ __global__ void scan_kernel(const int32_t* __restrict__ rkeys,
   const int32_t q = live ? rkeys[qi] : 0;
   const int sel = live ? last_selected(rep_sel, qi, R) : -1;
   for (int r = 0; r < R; ++r) {
-    const int64_t applied = *rp.applied[r];
-    const int64_t tail = *rp.tail[r];
+    const int64_t applied = rp.applied(r);
+    const int64_t tail = rp.tail(r);
     // backup_finish answers q = KEY_INF without `best` while the window
     // is shorter than the ring, so such a lane (the exchange buffer's
     // padding) scans nothing
@@ -107,7 +106,7 @@ __global__ void scan_kernel(const int32_t* __restrict__ rkeys,
     const int64_t per = (len + SPLITS - 1) / SPLITS;
     const int64_t s_lo = applied + blockIdx.y * per;
     const int64_t s_hi = s_lo + per < end ? s_lo + per : end;
-    const int32_t* __restrict__ lk = rp.lkeys[r];
+    const int32_t* __restrict__ lk = rp.lkeys(r);
     bool open = mine;
     for (int64_t hi = s_hi; hi > s_lo;) {
       // also the barrier that keeps the last tile until all have read it
@@ -168,8 +167,8 @@ __device__ __forceinline__ Probe backup_finish(
     int64_t cap, int64_t lcap, int fanout, int levels, int lane) {
   const int sel = last_selected(rep_sel, qi, R);
   if (sel < 0) return Probe{-1, 0, 0};
-  const int64_t applied = *rp.applied[sel];
-  const int64_t tail = *rp.tail[sel];
+  const int64_t applied = rp.applied(sel);
+  const int64_t tail = rp.tail(sel);
   int64_t seq = -1;
   if (q == KEY_INF && tail - applied < lcap) {
     // every ring slot outside the window reads as KEY_INF: the newest
@@ -180,14 +179,14 @@ __device__ __forceinline__ Probe backup_finish(
   }
   if (seq >= 0) {
     const int64_t idx = seq % lcap;
-    const bool put = rp.lops[sel][idx] == OP_PUT;
-    return Probe{put ? rp.laddrs[sel][idx] : -1, put ? 1 : 0, levels + 1};
+    const bool put = rp.lops(sel)[idx] == OP_PUT;
+    return Probe{put ? rp.laddrs(sel)[idx] : -1, put ? 1 : 0, levels + 1};
   }
-  const int32_t* __restrict__ keys = rp.skeys[sel];
+  const int32_t* __restrict__ keys = rp.skeys(sel);
   const int64_t pos = descent(keys, q, cap, fanout, levels, lane);
   const int64_t at = pos < cap ? pos : cap - 1;
   const bool found = keys[at] == q;
-  return Probe{found ? rp.saddrs[sel][at] : -1, found ? 1 : 0, levels + 1};
+  return Probe{found ? rp.saddrs(sel)[at] : -1, found ? 1 : 0, levels + 1};
 }
 
 }  // namespace histore

@@ -6,7 +6,8 @@ and its oracle ``repro/kernels/ref.py:ref_mamba_scan``).
 x, dt: [B, S, di]; B_ssm, C_ssm: [B, S, N]; A: [di, N] (negative).  At
 each step ``h = exp(dt * A) * h + (dt * x) * B`` and ``y = sum_n C * h``,
 with the float32 state [B, di, N] carried along S; y comes back in x's
-dtype.  x, B and C share one dtype, bf16 or float32; dt and A are float32.
+dtype.  x, B and C share one dtype, bf16, float16 or float32; dt and A
+are float32.  Any B, S, di and N, as JAX's kernel takes.
 
 ``mamba_scan`` routes by device: a CUDA tensor launches the hand-written
 kernel (``csrc/mamba_scan.cu``) or raises, a CPU tensor takes
@@ -17,30 +18,21 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.kernels import ref
+
 F32 = torch.float32
-DTYPES = (torch.bfloat16, torch.float32)
-MAX_STATE = 64        # states per channel the kernel holds in registers
+# the kernel's dtype code of x, B, C and y
+DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
+TILE_STATES = 64      # states a tile of the kernel holds in registers
 
 # launches of the CUDA kernel in this process (reset by callers that count
 # the launches of one run)
 LAUNCHES = {"mamba_scan": 0}
 
 
-def mamba_scan_plain(x, dt, B_ssm, C_ssm, A):
-    """The plain version: a sequential loop over S on the [B, di, N]
-    float32 state, as ``ref_mamba_scan`` runs it."""
-    Bsz, S, di = x.shape
-    N = B_ssm.shape[-1]
-    xf, Bf, Cf = x.float(), B_ssm.float(), C_ssm.float()
-    dt = dt.float()
-    h = torch.zeros((Bsz, di, N), dtype=F32, device=x.device)
-    y = torch.empty((Bsz, S, di), dtype=x.dtype, device=x.device)
-    for t in range(S):
-        a = torch.exp(dt[:, t, :, None] * A)                  # [B, di, N]
-        b = (dt[:, t] * xf[:, t])[..., None] * Bf[:, t, None, :]
-        h = a * h + b
-        y[:, t] = (h * Cf[:, t, None, :]).sum(-1).to(x.dtype)
-    return y
+# the plain version: a sequential loop over S on the [B, di, N] float32
+# state, as the reference runs it
+mamba_scan_plain = ref.ref_mamba_scan
 
 
 def _check(name, t, dtypes, ndim):
@@ -62,7 +54,7 @@ def mamba_scan_cuda(x, dt, B_ssm, C_ssm, A):
     """Launch ``csrc/mamba_scan.cu`` on the current stream.  Checks device,
     dtypes, shapes and contiguity and raises on anything the kernel does
     not take, or on a nonzero launch status."""
-    _check("x", x, DTYPES, 3)
+    _check("x", x, tuple(DTYPES), 3)
     _check("dt", dt, (F32,), 3)
     _check("B_ssm", B_ssm, (x.dtype,), 3)
     _check("C_ssm", C_ssm, (x.dtype,), 3)
@@ -75,21 +67,23 @@ def mamba_scan_cuda(x, dt, B_ssm, C_ssm, A):
             f"mamba_scan: inconsistent shapes x {tuple(x.shape)}, dt "
             f"{tuple(dt.shape)}, B {tuple(B_ssm.shape)}, C "
             f"{tuple(C_ssm.shape)}, A {tuple(A.shape)}")
-    if not 0 < N <= MAX_STATE or Bsz > 65535:
-        raise ValueError(f"mamba_scan: the kernel takes 1 <= N <= "
-                         f"{MAX_STATE} and B <= 65535, got N={N}, B={Bsz}")
     devs = {t.device for t in (x, dt, B_ssm, C_ssm, A)}
     if len(devs) != 1:
         raise ValueError(f"mamba_scan: tensors on several devices {devs}")
     from repro_torch.kernels import _build
 
     y = torch.empty_like(x)
+    # past one tile of states the tiles add y up in float32: in y itself
+    # for float32, else in a scratch
+    yacc = None
+    if N > TILE_STATES and x.dtype != F32:
+        yacc = torch.empty(x.shape, dtype=F32, device=x.device)
     with torch.cuda.device(x.device):
         st = _build.lib("mamba_scan").histore_mamba_scan(
             x.data_ptr(), dt.data_ptr(), B_ssm.data_ptr(), C_ssm.data_ptr(),
-            A.data_ptr(), y.data_ptr(), Bsz, S, di, N,
-            int(x.dtype == torch.bfloat16),
-            torch.cuda.current_stream(x.device).cuda_stream)
+            A.data_ptr(), y.data_ptr(),
+            None if yacc is None else yacc.data_ptr(), Bsz, S, di, N,
+            DTYPES[x.dtype], torch.cuda.current_stream(x.device).cuda_stream)
     if st != 0:
         raise RuntimeError(f"CUDA kernel mamba_scan failed to launch: "
                            f"cudaError {st}")

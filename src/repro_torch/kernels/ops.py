@@ -2,8 +2,8 @@
 ``repro/kernels/ops.py``).
 
 Every routed op body calls THESE functions — ``probe`` / ``search`` /
-``range_query`` / ``merge`` / ``backup_probe`` / ``group_probe`` — never
-a kernel directly.  Each takes the
+``range_query`` / ``merge`` / ``backup_probe`` / ``group_probe`` /
+``sort`` — never a kernel directly.  Each takes the
 HiStoreConfig and routes by the device of the tensors it is given:
 
   * a CUDA tensor launches the hand-written CUDA kernel
@@ -23,10 +23,15 @@ Each wrapper checks device, dtype, shape and contiguity, allocates its
 outputs and scratch with ``torch.empty``, launches on the current
 stream, raises on a nonzero launch status, and adds one to
 ``LAUNCHES[name]`` per launch.
+
+The legacy wrappers ``hash_probe`` / ``sorted_search`` / ``sort_pairs``
+(the JAX package's per-query DMA kernels and its bitonic network) sit at
+the bottom with JAX's signatures.  As in JAX they ignore
+``cfg.use_kernels``: a CUDA tensor launches their kernel, a CPU tensor
+takes its plain version (``legacy_hash_probe_plain``,
+``legacy_sorted_search_plain``, ``bitonic_sort_plain``).
 """
 from __future__ import annotations
-
-import ctypes
 
 import torch
 
@@ -34,11 +39,14 @@ from repro_torch.core import hash_index as hix
 from repro_torch.core import log as lg
 from repro_torch.core import sorted_index as six
 from repro_torch.core.hashing import I32
+from repro_torch.kernels import ref
 
 # launches of each CUDA kernel in this process (reset by callers that
 # count the launches of one run)
 LAUNCHES = {"hash_probe": 0, "sorted_search": 0, "merge": 0,
-            "backup_probe": 0, "group_probe": 0}
+            "backup_probe": 0, "group_probe": 0, "sort_stable": 0,
+            "legacy_hash_probe": 0, "legacy_sorted_search": 0,
+            "bitonic_sort": 0}
 
 
 def kernels_enabled(cfg, device) -> bool:
@@ -139,9 +147,6 @@ def sorted_search_cuda(queries, keys, addrs, fanout: int):
     return tuple(out[i] for i in range(5))
 
 
-MERGE_MAX_BATCH = 16384
-
-
 def merge_cuda(ekeys, eaddrs, bkeys, baddrs, bops):
     """ekeys/eaddrs: [cap] int32 (ascending, INF-padded); bkeys/baddrs/
     bops: [m] int32 log batch (op 0 invalid / 1 PUT / 2 DEL).  Returns
@@ -157,9 +162,6 @@ def merge_cuda(ekeys, eaddrs, bkeys, baddrs, bops):
     MP = 1
     while MP < m:
         MP <<= 1
-    if MP > MERGE_MAX_BATCH:
-        raise ValueError(f"merge: batch of {m} pads to {MP} > "
-                         f"{MERGE_MAX_BATCH} (the sort's shared memory)")
     dev = ekeys.device
     nbytes = _c("merge", "histore_merge_scratch_bytes")(cap, MP)
     scratch = torch.empty((nbytes,), dtype=torch.uint8, device=dev)
@@ -176,16 +178,22 @@ def merge_cuda(ekeys, eaddrs, bkeys, baddrs, bops):
     return nk, na, size
 
 
-BACKUP_MAX_REPLICAS = 8
+def _ptr_table(dev, ptrs):
+    """The device pointers as an int64 tensor on ``dev``, copied on the
+    current stream.  The copy is from pageable memory and non-blocking:
+    CUDA stages the 8 bytes a pointer before the call returns, so
+    the host neither waits for the card nor keeps the buffer alive."""
+    return torch.tensor(ptrs, dtype=torch.int64).to(dev, non_blocking=True)
 
 
 def _replica_ptrs(kernel, sorted_r, blogs_r):
-    """(R, cap, lcap, host array of the 7 R device pointers) of the R
-    replica and log states the backup and group probes take."""
+    """(R, cap, lcap, a device int64 table of the 7 R device pointers) of
+    the R replica and log states the backup and group probes take; the
+    kernels read the table, so they take any R."""
     R = len(sorted_r)
-    if R < 1 or R > BACKUP_MAX_REPLICAS or len(blogs_r) != R:
-        raise ValueError(f"{kernel}: 1..{BACKUP_MAX_REPLICAS} replicas "
-                         f"with one log each, got {R} and {len(blogs_r)}")
+    if R < 1 or len(blogs_r) != R:
+        raise ValueError(f"{kernel}: at least one replica with one log "
+                         f"each, got {R} and {len(blogs_r)}")
     cap = sorted_r[0].keys.shape[0]
     lcap = blogs_r[0].keys.shape[0]
     if cap < 1 or lcap < 1:
@@ -205,19 +213,18 @@ def _replica_ptrs(kernel, sorted_r, blogs_r):
                 raise ValueError(f"{kernel}: {n} has shape "
                                  f"{tuple(t.shape)}, expected {shape}")
             ptrs.append(t.data_ptr())
-    return R, cap, lcap, (ctypes.c_void_p * len(ptrs))(*ptrs)
+    return R, cap, lcap, _ptr_table(sorted_r[0].keys.device, ptrs)
 
 
 def backup_probe_cuda(keys, rep_sel, sorted_r, blogs_r, fanout: int):
     """keys: [Q] int32; rep_sel: [Q, R] int32; sorted_r / blogs_r: R
     SortedIndex / UpdateLog states (keys and addrs int32, ops int8,
     applied and tail 0-d int32 on the card, read there).  One call takes
-    the R pointer sets: nothing is stacked.  Returns (addr, found int32,
-    n_accesses), each [Q] int32."""
+    the R pointer sets, as a table on the card: nothing is stacked.
+    Returns (addr, found int32, n_accesses), each [Q] int32."""
     _check("keys", keys, I32)
     _check("rep_sel", rep_sel, I32, 2)
-    R, cap, lcap, host_ptrs = _replica_ptrs("backup_probe", sorted_r,
-                                            blogs_r)
+    R, cap, lcap, table = _replica_ptrs("backup_probe", sorted_r, blogs_r)
     Q = keys.shape[0]
     if rep_sel.shape != (Q, R):
         raise ValueError("backup_probe: inconsistent shapes")
@@ -226,7 +233,7 @@ def backup_probe_cuda(keys, rep_sel, sorted_r, blogs_r, fanout: int):
     with torch.cuda.device(keys.device):
         st = _c("backup_probe", "histore_backup_probe")(
             keys.data_ptr(), rep_sel.data_ptr(),
-            ctypes.cast(host_ptrs, ctypes.c_void_p),
+            table.data_ptr(),
             out[0].data_ptr(), out[1].data_ptr(), out[2].data_ptr(),
             out[3].data_ptr(), Q, R, cap, lcap, fanout, levels,
             _stream(keys))
@@ -249,8 +256,7 @@ def group_probe_cuda(bucket, qsig, qfp, rkeys, rep_sel, sig, fp, addr, fill,
     for n, t in (("sig", sig), ("fp", fp), ("addr", addr)):
         _check(n, t, I32, 2)
     _check("rep_sel", rep_sel, I32, 2)
-    R, cap, lcap, host_ptrs = _replica_ptrs("group_probe", sorted_r,
-                                            blogs_r)
+    R, cap, lcap, table = _replica_ptrs("group_probe", sorted_r, blogs_r)
     Q = bucket.shape[0]
     nb, cs = sig.shape
     if (qsig.shape[0] != Q or qfp.shape[0] != Q or rkeys.shape[0] != Q
@@ -264,12 +270,107 @@ def group_probe_cuda(bucket, qsig, qfp, rkeys, rep_sel, sig, fp, addr, fill,
             bucket.data_ptr(), qsig.data_ptr(), qfp.data_ptr(),
             rkeys.data_ptr(), rep_sel.data_ptr(), sig.data_ptr(),
             fp.data_ptr(), addr.data_ptr(), fill.data_ptr(),
-            ctypes.cast(host_ptrs, ctypes.c_void_p),
+            table.data_ptr(),
             *[out[i].data_ptr() for i in range(7)], Q, cs,
             slots_per_bucket, R, cap, lcap, fanout, levels, _stream(bucket))
     _raise_on(st, "group_probe")
     LAUNCHES["group_probe"] += 1
     return tuple(out[i] for i in range(6))
+
+
+def _check_pairs(kernel, keys, vals):
+    _check("keys", keys, I32, 2)
+    _check("vals", vals, I32, 2)
+    if vals.shape != keys.shape:
+        raise ValueError(f"{kernel}: keys {tuple(keys.shape)} and vals "
+                         f"{tuple(vals.shape)} differ")
+    return keys.shape
+
+
+def sort_stable_cuda(keys, vals):
+    """keys/vals: [R, T] int32, any T.  Rowwise stable sort by key, the
+    payload riding the same permutation.  Returns (keys, vals)."""
+    R, T = _check_pairs("sort_stable", keys, vals)
+    TP = 1
+    while TP < T:
+        TP <<= 1
+    dev = keys.device
+    ok = torch.empty_like(keys)
+    ov = torch.empty_like(vals)
+    scratch = torch.empty((R, TP), dtype=torch.int64, device=dev)
+    with torch.cuda.device(dev):
+        st = _c("sort_stable", "histore_sort_stable")(
+            keys.data_ptr(), vals.data_ptr(), ok.data_ptr(), ov.data_ptr(),
+            scratch.data_ptr(), R, T, TP, _stream(keys))
+    _raise_on(st, "sort_stable")
+    LAUNCHES["sort_stable"] += 1
+    return ok, ov
+
+
+def bitonic_sort_cuda(keys, vals):
+    """keys/vals: [R, T] int32, T a power of two.  JAX's bitonic network,
+    step for step, so payloads of tied keys land where its network puts
+    them.  Returns (keys, vals)."""
+    R, T = _check_pairs("bitonic_sort", keys, vals)
+    if T & (T - 1):
+        raise ValueError(f"bitonic_sort: T must be a power of two, got {T}")
+    dev = keys.device
+    ok = torch.empty_like(keys)
+    ov = torch.empty_like(vals)
+    scratch = torch.empty((R, T), dtype=torch.int64, device=dev)
+    with torch.cuda.device(dev):
+        st = _c("bitonic_sort", "histore_bitonic_sort")(
+            keys.data_ptr(), vals.data_ptr(), ok.data_ptr(), ov.data_ptr(),
+            scratch.data_ptr(), R, T, _stream(keys))
+    _raise_on(st, "bitonic_sort")
+    LAUNCHES["bitonic_sort"] += 1
+    return ok, ov
+
+
+def legacy_hash_probe_cuda(bucket, qsig, qfp, sig, fp, addr,
+                           slots_per_bucket: int):
+    """bucket/qsig/qfp: [Q] int32 descriptors; sig/fp/addr: [nb, CS]
+    int32 (no fill: a miss counts the row's nonzero signatures).
+    Returns (addr, found int32, n_accesses), each [Q] int32."""
+    for n, t in (("bucket", bucket), ("qsig", qsig), ("qfp", qfp)):
+        _check(n, t, I32)
+    for n, t in (("sig", sig), ("fp", fp), ("addr", addr)):
+        _check(n, t, I32, 2)
+    Q = bucket.shape[0]
+    if (qsig.shape[0] != Q or qfp.shape[0] != Q or fp.shape != sig.shape
+            or addr.shape != sig.shape):
+        raise ValueError("legacy_hash_probe: inconsistent shapes")
+    out = torch.empty((3, Q), dtype=I32, device=bucket.device)
+    with torch.cuda.device(bucket.device):
+        st = _c("legacy_hash_probe", "histore_legacy_hash_probe")(
+            bucket.data_ptr(), qsig.data_ptr(), qfp.data_ptr(),
+            sig.data_ptr(), fp.data_ptr(), addr.data_ptr(),
+            out[0].data_ptr(), out[1].data_ptr(), out[2].data_ptr(),
+            Q, sig.shape[1], slots_per_bucket, _stream(bucket))
+    _raise_on(st, "legacy_hash_probe")
+    LAUNCHES["legacy_hash_probe"] += 1
+    return out[0], out[1], out[2]
+
+
+def legacy_sorted_search_cuda(queries, keys, addrs, fanout: int):
+    """queries: [Q] int32; keys/addrs: [cap] int32 (ascending,
+    INF-padded).  Returns (addr, found int32, n_accesses), each [Q]
+    int32."""
+    for n, t in (("queries", queries), ("keys", keys), ("addrs", addrs)):
+        _check(n, t, I32)
+    cap = keys.shape[0]
+    if addrs.shape[0] != cap or cap < 1:
+        raise ValueError("legacy_sorted_search: inconsistent shapes")
+    Q = queries.shape[0]
+    out = torch.empty((3, Q), dtype=I32, device=queries.device)
+    with torch.cuda.device(queries.device):
+        st = _c("legacy_sorted_search", "histore_legacy_sorted_search")(
+            queries.data_ptr(), keys.data_ptr(), addrs.data_ptr(),
+            *[out[i].data_ptr() for i in range(3)], Q, cap, fanout,
+            six.directory_levels(cap, fanout), _stream(queries))
+    _raise_on(st, "legacy_sorted_search")
+    LAUNCHES["legacy_sorted_search"] += 1
+    return out[0], out[1], out[2]
 
 
 def backup_probe_plain(cfg, sorted_r, blogs_r, keys, rep_sel):
@@ -302,6 +403,51 @@ def group_probe_plain(cfg, hidx, sorted_r, blogs_r, keys, rep_sel):
     bool, b_acc)."""
     return (*hix.lookup(hidx, keys, cfg),
             *backup_probe_plain(cfg, sorted_r, blogs_r, keys, rep_sel))
+
+
+def _compare_exchange(keys, vals, j, asc):
+    """One step of the bitonic network at partner distance j over [R, T]:
+    the pair (i, i + j) with bit j of i clear swaps when ``asc[i]`` and
+    key_lo > key_hi, or when not ``asc[i]`` and key_lo < key_hi."""
+    R, T = keys.shape
+    k = keys.reshape(R, T // (2 * j), 2, j)
+    v = vals.reshape(R, T // (2 * j), 2, j)
+    a = asc.reshape(T // (2 * j), 2, j)[:, 0, :]
+    lo_k, hi_k = k[:, :, 0], k[:, :, 1]
+    swap = torch.where(a[None], lo_k > hi_k, lo_k < hi_k)
+    k = torch.stack([torch.where(swap, hi_k, lo_k),
+                     torch.where(swap, lo_k, hi_k)], dim=2)
+    lo_v, hi_v = v[:, :, 0], v[:, :, 1]
+    v = torch.stack([torch.where(swap, hi_v, lo_v),
+                     torch.where(swap, lo_v, hi_v)], dim=2)
+    return k.reshape(R, T), v.reshape(R, T)
+
+
+def bitonic_sort_plain(keys, vals):
+    """The plain version of the bitonic sort: JAX's network
+    (``_bitonic_sort.py``) as reshapes and ``torch.where``, stages 2, 4,
+    ... T, distances stage / 2 ... 1, log2(T) (log2(T) + 1) / 2 steps.
+    Not stable: the payloads of tied keys land where the network puts
+    them.  T is a power of two."""
+    T = keys.shape[1]
+    idx = torch.arange(T, device=keys.device)
+    stage = 2
+    while stage <= T:
+        asc = (idx // stage) % 2 == 0
+        j = stage // 2
+        while j >= 1:
+            keys, vals = _compare_exchange(keys, vals, j, asc)
+            j //= 2
+        stage *= 2
+    return keys, vals
+
+
+# the plain versions of the stable sort (torch.sort(stable=True) and a
+# gather, the JAX package's jnp path of ``sort``) and of the legacy probe
+# and search are their oracles
+sort_stable_plain = ref.ref_sort_pairs_stable
+legacy_hash_probe_plain = ref.ref_hash_probe
+legacy_sorted_search_plain = ref.ref_sorted_search
 
 
 # ---------------------------------------------------------------------------
@@ -377,3 +523,79 @@ def group_probe(cfg, hidx, sorted_r, blogs_r, keys, rep_sel):
         hidx.sig, hidx.fp, hidx.addr, hidx.fill, sorted_r, blogs_r,
         cfg.slots_per_bucket, cfg.fanout)
     return ha, hf.bool(), hc, ba, bf.bool(), bc
+
+
+def sort(cfg, keys, vals):
+    """Rowwise STABLE (key, payload) sort of [R, T] -> (keys, vals).
+    Bit-exact with a stable argsort + gather.  On the card the keys must
+    be int32 (the JAX package's x32 keys) and the payload comes back as
+    int32, as JAX casts it on its kernel path; any R and T."""
+    if not kernels_enabled(cfg, keys.device):
+        return sort_stable_plain(keys, vals)
+    if keys.dtype != I32:
+        raise TypeError(f"sort: the kernel sorts int32 keys, got "
+                        f"{keys.dtype}")
+    return sort_stable_cuda(keys.contiguous(), vals.to(I32).contiguous())
+
+
+# ---------------------------------------------------------------------------
+# legacy wrappers (the JAX package's per-query DMA kernels and its bitonic
+# network, kept as the measured one-read-per-access models)
+# ---------------------------------------------------------------------------
+def hash_probe(index, keys, cfg, *, q_block: int = 256):
+    """GET probe through the legacy per-query kernel.  index: HashIndex;
+    keys: [Q].  Returns (addr, found bool, n_accesses); a miss counts
+    ceil(occ / S) reads with occ the chain row's nonzero signatures (the
+    fill the index keeps, so on its tables it equals ``probe``).
+    ``q_block`` is JAX's query tile: the card needs none, any Q is
+    taken."""
+    if q_block < 1:
+        raise ValueError(f"hash_probe: q_block must be >= 1, got {q_block}")
+    b, sig, fp = hix.descriptors(index, keys)
+    if keys.is_cuda:
+        addr, found, acc = legacy_hash_probe_cuda(
+            b, sig, fp, index.sig, index.fp, index.addr,
+            cfg.slots_per_bucket)
+    else:
+        addr, found, acc = legacy_hash_probe_plain(
+            b, sig, fp, index.sig, index.fp, index.addr,
+            slots_per_bucket=cfg.slots_per_bucket)
+    return addr, found.bool(), acc
+
+
+def sorted_search(index, queries, *, fanout: int = 128, q_block: int = 256):
+    """Point lookup on a SortedIndex through the legacy per-level kernel
+    -> (addr, found bool, n_accesses = levels).  Requires int32 keys, as
+    JAX asserts; ``q_block`` as in ``hash_probe``."""
+    if index.keys.dtype != I32:
+        raise TypeError(f"sorted_search: the kernel path uses int32 keys, "
+                        f"got {index.keys.dtype}")
+    if q_block < 1:
+        raise ValueError(f"sorted_search: q_block must be >= 1, got "
+                         f"{q_block}")
+    q = queries.to(I32)
+    if q.is_cuda:
+        addr, found, acc = legacy_sorted_search_cuda(
+            q.contiguous(), index.keys, index.addrs, fanout)
+    else:
+        addr, found, acc = legacy_sorted_search_plain(
+            q, index.keys, index.addrs, fanout=fanout)
+    return addr, found.bool(), acc
+
+
+def sort_pairs(keys, vals, *, row_block: int = 8):
+    """Rowwise (key, payload) sort through the bitonic network, [R, T]
+    int32 with T a power of two (NOT stable on tied keys; ``sort`` is the
+    stable dispatch).  Raises where JAX's kernel asserts: T not a power
+    of two, or R not a multiple of min(row_block, R)."""
+    keys, vals = keys.to(I32), vals.to(I32)
+    R, T = keys.shape
+    if T & (T - 1):
+        raise ValueError(f"sort_pairs: T must be a power of two, got {T}")
+    RB = min(row_block, R)
+    if RB < 1 or R % RB:
+        raise ValueError(f"sort_pairs: R = {R} is not a multiple of "
+                         f"min(row_block, R) = {RB}")
+    if keys.is_cuda:
+        return bitonic_sort_cuda(keys.contiguous(), vals.contiguous())
+    return bitonic_sort_plain(keys, vals)

@@ -141,14 +141,25 @@ def test_default_device_is_the_card(monkeypatch):
 
 
 def test_out_of_scope_calls_raise():
-    """The distributed store's calls (slice 2) raise, naming the slice."""
+    """The distributed store's calls (slice 2) raise, naming the slice.
+    The ticker is not among them: JAX answers it on LocalBackend."""
     c = HiStoreClient(LocalBackend(64, scaled(**TRACE_CFG), device="cpu"))
     for call in (lambda: c.sever_server(0), lambda: c.sever_data_server(0),
                  lambda: c.fail_data_server(0),
-                 lambda: c.recover_data_server(0),
-                 lambda: c.start_ticker()):
+                 lambda: c.recover_data_server(0)):
         with pytest.raises(NotImplementedError, match="slice 2"):
             call()
+
+
+def test_ticker_answers_as_jax_on_local_backend():
+    """LocalBackend has no lease ticker: JAX's client answers
+    start_ticker() with False and stop_ticker() with None, and so does
+    the port's."""
+    jc = _jax_client()
+    tc = _torch_client()
+    for c in (jc, tc):
+        assert c.start_ticker() is False
+        assert c.stop_ticker() is None
 
 
 def test_port_imports_no_jax():

@@ -496,7 +496,8 @@ def test_cuda_mamba_scan_matches_plain(cuda_device):
     (2e-5, the JAX test's tolerance) and bf16 (one bf16 ulp of the plain
     value, plus 2e-5), at shapes that fill no block evenly: N of 3, 8, 16
     and 64, S not a multiple of the 32-step chunk, di not a multiple of
-    the 32-channel block.  Strided B and C views are refused."""
+    the 32-channel block.  Strided B and C views and float64 are
+    refused."""
     from repro_torch.kernels import mamba_scan as ms
 
     rng = np.random.RandomState(3)
@@ -521,6 +522,6 @@ def test_cuda_mamba_scan_matches_plain(cuda_device):
     with pytest.raises(ValueError, match="contiguous"):
         ms.mamba_scan(x, x, dbc[..., :6], dbc[..., 6:], A)
     with pytest.raises(TypeError):
-        ms.mamba_scan(x.half(), x, dbc[..., :6].half().contiguous(),
-                      dbc[..., 6:].half().contiguous(), A)
+        ms.mamba_scan(x.double(), x, dbc[..., :6].double().contiguous(),
+                      dbc[..., 6:].double().contiguous(), A)
     torch.cuda.synchronize()

@@ -452,19 +452,33 @@ def test_g1_in_process_matches_jax(mix):
 
 
 def test_distributed_backend_scope():
-    """Leases on, the card without CUDA, and the slice-2b calls raise."""
+    """Leases on, the card without CUDA, and the slice-2b calls raise.
+    The ticker is not among them: with lease_misses=0 JAX answers it."""
     with pytest.raises(NotImplementedError, match="slice 2b"):
         DistributedBackend(2, scaled(lease_misses=3), 64, device="cpu")
     c = HiStoreClient(DistributedBackend(2, _cfg(), 64, device="cpu"))
     for call in (lambda: c.fail_server(0), lambda: c.sever_server(0),
                  lambda: c.recover_server(0), lambda: c.fail_data_server(0),
                  lambda: c.sever_data_server(0),
-                 lambda: c.recover_data_server(0), lambda: c.migrate(),
-                 lambda: c.start_ticker(), lambda: c.stop_ticker()):
+                 lambda: c.recover_data_server(0), lambda: c.migrate()):
         with pytest.raises(NotImplementedError, match="slice 2b"):
             call()
     assert c.backend.lease_stalled() is False
     assert c.backend.batch_multiple == 2
+
+
+def test_distributed_ticker_answers_as_jax():
+    """With lease_misses=0 JAX's DistributedBackend has no lease to tick:
+    start_ticker() answers False and stop_ticker() None, in both
+    packages (G = 1, so the JAX side runs in this process)."""
+    mesh = jax.make_mesh((1,), ("kv",),
+                         axis_types=(jax.sharding.AxisType.Auto,))
+    jc = JClient(JDist(mesh, jscaled(use_kernels="off", lease_misses=0),
+                       64, capacity_q=8))
+    tc = HiStoreClient(DistributedBackend(1, _cfg(), 64, device="cpu"))
+    for c in (jc, tc):
+        assert c.start_ticker() is False
+        assert c.stop_ticker() is None
 
 
 def test_distributed_default_device_is_the_card(monkeypatch):

@@ -1,0 +1,563 @@
+"""The rest of the port's kernel dispatch surface held against the JAX
+package: ``ops.sort`` and the legacy wrappers ``ops.hash_probe`` /
+``ops.sorted_search`` / ``ops.sort_pairs``, the torch oracles of
+``repro_torch.kernels.ref``, the deprecated module shims, and the lifted
+limits of the merge, the backup and group probes and the Mamba scan.
+
+On the CPU each port call takes its plain PyTorch version; the JAX side
+runs its Pallas kernels in interpret mode, as tests/test_kernels.py does.
+Every integer output must be equal, the payloads of the bitonic sort's
+tied keys included.  The CUDA kernels run only on the card: the tests
+marked ``requires_cuda`` skip here.
+"""
+from __future__ import annotations
+
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.configs.histore import scaled as jscaled
+from repro.core import hash_index as jhix
+from repro.core import log as jlg
+from repro.core import sorted_index as jsix
+from repro.kernels import ops as jops
+from repro.kernels import ref as jref
+from repro_torch.configs.histore import scaled
+from repro_torch.core import hash_index as hix
+from repro_torch.core import log as lg
+from repro_torch.core import sorted_index as six
+from repro_torch.kernels import ops
+from repro_torch.kernels import ref
+from test_torch_kernels import (CFG, INF, JCFG, _eq, _hash_state,
+                                _replica_states, _scan_inputs, _sorted_state,
+                                _t)
+
+ROOT = Path(__file__).resolve().parents[1]
+
+
+def _np(x):
+    return x.cpu().numpy() if torch.is_tensor(x) else np.asarray(x)
+
+
+# ---------------------------------------------------------------------------
+# hash_probe: the legacy per-query probe (miss count from the row's occ)
+# ---------------------------------------------------------------------------
+@pytest.mark.parametrize("Q", [64, 256, 512, 300])
+def test_hash_probe_matches_pallas(Q):
+    """On a table with hits, tombstones and reused slots, at Q of one,
+    four and eight JAX query tiles and a Q JAX pads (300 = 4 x 64 + 44):
+    equal to JAX's legacy kernel, to both oracles and, since the index
+    keeps occ == fill, to ``ops.probe``."""
+    rng = np.random.default_rng(Q)
+    keys, jh, th = _hash_state(rng)
+    q = np.concatenate([rng.choice(keys, Q // 2),
+                        rng.integers(0, 2 ** 31 - 1, Q - Q // 2)]
+                       ).astype(np.int32)
+    rng.shuffle(q)
+    got = ops.hash_probe(th, torch.as_tensor(q), CFG)
+    jq = jnp.asarray(q)
+    _eq(got, jops.hash_probe(jh, jq, JCFG, q_block=64), "hash_probe pallas")
+    b, sig, fp = jhix.descriptors(jh, jq)
+    want = jref.ref_hash_probe(b, sig, fp, jh.sig, jh.fp, jh.addr,
+                               slots_per_bucket=CFG.slots_per_bucket)
+    _eq((got[0], got[1].to(torch.int32), got[2]), want, "hash_probe ref")
+    tb, ts, tf = hix.descriptors(th, torch.as_tensor(q))
+    _eq(ref.ref_hash_probe(tb, ts, tf, th.sig, th.fp, th.addr,
+                           slots_per_bucket=CFG.slots_per_bucket), want,
+        "torch ref_hash_probe")
+    _eq(got, ops.probe(CFG, th, torch.as_tensor(q)), "ops.probe")
+    assert got[1].any() and not got[1].all()
+
+
+@pytest.mark.parametrize("spb,chain", [(4, 2), (8, 4), (8, 2)])
+def test_hash_probe_chain_shapes_sweep(spb, chain):
+    """tests/test_kernels.py's chain sweep: every key found with its
+    addr, and every output equal to JAX's kernel."""
+    jcfg = jscaled(slots_per_bucket=spb, max_chain=chain)
+    cfg = scaled(slots_per_bucket=spb, max_chain=chain)
+    keys = np.arange(1, 257, dtype=np.int32) * 31
+    jh, _ = jhix.insert(jhix.create(512, jcfg), jnp.asarray(keys),
+                        jnp.asarray(keys), jcfg)
+    th = hix.HashIndex(*[_t(a) for a in jh])
+    got = ops.hash_probe(th, torch.as_tensor(keys), cfg, q_block=128)
+    _eq(got, jops.hash_probe(jh, jnp.asarray(keys), jcfg, q_block=128),
+        f"hash_probe spb={spb} chain={chain}")
+    assert bool(got[1].all())
+    np.testing.assert_array_equal(got[0].numpy(), keys)
+
+
+# ---------------------------------------------------------------------------
+# sorted_search: the legacy per-level descent
+# ---------------------------------------------------------------------------
+@pytest.mark.parametrize("cap,n", [(256, 100), (4096, 1000), (1 << 15, 5000)])
+def test_sorted_search_matches_pallas(cap, n):
+    """Hits, key + 1 misses, random misses, -1, 0 and 2**31 - 1, at a Q
+    JAX pads: equal to JAX's legacy kernel, both oracles and ops.search."""
+    rng = np.random.default_rng(cap)
+    keys, js, ts = _sorted_state(rng, cap, n)
+    m = min(128, n)
+    q = np.concatenate([keys[:m], keys[:m] + 1,
+                        rng.integers(0, 10 ** 6, 37),
+                        [-1, 0, INF, INF - 1]]).astype(np.int32)
+    got = ops.sorted_search(ts, torch.as_tensor(q))
+    jq = jnp.asarray(q)
+    _eq(got, jops.sorted_search(js, jq, q_block=64), "sorted_search pallas")
+    want = jref.ref_sorted_search(jq, js.keys, js.addrs)
+    _eq((got[0], got[1].to(torch.int32), got[2]), want, "sorted_search ref")
+    _eq(ref.ref_sorted_search(torch.as_tensor(q), ts.keys, ts.addrs), want,
+        "torch ref_sorted_search")
+    _eq(got, ops.search(CFG, ts, torch.as_tensor(q)), "ops.search")
+    assert bool(got[1][:m].all())
+    # 2**31 - 1 "hits" the INF padding, as in JAX; other absent keys miss
+    miss = ~np.isin(q, keys) & (q != INF)
+    assert not bool(got[1][torch.as_tensor(miss)].any())
+
+
+# ---------------------------------------------------------------------------
+# sort (stable) and sort_pairs (the bitonic network)
+# ---------------------------------------------------------------------------
+@pytest.mark.parametrize("R,T,hi", [(6, 256, 13), (3, 64, 5), (4, 1, 9),
+                                    (5, 128, 10 ** 6)])
+def test_sort_matches_pallas(R, T, hi):
+    """tests/test_kernel_dispatch.py's stability case ([6, 256], keys in
+    [0, 13), distinct payloads), R = 3, T = 1 and unique-ish keys: equal
+    to JAX's stable-sort kernel, its jnp path and ref_sort_pairs_stable."""
+    rng = np.random.default_rng(R * T)
+    keys = rng.integers(0, hi, (R, T)).astype(np.int32)
+    vals = np.arange(R * T, dtype=np.int32).reshape(R, T)
+    got = ops.sort(CFG, torch.as_tensor(keys), torch.as_tensor(vals))
+    jk, jv = jnp.asarray(keys), jnp.asarray(vals)
+    _eq(got, jops.sort(JCFG, jk, jv), "sort pallas")
+    _eq(got, jops.sort(jscaled(use_kernels="off"), jk, jv), "sort jnp")
+    _eq(got, jref.ref_sort_pairs_stable(jk, jv), "sort ref")
+    _eq(ref.ref_sort_pairs_stable(torch.as_tensor(keys),
+                                  torch.as_tensor(vals)), got,
+        "torch ref_sort_pairs_stable")
+
+
+@pytest.mark.parametrize("rows,T", [(8, 64), (16, 256), (4, 1024)])
+def test_sort_pairs_matches_pallas_on_ties(rows, T):
+    """The bitonic network with keys in [0, 100), so most keys tie, and
+    distinct payloads: the port equals JAX's bitonic_sort_kernel in
+    interpret mode on keys AND payloads (the network is not stable, so
+    this holds only for the same network in the same step order); the
+    keys equal ref_bitonic_sort's (a stable sort), the payloads do not."""
+    from repro.kernels._bitonic_sort import bitonic_sort_kernel
+
+    rng = np.random.RandomState(rows * T)
+    keys = rng.randint(0, 100, (rows, T)).astype(np.int32)
+    vals = np.arange(rows * T, dtype=np.int32).reshape(rows, T)
+    got = ops.sort_pairs(torch.as_tensor(keys), torch.as_tensor(vals),
+                         row_block=min(rows, 8))
+    jk, jv = jnp.asarray(keys), jnp.asarray(vals)
+    want = bitonic_sort_kernel(jk, jv, row_block=min(rows, 8),
+                               interpret=True)
+    _eq(got, want, "sort_pairs vs bitonic_sort_kernel")
+    _eq(got, jops.sort_pairs(jk, jv, row_block=min(rows, 8)), "sort_pairs")
+    stable = jref.ref_bitonic_sort(jk, jv)
+    _eq(got[:1], stable[:1], "sort_pairs keys vs ref_bitonic_sort")
+    assert not np.array_equal(got[1].numpy(), np.asarray(stable[1]))
+    _eq(ref.ref_bitonic_sort(torch.as_tensor(keys), torch.as_tensor(vals)),
+        stable, "torch ref_bitonic_sort")
+
+
+# ---------------------------------------------------------------------------
+# the port raises where JAX asserts
+# ---------------------------------------------------------------------------
+def _bad_calls():
+    k48 = np.zeros((2, 48), np.int32)          # T not a power of two
+    k12 = np.zeros((12, 16), np.int32)         # 12 % min(8, 12) != 0
+    fkeys = np.sort(np.random.RandomState(0).rand(64)).astype(np.float32)
+    q = np.arange(4, dtype=np.int32)
+    return [
+        ("sort_pairs T=48",
+         lambda: jops.sort_pairs(jnp.asarray(k48), jnp.asarray(k48)),
+         lambda: ops.sort_pairs(_t(k48), _t(k48))),
+        ("sort_pairs R=12 row_block=8",
+         lambda: jops.sort_pairs(jnp.asarray(k12), jnp.asarray(k12)),
+         lambda: ops.sort_pairs(_t(k12), _t(k12))),
+        ("sorted_search float32 keys",
+         lambda: jops.sorted_search(
+             jsix.SortedIndex(jnp.asarray(fkeys), jnp.zeros(64, jnp.int32),
+                              jnp.int32(64)), jnp.asarray(q)),
+         lambda: ops.sorted_search(
+             six.SortedIndex(_t(fkeys), torch.zeros(64, dtype=torch.int32),
+                             torch.tensor(64, dtype=torch.int32)), _t(q))),
+    ]
+
+
+@pytest.mark.parametrize("case", range(3))
+def test_legacy_calls_raise_where_jax_asserts(case):
+    label, jax_call, port_call = _bad_calls()[case]
+    with pytest.raises(AssertionError):
+        jax_call()
+    before = dict(ops.LAUNCHES)
+    with pytest.raises((ValueError, TypeError)):
+        port_call()
+    assert ops.LAUNCHES == before, label
+
+
+def test_legacy_wrappers_take_any_q_and_r():
+    """JAX pads Q up to its query tile and splits R into row blocks, so
+    no Q and no R that passes the asserts is refused: Q = 1 and 7, and
+    sort at R = 3, 5 and 7."""
+    rng = np.random.default_rng(3)
+    keys, jh, th = _hash_state(rng, cap=512, n=200, n_del=20)
+    skeys, js, ts = _sorted_state(rng, 512, 200)
+    for Q in (1, 7):
+        q = keys[:Q]
+        _eq(ops.hash_probe(th, _t(q), CFG),
+            jops.hash_probe(jh, jnp.asarray(q), JCFG), f"hash_probe Q={Q}")
+        _eq(ops.sorted_search(ts, _t(skeys[:Q])),
+            jops.sorted_search(js, jnp.asarray(skeys[:Q])),
+            f"sorted_search Q={Q}")
+    for R in (3, 5, 7):
+        k = rng.integers(0, 4, (R, 16)).astype(np.int32)
+        v = np.arange(R * 16, dtype=np.int32).reshape(R, 16)
+        _eq(ops.sort(CFG, _t(k), _t(v)),
+            jops.sort(JCFG, jnp.asarray(k), jnp.asarray(v)), f"sort R={R}")
+
+
+# ---------------------------------------------------------------------------
+# the oracles of repro_torch.kernels.ref against JAX's
+# ---------------------------------------------------------------------------
+def _oracle_case(name):
+    """(torch call, JAX call) of one oracle on the same numpy inputs."""
+    rng = np.random.default_rng(len(name))
+    if name == "ref_hash_probe":
+        keys, jh, th = _hash_state(rng)
+        q = np.concatenate([keys[:300], rng.integers(0, 10 ** 9, 100)]
+                           ).astype(np.int32)
+        jb, js_, jf = jhix.descriptors(jh, jnp.asarray(q))
+        tb, ts_, tf = hix.descriptors(th, _t(q))
+        return (lambda: ref.ref_hash_probe(tb, ts_, tf, th.sig, th.fp,
+                                           th.addr, slots_per_bucket=8),
+                lambda: jref.ref_hash_probe(jb, js_, jf, jh.sig, jh.fp,
+                                            jh.addr, slots_per_bucket=8))
+    if name == "ref_sorted_search":
+        keys, js, ts = _sorted_state(rng, 5000, 3000)
+        q = np.concatenate([keys[:200], keys[:200] + 1, [-1, INF]]
+                           ).astype(np.int32)
+        return (lambda: ref.ref_sorted_search(_t(q), ts.keys, ts.addrs,
+                                              fanout=16),
+                lambda: jref.ref_sorted_search(jnp.asarray(q), js.keys,
+                                               js.addrs, fanout=16))
+    if name in ("ref_pending_lookup", "ref_backup_probe"):
+        pool = rng.choice(10 ** 6, 3000, replace=False).astype(np.int32)
+        windows = [(50, 100), (37, 37), (3, 20)]
+        js, jl, ts, tl = _replica_states(rng, 4096, 64, windows, pool)
+        q = np.concatenate([rng.choice(pool, 300), [INF, 0, -1]]
+                           ).astype(np.int32)
+        if name == "ref_pending_lookup":
+            return (lambda: ref.ref_pending_lookup(
+                        tl[0].keys, tl[0].addrs, tl[0].ops.to(torch.int32),
+                        tl[0].applied, tl[0].tail, _t(q)),
+                    lambda: jref.ref_pending_lookup(
+                        jl.keys[0], jl.addrs[0], jl.ops[0].astype(jnp.int32),
+                        jl.applied[0], jl.tail[0], jnp.asarray(q)))
+        sel = rng.integers(0, 2, (len(q), 3)).astype(np.int32)
+        tlw = torch.stack([torch.stack([x.applied, x.tail]) for x in tl])
+        jlw = jnp.stack([jl.applied, jl.tail], axis=1)
+        return (lambda: ref.ref_backup_probe(
+                    CFG, torch.stack([s.keys for s in ts]),
+                    torch.stack([s.addrs for s in ts]),
+                    torch.stack([x.keys for x in tl]),
+                    torch.stack([x.addrs for x in tl]),
+                    torch.stack([x.ops for x in tl]).to(torch.int32), tlw,
+                    _t(q), _t(sel)),
+                lambda: jref.ref_backup_probe(
+                    JCFG, js.keys, js.addrs, jl.keys, jl.addrs,
+                    jl.ops.astype(jnp.int32), jlw, jnp.asarray(q),
+                    jnp.asarray(sel)))
+    if name == "ref_merge":
+        keys, js, ts = _sorted_state(rng, 512, 300)
+        m = 100
+        bk = rng.choice(np.concatenate([keys, rng.integers(0, 10 ** 6, 50)]),
+                        m).astype(np.int32)
+        bk[:20] = bk[20:40]
+        ba = rng.integers(0, 10 ** 5, m).astype(np.int32)
+        bo = rng.choice([0, 1, 1, 2], m).astype(np.int32)
+        return (lambda: ref.ref_merge(ts.keys, ts.addrs, _t(bk), _t(ba),
+                                      _t(bo)),
+                lambda: jref.ref_merge(js.keys, js.addrs, jnp.asarray(bk),
+                                       jnp.asarray(ba), jnp.asarray(bo)))
+    k = rng.integers(0, 7, (5, 64)).astype(np.int32)
+    v = np.arange(5 * 64, dtype=np.int32).reshape(5, 64)
+    fn = name
+    return (lambda: getattr(ref, fn)(_t(k), _t(v)),
+            lambda: getattr(jref, fn)(jnp.asarray(k), jnp.asarray(v)))
+
+
+INT_ORACLES = ["ref_hash_probe", "ref_sorted_search", "ref_pending_lookup",
+               "ref_backup_probe", "ref_merge", "ref_sort_pairs_stable",
+               "ref_bitonic_sort"]
+
+
+@pytest.mark.parametrize("name", INT_ORACLES)
+def test_ref_oracle_matches_jax(name):
+    port_call, jax_call = _oracle_case(name)
+    got, want = port_call(), jax_call()
+    for i, (x, y) in enumerate(zip(got, want)):
+        np.testing.assert_array_equal(_np(x).astype(np.int64),
+                                      _np(y).astype(np.int64),
+                                      err_msg=f"{name}: output {i}")
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_ref_mamba_scan_matches_jax(dtype):
+    """The sequential float32 recurrence; float32 within the JAX test's
+    2e-5, bf16 within one bf16 ulp."""
+    ins = _scan_inputs(np.random.RandomState(2), 2, 40, 64, 8)
+    x, dt, Bs, Cs, A = ins
+    jd, td = getattr(jnp, dtype), getattr(torch, dtype)
+    want = jref.ref_mamba_scan(jnp.asarray(x, jd), jnp.asarray(dt),
+                               jnp.asarray(Bs, jd), jnp.asarray(Cs, jd),
+                               jnp.asarray(A))
+    got = ref.ref_mamba_scan(_t(x).to(td), _t(dt), _t(Bs).to(td),
+                             _t(Cs).to(td), _t(A))
+    assert got.dtype == td
+    tol = 2e-5 if dtype == "float32" else 2 ** -7
+    np.testing.assert_allclose(got.float().numpy(),
+                               np.asarray(want, np.float32), rtol=tol,
+                               atol=2e-5)
+
+
+# ---------------------------------------------------------------------------
+# the package surface and the deprecated shims
+# ---------------------------------------------------------------------------
+def test_kernels_package_reexports_the_dispatch_api():
+    import repro.kernels as jk
+    import repro_torch.kernels as tk
+
+    for name in ("ops", "active_path", "backup_probe", "group_probe",
+                 "kernels_enabled", "merge", "probe", "range_query",
+                 "search", "sort"):
+        assert hasattr(jk, name) and hasattr(tk, name), name
+    for name in ("sort", "hash_probe", "sorted_search", "sort_pairs"):
+        assert callable(getattr(jops, name)) and callable(getattr(ops, name))
+
+
+@pytest.mark.parametrize("mod", ["hash_probe", "sorted_search",
+                                 "bitonic_sort"])
+def test_deprecated_module_shims_warn(mod):
+    code = ("import warnings; "
+            "warnings.simplefilter('error', DeprecationWarning); "
+            f"import repro_torch.kernels.{mod}")
+    r = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                       text=True, cwd=ROOT,
+                       env={**os.environ, "PYTHONPATH": str(ROOT / "src")})
+    assert r.returncode != 0 and "DeprecationWarning" in r.stderr, (
+        f"importing repro_torch.kernels.{mod} must warn deprecation: "
+        f"{r.stderr}")
+
+
+# ---------------------------------------------------------------------------
+# lifted limits on the CPU: R = 9 replicas, N = 128 and float16 scans
+# ---------------------------------------------------------------------------
+def test_backup_and_group_probe_take_nine_replicas():
+    """JAX's probes take any n_backups: at R = 9 the port's backup and
+    group probes equal JAX's Pallas kernels."""
+    rng = np.random.default_rng(9)
+    hkeys, jh, th = _hash_state(rng, cap=1024, n=400, n_del=50)
+    pool = np.unique(np.concatenate([hkeys, rng.choice(
+        10 ** 6, 1000, replace=False).astype(np.int32)]))
+    windows = [(50, 100), (37, 37), (10, 74), (0, 0), (3, 20), (200, 263),
+               (5, 6), (60, 70), (120, 129)]
+    js, jl, ts, tl = _replica_states(rng, 1024, 64, windows, pool)
+    q = np.concatenate([rng.choice(pool, 200), [INF, 0, -1]]
+                       ).astype(np.int32)
+    sel = rng.integers(0, 2, (len(q), 9)).astype(np.int32)
+    jq, jsel = jnp.asarray(q), jnp.asarray(sel)
+    _eq(ops.backup_probe(CFG, ts, tl, _t(q), _t(sel)),
+        jops.backup_probe(JCFG, js, jl, jq, jsel), "backup_probe R=9")
+    _eq(ops.group_probe(CFG, th, ts, tl, _t(q), _t(sel)),
+        jops.group_probe(JCFG, jh, js, jl, jq, jsel), "group_probe R=9")
+
+
+@pytest.mark.parametrize("N,dtype", [(128, "float32"), (8, "float16")])
+def test_mamba_scan_takes_what_jax_takes(N, dtype):
+    """N = 128 and float16: the port's mamba_scan equals JAX's kernel in
+    interpret mode (float32 within 2e-5; float16 within one float16 ulp),
+    and the wrapper no longer names a state or batch limit."""
+    from repro.kernels.mamba_scan import mamba_scan_kernel
+    from repro_torch.kernels import mamba_scan as ms
+
+    assert not hasattr(ms, "MAX_STATE") and torch.float16 in ms.DTYPES
+    x, dt, Bs, Cs, A = _scan_inputs(np.random.RandomState(N), 1, 32, 64, N)
+    jd, td = getattr(jnp, dtype), getattr(torch, dtype)
+    want = mamba_scan_kernel(jnp.asarray(x, jd), jnp.asarray(dt),
+                             jnp.asarray(Bs, jd), jnp.asarray(Cs, jd),
+                             jnp.asarray(A), d_block=64, seq_chunk=32,
+                             interpret=True)
+    got = ms.mamba_scan(_t(x).to(td), _t(dt), _t(Bs).to(td), _t(Cs).to(td),
+                        _t(A))
+    assert got.dtype == td
+    tol = 2e-5 if dtype == "float32" else 2 ** -10
+    np.testing.assert_allclose(got.float().numpy(),
+                               np.asarray(want, np.float32), rtol=tol,
+                               atol=2e-5)
+
+
+# ---------------------------------------------------------------------------
+# on the card: each kernel against its plain version
+# ---------------------------------------------------------------------------
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU with CUDA: the kernels are CUDA "
+                    "C++ built with nvcc and have no CPU mode")
+    return torch.device("cuda")
+
+
+def _launched(name, fn):
+    n0 = ops.LAUNCHES[name]
+    out = fn()
+    assert ops.LAUNCHES[name] == n0 + 1, name
+    return out
+
+
+@pytest.mark.requires_cuda
+def test_cuda_legacy_probe_and_search_match_plain(cuda_device):
+    """The legacy hash probe and search kernels against their plain
+    versions, and against ops.probe and ops.search, on the card."""
+    rng = np.random.default_rng(21)
+    keys, _, th = _hash_state(rng, cap=1 << 14, n=6000, n_del=1000)
+    th = hix.HashIndex(*[a.to(cuda_device) for a in th])
+    for Q in (1, 300, 9000):
+        q = torch.as_tensor(np.concatenate(
+            [rng.choice(keys, Q - Q // 2), rng.integers(0, 2 ** 31 - 1,
+                                                        Q // 2)]
+        ).astype(np.int32), device=cuda_device)
+        got = _launched("legacy_hash_probe",
+                        lambda: ops.hash_probe(th, q, CFG))
+        b, s, f = hix.descriptors(th, q)
+        _eq((got[0], got[1].to(torch.int32), got[2]),
+            ops.legacy_hash_probe_plain(b, s, f, th.sig, th.fp, th.addr,
+                                        slots_per_bucket=8),
+            f"cuda legacy hash_probe Q={Q}")
+        _eq(got, hix.lookup(th, q, CFG), f"cuda legacy vs lookup Q={Q}")
+    for cap, n in ((1, 0), (300, 137), (1 << 16, 40000)):
+        skeys, _, ts = _sorted_state(rng, cap, n)
+        ts = six.SortedIndex(*[a.to(cuda_device) for a in ts])
+        q = torch.as_tensor(np.concatenate(
+            [skeys[:3000], skeys[:3000] + 1, rng.integers(-5, 10 ** 6, 3000),
+             [-1, 0, INF - 1, INF]]).astype(np.int32), device=cuda_device)
+        got = _launched("legacy_sorted_search",
+                        lambda: ops.sorted_search(ts, q))
+        _eq((got[0], got[1].to(torch.int32), got[2]),
+            ops.legacy_sorted_search_plain(q, ts.keys, ts.addrs),
+            f"cuda legacy sorted_search cap={cap}")
+        _eq(got, six.search(ts, q, 128), f"cuda legacy vs search cap={cap}")
+    torch.cuda.synchronize()
+
+
+SORT_SHAPES = [(16, 4096), (1, 16384), (1, 65536), (3, 1), (5, 1000),
+               (2, 40000), (1, 1 << 17)]
+
+
+@pytest.mark.requires_cuda
+def test_cuda_sorts_match_plain(cuda_device):
+    """Both sorts against their plain versions with keys in [0, 1024) and
+    distinct payloads: rows that fit in shared memory, rows that take
+    the global passes (65536 and 2**17), and for the stable sort rows
+    whose T is not a power of two."""
+    rng = np.random.default_rng(23)
+    for R, T in SORT_SHAPES:
+        k = torch.as_tensor(rng.integers(0, 1024, (R, T)).astype(np.int32),
+                            device=cuda_device)
+        v = torch.as_tensor(rng.permutation(R * T).astype(np.int32)
+                            .reshape(R, T), device=cuda_device)
+        _eq(_launched("sort_stable", lambda: ops.sort(CFG, k, v)),
+            ops.sort_stable_plain(k, v), f"cuda sort [{R}, {T}]")
+        if T & (T - 1) == 0:
+            _eq(_launched("bitonic_sort", lambda: ops.sort_pairs(k, v)),
+                ops.bitonic_sort_plain(k, v), f"cuda sort_pairs [{R}, {T}]")
+    with pytest.raises(TypeError):
+        ops.sort(CFG, k.to(torch.int64), v)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.requires_cuda
+def test_cuda_merge_takes_a_full_log_ring(cuda_device):
+    """A 65536-entry batch (one full backup-log ring, above the old
+    16384 limit) and a 20000-entry one: equal to six.merge."""
+    rng = np.random.default_rng(25)
+    skeys, _, ts = _sorted_state(rng, 1 << 18, 100000)
+    ts = six.SortedIndex(*[a.to(cuda_device) for a in ts])
+    for m in (65536, 20000):
+        bk = torch.as_tensor(rng.choice(np.concatenate(
+            [skeys, rng.integers(0, 10 ** 6, 30000)]), m).astype(np.int32),
+            device=cuda_device)
+        ba = torch.as_tensor(rng.integers(0, 10 ** 5, m).astype(np.int32),
+                             device=cuda_device)
+        bo = torch.as_tensor(rng.choice([0, 1, 2], m).astype(np.int8),
+                             device=cuda_device)
+        got = _launched("merge", lambda: ops.merge(CFG, ts, bk, ba, bo))
+        _eq(got, six.merge(ts, bk, ba, bo), f"cuda merge m={m}")
+    torch.cuda.synchronize()
+
+
+@pytest.mark.requires_cuda
+def test_cuda_probes_take_nine_replicas(cuda_device):
+    """R = 9 replicas on a small group: the backup and group probe
+    kernels against backup_probe_plain and group_probe_plain."""
+    rng = np.random.default_rng(27)
+    hkeys, _, th = _hash_state(rng, cap=4096, n=1500, n_del=200)
+    th = hix.HashIndex(*[a.to(cuda_device) for a in th])
+    pool = np.unique(np.concatenate([hkeys, rng.choice(
+        10 ** 6, 5000, replace=False).astype(np.int32)]))
+    windows = [(50, 100), (37, 37), (10, 74), (0, 0), (3, 20), (200, 263),
+               (5, 6), (60, 70), (120, 129)]
+    _, _, ts, tl = _replica_states(rng, 4096, 64, windows, pool)
+    ts = tuple(six.SortedIndex(*[a.to(cuda_device) for a in s]) for s in ts)
+    tl = tuple(lg.UpdateLog(*[a.to(cuda_device) for a in x]) for x in tl)
+    q = torch.as_tensor(np.concatenate(
+        [rng.choice(pool, 2000), [INF, 0, -1]]).astype(np.int32),
+        device=cuda_device)
+    sel = torch.as_tensor(rng.integers(0, 2, (q.shape[0], 9)).astype(
+        np.int32), device=cuda_device)
+    _eq(_launched("backup_probe",
+                  lambda: ops.backup_probe(CFG, ts, tl, q, sel)),
+        ops.backup_probe_plain(CFG, ts, tl, q, sel), "cuda backup_probe R=9")
+    _eq(_launched("group_probe",
+                  lambda: ops.group_probe(CFG, th, ts, tl, q, sel)),
+        ops.group_probe_plain(CFG, th, ts, tl, q, sel), "cuda group_probe R=9")
+    torch.cuda.synchronize()
+
+
+@pytest.mark.requires_cuda
+def test_cuda_mamba_scan_lifted_limits(cuda_device):
+    """N = 128 (two 64-state tiles) in float32, bf16 and float16, float16
+    at N = 16, and B = 65536 at S = 3, d_inner = 4: each against the
+    plain version (float32 within 2e-5; bf16 and float16 within one ulp
+    of the plain value plus 2e-5)."""
+    from repro_torch.kernels import mamba_scan as ms
+
+    rng = np.random.RandomState(29)
+    for (B, S, di, N), dtypes in (
+            ((2, 70, 96, 128), (torch.float32, torch.bfloat16,
+                                torch.float16)),
+            ((1, 40, 64, 16), (torch.float16,)),
+            ((65536, 3, 4, 2), (torch.float32,))):
+        x, dt, Bs, Cs, A = (torch.as_tensor(a, device=cuda_device)
+                            for a in _scan_inputs(rng, B, S, di, N))
+        for dtype in dtypes:
+            xd, Bd, Cd = (t.to(dtype) for t in (x, Bs, Cs))
+            n0 = ms.LAUNCHES["mamba_scan"]
+            got = ms.mamba_scan(xd, dt, Bd, Cd, A).float()
+            assert ms.LAUNCHES["mamba_scan"] == n0 + 1
+            want = ms.mamba_scan_plain(xd, dt, Bd, Cd, A).float()
+            if dtype == torch.float32:
+                tol = 2e-5 + 2e-5 * want.abs()
+            else:
+                bits = 7 if dtype == torch.bfloat16 else 10
+                e = torch.floor(torch.log2(want.abs().clamp_min(2.0 ** -14)))
+                tol = torch.exp2(e - bits) + 2e-5
+            assert bool(((got - want).abs() <= tol).all()), (B, N, dtype)
+    torch.cuda.synchronize()
