@@ -21,18 +21,26 @@
    (launches queued behind a GPU sleep, so host time is hidden), its
    plain version's time, its bound (bytes over 3.35 TB/s; for the search
    also the latency of its dependent levels) and, for the search,
-   torch.searchsorted.
+   torch.searchsorted.  One merge call runs under torch.profiler (CUDA
+   activity) and the device time of each of its kernels is logged by name.
 4b. The rest of the dispatch surface on the same loaded store, launch
    counts set to 0 before it and the four new ones > 0 after:
    ``ops.hash_probe`` (the legacy probe) on one client chunk of GET keys,
    ``ops.sorted_search`` (the legacy search) on replica 0 with misses,
    -1 and 2**31 - 1, ``ops.sort`` and ``ops.sort_pairs`` at [16, 4096],
    [1, 16384] and [1, 65536] (keys in [0, 1024), distinct payloads), and
-   ``ops.merge`` with a 65536-entry batch.  Each against its plain
+   ``ops.merge`` with a 65536-entry batch (split by kernel as in 4).
+   Each against its plain
    version (the probe and search also against ``ops.probe`` and
    ``ops.search``), timed as in 4, with torch.sort(stable) + gather and
    searchsorted + index as the library calls; the sorts' bound also
    counts their compare-exchanges at 67e12/s.
+4c. Programmatic dependent launch on and off: merge.cu and sort_stable.cu
+   built again with pdl.cuh's launch attribute off (into build/no_pdl),
+   then the merge (cap 2**24 at m = 4096 and 65536, and the replica's
+   first 2**21 entries at m = 4096) and the stable sort at each sort
+   shape, device time as in 4, in the order on, off, on, off; the two
+   builds' outputs must be equal.
 5. The failure and recovery path on the same store, launch counts set
    to 0 before it and all four > 0 after: a pending window of 2 chunks
    that straddles the end of the 65536-entry backup-log ring, then the
@@ -58,7 +66,8 @@
    been launched.
 8. The hash probe, search and merge against their plain versions at the
    distributed path's shapes (one group: a 2**21-slot hash and replica,
-   Q = 8 x 1024, the exchange buffer's width), timed as in 4.
+   Q = 8 x 1024, the exchange buffer's width), timed and the merge split
+   by kernel as in 4.
 9. The group probe against its plain version as the distributed GET
    calls it: the last round's GET chunk routed as that GET routed it,
    every server's call on its exchange buffer (Q = 8192, mostly key_inf
@@ -216,6 +225,42 @@ def device_ms(torch, fn, iters, sleep_cycles=int(3e8)):
     check(host_ms < e[0].elapsed_time(e[1]),
           f"device_ms: queueing took {host_ms:.3f} ms, longer than the sleep")
     return e[1].elapsed_time(e[2]) / iters
+
+
+def kernel_split(torch, fn, label, iters=5):
+    """The device time of each kernel that one call of ``fn`` launches, by
+    name: ``fn`` runs ``iters`` times under torch.profiler (CUDA activity)
+    after a warm-up.  Returns {kernel: ms per call} and logs it; {} when
+    the profiler records no device time (then the caller's whole-call
+    device time is all there is).  A kernel launched with programmatic
+    dependent launch starts before the one before it ends and waits, so
+    its time includes that wait and the split can sum to more than the
+    call."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    split = {}
+    for e in prof.key_averages():
+        us = getattr(e, "self_device_time_total", None)
+        if us is None:
+            us = getattr(e, "self_cuda_time_total", 0)
+        if us > 0:
+            name = e.key.replace("(anonymous namespace)::", "")
+            name = name.split("(")[0].split("<")[0].split("::")[-1]
+            split[name] = split.get(name, 0.0) + us / 1e3 / iters
+    if split:
+        log(f"{label} by kernel (torch.profiler, ms per call): "
+            + ", ".join(f"{k} {v:.4f}" for k, v in split.items())
+            + f"; sum {sum(split.values()):.4f}")
+    else:
+        log(f"{label}: torch.profiler recorded no device time; the call is "
+            f"timed whole")
+    return split
 
 
 def max_abs_err(torch, got, want, label):
@@ -687,7 +732,11 @@ def compare_kernels(torch, cfg, hidx, srt, live, dead, rng, Q, label):
     ms = time_ms(torch, lambda: ops.merge(cfg, srt, bkt, bat, bot), 20)
     dev_ms = device_ms(torch, lambda: ops.merge(cfg, srt, bkt, bat, bot), 20)
     plain = time_ms(torch, lambda: six.merge(srt, bkt, bat, bot), 5)
-    nbytes = cap * 8 + m * 12 + cap * 8 + 4
+    split = kernel_split(torch, lambda: ops.merge(cfg, srt, bkt, bat, bot),
+                         f"kernel merge ({label}): cap {cap}, m={m}")
+    # the replica's keys and addrs read and the new ones written, the
+    # batch's keys and addrs (int32) and ops (int8) read, the size written
+    nbytes = cap * 8 + m * 9 + cap * 8 + 4
     log(f"kernel merge ({label}): cap {cap} (size {int(srt.size)} -> "
         f"{int(got.size)}), m={m}: equal; {ms:.4f} ms per call, device "
         f"{dev_ms:.4f} ms, plain {plain:.4f} ms, bound "
@@ -698,7 +747,7 @@ def compare_kernels(torch, cfg, hidx, srt, live, dead, rng, Q, label):
                     plain_ms=plain,
                     bound_ms=nbytes / HBM_BYTES_PER_S * 1e3,
                     bound_by="bytes", library_ms=None, device_ms=dev_ms,
-                    cap=cap))
+                    device_ms_by_kernel=split, cap=cap))
     return out
 
 
@@ -930,12 +979,90 @@ def dispatch_path(torch, cfg, wl, rng):
     mk = lambda: ops.merge(cfg, srt, bkt, bat, bot)  # noqa: E731
     m_ms = time_ms(torch, mk, 20)
     m_dev = device_ms(torch, mk, 20)
-    m_bytes = cap * 16 + m * 12 + 4
+    m_split = kernel_split(torch, mk, f"kernel merge: m={m} into cap {cap}")
+    m_bytes = cap * 16 + m * 9 + 4
     log(f"kernel merge: m={m} into cap {cap}: equal to six.merge; {m_ms:.4f}"
         f" ms per call, device {m_dev:.4f} ms, bound "
         f"{m_bytes / HBM_BYTES_PER_S * 1e3:.6f} ms ({m_bytes} B)")
+    pdl_on_off(torch, cfg, srt, pairs, (bkt, bat, bot))
     return out, dict(m=m, max_abs_err=err_m, ms=m_ms, device_ms=m_dev,
-                     bound_ms=m_bytes / HBM_BYTES_PER_S * 1e3)
+                     bound_ms=m_bytes / HBM_BYTES_PER_S * 1e3,
+                     device_ms_by_kernel=m_split)
+
+
+def no_pdl_libs():
+    """merge.cu and sort_stable.cu built from a copy of csrc whose
+    pdl.cuh launches without the programmatic-serialization attribute
+    (pdl_wait() then returns at once), into build/no_pdl; {name: CDLL}."""
+    import ctypes
+    import shutil
+
+    from repro_torch.kernels import _build
+
+    out = ROOT / "build" / "no_pdl"
+    shutil.rmtree(out, ignore_errors=True)
+    shutil.copytree(_build.CSRC, out)
+    on = "programmaticStreamSerializationAllowed = 1;"
+    text = (out / "pdl.cuh").read_text()
+    check(text.count(on) == 1, "pdl.cuh: the launch attribute to turn off")
+    (out / "pdl.cuh").write_text(text.replace(on, on.replace("1", "0")))
+    procs = {n: subprocess.Popen(
+        [_build._nvcc(), *_build.NVCC_FLAGS, "-o", str(out / f"{n}.so"),
+         str(out / f"{n}.cu")], stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True) for n in ("merge", "sort_stable")}
+    libs = {}
+    for n, proc in procs.items():
+        msg, _ = proc.communicate()
+        check(proc.returncode == 0, f"nvcc {n}.cu with PDL off:\n{msg}")
+        libs[n] = ctypes.CDLL(str(out / f"{n}.so"))
+        for fn, (argtypes, restype) in _build.SIGNATURES[n].items():
+            getattr(libs[n], fn).argtypes = argtypes
+            getattr(libs[n], fn).restype = restype
+    return libs
+
+
+def pdl_on_off(torch, cfg, srt, pairs, batch):
+    """Phase 4c: the device time of the merge and of the stable sort with
+    programmatic dependent launch on (the libraries in use) and off
+    (no_pdl_libs), in the order on, off, on, off, through the same
+    wrappers; the outputs of the two builds must be equal."""
+    from repro_torch.core import sorted_index as six
+    from repro_torch.kernels import _build, ops
+
+    off = no_pdl_libs()
+    on = {n: _build.lib(n) for n in off}
+    c = 1 << 21
+    small = six.SortedIndex(srt.keys[:c], srt.addrs[:c],
+                            torch.clamp(srt.size, max=c))
+    cases = {}
+    for label, idx, m in ((f"merge cap {srt.keys.shape[0]} m=4096", srt,
+                           4096),
+                          (f"merge cap {srt.keys.shape[0]} m=65536", srt,
+                           65536),
+                          (f"merge cap {c} m=4096", small, 4096)):
+        b = [x[:m] for x in batch]
+        cases[label] = lambda idx=idx, b=b: ops.merge(cfg, idx, *b)
+    for (R, T), (k, v) in pairs.items():
+        cases[f"sort_stable [{R}, {T}]"] = \
+            lambda k=k, v=v: ops.sort_stable_cuda(k, v)
+    times, outs = {}, {}
+    try:
+        for turn in ("on", "off", "on", "off"):
+            _build._libs.update(on if turn == "on" else off)
+            for label, fn in cases.items():
+                if (label, turn) not in outs:
+                    outs[(label, turn)] = fn()
+                times.setdefault(label, {}).setdefault(turn, []).append(
+                    device_ms(torch, fn, 20))
+    finally:
+        _build._libs.update(on)
+    for label in cases:
+        for a, b in zip(outs[(label, "on")], outs[(label, "off")]):
+            check(torch.equal(a, b), f"{label}: PDL on and off differ")
+        t = times[label]
+        log(f"pdl {label}: device on " + ", ".join(
+            f"{x:.4f}" for x in t["on"]) + " ms, off " + ", ".join(
+            f"{x:.4f}" for x in t["off"]) + " ms; outputs equal")
 
 
 def backup_work(q, sel, blogs, cfg, cap):

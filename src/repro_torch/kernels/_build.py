@@ -43,7 +43,7 @@ SIGNATURES = {
     },
     "merge": {
         "histore_merge_scratch_bytes": ([I64, I64], I64),
-        "histore_merge": ([P] * 9 + [I64, INT, INT, P], INT),
+        "histore_merge": ([P] * 9 + [I64, I64, P], INT),
     },
     "backup_probe": {
         "histore_backup_probe": ([P] * 7 + [I64, INT, I64, I64, INT, INT, P],
@@ -54,7 +54,8 @@ SIGNATURES = {
                                             INT, P], INT),
     },
     "sort_stable": {
-        "histore_sort_stable": ([P] * 5 + [I64, I64, I64, P], INT),
+        "histore_sort_stable_scratch_bytes": ([I64, I64], I64),
+        "histore_sort_stable": ([P] * 5 + [I64, I64, P], INT),
     },
     "bitonic_sort": {
         "histore_bitonic_sort": ([P] * 5 + [I64, I64, P], INT),

@@ -12,7 +12,7 @@
 //
 // Three steps on the caller's stream: pack each row into the [R, T]
 // uint64 scratch as (biased key << 32 | payload); pair_sort.cuh's
-// sort_rows<KEY_ONLY> (shared memory while a row fits in 16384 entries,
+// sort_rows (shared memory while a row fits in 16384 entries,
 // global passes above that); unpack.  T is a power of two.
 //
 // Bound: bytes, 16 B an entry (key and payload read, both written); this
@@ -68,7 +68,7 @@ extern "C" int histore_bitonic_sort(const void* keys, const void* vals,
                                                (const int32_t*)vals, d, n);
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
-  if ((e = histore::sort_rows<false>(d, R, T, st)) != cudaSuccess)
+  if ((e = histore::sort_rows(d, R, T, st)) != cudaSuccess)
     return (int)e;
   unpack_kernel<<<grid_for(n), THREADS, 0, st>>>(d, (int32_t*)out_keys,
                                                  (int32_t*)out_vals, n);

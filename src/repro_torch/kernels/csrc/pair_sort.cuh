@@ -1,14 +1,11 @@
-// Rowwise bitonic sort of packed 64-bit pairs, shared by sort_stable.cu,
-// bitonic_sort.cu and merge.cu (mirror of _bitonic_multi,
-// src/repro/kernels/_fused.py:157, and of the network of
-// src/repro/kernels/_bitonic_sort.py:42).
+// Rowwise bitonic sort of packed 64-bit (key, payload) pairs: the network
+// of bitonic_sort.cu alone (mirror of src/repro/kernels/_bitonic_sort.py:42),
+// kept step for step with JAX's, because the network is not stable and
+// the payloads of tied keys must land where JAX's puts them.
 //
-// Each element packs (key ^ 0x80000000) << 32 | low, so unsigned order of
-// the high half is the signed order of the key.  FULL compares all 64
-// bits: with low = the column index the order is total, (key, index), and
-// the network is a stable sort by key (sort_stable.cu, merge.cu).
-// KEY_ONLY compares the high half only: low is a payload and ties keep
-// whatever place the network gives them (bitonic_sort.cu).
+// Each element packs (key ^ 0x80000000) << 32 | payload, so unsigned order
+// of the high half is the signed order of the key; the compares read the
+// high half only, and ties keep whatever place the network gives them.
 //
 // The network over a row of T = 2^n elements is JAX's, step for step:
 // stages k = 2, 4, ... T; distances j = k / 2 ... 1; the pair (i, i + j)
@@ -40,22 +37,20 @@ constexpr int STEP_THREADS = 256;
 
 typedef unsigned long long u64;
 
-__device__ __forceinline__ u64 pack_pair(int32_t key, uint32_t low) {
-  return (u64(uint32_t(key) ^ 0x80000000u) << 32) | low;
+__device__ __forceinline__ u64 pack_pair(int32_t key, uint32_t payload) {
+  return (u64(uint32_t(key) ^ 0x80000000u) << 32) | payload;
 }
 
 __device__ __forceinline__ int32_t pair_key(u64 v) {
   return int32_t(uint32_t(v >> 32) ^ 0x80000000u);
 }
 
-template <bool FULL>
 __device__ __forceinline__ bool after(u64 a, u64 b) {
-  return FULL ? a > b : (a >> 32) > (b >> 32);
+  return (a >> 32) > (b >> 32);
 }
 
 // the steps j = j0 ... 1 of stage k on the shared tile s[0, n) whose
 // first element is element `base` of its row
-template <bool FULL>
 __device__ void tile_steps(u64* s, int n, long long base, long long k,
                            int j0) {
   for (int j = j0; j > 0; j >>= 1) {
@@ -64,7 +59,7 @@ __device__ void tile_steps(u64* s, int n, long long base, long long k,
       const int hi = lo + j;
       const bool up = ((base + lo) & k) == 0;
       const u64 a = s[lo], b = s[hi];
-      if (up ? after<FULL>(a, b) : after<FULL>(b, a)) {
+      if (up ? after(a, b) : after(b, a)) {
         s[lo] = b;
         s[hi] = a;
       }
@@ -75,7 +70,6 @@ __device__ void tile_steps(u64* s, int n, long long base, long long k,
 
 // one block per C-element chunk of a row: every stage k <= C (kmerge ==
 // 0), or the distances below C of stage kmerge
-template <bool FULL>
 __global__ void chunk_kernel(u64* __restrict__ d, long long T, int C,
                              long long kmerge) {
   extern __shared__ u64 s[];
@@ -87,15 +81,14 @@ __global__ void chunk_kernel(u64* __restrict__ d, long long T, int C,
   __syncthreads();
   if (kmerge == 0) {
     for (long long k = 2; k <= C; k <<= 1)
-      tile_steps<FULL>(s, C, base, k, int(k / 2));
+      tile_steps(s, C, base, k, int(k / 2));
   } else {
-    tile_steps<FULL>(s, C, base, kmerge, C / 2);
+    tile_steps(s, C, base, kmerge, C / 2);
   }
   for (int i = threadIdx.x; i < C; i += blockDim.x) g[i] = s[i];
 }
 
 // one step (stage k, distance j) over every row, a thread a pair
-template <bool FULL>
 __global__ void global_step(u64* __restrict__ d, long long R, long long T,
                             long long k, long long j) {
   const long long half = T / 2, pairs = R * half;
@@ -106,7 +99,7 @@ __global__ void global_step(u64* __restrict__ d, long long R, long long T,
     const bool up = (lo & k) == 0;
     u64* row = d + r * T;
     const u64 a = row[lo], b = row[hi];
-    if (up ? after<FULL>(a, b) : after<FULL>(b, a)) {
+    if (up ? after(a, b) : after(b, a)) {
       row[lo] = b;
       row[hi] = a;
     }
@@ -114,8 +107,8 @@ __global__ void global_step(u64* __restrict__ d, long long R, long long T,
 }
 
 // sort each row of d [R, T] in place (T a power of two) on stream st
-template <bool FULL>
-cudaError_t sort_rows(u64* d, long long R, long long T, cudaStream_t st) {
+inline cudaError_t sort_rows(u64* d, long long R, long long T,
+                             cudaStream_t st) {
   if (R < 1 || T < 2) return cudaSuccess;
   const int C = T < SORT_CHUNK ? int(T) : SORT_CHUNK;
   const long long blocks = R * (T / C);
@@ -124,21 +117,21 @@ cudaError_t sort_rows(u64* d, long long R, long long T, cudaStream_t st) {
                       : (C / 2 > SORT_THREADS ? SORT_THREADS : C / 2);
   const size_t smem = size_t(C) * sizeof(u64);
   cudaError_t e = cudaFuncSetAttribute(
-      chunk_kernel<FULL>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      chunk_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       int(smem));
   if (e != cudaSuccess) return e;
-  chunk_kernel<FULL><<<unsigned(blocks), threads, smem, st>>>(d, T, C, 0);
+  chunk_kernel<<<unsigned(blocks), threads, smem, st>>>(d, T, C, 0);
   if ((e = cudaGetLastError()) != cudaSuccess) return e;
   const long long pairs = R * (T / 2);
   long long gblocks = (pairs + STEP_THREADS - 1) / STEP_THREADS;
   if (gblocks > 65536) gblocks = 65536;
   for (long long k = 2LL * C; k <= T; k <<= 1) {
     for (long long j = k / 2; j >= C; j >>= 1) {
-      global_step<FULL><<<unsigned(gblocks), STEP_THREADS, 0, st>>>(d, R, T,
+      global_step<<<unsigned(gblocks), STEP_THREADS, 0, st>>>(d, R, T,
                                                                      k, j);
       if ((e = cudaGetLastError()) != cudaSuccess) return e;
     }
-    chunk_kernel<FULL><<<unsigned(blocks), threads, smem, st>>>(d, T, C, k);
+    chunk_kernel<<<unsigned(blocks), threads, smem, st>>>(d, T, C, k);
     if ((e = cudaGetLastError()) != cudaSuccess) return e;
   }
   return cudaSuccess;

@@ -148,22 +148,20 @@ def sorted_search_cuda(queries, keys, addrs, fanout: int):
 
 
 def merge_cuda(ekeys, eaddrs, bkeys, baddrs, bops):
-    """ekeys/eaddrs: [cap] int32 (ascending, INF-padded); bkeys/baddrs/
-    bops: [m] int32 log batch (op 0 invalid / 1 PUT / 2 DEL).  Returns
-    (new_keys [cap], new_addrs [cap], size [1])."""
+    """ekeys/eaddrs: [cap] int32 (ascending, INF-padded); bkeys/baddrs:
+    [m] int32 and bops: [m] int8, the log batch (op 0 invalid / 1 PUT /
+    2 DEL).  Returns (new_keys [cap], new_addrs [cap], size [1])."""
     for n, t in (("ekeys", ekeys), ("eaddrs", eaddrs), ("bkeys", bkeys),
-                 ("baddrs", baddrs), ("bops", bops)):
+                 ("baddrs", baddrs)):
         _check(n, t, I32)
+    _check("bops", bops, torch.int8)
     cap = ekeys.shape[0]
     m = bkeys.shape[0]
     if (eaddrs.shape[0] != cap or baddrs.shape[0] != m
             or bops.shape[0] != m or cap < 1 or m < 1):
         raise ValueError("merge: inconsistent shapes")
-    MP = 1
-    while MP < m:
-        MP <<= 1
     dev = ekeys.device
-    nbytes = _c("merge", "histore_merge_scratch_bytes")(cap, MP)
+    nbytes = _c("merge", "histore_merge_scratch_bytes")(cap, m)
     scratch = torch.empty((nbytes,), dtype=torch.uint8, device=dev)
     nk = torch.empty((cap,), dtype=I32, device=dev)
     na = torch.empty((cap,), dtype=I32, device=dev)
@@ -172,7 +170,7 @@ def merge_cuda(ekeys, eaddrs, bkeys, baddrs, bops):
         st = _c("merge", "histore_merge")(
             ekeys.data_ptr(), eaddrs.data_ptr(), bkeys.data_ptr(),
             baddrs.data_ptr(), bops.data_ptr(), nk.data_ptr(), na.data_ptr(),
-            size.data_ptr(), scratch.data_ptr(), cap, m, MP, _stream(ekeys))
+            size.data_ptr(), scratch.data_ptr(), cap, m, _stream(ekeys))
     _raise_on(st, "merge")
     LAUNCHES["merge"] += 1
     return nk, na, size
@@ -291,17 +289,15 @@ def sort_stable_cuda(keys, vals):
     """keys/vals: [R, T] int32, any T.  Rowwise stable sort by key, the
     payload riding the same permutation.  Returns (keys, vals)."""
     R, T = _check_pairs("sort_stable", keys, vals)
-    TP = 1
-    while TP < T:
-        TP <<= 1
     dev = keys.device
     ok = torch.empty_like(keys)
     ov = torch.empty_like(vals)
-    scratch = torch.empty((R, TP), dtype=torch.int64, device=dev)
+    nbytes = _c("sort_stable", "histore_sort_stable_scratch_bytes")(R, T)
+    scratch = torch.empty((nbytes,), dtype=torch.uint8, device=dev)
     with torch.cuda.device(dev):
         st = _c("sort_stable", "histore_sort_stable")(
             keys.data_ptr(), vals.data_ptr(), ok.data_ptr(), ov.data_ptr(),
-            scratch.data_ptr(), R, T, TP, _stream(keys))
+            scratch.data_ptr(), R, T, _stream(keys))
     _raise_on(st, "sort_stable")
     LAUNCHES["sort_stable"] += 1
     return ok, ov
@@ -481,7 +477,7 @@ def merge(cfg, index, keys, addrs, ops):
     if not kernels_enabled(cfg, keys.device):
         return six.merge(index, keys, addrs, ops)
     nk, na, size = merge_cuda(index.keys, index.addrs, keys.to(I32),
-                              addrs.to(I32), ops.to(I32))
+                              addrs.to(I32), ops.to(torch.int8))
     return six.SortedIndex(nk, na, size[0])
 
 

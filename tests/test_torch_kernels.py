@@ -99,25 +99,70 @@ def test_search_and_range_match_pallas(cap, n):
             _eq(got, want, f"range_query[{lo},{hi}] limit={limit}")
 
 
-@pytest.mark.parametrize("cap,n,m", [(64, 0, 16), (512, 300, 100),
-                                     (4096, 3000, 256), (300, 290, 64)])
-def test_merge_matches_pallas(cap, n, m):
-    """Duplicate keys in the batch (newest wins), DELETEs of present and
-    absent keys, op-0 lanes, a non-power-of-two batch, and an overflowing
-    apply whose size counts past cap."""
-    rng = np.random.default_rng(cap + m)
-    keys, js, ts = _sorted_state(rng, cap, n)
+def _merge_batch(rng, keys, m, kind):
+    """A log batch of m entries (keys, addrs, ops) against the index keys
+    ``keys``.  mixed: in-batch duplicates (newest wins), PUTs and DELETEs
+    of present and absent keys, op-0 lanes; all-delete: DELETEs only;
+    fresh-puts: PUTs of distinct keys absent from the index; ends: PUTs
+    and DELETEs of the index's first and last keys and their
+    neighbours; extremes: mixed, with PUTs, a DELETE and an overwrite of
+    keys -2**31 and 2**31 - 2."""
+    n = len(keys)
     pool = np.concatenate([keys, rng.integers(0, 10 ** 6, 64)]) if n else \
         rng.integers(0, 10 ** 6, 64)
-    bk = rng.choice(pool, m).astype(np.int32)
-    bk[: m // 4] = bk[m // 4: m // 2]                  # in-batch duplicates
+    if kind == "fresh-puts":
+        bk = (10 ** 6 + rng.choice(10 ** 6, m, replace=False)).astype(
+            np.int32)
+    elif kind == "ends":
+        bk = np.resize(np.array([keys[0], keys[-1], keys[0] - 1,
+                                 keys[-1] + 1], np.int32), m)
+    else:
+        bk = rng.choice(pool, m).astype(np.int32)
+    if kind in ("mixed", "extremes"):
+        bk[: m // 4] = bk[m // 4: m // 2]              # in-batch duplicates
     ba = rng.integers(0, 10 ** 5, m).astype(np.int32)
-    bo = rng.choice([0, 1, 1, 2], m).astype(np.int8)
+    if kind == "all-delete":
+        bo = np.full(m, 2, np.int8)
+    elif kind == "fresh-puts":
+        bo = np.ones(m, np.int8)
+    else:
+        bo = rng.choice([1, 2] if kind == "ends" else [0, 1, 1, 2],
+                        m).astype(np.int8)
+    if kind == "extremes":
+        e = min(m, 5)
+        bk[:e] = [-2 ** 31, 2 ** 31 - 2, -2 ** 31, 2 ** 31 - 2,
+                  2 ** 31 - 2][:e]
+        bo[:e] = [1, 1, 2, 1, 1][:e]
+    return bk, ba, bo
+
+
+@pytest.mark.parametrize("cap,n,m,kind", [
+    pytest.param(64, 0, 16, "mixed", id="64-0-16"),
+    pytest.param(512, 300, 100, "mixed", id="512-300-100"),
+    pytest.param(4096, 3000, 256, "mixed", id="4096-3000-256"),
+    pytest.param(300, 290, 64, "mixed", id="300-290-64"),
+    pytest.param(64, 0, 32, "all-delete", id="empty-index-all-delete"),
+    pytest.param(256, 256, 64, "fresh-puts", id="full-index-size-past-cap"),
+    pytest.param(512, 300, 64, "ends", id="equal-keys-at-both-ends"),
+    pytest.param(512, 300, 1, "ends", id="m1"),
+    pytest.param(512, 300, 64, "extremes", id="int32-min-and-max-keys")])
+def test_merge_matches_pallas(cap, n, m, kind):
+    """Duplicate keys in the batch (newest wins), DELETEs of present and
+    absent keys, op-0 lanes, a non-power-of-two batch, and an overflowing
+    apply whose size counts past cap; then an empty index taking only
+    DELETEs, a full index taking fresh PUTs (size > cap), batch keys
+    equal to the index's first and last keys, a one-entry batch, and
+    keys -2**31 and 2**31 - 2 (_merge_batch)."""
+    rng = np.random.default_rng(cap + m)
+    keys, js, ts = _sorted_state(rng, cap, n)
+    bk, ba, bo = _merge_batch(rng, keys, m, kind)
     got = ops.merge(CFG, ts, torch.as_tensor(bk), torch.as_tensor(ba),
                     torch.as_tensor(bo))
     want = jops.merge(JCFG, js, jnp.asarray(bk), jnp.asarray(ba),
                       jnp.asarray(bo))
     _eq(got, want, "merge")
+    if kind == "fresh-puts":
+        assert int(got.size) == cap + m
 
 
 def _replica_states(rng, cap, lcap, windows, pool):

@@ -35,8 +35,8 @@ from repro_torch.core import sorted_index as six
 from repro_torch.kernels import ops
 from repro_torch.kernels import ref
 from test_torch_kernels import (CFG, INF, JCFG, _eq, _hash_state,
-                                _replica_states, _scan_inputs, _sorted_state,
-                                _t)
+                                _merge_batch, _replica_states, _scan_inputs,
+                                _sorted_state, _t)
 
 ROOT = Path(__file__).resolve().parents[1]
 
@@ -122,18 +122,39 @@ def test_sorted_search_matches_pallas(cap, n):
 # ---------------------------------------------------------------------------
 # sort (stable) and sort_pairs (the bitonic network)
 # ---------------------------------------------------------------------------
-@pytest.mark.parametrize("R,T,hi", [(6, 256, 13), (3, 64, 5), (4, 1, 9),
-                                    (5, 128, 10 ** 6)])
-def test_sort_matches_pallas(R, T, hi):
+@pytest.mark.parametrize("R,T,hi,extremes", [
+    pytest.param(6, 256, 13, False, id="6-256-13"),
+    pytest.param(3, 64, 5, False, id="3-64-5"),
+    pytest.param(4, 1, 9, False, id="4-1-9"),
+    pytest.param(5, 128, 10 ** 6, False, id="5-128-1000000"),
+    pytest.param(4, 256, 1, False, id="all-equal-keys"),
+    pytest.param(3, 128, 5, True, id="int32-min-and-max-keys"),
+    pytest.param(5, 1000, 13, False, id="T1000")])
+def test_sort_matches_pallas(R, T, hi, extremes):
     """tests/test_kernel_dispatch.py's stability case ([6, 256], keys in
-    [0, 13), distinct payloads), R = 3, T = 1 and unique-ish keys: equal
-    to JAX's stable-sort kernel, its jnp path and ref_sort_pairs_stable."""
+    [0, 13), distinct payloads), R = 3, T = 1, unique-ish keys, all keys
+    equal, keys -2**31 and 2**31 - 1 among small ones, and T = 1000:
+    equal to JAX's stable-sort kernel, its jnp path and
+    ref_sort_pairs_stable.  JAX's kernel takes a power-of-two T only, so
+    at T = 1000 it sorts each row padded with (2**31 - 1, payload) to
+    1024 and the first 1000 columns are compared (the padding sorts
+    after every real key, a real 2**31 - 1 included)."""
     rng = np.random.default_rng(R * T)
     keys = rng.integers(0, hi, (R, T)).astype(np.int32)
+    if extremes:
+        keys[rng.random((R, T)) < 0.3] = -2 ** 31
+        keys[rng.random((R, T)) < 0.3] = 2 ** 31 - 1
     vals = np.arange(R * T, dtype=np.int32).reshape(R, T)
     got = ops.sort(CFG, torch.as_tensor(keys), torch.as_tensor(vals))
     jk, jv = jnp.asarray(keys), jnp.asarray(vals)
-    _eq(got, jops.sort(JCFG, jk, jv), "sort pallas")
+    if T & (T - 1):
+        TP = 1 << (T - 1).bit_length()
+        pk = np.pad(keys, ((0, 0), (0, TP - T)), constant_values=2 ** 31 - 1)
+        pv = np.pad(vals, ((0, 0), (0, TP - T)), constant_values=-1)
+        pallas = jops.sort(JCFG, jnp.asarray(pk), jnp.asarray(pv))
+        _eq(got, [np.asarray(x)[:, :T] for x in pallas], "sort pallas")
+    else:
+        _eq(got, jops.sort(JCFG, jk, jv), "sort pallas")
     _eq(got, jops.sort(jscaled(use_kernels="off"), jk, jv), "sort jnp")
     _eq(got, jref.ref_sort_pairs_stable(jk, jv), "sort ref")
     _eq(ref.ref_sort_pairs_stable(torch.as_tensor(keys),
@@ -500,6 +521,108 @@ def test_cuda_merge_takes_a_full_log_ring(cuda_device):
                              device=cuda_device)
         got = _launched("merge", lambda: ops.merge(CFG, ts, bk, ba, bo))
         _eq(got, six.merge(ts, bk, ba, bo), f"cuda merge m={m}")
+    torch.cuda.synchronize()
+
+
+@pytest.mark.requires_cuda
+def test_cuda_sort_edges_across_tiles(cuda_device):
+    """The stable sort's kernel (2048-entry tiles, then merge passes) at
+    a tile's length and one either side, ragged rows over several tiles,
+    R = 1000 x T = 33, all keys equal, keys -2**31 and 2**31 - 1, and a
+    run of one key that crosses a tile boundary in the input (entries
+    1500-2599) and in the output (around entry 4096): equal to its plain
+    version."""
+    rng = np.random.default_rng(29)
+    cases = [(f"[{R}, {T}]", rng.integers(0, 1024, (R, T)))
+             for R, T in ((1, 2047), (1, 2048), (1, 2049), (3, 4095),
+                          (2, 4097), (1000, 33), (1, 6145), (1, 65537))]
+    cases.append(("all equal", np.full((2, 5000), 7)))
+    ext = rng.integers(-3, 3, (2, 4100))
+    ext[ext == -3] = -2 ** 31
+    ext[ext == 2] = 2 ** 31 - 1
+    cases.append(("-2**31 and 2**31 - 1", ext))
+    run = rng.integers(0, 1000, (1, 8192))
+    run[0, 1500:2600] = 500
+    cases.append(("run across tiles", run))
+    for label, k in cases:
+        k = torch.as_tensor(k.astype(np.int32), device=cuda_device)
+        v = torch.as_tensor(rng.permutation(k.numel()).astype(np.int32)
+                            .reshape(k.shape), device=cuda_device)
+        _eq(_launched("sort_stable", lambda: ops.sort(CFG, k, v)),
+            ops.sort_stable_plain(k, v), f"cuda sort {label}")
+    torch.cuda.synchronize()
+
+
+@pytest.mark.requires_cuda
+def test_cuda_merge_edges_across_tiles(cuda_device):
+    """The merge kernel (2048-entry tiles of the merged order, the batch
+    through the stable sort) at caps of a tile and one either side, an
+    empty, a half-full and a full index, batches of m in {1, 4096, 20000,
+    65536} of every _merge_batch kind (newest wins, DELETEs only, fresh
+    PUTs past cap, the index's end keys, -2**31 and 2**31 - 2); then
+    runs of one key across tile boundaries: 3000 batch entries after an
+    existing one, and 500 equal existing keys: equal to six.merge."""
+    rng = np.random.default_rng(31)
+
+    def check(ek, ea, n, bk, ba, bo, label):
+        ts = six.SortedIndex(
+            torch.as_tensor(ek, device=cuda_device),
+            torch.as_tensor(ea, device=cuda_device),
+            torch.tensor(n, dtype=torch.int32, device=cuda_device))
+        b = [torch.as_tensor(x, device=cuda_device) for x in (bk, ba, bo)]
+        got = _launched("merge", lambda: ops.merge(CFG, ts, *b))
+        _eq(got, six.merge(ts, *b), f"cuda merge {label}")
+
+    for cap in (2047, 2048, 2049):
+        for n in (0, cap // 2, cap):
+            keys, _, ts = _sorted_state(rng, cap, n)
+            for m in (1, 4096, 20000, 65536):
+                for kind in ("mixed", "all-delete", "fresh-puts", "ends",
+                             "extremes"):
+                    if kind == "ends" and n == 0:
+                        continue
+                    check(ts.keys.numpy(), ts.addrs.numpy(), n,
+                          *_merge_batch(rng, keys, m, kind),
+                          f"cap={cap} n={n} m={m} {kind}")
+    keys, _, ts = _sorted_state(rng, 8192, 6000)
+    ek, ea = ts.keys.numpy().copy(), ts.addrs.numpy()
+    bk = rng.choice(keys, 4096).astype(np.int32)
+    bk[:3000] = keys[1990]
+    ba = rng.integers(0, 10 ** 5, 4096).astype(np.int32)
+    bo = rng.choice([1, 1, 1, 2], 4096).astype(np.int8)
+    check(ek, ea, 6000, bk, ba, bo, "a batch run across tiles")
+    ek[1800:2300] = ek[1800]
+    check(ek, ea, 6000, bk, ba, bo, "an existing run across tiles")
+    torch.cuda.synchronize()
+
+
+@pytest.mark.requires_cuda
+def test_cuda_merge_takes_unaligned_views(cuda_device):
+    """The merge kernel on index arrays that are not 16-byte aligned:
+    buf[s:s + cap] views at offsets s of 1-3 entries, and row 1 of a
+    stacked [2, cap] index, at odd caps a tile and more long, so the
+    tiles are copied in 4-byte steps: equal to six.merge."""
+    rng = np.random.default_rng(37)
+    for cap, n, m, s in ((2049, 1500, 300, 1), (4097, 4097, 5000, 2),
+                         (6143, 3000, 4096, 3)):
+        keys, _, ts = _sorted_state(rng, cap, n)
+        views = []
+        for x, fill in ((ts.keys, 2 ** 31 - 1), (ts.addrs, -1)):
+            buf = torch.full((cap + s,), fill, dtype=torch.int32,
+                             device=cuda_device)
+            buf[s:] = x.to(cuda_device)
+            stack = torch.stack([buf[s:], buf[s:]])
+            views.append((buf[s:], stack[1]))
+        for i, label in enumerate((f"offset {s}", "stacked row 1")):
+            ek, ea = views[0][i], views[1][i]
+            assert ek.data_ptr() % 16 and ea.data_ptr() % 16, label
+            idx = six.SortedIndex(ek, ea, torch.tensor(
+                n, dtype=torch.int32, device=cuda_device))
+            b = [torch.as_tensor(x, device=cuda_device)
+                 for x in _merge_batch(rng, keys, m, "mixed")]
+            got = _launched("merge", lambda: ops.merge(CFG, idx, *b))
+            _eq(got, six.merge(idx, *b),
+                f"cuda merge cap={cap} m={m} {label}")
     torch.cuda.synchronize()
 
 
