@@ -21,7 +21,9 @@
    (launches queued behind a GPU sleep, so host time is hidden), its
    plain version's time, its bound (bytes over 3.35 TB/s; for the search
    also the latency of its dependent levels) and, for the search,
-   torch.searchsorted.  One merge call runs under torch.profiler (CUDA
+   torch.searchsorted, and the device time of the same function in
+   PyTorch calls (searchsorted, then the gathers and the compare that
+   give addr and found).  One merge call runs under torch.profiler (CUDA
    activity) and the device time of each of its kernels is logged by name.
 4b. The rest of the dispatch surface on the same loaded store, launch
    counts set to 0 before it and the four new ones > 0 after:
@@ -34,7 +36,8 @@
    version (the probe and search also against ``ops.probe`` and
    ``ops.search``), timed as in 4, with torch.sort(stable) + gather and
    searchsorted + index as the library calls; the sorts' bound also
-   counts their compare-exchanges at 67e12/s.
+   counts their compare-exchanges at 67e12/s; the legacy search's
+   same-function library call also timed on the device.
 4c. Programmatic dependent launch on and off: merge.cu and sort_stable.cu
    built again with pdl.cuh's launch attribute off (into build/no_pdl),
    then the merge (cap 2**24 at m = 4096 and 65536, and the replica's
@@ -53,7 +56,9 @@
    live item.  Every answer is checked against the model.
 6. The backup probe against its plain version on the group as the
    primary's failure left it (Q = 16384, R = 2, the wrapped window), timed
-   as in 4; its bound also counts the window scan's compares at 67e12/s.
+   as in 4 and split by kernel (the window lookup against the finish) as
+   the merge is; its bound also counts the window's hash inserts, the
+   lanes' probes and the descent's compares at 67e12/s.
 7. The distributed store: HiStoreClient(DistributedBackend(8, ...)), 8
    index groups of 2**21 slots on the card (2**24 in all) with the
    paper's config and lease detection off, launch counts set to 0 before
@@ -75,7 +80,7 @@
    whose padding lanes select a replica, and the chunk's 8 calls, timed.
    Then one group at Q = 16384 with replicas selected for about half the
    lanes, pending windows set to wrap the ring, q = 2**31 - 1 among the
-   queries, timed as in 6.
+   queries, timed as in 6.  Both calls split by kernel as in 6.
 10. The serving path of falcon-mamba-7b (configs/falcon_mamba_7b.py) at
     full width and depth in bf16, the weights drawn on the card from
     ``--seed`` (parameter count and peak memory logged): a warm-up
@@ -87,8 +92,10 @@
     inputs of that prefill (within one bf16 ulp of the plain value plus
     2e-5), timed as in 4, its bound the larger of its bytes and its
     exponentials at the SFU's rate (SMs x 16 a clock x the SM's maximum
-    clock); ``ServingEngine(4 slots, max_len 256, page 16)`` over 8
-    prompts of 16-48 tokens and 2 of them again, 32 new tokens each, the
+    clock); one full-width Mamba1Block (layer 0) on the prefill's tokens
+    under torch.profiler, its device time by operator;
+    ``ServingEngine(4 slots, max_len 256, page 16)`` over 8 prompts of
+    16-48 tokens and 2 of them again, 32 new tokens each, the
     directory's launch counts set to 0 before it: every request
     completes, prefix hits >= 2, every registered page freed by the
     release SCANs, the free list whole, the hash holding at most the
@@ -231,35 +238,38 @@ def kernel_split(torch, fn, label, iters=5):
     """The device time of each kernel that one call of ``fn`` launches, by
     name: ``fn`` runs ``iters`` times under torch.profiler (CUDA activity)
     after a warm-up.  Returns {kernel: ms per call} and logs it; {} when
-    the profiler records no device time (then the caller's whole-call
-    device time is all there is).  A kernel launched with programmatic
-    dependent launch starts before the one before it ends and waits, so
-    its time includes that wait and the split can sum to more than the
-    call."""
+    the profiler records no device time in 3 tries (then the caller's
+    whole-call device time is all there is).  A kernel launched with
+    programmatic dependent launch starts before the one before it ends
+    and waits, so its time includes that wait and the split can sum to
+    more than the call."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
     split = {}
-    for e in prof.key_averages():
-        us = getattr(e, "self_device_time_total", None)
-        if us is None:
-            us = getattr(e, "self_cuda_time_total", 0)
-        if us > 0:
-            name = e.key.replace("(anonymous namespace)::", "")
-            name = name.split("(")[0].split("<")[0].split("::")[-1]
-            split[name] = split.get(name, 0.0) + us / 1e3 / iters
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        for e in prof.key_averages():
+            us = getattr(e, "self_device_time_total", None)
+            if us is None:
+                us = getattr(e, "self_cuda_time_total", 0)
+            if us > 0:
+                name = e.key.replace("(anonymous namespace)::", "")
+                name = name.split("(")[0].split("<")[0].split("::")[-1]
+                split[name] = split.get(name, 0.0) + us / 1e3 / iters
+        if split:
+            break
     if split:
         log(f"{label} by kernel (torch.profiler, ms per call): "
             + ", ".join(f"{k} {v:.4f}" for k, v in split.items())
             + f"; sum {sum(split.values()):.4f}")
     else:
-        log(f"{label}: torch.profiler recorded no device time; the call is "
-            f"timed whole")
+        log(f"{label}: torch.profiler recorded no device time in 3 tries; "
+            f"the call is timed whole")
     return split
 
 
@@ -691,6 +701,10 @@ def compare_kernels(torch, cfg, hidx, srt, live, dead, rng, Q, label):
         plain = time_ms(torch, lambda: six.search(srt, sqt, cfg.fanout),
                         iters // 5)
         lib = time_ms(torch, lambda: torch.searchsorted(srt.keys, sqt), iters)
+        # 7 launches a call: fewer calls, so that all are queued within
+        # device_ms's GPU sleep
+        lib_same = device_ms(torch, lambda: search_library(torch, srt, sqt),
+                             iters // 10)
         nbytes, cmps = search_work(torch, srt.keys, sqt, cfg.fanout, 5)
         bound, b_bytes, b_ops = bound_of(nbytes, cmps)
         lat = None
@@ -699,21 +713,27 @@ def compare_kernels(torch, cfg, hidx, srt, live, dead, rng, Q, label):
                         ) / (levels - 1)
             lat = levels * level_ms
         res[QS] = (err, ms, dev_ms, plain, lib, bound,
-                   "bytes" if b_bytes >= b_ops else "operations", lat)
+                   "bytes" if b_bytes >= b_ops else "operations", lat,
+                   lib_same)
         log(f"kernel sorted_search ({label}): Q={QS}, cap {cap}, {levels} "
             f"levels: equal; {ms:.4f} ms per call, device {dev_ms:.4f} ms, "
-            f"plain {plain:.4f} ms, torch.searchsorted {lib:.4f} ms, bound "
+            f"plain {plain:.4f} ms, torch.searchsorted {lib:.4f} ms, the "
+            f"same function (searchsorted, gathers, compare) device "
+            f"{lib_same:.4f} ms, bound "
             f"{bound:.6f} ms (bytes {b_bytes:.6f} ms for {nbytes} B, "
             f"compares {b_ops:.6f} ms)"
             + ("" if lat is None else f", latency bound {lat:.6f} ms"))
-    err, ms, dev_ms, plain, lib, bound, bound_by, lat = res[1]
+    err, ms, dev_ms, plain, lib, bound, bound_by, lat, lib_same = res[1]
     out.append(dict(name="sorted_search", route="cuda",
                     source="src/repro_torch/kernels/csrc/sorted_search.cu",
                     replaces=f"{FUSED}:246",
                     max_abs_err=max(r[0] for r in res.values()),
                     ms=ms, plain_ms=plain, bound_ms=bound,
                     bound_by=bound_by, library_ms=lib, device_ms=dev_ms,
-                    latency_bound_ms=lat, cap=cap))
+                    latency_bound_ms=lat, cap=cap,
+                    library_same_function_device_ms=lib_same,
+                    at_Q={"Q": Q, "device_ms": res[Q][2],
+                          "library_same_function_device_ms": res[Q][8]}))
 
     # -- merge: one apply batch into the replica ----------------------------
     m = cfg.async_apply_batch
@@ -911,12 +931,10 @@ def dispatch_path(torch, cfg, wl, rng):
         qs, srt.keys, srt.addrs, fanout=fo), 20)
 
     def lib_s():
-        p = torch.clamp(torch.searchsorted(srt.keys, qs, right=True) - 1,
-                        min=0)
-        f = srt.keys[p] == qs
-        return torch.where(f, srt.addrs[p], -1), f
+        return search_library(torch, srt, qs)
 
     lib = time_ms(torch, lib_s, 100)
+    lib_dev = device_ms(torch, lib_s, 20)
     routed = time_ms(torch, lambda: ops.sorted_search(srt, qs, fanout=fo),
                      100)
     nbytes, cmps = search_work(torch, srt.keys, qs, fo, 3)
@@ -924,7 +942,8 @@ def dispatch_path(torch, cfg, wl, rng):
     log(f"kernel legacy_sorted_search: Q={Q}, cap {cap}, {levels} levels: "
         f"{ms:.4f} ms per call, device {dev_ms:.4f} ms (Q = 1: {d1:.4f} "
         f"ms, one level {d1_top:.4f} ms), plain {plain:.4f} ms, "
-        f"searchsorted + index {lib:.4f} ms, routed {routed:.4f} ms; bound "
+        f"searchsorted + index {lib:.4f} ms (device {lib_dev:.4f} ms), "
+        f"routed {routed:.4f} ms; bound "
         f"{bound:.6f} ms (bytes {b_bytes:.6f} ms for {nbytes} B, compares "
         f"{b_ops:.6f} ms); latency of {levels + 1} dependent reads "
         f"{lat:.6f} ms")
@@ -937,7 +956,8 @@ def dispatch_path(torch, cfg, wl, rng):
                     bound_ms=bound,
                     bound_by="bytes" if b_bytes >= b_ops else "operations",
                     library_ms=lib, device_ms=dev_ms, routed_ms=routed,
-                    latency_bound_ms=lat, device_ms_q1=d1, cap=cap, Q=Q))
+                    latency_bound_ms=lat, device_ms_q1=d1, cap=cap, Q=Q,
+                    library_same_function_device_ms=lib_dev))
 
     # the two sorts at each shape; the record's own numbers are the first
     # shape's
@@ -1065,40 +1085,45 @@ def pdl_on_off(torch, cfg, srt, pairs, batch):
             f"{x:.4f}" for x in t["off"]) + " ms; outputs equal")
 
 
-def backup_work(q, sel, blogs, cfg, cap):
-    """Bytes and compares the backup probe needs for this run's data:
+def backup_work(torch, q, sel, srt, blogs, cfg):
+    """Bytes and operations the backup probe needs for this run's data:
     the queries and selects read once; for each replica some lane
     decides on (its last selected one), the window's keys and its two
     bounds, then per such lane the log entry's op and addr on a log hit,
-    else the descent's levels x fanout keys and one addr.  The window
-    scan's compares run from the newest entry down to the match (the
-    whole window on a miss; none for q = 2**31 - 1 with a window shorter
-    than the ring).  Returns (bytes, compares, lanes found in a log)."""
+    else the descent of that replica as descent_work replays it over the
+    lanes that miss (distinct 32 B sectors: the lanes share the
+    directory's nodes).  Operations: one hash insert per window entry,
+    one probe per lane that looks the window up (none for q = 2**31 - 1
+    with a window shorter than the ring: the finish answers it from a
+    ring slot), and the descent's compares.  Returns (bytes, operations,
+    lanes found in a log)."""
     from repro_torch.core import log as lg
-    from repro_torch.core import sorted_index as six
 
     Q, R = sel.shape
-    levels = six.directory_levels(cap, cfg.fanout)
     chosen = np.where(sel.any(1), R - 1 - np.argmax(sel[:, ::-1] != 0, 1), -1)
-    nbytes, compares, in_logs = Q * 4 + Q * R * 4, 0, 0
+    nbytes, ops, in_logs = Q * 4 + Q * R * 4, 0, 0
     for r in range(R):
         lanes = q[chosen == r]
         if not len(lanes):
             continue
         lkeys, _, _ = lg.pending_entries_np(blogs[r])
         n_win = len(lkeys)
-        newest = dict(zip(lkeys.tolist(), range(n_win)))   # last wins
-        in_log = np.array([k in newest for k in lanes.tolist()], bool)
-        depth = np.array([n_win - newest[k] if k in newest else n_win
-                          for k in lanes.tolist()], np.int64)
+        window = set(lkeys.tolist())
+        in_log = np.array([k in window for k in lanes.tolist()], bool)
         quirk = (lanes == 2 ** 31 - 1) & (n_win < cfg.log_capacity)
-        depth[quirk] = 0
         hit = in_log | quirk
-        compares += int(depth.sum())
         in_logs += int(in_log.sum())
-        nbytes += (n_win * 4 + 8 + int(hit.sum()) * 5
-                   + int((~hit).sum()) * (levels * cfg.fanout * 4 + 4))
-    return nbytes, compares, in_logs
+        ops += n_win + int((~quirk).sum())
+        nbytes += n_win * 4 + 8 + int(hit.sum()) * 5
+        miss = lanes[~hit]
+        if len(miss):
+            keys = srt[r].keys
+            d_bytes, d_ops = descent_work(
+                torch, keys, torch.as_tensor(miss, device=keys.device),
+                cfg.fanout)
+            nbytes += d_bytes
+            ops += d_ops
+    return nbytes, ops, in_logs
 
 
 def compare_backup_probe(torch, wl, cfg, group, window, launches):
@@ -1142,30 +1167,32 @@ def compare_backup_probe(torch, wl, cfg, group, window, launches):
     plain = time_ms(torch, lambda: ops.backup_probe_plain(
         cfg, srt, blogs, qt, sel_path), 5, warmup=1)
     routed = time_ms(torch, lambda: ig.replica_probe(group, qt, cfg), 100)
+    split = kernel_split(torch, kern, f"kernel backup_probe: Q={Q}, R={R}")
 
     # the bound, from this run's data (backup_work): the path selects
     # replica 0 for every lane, plus the three outputs
     n_win = int(lg.pending_count(blogs[0]))
     cap = srt[0].keys.shape[0]
-    nbytes, compares, in_log = backup_work(q, sel_path.cpu().numpy(), blogs,
-                                           cfg, cap)
+    nbytes, n_ops, in_log = backup_work(torch, q, sel_path.cpu().numpy(),
+                                        srt, blogs, cfg)
     nbytes += Q * 12
     b_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    b_ops = compares / SCALAR_OPS_PER_S * 1e3
+    b_ops = n_ops / SCALAR_OPS_PER_S * 1e3
     bound = max(b_bytes, b_ops)
     log(f"kernel backup_probe: Q={Q}, R={R}, cap {cap}, window {n_win} of "
         f"{cfg.log_capacity} ({in_log} lanes in it): equal; "
         f"{ms:.4f} ms per call, device {dev_ms:.4f} ms, plain {plain:.4f} "
         f"ms, routed ig.replica_probe {routed:.4f} ms; bound "
         f"{bound:.6f} ms (bytes {b_bytes:.6f} ms for {nbytes} B, "
-        f"compares {b_ops:.6f} ms for {compares})")
+        f"operations {b_ops:.6f} ms for {n_ops}); the split's spans "
+        f"{sum(split.values()) / dev_ms:.0%} of the device time")
     return dict(name="backup_probe", route="cuda",
                 source="src/repro_torch/kernels/csrc/backup_probe.cu",
                 replaces=f"{FUSED}:283", launches=launches["backup_probe"],
                 max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=bound,
                 bound_by="bytes" if b_bytes >= b_ops else "operations",
                 library_ms=None, device_ms=dev_ms, routed_ms=routed,
-                window=n_win, compares=compares)
+                window=n_win, operations=n_ops, device_ms_by_kernel=split)
 
 
 def distributed(torch, cfg, rng):
@@ -1283,15 +1310,24 @@ def distributed(torch, cfg, rng):
     return wl, launches, times, probe_at
 
 
-def group_work(q, sel, hidx, blogs, cfg, cap):
-    """Bytes and compares one group probe call needs for this run's
+def group_work(torch, q, sel, hidx, srt, blogs, cfg):
+    """Bytes and operations one group probe call needs for this run's
     data: the hash half as hash_probe's (3 descriptors, the sig and fp
     chain rows, one addr, one fill a query), the backup half as
-    backup_work counts it, and six outputs.  Returns (bytes, compares,
+    backup_work counts it, and six outputs.  Returns (bytes, operations,
     lanes found in a log)."""
-    bbytes, compares, in_log = backup_work(q, sel, blogs, cfg, cap)
+    bbytes, n_ops, in_log = backup_work(torch, q, sel, srt, blogs, cfg)
     nbytes = len(q) * (12 + 2 * hidx.sig.shape[1] * 4 + 8) + bbytes
-    return nbytes + len(q) * 24, compares, in_log
+    return nbytes + len(q) * 24, n_ops, in_log
+
+
+def search_library(torch, srt, q):
+    """The searches' function in PyTorch calls (timed beside the kernels,
+    never used by the port): the last key <= q by torch.searchsorted,
+    then the gathers and the compare that give addr (or -1) and found."""
+    p = torch.clamp(torch.searchsorted(srt.keys, q, right=True) - 1, min=0)
+    f = srt.keys[p] == q
+    return torch.where(f, srt.addrs[p], -1), f
 
 
 def bound_of(nbytes, compares):
@@ -1302,12 +1338,19 @@ def bound_of(nbytes, compares):
 
 
 def search_work(torch, keys, queries, fanout, n_out):
+    """(bytes, compares) a search must do on this run's data: each query
+    read once, n_out int32 outputs written, and the descent as
+    descent_work counts it."""
+    nbytes, compares = descent_work(torch, keys, queries, fanout)
+    return queries.shape[0] * 4 * (1 + n_out) + nbytes, compares
+
+
+def descent_work(torch, keys, queries, fanout):
     """(bytes, compares) the directory descent must do on this run's data.
-    Bytes: each query read once and n_out int32 outputs written, and at
-    each level the distinct 32 B sectors of the node keys the queries
-    read (they share the top levels' nodes, and no key past cap is read),
-    then the sectors of the final key read and of the addr read of each
-    hit.  Compares: one per node key read."""
+    Bytes: at each level the distinct 32 B sectors of the node keys the
+    queries read (they share the top levels' nodes, and no key past cap
+    is read), then the sectors of the final key read and of the addr
+    read of each hit.  Compares: one per node key read."""
     cap = keys.shape[0]
     Q = queries.shape[0]
     offs = torch.arange(fanout, device=keys.device)
@@ -1329,7 +1372,7 @@ def search_work(torch, keys, queries, fanout, n_out):
     hit = keys[at] == queries
     sectors += int(torch.unique(at // 8).numel())
     sectors += int(torch.unique(at[hit] // 8).numel())
-    return Q * 4 * (1 + n_out) + sectors * 32, compares
+    return sectors * 32, compares
 
 
 def pad_server(torch, G, dev):
@@ -1403,8 +1446,8 @@ def compare_group_probe(torch, wl, cfg, launches, probe_at):
             ops.group_probe_plain(cfg, hidx, srt, blogs, rk[g], sel),
             f"group_probe GET server {g}"))
         calls.append(call(hidx, srt, blogs, rk[g], sel))
-        work.append(group_work(rk[g].cpu().numpy(), sel.cpu().numpy(), hidx,
-                               blogs, cfg, srt[0].keys.shape[0]))
+        work.append(group_work(torch, rk[g].cpu().numpy(), sel.cpu().numpy(),
+                               hidx, srt, blogs, cfg))
     hidx, srt, blogs, sel = inputs[gp]
     ms = time_ms(torch, calls[gp], 200)
     dev_ms = device_ms(torch, calls[gp], 200)
@@ -1415,6 +1458,8 @@ def compare_group_probe(torch, wl, cfg, launches, probe_at):
         for c in calls:
             c()
 
+    split = kernel_split(torch, calls[gp],
+                         f"kernel group_probe: GET chunk, server {gp}")
     chunk_ms = time_ms(torch, chunk, 50)
     chunk_dev = device_ms(torch, chunk, 10)     # 80 launches queued
     routed_chunk = time_ms(torch, lambda: [
@@ -1429,10 +1474,12 @@ def compare_group_probe(torch, wl, cfg, launches, probe_at):
         f"server, all {G} servers equal; server {gp}: {n_pad} padding lanes, "
         f"{n_sel} selecting a replica, windows {wins}: {ms:.4f} ms per call, "
         f"device {dev_ms:.4f} ms, plain {plain:.4f} ms, bound {bound:.6f} ms "
-        f"(bytes {b_bytes:.6f} ms for {work[gp][0]} B, compares "
+        f"(bytes {b_bytes:.6f} ms for {work[gp][0]} B, operations "
         f"{b_ops:.6f} ms for {work[gp][1]}); the chunk's {G} calls "
         f"{chunk_ms:.4f} ms, device {chunk_dev:.4f} ms, routed (hashing "
-        f"included) {routed_chunk:.4f} ms, bound {chunk_bound:.6f} ms")
+        f"included) {routed_chunk:.4f} ms, bound {chunk_bound:.6f} ms; the "
+        f"split's spans {sum(split.values()) / dev_ms:.0%} of the call's "
+        f"device time")
 
     # -- one group at Q = 16384, half the lanes selecting, wrapped windows --
     store = wl.client.backend.store
@@ -1477,28 +1524,32 @@ def compare_group_probe(torch, wl, cfg, launches, probe_at):
     m_none = device_ms(torch, call(hidx, srt, blogs, qt, none), 100)
     m_plain = time_ms(torch, lambda: ops.group_probe_plain(
         cfg, hidx, srt, blogs, qt, selt), 5, warmup=1)
-    nbytes, compares, in_log = group_work(q, msel, hidx, blogs, cfg,
-                                          srt[0].keys.shape[0])
-    m_bound, mb_bytes, mb_ops = bound_of(nbytes, compares)
+    m_split = kernel_split(torch, call(hidx, srt, blogs, qt, selt),
+                           f"kernel group_probe: Q={QM}, half selecting")
+    nbytes, n_ops, in_log = group_work(torch, q, msel, hidx, srt, blogs, cfg)
+    m_bound, mb_bytes, mb_ops = bound_of(nbytes, n_ops)
     log(f"kernel group_probe: group {gp}, Q={QM}, R={R}, windows of {QM} "
         f"wrapping the ring of {lcap}, {int((msel != 0).any(1).sum())} lanes "
         f"selecting a replica ({in_log} found in a log): equal; {m_ms:.4f} "
         f"ms per call, device {m_dev:.4f} ms ({m_none:.4f} ms with none "
         f"selected), plain {m_plain:.4f} ms; bound {m_bound:.6f} ms (bytes "
-        f"{mb_bytes:.6f} ms for {nbytes} B, compares {mb_ops:.6f} ms for "
-        f"{compares})")
+        f"{mb_bytes:.6f} ms for {nbytes} B, operations {mb_ops:.6f} ms for "
+        f"{n_ops}); the split's spans {sum(m_split.values()) / m_dev:.0%} "
+        f"of the device time")
     return dict(name="group_probe", route="cuda",
                 source="src/repro_torch/kernels/csrc/group_probe.cu",
                 replaces=f"{FUSED}:332", launches=launches["group_probe"],
                 max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=bound,
                 bound_by="bytes" if b_bytes >= b_ops else "operations",
                 library_ms=None, device_ms=dev_ms, Q=Q, padding_lanes=n_pad,
+                device_ms_by_kernel=split,
+                mixed_device_ms_by_kernel=m_split,
                 get_chunk_ms=chunk_ms, get_chunk_device_ms=chunk_dev,
                 get_chunk_routed_ms=routed_chunk,
                 get_chunk_bound_ms=chunk_bound, mixed_Q=QM, mixed_ms=m_ms,
                 mixed_device_ms=m_dev, mixed_device_ms_none_selected=m_none,
                 mixed_plain_ms=m_plain, mixed_bound_ms=m_bound,
-                mixed_compares=compares)
+                mixed_operations=n_ops)
 
 
 SERVE_ARCH = "falcon-mamba-7b"
@@ -1543,6 +1594,50 @@ def scan_bound(torch, x, B_ssm, sfu_rate):
     b_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     b_exp = exps / sfu_rate * 1e3
     return max(b_bytes, b_exp), b_bytes, b_exp, nbytes, exps
+
+
+def block_split(torch, cfg, model, tok):
+    """The device time of one full-width Mamba1Block of the prefill (layer
+    0, on the prefill's tokens) by operator: the block runs once under
+    torch.profiler (CPU and CUDA activity) after a warm-up; each
+    operator's self device time (the kernels it launched itself), and the
+    kernels no operator launched (the scan, launched through ctypes) by
+    name.  Returns ({name: ms}, the block's device ms)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.models.transformer import _frontend
+
+    with torch.no_grad():
+        x = _frontend(cfg, model, {"tokens": tok})
+        block = model.layers[0]
+        block(cfg, x)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            block(cfg, x)
+            torch.cuda.synchronize()
+    ops, total, attributed = {}, 0.0, 0.0
+    for e in prof.key_averages():
+        us = getattr(e, "self_device_time_total", None)
+        if us is None:
+            us = getattr(e, "self_cuda_time_total", 0)
+        if us <= 0:
+            continue
+        if str(e.device_type).endswith("CPU"):
+            ops[e.key] = ops.get(e.key, 0.0) + us / 1e3
+            attributed += us / 1e3
+        else:
+            total += us / 1e3
+            if "mamba_scan" in e.key:
+                ops["mamba_scan.cu"] = us / 1e3
+    ops["other kernels no operator launched"] = max(
+        total - attributed - ops.get("mamba_scan.cu", 0.0), 0.0)
+    ops = dict(sorted(ops.items(), key=lambda kv: -kv[1]))
+    log(f"serve: one Mamba1Block of the {tok.shape[1]}-token prefill by "
+        f"operator (torch.profiler, device ms): "
+        + ", ".join(f"{k} {v:.3f}" for k, v in ops.items())
+        + f"; all kernels {total:.3f} ms")
+    return ops, total
 
 
 def prompt_set(rng, vocab):
@@ -1742,6 +1837,9 @@ def serving(torch, seed):
                   N=B_ssm.shape[-1], outputs_differing=n_off,
                   bound_bytes_ms=b_bytes, bound_exp_ms=b_exp)
     del x, dt, B_ssm, C_ssm, A, kern
+    split, block_ms = block_split(torch, cfg, model, tok)
+    record["prefill_block_device_ms_by_op"] = split
+    record["prefill_block_device_ms"] = block_ms
 
     # -- the engine over its HiStore page directory ------------------------
     rng = np.random.default_rng(seed)

@@ -9,13 +9,13 @@
 // reference's KEY_INF quirk and the design are in window_scan.cuh, which
 // group_probe.cu shares).
 //
-// Bound: the descent's node reads (levels x fanout keys per lane that
-// misses the log) in bytes, and the window scan, Q x window int32
-// comparisons, in operations.  Design: a memset and two kernels on one
-// stream: window_scan.cuh's scan_kernel (thread per query, the window
-// split into SPLITS slices along the grid, newest-first shared-memory
-// tiles, atomicMax of the newest match) and finish_kernel (warp per
-// query, histore::backup_finish).
+// Bound: bytes, the descent's node reads (levels x fanout keys per lane
+// that misses the log) and the window's keys.  Design: a memset and two
+// kernels on one stream: window_scan.cuh's scan_kernel (1024 queries a
+// block, the window split into SPLITS slices along the grid, each slice
+// built into a shared-memory hash table of the newest position of each
+// key and probed once a lane, atomicMax of the newest match) and
+// finish_kernel (warp per query, histore::backup_finish).
 #include <cuda_runtime.h>
 #include <stdint.h>
 

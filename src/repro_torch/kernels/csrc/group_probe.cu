@@ -14,12 +14,13 @@
 // and the reference's KEY_INF quirk).
 //
 // Bound: bytes.  The hash half reads two 128 B chain rows per query; the
-// backup half, for each selected lane, the window (compares) and the
+// backup half, for each selected lane, the window's keys and the
 // descent's levels x fanout keys.  On the store's healthy GET only the
 // padding lanes of the exchange buffer select a replica.
 // Design: a memset and two kernels on one stream, reusing what
-// hash_probe.cu and backup_probe.cu proved: window_scan.cuh's scan_kernel,
-// whose blocks with no selected lane stop after reading their queries,
+// hash_probe.cu and backup_probe.cu proved: window_scan.cuh's scan_kernel
+// (the window's lookup through shared-memory hash tables), whose blocks
+// with no selected lane stop after reading their queries,
 // then one finishing kernel, a warp per query, that runs hash_walk.cuh's
 // chain walk and window_scan.cuh's backup finish and writes all six
 // outputs.

@@ -12,20 +12,51 @@
 //
 // Bound: at B = 1, S = 32768, di = 8192, N = 16 the S * di * N = 4.3e9
 // exponentials at the SFU's 16 per clock per SM (about 1 ms) bound it
-// more tightly than its bytes (x, dt, y: about 2.15 GB, 0.64 ms).
-// Design: the TPU kernel's sequential grid axis over sequence chunks
-// becomes a loop inside the block.  A block owns 32 channels of one batch
-// row; four threads share a channel and each keeps ceil(N / 4) of its N
-// states in registers (the sum over n is finished with two warp
-// shuffles).  Each chunk of 32 time steps of dt, dt * x, B and C is staged
-// in shared memory with coalesced loads, and the chunk's y is written back
-// coalesced from shared memory.  Nothing in device memory but the inputs
-// and y; no block divisibility is needed.  A state wider than 64 is run in
-// tiles of 64 states, one after the other in the block: each tile runs the
-// whole sequence and adds its part of y into a float32 accumulator (y
-// itself for float32, a scratch the wrapper gives otherwise), and the last
-// tile writes y.  The grid is flat, (di / 32 blocks) x B along grid.x, so
-// B is not bounded by grid.y.
+// more tightly than its bytes (x, dt, y: about 2.15 GB, 0.64 ms) and its
+// four float32 operations per exponential (about 0.5 ms).
+//
+// Design: sequential along time, the independent work hoisted.  Why not
+// a scan that is parallel along time: x, dt and y are [B, S, di], so the
+// coalesced axis is the channel, and di x N = 131072 independent
+// recurrences at B = 1 already give 1024 warps, 2 for each of the 528
+// schedulers.  What a scheduler needs is independent work inside each
+// warp, and the recurrence has plenty: a state's critical path is one FMA
+// a step (h = a * h + b), while the exponential and dt * x * B of every
+// step do not depend on h.  A time-parallel scan would add a running
+// product of the decays, a cross-thread scan and a second FMA to every
+// element (about 40% more issue, and the SFU-bound kernel then becomes
+// issue-bound) to buy parallelism this layout does not lack.
+//   * Warp-specialised blocks of 8 warps.  4 scanning warps own 32
+//     channels of one batch row, a lane each, and split a tile of at most
+//     64 states: warp w holds states [w NPT, (w + 1) NPT) of its 32
+//     channels in registers.  So a step's B and C are one address for a
+//     warp (a broadcast read of shared memory), dt and dt * x one float2
+//     a lane, and each warp stores its part of y; no shuffles.  4 staging
+//     warps load the next chunk of TC = 32 steps (dt, x, B, C, coalesced
+//     along channels and states) into registers while the scanning warps
+//     scan this one, store it to shared memory as float32 (dt * x formed
+//     once per (t, d), B and C converted once per block), and write the
+//     last chunk's y back, the 4 parts summed, coalesced.  Two stages of
+//     shared memory; named barriers hand each stage over (FULL: staged,
+//     EMPTY: scanned), so the scan never waits on device memory and no
+//     barrier stops the whole block.  (cp.async would need aligned 4-, 8-
+//     or 16-byte pieces, which 2-byte elements at an odd di or N do not
+//     give, and would leave every reading thread to convert them.)  The
+//     grid is flat, (di / 32 blocks) x B along grid.x, so B is not
+//     bounded by grid.y; 2 blocks an SM (128 registers a thread).
+//   * The scan runs U = 8 steps at a time (fewer above 16 states): their
+//     shared-memory reads are issued together, then their U x NPT
+//     independent exponentials around the NPT one-FMA chains, then their
+//     parts of y are stored.  Exponentials are ex2.approx on
+//     dt * (A log2 e), A prescaled once per state: one SFU operation and
+//     one multiply each, exactly one per (b, t, d, n).
+//   * No predicate in the step loop: steps past S and channels past di
+//     are staged with dt = 0 (a decay of 1 and no input), states past N
+//     with A = B = C = 0, so they leave h unchanged and add nothing to y.
+//   * A state wider than 64 is run in tiles of 64 states, one after the
+//     other in the block: each tile runs the whole sequence and adds its
+//     part of y into a float32 accumulator (y itself for float32, a
+//     scratch the wrapper gives otherwise), and the last tile writes y.
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
 #include <cuda_runtime.h>
@@ -33,11 +64,14 @@
 
 namespace {
 
-constexpr int G = 4;              // threads per channel: N split across them
-constexpr int DB = 32;            // channels per block
-constexpr int THREADS = DB * G;   // 128
-constexpr int TC = 32;            // time steps staged per chunk
+constexpr int W = 4;              // scanning warps: the state groups of a tile
+constexpr int DB = 32;            // channels a block: a lane each
+constexpr int STAGERS = 128;      // staging threads: 4 warps
+constexpr int THREADS = STAGERS + 32 * W;   // 256
 constexpr int NPT_MAX = 16;       // states a thread holds: tiles of 64
+constexpr int TC = 32;            // steps of a chunk
+constexpr int FULL = 1, EMPTY = 3;  // named barriers, one pair a stage
+constexpr float LOG2E = 1.4426950408889634f;
 
 __device__ __forceinline__ float to_f(float v) { return v; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 v) {
@@ -56,85 +90,151 @@ template <>
 __device__ __forceinline__ __half from_f<__half>(float v) {
   return __float2half(v);
 }
+template <typename T>
+__device__ __forceinline__ T zero() { return from_f<T>(0.f); }
 
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// the stage handoff: a named barrier of all THREADS, which one side
+// passes without waiting (arrive) and the other waits on (sync)
+__device__ __forceinline__ void bar_sync(int id) {
+  asm volatile("bar.sync %0, %1;" ::"r"(id), "n"(THREADS) : "memory");
+}
+__device__ __forceinline__ void bar_arrive(int id) {
+  __threadfence_block();
+  asm volatile("bar.arrive %0, %1;" ::"r"(id), "n"(THREADS) : "memory");
+}
+
+// NPT consecutive floats from 16-byte-aligned shared memory (NPT in 1, 2, 4k)
+template <int NPT>
+__device__ __forceinline__ void load_states(const float* p, float* v) {
+  if constexpr (NPT % 4 == 0) {
+#pragma unroll
+    for (int i = 0; i < NPT; i += 4) {
+      const float4 f = *reinterpret_cast<const float4*>(p + i);
+      v[i] = f.x; v[i + 1] = f.y; v[i + 2] = f.z; v[i + 3] = f.w;
+    }
+  } else if constexpr (NPT == 2) {
+    const float2 f = *reinterpret_cast<const float2*>(p);
+    v[0] = f.x; v[1] = f.y;
+  } else {
+    v[0] = p[0];
+  }
+}
+
+template <int NPT>
+struct Cfg {
+  static constexpr int NS = W * NPT;                  // states of a tile
+  // steps whose shared-memory reads are issued together: 8, or fewer
+  // where 2 U NPT values of B and C would crowd the registers
+  static constexpr int U = NPT <= 4 ? 8 : 32 / NPT;
+  static constexpr int EX = TC * DB / STAGERS;        // dt, x a stager loads
+  static constexpr int EB = TC * NS / STAGERS;        // B, C a stager loads
+  static_assert(TC * DB % STAGERS == 0 && TC * NS % STAGERS == 0, "");
+  static_assert(TC % U == 0 && STAGERS % NS == 0, "");
+};
+
+// the block's shared memory, two stages: a chunk's (dt, dt * x) per
+// (t, channel), B and C per (t, state), and each scanning warp's part of
+// its y per (t, channel)
+template <int NPT>
+struct Smem {
+  static constexpr int NS = Cfg<NPT>::NS;
+  float2 dtdx[2][TC][DB];
+  __align__(16) float B[2][TC][NS];
+  __align__(16) float C[2][TC][NS];
+  float y[2][W][TC][DB];
+};
+
+// one chunk's inputs in a stager's registers, loaded a chunk ahead
 template <typename T, int NPT>
-__global__ void __launch_bounds__(THREADS)
+struct Staged {
+  float dt[Cfg<NPT>::EX];
+  T x[Cfg<NPT>::EX];
+  T b[Cfg<NPT>::EB];
+  T c[Cfg<NPT>::EB];
+};
+
+// The chunks of all tiles in order, k = tile * nchunks + c; chunk k
+// uses stage k % 2.
+template <typename T, int NPT>
+__global__ void __launch_bounds__(THREADS, 2)
     mamba_scan_kernel(const T* __restrict__ x, const float* __restrict__ dt,
                       const T* __restrict__ Bm, const T* __restrict__ Cm,
                       const float* __restrict__ A, T* y, float* yacc,
                       int S, int di, int N) {
-  constexpr int NS = G * NPT;     // states a tile holds
-  __shared__ float s_dt[TC][DB];
-  __shared__ float s_dx[TC][DB];
-  __shared__ float s_B[TC][NS];
-  __shared__ float s_C[TC][NS];
-  __shared__ float s_y[TC][DB];
+  using K = Cfg<NPT>;
+  constexpr int NS = K::NS, U = K::U;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  Smem<NPT>& sm = *reinterpret_cast<Smem<NPT>*>(smem_raw);
 
-  const int tid = threadIdx.x;
-  const int j = tid % G;          // this thread's states: n = n0 + j + G * i
-  const int dl = tid / G;
   const int nd = (di + DB - 1) / DB;
   const int64_t b = blockIdx.x / nd;
   const int d0 = int(blockIdx.x % nd) * DB;
-  const int d = d0 + dl;
+  const int nchunks = (S + TC - 1) / TC;
+  const int ntiles = (N + NS - 1) / NS;
+  const int64_t total = int64_t(ntiles) * nchunks;
+  const int lane = threadIdx.x % DB;
+  const int d = d0 + lane;          // every thread's channel
 
-  for (int n0 = 0; n0 < N; n0 += NS) {
-    const int nt = min(NS, N - n0);   // states of this tile
-    const bool first = n0 == 0, last = n0 + NS >= N;
-    float a_n[NPT], h[NPT];
+  if (threadIdx.x < STAGERS) {
+    // ---- staging warps: load chunk k + 1 while chunk k is scanned ------
+    const int p = threadIdx.x;
+    const int r0 = p / DB, rb = p / NS, nn = p % NS;
+    const int64_t step_x = int64_t(STAGERS / DB) * di;
+    const int64_t step_b = int64_t(STAGERS / NS) * N;
+    Staged<T, NPT> st;
+    // chunk k's inputs into registers (zeros past the edges)
+    auto load = [&](int64_t k) {
+      const int tile = int(k / nchunks), t0 = int(k % nchunks) * TC;
+      const int n0 = tile * NS, nt = min(NS, N - n0);
+      const int64_t o = (b * S + t0 + r0) * int64_t(di) + d;
 #pragma unroll
-    for (int i = 0; i < NPT; ++i) {
-      const int n = j + G * i;
-      a_n[i] = (n < nt && d < di) ? A[int64_t(d) * N + n0 + n] : 0.f;
-      h[i] = 0.f;
-    }
-
-    for (int t0 = 0; t0 < S; t0 += TC) {
-      const int tc = min(TC, S - t0);
-      __syncthreads();            // the last chunk's reads of shared are done
-      for (int idx = tid; idx < tc * DB; idx += THREADS) {
-        const int tt = idx / DB, dd = idx % DB, dg = d0 + dd;
-        float dv = 0.f, xv = 0.f;
-        if (dg < di) {
-          const int64_t off = (b * S + t0 + tt) * int64_t(di) + dg;
-          dv = dt[off];
-          xv = to_f(x[off]);
-        }
-        s_dt[tt][dd] = dv;
-        s_dx[tt][dd] = dv * xv;
+      for (int e = 0; e < K::EX; ++e) {
+        const bool ok = d < di && t0 + r0 + e * (STAGERS / DB) < S;
+        st.dt[e] = ok ? dt[o + e * step_x] : 0.f;
+        st.x[e] = ok ? x[o + e * step_x] : zero<T>();
       }
-      for (int idx = tid; idx < tc * nt; idx += THREADS) {
-        const int tt = idx / nt, nn = idx % nt;
-        const int64_t off = (b * S + t0 + tt) * int64_t(N) + n0 + nn;
-        s_B[tt][nn] = to_f(Bm[off]);
-        s_C[tt][nn] = to_f(Cm[off]);
-      }
-      __syncthreads();
-      for (int tt = 0; tt < tc; ++tt) {
-        const float dtv = s_dt[tt][dl];
-        const float dxv = s_dx[tt][dl];
-        float acc = 0.f;
+      const int64_t ob = (b * S + t0 + rb) * int64_t(N) + n0 + nn;
 #pragma unroll
-        for (int i = 0; i < NPT; ++i) {
-          const int n = j + G * i;
-          if (n < nt) {
-            const float a = expf(dtv * a_n[i]);
-            h[i] = a * h[i] + dxv * s_B[tt][n];
-            acc += h[i] * s_C[tt][n];
-          }
-        }
-        acc += __shfl_xor_sync(0xffffffffu, acc, 1);
-        acc += __shfl_xor_sync(0xffffffffu, acc, 2);
-        if (j == 0) s_y[tt][dl] = acc;
+      for (int e = 0; e < K::EB; ++e) {
+        const bool ok = nn < nt && t0 + rb + e * (STAGERS / NS) < S;
+        st.b[e] = ok ? Bm[ob + e * step_b] : zero<T>();
+        st.c[e] = ok ? Cm[ob + e * step_b] : zero<T>();
       }
-      __syncthreads();
-      // each (tt, dd) has one owner thread, the same in every tile, so it
-      // reads back only what it wrote itself
-      for (int idx = tid; idx < tc * DB; idx += THREADS) {
-        const int tt = idx / DB, dd = idx % DB, dg = d0 + dd;
-        if (dg < di) {
-          const int64_t off = (b * S + t0 + tt) * int64_t(di) + dg;
-          float v = s_y[tt][dd];
+    };
+    // the registers into stage s, as float32, dt * x formed once
+    auto store = [&](int s) {
+#pragma unroll
+      for (int e = 0; e < K::EX; ++e)
+        sm.dtdx[s][r0 + e * (STAGERS / DB)][lane] =
+            make_float2(st.dt[e], st.dt[e] * to_f(st.x[e]));
+#pragma unroll
+      for (int e = 0; e < K::EB; ++e) {
+        sm.B[s][rb + e * (STAGERS / NS)][nn] = to_f(st.b[e]);
+        sm.C[s][rb + e * (STAGERS / NS)][nn] = to_f(st.c[e]);
+      }
+    };
+    // chunk k's y, the scanning warps' parts summed, to device memory;
+    // each (t, channel) has one owner thread, the same in every tile, so
+    // yacc is read back only by the thread that wrote it
+    auto write_y = [&](int64_t k) {
+      const int s = int(k & 1);
+      const int tile = int(k / nchunks), t0 = int(k % nchunks) * TC;
+      const bool first = tile == 0, last = tile == ntiles - 1;
+      const int64_t o = (b * S + t0 + r0) * int64_t(di) + d;
+#pragma unroll
+      for (int e = 0; e < K::EX; ++e) {
+        const int tt = r0 + e * (STAGERS / DB);
+        if (d < di && t0 + tt < S) {
+          float v = 0.f;
+#pragma unroll
+          for (int g = 0; g < W; ++g) v += sm.y[s][g][tt][lane];
+          const int64_t off = o + e * step_x;
           if (!first) v += yacc[off];
           if (last)
             y[off] = from_f<T>(v);
@@ -142,34 +242,100 @@ __global__ void __launch_bounds__(THREADS)
             yacc[off] = v;
         }
       }
+    };
+
+    load(0);
+    for (int64_t k = 0; k < total; ++k) {
+      const int s = int(k & 1);
+      if (k >= 2) {                 // stage s and its y free: chunk k - 2
+        bar_sync(EMPTY + s);        // is scanned
+        write_y(k - 2);
+      }
+      store(s);
+      bar_arrive(FULL + s);
+      if (k + 1 < total) load(k + 1);
+    }
+    for (int64_t k = total >= 2 ? total - 2 : 0; k < total; ++k) {
+      bar_sync(EMPTY + int(k & 1));
+      write_y(k);
+    }
+  } else {
+    // ---- scanning warps: warp w holds states w NPT + i of the tile -----
+    const int w = (threadIdx.x - STAGERS) / 32;
+    float a2[NPT], h[NPT];
+    for (int64_t k = 0; k < total; ++k) {
+      const int s = int(k & 1);
+      if (k % nchunks == 0) {       // a new tile of states
+        const int n0 = int(k / nchunks) * NS, nt = min(NS, N - n0);
+#pragma unroll
+        for (int i = 0; i < NPT; ++i) {
+          const int n = w * NPT + i;
+          a2[i] = (n < nt && d < di) ? A[int64_t(d) * N + n0 + n] * LOG2E
+                                     : 0.f;
+          h[i] = 0.f;
+        }
+      }
+      bar_sync(FULL + s);
+      // U steps at a time: all their shared-memory reads first, then the
+      // exponentials and the chains, then their parts of y
+#pragma unroll 1
+      for (int tb = 0; tb < TC; tb += U) {
+        float2 dx[U];
+        float bv[U][NPT], cv[U][NPT], ys[U];
+#pragma unroll
+        for (int u = 0; u < U; ++u) {
+          dx[u] = sm.dtdx[s][tb + u][lane];
+          load_states<NPT>(&sm.B[s][tb + u][w * NPT], bv[u]);
+          load_states<NPT>(&sm.C[s][tb + u][w * NPT], cv[u]);
+        }
+#pragma unroll
+        for (int u = 0; u < U; ++u) {
+          float acc = 0.f;
+#pragma unroll
+          for (int i = 0; i < NPT; ++i) {
+            h[i] = fmaf(ex2(dx[u].x * a2[i]), h[i], dx[u].y * bv[u][i]);
+            acc = fmaf(cv[u][i], h[i], acc);
+          }
+          ys[u] = acc;
+        }
+#pragma unroll
+        for (int u = 0; u < U; ++u) sm.y[s][w][tb + u][lane] = ys[u];
+      }
+      bar_arrive(EMPTY + s);
     }
   }
 }
 
 template <typename T, int NPT>
-void launch(const void* x, const void* dt, const void* Bm, const void* Cm,
-            const void* A, void* y, void* yacc, int64_t Bsz, int S, int di,
-            int N, cudaStream_t stream) {
+cudaError_t launch(const void* x, const void* dt, const void* Bm,
+                   const void* Cm, const void* A, void* y, void* yacc,
+                   int64_t Bsz, int S, int di, int N, cudaStream_t stream) {
   const int64_t blocks = int64_t((di + DB - 1) / DB) * Bsz;
-  mamba_scan_kernel<T, NPT><<<unsigned(blocks), THREADS, 0, stream>>>(
+  const int bytes = int(sizeof(Smem<NPT>));
+  // above 48 KB a block's shared memory must be asked for
+  const cudaError_t e = cudaFuncSetAttribute(
+      mamba_scan_kernel<T, NPT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      bytes);
+  if (e != cudaSuccess) return e;
+  mamba_scan_kernel<T, NPT><<<unsigned(blocks), THREADS, bytes, stream>>>(
       (const T*)x, (const float*)dt, (const T*)Bm, (const T*)Cm,
       (const float*)A, (T*)y, (float*)yacc, S, di, N);
+  return cudaGetLastError();
 }
 
 template <typename T>
-void dispatch(const void* x, const void* dt, const void* Bm, const void* Cm,
-              const void* A, void* y, void* yacc, int64_t Bsz, int S,
-              int di, int N, cudaStream_t stream) {
-  if (N <= G)
-    launch<T, 1>(x, dt, Bm, Cm, A, y, yacc, Bsz, S, di, N, stream);
-  else if (N <= 2 * G)
-    launch<T, 2>(x, dt, Bm, Cm, A, y, yacc, Bsz, S, di, N, stream);
-  else if (N <= 4 * G)
-    launch<T, 4>(x, dt, Bm, Cm, A, y, yacc, Bsz, S, di, N, stream);
-  else if (N <= 8 * G)
-    launch<T, 8>(x, dt, Bm, Cm, A, y, yacc, Bsz, S, di, N, stream);
-  else
-    launch<T, NPT_MAX>(x, dt, Bm, Cm, A, y, yacc, Bsz, S, di, N, stream);
+cudaError_t dispatch(const void* x, const void* dt, const void* Bm,
+                     const void* Cm, const void* A, void* y, void* yacc,
+                     int64_t Bsz, int S, int di, int N, cudaStream_t st) {
+  if (N <= W)
+    return launch<T, 1>(x, dt, Bm, Cm, A, y, yacc, Bsz, S, di, N, st);
+  if (N <= 2 * W)
+    return launch<T, 2>(x, dt, Bm, Cm, A, y, yacc, Bsz, S, di, N, st);
+  if (N <= 4 * W)
+    return launch<T, 4>(x, dt, Bm, Cm, A, y, yacc, Bsz, S, di, N, st);
+  if (N <= 8 * W)
+    return launch<T, 8>(x, dt, Bm, Cm, A, y, yacc, Bsz, S, di, N, st);
+  return launch<T, NPT_MAX>(x, dt, Bm, Cm, A, y, yacc, Bsz, S, di, N, st);
 }
 
 }  // namespace
@@ -187,16 +353,16 @@ extern "C" int histore_mamba_scan(const void* x, const void* dt,
   if (N <= 0 || dtype < 0 || dtype > 2 ||
       (long long)((di + DB - 1) / DB) * Bsz > 0x7fffffffLL)
     return (int)cudaErrorInvalidValue;
-  if (N > G * NPT_MAX && yacc == nullptr) {
+  if (N > W * NPT_MAX && yacc == nullptr) {
     if (dtype != 0) return (int)cudaErrorInvalidValue;
     yacc = y;
   }
   cudaStream_t st = (cudaStream_t)stream;
   if (dtype == 1)
-    dispatch<__nv_bfloat16>(x, dt, Bm, Cm, A, y, yacc, Bsz, S, di, N, st);
-  else if (dtype == 2)
-    dispatch<__half>(x, dt, Bm, Cm, A, y, yacc, Bsz, S, di, N, st);
-  else
-    dispatch<float>(x, dt, Bm, Cm, A, y, yacc, Bsz, S, di, N, st);
-  return (int)cudaGetLastError();
+    return (int)dispatch<__nv_bfloat16>(x, dt, Bm, Cm, A, y, yacc, Bsz, S,
+                                        di, N, st);
+  if (dtype == 2)
+    return (int)dispatch<__half>(x, dt, Bm, Cm, A, y, yacc, Bsz, S, di, N,
+                                 st);
+  return (int)dispatch<float>(x, dt, Bm, Cm, A, y, yacc, Bsz, S, di, N, st);
 }

@@ -1,4 +1,4 @@
-// The pending-log window scan and the backup finish, shared by
+// The pending-log window lookup and the backup finish, shared by
 // backup_probe.cu and group_probe.cu (mirror of _pending_lookup and
 // _backup_combine, src/repro/kernels/_fused.py:97 and :112, and of
 // repro_torch.kernels.ops.backup_probe_plain).
@@ -15,16 +15,22 @@
 // the window as KEY_INF.  So for q = KEY_INF and a window shorter than the
 // ring, the newest "match" is the slot at sequence position
 // applied + lcap - 1, whatever stale op and addr it holds.  backup_finish
-// answers that case directly; the scan looks at the live window only.
+// answers that case directly; the lookup reads the live window only.
 //
-//  1. scan_kernel (after a memset of `best`): one thread per query, 128
-//     queries a block, and the window split into SPLITS slices along
-//     blockIdx.y.  A lane whose answer is the KEY_INF slot scans nothing.
-//     For each replica that some lane of the block selects and scans,
-//     the block stages its slice newest first in shared-memory tiles of
-//     TILE keys; each thread scans a tile four keys a load and keeps its
-//     newest match, and the block stops once every lane has one.  A block
-//     none of whose lanes selects a replica reads its queries and stops.
+//  1. scan_kernel (after a memset of `best`): a lookup of the window, not
+//     a scan of it.  256 threads a block, each with 4 queries (1024 a
+//     block), and the window split into SPLITS slices along blockIdx.y.
+//     A lane whose answer is the KEY_INF slot looks up nothing.  For each
+//     replica that some lane of the block selects and looks up, the block
+//     takes its slice newest first in tiles of up to TILE entries; for
+//     each tile it builds a hash table in shared memory, key -> the
+//     newest position of that key in the tile (linear probing at a load
+//     of at most 1/2, atomicCAS on the key, atomicMax on the position;
+//     the key KEY_INF, the table's empty mark, keeps its newest position
+//     beside the table), then each open lane probes it once and closes
+//     on a hit; the block stops once every lane has one.  Work per block
+//     is the slice plus its lanes, not their product.  A block none of
+//     whose lanes selects a replica reads its queries and stops.
 //     atomicMax combines the slices: best[q] is 1 + the newest match's
 //     position in the window, 0 for none.  No [Q, lcap] matrix.
 //  2. backup_finish: one warp per query.  It answers from the log entry
@@ -39,9 +45,14 @@
 
 namespace histore {
 
-constexpr int SCAN_THREADS = 128;
+constexpr int SCAN_THREADS = 256;
+constexpr int SCAN_QPT = 4;                          // queries a thread
+constexpr int SCAN_Q = SCAN_THREADS * SCAN_QPT;      // queries a block
 constexpr int SPLITS = 16;
-constexpr int TILE = 4096;
+constexpr int TILE = 2048;            // window entries a table holds
+constexpr int SLOT_BITS = 12;
+constexpr int SLOTS = 1 << SLOT_BITS; // (key, newest position): 32 KB
+static_assert(SLOTS >= 2 * TILE, "a table at most half full");
 constexpr int8_t OP_PUT = 1;
 
 // the replicas' pointer sets, read from a DEVICE table of 7 * R pointers,
@@ -83,23 +94,69 @@ __device__ __forceinline__ int last_selected(const int32_t* rep_sel,
 
 namespace {
 
-__global__ void scan_kernel(const int32_t* __restrict__ rkeys,
-                            const int32_t* __restrict__ rep_sel,
-                            Replicas rp, int32_t* __restrict__ best,
-                            int64_t Q, int R, int64_t lcap) {
-  __shared__ __align__(16) int32_t tile[TILE];
-  const int64_t qi = int64_t(blockIdx.x) * blockDim.x + threadIdx.x;
-  const bool live = qi < Q;
-  const int32_t q = live ? rkeys[qi] : 0;
-  const int sel = live ? last_selected(rep_sel, qi, R) : -1;
+__device__ __forceinline__ uint32_t slot_of(int32_t k) {
+  // Fibonacci hashing: the top SLOT_BITS bits of k * 2^32 / phi
+  return (uint32_t(k) * 0x9E3779B1u) >> (32 - SLOT_BITS);
+}
+
+// newest position p of key k in the tile's table (KEY_INF marks an empty
+// slot, so that key keeps its newest position in *inf_pos)
+__device__ __forceinline__ void table_insert(int2* tab, int32_t* inf_pos,
+                                             int32_t k, int32_t p) {
+  if (k == KEY_INF) {
+    atomicMax(inf_pos, p);
+    return;
+  }
+  for (uint32_t s = slot_of(k);; s = (s + 1) & (SLOTS - 1)) {
+    const int32_t prev = atomicCAS(&tab[s].x, KEY_INF, k);
+    if (prev == KEY_INF || prev == k) {
+      atomicMax(&tab[s].y, p);
+      return;
+    }
+  }
+}
+
+// the newest position of q in the tile, -1 if it is not there; the table
+// is at most half full, so an empty slot ends every probe
+__device__ __forceinline__ int32_t table_lookup(const int2* tab,
+                                                int32_t inf_pos, int32_t q) {
+  if (q == KEY_INF) return inf_pos;
+  for (uint32_t s = slot_of(q);; s = (s + 1) & (SLOTS - 1)) {
+    const int2 e = tab[s];
+    if (e.x == q) return e.y;
+    if (e.x == KEY_INF) return -1;
+  }
+}
+
+__global__ void __launch_bounds__(SCAN_THREADS)
+    scan_kernel(const int32_t* __restrict__ rkeys,
+                const int32_t* __restrict__ rep_sel, Replicas rp,
+                int32_t* __restrict__ best, int64_t Q, int R, int64_t lcap) {
+  __shared__ int2 tab[SLOTS];
+  __shared__ int32_t inf_pos;
+  const int tid = threadIdx.x;
+  int64_t qi[SCAN_QPT];
+  int32_t q[SCAN_QPT];
+  int sel[SCAN_QPT];
+#pragma unroll
+  for (int i = 0; i < SCAN_QPT; ++i) {
+    qi[i] = int64_t(blockIdx.x) * SCAN_Q + i * SCAN_THREADS + tid;
+    const bool live = qi[i] < Q;
+    q[i] = live ? rkeys[qi[i]] : 0;
+    sel[i] = live ? last_selected(rep_sel, qi[i], R) : -1;
+  }
   for (int r = 0; r < R; ++r) {
     const int64_t applied = rp.applied(r);
     const int64_t tail = rp.tail(r);
     // backup_finish answers q = KEY_INF without `best` while the window
     // is shorter than the ring, so such a lane (the exchange buffer's
-    // padding) scans nothing
-    const bool mine = sel == r && !(q == KEY_INF && tail - applied < lcap);
-    if (!__syncthreads_or(mine)) continue;  // block-uniform
+    // padding) looks up nothing
+    const bool short_win = tail - applied < lcap;
+    unsigned open = 0;                // this thread's lanes still looking
+#pragma unroll
+    for (int i = 0; i < SCAN_QPT; ++i)
+      if (sel[i] == r && !(q[i] == KEY_INF && short_win)) open |= 1u << i;
+    if (!__syncthreads_or(open != 0)) continue;  // block-uniform
     // the reference looks at sequence positions [applied, applied + lcap)
     const int64_t end = tail < applied + lcap ? tail : applied + lcap;
     const int64_t len = end > applied ? end - applied : 0;
@@ -107,35 +164,30 @@ __global__ void scan_kernel(const int32_t* __restrict__ rkeys,
     const int64_t s_lo = applied + blockIdx.y * per;
     const int64_t s_hi = s_lo + per < end ? s_lo + per : end;
     const int32_t* __restrict__ lk = rp.lkeys(r);
-    bool open = mine;
     for (int64_t hi = s_hi; hi > s_lo;) {
-      // also the barrier that keeps the last tile until all have read it
-      if (!__syncthreads_or(open)) break;
+      // also the barrier that keeps the last table until all have probed
+      if (!__syncthreads_or(open != 0)) break;
       const int64_t lo = hi - TILE > s_lo ? hi - TILE : s_lo;
       const int n = int(hi - lo);
-      const int64_t newest = (hi - 1) % lcap;
-      for (int i = threadIdx.x; i < n; i += blockDim.x) {
-        int64_t idx = newest - i;  // tile[i] holds position hi - 1 - i
-        if (idx < 0) idx += lcap;
-        tile[i] = lk[idx];
+      for (int s = tid; s < SLOTS; s += SCAN_THREADS)
+        tab[s] = make_int2(KEY_INF, -1);
+      if (tid == 0) inf_pos = -1;
+      __syncthreads();
+      // ring slot of position lo + i: n <= lcap, so one wrap at most
+      const int64_t lo_idx = lo % lcap;
+      for (int i = tid; i < n; i += SCAN_THREADS) {
+        int64_t idx = lo_idx + i;
+        if (idx >= lcap) idx -= lcap;
+        table_insert(tab, &inf_pos, lk[idx], int32_t(lo + i - applied));
       }
       __syncthreads();
-      if (open) {
-        int hit = -1;
-        int i = 0;
-        for (; i + 4 <= n; i += 4) {
-          const int4 v = *reinterpret_cast<const int4*>(tile + i);
-          if (v.x == q) { hit = i; break; }
-          if (v.y == q) { hit = i + 1; break; }
-          if (v.z == q) { hit = i + 2; break; }
-          if (v.w == q) { hit = i + 3; break; }
-        }
-        if (hit < 0)
-          for (; i < n; ++i)
-            if (tile[i] == q) { hit = i; break; }
-        if (hit >= 0) {
-          atomicMax(best + qi, int(hi - 1 - hit - applied) + 1);
-          open = false;
+#pragma unroll
+      for (int i = 0; i < SCAN_QPT; ++i) {
+        if (!(open >> i & 1u)) continue;
+        const int32_t p = table_lookup(tab, inf_pos, q[i]);
+        if (p >= 0) {
+          atomicMax(best + qi[i], p + 1);
+          open &= ~(1u << i);
         }
       }
       hi = lo;
@@ -152,7 +204,7 @@ static inline cudaError_t launch_window_scan(const void* rkeys, const void* rep_
                                       cudaStream_t s) {
   cudaError_t e = cudaMemsetAsync(best, 0, size_t(Q) * 4, s);
   if (e != cudaSuccess) return e;
-  const dim3 grid((unsigned)((Q + SCAN_THREADS - 1) / SCAN_THREADS), SPLITS);
+  const dim3 grid((unsigned)((Q + SCAN_Q - 1) / SCAN_Q), SPLITS);
   scan_kernel<<<grid, SCAN_THREADS, 0, s>>>(
       (const int32_t*)rkeys, (const int32_t*)rep_sel, rp, (int32_t*)best,
       (int64_t)Q, R, (int64_t)lcap);

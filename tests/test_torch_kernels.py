@@ -165,11 +165,12 @@ def test_merge_matches_pallas(cap, n, m, kind):
         assert int(got.size) == cap + m
 
 
-def _replica_states(rng, cap, lcap, windows, pool):
+def _replica_states(rng, cap, lcap, windows, pool, log_pool=None):
     """R sorted replicas and R logs with the given (applied, tail)
-    windows, from numpy: the ring holds random keys of ``pool`` (stale
-    entries outside the window too), the window PUTs and DELs.  Returns
-    the JAX stacked states and the port's tuples."""
+    windows, from numpy: the ring holds random keys of ``log_pool``
+    (``pool`` unless given; stale entries outside the window too), the
+    window PUTs and DELs.  Returns the JAX stacked states and the port's
+    tuples."""
     R = len(windows)
     skeys = np.full((R, cap), INF, np.int32)
     saddrs = np.full((R, cap), -1, np.int32)
@@ -178,7 +179,8 @@ def _replica_states(rng, cap, lcap, windows, pool):
         ks = np.sort(rng.choice(pool, n, replace=False))
         skeys[r, :n] = ks
         saddrs[r, :n] = rng.integers(0, 10 ** 5, n)
-    lkeys = rng.choice(pool, (R, lcap)).astype(np.int32)
+    lkeys = rng.choice(pool if log_pool is None else log_pool,
+                       (R, lcap)).astype(np.int32)
     laddrs = rng.integers(0, 10 ** 5, (R, lcap)).astype(np.int32)
     lops = rng.choice([0, 1, 1, 2], (R, lcap)).astype(np.int8)
     win = np.asarray(windows, np.int32)
@@ -239,6 +241,50 @@ def test_backup_probe_matches_pallas(windows):
     _eq((got[0], got[1].to(torch.int32), got[2]), want, "backup_probe ref")
     assert got[1].any() and not got[1].all()
     assert (got[2] == 0).any() and (got[2] > 0).any()
+
+
+# (lcap, (applied, tail) per replica) over logs of a few keys, each in
+# the window many times: wrapped, the full ring, a ring whose size is no
+# power of two, and a window longer than the ring
+DUP_WINDOWS = [(64, [(50, 100), (70, 134)]), (96, [(90, 186), (5, 50)]),
+               (100, [(37, 137)]), (64, [(3, 80), (0, 64), (10, 11)])]
+
+
+@pytest.mark.parametrize("lcap,windows", DUP_WINDOWS)
+def test_backup_probe_matches_pallas_on_duplicate_windows(lcap, windows):
+    """Windows dense in duplicate keys (6 keys and 2**31 - 1 over up to
+    100 log entries): each lane gets the NEWEST entry of its key (a PUT
+    or a DEL) in its last selected replica's window, else that
+    replica's sorted answer; the port's backup probe (its plain version
+    on the CPU) equals the Pallas kernel in interpret mode, the jnp path
+    and ref.ref_backup_probe."""
+    rng = np.random.default_rng(lcap * 10 + len(windows))
+    pool = np.array([3, 7, -1, 0, 12345, 2 ** 20], np.int32)
+    js, jl, ts, tl = _replica_states(rng, 512, lcap, windows, pool,
+                                     np.append(pool, INF))
+    R = len(windows)
+    q = np.concatenate([np.repeat(pool, 20), [INF] * 10, [8, -2, INF - 1]]
+                       ).astype(np.int32)
+    rng.shuffle(q)
+    sel = rng.integers(0, 2, (len(q), R)).astype(np.int32)
+    sel[:4] = 0
+    got = ops.backup_probe(CFG, ts, tl, torch.as_tensor(q),
+                           torch.as_tensor(sel))
+    jq, jsel = jnp.asarray(q), jnp.asarray(sel)
+    _eq(got, jops.backup_probe(JCFG, js, jl, jq, jsel), "backup_probe pallas")
+    _eq(got, jops.backup_probe(jscaled(use_kernels="off"), js, jl, jq, jsel),
+        "backup_probe jnp")
+    lwin = jnp.stack([jl.applied, jl.tail], axis=1)
+    want = jref.ref_backup_probe(JCFG, js.keys, js.addrs, jl.keys, jl.addrs,
+                                 jl.ops.astype(jnp.int32), lwin, jq, jsel)
+    _eq((got[0], got[1].to(torch.int32), got[2]), want, "backup_probe ref")
+    # the cases reach both answers of the log: a key whose newest entry
+    # is a DEL (a miss, whatever PUTs precede it) and one whose is a PUT
+    newest = set()
+    for log in tl:
+        hit, op, _ = lg.pending_lookup(log, torch.as_tensor(pool))
+        newest |= {int(o) for o in op[hit]}
+    assert newest == {1, 2}
 
 
 # (applied, tail) per replica, lcap = 64, for the group probe: wrapped,
@@ -464,6 +510,95 @@ def test_cuda_group_probe_matches_plain(cuda_device):
     torch.cuda.synchronize()
 
 
+# (lcap, (applied, tail) per replica, distinct log keys): rings of 65536
+# (16 slices of 4096 entries, two shared-memory tables each), one full and
+# wrapping, one holding a single key; a ring whose size is no power of
+# two; and R = 9
+DUP_CUDA_CASES = [
+    (1 << 16, [(70000, 70000 + (1 << 16)), (5, 40000)], 3000),
+    (50000, [(123456, 173456)], 100),
+    (1 << 16, [(1 << 16, 1 << 17), (9, 9)], 1),
+    (5000, [(4000 + 700 * r, 9000 + 500 * r) for r in range(9)], 50),
+]
+
+
+def _plant(log, applied, entries):
+    """Write (position in the window, key, op, addr) into a log's ring."""
+    lcap = log.keys.shape[0]
+    for pos, k, op, a in entries:
+        i = (applied + pos) % lcap
+        log.keys[i], log.ops[i], log.addrs[i] = k, op, a
+
+
+def _launched(name, fn):
+    n0 = ops.LAUNCHES[name]
+    out = fn()
+    assert ops.LAUNCHES[name] == n0 + 1, name
+    return out
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("lcap,windows,n_keys", DUP_CUDA_CASES)
+def test_cuda_probes_newest_wins_across_slices_and_tiles(
+        cuda_device, lcap, windows, n_keys):
+    """The window lookup of both probes on windows dense in duplicate
+    keys, against their plain versions on the card: four keys planted in
+    replica 0's window so that the newest entry lies in a later slice, a
+    later position of one table, the newest slot of the window, or the
+    newer of a slice's two tables (a PUT behind a DEL and a DEL behind a
+    PUT), and 2**31 - 1 planted once; every lane's key in the window with
+    replica 0 selected, then random selects, then none."""
+    rng = np.random.default_rng(lcap + n_keys)
+    hkeys, _, th = _hash_state(rng, cap=1 << 12, n=1500, n_del=200)
+    th = hix.HashIndex(*[a.to(cuda_device) for a in th])
+    pool = rng.choice(10 ** 6, n_keys, replace=False).astype(np.int32)
+    _, _, ts, tl = _replica_states(
+        rng, 1 << 14, lcap, windows, np.unique(np.concatenate([pool, hkeys])),
+        pool)
+    applied, tail = windows[0]
+    n_win = min(tail - applied, lcap)
+    per = -(-n_win // 16)                    # entries of a slice
+    P = 10 ** 6
+    _plant(tl[0], applied, [
+        (3, P + 1, 1, 11), (5 * per + 1, P + 1, 1, 12),
+        (6 * per - 1, P + 1, 2, 0),
+        (7 * per + 10, P + 2, 1, 21), (7 * per + min(per, 2048) - 1, P + 2, 1,
+                                         22),
+        (0, P + 3, 1, 31), (n_win - 1, P + 3, 1, 32),
+        (2 * per + 2047, P + 4, 1, 41), (2 * per + 2048, P + 4, 2, 0),
+        (9 * per + 5, INF, 1, 91)])
+    ts = tuple(six.SortedIndex(*[a.to(cuda_device) for a in s]) for s in ts)
+    tl = tuple(lg.UpdateLog(*[a.to(cuda_device) for a in lo]) for lo in tl)
+    wkeys = lg.pending_entries_np(tl[0])[0]
+    plants = np.repeat(np.arange(P + 1, P + 5), 4)
+    q = np.concatenate([plants, [INF] * 8, rng.choice(wkeys, 4096 - 24)]
+                       ).astype(np.int32)
+    qt = torch.as_tensor(q, device=cuda_device)
+    R = len(ts)
+    first = torch.zeros((len(q), R), dtype=torch.int32, device=cuda_device)
+    first[:, 0] = 1
+    rand = torch.as_tensor(rng.integers(0, 2, (len(q), R)).astype(np.int32),
+                           device=cuda_device)
+    for label, sel in (("replica 0", first), ("random", rand),
+                       ("none", torch.zeros_like(first))):
+        got = _launched("backup_probe",
+                        lambda: ops.backup_probe(CFG, ts, tl, qt, sel))
+        _eq(got, ops.backup_probe_plain(CFG, ts, tl, qt, sel),
+            f"cuda backup_probe {label}")
+        _eq(_launched("group_probe",
+                      lambda: ops.group_probe(CFG, th, ts, tl, qt, sel)),
+            ops.group_probe_plain(CFG, th, ts, tl, qt, sel),
+            f"cuda group_probe {label}")
+        if label == "replica 0":
+            a, f = got[0][:16].cpu().numpy(), got[1][:16].cpu().numpy()
+            assert a.tolist() == [-1] * 4 + [22] * 4 + [32] * 4 + [-1] * 4
+            assert f.tolist() == [0] * 4 + [1] * 8 + [0] * 4
+            assert bool(got[1][16:].any())
+        if label == "none":
+            assert not bool(got[1].any()) and not bool(got[2].any())
+    torch.cuda.synchronize()
+
+
 # ---------------------------------------------------------------------------
 # mamba_scan (the Mamba-1 selective scan of the model path)
 # ---------------------------------------------------------------------------
@@ -497,6 +632,24 @@ def test_mamba_scan_plain_matches_ref_and_pallas(B, S, di, N):
     assert got.dtype == torch.float32 and got.shape == (B, S, di)
     for want in (want_ref, want_k):
         np.testing.assert_allclose(got.numpy(), want, rtol=2e-5, atol=2e-5)
+
+
+@pytest.mark.parametrize("B,S,di,N", [(1, 1, 8, 1), (2, 65, 40, 65),
+                                      (1, 33, 24, 128)])
+def test_mamba_scan_plain_edges_match_pallas(B, S, di, N):
+    """The plain version, which the kernel is held against on the card,
+    equals the Pallas kernel in interpret mode (one grid step of the
+    whole S and di) at the kernel's edge shapes: S of 1 and one past a
+    chunk, N of 1, 65 and 128; 2e-5 as the JAX test."""
+    from repro.kernels.mamba_scan import mamba_scan_kernel
+    from repro_torch.kernels import mamba_scan as ms
+
+    ins = _scan_inputs(np.random.RandomState(S + N), B, S, di, N)
+    want = mamba_scan_kernel(*map(jnp.asarray, ins), d_block=di,
+                             seq_chunk=S, interpret=True)
+    got = ms.mamba_scan(*map(torch.as_tensor, ins))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=2e-5,
+                               atol=2e-5)
 
 
 def test_mamba_scan_plain_bf16_matches_ref():
@@ -569,4 +722,70 @@ def test_cuda_mamba_scan_matches_plain(cuda_device):
     with pytest.raises(TypeError):
         ms.mamba_scan(x.double(), x, dbc[..., :6].double().contiguous(),
                       dbc[..., 6:].double().contiguous(), A)
+    torch.cuda.synchronize()
+
+
+def _scan_tol(want, dtype):
+    """float32: 2e-5 + 2e-5 |want| (the JAX test's tolerance); bf16 and
+    float16: one ulp of the plain value plus 2e-5."""
+    if dtype == torch.float32:
+        return 2e-5 + 2e-5 * want.abs()
+    bits = 7 if dtype == torch.bfloat16 else 10
+    e = torch.floor(torch.log2(want.abs().clamp_min(2.0 ** -14)))
+    return torch.exp2(e - bits) + 2e-5
+
+
+SCAN_DTYPES = (torch.float32, torch.bfloat16, torch.float16)
+# (B, S, di, N): S of 1, of the kernel's 32-step chunk and of two chunks,
+# and one either side, di off the 32-channel block, N of 1, 16, 65 and
+# 128, B > 1
+SCAN_EDGES = [(1, 1, 8, 16), (2, 63, 40, 1), (1, 64, 64, 16),
+              (3, 65, 72, 16), (2, 31, 20, 65), (1, 33, 96, 128),
+              (2, 32, 33, 65), (4, 1, 3, 128)]
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("B,S,di,N", SCAN_EDGES)
+def test_cuda_mamba_scan_edges(cuda_device, B, S, di, N):
+    """The scan kernel at the edges of its chunks, channel blocks and state
+    tiles, in float32, bf16 and float16, against its plain version."""
+    from repro_torch.kernels import mamba_scan as ms
+
+    rng = np.random.RandomState(B * 1000 + S + di + N)
+    x, dt, Bs, Cs, A = (torch.as_tensor(a, device=cuda_device)
+                        for a in _scan_inputs(rng, B, S, di, N))
+    for dtype in SCAN_DTYPES:
+        xd, Bd, Cd = (t.to(dtype) for t in (x, Bs, Cs))
+        n0 = ms.LAUNCHES["mamba_scan"]
+        got = ms.mamba_scan(xd, dt, Bd, Cd, A)
+        assert ms.LAUNCHES["mamba_scan"] == n0 + 1
+        assert got.dtype == dtype and got.shape == (B, S, di)
+        got = got.float()
+        want = ms.mamba_scan_plain(xd, dt, Bd, Cd, A).float()
+        assert bool(((got - want).abs() <= _scan_tol(want, dtype)).all()), \
+            (dtype, float((got - want).abs().max()))
+    torch.cuda.synchronize()
+
+
+@pytest.mark.requires_cuda
+def test_cuda_mamba_scan_carries_across_many_chunks(cuda_device):
+    """S = 4100, 128 chunk carries, with strong decays (dt * A down to
+    about -20) beside weak ones, at B = 2, in float32, bf16 and float16,
+    against the plain version: the state crosses each chunk's end."""
+    from repro_torch.kernels import mamba_scan as ms
+
+    rng = np.random.RandomState(41)
+    B, S, di, N = 2, 4100, 72, 16
+    x, _, Bs, Cs, _ = _scan_inputs(rng, B, S, di, N)
+    dt = (np.abs(rng.randn(B, S, di)) * np.where(
+        rng.rand(1, 1, di) < 0.5, 2.0, 0.05)).astype(np.float32)
+    A = -np.exp(rng.rand(di, N) * 2).astype(np.float32)
+    x, dt, Bs, Cs, A = (torch.as_tensor(a, device=cuda_device)
+                        for a in (x, dt, Bs, Cs, A))
+    for dtype in SCAN_DTYPES:
+        xd, Bd, Cd = (t.to(dtype) for t in (x, Bs, Cs))
+        got = ms.mamba_scan(xd, dt, Bd, Cd, A).float()
+        want = ms.mamba_scan_plain(xd, dt, Bd, Cd, A).float()
+        assert bool(((got - want).abs() <= _scan_tol(want, dtype)).all()), \
+            (dtype, float((got - want).abs().max()))
     torch.cuda.synchronize()

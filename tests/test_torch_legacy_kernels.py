@@ -34,9 +34,9 @@ from repro_torch.core import log as lg
 from repro_torch.core import sorted_index as six
 from repro_torch.kernels import ops
 from repro_torch.kernels import ref
-from test_torch_kernels import (CFG, INF, JCFG, _eq, _hash_state,
+from test_torch_kernels import (CFG, INF, JCFG, _eq, _hash_state, _launched,
                                 _merge_batch, _replica_states, _scan_inputs,
-                                _sorted_state, _t)
+                                _scan_tol, _sorted_state, _t)
 
 ROOT = Path(__file__).resolve().parents[1]
 
@@ -436,13 +436,6 @@ def cuda_device():
     return torch.device("cuda")
 
 
-def _launched(name, fn):
-    n0 = ops.LAUNCHES[name]
-    out = fn()
-    assert ops.LAUNCHES[name] == n0 + 1, name
-    return out
-
-
 @pytest.mark.requires_cuda
 def test_cuda_legacy_probe_and_search_match_plain(cuda_device):
     """The legacy hash probe and search kernels against their plain
@@ -676,11 +669,6 @@ def test_cuda_mamba_scan_lifted_limits(cuda_device):
             got = ms.mamba_scan(xd, dt, Bd, Cd, A).float()
             assert ms.LAUNCHES["mamba_scan"] == n0 + 1
             want = ms.mamba_scan_plain(xd, dt, Bd, Cd, A).float()
-            if dtype == torch.float32:
-                tol = 2e-5 + 2e-5 * want.abs()
-            else:
-                bits = 7 if dtype == torch.bfloat16 else 10
-                e = torch.floor(torch.log2(want.abs().clamp_min(2.0 ** -14)))
-                tol = torch.exp2(e - bits) + 2e-5
-            assert bool(((got - want).abs() <= tol).all()), (B, N, dtype)
+            assert bool(((got - want).abs() <= _scan_tol(want, dtype)).all()
+                        ), (B, N, dtype)
     torch.cuda.synchronize()
