@@ -23,7 +23,10 @@
    also the latency of its dependent levels) and, for the search,
    torch.searchsorted, and the device time of the same function in
    PyTorch calls (searchsorted, then the gathers and the compare that
-   give addr and found).  One merge call runs under torch.profiler (CUDA
+   give addr and found).  The hash probe takes the keys and hashes them
+   on the card: it is also timed routed (``ops.probe``), against
+   ``hix.lookup``, its bound given with the key in and with the three
+   descriptors the kernel took before.  One merge call runs under torch.profiler (CUDA
    activity) and the device time of each of its kernels is logged by name.
 4b. The rest of the dispatch surface on the same loaded store, launch
    counts set to 0 before it and the four new ones > 0 after:
@@ -75,12 +78,15 @@
    by kernel as in 4.
 9. The group probe against its plain version as the distributed GET
    calls it: the last round's GET chunk routed as that GET routed it,
-   every server's call on its exchange buffer (Q = 8192, mostly key_inf
-   padding) against the state that GET read; the call of the server
-   whose padding lanes select a replica, and the chunk's 8 calls, timed.
-   Then one group at Q = 16384 with replicas selected for about half the
-   lanes, pending windows set to wrap the ring, q = 2**31 - 1 among the
-   queries, timed as in 6.  Both calls split by kernel as in 6.
+   one stacked call for the 8 servers' exchange buffers (8 x 8192 lanes,
+   mostly key_inf padding, hashed on the card) against the state that
+   GET read, each server's six halves equal to its per-server plain
+   result; timed per call, on the device, routed (from the exchange
+   buffers to the halves) and by kernel, with the share of the device
+   time the split covers.  Then one group at
+   Q = 16384 with replicas selected for about half the lanes, pending
+   windows set to wrap the ring, q = 2**31 - 1 among the queries, timed
+   as in 6 and split by kernel.
 10. The serving path of falcon-mamba-7b (configs/falcon_mamba_7b.py) at
     full width and depth in bf16, the weights drawn on the card from
     ``--seed`` (parameter count and peak memory logged): a warm-up
@@ -100,7 +106,8 @@
     completes, prefix hits >= 2, every registered page freed by the
     release SCANs, the free list whole, the hash holding at most the
     prefix keys, the hash probe, search and merge launched; decode
-    steps/s and tokens/s.  Then prefill's last-position logits against
+    steps/s and tokens/s, and the seconds of the model's decode steps
+    against the rest (the directory and the engine's bookkeeping).  Then prefill's last-position logits against
     the engine's decode logits after each first-wave prompt (fresh
     slots): logged at bf16 over 64 layers, checked within 5e-4 at
     float32 on a 4-layer model of the same widths.
@@ -635,44 +642,48 @@ def compare_kernels(torch, cfg, hidx, srt, live, dead, rng, Q, label):
     dev = hidx.sig.device
     out = []
 
-    # -- hash probe ---------------------------------------------------------
+    # -- hash probe: the kernel takes the keys and hashes them --------------
     q = np.concatenate([rng.choice(live, Q // 2), rng.choice(dead, Q // 4),
                         rng.integers(0, 2 ** 31 - 1, Q - Q // 2 - Q // 4)])
     qt = torch.as_tensor(q.astype(np.int32), device=dev)
     tomb = int((hidx.sig == hix.TOMBSTONE).sum())
-    err = max_abs_err(torch, ops.probe(cfg, hidx, qt),
-                      hix.lookup(hidx, qt, cfg), f"{label} hash_probe routed")
-    b, s, f = hix.descriptors(hidx, qt)
-    tab = (hidx.sig, hidx.fp, hidx.addr, hidx.fill)
+    want = hix.lookup(hidx, qt, cfg)
+    err = max_abs_err(torch, ops.probe(cfg, hidx, qt), want,
+                      f"{label} hash_probe routed")
 
     def kern():
-        return ops.hash_probe_cuda(b, s, f, *tab, cfg.slots_per_bucket)
+        return ops.hash_probe_cuda(qt, *hidx, cfg.slots_per_bucket)
 
     got = kern()
-    err = max(err, max_abs_err(
-        torch, (got[0], got[1].bool(), got[2]),
-        hix.probe_rows(hidx, b, s, f, cfg), f"{label} hash_probe"))
+    err = max(err, max_abs_err(torch, (got[0], got[1].bool(), got[2]), want,
+                               f"{label} hash_probe"))
     ms = time_ms(torch, kern, 200)
     dev_ms = device_ms(torch, kern, 200)
-    plain = time_ms(torch, lambda: hix.probe_rows(hidx, b, s, f, cfg), 50)
+    plain = time_ms(torch, lambda: hix.lookup(hidx, qt, cfg), 50)
     routed = time_ms(torch, lambda: ops.probe(cfg, hidx, qt), 200)
-    plain_routed = time_ms(torch, lambda: hix.lookup(hidx, qt, cfg), 50)
+    routed_dev = device_ms(torch, lambda: ops.probe(cfg, hidx, qt), 200)
     cs = hidx.sig.shape[1]
-    # 3 descriptors in, 3 outputs, the sig and fp rows, one addr, one fill
-    nbytes = Q * (12 + 12 + 2 * cs * 4 + 8)
+    # the key in, 3 outputs, the sig and fp rows, one addr, one fill; the
+    # kernel before took 3 descriptors (12 B) in place of the key
+    nbytes = Q * (4 + 12 + 2 * cs * 4 + 8)
+    nbytes_desc = Q * (12 + 12 + 2 * cs * 4 + 8)
     log(f"kernel hash_probe ({label}): Q={Q}, table [{hidx.sig.shape[0]}, "
-        f"{cs}] with {tomb} tombstones: equal; kernel {ms:.4f} ms per call, "
-        f"device {dev_ms:.4f} ms, plain {plain:.4f} ms; routed ops.probe "
-        f"(hashing included) {routed:.4f} ms, plain lookup "
-        f"{plain_routed:.4f} ms; bound "
-        f"{nbytes / HBM_BYTES_PER_S * 1e3:.6f} ms ({nbytes} B)")
+        f"{cs}] with {tomb} tombstones, keys hashed on the card: equal; "
+        f"kernel {ms:.4f} ms per call, device {dev_ms:.4f} ms; routed "
+        f"ops.probe {routed:.4f} ms per call, device {routed_dev:.4f} ms; "
+        f"plain (hix.lookup, hashing included) {plain:.4f} ms; bound "
+        f"{nbytes / HBM_BYTES_PER_S * 1e3:.6f} ms ({nbytes} B; with "
+        f"descriptors in, as the kernel took them before, "
+        f"{nbytes_desc / HBM_BYTES_PER_S * 1e3:.6f} ms for {nbytes_desc} B)")
     out.append(dict(name="hash_probe", route="cuda",
                     source="src/repro_torch/kernels/csrc/hash_probe.cu",
                     replaces=f"{FUSED}:204", max_abs_err=err, ms=ms,
                     plain_ms=plain,
                     bound_ms=nbytes / HBM_BYTES_PER_S * 1e3,
                     bound_by="bytes", library_ms=None, device_ms=dev_ms,
-                    routed_ms=routed, plain_routed_ms=plain_routed, Q=Q))
+                    routed_ms=routed, routed_device_ms=routed_dev,
+                    bound_descriptors_in_ms=nbytes_desc / HBM_BYTES_PER_S
+                    * 1e3, Q=Q))
 
     # -- sorted search: Q = 1 (the SCAN lower bound) and Q ------------------
     # Latency bound: `levels` dependent node reads.  One level's device time
@@ -1310,15 +1321,19 @@ def distributed(torch, cfg, rng):
     return wl, launches, times, probe_at
 
 
-def group_work(torch, q, sel, hidx, srt, blogs, cfg):
+def group_work(torch, q, sel, hidx, srt, blogs, cfg, selects_in=True,
+               n_out=6):
     """Bytes and operations one group probe call needs for this run's
-    data: the hash half as hash_probe's (3 descriptors, the sig and fp
-    chain rows, one addr, one fill a query), the backup half as
-    backup_work counts it, and six outputs.  Returns (bytes, operations,
-    lanes found in a log)."""
+    data: the hash half (the sig and fp chain rows, one addr, one fill a
+    query; the key is hashed on the card, read once with the backup
+    half), the backup half as backup_work counts it (less the selects
+    where the call computes them from the keys), and n_out outputs.
+    Returns (bytes, operations, lanes found in a log)."""
     bbytes, n_ops, in_log = backup_work(torch, q, sel, srt, blogs, cfg)
-    nbytes = len(q) * (12 + 2 * hidx.sig.shape[1] * 4 + 8) + bbytes
-    return nbytes + len(q) * 24, n_ops, in_log
+    if not selects_in:
+        bbytes -= sel.size * 4
+    nbytes = len(q) * (2 * hidx.sig.shape[1] * 4 + 8) + bbytes
+    return nbytes + len(q) * 4 * n_out, n_ops, in_log
 
 
 def search_library(torch, srt, q):
@@ -1406,15 +1421,16 @@ def dist_kernels(torch, wl, cfg):
 def compare_group_probe(torch, wl, cfg, launches, probe_at):
     """The group probe against its plain version, as the distributed GET
     calls it: the last mixed round's GET chunk routed as that GET routed
-    it, each server's call on its exchange buffer (Q = G * capacity_q,
-    mostly key_inf padding) against the state that GET read, all G
-    equal; the pad server's call (its padding lanes select replica 0)
-    and the whole chunk's G calls timed.  Then one group's state at
-    Q = 16384 with replicas selected for about half the lanes, the
-    pending windows set back over real past entries so that each holds
-    16384 entries and wraps the end of the ring, q = 2**31 - 1 among the
-    queries; timed, also with no lane selected."""
-    from repro_torch.core import hash_index as hix
+    it, one stacked call for the G servers' exchange buffers (Q = G *
+    capacity_q each, mostly key_inf padding) against the state that GET
+    read, each server's six halves equal to its per-server plain result;
+    timed per call, on the device, routed (from the buffers to the
+    halves) and split by kernel.  Then one group's state at Q = 16384
+    (the stacked kernel at G = 1 with rep_sel given) with replicas
+    selected for about half the lanes, the pending windows set back over
+    real past entries so that each holds 16384 entries and wraps the end
+    of the ring, q = 2**31 - 1 among the queries; timed, also with no
+    lane selected."""
     from repro_torch.core import kvstore as kv
     from repro_torch.core import log as lg
     from repro_torch.core import tree
@@ -1427,77 +1443,70 @@ def compare_group_probe(torch, wl, cfg, launches, probe_at):
     dev = st.hb.device
     gp = pad_server(torch, G, dev)
 
-    def call(hidx, srt, blogs, q, sel):
-        b, qs, qf = hix.descriptors(hidx, q)
-        return lambda: ops.group_probe_cuda(b, qs, qf, q, sel, hidx.sig,
-                                            hidx.fp, hidx.addr, hidx.fill,
-                                            srt, blogs, S, fo)
-
-    # -- the GET chunk's G calls -------------------------------------------
+    # -- the GET chunk: one call for the G servers --------------------------
     kt = torch.as_tensor(gkeys, device=dev).reshape(G, -1)
     rk, _, _ = kv.get_exchange(st, kt, torch.ones_like(kt, dtype=torch.bool),
                                G, DIST_CAPACITY_Q)
     Q = rk.shape[1]
-    inputs = [kv.probe_inputs(st, rk[g], g, G) for g in range(G)]
-    err, calls, work = 0.0, [], []
-    for g, (hidx, srt, blogs, sel) in enumerate(inputs):
+    state = (st.hash, st.bsorted, st.blog)
+    got = ops.group_probe_stacked(cfg, *state, rk)
+    err = max_abs_err(torch, got, ops.group_probe_stacked_plain(
+        cfg, *state, rk), "group_probe GET chunk")
+    work = []
+    for g in range(G):
+        hidx, srt, blogs, sel = ops.server_inputs(*state, rk[g], g)
         err = max(err, max_abs_err(
-            torch, ops.group_probe(cfg, hidx, srt, blogs, rk[g], sel),
+            torch, [t[g] for t in got[:6]],
             ops.group_probe_plain(cfg, hidx, srt, blogs, rk[g], sel),
             f"group_probe GET server {g}"))
-        calls.append(call(hidx, srt, blogs, rk[g], sel))
         work.append(group_work(torch, rk[g].cpu().numpy(), sel.cpu().numpy(),
-                               hidx, srt, blogs, cfg))
-    hidx, srt, blogs, sel = inputs[gp]
-    ms = time_ms(torch, calls[gp], 200)
-    dev_ms = device_ms(torch, calls[gp], 200)
-    plain = time_ms(torch, lambda: ops.group_probe_plain(
-        cfg, hidx, srt, blogs, rk[gp], sel), 5, warmup=1)
+                               hidx, srt, blogs, cfg, selects_in=False,
+                               n_out=7))
 
-    def chunk():
-        for c in calls:
-            c()
+    def kern():
+        return ops.group_probe_cuda(rk, None, *state, S, fo)
 
-    split = kernel_split(torch, calls[gp],
-                         f"kernel group_probe: GET chunk, server {gp}")
-    chunk_ms = time_ms(torch, chunk, 50)
-    chunk_dev = device_ms(torch, chunk, 10)     # 80 launches queued
-    routed_chunk = time_ms(torch, lambda: [
-        ops.group_probe(cfg, *inputs[g][:3], rk[g], inputs[g][3])
-        for g in range(G)], 50)
-    bound, b_bytes, b_ops = bound_of(*work[gp][:2])
-    chunk_bound = sum(bound_of(*w[:2])[0] for w in work)
-    n_pad = int((rk[gp] == 2 ** 31 - 1).sum())
-    n_sel = int((sel != 0).any(1).sum())
-    wins = [int(lg.pending_count(b)) for b in blogs]
-    log(f"kernel group_probe: a GET chunk of {len(gkeys)} keys, Q={Q} per "
-        f"server, all {G} servers equal; server {gp}: {n_pad} padding lanes, "
-        f"{n_sel} selecting a replica, windows {wins}: {ms:.4f} ms per call, "
-        f"device {dev_ms:.4f} ms, plain {plain:.4f} ms, bound {bound:.6f} ms "
-        f"(bytes {b_bytes:.6f} ms for {work[gp][0]} B, operations "
-        f"{b_ops:.6f} ms for {work[gp][1]}); the chunk's {G} calls "
-        f"{chunk_ms:.4f} ms, device {chunk_dev:.4f} ms, routed (hashing "
-        f"included) {routed_chunk:.4f} ms, bound {chunk_bound:.6f} ms; the "
-        f"split's spans {sum(split.values()) / dev_ms:.0%} of the call's "
-        f"device time")
+    ms = time_ms(torch, kern, 200)
+    dev_ms = device_ms(torch, kern, 200)
+    routed = time_ms(torch, lambda: ops.group_probe_stacked(cfg, *state, rk),
+                     200)
+    plain = time_ms(torch, lambda: ops.group_probe_stacked_plain(
+        cfg, *state, rk), 3, warmup=1)
+    split = kernel_split(torch, kern, "kernel group_probe: GET chunk")
+    b_bytes, b_n = sum(w[0] for w in work), sum(w[1] for w in work)
+    bound, bb_ms, bo_ms = bound_of(b_bytes, b_n)
+    n_pad = int((rk == 2 ** 31 - 1).sum())
+    n_sel = int(sum((ops.replica_select(got[6][g], g, G, cfg.n_backups)
+                     != 0).any(1).sum() for g in range(G)))
+    log(f"kernel group_probe: a GET chunk of {len(gkeys)} keys, one call "
+        f"for {G} servers of Q={Q}, every server equal to its plain result; "
+        f"{n_pad} padding lanes, {n_sel} selecting a replica: {ms:.4f} ms "
+        f"per call, device {dev_ms:.4f} ms, routed (from the exchange "
+        f"buffers, hashing on the card) {routed:.4f} ms, plain {plain:.4f} "
+        f"ms, bound {bound:.6f} ms (bytes {bb_ms:.6f} ms for {b_bytes} B, "
+        f"operations {bo_ms:.6f} ms for {b_n}); the split's spans "
+        f"{sum(split.values()) / dev_ms:.0%} of the call's device time")
 
     # -- one group at Q = 16384, half the lanes selecting, wrapped windows --
     store = wl.client.backend.store
     QM, R = CHUNK, cfg.n_backups
-    hidx = tree.at(store.hash, gp)
-    srt = tuple(tree.at(store.bsorted, r, gp) for r in range(R))
-    blogs = []
+    one = slice(gp, gp + 1)
+    h1 = type(store.hash)(*[a[one] for a in store.hash])
+    s1 = type(store.bsorted)(*[a[:, one] for a in store.bsorted])
+    starts = []
     for r in range(R):
-        blog = tree.at(store.blog, r, gp)
-        T = int(blog.tail)
+        T = int(store.blog.tail[r, gp])
         check(T >= lcap, f"group_probe: log {r} holds {T} < {lcap} entries")
         # the ring still holds positions [T - lcap, T); a window there
         # that crosses a multiple of lcap wraps
-        A = next(a for a in range(T - QM, T - lcap - 1, -1)
-                 if a % lcap + QM > lcap)
-        blogs.append(blog._replace(
-            applied=torch.tensor(A, dtype=torch.int32, device=dev),
-            tail=torch.tensor(A + QM, dtype=torch.int32, device=dev)))
+        starts.append(next(a for a in range(T - QM, T - lcap - 1, -1)
+                           if a % lcap + QM > lcap))
+    A = torch.tensor(starts, dtype=torch.int32, device=dev)[:, None]
+    l1 = type(store.blog)(*[a[:, one] for a in store.blog])._replace(
+        applied=A, tail=A + QM)
+    hidx = tree.at(h1, 0)
+    srt = tuple(tree.at(s1, r, 0) for r in range(R))
+    blogs = tuple(tree.at(l1, r, 0) for r in range(R))
     own = kv.owner_group(torch.as_tensor(model.keys, device=dev),
                          G).cpu().numpy()
     mine = model.keys[model.live & (own == gp)]
@@ -1514,17 +1523,24 @@ def compare_group_probe(torch, wl, cfg, launches, probe_at):
     qt = torch.as_tensor(q, device=dev)
     selt = torch.as_tensor(msel, device=dev)
     none = torch.zeros_like(selt)
+
+    def call(sel):
+        return lambda: ops.group_probe_cuda(qt[None], sel[None], h1, s1, l1,
+                                            S, fo)
+
     for label, s_ in (("half selected", selt), ("none selected", none)):
+        want = ops.group_probe_plain(cfg, hidx, srt, blogs, qt, s_)
         err = max(err, max_abs_err(
-            torch, ops.group_probe(cfg, hidx, srt, blogs, qt, s_),
-            ops.group_probe_plain(cfg, hidx, srt, blogs, qt, s_),
+            torch, ops.group_probe(cfg, hidx, srt, blogs, qt, s_), want,
             f"group_probe {label}"))
-    m_ms = time_ms(torch, call(hidx, srt, blogs, qt, selt), 100)
-    m_dev = device_ms(torch, call(hidx, srt, blogs, qt, selt), 100)
-    m_none = device_ms(torch, call(hidx, srt, blogs, qt, none), 100)
+        err = max(err, max_abs_err(torch, [t[0] for t in call(s_)()[:6]],
+                                   want, f"group_probe {label}, in place"))
+    m_ms = time_ms(torch, call(selt), 100)
+    m_dev = device_ms(torch, call(selt), 100)
+    m_none = device_ms(torch, call(none), 100)
     m_plain = time_ms(torch, lambda: ops.group_probe_plain(
         cfg, hidx, srt, blogs, qt, selt), 5, warmup=1)
-    m_split = kernel_split(torch, call(hidx, srt, blogs, qt, selt),
+    m_split = kernel_split(torch, call(selt),
                            f"kernel group_probe: Q={QM}, half selecting")
     nbytes, n_ops, in_log = group_work(torch, q, msel, hidx, srt, blogs, cfg)
     m_bound, mb_bytes, mb_ops = bound_of(nbytes, n_ops)
@@ -1540,13 +1556,12 @@ def compare_group_probe(torch, wl, cfg, launches, probe_at):
                 source="src/repro_torch/kernels/csrc/group_probe.cu",
                 replaces=f"{FUSED}:332", launches=launches["group_probe"],
                 max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=bound,
-                bound_by="bytes" if b_bytes >= b_ops else "operations",
-                library_ms=None, device_ms=dev_ms, Q=Q, padding_lanes=n_pad,
-                device_ms_by_kernel=split,
+                bound_by="bytes" if bb_ms >= bo_ms else "operations",
+                library_ms=None, device_ms=dev_ms, routed_ms=routed, G=G,
+                Q=Q, padding_lanes=n_pad,
+                selecting_lanes=n_sel, device_ms_by_kernel=split,
                 mixed_device_ms_by_kernel=m_split,
-                get_chunk_ms=chunk_ms, get_chunk_device_ms=chunk_dev,
-                get_chunk_routed_ms=routed_chunk,
-                get_chunk_bound_ms=chunk_bound, mixed_Q=QM, mixed_ms=m_ms,
+                mixed_Q=QM, mixed_ms=m_ms,
                 mixed_device_ms=m_dev, mixed_device_ms_none_selected=m_none,
                 mixed_plain_ms=m_plain, mixed_bound_ms=m_bound,
                 mixed_operations=n_ops)
@@ -1650,13 +1665,18 @@ def prompt_set(rng, vocab):
 
 def drive_engine(torch, e, first, again):
     """Run the first set, then the repeats; returns (requests, per-step
-    (slot -> (rid, pos), logits) log, seconds)."""
-    log, step = [], e._step
+    (slot -> (rid, pos), logits) log, seconds, seconds in the model's
+    decode steps).  A step is timed to a synchronize after it, which the
+    engine's argmax(...).cpu() right after would wait for anyway."""
+    log, step, model_s = [], e._step, [0.0]
 
     def recorded(m, c, i):
         who = {s: (r.rid, r.pos) for s, r in enumerate(e.slots)
                if r is not None}
+        t = time.perf_counter()
         logits, c = step(m, c, i)
+        torch.cuda.synchronize()
+        model_s[0] += time.perf_counter() - t
         log.append((who, logits))
         return logits, c
 
@@ -1670,7 +1690,7 @@ def drive_engine(torch, e, first, again):
             reqs.append(e.queue[-1])
         e.run()
     torch.cuda.synchronize()
-    return reqs, log, time.perf_counter() - t0
+    return reqs, log, time.perf_counter() - t0, model_s[0]
 
 
 def prompt_end_logits(log, rid, n):
@@ -1849,7 +1869,7 @@ def serving(torch, seed):
                       device=dev)
     zero_launches(ops)
     ms.LAUNCHES["mamba_scan"] = 0
-    reqs, steps, t_eng = drive_engine(torch, e, first, again)
+    reqs, steps, t_eng, t_model = drive_engine(torch, e, first, again)
     d_launches = dict(ops.LAUNCHES)
     n_hash = check_engine(e, reqs, "serve engine")
     n_tok = sum(len(r.tokens) for r in reqs)
@@ -1858,7 +1878,9 @@ def serving(torch, seed):
         f" page {SERVE_PAGE}) answered {len(reqs)} requests in {t_eng:.3f} "
         f"s: {n_steps} decode steps ({n_steps / t_eng:.2f} steps/s), "
         f"{n_tok} tokens generated ({n_tok / t_eng:.1f} tokens/s), "
-        f"{sum(len(r.prompt) for r in reqs)} prompt tokens; stats "
+        f"{sum(len(r.prompt) for r in reqs)} prompt tokens; the model's "
+        f"decode steps {t_model:.3f} s of it, the directory and the "
+        f"engine's bookkeeping {t_eng - t_model:.3f} s; stats "
         f"{json.dumps(e.stats)}; directory launches {d_launches}; "
         f"{n_hash} prefix keys left in the hash")
     for k in ("hash_probe", "sorted_search", "merge"):
@@ -1887,7 +1909,7 @@ def serving(torch, seed):
     ce = ServingEngine(ccfg, cmodel, batch_slots=SERVE_SLOTS,
                        max_len=SERVE_MAX_LEN, page_size=SERVE_PAGE,
                        device=dev)
-    creqs, csteps, _ = drive_engine(torch, ce, first, again)
+    creqs, csteps, _, _ = drive_engine(torch, ce, first, again)
     check_engine(ce, creqs, "serve cross-check engine")
     cross = 0.0
     for rid in range(SERVE_SLOTS):
@@ -1908,6 +1930,7 @@ def serving(torch, seed):
     times = dict(init_s=t_init, params=n_params, param_bytes=p_bytes,
                  prefill_s=t_prefill, prefill_tokens_per_s=S / t_prefill,
                  prefill_peak_bytes=peak_prefill, engine_s=t_eng,
+                 engine_model_s=t_model,
                  requests=len(reqs), decode_steps=n_steps,
                  decode_steps_per_s=n_steps / t_eng, tokens=n_tok,
                  tokens_per_s=n_tok / t_eng, peak_bytes=peak,

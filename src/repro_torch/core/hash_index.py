@@ -8,11 +8,11 @@ RDMA client would issue.  Batched inserts replace the paper's RDMA CAS
 with a sort-based conflict-free schedule: sort new keys by bucket, rank
 within bucket, place the rank-th key at the bucket's rank-th free slot.
 
-``probe_rows`` is the plain PyTorch version of the CUDA probe kernel
-(``kernels/csrc/hash_probe.cu``), which takes the keys' descriptors;
-``lookup`` hashes the keys and calls it.  ``rebuild`` and
-``replay_pending`` serve recovery: a hash table rebuilt from a sorted
-replica, then brought up to its pending log window.
+``lookup`` is the plain PyTorch version of the CUDA probe kernel
+(``kernels/csrc/hash_probe.cu``, which hashes the keys on the card): it
+hashes the keys into descriptors and calls ``probe_rows``.  ``rebuild``
+and ``replay_pending`` serve recovery: a hash table rebuilt from a
+sorted replica, then brought up to its pending log window.
 """
 from __future__ import annotations
 
@@ -59,8 +59,9 @@ def create(capacity: int, cfg, device) -> HashIndex:
 
 
 def descriptors(idx: HashIndex, keys):
-    """Kernel-ready probe descriptors (bucket, signature, fingerprint),
-    int32, shared by the plain probe below and the CUDA dispatch."""
+    """Probe descriptors (bucket, signature, fingerprint), int32, of the
+    plain probe below and of the legacy kernel's dispatch
+    (``ops.hash_probe``)."""
     return hashing.descriptors(keys, idx.sig.shape[0])
 
 
@@ -91,10 +92,10 @@ def _locate(idx: HashIndex, keys):
 
 
 def probe_rows(idx: HashIndex, b, sig, fp, cfg):
-    """GET probe from descriptors (bucket, sig, fp), the CUDA probe
-    kernel's inputs.  Returns (addr [Q] int32, found [Q] bool,
-    n_accesses [Q] int32).  A hit costs the sub-bucket holding the slot;
-    a miss costs every occupied sub-bucket (at least 1)."""
+    """GET probe from descriptors (bucket, sig, fp).  Returns (addr [Q]
+    int32, found [Q] bool, n_accesses [Q] int32).  A hit costs the
+    sub-bucket holding the slot; a miss costs every occupied sub-bucket
+    (at least 1)."""
     S = cfg.slots_per_bucket
     found, _, addr, off = _match(idx, b, sig, fp)
     occupied = torch.clamp(idx.fill[b.long()], min=1)

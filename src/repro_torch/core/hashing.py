@@ -98,6 +98,14 @@ def descriptors(keys, n_buckets: int):
     return ((h1 & (n_buckets - 1)).to(I32), *_sig_fp(h1, h2))
 
 
+def owner_group(keys, G: int):
+    """Group routing hash of the distributed store, decorrelated from the
+    bucket hash: fmix32 of the key's second mix, taken mod G as uint32
+    (int32 [...], the JAX package's ``kvstore.owner_group``)."""
+    _, h2 = key_mix(keys)
+    return (fmix32(h2 ^ 0xA5A5A5A5) % G).to(I32)
+
+
 def next_pow2(n: int) -> int:
     p = 1
     while p < n:

@@ -36,7 +36,7 @@ from repro_torch.core import hash_index as hix
 from repro_torch.core import log as lg
 from repro_torch.core import sorted_index as six
 from repro_torch.core import tree
-from repro_torch.core.hashing import I32, fmix32, key_inf, key_mix
+from repro_torch.core.hashing import I32, key_inf, owner_group
 from repro_torch.core.scatter import drop_set, drop_set_rows
 from repro_torch.core.verbs import (exchange, replicate_shift, route_build,
                                     route_return)
@@ -71,13 +71,6 @@ def create(G: int, capacity_per_group: int, cfg, device) -> KVStore:
         sever=torch.zeros((G,), dtype=torch.bool, device=device),
         hb=torch.zeros((G,), dtype=I32, device=device),
     )
-
-
-def owner_group(keys, G: int):
-    """Group routing hash, decorrelated from the bucket hash: fmix32 of
-    the key's second mix, taken mod G as uint32."""
-    _, h2 = key_mix(keys)
-    return (fmix32(h2 ^ 0xA5A5A5A5) % G).to(I32)
 
 
 def _first_alive_holder(g, alive):
@@ -320,30 +313,6 @@ def _replicate_logs(blog, alive, rk, addr, ops, valid, rg, G, opcode):
     return tree.stack(logs), ok, nrep, ok_local
 
 
-def probe_inputs(store: KVStore, rk, g: int, G: int):
-    """What server g's group_probe call reads for its lanes ``rk``: its
-    hash, its R sorted replicas and backup logs, and ``rep_sel`` [Q, R],
-    where lane i selects replica r iff g holds replica r of lane i's
-    owner group.  Returns (hash, sorted, logs, rep_sel)."""
-    R = store.blog.tail.shape[0]
-    og = owner_group(rk, G)
-    rep_sel = torch.stack([(og == (g - r - 1) % G).to(I32)
-                           for r in range(R)], dim=1)
-    srt = tuple(tree.at(store.bsorted, r, g) for r in range(R))
-    blg = tuple(tree.at(store.blog, r, g) for r in range(R))
-    return tree.at(store.hash, g), srt, blg, rep_sel
-
-
-def _index_probe(cfg, store: KVStore, rk, g: int, G: int):
-    """The fused index probe of server g (one group_probe call): the hash
-    table answers lanes g owns as true primary; lane i is answered on
-    the backup side by its selected replica (its pending log first,
-    newest wins, then the sorted replica).  Returns (addr_p, found_p,
-    acc_p, addr_b, found_b, acc_b)."""
-    hidx, srt, blg, rep_sel = probe_inputs(store, rk, g, G)
-    return kops.group_probe(cfg, hidx, srt, blg, rk, rep_sel)
-
-
 def _delete_body(cfg, G, capacity, store: KVStore, keys, valid):
     """Routed DELETE, healthy variant: a tombstone through the primary
     log -> backup logs -> hash delete; the value slot is freed at once
@@ -413,12 +382,15 @@ def _delete_body(cfg, G, capacity, store: KVStore, keys, valid):
             ret["rep"])
 
 
-def _gather_rows(shard, slot, ok):
-    """``shard[slot]`` where ``ok``, zero rows elsewhere: JAX's gather from
-    the shard with one zero row appended (a masked lane reads that row),
-    without copying the shard."""
-    rows = shard[torch.where(ok, slot, 0).long()]
-    return torch.where(ok[:, None], rows, 0)
+def _gather_rows(shards, slot, ok):
+    """``shards[g, slot[g]]`` where ``ok``, zero rows elsewhere, for the G
+    stacked shards [G, n, W] and slot [G, Q]: JAX's gather from each
+    device's shard with one zero row appended (a masked lane reads that
+    row), without copying the shards."""
+    idx = torch.where(ok, slot, 0).long()
+    rows = shards[torch.arange(shards.shape[0],
+                               device=shards.device)[:, None], idx]
+    return torch.where(ok[..., None], rows, 0)
 
 
 def get_exchange(store: KVStore, keys, valid, G, capacity):
@@ -435,27 +407,27 @@ def get_exchange(store: KVStore, keys, valid, G, capacity):
 def _get_body(cfg, G, capacity, store: KVStore, keys, valid):
     """One-sided GET: route to the first live holder of the owner group,
     the fused probe there (hash for the primary's lanes, pending log +
-    sorted replica for a backup's), the value gather from the local data
-    shard, and the reverse route.  A value on another shard, or on a
-    dead data server, is flagged for the second-hop fetch."""
+    sorted replica for a backup's; one stacked call for the G servers),
+    the value gather from the local data shard, and the reverse route.  A
+    value on another shard, or on a dead data server, is flagged for the
+    second-hop fetch."""
     rk, slot, ok_route = get_exchange(store, keys, valid, G, capacity)
     data = store.data
     dcap = data.vals.shape[1]
-    res = {k: [] for k in ("addr", "found", "acc", "val", "vok", "srv")}
-    for g in range(G):
-        a_p, f_p, c_p, a_b, f_b, c_b = _index_probe(cfg, store, rk[g], g, G)
-        am_primary = owner_group(rk[g], G) == g
-        addr = torch.where(am_primary, a_p, a_b)
-        found = torch.where(am_primary, f_p, f_b)
-        acc = torch.where(am_primary, c_p, c_b)
-        val_ok = (found & (addr // dcap == g) & data.alive[g]
-                  & ~data.sever[g])
-        vals = _gather_rows(data.vals[g], addr % dcap, val_ok)
-        srv = torch.where(store.sever[g], 0, 1).to(I32).expand(rk.shape[1])
-        for k, v in (("addr", addr), ("found", found.to(I32)), ("acc", acc),
-                     ("val", vals), ("vok", val_ok.to(I32)), ("srv", srv)):
-            res[k].append(v)
-    back = route_return({k: torch.stack(v) for k, v in res.items()}, slot)
+    me = _me(G, rk.device)
+    a_p, f_p, c_p, a_b, f_b, c_b, og = kops.group_probe_stacked(
+        cfg, store.hash, store.bsorted, store.blog, rk)
+    am_primary = og == me
+    addr = torch.where(am_primary, a_p, a_b)
+    found = torch.where(am_primary, f_p, f_b)
+    acc = torch.where(am_primary, c_p, c_b)
+    val_ok = (found & (addr // dcap == me)
+              & (data.alive & ~data.sever)[:, None])
+    vals = _gather_rows(data.vals, addr % dcap, val_ok)
+    srv = torch.where(store.sever, 0, 1).to(I32)[:, None].expand(rk.shape)
+    back = route_return({"addr": addr, "found": found.to(I32), "acc": acc,
+                         "val": vals, "vok": val_ok.to(I32), "srv": srv},
+                        slot)
     # an unrouted lane (queue full) is a push-back the client retries
     routed = ok_route & back["srv"].bool()
     return (back["addr"], back["found"].bool() & routed, back["acc"],
@@ -479,17 +451,15 @@ def _fetch_body(G, capacity, store: KVStore, addrs, valid):
     ra = exchange(bufs)["a"]
     rs = torch.where(ra >= 0, ra // dcap, G)
     lslot, has = ra % dcap, ra >= 0
-    out = []
-    for g in range(G):
-        vals = _gather_rows(data.vals[g], lslot[g], has[g])
-        taken = rs[g] == g
-        for r in range(Rv):
-            sel = (rs[g] == (g - r - 1) % G) & ~taken
-            mv = _gather_rows(data.mirror[r, g], lslot[g], has[g])
-            vals = torch.where(sel[:, None], mv, vals)
-            taken = taken | sel
-        out.append(vals)
-    back = route_return({"val": torch.stack(out)}, slot)
+    me = _me(G, ra.device)
+    vals = _gather_rows(data.vals, lslot, has)
+    taken = rs == me
+    for r in range(Rv):
+        sel = (rs == (me - r - 1) % G) & ~taken
+        mv = _gather_rows(data.mirror[r], lslot, has)
+        vals = torch.where(sel[..., None], mv, vals)
+        taken = taken | sel
+    back = route_return({"val": vals}, slot)
     return (_bump_hb(store), back["val"],
             ok_route & (servable | ~valid | (addrs < 0)))
 

@@ -10,5 +10,6 @@ old per-kernel module homes (``kernels.hash_probe`` / ``sorted_search``
 """
 from repro_torch.kernels import ops  # noqa: F401
 from repro_torch.kernels.ops import (active_path, backup_probe,  # noqa: F401
-                                     group_probe, kernels_enabled, merge,
-                                     probe, range_query, search, sort)
+                                     group_probe, group_probe_stacked,
+                                     kernels_enabled, merge, probe,
+                                     range_query, search, sort)

@@ -32,11 +32,31 @@ P = ctypes.c_void_p
 I64 = ctypes.c_longlong
 INT = ctypes.c_int
 
+
+class Leaf(ctypes.Structure):
+    """histore::Leaf (csrc/window_scan.cuh): one leaf of a state stacked
+    along [R, G], the row of replica r of group g at p + r * sr + g * sg
+    elements."""
+    _fields_ = [("p", P), ("sr", ctypes.c_int64), ("sg", ctypes.c_int64)]
+
+
+class HashTables(ctypes.Structure):
+    """group_probe.cu's HashTables: the [G] stacked hash leaves."""
+    _fields_ = [(n, Leaf) for n in ("sig", "fp", "addr", "fill")]
+
+
+class StackedReplicas(ctypes.Structure):
+    """histore::StackedReplicas (csrc/window_scan.cuh): the [R, G]
+    stacked backups."""
+    _fields_ = [(n, Leaf) for n in ("skeys", "saddrs", "lkeys", "laddrs",
+                                    "lops", "applied", "tail")]
+
+
 # name of each C entry point -> its argtypes (pointers and the stream as
 # c_void_p, so ctypes never cuts a 64-bit address)
 SIGNATURES = {
     "hash_probe": {
-        "histore_hash_probe": ([P] * 10 + [I64, INT, INT, P], INT),
+        "histore_hash_probe": ([P] * 8 + [I64, I64, INT, INT, P], INT),
     },
     "sorted_search": {
         "histore_sorted_search": ([P] * 8 + [I64, I64, INT, INT, P], INT),
@@ -50,8 +70,8 @@ SIGNATURES = {
                                  INT),
     },
     "group_probe": {
-        "histore_group_probe": ([P] * 17 + [I64, INT, INT, INT, I64, I64, INT,
-                                            INT, P], INT),
+        "histore_group_probe": ([P] * 7 + [I64, INT, I64, INT, INT, INT, I64,
+                                           I64, INT, INT, P], INT),
     },
     "sort_stable": {
         "histore_sort_stable_scratch_bytes": ([I64, I64], I64),

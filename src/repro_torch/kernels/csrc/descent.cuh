@@ -12,6 +12,11 @@
 // __ballot_sync + __popc count the keys <= q, so a level costs one round of
 // loads and no barrier.  Every lane of the warp must call it; all get the
 // same pos, which runs past the end (to fanout^levels - 1) for q = KEY_INF.
+//
+// descent_lanes<W> is the same descent on a group of W < 32 lanes (the
+// group probe's finish serves 32 / W queries a warp): each lane issues its
+// fanout / W node loads before it compares any, and one __reduce_add_sync
+// over the group counts them.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -47,6 +52,35 @@ __device__ __forceinline__ int64_t descent(const int32_t* __restrict__ keys,
       }
       cnt += __popc(__ballot_sync(0xffffffffu, le));
     }
+    pos += int64_t(max(cnt - 1, 0)) * stride;
+    stride /= fanout;
+  }
+  return pos;
+}
+
+// the lanes of this thread's group of W within its warp (1-D blocks)
+template <int W>
+__device__ __forceinline__ unsigned group_mask() {
+  static_assert(W >= 1 && W < 32 && (W & (W - 1)) == 0, "W divides 32");
+  return ((1u << W) - 1u) << ((threadIdx.x & 31) & ~(W - 1));
+}
+
+template <int W>
+__device__ __forceinline__ int64_t descent_lanes(
+    const int32_t* __restrict__ keys, int32_t q, int64_t cap, int fanout,
+    int levels, int lane) {
+  const unsigned mask = group_mask<W>();
+  int64_t stride = 1;
+  for (int l = 1; l < levels; ++l) stride *= fanout;
+  int64_t pos = 0;
+  for (int l = levels - 1; l >= 0; --l) {
+    int le = 0;
+#pragma unroll 4
+    for (int j = lane; j < fanout; j += W) {
+      const int64_t gi = pos + int64_t(j) * stride;
+      le += (gi < cap ? keys[gi] : KEY_INF) <= q ? 1 : 0;
+    }
+    const int cnt = int(__reduce_add_sync(mask, unsigned(le)));
     pos += int64_t(max(cnt - 1, 0)) * stride;
     stride /= fanout;
   }

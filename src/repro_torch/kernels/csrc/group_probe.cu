@@ -2,94 +2,132 @@
 //
 // Replaces: src/repro/kernels/_fused.py:332 group_probe_kernel (body
 // _group_body: _hash_probe :68 + _backup_combine :112).  Bit-exact with
-// repro_torch.kernels.ops.group_probe_plain (hash_index.lookup plus
-// backup_probe_plain).
+// repro_torch.kernels.ops.group_probe_stacked_plain and, with rep_sel
+// given, group_probe_plain (hash_index.lookup plus backup_probe_plain).
 //
-// For one group and Q queries it returns six [Q] int32 arrays: the hash
-// half (h_addr, h_found, h_acc), the chain walk of the group's hash table
-// for (bucket, qsig, qfp), and the backup half (b_addr, b_found, b_acc),
-// the replica-select probe of the replicas the device holds: per lane the
-// last selected replica answers from its pending log window, newest entry
-// first, else from its sorted replica (window_scan.cuh has the semantics
-// and the reference's KEY_INF quirk).
+// One call serves the G servers of a distributed GET chunk: for the raw
+// keys rk [G, Q] each server received, it returns seven [G, Q] arrays
+// (the found flags bool, the rest int32): the hash half (h_addr, h_found,
+// h_acc), the chain walk of server g's hash table; the backup half
+// (b_addr, b_found, b_acc), the probe of the replicas server g holds (per
+// lane the last selected replica answers from its pending log window,
+// newest entry first, else from its sorted replica; window_scan.cuh has
+// the semantics and the reference's KEY_INF quirk); and the key's owner
+// group.  Each lane hashes its key on the
+// card (key_mix.cuh): the descriptors, the owner group og and the replica
+// it selects, rep_sel[r] = (og == (g - r - 1) mod G), unless rep_sel is
+// given (ops.group_probe, one group, JAX's signature).  The store's
+// stacked leaves are read by base pointer and strides: nothing is copied
+// or built per call.
 //
-// Bound: bytes.  The hash half reads two 128 B chain rows per query; the
-// backup half, for each selected lane, the window's keys and the
-// descent's levels x fanout keys.  On the store's healthy GET only the
-// padding lanes of the exchange buffer select a replica.
-// Design: a memset and two kernels on one stream, reusing what
-// hash_probe.cu and backup_probe.cu proved: window_scan.cuh's scan_kernel
-// (the window's lookup through shared-memory hash tables), whose blocks
-// with no selected lane stop after reading their queries,
-// then one finishing kernel, a warp per query, that runs hash_walk.cuh's
-// chain walk and window_scan.cuh's backup finish and writes all six
-// outputs.
+// Bound: bytes.  The hash half reads a key and two 128 B chain rows per
+// lane; the backup half, for each selected lane, the window's keys and
+// the descent's levels x fanout keys.  On the store's healthy GET only
+// the padding lanes of the exchange buffers select a replica.
+// Design: a memset of `best` for all G, then two kernels on one stream.
+// window_scan.cuh's scan_kernel over (query blocks, slices, G), whose
+// blocks with no selected lane stop after reading their queries; then the
+// finish, 2 lanes a query over all G x Q lanes, launched with
+// programmatic dependent launch (pdl.cuh): it hashes its key and walks
+// the hash chain (hash_walk.cuh) while the scan runs, waits for the scan,
+// then answers the backup half (window_scan.cuh's backup_answer).  2 lanes
+// is the fastest lane count on the GET chunk, where few lanes descend; 4
+// is faster where half the lanes descend, traffic no path sends (PERF.md
+// §6).
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #include "hash_walk.cuh"
+#include "key_mix.cuh"
+#include "pdl.cuh"
 #include "window_scan.cuh"
 
 namespace {
 
-__global__ void group_finish_kernel(
-    const int32_t* __restrict__ bucket, const int32_t* __restrict__ qsig,
-    const int32_t* __restrict__ qfp, const int32_t* __restrict__ rkeys,
-    const int32_t* __restrict__ rep_sel, const int32_t* __restrict__ sig,
-    const int32_t* __restrict__ fp, const int32_t* __restrict__ haddr,
-    const int32_t* __restrict__ fill, histore::Replicas rp,
-    const int32_t* __restrict__ best, int32_t* __restrict__ out_ha,
-    int32_t* __restrict__ out_hf, int32_t* __restrict__ out_hc,
-    int32_t* __restrict__ out_ba, int32_t* __restrict__ out_bf,
-    int32_t* __restrict__ out_bc, int64_t Q, int cs, int S, int R,
-    int64_t cap, int64_t lcap, int fanout, int levels) {
-  const int lane = threadIdx.x & 31;
-  const int64_t qi =
-      (int64_t(blockIdx.x) * blockDim.x + threadIdx.x) >> 5;
-  if (qi >= Q) return;  // warp-uniform
-  const histore::Probe h = histore::hash_walk(
-      sig, fp, haddr, fill, bucket[qi], qsig[qi], qfp[qi], cs, S, lane);
-  const histore::Probe b = histore::backup_finish(
-      rep_sel, rp, best, qi, rkeys[qi], R, cap, lcap, fanout, levels, lane);
+constexpr int W = 2;  // lanes a query
+
+// a server's hash table: sig, fp and addr [G, nb, cs], fill [G, nb]
+struct HashTables {
+  histore::Leaf<int32_t> sig, fp, addr, fill;
+};
+
+__global__ void group_finish_kernel(const int32_t* __restrict__ rkeys,
+                                    histore::Select select, HashTables ht,
+                                    histore::StackedReplicas rp,
+                                    const int32_t* __restrict__ best,
+                                    int32_t* __restrict__ out,
+                                    uint8_t* __restrict__ found, int64_t Q,
+                                    int G, int64_t nb, int cs, int S,
+                                    bool vec, int64_t cap, int64_t lcap,
+                                    int fanout, int levels) {
+  const int64_t GQ = int64_t(G) * Q;
+  const int64_t qi = (int64_t(blockIdx.x) * blockDim.x + threadIdx.x) / W;
+  if (qi >= GQ) return;  // whole groups exit together
+  const int g = int(qi / Q);
+  const int lane = threadIdx.x & (W - 1);
+  const int32_t key = rkeys[qi];
+  const histore::KeyMix m = histore::key_mix(key);
+  const histore::Desc d = histore::descriptors(m, nb);
+  const histore::Probe h = histore::hash_walk<W>(
+      ht.sig.at(0, g), ht.fp.at(0, g), ht.addr.at(0, g), ht.fill.at(0, g),
+      d.bucket, d.sig, d.fp, cs, S, vec);
+  const int sel = select(qi, key, g);
+  histore::pdl_wait();  // `best` is the scan's
+  const histore::Probe b = histore::backup_answer<W>(
+      rp, sel, g, best, qi, key, cap, lcap, fanout, levels, lane);
   if (lane == 0) {
-    out_ha[qi] = h.addr;
-    out_hf[qi] = h.found;
-    out_hc[qi] = h.acc;
-    out_ba[qi] = b.addr;
-    out_bf[qi] = b.found;
-    out_bc[qi] = b.acc;
+    out[qi] = h.addr;
+    out[GQ + qi] = h.acc;
+    out[2 * GQ + qi] = b.addr;
+    out[3 * GQ + qi] = b.acc;
+    out[4 * GQ + qi] = histore::owner_group(m, G);
+    found[qi] = uint8_t(h.found);
+    found[GQ + qi] = uint8_t(b.found);
   }
+}
+
+bool aligned16(const void* p, int64_t stride) {
+  return (uintptr_t(p) & 15) == 0 && stride % 4 == 0;
 }
 
 }  // namespace
 
-// bucket/qsig/qfp/rkeys: [Q] int32; rep_sel: [Q, R] int32; sig/fp/haddr:
-// [nb, cs] int32; fill: [nb] int32; ptrs: a DEVICE table of 7 * R
-// pointers (histore::Replicas); best: [Q] int32 scratch.
-extern "C" int histore_group_probe(
-    const void* bucket, const void* qsig, const void* qfp,
-    const void* rkeys, const void* rep_sel, const void* sig, const void* fp,
-    const void* haddr, const void* fill, const void* const* ptrs,
-    void* out_ha, void* out_hf, void* out_hc, void* out_ba, void* out_bf,
-    void* out_bc, void* best, long long Q, int cs, int S, int R,
-    long long cap, long long lcap, int fanout, int levels, void* stream) {
-  if (R < 1 || cap < 1 || lcap < 1) return (int)cudaErrorInvalidValue;
-  const histore::Replicas rp{ptrs};
+// rkeys: [G, Q] int32; rep_sel: [G, Q, R] int32 or null; tables: the
+// HashTables (nb a power of two); replicas: the StackedReplicas (both host
+// structs, laid out as repro_torch.kernels._build's); out: [5, G, Q] int32
+// (h_addr, h_acc, b_addr, b_acc, owner group); found: [2, G, Q] bool
+// (h_found, b_found); best: [G, Q] int32 scratch.
+extern "C" int histore_group_probe(const void* rkeys, const void* rep_sel,
+                                   const void* tables, const void* replicas,
+                                   void* out, void* found, void* best,
+                                   long long Q, int G,
+                                   long long nb, int cs, int S, int R,
+                                   long long cap, long long lcap, int fanout,
+                                   int levels, void* stream) {
+  if (G < 1 || R < 1 || cap < 1 || lcap < 1 || nb < 1 || (nb & (nb - 1)) ||
+      cs < 1 || S < 1)
+    return (int)cudaErrorInvalidValue;
+  const HashTables ht = *(const HashTables*)tables;
+  const histore::StackedReplicas rp =
+      *(const histore::StackedReplicas*)replicas;
+  const histore::Select select{(const int32_t*)rep_sel, R, G};
   if (Q > 0) {
     cudaStream_t s = (cudaStream_t)stream;
-    cudaError_t e =
-        histore::launch_window_scan(rkeys, rep_sel, rp, best, Q, R, lcap, s);
+    cudaError_t e = histore::launch_window_scan(rkeys, select, rp, best, Q, G,
+                                                R, lcap, s);
     if (e != cudaSuccess) return (int)e;
-    const int threads = Q >= 8 ? 256 : 32;  // 8 queries per block
-    const long long blocks = (Q * 32 + threads - 1) / threads;
-    group_finish_kernel<<<(unsigned)blocks, threads, 0, s>>>(
-        (const int32_t*)bucket, (const int32_t*)qsig, (const int32_t*)qfp,
-        (const int32_t*)rkeys, (const int32_t*)rep_sel,
-        (const int32_t*)sig, (const int32_t*)fp, (const int32_t*)haddr,
-        (const int32_t*)fill, rp, (const int32_t*)best, (int32_t*)out_ha,
-        (int32_t*)out_hf, (int32_t*)out_hc, (int32_t*)out_ba,
-        (int32_t*)out_bf, (int32_t*)out_bc, (int64_t)Q, cs, S, R,
-        (int64_t)cap, (int64_t)lcap, fanout, levels);
+    const bool vec = cs % 4 == 0 && aligned16(ht.sig.p, ht.sig.sg) &&
+                     aligned16(ht.fp.p, ht.fp.sg) &&
+                     aligned16(ht.addr.p, ht.addr.sg);
+    const int threads = 256;  // 256 / W queries a block
+    const long long blocks = ((long long)G * Q * W + threads - 1) / threads;
+    e = histore::launch(group_finish_kernel, (unsigned)blocks, threads, s,
+                        (const int32_t*)rkeys, select, ht, rp,
+                        (const int32_t*)best, (int32_t*)out,
+                        (uint8_t*)found, (int64_t)Q, G,
+                        (int64_t)nb, cs, S, vec, (int64_t)cap, (int64_t)lcap,
+                        fanout, levels);
+    if (e != cudaSuccess) return (int)e;
   }
   return (int)cudaGetLastError();
 }

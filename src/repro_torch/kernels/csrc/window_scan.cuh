@@ -14,8 +14,15 @@
 // The reference compares against every ring slot and reads a slot outside
 // the window as KEY_INF.  So for q = KEY_INF and a window shorter than the
 // ring, the newest "match" is the slot at sequence position
-// applied + lcap - 1, whatever stale op and addr it holds.  backup_finish
+// applied + lcap - 1, whatever stale op and addr it holds.  backup_answer
 // answers that case directly; the lookup reads the live window only.
+//
+// Both probes share the code below.  The backup probe reads its R replica
+// states through a device table of pointers (Replicas) and rep_sel from
+// memory, one group; the group probe reads the store's stacked [R, G]
+// leaves by base pointer and strides (StackedReplicas) for G groups along
+// blockIdx.z, and each lane's replica comes from its key's owner group
+// (Select, key_mix.cuh) unless rep_sel is given.
 //
 //  1. scan_kernel (after a memset of `best`): a lookup of the window, not
 //     a scan of it.  256 threads a block, each with 4 queries (1024 a
@@ -33,15 +40,17 @@
 //     whose lanes selects a replica reads its queries and stops.
 //     atomicMax combines the slices: best[q] is 1 + the newest match's
 //     position in the window, 0 for none.  No [Q, lcap] matrix.
-//  2. backup_finish: one warp per query.  It answers from the log entry
-//     best[q] names (or the KEY_INF slot), else runs the descent of
-//     descent.cuh on its replica.
+//  2. backup_answer: W lanes a query (backup_finish: a warp).  It answers
+//     from the log entry best[q] names (or the KEY_INF slot), else runs
+//     the descent of descent.cuh on its replica.
 #pragma once
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #include "descent.cuh"
+#include "key_mix.cuh"
+#include "pdl.cuh"
 
 namespace histore {
 
@@ -57,30 +66,67 @@ constexpr int8_t OP_PUT = 1;
 
 // the replicas' pointer sets, read from a DEVICE table of 7 * R pointers,
 // replica by replica: skeys, saddrs, lkeys, laddrs, lops, applied, tail
-// (`applied` and `tail` are device scalars); nothing bounds R
+// (`applied` and `tail` are device scalars); nothing bounds R.  One group:
+// the g of each accessor is 0.
 struct Replicas {
   const void* const* p;
-  __device__ const int32_t* skeys(int r) const {
+  __device__ const int32_t* skeys(int r, int) const {
     return (const int32_t*)p[7 * r];
   }
-  __device__ const int32_t* saddrs(int r) const {
+  __device__ const int32_t* saddrs(int r, int) const {
     return (const int32_t*)p[7 * r + 1];
   }
-  __device__ const int32_t* lkeys(int r) const {
+  __device__ const int32_t* lkeys(int r, int) const {
     return (const int32_t*)p[7 * r + 2];
   }
-  __device__ const int32_t* laddrs(int r) const {
+  __device__ const int32_t* laddrs(int r, int) const {
     return (const int32_t*)p[7 * r + 3];
   }
-  __device__ const int8_t* lops(int r) const {
+  __device__ const int8_t* lops(int r, int) const {
     return (const int8_t*)p[7 * r + 4];
   }
-  __device__ int64_t applied(int r) const {
+  __device__ int64_t applied(int r, int) const {
     return *(const int32_t*)p[7 * r + 5];
   }
-  __device__ int64_t tail(int r) const {
+  __device__ int64_t tail(int r, int) const {
     return *(const int32_t*)p[7 * r + 6];
   }
+};
+
+// one leaf of a state stacked along [R, G]: the row of replica r of group
+// g starts at p + r * sr + g * sg (strides in elements; a [G] leaf has
+// sr = 0).  The same layout as repro_torch.kernels._build.Leaf.
+template <class T>
+struct Leaf {
+  const T* p;
+  int64_t sr, sg;
+  __device__ const T* at(int r, int g) const { return p + r * sr + g * sg; }
+};
+
+// the store's backups as they lie on the card: SortedIndex keys and addrs
+// [R, G, cap], UpdateLog keys, addrs and ops [R, G, lcap], applied and
+// tail [R, G]
+struct StackedReplicas {
+  Leaf<int32_t> skeys_, saddrs_, lkeys_, laddrs_;
+  Leaf<int8_t> lops_;
+  Leaf<int32_t> applied_, tail_;
+  __device__ const int32_t* skeys(int r, int g) const {
+    return skeys_.at(r, g);
+  }
+  __device__ const int32_t* saddrs(int r, int g) const {
+    return saddrs_.at(r, g);
+  }
+  __device__ const int32_t* lkeys(int r, int g) const {
+    return lkeys_.at(r, g);
+  }
+  __device__ const int32_t* laddrs(int r, int g) const {
+    return laddrs_.at(r, g);
+  }
+  __device__ const int8_t* lops(int r, int g) const { return lops_.at(r, g); }
+  __device__ int64_t applied(int r, int g) const {
+    return *applied_.at(r, g);
+  }
+  __device__ int64_t tail(int r, int g) const { return *tail_.at(r, g); }
 };
 
 // the last selected replica of lane qi, -1 for none
@@ -91,6 +137,18 @@ __device__ __forceinline__ int last_selected(const int32_t* rep_sel,
     if (rep_sel[qi * R + r] != 0) sel = r;
   return sel;
 }
+
+// the replica that answers lane qi (= g * Q + q) of server g: rep_sel
+// [G * Q, R] read from memory, or, where it is null, the last replica
+// server g holds of the key's owner group (the shifted layout)
+struct Select {
+  const int32_t* rep_sel;
+  int R, G;
+  __device__ int operator()(int64_t qi, int32_t q, int g) const {
+    if (rep_sel != nullptr) return last_selected(rep_sel, qi, R);
+    return owned_replica(owner_group(key_mix(q), G), g, G, R);
+  }
+};
 
 namespace {
 
@@ -128,27 +186,31 @@ __device__ __forceinline__ int32_t table_lookup(const int2* tab,
   }
 }
 
+template <class Rep>
 __global__ void __launch_bounds__(SCAN_THREADS)
-    scan_kernel(const int32_t* __restrict__ rkeys,
-                const int32_t* __restrict__ rep_sel, Replicas rp,
+    scan_kernel(const int32_t* __restrict__ rkeys, Select select, Rep rp,
                 int32_t* __restrict__ best, int64_t Q, int R, int64_t lcap) {
   __shared__ int2 tab[SLOTS];
   __shared__ int32_t inf_pos;
+  // the finish may start (and walk its hash half) while this runs
+  pdl_trigger();
   const int tid = threadIdx.x;
-  int64_t qi[SCAN_QPT];
+  const int g = blockIdx.z;
+  int64_t qi[SCAN_QPT];               // g * Q + the lane's query
   int32_t q[SCAN_QPT];
   int sel[SCAN_QPT];
 #pragma unroll
   for (int i = 0; i < SCAN_QPT; ++i) {
-    qi[i] = int64_t(blockIdx.x) * SCAN_Q + i * SCAN_THREADS + tid;
-    const bool live = qi[i] < Q;
+    const int64_t qg = int64_t(blockIdx.x) * SCAN_Q + i * SCAN_THREADS + tid;
+    const bool live = qg < Q;
+    qi[i] = g * Q + qg;
     q[i] = live ? rkeys[qi[i]] : 0;
-    sel[i] = live ? last_selected(rep_sel, qi[i], R) : -1;
+    sel[i] = live ? select(qi[i], q[i], g) : -1;
   }
   for (int r = 0; r < R; ++r) {
-    const int64_t applied = rp.applied(r);
-    const int64_t tail = rp.tail(r);
-    // backup_finish answers q = KEY_INF without `best` while the window
+    const int64_t applied = rp.applied(r, g);
+    const int64_t tail = rp.tail(r, g);
+    // backup_answer answers q = KEY_INF without `best` while the window
     // is shorter than the ring, so such a lane (the exchange buffer's
     // padding) looks up nothing
     const bool short_win = tail - applied < lcap;
@@ -163,7 +225,7 @@ __global__ void __launch_bounds__(SCAN_THREADS)
     const int64_t per = (len + SPLITS - 1) / SPLITS;
     const int64_t s_lo = applied + blockIdx.y * per;
     const int64_t s_hi = s_lo + per < end ? s_lo + per : end;
-    const int32_t* __restrict__ lk = rp.lkeys(r);
+    const int32_t* __restrict__ lk = rp.lkeys(r, g);
     for (int64_t hi = s_hi; hi > s_lo;) {
       // also the barrier that keeps the last table until all have probed
       if (!__syncthreads_or(open != 0)) break;
@@ -197,30 +259,43 @@ __global__ void __launch_bounds__(SCAN_THREADS)
 
 }  // namespace
 
-// memset `best` ([Q] int32 scratch) and launch the window scan on `s`
-static inline cudaError_t launch_window_scan(const void* rkeys, const void* rep_sel,
-                                      const Replicas& rp, void* best,
-                                      long long Q, int R, long long lcap,
+// memset `best` ([G, Q] int32 scratch) and launch the window scan of the
+// G groups on `s`
+template <class Rep>
+inline cudaError_t launch_window_scan(const void* rkeys, const Select& select,
+                                      const Rep& rp, void* best, long long Q,
+                                      int G, int R, long long lcap,
                                       cudaStream_t s) {
-  cudaError_t e = cudaMemsetAsync(best, 0, size_t(Q) * 4, s);
+  cudaError_t e = cudaMemsetAsync(best, 0, size_t(G) * size_t(Q) * 4, s);
   if (e != cudaSuccess) return e;
-  const dim3 grid((unsigned)((Q + SCAN_Q - 1) / SCAN_Q), SPLITS);
-  scan_kernel<<<grid, SCAN_THREADS, 0, s>>>(
-      (const int32_t*)rkeys, (const int32_t*)rep_sel, rp, (int32_t*)best,
-      (int64_t)Q, R, (int64_t)lcap);
+  const dim3 grid((unsigned)((Q + SCAN_Q - 1) / SCAN_Q), SPLITS, G);
+  scan_kernel<Rep><<<grid, SCAN_THREADS, 0, s>>>(
+      (const int32_t*)rkeys, select, rp, (int32_t*)best, (int64_t)Q, R,
+      (int64_t)lcap);
   return cudaGetLastError();
 }
 
-// the backup half of query qi (key q); every lane of the warp must call
-// it, and all get the same result (every branch is warp-uniform)
-__device__ __forceinline__ Probe backup_finish(
-    const int32_t* __restrict__ rep_sel, const Replicas& rp,
-    const int32_t* __restrict__ best, int64_t qi, int32_t q, int R,
-    int64_t cap, int64_t lcap, int fanout, int levels, int lane) {
-  const int sel = last_selected(rep_sel, qi, R);
+// the backup probe's: one group, rep_sel [Q, R] from memory
+static inline cudaError_t launch_window_scan(const void* rkeys,
+                                             const void* rep_sel,
+                                             const Replicas& rp, void* best,
+                                             long long Q, int R,
+                                             long long lcap, cudaStream_t s) {
+  return launch_window_scan(rkeys, Select{(const int32_t*)rep_sel, R, 1}, rp,
+                            best, Q, 1, R, lcap, s);
+}
+
+// the backup half of query qi (key q, answered by replica sel of group g,
+// -1 for none) on W lanes; every lane of the group must call it, and all
+// get the same result (every branch is uniform over the group)
+template <int W, class Rep>
+__device__ __forceinline__ Probe backup_answer(
+    const Rep& rp, int sel, int g, const int32_t* __restrict__ best,
+    int64_t qi, int32_t q, int64_t cap, int64_t lcap, int fanout,
+    int levels, int lane) {
   if (sel < 0) return Probe{-1, 0, 0};
-  const int64_t applied = rp.applied(sel);
-  const int64_t tail = rp.tail(sel);
+  const int64_t applied = rp.applied(sel, g);
+  const int64_t tail = rp.tail(sel, g);
   int64_t seq = -1;
   if (q == KEY_INF && tail - applied < lcap) {
     // every ring slot outside the window reads as KEY_INF: the newest
@@ -231,14 +306,28 @@ __device__ __forceinline__ Probe backup_finish(
   }
   if (seq >= 0) {
     const int64_t idx = seq % lcap;
-    const bool put = rp.lops(sel)[idx] == OP_PUT;
-    return Probe{put ? rp.laddrs(sel)[idx] : -1, put ? 1 : 0, levels + 1};
+    const bool put = rp.lops(sel, g)[idx] == OP_PUT;
+    return Probe{put ? rp.laddrs(sel, g)[idx] : -1, put ? 1 : 0, levels + 1};
   }
-  const int32_t* __restrict__ keys = rp.skeys(sel);
-  const int64_t pos = descent(keys, q, cap, fanout, levels, lane);
+  const int32_t* __restrict__ keys = rp.skeys(sel, g);
+  int64_t pos;
+  if constexpr (W == 32)
+    pos = descent(keys, q, cap, fanout, levels, lane);
+  else
+    pos = descent_lanes<W>(keys, q, cap, fanout, levels, lane);
   const int64_t at = pos < cap ? pos : cap - 1;
   const bool found = keys[at] == q;
-  return Probe{found ? rp.saddrs(sel)[at] : -1, found ? 1 : 0, levels + 1};
+  return Probe{found ? rp.saddrs(sel, g)[at] : -1, found ? 1 : 0,
+               levels + 1};
+}
+
+// the backup probe's: a warp a query, rep_sel [Q, R] from memory
+__device__ __forceinline__ Probe backup_finish(
+    const int32_t* __restrict__ rep_sel, const Replicas& rp,
+    const int32_t* __restrict__ best, int64_t qi, int32_t q, int R,
+    int64_t cap, int64_t lcap, int fanout, int levels, int lane) {
+  return backup_answer<32>(rp, last_selected(rep_sel, qi, R), 0, best, qi, q,
+                           cap, lcap, fanout, levels, lane);
 }
 
 }  // namespace histore

@@ -3,15 +3,20 @@
 
 Every routed op body calls THESE functions — ``probe`` / ``search`` /
 ``range_query`` / ``merge`` / ``backup_probe`` / ``group_probe`` /
-``sort`` — never a kernel directly.  Each takes the
-HiStoreConfig and routes by the device of the tensors it is given:
+``group_probe_stacked`` / ``sort`` — never a kernel directly.  Each
+takes the HiStoreConfig and routes by the device of the tensors it is
+given:
 
   * a CUDA tensor launches the hand-written CUDA kernel
     (``kernels/csrc``), or raises — there is no fallback;
   * a CPU tensor takes the plain PyTorch version in
     ``core/hash_index.py`` / ``core/sorted_index.py`` (the backup and
-    group probes', ``backup_probe_plain`` and ``group_probe_plain``, are
-    here).
+    group probes', ``backup_probe_plain``, ``group_probe_plain`` and
+    ``group_probe_stacked_plain``, are here).
+
+The probe kernels take raw int32 keys and hash them on the card; the
+group probe reads the store's stacked leaves by base pointer and
+strides.
 
 ``cfg.use_kernels`` keeps its values so configs compare field for field
 with the JAX package: "on" and "auto" allow the routing above, "off"
@@ -33,13 +38,16 @@ takes its plain version (``legacy_hash_probe_plain``,
 """
 from __future__ import annotations
 
+import ctypes
+
 import torch
 
 from repro_torch.core import hash_index as hix
 from repro_torch.core import log as lg
 from repro_torch.core import sorted_index as six
-from repro_torch.core.hashing import I32
-from repro_torch.kernels import ref
+from repro_torch.core import tree
+from repro_torch.core.hashing import I32, owner_group
+from repro_torch.kernels import _build, ref
 
 # launches of each CUDA kernel in this process (reset by callers that
 # count the launches of one run)
@@ -85,8 +93,6 @@ def _stream(t):
 def _c(lib: str, fn: str):
     """The C entry point ``fn`` of kernel library ``lib`` (built on first
     use)."""
-    from repro_torch.kernels import _build
-
     return getattr(_build.lib(lib), fn)
 
 
@@ -99,30 +105,39 @@ def _raise_on(status: int, kernel: str):
 # ---------------------------------------------------------------------------
 # the CUDA wrappers
 # ---------------------------------------------------------------------------
-def hash_probe_cuda(bucket, qsig, qfp, sig, fp, addr, fill,
-                    slots_per_bucket: int):
-    """bucket/qsig/qfp: [Q] int32 descriptors; sig/fp/addr: [nb, CS]
-    int32; fill: [nb] int32.  Returns (addr, found int32, n_accesses)."""
-    for n, t in (("bucket", bucket), ("qsig", qsig), ("qfp", qfp),
-                 ("fill", fill)):
+def _table_shape(kernel, sig, fp, addr, fill):
+    """(nb, cs) of a hash table's leaves, sig/fp/addr [..., nb, CS] and
+    fill [..., nb]; nb must be a power of two (the kernels mask the hash
+    with nb - 1)."""
+    nb, cs = sig.shape[-2:]
+    if (fp.shape != sig.shape or addr.shape != sig.shape
+            or fill.shape != sig.shape[:-1]):
+        raise ValueError(f"{kernel}: inconsistent table shapes")
+    if nb & (nb - 1):
+        raise ValueError(f"{kernel}: {nb} buckets, not a power of two")
+    return nb, cs
+
+
+def hash_probe_cuda(keys, sig, fp, addr, fill, slots_per_bucket: int):
+    """keys: [Q] int32 (hashed on the card); sig/fp/addr: [nb, CS] int32
+    with nb a power of two; fill: [nb] int32.  Returns (addr int32, found
+    bool, n_accesses int32)."""
+    for n, t in (("keys", keys), ("fill", fill)):
         _check(n, t, I32)
     for n, t in (("sig", sig), ("fp", fp), ("addr", addr)):
         _check(n, t, I32, 2)
-    Q = bucket.shape[0]
-    nb, cs = sig.shape
-    if (qsig.shape[0] != Q or qfp.shape[0] != Q or fp.shape != sig.shape
-            or addr.shape != sig.shape or fill.shape[0] != nb):
-        raise ValueError("hash_probe: inconsistent shapes")
-    out = torch.empty((3, Q), dtype=I32, device=bucket.device)
-    with torch.cuda.device(bucket.device):
+    nb, cs = _table_shape("hash_probe", sig, fp, addr, fill)
+    Q = keys.shape[0]
+    out = torch.empty((2, Q), dtype=I32, device=keys.device)
+    found = torch.empty((Q,), dtype=torch.bool, device=keys.device)
+    with torch.cuda.device(keys.device):
         st = _c("hash_probe", "histore_hash_probe")(
-            bucket.data_ptr(), qsig.data_ptr(), qfp.data_ptr(),
-            sig.data_ptr(), fp.data_ptr(), addr.data_ptr(), fill.data_ptr(),
-            out[0].data_ptr(), out[1].data_ptr(), out[2].data_ptr(),
-            Q, cs, slots_per_bucket, _stream(bucket))
+            keys.data_ptr(), sig.data_ptr(), fp.data_ptr(), addr.data_ptr(),
+            fill.data_ptr(), out[0].data_ptr(), found.data_ptr(),
+            out[1].data_ptr(), Q, nb, cs, slots_per_bucket, _stream(keys))
     _raise_on(st, "hash_probe")
     LAUNCHES["hash_probe"] += 1
-    return out[0], out[1], out[2]
+    return out[0], found, out[1]
 
 
 def sorted_search_cuda(queries, keys, addrs, fanout: int):
@@ -186,8 +201,8 @@ def _ptr_table(dev, ptrs):
 
 def _replica_ptrs(kernel, sorted_r, blogs_r):
     """(R, cap, lcap, a device int64 table of the 7 R device pointers) of
-    the R replica and log states the backup and group probes take; the
-    kernels read the table, so they take any R."""
+    the R replica and log states the backup probe takes; the kernel reads
+    the table, so it takes any R."""
     R = len(sorted_r)
     if R < 1 or len(blogs_r) != R:
         raise ValueError(f"{kernel}: at least one replica with one log "
@@ -240,40 +255,75 @@ def backup_probe_cuda(keys, rep_sel, sorted_r, blogs_r, fanout: int):
     return out[0], out[1], out[2]
 
 
-def group_probe_cuda(bucket, qsig, qfp, rkeys, rep_sel, sig, fp, addr, fill,
-                     sorted_r, blogs_r, slots_per_bucket: int, fanout: int):
-    """The fused GET probe of one group.  bucket/qsig/qfp/rkeys: [Q]
-    int32 (hash descriptors and raw keys); rep_sel: [Q, R] int32;
-    sig/fp/addr: [nb, CS] int32 and fill: [nb] int32 (the hash table);
-    sorted_r / blogs_r: the R replica and log states the device holds
-    (as backup_probe_cuda takes them).  Returns (h_addr, h_found,
-    h_acc, b_addr, b_found, b_acc), each [Q] int32."""
-    for n, t in (("bucket", bucket), ("qsig", qsig), ("qfp", qfp),
-                 ("rkeys", rkeys), ("fill", fill)):
-        _check(n, t, I32)
-    for n, t in (("sig", sig), ("fp", fp), ("addr", addr)):
-        _check(n, t, I32, 2)
-    _check("rep_sel", rep_sel, I32, 2)
-    R, cap, lcap, table = _replica_ptrs("group_probe", sorted_r, blogs_r)
-    Q = bucket.shape[0]
-    nb, cs = sig.shape
-    if (qsig.shape[0] != Q or qfp.shape[0] != Q or rkeys.shape[0] != Q
-            or rep_sel.shape != (Q, R) or fp.shape != sig.shape
-            or addr.shape != sig.shape or fill.shape[0] != nb):
-        raise ValueError("group_probe: inconsistent shapes")
-    levels = six.directory_levels(cap, fanout)
-    out = torch.empty((7, Q), dtype=I32, device=bucket.device)
-    with torch.cuda.device(bucket.device):
+def _leaf(name, t, dtype, shape, lead):
+    """_build.Leaf of a state leaf of ``shape`` whose first ``lead`` axes
+    ([G] or [R, G]) are stacked: read in place by strides, so each row
+    must be contiguous."""
+    if not t.is_cuda:
+        raise ValueError(f"{name}: expected a CUDA tensor, got {t.device}")
+    if t.dtype != dtype:
+        raise TypeError(f"{name}: expected {dtype}, got {t.dtype}")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name}: has shape {tuple(t.shape)}, expected "
+                         f"{tuple(shape)}")
+    stride = t.stride()
+    step = 1
+    for d in range(len(shape) - 1, lead - 1, -1):
+        if shape[d] > 1 and stride[d] != step:
+            raise ValueError(f"{name}: expected contiguous rows")
+        step *= shape[d]
+    sr, sg = stride[:lead] if lead == 2 else (0, stride[0])
+    return _build.Leaf(t.data_ptr(), sr, sg)
+
+
+def group_probe_cuda(rkeys, rep_sel, hidx, bsorted, blog,
+                     slots_per_bucket: int, fanout: int):
+    """The fused GET probe of G servers in one call.  rkeys: [G, Q] int32,
+    the keys each server received (hashed on the card); rep_sel: [G, Q, R]
+    int32, or None to select by each key's owner group (``replica_select``,
+    computed on the card); hidx: a HashIndex with leaves [G, nb, CS] and
+    [G, nb]; bsorted / blog: SortedIndex / UpdateLog states with leaves
+    [R, G, cap] / [R, G, lcap] and applied and tail [R, G] (read on the
+    card).  The leaves are read in place through their strides.  Returns
+    (h_addr, h_found, h_acc, b_addr, b_found, b_acc, owner group), each
+    [G, Q], the found flags bool and the rest int32."""
+    _check("rkeys", rkeys, I32, 2)
+    G, Q = rkeys.shape
+    nb, cs = _table_shape("group_probe", *hidx)
+    R = blog.tail.shape[0]
+    cap, lcap = bsorted.keys.shape[-1], blog.keys.shape[-1]
+    if G < 1 or R < 1 or cap < 1 or lcap < 1:
+        raise ValueError(f"group_probe: {G} groups, {R} replicas of {cap} "
+                         f"slots, logs of {lcap}: none may be empty")
+    if rep_sel is not None:
+        _check("rep_sel", rep_sel, I32, 3)
+        if rep_sel.shape != (G, Q, R):
+            raise ValueError("group_probe: inconsistent shapes")
+    tables = _build.HashTables(
+        *[_leaf(n, t, I32, (G, nb, cs), 1)
+          for n, t in zip(("sig", "fp", "addr"), hidx[:3])],
+        _leaf("fill", hidx.fill, I32, (G, nb), 1))
+    reps = _build.StackedReplicas(
+        _leaf("sorted keys", bsorted.keys, I32, (R, G, cap), 2),
+        _leaf("sorted addrs", bsorted.addrs, I32, (R, G, cap), 2),
+        _leaf("log keys", blog.keys, I32, (R, G, lcap), 2),
+        _leaf("log addrs", blog.addrs, I32, (R, G, lcap), 2),
+        _leaf("log ops", blog.ops, torch.int8, (R, G, lcap), 2),
+        _leaf("log applied", blog.applied, I32, (R, G), 2),
+        _leaf("log tail", blog.tail, I32, (R, G), 2))
+    out = torch.empty((5, G, Q), dtype=I32, device=rkeys.device)
+    found = torch.empty((2, G, Q), dtype=torch.bool, device=rkeys.device)
+    best = torch.empty((G, Q), dtype=I32, device=rkeys.device)
+    with torch.cuda.device(rkeys.device):
         st = _c("group_probe", "histore_group_probe")(
-            bucket.data_ptr(), qsig.data_ptr(), qfp.data_ptr(),
-            rkeys.data_ptr(), rep_sel.data_ptr(), sig.data_ptr(),
-            fp.data_ptr(), addr.data_ptr(), fill.data_ptr(),
-            table.data_ptr(),
-            *[out[i].data_ptr() for i in range(7)], Q, cs,
-            slots_per_bucket, R, cap, lcap, fanout, levels, _stream(bucket))
+            rkeys.data_ptr(), None if rep_sel is None else rep_sel.data_ptr(),
+            ctypes.addressof(tables), ctypes.addressof(reps),
+            out.data_ptr(), found.data_ptr(), best.data_ptr(), Q, G, nb, cs,
+            slots_per_bucket, R, cap, lcap, fanout,
+            six.directory_levels(cap, fanout), _stream(rkeys))
     _raise_on(st, "group_probe")
     LAUNCHES["group_probe"] += 1
-    return tuple(out[i] for i in range(6))
+    return out[0], found[0], out[1], out[2], found[1], out[3], out[4]
 
 
 def _check_pairs(kernel, keys, vals):
@@ -401,6 +451,42 @@ def group_probe_plain(cfg, hidx, sorted_r, blogs_r, keys, rep_sel):
             *backup_probe_plain(cfg, sorted_r, blogs_r, keys, rep_sel))
 
 
+def replica_select(og, g: int, G: int, R: int):
+    """rep_sel [Q, R] int32 of server g for lanes whose keys' owner groups
+    are ``og``: lane i selects replica r iff server g holds replica r of
+    group og[i], which in the shifted layout is group (g - r - 1) mod G
+    (the rule group_probe.cu applies on the card)."""
+    return torch.stack([(og == (g - r - 1) % G).to(I32) for r in range(R)],
+                       dim=1)
+
+
+def server_inputs(hidx, bsorted, blog, rk, g: int):
+    """What server g's group probe reads for its lanes ``rk`` [Q], from
+    the store's stacked leaves (hidx [G, ...], bsorted / blog [R, G,
+    ...]): its hash, the R sorted replicas and backup logs it holds, and
+    ``rep_sel`` [Q, R] from the lanes' owner groups.  Returns (hash,
+    sorted, logs, rep_sel), the arguments of the per-group
+    ``group_probe``."""
+    R, G = blog.tail.shape
+    srt = tuple(tree.at(bsorted, r, g) for r in range(R))
+    blg = tuple(tree.at(blog, r, g) for r in range(R))
+    return (tree.at(hidx, g), srt, blg,
+            replica_select(owner_group(rk, G), g, G, R))
+
+
+def group_probe_stacked_plain(cfg, hidx, bsorted, blog, rk):
+    """The plain version of the stacked group probe: for each server g,
+    group_probe_plain over ``server_inputs``.  Returns (h_addr, h_found
+    bool, h_acc, b_addr, b_found bool, b_acc, owner group), each
+    [G, Q]."""
+    outs = []
+    for g in range(rk.shape[0]):
+        h, srt, blg, sel = server_inputs(hidx, bsorted, blog, rk[g], g)
+        outs.append(group_probe_plain(cfg, h, srt, blg, rk[g], sel))
+    return (*[torch.stack(x) for x in zip(*outs)],
+            owner_group(rk, rk.shape[0]))
+
+
 def _compare_exchange(keys, vals, j, asc):
     """One step of the bitonic network at partner distance j over [R, T]:
     the pair (i, i + j) with bit j of i clear swaps when ``asc[i]`` and
@@ -450,15 +536,12 @@ legacy_sorted_search_plain = ref.ref_sorted_search
 # the routed ops
 # ---------------------------------------------------------------------------
 def probe(cfg, index, keys):
-    """GET probe on a HashIndex -> (addr, found bool, n_accesses).
-    Bit-exact with hash_index.lookup."""
+    """GET probe on a HashIndex -> (addr, found bool, n_accesses); on the
+    card the kernel hashes the keys.  Bit-exact with hash_index.lookup."""
     if not kernels_enabled(cfg, keys.device):
         return hix.lookup(index, keys, cfg)
-    b, sig, fp = hix.descriptors(index, keys)
-    addr, found, acc = hash_probe_cuda(b, sig, fp, index.sig, index.fp,
-                                       index.addr, index.fill,
-                                       cfg.slots_per_bucket)
-    return addr, found.bool(), acc
+    return hash_probe_cuda(keys.to(I32).contiguous(), *index,
+                           cfg.slots_per_bucket)
 
 
 def search(cfg, index, queries):
@@ -506,19 +589,47 @@ def backup_probe(cfg, sorted_r, blogs_r, keys, rep_sel):
 
 
 def group_probe(cfg, hidx, sorted_r, blogs_r, keys, rep_sel):
-    """The fused GET probe: the hash chain walk and the replica-select
-    backup probe of one group in one kernel call (the op body combines
-    the pair with its own ``am_primary`` mask).  Returns (h_addr,
-    h_found bool, h_acc, b_addr, b_found bool, b_acc).  Bit-exact with
-    group_probe_plain."""
+    """The fused GET probe of one group with JAX's signature: the hash
+    chain walk and the replica-select backup probe (``rep_sel`` [Q, R])
+    in one kernel call, the stacked kernel at G = 1 over copies of the R
+    replica states.  Returns (h_addr, h_found bool, h_acc, b_addr,
+    b_found bool, b_acc).  Bit-exact with group_probe_plain.
+
+    On the card each call copies every leaf of the R replica states
+    (torch.stack: R x (cap + lcap) entries and more) before the launch.
+    The store's GET reads its stacked leaves in place through
+    ``group_probe_stacked``; this signature serves callers that hold
+    the replicas as separate states."""
     if not kernels_enabled(cfg, keys.device):
         return group_probe_plain(cfg, hidx, sorted_r, blogs_r, keys, rep_sel)
-    b, sig, fp = hix.descriptors(hidx, keys)
-    ha, hf, hc, ba, bf, bc = group_probe_cuda(
-        b, sig, fp, keys.to(I32).contiguous(), rep_sel.to(I32).contiguous(),
-        hidx.sig, hidx.fp, hidx.addr, hidx.fill, sorted_r, blogs_r,
-        cfg.slots_per_bucket, cfg.fanout)
-    return ha, hf.bool(), hc, ba, bf.bool(), bc
+    if len(sorted_r) < 1 or len(blogs_r) != len(sorted_r):
+        raise ValueError(f"group_probe: at least one replica with one log "
+                         f"each, got {len(sorted_r)} and {len(blogs_r)}")
+
+    def one_group(states):
+        return type(states[0])(*[torch.stack(x)[:, None]
+                                 for x in zip(*states)])
+
+    out = group_probe_cuda(
+        keys.to(I32).contiguous()[None], rep_sel.to(I32).contiguous()[None],
+        type(hidx)(*[a[None] for a in hidx]), one_group(sorted_r),
+        one_group(blogs_r), cfg.slots_per_bucket, cfg.fanout)
+    return tuple(t[0] for t in out[:6])
+
+
+def group_probe_stacked(cfg, hidx, bsorted, blog, rk):
+    """The fused GET probe of the G servers of a distributed GET chunk in
+    one call: server g probes its hash and the replicas it holds for its
+    lanes ``rk[g]``, each lane selecting by its key's owner group (the
+    JAX op body's ``rep_sel``).  hidx: HashIndex leaves [G, ...]; bsorted
+    / blog: [R, G, ...] (the store's); rk: [G, Q].  Returns (h_addr,
+    h_found bool, h_acc, b_addr, b_found bool, b_acc, owner group), each
+    [G, Q]; row g of the first six is group_probe's answer for server g.
+    Bit-exact with group_probe_stacked_plain."""
+    if not kernels_enabled(cfg, rk.device):
+        return group_probe_stacked_plain(cfg, hidx, bsorted, blog, rk)
+    return group_probe_cuda(rk.to(I32).contiguous(), None, hidx, bsorted,
+                            blog, cfg.slots_per_bucket, cfg.fanout)
 
 
 def sort(cfg, keys, vals):

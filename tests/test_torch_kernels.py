@@ -333,13 +333,38 @@ def test_group_probe_matches_pallas(windows, select):
         assert got[4].any() and (got[5] > 0).any()
 
 
+def _stacked_cpu_state(G, R, n=4):
+    """A store's hash and backups stacked as the group probe takes them
+    ([G, ...] and [R, G, ...]), on the CPU."""
+    from repro_torch.core import tree
+    hidx = tree.replicate(hix.create(64, CFG, "cpu"), G)
+    srt = tree.replicate(tree.replicate(six.create(n, "cpu"), G), R)
+    blog = tree.replicate(tree.replicate(lg.create(n, "cpu"), G), R)
+    return hidx, srt, blog
+
+
 def test_group_probe_wrapper_refuses_cpu_tensors():
+    """The per-group use of the wrapper (G = 1, rep_sel given) refuses CPU
+    tensors and counts nothing."""
     before = dict(ops.LAUNCHES)
     x = torch.zeros(4, dtype=torch.int32)
+    hidx, srt, blog = _stacked_cpu_state(1, 1)
     with pytest.raises(ValueError, match="CUDA tensor"):
-        ops.group_probe_cuda(x, x, x, x, x[:, None], x[None], x[None],
-                             x[None], x[:1], (six.create(4, "cpu"),),
-                             (lg.create(4, "cpu"),), 8, 128)
+        ops.group_probe_cuda(x[None], x[None, :, None], hidx, srt, blog, 8,
+                             128)
+    assert ops.LAUNCHES == before
+
+
+def test_group_probe_stacked_wrapper_refuses_cpu_tensors():
+    """The stacked use (G = 3, rep_sel computed on the card) refuses CPU
+    tensors and counts nothing; the routed op takes its plain version."""
+    before = dict(ops.LAUNCHES)
+    rk = torch.zeros((3, 4), dtype=torch.int32)
+    hidx, srt, blog = _stacked_cpu_state(3, 2)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        ops.group_probe_cuda(rk, None, hidx, srt, blog, 8, 128)
+    got = ops.group_probe_stacked(CFG, hidx, srt, blog, rk)
+    assert len(got) == 7 and all(t.shape == (3, 4) for t in got)
     assert ops.LAUNCHES == before
 
 
@@ -386,7 +411,7 @@ def test_cuda_wrappers_refuse_cpu_tensors():
     with pytest.raises(ValueError, match="CUDA tensor"):
         ops.merge_cuda(x, x, x, x, x)
     with pytest.raises(ValueError, match="CUDA tensor"):
-        ops.hash_probe_cuda(x, x, x, x[None], x[None], x[None], x[:1], 8)
+        ops.hash_probe_cuda(x, x[None], x[None], x[None], x[:1], 8)
     with pytest.raises(ValueError, match="CUDA tensor"):
         ops.backup_probe_cuda(x, x[:, None], (six.create(4, "cpu"),),
                               (lg.create(4, "cpu"),), 128)
