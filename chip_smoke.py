@@ -20,10 +20,14 @@
    output), with its time per call (CUDA events), its device time
    (launches queued behind a GPU sleep, so host time is hidden), its
    plain version's time, its bound (bytes over 3.35 TB/s; for the search
-   also the latency of its dependent levels) and, for the search,
-   torch.searchsorted, and the device time of the same function in
-   PyTorch calls (searchsorted, then the gathers and the compare that
-   give addr and found).  The hash probe takes the keys and hashes them
+   also the latency of the dependent rounds it needs, beside the
+   parent's levels x the slope a level) and, for the search,
+   torch.searchsorted (per call and on the device, at Q = 1 and at Q),
+   and the device time of the same function in PyTorch calls
+   (searchsorted, then the gathers and the compare that give addr and
+   found).  The SCAN's range at Q = 1, routed (``ops.range_query``: one
+   launch, lo and hi read on the card) against ``six.range_query``, per
+   call and on the device.  The hash probe takes the keys and hashes them
    on the card: it is also timed routed (``ops.probe``), against
    ``hix.lookup``, its bound given with the key in and with the three
    descriptors the kernel took before.  One merge call runs under torch.profiler (CUDA
@@ -38,9 +42,10 @@
    Each against its plain
    version (the probe and search also against ``ops.probe`` and
    ``ops.search``), timed as in 4, with torch.sort(stable) + gather and
-   searchsorted + index as the library calls; the sorts' bound also
-   counts their compare-exchanges at 67e12/s; the legacy search's
-   same-function library call also timed on the device.
+   searchsorted + index as the library calls (the sorts' also on the
+   device); the sorts' bound also counts their compare-exchanges at
+   67e12/s; the legacy search's same-function library call also timed on
+   the device; the bitonic sort split by kernel under torch.profiler.
 4c. Programmatic dependent launch on and off: merge.cu and sort_stable.cu
    built again with pdl.cuh's launch attribute off (into build/no_pdl),
    then the merge (cap 2**24 at m = 4096 and 65536, and the replica's
@@ -71,11 +76,17 @@
    timed read-back of every key, a drain, then ``parity_report`` with
    its value-slot audit.  Every answer is checked against a model of its
    own; the group probe, hash probe, merge and search must each have
-   been launched.
+   been launched, the search once a SCAN (the stacked range query); the
+   SCANs' host time per op is logged.
 8. The hash probe, search and merge against their plain versions at the
    distributed path's shapes (one group: a 2**21-slot hash and replica,
-   Q = 8 x 1024, the exchange buffer's width), timed and the merge split
-   by kernel as in 4.
+   Q = 8 x 1024, the exchange buffer's width), timed, bounded and the
+   merge split by kernel as in 4.  Then the distributed SCAN's one
+   launch, ``ops.range_query_stacked``, on the live store's [R, G, 2**21]
+   leaves read by strides, against ``range_query_stacked_plain``: every
+   (group, replica) row's keys, addrs and count equal, at the 0-d bounds
+   the client expands to [G] and at bounds of each group's own (the int32
+   edges, lo > hi, lo past the last key); timed per call and on the device.
 9. The group probe against its plain version as the distributed GET
    calls it: the last round's GET chunk routed as that GET routed it,
    one stacked call for the 8 servers' exchange buffers (8 x 8192 lanes,
@@ -685,13 +696,14 @@ def compare_kernels(torch, cfg, hidx, srt, live, dead, rng, Q, label):
                     bound_descriptors_in_ms=nbytes_desc / HBM_BYTES_PER_S
                     * 1e3, Q=Q))
 
-    # -- sorted search: Q = 1 (the SCAN lower bound) and Q ------------------
-    # Latency bound: `levels` dependent node reads.  One level's device time
-    # is the slope between this index and a one-level index (its first
-    # fanout keys) at Q = 1; the nodes sit in L2 after the warm-up.
+    # -- sorted search: Q = 1 and Q; the SCAN's range at Q = 1 --------------
+    # Latency: the dependent rounds the function needs (search_rounds) x
+    # one round's device time (round_slope).  Beside it, the parent's
+    # figure: levels x the slope a level between this index and a
+    # one-level index (its first fanout keys).
     cap = srt.keys.shape[0]
     levels = six.directory_levels(cap, cfg.fanout)
-    top = (srt.keys[:cfg.fanout].clone(), srt.addrs[:cfg.fanout].clone())
+    rounds = search_rounds(cap, cfg.fanout)
     res = {}
     for QS in (1, Q):
         sq = np.concatenate([rng.choice(live, QS - QS // 2),
@@ -712,39 +724,75 @@ def compare_kernels(torch, cfg, hidx, srt, live, dead, rng, Q, label):
         plain = time_ms(torch, lambda: six.search(srt, sqt, cfg.fanout),
                         iters // 5)
         lib = time_ms(torch, lambda: torch.searchsorted(srt.keys, sqt), iters)
+        lib_dev = device_ms(torch, lambda: torch.searchsorted(srt.keys, sqt),
+                            iters)
         # 7 launches a call: fewer calls, so that all are queued within
         # device_ms's GPU sleep
         lib_same = device_ms(torch, lambda: search_library(torch, srt, sqt),
                              iters // 10)
         nbytes, cmps = search_work(torch, srt.keys, sqt, cfg.fanout, 5)
         bound, b_bytes, b_ops = bound_of(nbytes, cmps)
-        lat = None
+        lat = lat_old = None
         if QS == 1:
-            level_ms = (dev_ms - device_ms(torch, lambda: kern(*top), iters)
-                        ) / (levels - 1)
-            lat = levels * level_ms
-        res[QS] = (err, ms, dev_ms, plain, lib, bound,
-                   "bytes" if b_bytes >= b_ops else "operations", lat,
-                   lib_same)
+            rnd, d_one = round_slope(torch, kern, srt, cfg.fanout, iters)
+            lat = rounds * rnd
+            lat_old = levels * (dev_ms - d_one) / (levels - 1)
+        res[QS] = dict(err=err, ms=ms, device_ms=dev_ms, plain_ms=plain,
+                       library_ms=lib, library_device_ms=lib_dev,
+                       bound_ms=bound,
+                       bound_by="bytes" if b_bytes >= b_ops else "operations",
+                       latency_bound_ms=lat, latency_bound_levels_ms=lat_old,
+                       library_same_function_device_ms=lib_same)
         log(f"kernel sorted_search ({label}): Q={QS}, cap {cap}, {levels} "
             f"levels: equal; {ms:.4f} ms per call, device {dev_ms:.4f} ms, "
-            f"plain {plain:.4f} ms, torch.searchsorted {lib:.4f} ms, the "
-            f"same function (searchsorted, gathers, compare) device "
-            f"{lib_same:.4f} ms, bound "
+            f"plain {plain:.4f} ms, torch.searchsorted {lib:.4f} ms (device "
+            f"{lib_dev:.4f} ms), the same function (searchsorted, gathers, "
+            f"compare) device {lib_same:.4f} ms, bound "
             f"{bound:.6f} ms (bytes {b_bytes:.6f} ms for {nbytes} B, "
             f"compares {b_ops:.6f} ms)"
-            + ("" if lat is None else f", latency bound {lat:.6f} ms"))
-    err, ms, dev_ms, plain, lib, bound, bound_by, lat, lib_same = res[1]
+            + ("" if lat is None else
+               f", latency bound {lat:.6f} ms ({rounds} dependent rounds; "
+               f"{levels} levels x the slope a level: {lat_old:.6f} ms)"))
+
+    # the SCAN's range at Q = 1, routed (one launch: lo and hi read on the
+    # card) against six.range_query (searchsorted and the take's gathers);
+    # its bounds from a generator of its own, so that the phases after
+    # this one draw what they drew before it was added
+    own = np.random.default_rng(cap)
+    lo_t = torch.tensor(int(own.choice(live)), dtype=torch.int32,
+                        device=dev)
+    hi_t = lo_t + int(own.integers(1, 2 ** 16))
+    lim = 128
+    got = ops.range_query(cfg, srt, lo_t, hi_t, lim)
+    err = max(max_abs_err(torch, got, six.range_query(srt, lo_t, hi_t, lim),
+                          f"{label} range_query"),
+              max(r["err"] for r in res.values()))
+    rq = lambda: ops.range_query(cfg, srt, lo_t, hi_t, lim)  # noqa: E731
+    rq_plain = lambda: six.range_query(srt, lo_t, hi_t, lim)  # noqa: E731
+    r_ms = time_ms(torch, rq, 500)
+    r_dev = device_ms(torch, rq, 500)
+    rp_ms = time_ms(torch, rq_plain, 500)
+    rp_dev = device_ms(torch, rq_plain, 50)
+    log(f"kernel sorted_search ({label}): the SCAN's range at limit {lim}, "
+        f"count {int(got[2])}: equal to six.range_query; routed "
+        f"ops.range_query {r_ms:.4f} ms per call, device {r_dev:.4f} ms; "
+        f"six.range_query {rp_ms:.4f} ms per call, device {rp_dev:.4f} ms")
+    one, big = res[1], res[Q]
     out.append(dict(name="sorted_search", route="cuda",
                     source="src/repro_torch/kernels/csrc/sorted_search.cu",
-                    replaces=f"{FUSED}:246",
-                    max_abs_err=max(r[0] for r in res.values()),
-                    ms=ms, plain_ms=plain, bound_ms=bound,
-                    bound_by=bound_by, library_ms=lib, device_ms=dev_ms,
-                    latency_bound_ms=lat, cap=cap,
-                    library_same_function_device_ms=lib_same,
-                    at_Q={"Q": Q, "device_ms": res[Q][2],
-                          "library_same_function_device_ms": res[Q][8]}))
+                    replaces=f"{FUSED}:246", max_abs_err=err,
+                    **{x: one[x] for x in (
+                        "ms", "plain_ms", "bound_ms", "bound_by",
+                        "library_ms", "device_ms", "library_device_ms",
+                        "latency_bound_ms", "latency_bound_levels_ms",
+                        "library_same_function_device_ms")},
+                    cap=cap, rounds=rounds,
+                    range_ms=r_ms, range_device_ms=r_dev,
+                    range_plain_ms=rp_ms, range_plain_device_ms=rp_dev,
+                    at_Q={"Q": Q, **{x: big[x] for x in (
+                        "ms", "device_ms", "plain_ms", "bound_ms",
+                        "bound_by", "library_ms", "library_device_ms",
+                        "library_same_function_device_ms")}}))
 
     # -- merge: one apply batch into the replica ----------------------------
     m = cfg.async_apply_batch
@@ -922,12 +970,11 @@ def dispatch_path(torch, cfg, wl, rng):
 
     # the search: the bound is the larger of the bytes of the distinct
     # sectors this run's queries read and their compares (search_work);
-    # beside it, the latency of levels + 1 dependent reads, one level's
-    # device time the slope between this index and its first fanout keys
-    # at Q = 1 (row 2's method)
+    # beside it, the latency of the dependent rounds a search needs
+    # (search_rounds, row 2's method), and the parent's levels + 1 reads
+    # x the slope a level
     cap = srt.keys.shape[0]
     levels = six.directory_levels(cap, fo)
-    top = (srt.keys[:fo].clone(), srt.addrs[:fo].clone())
     q1 = qs[:1].clone()
 
     def kern_s(q=qs, keys=srt.keys, addrs=srt.addrs):
@@ -936,8 +983,11 @@ def dispatch_path(torch, cfg, wl, rng):
     ms = time_ms(torch, kern_s, 100)
     dev_ms = device_ms(torch, kern_s, 100)
     d1 = device_ms(torch, lambda: kern_s(q1), 500)
-    d1_top = device_ms(torch, lambda: kern_s(q1, *top), 500)
-    lat = (levels + 1) * (d1 - d1_top) / (levels - 1)
+    rnd, d1_top = round_slope(
+        torch, lambda keys, addrs: kern_s(q1, keys, addrs), srt, fo, 500)
+    rounds = search_rounds(cap, fo)
+    lat = rounds * rnd
+    lat_old = (levels + 1) * (d1 - d1_top) / (levels - 1)
     plain = time_ms(torch, lambda: ops.legacy_sorted_search_plain(
         qs, srt.keys, srt.addrs, fanout=fo), 20)
 
@@ -956,8 +1006,9 @@ def dispatch_path(torch, cfg, wl, rng):
         f"searchsorted + index {lib:.4f} ms (device {lib_dev:.4f} ms), "
         f"routed {routed:.4f} ms; bound "
         f"{bound:.6f} ms (bytes {b_bytes:.6f} ms for {nbytes} B, compares "
-        f"{b_ops:.6f} ms); latency of {levels + 1} dependent reads "
-        f"{lat:.6f} ms")
+        f"{b_ops:.6f} ms); latency of {rounds} dependent rounds "
+        f"{lat:.6f} ms ({levels + 1} reads x the slope a level: "
+        f"{lat_old:.6f} ms)")
     out.append(dict(name="legacy_sorted_search", route="cuda",
                     source="src/repro_torch/kernels/csrc/"
                            "legacy_sorted_search.cu",
@@ -967,7 +1018,8 @@ def dispatch_path(torch, cfg, wl, rng):
                     bound_ms=bound,
                     bound_by="bytes" if b_bytes >= b_ops else "operations",
                     library_ms=lib, device_ms=dev_ms, routed_ms=routed,
-                    latency_bound_ms=lat, device_ms_q1=d1, cap=cap, Q=Q,
+                    latency_bound_ms=lat, latency_bound_levels_ms=lat_old,
+                    rounds=rounds, device_ms_q1=d1, cap=cap, Q=Q,
                     library_same_function_device_ms=lib_dev))
 
     # the two sorts at each shape; the record's own numbers are the first
@@ -984,17 +1036,29 @@ def dispatch_path(torch, cfg, wl, rng):
             ms = time_ms(torch, lambda: call(k, v), it)
             dev_ms = device_ms(torch, lambda: call(k, v), it)
             plain = time_ms(torch, lambda: plain_fn(k, v), 10)
-            lib = time_ms(torch, lambda: torch.gather(
-                v, 1, torch.sort(k, dim=1, stable=True).indices), it)
+
+            def lib_fn(k=k, v=v):
+                return torch.gather(
+                    v, 1, torch.sort(k, dim=1, stable=True).indices)
+
+            lib = time_ms(torch, lib_fn, it)
+            lib_dev = device_ms(torch, lib_fn, it)
+            split = {}
+            if name == "bitonic_sort":
+                split = kernel_split(torch, lambda: call(k, v),
+                                     f"kernel {name} [{R}, {T}]")
             bound, b_bytes, b_ops = sort_bound(R, T)
             shapes[f"{R}x{T}"] = dict(
                 max_abs_err=err_sort[(R, T)][i], ms=ms, device_ms=dev_ms,
-                plain_ms=plain, library_ms=lib, bound_ms=bound,
-                bound_by="bytes" if b_bytes >= b_ops else "operations")
+                plain_ms=plain, library_ms=lib, library_device_ms=lib_dev,
+                bound_ms=bound,
+                bound_by="bytes" if b_bytes >= b_ops else "operations",
+                **({"device_ms_by_kernel": split} if split else {}))
             log(f"kernel {name} [{R}, {T}]: {ms:.4f} ms per call, device "
                 f"{dev_ms:.4f} ms, plain {plain:.4f} ms, torch.sort(stable) "
-                f"+ gather {lib:.4f} ms; bound {bound:.6f} ms (bytes "
-                f"{b_bytes:.6f} ms, compares {b_ops:.6f} ms)")
+                f"+ gather {lib:.4f} ms (device {lib_dev:.4f} ms); bound "
+                f"{bound:.6f} ms (bytes {b_bytes:.6f} ms, compares "
+                f"{b_ops:.6f} ms)")
         first = shapes[f"{SORT_SHAPES[0][0]}x{SORT_SHAPES[0][1]}"]
         out.append(dict(name=name, route="cuda",
                         source=f"src/repro_torch/kernels/csrc/{src}",
@@ -1295,6 +1359,14 @@ def distributed(torch, cfg, rng):
     for k in DIST_KERNELS:
         check(launches[k] > 0,
               f"kernel {k} was not launched on the distributed path")
+    check(launches["sorted_search"] == stats["scans"],
+          f"dist: {launches['sorted_search']} search launches for "
+          f"{stats['scans']} SCANs (one stacked range query a SCAN)")
+    scan_lat = client.metrics().latency["scan"]
+    log(f"dist: SCAN (limit 128) {scan_lat.mean * 1e3:.3f} ms per op (the "
+        f"client's latency, host clock to the coverage on the host; mean "
+        f"of {scan_lat.count}); {launches['sorted_search']} search launches "
+        f"for {stats['scans']} SCANs")
     log_metrics(client, "dist")
 
     # -- drain, then the parity audit --------------------------------------
@@ -1315,6 +1387,7 @@ def distributed(torch, cfg, rng):
         f"{json.dumps(slots)}")
     times = dict(load_s=t_load, put_per_s=n_load / t_load,
                  load_retries=load_retries, mixed_rounds_s=t_mixed,
+                 scan_ms=scan_lat.mean * 1e3,
                  read_s=t_read, get_per_s=len(model.keys) / t_read,
                  audit_s=t_audit, peak_bytes=peak,
                  retries=client.stats["retries"])
@@ -1350,6 +1423,35 @@ def bound_of(nbytes, compares):
     b_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     b_ops = compares / SCALAR_OPS_PER_S * 1e3
     return max(b_bytes, b_ops), b_bytes, b_ops
+
+
+def search_rounds(cap, fanout):
+    """The dependent rounds of reads a search or a SCAN needs at Q = 1:
+    the query (or lo) with the top grid (the levels whose multiples below
+    cap number at most 1024, read together), one a level below it down
+    to level 1, then level 0's node with the take's entries (or the hit's
+    addr).  A one-level index: the query, then its node."""
+    levels = 1
+    while fanout ** levels < cap:
+        levels += 1
+    if levels == 1:
+        return 2
+    top = levels - 1
+    while top > 1 and -(-cap // fanout ** (top - 1)) <= 1024:
+        top -= 1
+    return top + 1
+
+
+def round_slope(torch, kern, srt, fanout, iters):
+    """(one dependent round's device ms, the device ms on a one-level
+    index): kern(keys, addrs) at Q = 1 on the replica's first fanout**3
+    and first fanout**2 entries (3 and 2 rounds, each first round the
+    query with at most fanout keys) and on its first fanout entries; the
+    nodes sit in L2 after the warm-up."""
+    d = {lv: device_ms(torch, lambda n=fanout ** lv: kern(srt.keys[:n],
+                                                           srt.addrs[:n]),
+                       iters) for lv in (1, 2, 3)}
+    return d[3] - d[2], d[1]
 
 
 def search_work(torch, keys, queries, fanout, n_out):
@@ -1416,6 +1518,62 @@ def dist_kernels(torch, wl, cfg):
         tree.at(store.bsorted, 0, (gp + 1) % G), model.keys[own & model.live],
         model.keys[own & ~model.live], wl.rng, G * DIST_CAPACITY_Q,
         f"dist group {gp}")
+
+
+def compare_range_stacked(torch, wl, cfg):
+    """The distributed SCAN's one launch, ops.range_query_stacked, against
+    range_query_stacked_plain on the live store's [R, G, 2^21] leaves read
+    by strides: every (group, replica) row's keys, addrs and count, at the
+    bounds the client passes (0-d, expanded to [G]) and at bounds of each
+    group's own (lo = -2**31, hi = 2**31 - 1, lo > hi, lo past the last
+    key, wide and narrow ranges); timed per call and on the device."""
+    from repro_torch.kernels import ops
+
+    store, model = wl.client.backend.store, wl.model
+    G, dev = DIST_GROUPS, store.hb.device
+    R = store.bsorted.keys.shape[0]
+    lim = wl.client.backend.scan_limit
+    # a generator of its own, so that the phases after this one draw what
+    # they drew before it was added
+    own = np.random.default_rng(G)
+    live = model.keys[model.live]
+    lo0 = int(own.choice(live))
+    top = int(live.max())
+    lo = [-2 ** 31, 5, top + 1, lo0, int(own.choice(live)),
+          int(own.choice(live)), top, 0][:G]
+    hi = [2 ** 31 - 1, 4, 2 ** 31 - 1, lo0 + (1 << 24), lo[4] + (1 << 16),
+          lo[5] + 64, 2 ** 31 - 1, 2 ** 31 - 1][:G]
+    t32 = lambda x: torch.tensor(x, dtype=torch.int32, device=dev)  # noqa
+    cases = {"client bounds (0-d, expanded)": (
+        t32(lo0).reshape(1).expand(G), t32(lo0 + (1 << 16)).reshape(1)
+        .expand(G)), "bounds per group": (t32(lo), t32(hi))}
+    err, rec = 0, {}
+    for label, (lo_t, hi_t) in cases.items():
+        got = ops.range_query_stacked(cfg, store.bsorted, lo_t, hi_t, lim)
+        want = ops.range_query_stacked_plain(cfg, store.bsorted, lo_t, hi_t,
+                                             lim)
+        e = max_abs_err(torch, got, want, f"dist range_query_stacked, "
+                        f"{label}")
+        err = max(err, e)
+        n = want[2]
+        check(bool((n[:, 0] > 0).any()), f"dist range_query_stacked, "
+              f"{label}: every replica-0 row empty")
+        fn = lambda lo_t=lo_t, hi_t=hi_t: ops.range_query_stacked(  # noqa
+            cfg, store.bsorted, lo_t, hi_t, lim)
+        ms = time_ms(torch, fn, 200)
+        dev_ms = device_ms(torch, fn, 200)
+        plain = time_ms(torch, lambda lo_t=lo_t, hi_t=hi_t:
+                        ops.range_query_stacked_plain(
+                            cfg, store.bsorted, lo_t, hi_t, lim), 20)
+        rec[label] = dict(ms=ms, device_ms=dev_ms, plain_ms=plain,
+                          max_abs_err=e, counts=n.tolist())
+        log(f"kernel sorted_search (dist range_query_stacked, {label}): "
+            f"[G, R] = [{G}, {R}] rows of cap {store.bsorted.keys.shape[2]},"
+            f" limit {lim}, counts {n.tolist()}: keys, addrs and counts "
+            f"equal to range_query_stacked_plain (max_abs_err {e}); "
+            f"{ms:.4f} ms per call, device {dev_ms:.4f} ms, plain "
+            f"{plain:.4f} ms")
+    return err, rec
 
 
 def compare_group_probe(torch, wl, cfg, launches, probe_at):
@@ -1995,6 +2153,9 @@ def main(argv=None) -> int:
         k["distributed_shapes"] = {
             x: v for x, v in dk.items()
             if x not in ("name", "route", "source", "replaces")}
+    err, stacked = compare_range_stacked(torch, dwl, dist_cfg)
+    kernels[1]["max_abs_err"] = max(kernels[1]["max_abs_err"], err)
+    kernels[1]["distributed_stacked"] = stacked
     kernels.append(compare_group_probe(torch, dwl, dist_cfg, d_launches,
                                        probe_at))
     kernels.extend(dispatch)

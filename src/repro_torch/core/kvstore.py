@@ -27,6 +27,7 @@ belong to slice 2b.
 """
 from __future__ import annotations
 
+import functools
 from typing import NamedTuple
 
 import torch
@@ -526,6 +527,28 @@ def _tick_body(store: KVStore):
     return _bump_hb(store)
 
 
+@functools.lru_cache(maxsize=None)
+def _scan_ladder(G: int, R: int, device):
+    """The index tensors of the SCAN's duty rule: prev [G, R, R], the
+    server (g - r + rp) mod G that holds replica rp of the group whose
+    replica r server g holds (group (g - r - 1) mod G), masked to rp < r
+    by below [R, R]; holders [G, R], the server (g + r + 1) mod G that
+    holds replica r of group g."""
+    g = torch.arange(G, device=device)[:, None, None]
+    r = torch.arange(R, device=device)[None, :, None]
+    rp = torch.arange(R, device=device)[None, None, :]
+    return ((g - r + rp) % G, (rp < r)[0],
+            (g[:, :, 0] + r[0, :, 0][None] + 1) % G)
+
+
+def _scan_duty(eff, G: int, R: int):
+    """(serve [G, R], holders [G, R]): server g serves replica r of its
+    group iff it is live and every lower-replica holder of that group is
+    dead, so exactly one live holder serves."""
+    prev, below, holders = _scan_ladder(G, R, eff.device)
+    return eff[:, None] & ~(eff[prev] & below).any(-1), holders
+
+
 def _scan_body(cfg, G, limit, store: KVStore, lo, hi):
     """Backup-side SCAN: every server drains its replicas (each one its
     own number of merge rounds, as JAX's per-device ``while_loop`` runs
@@ -545,28 +568,14 @@ def _scan_body(cfg, G, limit, store: KVStore, lo, hi):
     # through to the next replica
     eff = store.alive & ~store.sever
     INF = key_inf(st.bsorted.keys.dtype)
-    ks, as_ = [], []
-    for g in range(G):
-        for r in range(R):
-            k, a, _ = kops.range_query(cfg, tree.at(st.bsorted, r, g),
-                                       lo[g], hi[g], limit)
-            grp = (g - r - 1) % G
-            # serve replica r of group grp iff I am alive and every
-            # lower-replica holder is dead: exactly one live holder serves
-            prev_ok = torch.zeros((), dtype=torch.bool, device=eff.device)
-            for rp in range(r):
-                prev_ok = prev_ok | eff[(grp + rp + 1) % G]
-            serve = eff[g] & ~prev_ok
-            ks.append(torch.where(serve, k, INF))
-            as_.append(torch.where(serve, a, -1))
-    allk = torch.stack(ks).reshape(-1)       # all_gather: [G * R * limit]
-    alla = torch.stack(as_).reshape(-1)
+    # every server's range query of every replica it holds: one call
+    k, a, _ = kops.range_query_stacked(cfg, st.bsorted, lo, hi, limit)
+    serve, holders = _scan_duty(eff, G, R)
+    allk = torch.where(serve[..., None], k, INF).reshape(-1)  # all_gather
+    alla = torch.where(serve[..., None], a, -1).reshape(-1)
     order = torch.argsort(allk, stable=True)
     # group g is covered iff at least one of its R holders is live
-    gidx = torch.arange(G, device=eff.device)
-    covered = torch.zeros((G,), dtype=torch.bool, device=eff.device)
-    for r in range(R):
-        covered = covered | eff[(gidx + r + 1) % G]
+    covered = eff[holders].any(1)
     return allk[order][:limit], alla[order][:limit], covered, _bump_hb(st)
 
 

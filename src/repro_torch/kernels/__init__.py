@@ -12,4 +12,5 @@ from repro_torch.kernels import ops  # noqa: F401
 from repro_torch.kernels.ops import (active_path, backup_probe,  # noqa: F401
                                      group_probe, group_probe_stacked,
                                      kernels_enabled, merge, probe,
-                                     range_query, search, sort)
+                                     range_query, range_query_stacked,
+                                     search, sort)

@@ -60,6 +60,9 @@ SIGNATURES = {
     },
     "sorted_search": {
         "histore_sorted_search": ([P] * 8 + [I64, I64, INT, INT, P], INT),
+        "histore_range_query": ([P, P] + [I64] * 4 + [P, I64, P, I64, P, I64,
+                                                      INT, I64, INT, INT, I64,
+                                                      P], INT),
     },
     "merge": {
         "histore_merge_scratch_bytes": ([I64, I64], I64),
@@ -78,7 +81,7 @@ SIGNATURES = {
         "histore_sort_stable": ([P] * 5 + [I64, I64, P], INT),
     },
     "bitonic_sort": {
-        "histore_bitonic_sort": ([P] * 5 + [I64, I64, P], INT),
+        "histore_bitonic_sort": ([P] * 4 + [I64, I64, P], INT),
     },
     "legacy_hash_probe": {
         "histore_legacy_hash_probe": ([P] * 9 + [I64, INT, INT, P], INT),

@@ -15,7 +15,10 @@
 // block, the window split into SPLITS slices along the grid, each slice
 // built into a shared-memory hash table of the newest position of each
 // key and probed once a lane, atomicMax of the newest match) and
-// finish_kernel (warp per query, histore::backup_finish).
+// finish_kernel (histore::LANES = 8 lanes a query, histore::backup_finish:
+// the lane form's descent, descent.cuh's descent_split, each node of
+// levels >= 1 searched as every 8th key then 8, level 0 in 16 B loads;
+// the key at pos comes with level 0's node, so a hit reads once more).
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -32,10 +35,10 @@ __global__ void finish_kernel(const int32_t* __restrict__ rkeys,
                               int32_t* __restrict__ out_acc, int64_t Q,
                               int R, int64_t cap, int64_t lcap, int fanout,
                               int levels) {
-  const int lane = threadIdx.x & 31;
+  const int lane = threadIdx.x & (histore::LANES - 1);
   const int64_t qi =
-      (int64_t(blockIdx.x) * blockDim.x + threadIdx.x) >> 5;
-  if (qi >= Q) return;  // warp-uniform
+      (int64_t(blockIdx.x) * blockDim.x + threadIdx.x) / histore::LANES;
+  if (qi >= Q) return;  // uniform over the query's lanes
   const histore::Probe p = histore::backup_finish(
       rep_sel, rp, best, qi, rkeys[qi], R, cap, lcap, fanout, levels, lane);
   if (lane == 0) {
@@ -62,8 +65,8 @@ extern "C" int histore_backup_probe(const void* rkeys, const void* rep_sel,
     cudaError_t e =
         histore::launch_window_scan(rkeys, rep_sel, rp, best, Q, R, lcap, s);
     if (e != cudaSuccess) return (int)e;
-    const int threads = Q >= 8 ? 256 : 32;  // 8 queries per block
-    const long long fblocks = (Q * 32 + threads - 1) / threads;
+    const int threads = Q >= 32 ? 256 : 32;  // 32 queries a block
+    const long long fblocks = (Q * histore::LANES + threads - 1) / threads;
     finish_kernel<<<(unsigned)fblocks, threads, 0, s>>>(
         (const int32_t*)rkeys, (const int32_t*)rep_sel, rp,
         (const int32_t*)best, (int32_t*)out_addr, (int32_t*)out_found,

@@ -73,7 +73,7 @@ __global__ void group_finish_kernel(const int32_t* __restrict__ rkeys,
       d.bucket, d.sig, d.fp, cs, S, vec);
   const int sel = select(qi, key, g);
   histore::pdl_wait();  // `best` is the scan's
-  const histore::Probe b = histore::backup_answer<W>(
+  const histore::Probe b = histore::backup_answer<W, false>(
       rp, sel, g, best, qi, key, cap, lcap, fanout, levels, lane);
   if (lane == 0) {
     out[qi] = h.addr;

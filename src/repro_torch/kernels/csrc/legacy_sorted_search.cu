@@ -12,11 +12,16 @@
 // clamped to cap - 1 as JAX's read is, and returns addr (or -1), found
 // and n_accesses = levels.  That is the descent and the first three
 // outputs of sorted_search.cu, so this entry point launches the same
-// kernel (descent.cuh's histore::search_kernel) without the pos and lower
-// bound outputs.
+// kernels (descent.cuh's launch_search) without the pos and lower bound
+// outputs.
 //
-// Bound: latency, `levels` + 1 dependent reads: the queries share the top
-// levels' nodes, so the distinct sectors they read are few.
+// Bound: at Q = 16384 the distinct 32 B sectors the queries read (the
+// top levels' nodes are shared), beside the latency of the dependent
+// reads.  Design: descent.cuh's lane form (the top grid staged in shared
+// memory once a block, 8 lanes a query, a node of levels >= 1 in two
+// rounds of 16 and 8 scattered keys, level 0's node in 16 B loads): 41
+// sectors a query at cap 2^24 where a warp a level read about 268; the
+// block form at Q <= 256.
 #include <cuda_runtime.h>
 #include <stdint.h>
 

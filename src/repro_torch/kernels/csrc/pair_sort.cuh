@@ -1,140 +1,326 @@
-// Rowwise bitonic sort of packed 64-bit (key, payload) pairs: the network
-// of bitonic_sort.cu alone (mirror of src/repro/kernels/_bitonic_sort.py:42),
-// kept step for step with JAX's, because the network is not stable and
-// the payloads of tied keys must land where JAX's puts them.
+// Rowwise bitonic sort of (int32 key, int32 payload) pairs: the network of
+// bitonic_sort.cu (mirror of src/repro/kernels/_bitonic_sort.py:42), kept
+// compare-exchange for compare-exchange with JAX's, because the network
+// is not stable and the payloads of tied keys must land where JAX's puts
+// them.
 //
-// Each element packs (key ^ 0x80000000) << 32 | payload, so unsigned order
-// of the high half is the signed order of the key; the compares read the
-// high half only, and ties keep whatever place the network gives them.
-//
-// The network over a row of T = 2^n elements is JAX's, step for step:
-// stages k = 2, 4, ... T; distances j = k / 2 ... 1; the pair (i, i + j)
-// with bit j of i clear swaps when ((i & k) == 0 ? lo > hi : lo < hi).
-// The pairs of one step are disjoint, so any thread order inside a step
-// gives the same bits, ties included.
-//
-// sort_rows runs it in place on a [R, T] device array:
-//  * T <= SORT_CHUNK (16384 elements, 128 KB of shared memory): one block
-//    a row loads it into shared memory, runs every step there, and
-//    stores it back.
-//  * larger T: one block per 16384-element chunk runs the stages
-//    k <= 16384 in shared memory; then for each larger stage k, one
-//    global pass a distance j >= 16384 (a thread a pair), and one
-//    shared-memory pass per chunk for the distances below.
-// Bound: bytes.  The shared-memory path reads and writes the row once;
-// each larger stage adds a round trip per global distance and one for the
-// chunk pass.
+// The network over a row of T = 2^n elements: stages k = 2, 4, ... T;
+// distances j = k / 2 ... 1; the pair (i, i + j) with bit j of i clear
+// swaps when ((i & k) == 0 ? key_lo > key_hi : key_lo < key_hi).  The
+// pairs of one step are disjoint, and a run of steps over a set of
+// elements closed under their distances touches nothing else, so any
+// schedule that applies each element's compare-exchanges in step order
+// gives the same bits, ties included.  Only the schedule differs from
+// JAX's:
+//  * a block holds a chunk of BS_CHUNK = 2048 elements, 8 a thread in
+//    registers: distances 1, 2, 4 within a thread's 8 consecutive
+//    elements (layout A), 8 ... 128 between lanes by __shfl_xor_sync,
+//    256, 512, 1024 in registers after a transpose through shared memory
+//    to layout B (a thread's 8 elements 256 apart) and back;
+//  * bs_local_kernel: every stage k <= min(T, 2048) of each chunk, read
+//    from the input and written to the output (a chunk holds 2048 / T
+//    rows when T < 2048; rows past R are masked), so a row of 16384 runs
+//    on 8 SMs, not one;
+//  * for each stage k > 2048: bs_global_kernel passes over the
+//    distances k / 2 ... 2048, up to BS_GBITS of them a pass, each thread
+//    holding the 2^m elements of a closed sub-network (stride the pass's
+//    smallest distance) in registers; then bs_chunk_kernel runs the
+//    distances 1024 ... 1 in each chunk as above;
+//  * keys and payloads stay two int32 arrays, read and written in place
+//    in the output: no packing, no scratch; the launches are chained with
+//    programmatic dependent launch (pdl.cuh).
+// Launches: 1 for T <= 2048; at T = 16384, 7; at T = 65536, 13.
+// Bound: bytes, 16 B an entry (key and payload read once and written
+// once); this schedule moves each entry through L2 once a pass, 1 + 2
+// passes a stage above 2048 (+1 at the stages with 4 or more global
+// distances).
 #pragma once
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "pdl.cuh"
+
 namespace histore {
 
-constexpr int SORT_CHUNK = 16384;
-constexpr int SORT_THREADS = 1024;
-constexpr int STEP_THREADS = 256;
+constexpr int BS_THREADS = 256;
+constexpr int BS_E = 8;                      // elements a thread
+constexpr int BS_CHUNK = BS_THREADS * BS_E;  // 2048
+constexpr int BS_GBITS = 3;                  // distances a global pass
 
-typedef unsigned long long u64;
+struct BsTile {
+  int32_t k[BS_CHUNK + BS_CHUNK / 32];
+  int32_t v[BS_CHUNK + BS_CHUNK / 32];
+};
 
-__device__ __forceinline__ u64 pack_pair(int32_t key, uint32_t payload) {
-  return (u64(uint32_t(key) ^ 0x80000000u) << 32) | payload;
+// one word of padding every 32: both layouts' accesses are free of bank
+// conflicts
+__device__ __forceinline__ int bs_pad(int x) { return x + (x >> 5); }
+
+// the compare-exchange of the pair (lower a, upper b) of a stage
+// ascending (up) or descending
+__device__ __forceinline__ void bs_cx(int32_t& ka, int32_t& va, int32_t& kb,
+                                      int32_t& vb, bool up) {
+  const bool s = up ? ka > kb : ka < kb;
+  const int32_t k0 = ka, v0 = va;
+  ka = s ? kb : ka;
+  va = s ? vb : va;
+  kb = s ? k0 : kb;
+  vb = s ? v0 : vb;
 }
 
-__device__ __forceinline__ int32_t pair_key(u64 v) {
-  return int32_t(uint32_t(v >> 32) ^ 0x80000000u);
+// layout A: thread t holds chunk elements 8 t + e; layout B: 256 e + t
+__device__ __forceinline__ void bs_a_to_b(int32_t (&k)[BS_E],
+                                          int32_t (&v)[BS_E], BsTile& s) {
+  const int t = threadIdx.x;
+#pragma unroll
+  for (int e = 0; e < BS_E; ++e) {
+    s.k[bs_pad(BS_E * t + e)] = k[e];
+    s.v[bs_pad(BS_E * t + e)] = v[e];
+  }
+  __syncthreads();
+#pragma unroll
+  for (int e = 0; e < BS_E; ++e) {
+    k[e] = s.k[bs_pad(BS_THREADS * e + t)];
+    v[e] = s.v[bs_pad(BS_THREADS * e + t)];
+  }
+  __syncthreads();
 }
 
-__device__ __forceinline__ bool after(u64 a, u64 b) {
-  return (a >> 32) > (b >> 32);
+__device__ __forceinline__ void bs_b_to_a(int32_t (&k)[BS_E],
+                                          int32_t (&v)[BS_E], BsTile& s) {
+  const int t = threadIdx.x;
+#pragma unroll
+  for (int e = 0; e < BS_E; ++e) {
+    s.k[bs_pad(BS_THREADS * e + t)] = k[e];
+    s.v[bs_pad(BS_THREADS * e + t)] = v[e];
+  }
+  __syncthreads();
+#pragma unroll
+  for (int e = 0; e < BS_E; ++e) {
+    k[e] = s.k[bs_pad(BS_E * t + e)];
+    v[e] = s.v[bs_pad(BS_E * t + e)];
+  }
+  __syncthreads();
 }
 
-// the steps j = j0 ... 1 of stage k on the shared tile s[0, n) whose
-// first element is element `base` of its row
-__device__ void tile_steps(u64* s, int n, long long base, long long k,
-                           int j0) {
-  for (int j = j0; j > 0; j >>= 1) {
-    for (int p = threadIdx.x; p < n / 2; p += blockDim.x) {
-      const int lo = (p / j) * 2 * j + (p % j);
-      const int hi = lo + j;
-      const bool up = ((base + lo) & k) == 0;
-      const u64 a = s[lo], b = s[hi];
-      if (up ? after(a, b) : after(b, a)) {
-        s[lo] = b;
-        s[hi] = a;
+// Where a thread's elements sit in their rows: element e is at row index
+// (ia + e) & tm in layout A and (ib + 256 e) & tm in layout B (tm = T - 1)
+struct BsPlace {
+  int ia, ib, tm;
+};
+
+__device__ __forceinline__ BsPlace bs_place(long long f0, long long T) {
+  const long long t = threadIdx.x;
+  return BsPlace{int((f0 + BS_E * t) & (T - 1)), int((f0 + t) & (T - 1)),
+                 int(T - 1)};
+}
+
+// distance B (1, 2, 4) in layout A, or 256 B in layout B, of stage kk
+template <int B, bool LAYOUT_B>
+__device__ __forceinline__ void bs_reg_step(int32_t (&k)[BS_E],
+                                            int32_t (&v)[BS_E],
+                                            const BsPlace& at, int kk) {
+#pragma unroll
+  for (int e = 0; e < BS_E; ++e) {
+    if (e & B) continue;
+    const int i = LAYOUT_B ? (at.ib + BS_THREADS * e) & at.tm
+                           : (at.ia + e) & at.tm;
+    bs_cx(k[e], v[e], k[e | B], v[e | B], (i & kk) == 0);
+  }
+}
+
+// distance j (8 ... 128) of stage kk (>= 16) in layout A: lanes j / 8
+// apart.  A thread's 8 elements share the stage's direction, so each
+// takes its partner's entry when the partner's key is the one its
+// position keeps (strictly: ties stay)
+__device__ __forceinline__ void bs_shfl_step(int32_t (&k)[BS_E],
+                                             int32_t (&v)[BS_E],
+                                             const BsPlace& at, int kk,
+                                             int j) {
+  const int m = j / BS_E;
+  const bool lower = (threadIdx.x & m) == 0;
+  const bool keep_min = lower == ((at.ia & kk) == 0);
+#pragma unroll
+  for (int e = 0; e < BS_E; ++e) {
+    const int32_t pk = __shfl_xor_sync(0xffffffffu, k[e], m);
+    const int32_t pv = __shfl_xor_sync(0xffffffffu, v[e], m);
+    const bool take = pk != k[e] && ((pk < k[e]) == keep_min);
+    k[e] = take ? pk : k[e];
+    v[e] = take ? pv : v[e];
+  }
+}
+
+// the distances jtop ... 1 (jtop < 2048) of stage kk on a chunk held in
+// layout A (in layout B when in_b: then jtop = 1024); ends in layout A
+__device__ __forceinline__ void bs_stage(int32_t (&k)[BS_E],
+                                         int32_t (&v)[BS_E], BsTile& s,
+                                         const BsPlace& at, int kk, int jtop,
+                                         bool in_b) {
+  int j = jtop;
+  if (j >= BS_THREADS) {
+    if (!in_b) bs_a_to_b(k, v, s);
+    if (j >= 4 * BS_THREADS) bs_reg_step<4, true>(k, v, at, kk);
+    if (j >= 2 * BS_THREADS) bs_reg_step<2, true>(k, v, at, kk);
+    bs_reg_step<1, true>(k, v, at, kk);
+    bs_b_to_a(k, v, s);
+    j = BS_THREADS / 2;
+  }
+  for (; j >= BS_E; j >>= 1) bs_shfl_step(k, v, at, kk, j);
+  if (j >= 4) bs_reg_step<4, false>(k, v, at, kk);
+  if (j >= 2) bs_reg_step<2, false>(k, v, at, kk);
+  bs_reg_step<1, false>(k, v, at, kk);
+}
+
+// the chunk's elements in layout A to ok / ov (16-byte aligned), those
+// below n
+__device__ __forceinline__ void bs_store_a(int32_t* __restrict__ ok,
+                                           int32_t* __restrict__ ov,
+                                           const int32_t (&k)[BS_E],
+                                           const int32_t (&v)[BS_E],
+                                           long long f0, long long n) {
+  const long long f = f0 + BS_E * (long long)threadIdx.x;
+  if (f + BS_E <= n) {
+    int4* pk = reinterpret_cast<int4*>(ok + f);
+    int4* pv = reinterpret_cast<int4*>(ov + f);
+    pk[0] = make_int4(k[0], k[1], k[2], k[3]);
+    pk[1] = make_int4(k[4], k[5], k[6], k[7]);
+    pv[0] = make_int4(v[0], v[1], v[2], v[3]);
+    pv[1] = make_int4(v[4], v[5], v[6], v[7]);
+  } else {
+#pragma unroll
+    for (int e = 0; e < BS_E; ++e) {
+      if (f + e < n) {
+        ok[f + e] = k[e];
+        ov[f + e] = v[e];
       }
     }
-    __syncthreads();
   }
 }
 
-// one block per C-element chunk of a row: every stage k <= C (kmerge ==
-// 0), or the distances below C of stage kmerge
-__global__ void chunk_kernel(u64* __restrict__ d, long long T, int C,
-                             long long kmerge) {
-  extern __shared__ u64 s[];
-  const long long per_row = T / C;
-  const long long r = blockIdx.x / per_row, c = blockIdx.x % per_row;
-  u64* g = d + r * T + c * C;
-  const long long base = c * C;
-  for (int i = threadIdx.x; i < C; i += blockDim.x) s[i] = g[i];
-  __syncthreads();
-  if (kmerge == 0) {
-    for (long long k = 2; k <= C; k <<= 1)
-      tile_steps(s, C, base, k, int(k / 2));
-  } else {
-    tile_steps(s, C, base, kmerge, C / 2);
+// every stage k <= min(T, 2048) of chunk blockIdx.x, input to output
+__global__ void __launch_bounds__(BS_THREADS)
+    bs_local_kernel(const int32_t* __restrict__ keys,
+                    const int32_t* __restrict__ vals,
+                    int32_t* __restrict__ ok, int32_t* __restrict__ ov,
+                    long long n, long long T) {
+  __shared__ BsTile s;
+  pdl_trigger();
+  pdl_wait();
+  const long long f0 = (long long)blockIdx.x * BS_CHUNK;
+  int32_t k[BS_E], v[BS_E];
+#pragma unroll
+  for (int e = 0; e < BS_E; ++e) {  // layout B: coalesced, any alignment
+    const long long f = f0 + BS_THREADS * e + threadIdx.x;
+    k[e] = f < n ? keys[f] : 0;
+    v[e] = f < n ? vals[f] : 0;
   }
-  for (int i = threadIdx.x; i < C; i += blockDim.x) g[i] = s[i];
+  bs_b_to_a(k, v, s);
+  const BsPlace at = bs_place(f0, T);
+  const int K = T < BS_CHUNK ? int(T) : BS_CHUNK;
+  for (int kk = 2; kk <= K; kk <<= 1) bs_stage(k, v, s, at, kk, kk / 2, false);
+  bs_store_a(ok, ov, k, v, f0, n);
 }
 
-// one step (stage k, distance j) over every row, a thread a pair
-__global__ void global_step(u64* __restrict__ d, long long R, long long T,
-                            long long k, long long j) {
-  const long long half = T / 2, pairs = R * half;
-  for (long long t = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-       t < pairs; t += (long long)gridDim.x * blockDim.x) {
-    const long long r = t / half, p = t % half;
-    const long long lo = (p / j) * 2 * j + (p % j), hi = lo + j;
-    const bool up = (lo & k) == 0;
-    u64* row = d + r * T;
-    const u64 a = row[lo], b = row[hi];
-    if (up ? after(a, b) : after(b, a)) {
-      row[lo] = b;
-      row[hi] = a;
+// the distances 1024 ... 1 of stage kk > 2048 in chunk blockIdx.x
+__global__ void __launch_bounds__(BS_THREADS)
+    bs_chunk_kernel(int32_t* __restrict__ ok, int32_t* __restrict__ ov,
+                    long long n, long long T, long long kk) {
+  __shared__ BsTile s;
+  pdl_trigger();
+  pdl_wait();
+  const long long f0 = (long long)blockIdx.x * BS_CHUNK;
+  int32_t k[BS_E], v[BS_E];
+#pragma unroll
+  for (int e = 0; e < BS_E; ++e) {
+    const long long f = f0 + BS_THREADS * e + threadIdx.x;
+    k[e] = ok[f];
+    v[e] = ov[f];
+  }
+  bs_stage(k, v, s, bs_place(f0, T), int(kk), BS_CHUNK / 2, true);
+  bs_store_a(ok, ov, k, v, f0, n);
+}
+
+// the M distances jlo << (M - 1) ... jlo (>= 2048) of stage kk: a thread
+// the 2^M elements whose flat index differs in bits [log jlo, + M)
+template <int M>
+__global__ void __launch_bounds__(BS_THREADS)
+    bs_global_kernel(int32_t* __restrict__ ok, int32_t* __restrict__ ov,
+                     long long n, long long T, long long kk, int lj) {
+  constexpr int E = 1 << M;
+  pdl_trigger();
+  pdl_wait();
+  const long long g = (long long)blockIdx.x * BS_THREADS + threadIdx.x;
+  if (g >= (n >> M)) return;
+  const long long low = g & ((1LL << lj) - 1);
+  const long long f0 = ((g >> lj) << (lj + M)) | low;
+  int32_t k[E], v[E];
+#pragma unroll
+  for (int e = 0; e < E; ++e) {
+    k[e] = ok[f0 + ((long long)e << lj)];
+    v[e] = ov[f0 + ((long long)e << lj)];
+  }
+#pragma unroll
+  for (int b = M - 1; b >= 0; --b) {
+#pragma unroll
+    for (int e = 0; e < E; ++e) {
+      if (e & (1 << b)) continue;
+      const int i = int((f0 + ((long long)e << lj)) & (T - 1));
+      bs_cx(k[e], v[e], k[e | (1 << b)], v[e | (1 << b)],
+            (i & int(kk)) == 0);
     }
   }
+#pragma unroll
+  for (int e = 0; e < E; ++e) {
+    ok[f0 + ((long long)e << lj)] = k[e];
+    ov[f0 + ((long long)e << lj)] = v[e];
+  }
 }
 
-// sort each row of d [R, T] in place (T a power of two) on stream st
-inline cudaError_t sort_rows(u64* d, long long R, long long T,
-                             cudaStream_t st) {
-  if (R < 1 || T < 2) return cudaSuccess;
-  const int C = T < SORT_CHUNK ? int(T) : SORT_CHUNK;
-  const long long blocks = R * (T / C);
+inline cudaError_t bs_global(int m, unsigned blocks, cudaStream_t st,
+                             int32_t* ok, int32_t* ov, long long n,
+                             long long T, long long kk, int lj) {
+  switch (m) {
+    case 1:
+      return launch(bs_global_kernel<1>, blocks, BS_THREADS, st, ok, ov, n,
+                    T, kk, lj);
+    case 2:
+      return launch(bs_global_kernel<2>, blocks, BS_THREADS, st, ok, ov, n,
+                    T, kk, lj);
+    default:
+      return launch(bs_global_kernel<3>, blocks, BS_THREADS, st, ok, ov, n,
+                    T, kk, lj);
+  }
+}
+
+// sort each row of keys / vals [R, T] (T a power of two) into ok / ov
+// (16-byte aligned) on stream st
+inline cudaError_t sort_rows(const int32_t* keys, const int32_t* vals,
+                             int32_t* ok, int32_t* ov, long long R,
+                             long long T, cudaStream_t st) {
+  const long long n = R * T;
+  if (n == 0) return cudaSuccess;
+  const long long blocks = (n + BS_CHUNK - 1) / BS_CHUNK;
   if (blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
-  const int threads = C / 2 < 32 ? 32
-                      : (C / 2 > SORT_THREADS ? SORT_THREADS : C / 2);
-  const size_t smem = size_t(C) * sizeof(u64);
-  cudaError_t e = cudaFuncSetAttribute(
-      chunk_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      int(smem));
-  if (e != cudaSuccess) return e;
-  chunk_kernel<<<unsigned(blocks), threads, smem, st>>>(d, T, C, 0);
-  if ((e = cudaGetLastError()) != cudaSuccess) return e;
-  const long long pairs = R * (T / 2);
-  long long gblocks = (pairs + STEP_THREADS - 1) / STEP_THREADS;
-  if (gblocks > 65536) gblocks = 65536;
-  for (long long k = 2LL * C; k <= T; k <<= 1) {
-    for (long long j = k / 2; j >= C; j >>= 1) {
-      global_step<<<unsigned(gblocks), STEP_THREADS, 0, st>>>(d, R, T,
-                                                                     k, j);
-      if ((e = cudaGetLastError()) != cudaSuccess) return e;
+  cudaError_t e = launch(bs_local_kernel, unsigned(blocks), BS_THREADS, st,
+                         keys, vals, ok, ov, n, T);
+  int lt = 0;
+  while ((1LL << lt) < T) ++lt;
+  for (int lk = 12; lk <= lt && e == cudaSuccess; ++lk) {
+    const long long kk = 1LL << lk;
+    // the distances 2^(lk - 1) ... 2^11, up to BS_GBITS a pass
+    for (int hb = lk - 1; hb >= 11 && e == cudaSuccess;) {
+      const int m = hb - 10 < BS_GBITS ? hb - 10 : BS_GBITS;
+      const long long threads = n >> m;
+      e = bs_global(m, unsigned((threads + BS_THREADS - 1) / BS_THREADS), st,
+                    ok, ov, n, T, kk, hb - m + 1);
+      hb -= m;
     }
-    chunk_kernel<<<unsigned(blocks), threads, smem, st>>>(d, T, C, k);
-    if ((e = cudaGetLastError()) != cudaSuccess) return e;
+    if (e == cudaSuccess)
+      e = launch(bs_chunk_kernel, unsigned(blocks), BS_THREADS, st, ok, ov, n,
+                 T, kk);
   }
-  return cudaSuccess;
+  return e;
 }
 
 }  // namespace histore

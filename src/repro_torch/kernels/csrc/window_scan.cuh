@@ -40,9 +40,12 @@
 //     whose lanes selects a replica reads its queries and stops.
 //     atomicMax combines the slices: best[q] is 1 + the newest match's
 //     position in the window, 0 for none.  No [Q, lcap] matrix.
-//  2. backup_answer: W lanes a query (backup_finish: a warp).  It answers
-//     from the log entry best[q] names (or the KEY_INF slot), else runs
-//     the descent of descent.cuh on its replica.
+//  2. backup_answer: W lanes a query.  It answers from the log entry
+//     best[q] names (or the KEY_INF slot), else runs a descent of
+//     descent.cuh on its replica: the lane form's descent_split
+//     (backup_finish: LANES lanes a query, a node searched as every
+//     SPLIT-th key then SPLIT, level 0 in 16 B loads) or descent_lanes<W>
+//     (the group probe's finish).
 #pragma once
 
 #include <cuda_runtime.h>
@@ -286,9 +289,10 @@ static inline cudaError_t launch_window_scan(const void* rkeys,
 }
 
 // the backup half of query qi (key q, answered by replica sel of group g,
-// -1 for none) on W lanes; every lane of the group must call it, and all
-// get the same result (every branch is uniform over the group)
-template <int W, class Rep>
+// -1 for none) on W lanes, its descent descent_split<W> (Split) or
+// descent_lanes<W>; every lane of the group must call it, and all get the
+// same result (every branch is uniform over the group)
+template <int W, bool Split, class Rep>
 __device__ __forceinline__ Probe backup_answer(
     const Rep& rp, int sel, int g, const int32_t* __restrict__ best,
     int64_t qi, int32_t q, int64_t cap, int64_t lcap, int fanout,
@@ -311,23 +315,27 @@ __device__ __forceinline__ Probe backup_answer(
   }
   const int32_t* __restrict__ keys = rp.skeys(sel, g);
   int64_t pos;
-  if constexpr (W == 32)
-    pos = descent(keys, q, cap, fanout, levels, lane);
-  else
+  int32_t k;
+  if constexpr (Split) {
+    pos = descent_split<W>(keys, q, cap, fanout, levels, lane, k);
+  } else {
     pos = descent_lanes<W>(keys, q, cap, fanout, levels, lane);
+    k = keys[pos < cap ? pos : cap - 1];
+  }
   const int64_t at = pos < cap ? pos : cap - 1;
-  const bool found = keys[at] == q;
+  const bool found = k == q;
   return Probe{found ? rp.saddrs(sel, g)[at] : -1, found ? 1 : 0,
                levels + 1};
 }
 
-// the backup probe's: a warp a query, rep_sel [Q, R] from memory
+// the backup probe's: LANES lanes a query, rep_sel [Q, R] from memory
 __device__ __forceinline__ Probe backup_finish(
     const int32_t* __restrict__ rep_sel, const Replicas& rp,
     const int32_t* __restrict__ best, int64_t qi, int32_t q, int R,
     int64_t cap, int64_t lcap, int fanout, int levels, int lane) {
-  return backup_answer<32>(rp, last_selected(rep_sel, qi, R), 0, best, qi, q,
-                           cap, lcap, fanout, levels, lane);
+  return backup_answer<LANES, true>(rp, last_selected(rep_sel, qi, R), 0,
+                                    best, qi, q, cap, lcap, fanout, levels,
+                                    lane);
 }
 
 }  // namespace histore

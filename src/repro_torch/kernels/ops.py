@@ -2,8 +2,9 @@
 ``repro/kernels/ops.py``).
 
 Every routed op body calls THESE functions — ``probe`` / ``search`` /
-``range_query`` / ``merge`` / ``backup_probe`` / ``group_probe`` /
-``group_probe_stacked`` / ``sort`` — never a kernel directly.  Each
+``range_query`` / ``range_query_stacked`` / ``merge`` / ``backup_probe``
+/ ``group_probe`` / ``group_probe_stacked`` / ``sort`` — never a kernel
+directly.  Each
 takes the HiStoreConfig and routes by the device of the tensors it is
 given:
 
@@ -15,8 +16,8 @@ given:
     ``group_probe_stacked_plain``, are here).
 
 The probe kernels take raw int32 keys and hash them on the card; the
-group probe reads the store's stacked leaves by base pointer and
-strides.
+group probe and the stacked SCAN read the store's stacked leaves by base
+pointer and strides; a SCAN reads its lo and hi on the card.
 
 ``cfg.use_kernels`` keeps its values so configs compare field for field
 with the JAX package: "on" and "auto" allow the routing above, "off"
@@ -27,7 +28,8 @@ dispatch contract).
 Each wrapper checks device, dtype, shape and contiguity, allocates its
 outputs and scratch with ``torch.empty``, launches on the current
 stream, raises on a nonzero launch status, and adds one to
-``LAUNCHES[name]`` per launch.
+``LAUNCHES[name]`` per launch (the range kernel counts as
+``sorted_search``, whose library it is in).
 
 The legacy wrappers ``hash_probe`` / ``sorted_search`` / ``sort_pairs``
 (the JAX package's per-query DMA kernels and its bitonic network) sit at
@@ -39,6 +41,7 @@ takes its plain version (``legacy_hash_probe_plain``,
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -88,6 +91,20 @@ def _check(name, t, dtype, ndim=1):
 
 def _stream(t):
     return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def _launch(dev, fn, *args):
+    """fn(*args, stream) on ``dev``'s current stream.  The current device
+    is switched (a torch.cuda.device context) only when ``dev`` is not
+    it already."""
+    if dev.index is None or dev.index == torch.cuda.current_device():
+        return fn(*args, torch.cuda.current_stream(dev).cuda_stream)
+    with torch.cuda.device(dev):
+        return fn(*args, torch.cuda.current_stream(dev).cuda_stream)
+
+
+# the directory's levels, once per (cap, fanout)
+_levels = functools.lru_cache(maxsize=None)(six.directory_levels)
 
 
 def _c(lib: str, fn: str):
@@ -150,16 +167,77 @@ def sorted_search_cuda(queries, keys, addrs, fanout: int):
     if addrs.shape[0] != cap or cap < 1:
         raise ValueError("sorted_search: inconsistent shapes")
     Q = queries.shape[0]
-    levels = six.directory_levels(cap, fanout)
     out = torch.empty((5, Q), dtype=I32, device=queries.device)
-    with torch.cuda.device(queries.device):
-        st = _c("sorted_search", "histore_sorted_search")(
-            queries.data_ptr(), keys.data_ptr(), addrs.data_ptr(),
-            *[out[i].data_ptr() for i in range(5)], Q, cap, fanout, levels,
-            _stream(queries))
+    p = out.data_ptr()
+    st = _launch(queries.device, _c("sorted_search", "histore_sorted_search"),
+                 queries.data_ptr(), keys.data_ptr(), addrs.data_ptr(), p,
+                 p + 4 * Q, p + 8 * Q, p + 12 * Q, p + 16 * Q, Q, cap, fanout,
+                 _levels(cap, fanout))
     _raise_on(st, "sorted_search")
     LAUNCHES["sorted_search"] += 1
-    return tuple(out[i] for i in range(5))
+    return out.unbind(0)
+
+
+def _range_bounds(kernel, lo, hi, shape):
+    for n, t in (("lo", lo), ("hi", hi)):
+        if not t.is_cuda:
+            raise ValueError(f"{kernel}: {n}: expected a CUDA tensor, got "
+                             f"{t.device}")
+        if t.dtype != I32:
+            raise TypeError(f"{kernel}: {n}: expected {I32}, got {t.dtype}")
+        if tuple(t.shape) not in shape:
+            raise ValueError(f"{kernel}: {n} has shape {tuple(t.shape)}, "
+                             f"expected {shape[0]}")
+
+
+def range_query_cuda(keys, addrs, lo, hi, limit: int, fanout: int):
+    """The SCAN [lo, hi] of one replica in one launch.  keys/addrs: [cap]
+    int32 (ascending, INF-padded); lo, hi: 0-d (or [1]) int32 CUDA
+    tensors, read on the card.  Returns (keys [limit], addrs [limit],
+    count 0-d), int32, as sorted_index.range_query."""
+    for n, t in (("keys", keys), ("addrs", addrs)):
+        _check(n, t, I32)
+    _range_bounds("range_query", lo, hi, ((), (1,)))
+    cap = keys.shape[0]
+    if addrs.shape[0] != cap or cap < 1 or limit < 0:
+        raise ValueError("range_query: inconsistent shapes")
+    out = torch.empty((2 * limit + 1,), dtype=I32, device=keys.device)
+    st = _launch(keys.device, _c("sorted_search", "histore_range_query"),
+                 keys.data_ptr(), addrs.data_ptr(), 0, 0, 0, 0,
+                 lo.data_ptr(), 0, hi.data_ptr(), 0, out.data_ptr(), 1, 1,
+                 cap, fanout, _levels(cap, fanout), limit)
+    _raise_on(st, "range_query")
+    LAUNCHES["sorted_search"] += 1
+    return out[:limit], out[limit:2 * limit], out[2 * limit]
+
+
+def range_query_stacked_cuda(keys, addrs, lo, hi, limit: int, fanout: int):
+    """The SCANs [lo[g], hi[g]] of every replica r of every group g in one
+    launch.  keys/addrs: [R, G, cap] int32, the store's stacked sorted
+    leaves, read in place through their strides (each row contiguous);
+    lo, hi: [G] int32 CUDA tensors, any stride (an expanded 0-d works).
+    Returns (keys [G, R, limit], addrs [G, R, limit], counts [G, R]),
+    int32."""
+    if keys.dim() != 3:
+        raise ValueError(f"range_query_stacked: expected [R, G, cap] "
+                         f"leaves, got {tuple(keys.shape)}")
+    R, G, cap = keys.shape
+    kl = _leaf("sorted keys", keys, I32, (R, G, cap), 2)
+    al = _leaf("sorted addrs", addrs, I32, (R, G, cap), 2)
+    _range_bounds("range_query_stacked", lo, hi, ((G,),))
+    if R < 1 or G < 1 or cap < 1 or limit < 0:
+        raise ValueError(f"range_query_stacked: {G} groups, {R} replicas "
+                         f"of {cap} slots, limit {limit}")
+    n = G * R * limit
+    out = torch.empty((2 * n + G * R,), dtype=I32, device=keys.device)
+    st = _launch(keys.device, _c("sorted_search", "histore_range_query"),
+                 kl.p, al.p, kl.sr, kl.sg, al.sr, al.sg, lo.data_ptr(),
+                 lo.stride(0), hi.data_ptr(), hi.stride(0), out.data_ptr(),
+                 G, R, cap, fanout, _levels(cap, fanout), limit)
+    _raise_on(st, "range_query_stacked")
+    LAUNCHES["sorted_search"] += 1
+    return (out[:n].view(G, R, limit), out[n:2 * n].view(G, R, limit),
+            out[2 * n:].view(G, R))
 
 
 def merge_cuda(ekeys, eaddrs, bkeys, baddrs, bops):
@@ -355,19 +433,16 @@ def sort_stable_cuda(keys, vals):
 
 def bitonic_sort_cuda(keys, vals):
     """keys/vals: [R, T] int32, T a power of two.  JAX's bitonic network,
-    step for step, so payloads of tied keys land where its network puts
-    them.  Returns (keys, vals)."""
+    compare-exchange for compare-exchange, so payloads of tied keys land
+    where its network puts them.  Returns (keys, vals)."""
     R, T = _check_pairs("bitonic_sort", keys, vals)
     if T & (T - 1):
         raise ValueError(f"bitonic_sort: T must be a power of two, got {T}")
-    dev = keys.device
-    ok = torch.empty_like(keys)
-    ov = torch.empty_like(vals)
-    scratch = torch.empty((R, T), dtype=torch.int64, device=dev)
-    with torch.cuda.device(dev):
-        st = _c("bitonic_sort", "histore_bitonic_sort")(
-            keys.data_ptr(), vals.data_ptr(), ok.data_ptr(), ov.data_ptr(),
-            scratch.data_ptr(), R, T, _stream(keys))
+    ok = torch.empty((R, T), dtype=I32, device=keys.device)
+    ov = torch.empty((R, T), dtype=I32, device=keys.device)
+    st = _launch(keys.device, _c("bitonic_sort", "histore_bitonic_sort"),
+                 keys.data_ptr(), vals.data_ptr(), ok.data_ptr(),
+                 ov.data_ptr(), R, T)
     _raise_on(st, "bitonic_sort")
     LAUNCHES["bitonic_sort"] += 1
     return ok, ov
@@ -409,14 +484,14 @@ def legacy_sorted_search_cuda(queries, keys, addrs, fanout: int):
         raise ValueError("legacy_sorted_search: inconsistent shapes")
     Q = queries.shape[0]
     out = torch.empty((3, Q), dtype=I32, device=queries.device)
-    with torch.cuda.device(queries.device):
-        st = _c("legacy_sorted_search", "histore_legacy_sorted_search")(
-            queries.data_ptr(), keys.data_ptr(), addrs.data_ptr(),
-            *[out[i].data_ptr() for i in range(3)], Q, cap, fanout,
-            six.directory_levels(cap, fanout), _stream(queries))
+    p = out.data_ptr()
+    st = _launch(queries.device,
+                 _c("legacy_sorted_search", "histore_legacy_sorted_search"),
+                 queries.data_ptr(), keys.data_ptr(), addrs.data_ptr(), p,
+                 p + 4 * Q, p + 8 * Q, Q, cap, fanout, _levels(cap, fanout))
     _raise_on(st, "legacy_sorted_search")
     LAUNCHES["legacy_sorted_search"] += 1
-    return out[0], out[1], out[2]
+    return out.unbind(0)
 
 
 def backup_probe_plain(cfg, sorted_r, blogs_r, keys, rep_sel):
@@ -564,15 +639,49 @@ def merge(cfg, index, keys, addrs, ops):
     return six.SortedIndex(nk, na, size[0])
 
 
+def _bound(x, dev):
+    """lo or hi as an int32 tensor on ``dev``: the caller's own tensor
+    when it is one already (no copy), else a copy."""
+    if torch.is_tensor(x) and x.dtype == I32 and x.device == dev:
+        return x
+    return torch.as_tensor(x, dtype=I32, device=dev)
+
+
 def range_query(cfg, index, lo, hi, limit: int):
-    """SCAN [lo, hi] -> (keys [limit], addrs [limit], count).  The lower
-    bound comes from the sorted-search kernel's descent (Q = 1); the
-    take/mask tail is shared with the plain path (range_from_start)."""
-    if not kernels_enabled(cfg, index.keys.device):
+    """SCAN [lo, hi] -> (keys [limit], addrs [limit], count).  On the card
+    one launch gives the lower bound (the sorted-search kernel's descent)
+    and the take; lo and hi are read there.  Bit-exact with
+    sorted_index.range_query."""
+    dev = index.keys.device
+    if not kernels_enabled(cfg, dev):
         return six.range_query(index, lo, hi, limit)
-    q = torch.as_tensor(lo, dtype=I32, device=index.keys.device).reshape(1)
-    *_, lbound = sorted_search_cuda(q, index.keys, index.addrs, cfg.fanout)
-    return six.range_from_start(index, lbound[0], hi, limit)
+    return range_query_cuda(index.keys, index.addrs, _bound(lo, dev),
+                            _bound(hi, dev), limit, cfg.fanout)
+
+
+def range_query_stacked_plain(cfg, bsorted, lo, hi, limit: int):
+    """The plain version of the stacked SCAN: sorted_index.range_query of
+    replica r of group g, [lo[g], hi[g]], for every (g, r).  Returns
+    (keys [G, R, limit], addrs [G, R, limit], counts [G, R])."""
+    R, G = bsorted.keys.shape[:2]
+    out = [[six.range_query(tree.at(bsorted, r, g), lo[g], hi[g], limit)
+            for r in range(R)] for g in range(G)]
+    return tuple(torch.stack([torch.stack([o[i] for o in row])
+                              for row in out]) for i in range(3))
+
+
+def range_query_stacked(cfg, bsorted, lo, hi, limit: int):
+    """The distributed SCAN's range queries in one call: replica r of
+    group g (the store's [R, G] sorted leaves, read in place on the card)
+    over [lo[g], hi[g]] (lo, hi: [G]).  Returns (keys [G, R, limit],
+    addrs [G, R, limit], counts [G, R]).  Bit-exact with
+    range_query_stacked_plain."""
+    dev = bsorted.keys.device
+    if not kernels_enabled(cfg, dev):
+        return range_query_stacked_plain(cfg, bsorted, lo, hi, limit)
+    return range_query_stacked_cuda(bsorted.keys, bsorted.addrs,
+                                    _bound(lo, dev), _bound(hi, dev), limit,
+                                    cfg.fanout)
 
 
 def backup_probe(cfg, sorted_r, blogs_r, keys, rep_sel):
