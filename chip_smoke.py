@@ -34,16 +34,20 @@
    activity) and the device time of each of its kernels is logged by name.
 4b. The rest of the dispatch surface on the same loaded store, launch
    counts set to 0 before it and the four new ones > 0 after:
-   ``ops.hash_probe`` (the legacy probe) on one client chunk of GET keys,
+   ``ops.hash_probe`` (the legacy probe: the keys in, hashed on the card,
+   one launch) on one client chunk of GET keys,
    ``ops.sorted_search`` (the legacy search) on replica 0 with misses,
    -1 and 2**31 - 1, ``ops.sort`` and ``ops.sort_pairs`` at [16, 4096],
    [1, 16384] and [1, 65536] (keys in [0, 1024), distinct payloads), and
    ``ops.merge`` with a 65536-entry batch (split by kernel as in 4).
    Each against its plain
    version (the probe and search also against ``ops.probe`` and
-   ``ops.search``), timed as in 4, with torch.sort(stable) + gather and
-   searchsorted + index as the library calls (the sorts' also on the
-   device); the sorts' bound also counts their compare-exchanges at
+   ``ops.search``, the probe also against its descriptor-in entry, both
+   entries timed, routed too, the bound counted with the key in beside
+   the descriptors in, its lanes a query logged), ``ops.sort`` once on
+   int16 keys (no launch, the plain version's answer), timed as in 4, with torch.sort(stable) +
+   gather and searchsorted + index as the library calls (the sorts' also
+   on the device); the sorts' bound also counts their compare-exchanges at
    67e12/s; the legacy search's same-function library call also timed on
    the device; the bitonic sort split by kernel under torch.profiler.
 4c. Programmatic dependent launch on and off: merge.cu and sort_stable.cu
@@ -131,6 +135,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import re
 import subprocess
 import sys
 import time
@@ -841,7 +846,8 @@ def sort_bound(R, T):
 def dispatch_path(torch, cfg, wl, rng):
     """Phase 4b: the rest of the kernel dispatch surface, through its
     public calls, on the loaded store: ``ops.hash_probe`` on the hash
-    (one client chunk of GET keys), ``ops.sorted_search`` on replica 0,
+    (one client chunk of GET keys, hashed on the card),
+    ``ops.sorted_search`` on replica 0,
     ``ops.sort`` and ``ops.sort_pairs`` at three shapes (the distributed
     store's 16 apply rows, one client chunk, one backup-log ring), and
     ``ops.merge`` with a 65536-entry batch (a batch the merge took only
@@ -904,10 +910,13 @@ def dispatch_path(torch, cfg, wl, rng):
     # -- each output against its plain version, and the cross-checks --------
     b, sg, fp = hix.descriptors(hidx, qh)
     tab = (hidx.sig, hidx.fp, hidx.addr)
-    err_h = max_abs_err(torch, (h[0], h[1].int(), h[2]),
-                        ops.legacy_hash_probe_plain(b, sg, fp, *tab,
-                                                    slots_per_bucket=S),
-                        "legacy hash_probe")
+    want_h = ops.legacy_hash_probe_plain(b, sg, fp, *tab, slots_per_bucket=S)
+    err_h = max_abs_err(torch, (h[0], h[1].int(), h[2]), want_h,
+                        "legacy hash_probe, keys in")
+    check(h[1].dtype == torch.bool, "legacy hash_probe: found is not bool")
+    err_h = max(err_h, max_abs_err(
+        torch, ops.legacy_hash_probe_cuda(b, sg, fp, *tab, S), want_h,
+        "legacy hash_probe, descriptors in"))
     pa, pf, pc = ops.probe(cfg, hidx, qh)
     max_abs_err(torch, (h[0], h[1]), (pa, pf), "legacy hash_probe vs probe")
     occ = (hidx.sig != 0).sum(1, dtype=torch.int32)
@@ -915,7 +924,8 @@ def dispatch_path(torch, cfg, wl, rng):
     same = occ[b.long()] == hidx.fill[b.long()]
     max_abs_err(torch, (h[2][same],), (pc[same],),
                 "legacy hash_probe acc vs probe where occ == fill")
-    log(f"dispatch: legacy hash_probe Q={Q}: equal to its plain version; "
+    log(f"dispatch: legacy hash_probe Q={Q}: the keys-in entry (the path's "
+        f"call) and the descriptor-in entry equal to the plain version; "
         f"addr and found equal to ops.probe's, acc too on the "
         f"{int(same.sum())} queries whose row has occ == fill; "
         f"{rows_off} of {hidx.sig.shape[0]} rows have occ != fill")
@@ -939,33 +949,57 @@ def dispatch_path(torch, cfg, wl, rng):
         log(f"dispatch: sort and sort_pairs {list(sh)}: equal to their "
             f"plain versions ({ties} payloads where the network's order of "
             f"tied keys differs from the stable sort's)")
+    k, v = pairs[SORT_SHAPES[0]]
+    k16, v16 = k.to(torch.int16), v.to(torch.int16)
+    n0 = ops.LAUNCHES["sort_stable"]
+    got16 = ops.sort(cfg, k16, v16)
+    check(ops.LAUNCHES["sort_stable"] == n0 and got16[1].dtype == v16.dtype,
+          "sort on int16 keys launched the kernel or cast the payload")
+    max_abs_err(torch, got16, ops.sort_stable_plain(k16, v16),
+                "sort int16 keys")
+    log(f"dispatch: sort {list(SORT_SHAPES[0])} on int16 keys: the stable "
+        f"sort + gather, as JAX's per-dtype rule takes it, equal to the "
+        f"plain version; no launch, the int16 payload kept")
     want = six.merge(srt, bkt, bat, bot)
     err_m = max_abs_err(torch, tuple(merged), tuple(want), "merge m=65536")
 
     # -- timing --------------------------------------------------------------
     out = []
-    kern_h = lambda: ops.legacy_hash_probe_cuda(b, sg, fp, *tab, S)  # noqa
-    ms = time_ms(torch, kern_h, 200)
-    dev_ms = device_ms(torch, kern_h, 200)
+    kern_k = lambda: ops.legacy_hash_probe_keys_cuda(qh, *tab, S)  # noqa
+    kern_d = lambda: ops.legacy_hash_probe_cuda(b, sg, fp, *tab, S)  # noqa
+    route = lambda: ops.hash_probe(hidx, qh, cfg)  # noqa: E731
+    ms, ms_d, routed = (time_ms(torch, f, 200) for f in (kern_k, kern_d,
+                                                         route))
+    dev_ms, dev_d, routed_dev = (device_ms(torch, f, 200)
+                                 for f in (kern_k, kern_d, route))
     plain = time_ms(torch, lambda: ops.legacy_hash_probe_plain(
+        *hix.descriptors(hidx, qh), *tab, slots_per_bucket=S), 50)
+    plain_d = time_ms(torch, lambda: ops.legacy_hash_probe_plain(
         b, sg, fp, *tab, slots_per_bucket=S), 50)
-    routed = time_ms(torch, lambda: ops.hash_probe(hidx, qh, cfg), 200)
-    cs = hidx.sig.shape[1]
-    hits = int(h[1].sum())
-    # descriptors in and outputs out, one sig row a query, the fp and addr
-    # words of each hit
-    nbytes = Q * (12 + 12 + cs * 4) + hits * 8
-    bound, _, _ = bound_of(nbytes, 0)
-    log(f"kernel legacy_hash_probe: Q={Q} ({hits} hits): {ms:.4f} ms per "
-        f"call, device {dev_ms:.4f} ms, plain {plain:.4f} ms, routed "
-        f"ops.hash_probe (hashing included) {routed:.4f} ms; bound "
-        f"{bound:.6f} ms ({nbytes} B)")
+    nbytes, nbytes_d, hits = legacy_probe_work(torch, hidx, b, sg, fp, h)
+    bound, bound_d = (n / HBM_BYTES_PER_S * 1e3 for n in (nbytes, nbytes_d))
+    log(f"kernel legacy_hash_probe: Q={Q} ({hits} hits), keys in, hashed on "
+        f"the card: {ms:.4f} ms per call, device {dev_ms:.4f} ms, routed "
+        f"ops.hash_probe {routed:.4f} ms (device {routed_dev:.4f} ms), plain "
+        f"(descriptors + ref_hash_probe) {plain:.4f} ms; descriptors in: "
+        f"{ms_d:.4f} ms per call, device {dev_d:.4f} ms, plain "
+        f"{plain_d:.4f} ms; bound {bound:.6f} ms ({nbytes} B; descriptors "
+        f"in {bound_d:.6f} ms for {nbytes_d} B)")
+    lanes = re.findall(r"constexpr int W = (\d+);", (
+        ROOT / "src/repro_torch/kernels/csrc/legacy_hash_probe.cu").read_text())
+    check(len(lanes) == 1, "legacy_hash_probe.cu: its lanes a query")
+    log(f"kernel legacy_hash_probe: W = {lanes[0]} lanes a query, the "
+        f"faster of 4 and 8 on the H100 (PERF.md, section 6, row 7)")
     out.append(dict(name="legacy_hash_probe", route="cuda",
                     source="src/repro_torch/kernels/csrc/legacy_hash_probe.cu",
                     replaces=f"{LEGACY}/_hash_probe.py:77",
                     launches=launches["legacy_hash_probe"], max_abs_err=err_h,
                     ms=ms, plain_ms=plain, bound_ms=bound, bound_by="bytes",
-                    library_ms=None, device_ms=dev_ms, routed_ms=routed, Q=Q,
+                    library_ms=None, device_ms=dev_ms, routed_ms=routed,
+                    routed_device_ms=routed_dev, descriptors_in_ms=ms_d,
+                    descriptors_in_device_ms=dev_d,
+                    descriptors_in_plain_ms=plain_d,
+                    bound_descriptors_in_ms=bound_d, Q=Q,
                     rows_occ_ne_fill=rows_off))
 
     # the search: the bound is the larger of the bytes of the distinct
@@ -1065,7 +1099,7 @@ def dispatch_path(torch, cfg, wl, rng):
                         replaces=rep, launches=launches[name],
                         **{x: first[x] for x in (
                             "ms", "plain_ms", "bound_ms", "bound_by",
-                            "library_ms", "device_ms")},
+                            "library_ms", "device_ms", "library_device_ms")},
                         max_abs_err=max(x["max_abs_err"]
                                         for x in shapes.values()),
                         shapes=shapes))
@@ -1114,6 +1148,33 @@ def no_pdl_libs():
             getattr(libs[n], fn).argtypes = argtypes
             getattr(libs[n], fn).restype = restype
     return libs
+
+
+def legacy_probe_work(torch, hidx, b, sg, fp, h):
+    """The bytes the legacy probe must move on this run's queries: each
+    query's key in (4 B; 12 B of descriptors) and its outputs out (addr
+    and acc int32, found bool: 9 B; 12 B with found int32), and the
+    distinct 32 B sectors of the tables that the queries need: the sig
+    row up to the first match (the whole row on a miss, whose occ counts
+    it), the fp word of each slot up to there whose sig matches, and the
+    addr word of a hit.  Returns (keys in, descriptors in, hits)."""
+    Q = b.shape[0]
+    cs = hidx.sig.shape[1]
+    bl = b.long()
+    sig_m = hidx.sig[bl] == sg[:, None]
+    first = torch.argmax((sig_m & (hidx.fp[bl] == fp[:, None])).to(
+        torch.uint8), dim=1)
+    end = torch.where(h[1], first, cs - 1)
+    cols = torch.arange(cs, device=b.device)
+    upto = cols[None] <= end[:, None]
+    word = bl[:, None] * cs + cols[None]  # the slot's 4 B word in a table
+
+    def sectors(m):
+        return int(torch.unique(word[m] // 8).numel()) * 32
+
+    hit_at = h[1][:, None] & (cols[None] == end[:, None])
+    rows = sectors(upto) + sectors(sig_m & upto) + sectors(hit_at)
+    return Q * (4 + 9) + rows, Q * (12 + 12) + rows, int(h[1].sum())
 
 
 def pdl_on_off(torch, cfg, srt, pairs, batch):

@@ -85,6 +85,8 @@ SIGNATURES = {
     },
     "legacy_hash_probe": {
         "histore_legacy_hash_probe": ([P] * 9 + [I64, INT, INT, P], INT),
+        "histore_legacy_hash_probe_keys": ([P] * 7 + [I64, I64, INT, INT, P],
+                                           INT),
     },
     "legacy_sorted_search": {
         "histore_legacy_sorted_search": ([P] * 6 + [I64, I64, INT, INT, P],

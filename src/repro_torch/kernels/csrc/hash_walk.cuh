@@ -11,7 +11,8 @@
 // reads, a miss ceil(max(fill[b], 1) / S).  Every lane of the group must
 // call it; all get the same result.  W is each kernel's own constant,
 // chosen on the card on the traffic its path runs (PERF.md §6):
-// hash_probe.cu 4, group_probe.cu 2.
+// hash_probe.cu 4, group_probe.cu 2.  legacy_hash_probe.cu walks its rows
+// with load_slots too, under its own miss rule.
 #pragma once
 
 #include <stdint.h>

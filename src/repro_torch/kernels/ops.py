@@ -34,7 +34,8 @@ stream, raises on a nonzero launch status, and adds one to
 The legacy wrappers ``hash_probe`` / ``sorted_search`` / ``sort_pairs``
 (the JAX package's per-query DMA kernels and its bitonic network) sit at
 the bottom with JAX's signatures.  As in JAX they ignore
-``cfg.use_kernels``: a CUDA tensor launches their kernel, a CPU tensor
+``cfg.use_kernels``: a CUDA tensor launches their kernel (the legacy
+probe's, too, takes the keys and hashes them on the card), a CPU tensor
 takes its plain version (``legacy_hash_probe_plain``,
 ``legacy_sorted_search_plain``, ``bitonic_sort_plain``).
 """
@@ -448,11 +449,36 @@ def bitonic_sort_cuda(keys, vals):
     return ok, ov
 
 
+def legacy_hash_probe_keys_cuda(keys, sig, fp, addr, slots_per_bucket: int):
+    """keys: [Q] int32 (hashed on the card, the bucket h1 & (nb - 1) as
+    ``hashing.descriptors`` takes it for any nb); sig/fp/addr: [nb, CS]
+    int32 (no fill: a miss counts the row's nonzero signatures).  Returns
+    (addr int32, found bool, n_accesses int32)."""
+    _check("keys", keys, I32)
+    for n, t in (("sig", sig), ("fp", fp), ("addr", addr)):
+        _check(n, t, I32, 2)
+    if fp.shape != sig.shape or addr.shape != sig.shape:
+        raise ValueError("legacy_hash_probe: inconsistent table shapes")
+    nb, cs = sig.shape
+    Q = keys.shape[0]
+    out = torch.empty((2, Q), dtype=I32, device=keys.device)
+    found = torch.empty((Q,), dtype=torch.bool, device=keys.device)
+    st = _launch(keys.device,
+                 _c("legacy_hash_probe", "histore_legacy_hash_probe_keys"),
+                 keys.data_ptr(), sig.data_ptr(), fp.data_ptr(),
+                 addr.data_ptr(), out[0].data_ptr(), found.data_ptr(),
+                 out[1].data_ptr(), Q, nb, cs, slots_per_bucket)
+    _raise_on(st, "legacy_hash_probe")
+    LAUNCHES["legacy_hash_probe"] += 1
+    return out[0], found, out[1]
+
+
 def legacy_hash_probe_cuda(bucket, qsig, qfp, sig, fp, addr,
                            slots_per_bucket: int):
-    """bucket/qsig/qfp: [Q] int32 descriptors; sig/fp/addr: [nb, CS]
-    int32 (no fill: a miss counts the row's nonzero signatures).
-    Returns (addr, found int32, n_accesses), each [Q] int32."""
+    """The counterpart of JAX's ``hash_probe_kernel``, which takes
+    descriptors: bucket/qsig/qfp: [Q] int32; sig/fp/addr: [nb, CS] int32
+    (no fill: a miss counts the row's nonzero signatures).  Returns
+    (addr, found int32, n_accesses), each [Q] int32."""
     for n, t in (("bucket", bucket), ("qsig", qsig), ("qfp", qfp)):
         _check(n, t, I32)
     for n, t in (("sig", sig), ("fp", fp), ("addr", addr)):
@@ -742,15 +768,15 @@ def group_probe_stacked(cfg, hidx, bsorted, blog, rk):
 
 
 def sort(cfg, keys, vals):
-    """Rowwise STABLE (key, payload) sort of [R, T] -> (keys, vals).
-    Bit-exact with a stable argsort + gather.  On the card the keys must
-    be int32 (the JAX package's x32 keys) and the payload comes back as
-    int32, as JAX casts it on its kernel path; any R and T."""
-    if not kernels_enabled(cfg, keys.device):
+    """Rowwise STABLE (key, payload) sort of [R, T] -> (keys, vals), any R
+    and T.  Bit-exact with a stable argsort + gather.  The JAX package's
+    per-dtype rule: its ``sort`` sends only int32 keys to its kernel and
+    sorts any other key dtype with a stable argsort and take_along_axis.
+    So on the card int32 keys launch the kernel and the payload comes back
+    as int32, as JAX casts it on its kernel path; keys of any other dtype
+    take ``sort_stable_plain`` and the payload keeps its dtype."""
+    if not kernels_enabled(cfg, keys.device) or keys.dtype != I32:
         return sort_stable_plain(keys, vals)
-    if keys.dtype != I32:
-        raise TypeError(f"sort: the kernel sorts int32 keys, got "
-                        f"{keys.dtype}")
     return sort_stable_cuda(keys.contiguous(), vals.to(I32).contiguous())
 
 
@@ -762,20 +788,19 @@ def hash_probe(index, keys, cfg, *, q_block: int = 256):
     """GET probe through the legacy per-query kernel.  index: HashIndex;
     keys: [Q].  Returns (addr, found bool, n_accesses); a miss counts
     ceil(occ / S) reads with occ the chain row's nonzero signatures (the
-    fill the index keeps, so on its tables it equals ``probe``).
-    ``q_block`` is JAX's query tile: the card needs none, any Q is
-    taken."""
+    fill the index keeps, so on its tables it equals ``probe``).  On the
+    card the kernel hashes the keys (one launch).  ``q_block`` is JAX's
+    query tile: the card needs none, any Q is taken."""
     if q_block < 1:
         raise ValueError(f"hash_probe: q_block must be >= 1, got {q_block}")
-    b, sig, fp = hix.descriptors(index, keys)
     if keys.is_cuda:
-        addr, found, acc = legacy_hash_probe_cuda(
-            b, sig, fp, index.sig, index.fp, index.addr,
+        return legacy_hash_probe_keys_cuda(
+            keys.to(I32).contiguous(), index.sig, index.fp, index.addr,
             cfg.slots_per_bucket)
-    else:
-        addr, found, acc = legacy_hash_probe_plain(
-            b, sig, fp, index.sig, index.fp, index.addr,
-            slots_per_bucket=cfg.slots_per_bucket)
+    b, sig, fp = hix.descriptors(index, keys)
+    addr, found, acc = legacy_hash_probe_plain(
+        b, sig, fp, index.sig, index.fp, index.addr,
+        slots_per_bucket=cfg.slots_per_bucket)
     return addr, found.bool(), acc
 
 

@@ -92,6 +92,75 @@ def test_hash_probe_chain_shapes_sweep(spb, chain):
     np.testing.assert_array_equal(got[0].numpy(), keys)
 
 
+EDGE_KEYS = [0, -1, 2 ** 31 - 1, -2 ** 31]
+
+
+def _planted_table(rng, nb, cs, n):
+    """A hash table made by hand, as int32 numpy arrays (sig, fp, addr,
+    fill): rows of empty slots, tombstones and other keys' signatures, then
+    n distinct keys (the int32 edges among them) each planted at a random
+    slot of its bucket h1 & (nb - 1), any nb; a tenth of them planted again
+    later in the row with another addr (the first slot wins), a tenth behind
+    a decoy with their sig and another fp.  fill is drawn apart from the
+    rows, so occ != fill on most rows.  Returns (keys, table)."""
+    from repro_torch.core import hashing
+
+    keys = np.unique(np.concatenate([EDGE_KEYS, rng.integers(
+        -2 ** 31, 2 ** 31, 2 * n)]).astype(np.int32))
+    keys = np.concatenate([EDGE_KEYS, rng.permutation(
+        np.setdiff1d(keys, EDGE_KEYS))])[:n].astype(np.int32)
+    b, sg, fp = (x.numpy() for x in hashing.descriptors(_t(keys), nb))
+    kind = rng.choice(3, (nb, cs), p=[0.4, 0.3, 0.3])
+    sig = np.where(kind == 0, 0, np.where(
+        kind == 1, -1, rng.integers(0, 2 ** 30, (nb, cs)) * 2 + 1))
+    tfp = rng.integers(-2 ** 31, 2 ** 31, (nb, cs))
+    addr = np.where(sig == 0, -1, rng.integers(0, 2 ** 24, (nb, cs)))
+    taken = np.zeros((nb, cs), bool)
+    for i in range(n):
+        free = np.flatnonzero(~taken[b[i]])
+        m = min(len(free), 1 + (i % 10 == 1) + (i % 10 == 2))
+        if m == 0:
+            continue
+        slots = np.sort(rng.choice(free, m, replace=False))
+        taken[b[i], slots] = True
+        if i % 10 == 2 and m == 2:       # a decoy before the key
+            sig[b[i], slots[0]], tfp[b[i], slots[0]] = sg[i], fp[i] ^ 1
+            slots = slots[1:]
+        sig[b[i], slots], tfp[b[i], slots] = sg[i], fp[i]
+        addr[b[i], slots] = i * 10 + np.arange(len(slots))
+    fill = rng.integers(0, cs + 1, nb)
+    return keys, [x.astype(np.int32) for x in (sig, tfp, addr, fill)]
+
+
+@pytest.mark.parametrize("nb,cs,S", [(64, 32, 8), (12, 6, 3), (16, 12, 4)])
+def test_hash_probe_on_planted_tables_matches_pallas(nb, cs, S):
+    """The keys-in route on tables made by hand (_planted_table: the int32
+    edges 0, -1, 2**31 - 1 and -2**31 among the keys, duplicates, decoys
+    with the key's sig and another fp, tombstones, occ != fill), at the
+    DEFAULT row (cs 32), a cs that is not a multiple of 4 over a bucket
+    count that is not a power of two, and cs 12: equal to JAX's legacy
+    kernel in interpret mode.  addr and found equal ``ops.probe``'s; acc
+    differs from it on misses whose row has occ != fill, as in JAX."""
+    rng = np.random.default_rng(nb * cs)
+    keys, tab = _planted_table(rng, nb, cs, nb * cs // 3)
+    q = np.concatenate([keys, rng.integers(-2 ** 31, 2 ** 31, 100)]
+                       ).astype(np.int32)
+    rng.shuffle(q)
+    cfg = scaled(use_kernels="on", slots_per_bucket=S, max_chain=cs // S)
+    jcfg = jscaled(use_kernels="on", slots_per_bucket=S, max_chain=cs // S)
+    th = hix.HashIndex(*[_t(a) for a in tab])
+    got = ops.hash_probe(th, _t(q), cfg)
+    _eq(got, jops.hash_probe(jhix.HashIndex(*[jnp.asarray(a) for a in tab]),
+                             jnp.asarray(q), jcfg, q_block=64),
+        f"hash_probe planted nb={nb} cs={cs}")
+    want = ops.probe(cfg, th, _t(q))
+    _eq(got[:2], want[:2], "hash_probe vs probe: addr and found")
+    miss = ~got[1]
+    assert bool(got[1].any()) and bool(miss.any())
+    assert bool((got[2][miss] != want[2][miss]).any())
+    assert np.isin(EDGE_KEYS[:2], q[got[1].numpy()]).all()
+
+
 # ---------------------------------------------------------------------------
 # sorted_search: the legacy per-level descent
 # ---------------------------------------------------------------------------
@@ -160,6 +229,26 @@ def test_sort_matches_pallas(R, T, hi, extremes):
     _eq(ref.ref_sort_pairs_stable(torch.as_tensor(keys),
                                   torch.as_tensor(vals)), got,
         "torch ref_sort_pairs_stable")
+
+
+@pytest.mark.parametrize("keys,vals", [
+    pytest.param(np.array([[3, 1, 2, 1]], np.int16),
+                 np.array([[1, 3, 2, 0]], np.int16), id="int16"),
+    pytest.param(np.array([[0.5, -1.25, 2.0, 0.5, -7.0, -1.25, 3.5, 0.5],
+                           [1.0, 1.0, -2.0, 8.0, -2.0, 0.25, 1.0, -9.5]],
+                          np.float32),
+                 np.arange(16, dtype=np.int32).reshape(2, 8), id="float32")])
+def test_sort_answers_non_int32_keys_as_jax(keys, vals):
+    """JAX's sort with kernels on sends only int32 keys to its kernel and
+    sorts any other dtype with a stable argsort + take_along_axis, so the
+    payload keeps its dtype: the port's sort under use_kernels="on" gives
+    JAX's keys and payloads, dtypes included, on int16 keys and on float32
+    keys with ties and negatives."""
+    got = ops.sort(CFG, _t(keys), _t(vals))
+    want = jops.sort(JCFG, jnp.asarray(keys), jnp.asarray(vals))
+    _eq(got, want, f"sort {keys.dtype} keys")
+    for x, y in zip(got, want):
+        assert x.numpy().dtype == np.asarray(y).dtype
 
 
 @pytest.mark.parametrize("rows,T", [(8, 64), (16, 256), (4, 1024)])
@@ -436,26 +525,76 @@ def cuda_device():
     return torch.device("cuda")
 
 
+def _cuda_legacy_probe_check(th, q, S, label):
+    """Both entries of the legacy probe on the card against ref_hash_probe:
+    the keys-in one through ops.hash_probe (one launch) and the
+    descriptor-in one.  Returns the keys-in result."""
+    b, s, f = hix.descriptors(th, q)
+    want = ops.legacy_hash_probe_plain(b, s, f, th.sig, th.fp, th.addr,
+                                       slots_per_bucket=S)
+    cfg = scaled(use_kernels="on", slots_per_bucket=S)
+    got = _launched("legacy_hash_probe", lambda: ops.hash_probe(th, q, cfg))
+    assert got[1].dtype == torch.bool
+    _eq((got[0], got[1].to(torch.int32), got[2]), want,
+        f"cuda legacy hash_probe, keys in, {label}")
+    _eq(_launched("legacy_hash_probe", lambda: ops.legacy_hash_probe_cuda(
+        b, s, f, th.sig, th.fp, th.addr, S)), want,
+        f"cuda legacy hash_probe, descriptors in, {label}")
+    return got
+
+
 @pytest.mark.requires_cuda
 def test_cuda_legacy_probe_and_search_match_plain(cuda_device):
-    """The legacy hash probe and search kernels against their plain
-    versions, and against ops.probe and ops.search, on the card."""
+    """The legacy hash probe's two entries (keys in, hashed on the card,
+    and descriptors in) and the legacy search kernel against their plain
+    versions, and against ops.probe and ops.search, on the card: the
+    probe at Q = 1, 300 and 9000 on an index's table and on a view of it
+    that is not 16-byte aligned (the scalar loads), on tables made by
+    hand (_planted_table) at cs 32, 6 (not a multiple of 4, over 12
+    buckets) and 12, where occ != fill and the legacy acc differs from
+    ops.probe's on misses, and on the index's table with tombstones past
+    each row's fill."""
     rng = np.random.default_rng(21)
     keys, _, th = _hash_state(rng, cap=1 << 14, n=6000, n_del=1000)
     th = hix.HashIndex(*[a.to(cuda_device) for a in th])
+    buf = torch.zeros(th.sig.numel() + 1, dtype=torch.int32,
+                      device=cuda_device)
+    buf[1:] = th.sig.flatten()
+    th_off = th._replace(sig=buf[1:].view(th.sig.shape))
     for Q in (1, 300, 9000):
         q = torch.as_tensor(np.concatenate(
             [rng.choice(keys, Q - Q // 2), rng.integers(0, 2 ** 31 - 1,
                                                         Q // 2)]
         ).astype(np.int32), device=cuda_device)
-        got = _launched("legacy_hash_probe",
-                        lambda: ops.hash_probe(th, q, CFG))
-        b, s, f = hix.descriptors(th, q)
-        _eq((got[0], got[1].to(torch.int32), got[2]),
-            ops.legacy_hash_probe_plain(b, s, f, th.sig, th.fp, th.addr,
-                                        slots_per_bucket=8),
-            f"cuda legacy hash_probe Q={Q}")
+        got = _cuda_legacy_probe_check(th, q, 8, f"Q={Q}")
         _eq(got, hix.lookup(th, q, CFG), f"cuda legacy vs lookup Q={Q}")
+        _eq(_cuda_legacy_probe_check(th_off, q, 8, f"unaligned Q={Q}"), got,
+            f"cuda legacy unaligned vs aligned Q={Q}")
+    for nb, cs, S in ((64, 32, 8), (12, 6, 3), (16, 12, 4), (1024, 32, 8)):
+        pk, tab = _planted_table(rng, nb, cs, nb * cs // 3)
+        tp = hix.HashIndex(*[_t(a).to(cuda_device) for a in tab])
+        for Q in (1, 300, 9000):
+            q = torch.as_tensor(np.concatenate(
+                [rng.choice(pk, Q - Q // 2), rng.integers(
+                    -2 ** 31, 2 ** 31, Q // 2)]).astype(np.int32),
+                device=cuda_device)
+            _cuda_legacy_probe_check(tp, q, S, f"planted nb={nb} cs={cs} "
+                                               f"Q={Q}")
+    # tombstones past each row's fill: occ != fill, so the legacy acc
+    # differs from ops.probe's on misses in those rows, addr and found not
+    sig = th.sig.clone()
+    cols = torch.arange(sig.shape[1], device=cuda_device)
+    past = (cols >= th.fill[:, None]) & (cols < th.fill[:, None] + 16)
+    sig[past & (torch.arange(sig.shape[0], device=cuda_device) % 2 == 0)[
+        :, None]] = hix.TOMBSTONE
+    tt = th._replace(sig=sig)
+    q = torch.as_tensor(np.concatenate([rng.choice(keys, 4500), rng.integers(
+        0, 2 ** 31 - 1, 4500)]).astype(np.int32), device=cuda_device)
+    got = _cuda_legacy_probe_check(tt, q, 8, "tombstones past fill")
+    want = ops.probe(CFG, tt, q)
+    _eq(got[:2], want[:2], "cuda legacy vs probe past fill: addr, found")
+    miss = ~got[1]
+    assert bool((got[2][miss] != want[2][miss]).any())
     for cap, n in ((1, 0), (300, 137), (1 << 16, 40000)):
         skeys, _, ts = _sorted_state(rng, cap, n)
         ts = six.SortedIndex(*[a.to(cuda_device) for a in ts])
@@ -480,7 +619,8 @@ def test_cuda_sorts_match_plain(cuda_device):
     """Both sorts against their plain versions with keys in [0, 1024) and
     distinct payloads: rows that fit in shared memory, rows that take
     the global passes (65536 and 2**17), and for the stable sort rows
-    whose T is not a power of two."""
+    whose T is not a power of two; then ops.sort on int64, int16 and
+    float32 keys, which takes the plain version as JAX does."""
     rng = np.random.default_rng(23)
     for R, T in SORT_SHAPES:
         k = torch.as_tensor(rng.integers(0, 1024, (R, T)).astype(np.int32),
@@ -492,8 +632,15 @@ def test_cuda_sorts_match_plain(cuda_device):
         if T & (T - 1) == 0:
             _eq(_launched("bitonic_sort", lambda: ops.sort_pairs(k, v)),
                 ops.bitonic_sort_plain(k, v), f"cuda sort_pairs [{R}, {T}]")
-    with pytest.raises(TypeError):
-        ops.sort(CFG, k.to(torch.int64), v)
+    # keys of another dtype take JAX's stable argsort + gather, launch
+    # nothing and keep the payload's dtype
+    for k2, v2 in ((k.to(torch.int64), v), (k.to(torch.int16), v.to(
+            torch.int16)), (k.to(torch.float32) - 512.5, v)):
+        n0 = ops.LAUNCHES["sort_stable"]
+        got = ops.sort(CFG, k2, v2)
+        assert ops.LAUNCHES["sort_stable"] == n0
+        _eq(got, ops.sort_stable_plain(k2, v2), f"cuda sort {k2.dtype} keys")
+        assert got[0].dtype == k2.dtype and got[1].dtype == v2.dtype
     torch.cuda.synchronize()
 
 
