@@ -102,6 +102,49 @@
    Q = 16384 with replicas selected for about half the lanes, pending
    windows set to wrap the ring, q = 2**31 - 1 among the queries, timed
    as in 6 and split by kernel.
+9b. The distributed store's failure handling (the phase 7 store has left
+   the card): HiStoreClient(DistributedBackend(8, DEFAULT, 2**21,
+   capacity_q=1024)), the paper's config as users run it (leases on,
+   wall clock, 1.0 s), 2**21 keys loaded as in 7 (half of phase 7's
+   load: 2**22 made the phase 45 s longer, 17-22 s of it a second load
+   of phase 7's shape), launch counts set to 0 after the load, every
+   answer checked against a model of its own.
+   (1) Index server 3 fails (oracle): FailResult(3, True); a PUT chunk
+   reports one replica fewer for groups 1 and 2 and full replication for
+   the groups server 3 holds nothing of; a degraded read-back of every
+   key (GET/s, the share with hops == 2); 4 degraded mixed rounds as in
+   7, every SCAN complete; each degraded PUT and DELETE chunk launches
+   the group probe exactly once per attempt.  (2) The group probe against
+   its plain version on the last degraded GET chunk as routed (lanes of
+   group 3 at server 4 selecting replica 0), every server's six halves
+   equal, timed per call, on the device and routed (row 5's ``degraded``
+   record; run before the recoveries, so the captured store leaves the
+   card at once, its launches not counted and its seconds kept out of
+   the phase's).  (3) recover_server(3) online, the rebuild, the
+   re-replication pass and the migration timed apart (the client
+   migrates only when told to in this phase); strays move home (moved >
+   0) and a read-back finds every key in one hop.  (4) Data server 5
+   fails: GETs of its shard come from the mirror (hops 2), PUTs to group
+   5 land one hop on (shard 6); recover_data_server(5) with its sweep and
+   the migration timed; a one-hop read-back.  (5) Adjacent servers 3 and
+   4 fail: a SCAN reports group 2 missing (complete False) and returns
+   the other groups' keys of its range; recover_server(3) rebuilds group
+   2's copy from its hash and the data items' keys (the multi-failure
+   fallback, its log left empty), then 4; a read-back; then replica 1 of
+   group 2 on server 4 is set back to its copy from before the double
+   failure (a stale copy: the protocol's own recoveries leave none), and
+   recover_server(4) on the live server must re-replicate it (>= 1
+   copy).  (6) sever_server(6) under continued GET traffic, no oracle
+   call, severed right after a GET round: demoted by the wall-clock
+   lease (the seconds from the sever and from the last heartbeat the
+   client saw logged, the latter at least lease_timeout_s), detected ==
+   [6], recovered; then sever_data_server(1) likewise, detected_data ==
+   [1] and still detected == [6], a displaced PUT chunk, recovered.  (7)
+   A drain and ``parity_report``: every entry and the value-slot audit
+   agree, the live count equals the model's; a one-hop read-back.  The
+   group probe, hash probe, merge and search must each have launched;
+   the phase's seconds and peak memory are logged; every kernel record
+   gets ``launches_dist_faults``.
 10. The serving path of falcon-mamba-7b (configs/falcon_mamba_7b.py) at
     full width and depth in bf16, the weights drawn on the card from
     ``--seed`` (parameter count and peak memory logged): a warm-up
@@ -163,6 +206,8 @@ DIST_CAPACITY_Q = 1024           # exchange slots per destination: a
 #                                  16384-key chunk sends ~256 per pair
 DIST_KEYS = 1 << 22               # distinct keys the distributed store loads
 DIST_KERNELS = ("group_probe", "hash_probe", "merge", "sorted_search")
+FAULT_KEYS = 1 << 21             # distinct keys the phase 9b store loads
+FAULT_DIST_FRESH = 8 * CHUNK     # fresh keys phase 9b writes after the load
 FUSED = "src/repro/kernels/_fused.py"
 LEGACY = "src/repro/kernels"
 DISPATCH_KERNELS = ("legacy_hash_probe", "legacy_sorted_search",
@@ -362,7 +407,11 @@ class Workload:
         return g
 
     def check_get(self, keys, label):
-        r = self.client.get(keys)
+        return self.check_answers(self.client.get(keys), keys, label)
+
+    def check_answers(self, r, keys, label):
+        """Hold a GetResult for ``keys`` to the model; returns the live
+        hits."""
         want_found, i = self.model.is_live(keys)
         found = r.found.cpu().numpy()
         check(np.array_equal(found, want_found),
@@ -395,6 +444,8 @@ class Workload:
         lo = int(self.rng.choice(self.model.keys))
         hi = lo + int(self.rng.integers(1, 2 ** 16))
         s = self.client.scan(lo, hi, 128)
+        check(s.complete is not False, f"{label}: SCAN missed groups "
+              f"{s.missing_groups}")
         n = int(s.count)
         want_keys = self.model.scan(lo, hi, 128)
         check(n == len(want_keys) and np.array_equal(
@@ -1658,53 +1709,23 @@ def compare_group_probe(torch, wl, cfg, launches, probe_at):
     model, rng = wl.model, wl.rng
     G, lcap = DIST_GROUPS, cfg.log_capacity
     S, fo = cfg.slots_per_bucket, cfg.fanout
-    st, gkeys = probe_at
-    dev = st.hb.device
+    dev = probe_at[0].hb.device
     gp = pad_server(torch, G, dev)
 
     # -- the GET chunk: one call for the G servers --------------------------
-    kt = torch.as_tensor(gkeys, device=dev).reshape(G, -1)
-    rk, _, _ = kv.get_exchange(st, kt, torch.ones_like(kt, dtype=torch.bool),
-                               G, DIST_CAPACITY_Q)
-    Q = rk.shape[1]
-    state = (st.hash, st.bsorted, st.blog)
-    got = ops.group_probe_stacked(cfg, *state, rk)
-    err = max_abs_err(torch, got, ops.group_probe_stacked_plain(
-        cfg, *state, rk), "group_probe GET chunk")
-    work = []
-    for g in range(G):
-        hidx, srt, blogs, sel = ops.server_inputs(*state, rk[g], g)
-        err = max(err, max_abs_err(
-            torch, [t[g] for t in got[:6]],
-            ops.group_probe_plain(cfg, hidx, srt, blogs, rk[g], sel),
-            f"group_probe GET server {g}"))
-        work.append(group_work(torch, rk[g].cpu().numpy(), sel.cpu().numpy(),
-                               hidx, srt, blogs, cfg, selects_in=False,
-                               n_out=7))
-
-    def kern():
-        return ops.group_probe_cuda(rk, None, *state, S, fo)
-
-    ms = time_ms(torch, kern, 200)
-    dev_ms = device_ms(torch, kern, 200)
-    routed = time_ms(torch, lambda: ops.group_probe_stacked(cfg, *state, rk),
-                     200)
-    plain = time_ms(torch, lambda: ops.group_probe_stacked_plain(
-        cfg, *state, rk), 3, warmup=1)
+    err, c, kern = probe_get_chunk(torch, cfg, probe_at, "GET chunk")
     split = kernel_split(torch, kern, "kernel group_probe: GET chunk")
-    b_bytes, b_n = sum(w[0] for w in work), sum(w[1] for w in work)
-    bound, bb_ms, bo_ms = bound_of(b_bytes, b_n)
-    n_pad = int((rk == 2 ** 31 - 1).sum())
-    n_sel = int(sum((ops.replica_select(got[6][g], g, G, cfg.n_backups)
-                     != 0).any(1).sum() for g in range(G)))
-    log(f"kernel group_probe: a GET chunk of {len(gkeys)} keys, one call "
-        f"for {G} servers of Q={Q}, every server equal to its plain result; "
-        f"{n_pad} padding lanes, {n_sel} selecting a replica: {ms:.4f} ms "
-        f"per call, device {dev_ms:.4f} ms, routed (from the exchange "
-        f"buffers, hashing on the card) {routed:.4f} ms, plain {plain:.4f} "
-        f"ms, bound {bound:.6f} ms (bytes {bb_ms:.6f} ms for {b_bytes} B, "
-        f"operations {bo_ms:.6f} ms for {b_n}); the split's spans "
-        f"{sum(split.values()) / dev_ms:.0%} of the call's device time")
+    log(f"kernel group_probe: a GET chunk of {len(probe_at[1])} keys, one "
+        f"call for {G} servers of Q={c['Q']}, every server equal to its "
+        f"plain result; {c['padding_lanes']} padding lanes, "
+        f"{c['selecting_lanes']} selecting a replica: {c['ms']:.4f} ms per "
+        f"call, device {c['device_ms']:.4f} ms, routed (from the exchange "
+        f"buffers, hashing on the card) {c['routed_ms']:.4f} ms, plain "
+        f"{c['plain_ms']:.4f} ms, bound {c['bound_ms']:.6f} ms (bytes "
+        f"{c['bound_bytes_ms']:.6f} ms for {c['bytes']} B, operations "
+        f"{c['bound_ops_ms']:.6f} ms for {c['operations']}); the split's "
+        f"spans {sum(split.values()) / c['device_ms']:.0%} of the call's "
+        f"device time")
 
     # -- one group at Q = 16384, half the lanes selecting, wrapped windows --
     store = wl.client.backend.store
@@ -1774,16 +1795,435 @@ def compare_group_probe(torch, wl, cfg, launches, probe_at):
     return dict(name="group_probe", route="cuda",
                 source="src/repro_torch/kernels/csrc/group_probe.cu",
                 replaces=f"{FUSED}:332", launches=launches["group_probe"],
-                max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=bound,
-                bound_by="bytes" if bb_ms >= bo_ms else "operations",
-                library_ms=None, device_ms=dev_ms, routed_ms=routed, G=G,
-                Q=Q, padding_lanes=n_pad,
-                selecting_lanes=n_sel, device_ms_by_kernel=split,
+                max_abs_err=err, ms=c["ms"], plain_ms=c["plain_ms"],
+                bound_ms=c["bound_ms"], bound_by=c["bound_by"],
+                library_ms=None, device_ms=c["device_ms"],
+                routed_ms=c["routed_ms"], G=G, Q=c["Q"],
+                padding_lanes=c["padding_lanes"],
+                selecting_lanes=c["selecting_lanes"],
+                device_ms_by_kernel=split,
                 mixed_device_ms_by_kernel=m_split,
                 mixed_Q=QM, mixed_ms=m_ms,
                 mixed_device_ms=m_dev, mixed_device_ms_none_selected=m_none,
                 mixed_plain_ms=m_plain, mixed_bound_ms=m_bound,
                 mixed_operations=n_ops)
+
+
+def counted_write(torch, client, ops, fn, label):
+    """Run one degraded PUT or DELETE chunk; the group probe must launch
+    exactly once for each attempt (the first and each retry)."""
+    n0, r0 = ops.LAUNCHES["group_probe"], client.stats["retries"]
+    out = fn()
+    n, tries = ops.LAUNCHES["group_probe"] - n0, client.stats["retries"] - r0
+    check(n == 1 + tries, f"{label}: {n} group probe launches for "
+          f"{1 + tries} attempts")
+    return out
+
+
+def dist_faults(torch, cfg, rng):
+    """Phase 9b: the distributed store's failure handling on the card,
+    with the paper's config as users run it (leases on, wall clock).
+    Returns (launches, timings, the group probe's max abs error and its
+    ``degraded`` record)."""
+    from repro_torch.core import kvstore as kv
+    from repro_torch.core import log as lg
+    from repro_torch.core import tree
+    from repro_torch.core.client import DistributedBackend, HiStoreClient
+    from repro_torch.kernels import mamba_scan as mscan
+    from repro_torch.kernels import ops
+
+    G, B, R = DIST_GROUPS, CHUNK, cfg.n_backups
+    n_load = FAULT_KEYS
+    need = n_load + FAULT_DIST_FRESH
+    uniq = np.unique(rng.integers(0, 2 ** 31 - 1, int(need * 1.02) + 1024))
+    check(len(uniq) >= need, "not enough distinct keys drawn")
+    keys_all = uniq[rng.permutation(len(uniq))[:need]].astype(np.int32)
+    load_keys = keys_all[:n_load]
+    model = Model(keys_all, cfg.value_words)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t_phase = time.perf_counter()
+    backend = DistributedBackend(G, cfg, DIST_CAPACITY,
+                                 capacity_q=DIST_CAPACITY_Q, device="cuda")
+    # the phase times recovery, re-replication and migration apart, so
+    # the client migrates when told to (client.migrate()), not on recovery
+    client = HiStoreClient(backend, migrate_on_recover=False)
+    dev = backend.device
+    wl = Workload(torch, client, model, rng, keys_all[n_load:])
+    own_all = kv.owner_group(torch.as_tensor(model.keys, device=dev),
+                             G).cpu().numpy()
+
+    def own(keys):
+        return own_all[model.at(keys)]
+
+    def sync_s(t0):
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0
+
+    def chunk_put(label, keys=None):
+        p = keys if keys is not None else np.concatenate(
+            [wl.sample(wl.live_keys(), B // 2), wl.take_fresh(B // 2)])
+        vals = wl.new_vals(len(p))
+        r = counted_write(torch, client, ops,
+                          lambda: client.put(p, vals), label)
+        check(bool(r.ok.all()), f"{label}: PUT not acknowledged")
+        model.put(p, vals)
+        return p, r
+
+    def chunk_delete(label):
+        d = np.concatenate([wl.sample(wl.live_keys(), 3 * B // 16),
+                            wl.absent(B // 16)])
+        rng.shuffle(d)
+        return counted_write(torch, client, ops,
+                             lambda: wl.delete(d, label), label), d
+
+    def read_back(label, hops=None):
+        """Workload.read_back, keeping the GetResult for its hops."""
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        r = client.get(model.keys)
+        hits = wl.check_answers(r, model.keys, label)
+        t = sync_s(t0)
+        check(hits == int(model.live.sum()), f"{label}: hit count")
+        h, f = r.hops.cpu().numpy(), r.found.cpu().numpy()
+        n2 = int((h[f] == 2).sum())
+        if hops is not None:
+            check(bool((h[f] == hops).all()), f"{label}: hops != {hops} on "
+                  f"{int((h[f] != hops).sum())} keys")
+        log(f"dist-faults: {label}: {len(model.keys)} keys ({hits} live) in "
+            f"{t:.3f} s ({len(model.keys) / t:.0f} GET/s), {n2} of {hits} "
+            f"found with hops == 2 ({n2 / max(hits, 1):.1%})")
+        return len(model.keys) / t, n2
+
+    log(f"dist-faults: DistributedBackend({G} groups x {DIST_CAPACITY}, "
+        f"capacity_q {DIST_CAPACITY_Q}), lease_misses {backend.lease_misses}"
+        f", {backend.lease_clock} clock, lease_timeout_s "
+        f"{backend.lease_timeout_s}")
+    t0 = time.perf_counter()
+    vals = wl.new_vals(n_load)
+    r = client.put(load_keys, vals)
+    ok = r.ok.cpu().numpy()
+    t_load = sync_s(t0)
+    check(ok.all(), f"dist-faults load: {(~ok).sum()} PUTs not acknowledged")
+    model.put(load_keys, vals)
+    log(f"dist-faults: loaded {n_load} keys in {t_load:.3f} s "
+        f"({n_load / t_load:.0f} PUT/s, leases on)")
+    times = dict(load_s=t_load, put_per_s=n_load / t_load)
+    zero_launches(ops)
+    zero_launches(mscan)
+
+    # -- 1. index server 3 fails (oracle) ----------------------------------
+    fr = client.fail_server(3)
+    check(tuple(fr) == (3, True), f"fail_server(3) answered {fr}")
+    p, r = chunk_put("dist-faults PUT, server 3 down")
+    o, rep = own(p), r.replicas.cpu().numpy()
+    held = np.isin(o, [1, 2])
+    check(bool((rep[held] == R - 1).all()),
+          "groups 1 and 2 (server 3 holds a replica) must report "
+          f"{R - 1} replicas")
+    check(bool((rep[~held & (o != 3)] == R).all()),
+          f"the groups server 3 holds nothing of must report {R}")
+    log(f"dist-faults: server 3 down ({fr}): PUT replicas {R - 1} for "
+        f"groups 1, 2 ({int(held.sum())} keys), {R} for groups 0, 4-7, "
+        f"{sorted(set(rep[o == 3].tolist()))} for group 3 at its temporary "
+        f"primary")
+    times["degraded_get_per_s"], times["degraded_hops2"] = read_back(
+        "degraded read-back, server 3 down")
+    t0 = time.perf_counter()
+    scans = 0
+    for rnd in range(DEGRADED_ROUNDS):
+        chunk_put(f"dist-faults degraded round {rnd}")
+        _, d = chunk_delete(f"dist-faults degraded round {rnd}")
+        g = wl.get_mix(B)
+        if rnd == DEGRADED_ROUNDS - 1:
+            probe_at = (backend.store, g)
+        wl.check_get(g, f"dist-faults degraded round {rnd} GET")
+        client.apply()
+        backend.gc_round()
+        for _ in range(SCANS):
+            wl.scan(f"dist-faults degraded round {rnd}")
+            scans += 1
+        wl.check_get(d, f"dist-faults degraded round {rnd} GET after DELETE")
+    times["degraded_rounds_s"] = sync_s(t0)
+    log(f"dist-faults: {DEGRADED_ROUNDS} degraded rounds in "
+        f"{times['degraded_rounds_s']:.3f} s ({scans} SCANs complete, group "
+        f"2's served by its replica 1; one group probe launch per attempt "
+        f"of each PUT and DELETE chunk)")
+
+    # -- 2. the group probe against its plain version, on that GET chunk ---
+    # (its launches are not the phase's; the captured store leaves the card
+    # before the recoveries, and the comparison's seconds and peak are kept
+    # out of the phase's)
+    counts, peak = dict(ops.LAUNCHES), torch.cuda.max_memory_allocated()
+    t0 = time.perf_counter()
+    err, degraded = compare_group_probe_degraded(torch, cfg, probe_at)
+    del probe_at
+    torch.cuda.empty_cache()
+    t_cmp = sync_s(t0)
+    ops.LAUNCHES.update(counts)
+    torch.cuda.reset_peak_memory_stats()
+
+    # -- 3. server 3 recovers online; then the migration --------------------
+    t0 = time.perf_counter()
+    rr = client.recover_server(3, re_replicate=False)
+    times["recover_rebuild_s"] = sync_s(t0)
+    t0 = time.perf_counter()
+    rv = client.recover_server(3)       # alive: the re-replication pass
+    times["recover_re_replicate_s"] = sync_s(t0)
+    t0 = time.perf_counter()
+    moved = client.migrate()
+    times["migrate_s"] = sync_s(t0)
+    check(moved > 0, "no stray written at the temporary primary moved home")
+    log(f"dist-faults: recover_server(3) online {rr} in "
+        f"{times['recover_rebuild_s']:.3f} s; re-replication {rv} in "
+        f"{times['recover_re_replicate_s']:.3f} s; migrate moved {moved} "
+        f"values home in {times['migrate_s']:.3f} s")
+    times["recovered_get_per_s"], _ = read_back(
+        "read-back after recovery and migration", hops=1)
+
+    # -- 4. data server 5 fails --------------------------------------------
+    fd = client.fail_data_server(5)
+    check(tuple(fd) == (5, True), f"fail_data_server(5) answered {fd}")
+    live = wl.live_keys()
+    k5 = live[own(live) == 5]
+    k5 = k5[wl.rng.permutation(len(k5))[:B]]
+    r = client.get(k5)
+    wl.check_answers(r, k5, "dist-faults GET of shard 5, data server 5 down")
+    h = r.hops.cpu().numpy()
+    check(bool((h == 2).all()), "shard 5's values must come from the mirror "
+          "(hops == 2)")
+    fresh5 = wl.fresh[own(wl.fresh) == 5][:B // 4]
+    wl.fresh = wl.fresh[~np.isin(wl.fresh, fresh5)]
+    p5 = np.concatenate([k5[:B // 4], fresh5])
+    _, r = chunk_put("dist-faults PUT to group 5, data server 5 down", p5)
+    sh = (r.addrs.cpu().numpy() // DIST_CAPACITY)
+    check(bool((sh == 6).all()), "group 5's PUTs must be displaced one hop "
+          f"(shards {sorted(set(sh.tolist()))})")
+    t0 = time.perf_counter()
+    client.recover_data_server(5)
+    times["recover_data_s"] = sync_s(t0)
+    t0 = time.perf_counter()
+    moved5 = client.migrate()
+    times["migrate_data_s"] = sync_s(t0)
+    check(moved5 > 0, "the displaced values did not move home")
+    log(f"dist-faults: data server 5 down ({fd}): {len(k5)} GETs of its "
+        f"shard served by the mirror (hops 2), {len(p5)} PUTs to group 5 "
+        f"displaced to shard 6; recover_data_server(5) with its sweep in "
+        f"{times['recover_data_s']:.3f} s; migrate moved {moved5} in "
+        f"{times['migrate_data_s']:.3f} s")
+    read_back("read-back after data recovery", hops=1)
+
+    # -- 5. adjacent servers 3 and 4 fail ----------------------------------
+    client.drain()
+    stale = tree.at(backend.store.bsorted, 1, 4)   # replica 1 of group 2
+    for s_ in (3, 4):
+        check(tuple(client.fail_server(s_)) == (s_, True), f"fail {s_}")
+    chunk_put("dist-faults PUT, servers 3 and 4 down")
+    chunk_delete("dist-faults DELETE, servers 3 and 4 down")
+    m_live = wl.live_keys()
+    lo = int(wl.rng.choice(m_live))
+    hi = lo + (1 << 24)
+    sres = client.scan(lo, hi, 128)
+    check(sres.complete is False and sres.missing_groups == (2,),
+          f"SCAN with group 2's holders down: complete {sres.complete}, "
+          f"missing {sres.missing_groups}")
+    in_range = model.scan(lo, hi, 1 << 30)
+    want = in_range[own(in_range) != 2][:128]
+    n = int(sres.count)
+    check(n == len(want) and np.array_equal(sres.keys[:n].cpu().numpy(),
+                                            want),
+          "SCAN with group 2 missing: the other groups' keys differ")
+    check(bool((own(in_range[:256]) == 2).any()), "the SCAN's range holds "
+          "no key of group 2")
+    t0 = time.perf_counter()
+    r3 = client.recover_server(3)
+    t3 = sync_s(t0)
+    fallback = int(backend.store.blog.tail[0, 3])
+    check(fallback == 0, "group 2's copy on server 3 was not rebuilt from "
+          "its authority (the multi-failure fallback)")
+    t0 = time.perf_counter()
+    r4 = client.recover_server(4)
+    t4 = sync_s(t0)
+    moved34 = client.migrate()
+    read_back("read-back after the double recovery")
+    # a stale copy: replica 1 of group 2 on server 4 as it stood before the
+    # double failure (what a server restored from an old image holds); the
+    # protocol's own recoveries leave no divergent copy, so re_replicate
+    # is held to rebuilding this one
+    with backend._mu:
+        empty = lg.create(cfg.log_capacity, dev)
+        backend.store = backend.store._replace(
+            bsorted=tree.put(backend.store.bsorted, stale, 1, 4),
+            blog=tree.put(backend.store.blog, empty, 1, 4))
+    t0 = time.perf_counter()
+    rs = client.recover_server(4)
+    times["re_replicate_stale_s"] = sync_s(t0)
+    check(rs.re_replicated >= 1, f"re_replicate rebuilt no copy: {rs}")
+    times.update(recover_3_of_pair_s=t3, recover_4_of_pair_s=t4)
+    log(f"dist-faults: servers 3 and 4 down: SCAN complete=False, missing "
+        f"{sres.missing_groups}, {n} keys of the other groups equal to the "
+        f"model; recover_server(3) {r3} in {t3:.3f} s (group 2's replica 0 "
+        f"rebuilt from its hash + the data items' keys), recover_server(4) "
+        f"{r4} in {t4:.3f} s; migrate moved {moved34}; a stale replica 1 of "
+        f"group 2 on server 4: recover_server(4) {rs}, "
+        f"{times['re_replicate_stale_s']:.3f} s")
+
+    # -- 6. severed servers, found by the wall-clock lease ------------------
+    def until(cond, label):
+        t0, n = time.monotonic(), 0
+        while not cond():
+            check(time.monotonic() - t0 < 30, f"{label}: not detected")
+            wl.check_get(wl.get_mix(B), f"dist-faults {label}, traffic")
+            n += 1
+        return time.monotonic(), n
+
+    def severed(sever, dead, hb_t, s_, label):
+        """Sever server s_ right after an observation round (a GET chunk),
+        then GET traffic until the lease demotes it.  The lease runs from
+        the last heartbeat the client saw, that round's; returns (seconds
+        from the sever, from that heartbeat, between the two, chunks)."""
+        wl.check_get(wl.get_mix(B), f"dist-faults before {label}")
+        t_hb = float(hb_t()[s_])
+        t_sev = time.monotonic()
+        sever(s_)
+        t_det, n = until(lambda: s_ in dead(), label)
+        check(t_det - t_hb >= backend.lease_timeout_s,
+              f"{label}: demoted {t_det - t_hb:.3f} s after the last "
+              f"heartbeat seen, before the lease ran out")
+        return t_det - t_sev, t_det - t_hb, t_sev - t_hb, n
+
+    sev = severed(client.sever_server, lambda: backend._dead,
+                  lambda: backend._hb_t, 6, "sever_server(6)")
+    check(backend.detected == [6], f"detected {backend.detected}")
+    times["sever_index_detect_s"], times["sever_index_lease_s"] = sev[:2]
+    client.recover_server(6)
+    client.migrate()
+    dsev = severed(client.sever_data_server, lambda: backend._data_dead,
+                   lambda: backend._data_hb_t, 1, "sever_data_server(1)")
+    check(backend.detected_data == [1], f"detected {backend.detected_data}")
+    check(backend.detected == [6], f"index demotions {backend.detected}")
+    times["sever_data_detect_s"], times["sever_data_lease_s"] = dsev[:2]
+    chunk_put("dist-faults PUT, data server 1 detected down")
+    client.recover_data_server(1)
+    client.migrate()
+    log(f"dist-faults: sever_server(6) demoted by the lease {sev[0]:.3f} s "
+        f"after the sever ({sev[1]:.3f} s after the last heartbeat seen, "
+        f"{sev[2]:.4f} s before the sever; {sev[3]} GET chunks, every "
+        f"answer right); sever_data_server(1) {dsev[0]:.3f} s after the "
+        f"sever ({dsev[1]:.3f} s, {dsev[2]:.4f} s; {dsev[3]} chunks); "
+        f"detected {backend.detected}, detected_data "
+        f"{backend.detected_data}; no oracle call")
+
+    # -- 7. drain, then the parity audit -----------------------------------
+    t0 = time.perf_counter()
+    client.drain()
+    report = kv.parity_report(backend.store, cfg)
+    times["audit_s"] = sync_s(t0)
+    slots = report[-1]
+    check(slots["kind"] == "value_slots" and slots["agree"]
+          and slots["fq_spill"] == 0, f"dist-faults value slots: {slots}")
+    bad = [e for e in report[:-1] if not e["agree"]]
+    check(not bad, f"dist-faults parity: {bad[:3]}")
+    n_live = sum(e["n_hash"] for e in report[:-1] if e["replica"] == 0)
+    check(n_live == int(model.live.sum()) == slots["live"],
+          f"dist-faults parity: {n_live} live items, model "
+          f"{int(model.live.sum())}")
+    read_back("final read-back", hops=1)
+    launches = {**ops.LAUNCHES, **mscan.LAUNCHES}
+    for k in DIST_KERNELS:
+        check(launches[k] > 0, f"kernel {k} was not launched in phase 9b")
+    times["phase_s"] = time.perf_counter() - t_phase - t_cmp
+    times["probe_compare_s"] = t_cmp
+    times["peak_bytes"] = max(peak, torch.cuda.max_memory_allocated())
+    times["retries"] = client.stats["retries"]
+    times["migrated"] = client.stats["migrated"]
+    log(f"dist-faults: parity_report agrees ({len(report) - 1} entries, "
+        f"value slots {json.dumps(slots)}); launches {launches}; phase "
+        f"{times['phase_s']:.3f} s, peak {times['peak_bytes']} B "
+        f"({times['peak_bytes'] / 2**30:.3f} GiB)")
+    log_metrics(client, "dist-faults")
+    return launches, times, err, degraded
+
+
+def probe_get_chunk(torch, cfg, probe_at, label):
+    """The group probe against its plain version as a distributed GET
+    calls it: a GET chunk routed as that GET routed it, one stacked call
+    for the G servers' exchange buffers (Q = G * capacity_q each, mostly
+    key_inf padding) against the state that GET read, each server's six
+    halves equal to its per-server plain result; timed per call, on the
+    device and routed (from the buffers to the halves).  Returns (max
+    abs err, the record, the kernel's launch as a closure)."""
+    from repro_torch.core import kvstore as kv
+    from repro_torch.kernels import ops
+
+    G = DIST_GROUPS
+    st, gkeys = probe_at
+    dev = st.hb.device
+    kt = torch.as_tensor(gkeys, device=dev).reshape(G, -1)
+    rk, _, _ = kv.get_exchange(st, kt, torch.ones_like(kt, dtype=torch.bool),
+                               G, DIST_CAPACITY_Q)
+    state = (st.hash, st.bsorted, st.blog)
+    got = ops.group_probe_stacked(cfg, *state, rk)
+    err = max_abs_err(torch, got, ops.group_probe_stacked_plain(
+        cfg, *state, rk), f"group_probe {label}")
+    work = []
+    for g in range(G):
+        hidx, srt, blogs, sel = ops.server_inputs(*state, rk[g], g)
+        err = max(err, max_abs_err(
+            torch, [t[g] for t in got[:6]],
+            ops.group_probe_plain(cfg, hidx, srt, blogs, rk[g], sel),
+            f"group_probe {label}, server {g}"))
+        work.append(group_work(torch, rk[g].cpu().numpy(), sel.cpu().numpy(),
+                               hidx, srt, blogs, cfg, selects_in=False,
+                               n_out=7))
+
+    def kern():
+        return ops.group_probe_cuda(rk, None, *state, cfg.slots_per_bucket,
+                                    cfg.fanout)
+
+    # lanes selecting a replica, padding among them (key_inf's lanes at
+    # the pad server select its replica 0), and those that are keys
+    pad = rk == 2 ** 31 - 1
+    sel_lanes = torch.stack([(ops.replica_select(got[6][g], g, G,
+                                                 cfg.n_backups) != 0).any(1)
+                             for g in range(G)])
+    sel_keys = sel_lanes & ~pad
+    b_bytes, b_n = sum(w[0] for w in work), sum(w[1] for w in work)
+    bound, bb_ms, bo_ms = bound_of(b_bytes, b_n)
+    return err, dict(
+        ms=time_ms(torch, kern, 200), device_ms=device_ms(torch, kern, 200),
+        routed_ms=time_ms(torch, lambda: ops.group_probe_stacked(
+            cfg, *state, rk), 200),
+        plain_ms=time_ms(torch, lambda: ops.group_probe_stacked_plain(
+            cfg, *state, rk), 3, warmup=1),
+        bound_ms=bound, bound_by="bytes" if bb_ms >= bo_ms else "operations",
+        bound_bytes_ms=bb_ms, bound_ops_ms=bo_ms, bytes=b_bytes,
+        operations=b_n, Q=rk.shape[1], padding_lanes=int(pad.sum()),
+        selecting_lanes=int(sel_lanes.sum()),
+        selecting_keys=int(sel_keys.sum()),
+        selecting_found=int((sel_keys & got[4]).sum()),
+        max_abs_err=err), kern
+
+
+def compare_group_probe_degraded(torch, cfg, probe_at):
+    """The group probe on the degraded store: the last degraded round's
+    GET chunk (server 3 dead, its group's lanes at server 4 selecting
+    replica 0), as ``probe_get_chunk`` holds and times it."""
+    err, c, _ = probe_get_chunk(torch, cfg, probe_at, "degraded GET chunk")
+    check(c["selecting_keys"] > 0 and c["selecting_found"] > 0,
+          "degraded GET chunk: no lane selected a replica and found its key "
+          "there")
+    log(f"kernel group_probe (degraded): a GET chunk of {len(probe_at[1])} "
+        f"keys with server 3 down, one call for {DIST_GROUPS} servers of "
+        f"Q={c['Q']}, every server equal to its plain result; "
+        f"{c['padding_lanes']} padding lanes, {c['selecting_keys']} keys "
+        f"selecting a replica ({c['selecting_found']} found there): "
+        f"{c['ms']:.4f} ms per call, device {c['device_ms']:.4f} ms, routed "
+        f"{c['routed_ms']:.4f} ms, plain {c['plain_ms']:.4f} ms, bound "
+        f"{c['bound_ms']:.6f} ms (bytes {c['bound_bytes_ms']:.6f} ms for "
+        f"{c['bytes']} B, operations {c['bound_ops_ms']:.6f} ms for "
+        f"{c['operations']})")
+    return err, c
 
 
 SERVE_ARCH = "falcon-mamba-7b"
@@ -2222,12 +2662,21 @@ def main(argv=None) -> int:
     kernels.extend(dispatch)
     del dwl, probe_at               # the distributed store leaves the card
     torch.cuda.empty_cache()
+    log(f"dist-faults config: {cfg}")
+    f_launches, f_times, err, degraded = dist_faults(torch, cfg, rng)
+    log(f"dist-faults: {json.dumps(f_times)}")
+    gp_rec = next(k for k in kernels if k["name"] == "group_probe")
+    gp_rec["max_abs_err"] = max(gp_rec["max_abs_err"], err)
+    gp_rec["degraded"] = degraded
+    torch.cuda.empty_cache()
     scan_rec, s_times, s_launches = serving(torch, args.seed)
     log(f"serve: {json.dumps(s_times)}")
     for k in kernels:
         k["launches_fail_recover"] = fr_launches[k["name"]]
         k["launches_distributed"] = d_launches[k["name"]]
+        k["launches_dist_faults"] = f_launches[k["name"]]
         k["launches_serving"] = s_launches[k["name"]]
+    scan_rec["launches_dist_faults"] = f_launches["mamba_scan"]
     kernels.append(scan_rec)
     torch.cuda.synchronize()
     log(f"total: {time.perf_counter() - t_start:.1f} s")

@@ -92,14 +92,50 @@ def store_from_numpy(store, cfg, device) -> kv.KVStore:
     )
 
 
+# the host-side liveness and lease state of a DistributedBackend (both
+# packages use these attribute names); the stall timers travel as ages
+LEASE_SETS = ("_dead", "_data_dead", "_severed", "_data_severed")
+LEASE_ARRAYS = ("_last_hb", "_hb_misses", "_last_data_hb",
+                "_data_hb_misses")
+LEASE_TIMERS = ("_hb_t", "_data_hb_t")
+LEASE_LISTS = ("detected", "detected_data")
+
+
+def lease_state(backend) -> dict:
+    """A DistributedBackend's host-side liveness and lease state as plain
+    data (JSON-able): the servers masked dead and severed per plane, the
+    heartbeat counters last seen, the stalled rounds, the seconds since
+    each counter last advanced and the detector's demotions.  Reads
+    attributes only, so it takes either package's backend."""
+    import time
+
+    now = time.monotonic()
+    out = {f: sorted(int(g) for g in getattr(backend, f))
+           for f in LEASE_SETS}
+    out.update({f: [int(x) for x in np.asarray(getattr(backend, f))]
+                for f in LEASE_ARRAYS})
+    out.update({f: [float(now - x) for x in np.asarray(getattr(backend, f))]
+                for f in LEASE_TIMERS})
+    out.update({f: [int(g) for g in getattr(backend, f)]
+                for f in LEASE_LISTS})
+    return out
+
+
 def distributed_backend_from_numpy(store, cfg, device, *,
                                    capacity_q: int = 64,
                                    scan_limit: int = 128,
-                                   pending_bound: int | None = None):
+                                   pending_bound: int | None = None,
+                                   lease: dict | None = None):
     """A DistributedBackend on ``device`` holding a JAX
     DistributedBackend's store (numpy leaves).  ``pending_bound`` is the
     host-side bound on the backup logs' pending entries (default: their
-    exact count)."""
+    exact count).  ``lease`` (``lease_state`` of the source backend)
+    carries its liveness and lease state across, so a store taken in
+    the middle of a failure goes on as the source would: the same
+    servers dead and severed, the same stalled rounds, the stall timers
+    as old as they were."""
+    import time
+
     from repro_torch.core.client import DistributedBackend
 
     G, dcap = np.asarray(store.data.used).shape
@@ -108,6 +144,16 @@ def distributed_backend_from_numpy(store, cfg, device, *,
     be.store = store_from_numpy(store, cfg, be.device)
     be._pending_bound = (be.pending_ops() if pending_bound is None
                          else pending_bound)
+    if lease is not None:
+        now = time.monotonic()
+        for f in LEASE_SETS:
+            setattr(be, f, set(lease[f]))
+        for f in LEASE_ARRAYS:
+            setattr(be, f, np.asarray(lease[f], np.int64))
+        for f in LEASE_TIMERS:
+            setattr(be, f, now - np.asarray(lease[f], np.float64))
+        for f in LEASE_LISTS:
+            setattr(be, f, list(lease[f]))
     return be
 
 

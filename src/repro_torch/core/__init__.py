@@ -11,7 +11,8 @@ Modules (the same names as the JAX package's ``core``):
   kvstore       — the distributed store over G index groups
   tree          — NamedTuple states stacked along [G] / [R, G] axes
   client        — HiStoreClient over LocalBackend / DistributedBackend
-  results       — PutResult/GetResult/DeleteResult/ScanResult
+  results       — PutResult/GetResult/DeleteResult/ScanResult,
+                  FailResult/RecoverResult
 
 Nothing is imported here, so ``import repro_torch.core.hashing`` pulls
 in only what it needs.

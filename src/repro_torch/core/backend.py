@@ -8,10 +8,9 @@ Three member groups:
     background value migration (``migrate_values``);
   * observability — ``telemetry_gauges`` and ``lease_stalled``;
   * fault injection / recovery — ``fail_*``, ``sever_*``, ``recover_*``
-    (the port's LocalBackend serves ``fail_server`` and
-    ``recover_server``; its data-server and severing calls raise
-    NotImplementedError, as the JAX LocalBackend's do; the
-    DistributedBackend's raise until slice 2b).
+    (LocalBackend serves ``fail_server`` and ``recover_server``; its
+    data-server and severing calls raise NotImplementedError, as the
+    JAX LocalBackend's do; DistributedBackend serves them all).
 """
 from __future__ import annotations
 

@@ -20,15 +20,22 @@ log->sorted merges every ``apply_every_n_ops`` mutating ops, and runs
 the value migration after every recovery (``migrate_on_recover``).  The
 port runs eagerly: ``jax.jit`` has no counterpart here.
 
-``DistributedBackend`` runs the healthy distributed store: G index
-groups stacked on one device (``kvstore.py``).  Left for slice 2b: its
-lease detector and ticker, server failures and recovery, heartbeat
-severing, data-server failures and value migration; those calls raise
-NotImplementedError naming the slice.
+``DistributedBackend`` runs the distributed store: G index groups
+stacked on one device (``kvstore.py``), with index- and data-server
+failures (oracle ``fail_*`` and heartbeat-severing ``sever_*``),
+online recovery with re-replication, value migration, and the lease
+detector with its background ticker (wall-clock or rounds leases).
+Under wall-clock leases the client paces its retries
+(``_retry_pause``) so a retry loop spans a lease timeout, and a SCAN
+that missed a group retries while a stalled heartbeat is being watched,
+then reports the missing groups.
 """
 from __future__ import annotations
 
+import threading
 import time
+import warnings
+import weakref
 from typing import Optional
 
 import numpy as np
@@ -39,14 +46,14 @@ from repro_torch.core import index_group as ig
 from repro_torch.core import kvstore as kv
 from repro_torch.core import log as lg
 from repro_torch.core import telemetry as tm
+from repro_torch.core import tree
 from repro_torch.core.backend import Backend  # noqa: F401  (re-export)
 from repro_torch.core.hashing import I32, key_dtype, key_inf, next_pow2
-from repro_torch.core.results import (DeleteResult, GetResult, PutResult,
-                                      ScanResult)
+from repro_torch.core.results import (DeleteResult, FailResult, GetResult,
+                                      PutResult, RecoverResult, ScanResult)
 from repro_torch.core.scatter import drop_set_rows
 
 SLICE_2 = "the distributed store (slice 2)"
-SLICE_2B = "the distributed store's failure handling (slice 2b)"
 
 
 def _resolve_device(device, who: str = "LocalBackend") -> torch.device:
@@ -254,22 +261,76 @@ class LocalBackend:
 # ---------------------------------------------------------------------------
 # Distributed backend: G index groups on one device
 # ---------------------------------------------------------------------------
+def _lease_ticker_loop(ref, stop: threading.Event) -> None:
+    """Background ticker body (module-level: the thread holds only a WEAK
+    reference to the backend).  Polls at a fraction of the idle interval
+    so a tick lands within one interval of the threshold being crossed;
+    ``stop`` is this thread's own event, so a ticker orphaned by a
+    timed-out stop_ticker() stays stopped after start_ticker() installs
+    a replacement; a garbage-collected backend ends the loop at the next
+    wake-up.
+
+    On the card the tick is PyTorch work on the store's device, queued
+    on ``torch.cuda.current_stream()``: in this thread, as in the main
+    thread, that is the device's default stream (neither thread sets
+    another), the stream every kernel wrapper launches on
+    (``kernels/ops.py``).  So a tick is ordered with the main thread's
+    kernels on the card, and the backend's lock orders them on the
+    host."""
+    fails = 0
+    while True:
+        be = ref()
+        if be is None:
+            return
+        quantum = max(be.lease_interval_s / 5.0, 0.01)
+        interval = be.lease_interval_s
+        be = None                      # never hold the ref across a wait
+        if stop.wait(quantum):
+            return
+        be = ref()
+        if be is None:
+            return
+        try:
+            if time.monotonic() - be._last_traffic_t < interval:
+                continue
+            with be._mu:
+                # re-check under the lock: a foreground op may have just
+                # run (its _lease_tick refreshed the timestamp)
+                if time.monotonic() - be._last_traffic_t < interval:
+                    continue
+                be._lease_tick(bump=True)
+            be.telemetry.count("ticker_rounds")
+            fails = 0
+        except Exception as e:   # noqa: BLE001 — a daemon thread must not
+            # die silently: idle detection would be off with no signal
+            fails += 1
+            be.telemetry.count("ticker_errors")
+            warnings.warn(
+                f"lease ticker tick failed ({e!r}); "
+                f"{'giving up' if fails >= 3 else 'retrying'}",
+                RuntimeWarning)
+            if fails >= 3:
+                # latch the give-up so start_ticker() stops claiming a
+                # ticker runs, and the counters carry the signal
+                be._ticker_gave_up = True
+                be.telemetry.count("ticker_gave_up")
+                return
+        finally:
+            be = None
+
+
 class DistributedBackend:
     """The kvstore ops over ``groups`` index groups stacked on one device
     (the JAX package's takes a mesh of G devices; one card has none):
     routed two-sided PUT/DELETE with log replication, one-sided GET with
-    the second-hop fetch, the all-gathered SCAN, and the value plane's
-    GC flush.  All state lives on ``device``: the card unless the caller
-    passes another.  Healthy path only: lease detection must be off
-    (``cfg.lease_misses = 0``); failures, recovery, severing, migration
-    and the ticker raise NotImplementedError naming slice 2b."""
+    the second-hop fetch, the all-gathered SCAN, the value plane's GC
+    flush and migration, index- and data-server failure and recovery,
+    and lease-based failure detection with its background ticker.  All
+    state lives on ``device``: the card unless the caller passes
+    another."""
 
     def __init__(self, groups: int, cfg, capacity_per_group: int = 4096, *,
                  capacity_q: int = 64, scan_limit: int = 128, device=None):
-        if int(getattr(cfg, "lease_misses", 0) or 0) > 0:
-            raise NotImplementedError(
-                f"lease-based failure detection (cfg.lease_misses > 0) is "
-                f"{SLICE_2B}; pass lease_misses=0")
         self.device = _resolve_device(device, "DistributedBackend")
         self.cfg = cfg
         self.telemetry = tm.Telemetry(getattr(cfg, "telemetry",
@@ -282,116 +343,387 @@ class DistributedBackend:
         self.batch_multiple = groups
         self.value_words = cfg.value_words
         self.max_mutation_batch = cfg.log_capacity
+        self._dead: set[int] = set()        # index servers masked dead
+        self._data_dead: set[int] = set()   # data servers masked dead
         self._pending_bound = 0        # host-side upper bound, no dev sync
+        # --- lease-based failure detection (paper §5) --------------------
+        # every routed op bumps per-server heartbeat counters for both
+        # planes; the client ages them here and demotes a server to
+        # degraded routing once its lease expires, with no oracle call.
+        # Two clocks: "wall" (elapsed monotonic time since the counter
+        # last advanced against cfg.lease_timeout_s) and "rounds" (the
+        # deterministic test mode: cfg.lease_misses stalled observation
+        # rounds).  lease_misses == 0 disables detection.
+        self.lease_misses = int(getattr(cfg, "lease_misses", 0) or 0)
+        self.lease_clock = str(getattr(cfg, "lease_clock", "rounds"))
+        self.lease_timeout_s = float(getattr(cfg, "lease_timeout_s", 0.0))
+        self.lease_interval_s = float(
+            getattr(cfg, "lease_interval_s", 0.0) or 0.25)
+        if self.lease_clock not in ("wall", "rounds"):
+            raise ValueError(
+                f"cfg.lease_clock must be 'wall' or 'rounds', got "
+                f"{self.lease_clock!r}")
+        if (self.lease_misses > 0 and self.lease_clock == "wall"
+                and self.lease_timeout_s <= 0):
+            raise ValueError(
+                "wall-clock leases need cfg.lease_timeout_s > 0 "
+                "(set lease_misses=0 to disable detection instead)")
+        self._severed: set[int] = set()     # injector-crashed index srvs
+        self._data_severed: set[int] = set()  # injector-crashed data srvs
+        now = time.monotonic()
+        self._last_hb = np.zeros((self.G,), np.int64)
+        self._hb_misses = np.zeros((self.G,), np.int64)
+        self._hb_t = np.full((self.G,), now, np.float64)   # last advance
+        self._last_data_hb = np.zeros((self.G,), np.int64)
+        self._data_hb_misses = np.zeros((self.G,), np.int64)
+        self._data_hb_t = np.full((self.G,), now, np.float64)
+        self.detected: list[int] = []       # index demotions the detector
+        self.detected_data: list[int] = []  # data demotions the detector
+        # the store and the lease state are shared with the background
+        # ticker thread: one reentrant lock serializes every op
+        self._mu = threading.RLock()
+        self._last_traffic_t = now
+        self._ticker: Optional[threading.Thread] = None
+        self._ticker_stop: Optional[threading.Event] = None
+        self._ticker_gave_up = False   # the loop died on repeated errors
 
     def _ensure_log_room(self, n: int):
         # drain up front when a batch might not fit the worst backup log
         if self._pending_bound + n > self.cfg.log_capacity:
             self.drain()
 
+    def _degraded(self) -> bool:
+        return bool(self._dead or self._data_dead)
+
+    # -- lease detector ----------------------------------------------------
+    def _lease_expired(self, misses: np.ndarray, last_t: np.ndarray,
+                       g: int, now: float) -> bool:
+        """One server's lease verdict after a stalled observation: rounds
+        mode counts stalled rounds against ``lease_misses``; wall mode
+        measures the time since the counter last advanced against
+        ``lease_timeout_s``."""
+        if self.lease_clock == "wall":
+            return now - last_t[g] >= self.lease_timeout_s
+        return misses[g] >= self.lease_misses
+
+    def _lease_tick(self, bump: bool = False):
+        """Age the leases of both planes after an observation round: a
+        server whose heartbeat counter did not advance accumulates a
+        stalled round (and its stall timer keeps running); an expired
+        lease demotes it.  ``bump`` runs the heartbeat-only tick op
+        first: read-only rounds (GET) and the idle ticker age leases
+        through it, mutating ops bump in their bodies."""
+        if self.lease_misses <= 0:
+            return
+        self.telemetry.count("lease_ticks")
+        if bump:
+            self.store = self.ops["tick"](self.store)
+        now = time.monotonic()
+        self._last_traffic_t = now
+        # one device-to-host copy for both planes' counters
+        hb, dhb = torch.stack([self.store.hb,
+                               self.store.data.hb]).cpu().numpy()
+        self._age_plane(hb, self._last_hb, self._hb_misses, self._hb_t,
+                        self._dead, self._demote, now)
+        self._age_plane(dhb, self._last_data_hb, self._data_hb_misses,
+                        self._data_hb_t, self._data_dead,
+                        self._demote_data, now)
+        self._last_hb = hb
+        self._last_data_hb = dhb
+
+    def _age_plane(self, hb, last, misses, last_t, dead, demote,
+                   now: float):
+        """Age one plane's leases against its freshly read counters (the
+        one aging body both planes share)."""
+        for g in range(self.G):
+            if g in dead:
+                continue
+            if hb[g] != last[g]:
+                misses[g] = 0
+                last_t[g] = now
+            else:
+                misses[g] += 1
+                if self._lease_expired(misses, last_t, g, now):
+                    demote(g, detected=True)
+
+    def _demote(self, g: int, detected: bool = False):
+        """Degraded routing for index server ``g``: the client-side half
+        of a failure, no oracle call and no state wipe."""
+        self.store = self.store._replace(
+            alive=tree.put_leaf(self.store.alive, False, g))
+        self._dead.add(g)
+        self._hb_misses[g] = 0   # a demoted server no longer "stalls"
+        if detected:
+            self.detected.append(g)
+        self.telemetry.count("index_demotions")
+        self.telemetry.span({"event": "demote", "plane": "index",
+                             "server": g, "detected": detected})
+
+    def _demote_data(self, g: int, detected: bool = False):
+        """Degraded routing for DATA server ``g``: GETs of its shard fail
+        over to mirror-served fetches, PUTs displace one hop."""
+        self.store = self.store._replace(data=self.store.data._replace(
+            alive=tree.put_leaf(self.store.data.alive, False, g)))
+        self._data_dead.add(g)
+        self._data_hb_misses[g] = 0
+        if detected:
+            self.detected_data.append(g)
+        self.telemetry.count("data_demotions")
+        self.telemetry.span({"event": "demote", "plane": "data",
+                             "server": g, "detected": detected})
+
+    def lease_stalled(self) -> bool:
+        """Did the last observation round see a not-yet-demoted server's
+        heartbeat stalled (either plane)?  The client's wall-clock retry
+        pacing keys on this."""
+        return bool((self._hb_misses > 0).any()
+                    or (self._data_hb_misses > 0).any())
+
+    # -- background ticker (idle-client wall-clock detection) --------------
+    def start_ticker(self) -> bool:
+        """Start the background ticker thread: whenever no foreground
+        traffic has run for ``cfg.lease_interval_s`` it issues a
+        heartbeat-only tick round, so wall-clock leases expire with zero
+        foreground ops.  No-op when detection is off.  Returns True if a
+        ticker is running, and False when a previous one gave up after
+        repeated tick errors (``stop_ticker()`` clears that latch)."""
+        if self.lease_misses <= 0:
+            return False
+        if self._ticker_gave_up:
+            return False
+        if self._ticker is not None and self._ticker.is_alive():
+            return True
+        stop = threading.Event()
+        self._ticker_stop = stop
+        # the thread holds only a weak reference to this backend (and a
+        # finalizer sets its stop event): a client dropped without
+        # stop_ticker() must not pin the store on the device
+        self._ticker = threading.Thread(
+            target=_lease_ticker_loop, args=(weakref.ref(self), stop),
+            name="histore-lease-ticker", daemon=True)
+        weakref.finalize(self, stop.set)
+        self._ticker.start()
+        return True
+
+    def stop_ticker(self) -> None:
+        # an explicit stop also clears the give-up latch
+        self._ticker_gave_up = False
+        if self._ticker is None:
+            return
+        self._ticker_stop.set()
+        self._ticker.join(timeout=60.0)
+        if self._ticker.is_alive():
+            # still inside a tick; its own stop event is set, so it exits
+            # at the next loop check and a new ticker gets a new event
+            warnings.warn("lease ticker still draining a tick in flight "
+                          "(exits at the next loop check)", RuntimeWarning)
+        self._ticker = None
+        self._ticker_stop = None
+
+    # -- ops ---------------------------------------------------------------
     def put(self, keys, vals, valid):
-        n = int(valid.sum())
-        self._ensure_log_room(n)
-        self._pending_bound += n
-        self.store, ok, addrs, nrep = self.ops["put"](self.store, keys,
-                                                      vals, valid)
-        return ok, addrs, nrep
+        with self._mu:
+            n = int(valid.sum())
+            self._ensure_log_room(n)
+            self._pending_bound += n
+            # any masked-dead server -> the variant with the old-slot
+            # replica probe and the value displacement
+            op = self.ops["put_degraded" if self._degraded() else "put"]
+            self.store, ok, addrs, nrep = op(self.store, keys, vals, valid)
+            self._lease_tick()
+            return ok, addrs, nrep
 
     def get(self, keys, valid):
-        addrs, found, acc, vals, routed, val_ok = self.ops["get"](
-            self.store, keys, valid)
-        found = found & valid
-        hops = valid.to(I32)
-        # second hop: a value homed on another shard (or a dead data
-        # server) is fetched by address
-        need = found & ~val_ok
-        if bool(need.any()):
-            self.store, fvals, fok = self.ops["fetch"](self.store, addrs,
-                                                       need)
-            vals = torch.where(need[:, None], fvals, vals)
-            routed = routed & (~need | fok)
-            hops = hops + need.to(I32)
-        return addrs, found, acc, vals, routed & valid, hops
+        with self._mu:
+            addrs, found, acc, vals, routed, val_ok = self.ops["get"](
+                self.store, keys, valid)
+            found = found & valid
+            hops = valid.to(I32)
+            # second hop: a value homed on another shard (or a dead data
+            # server) is fetched by address from the first live holder
+            need = found & ~val_ok
+            if bool(need.any()):
+                self.store, fvals, fok = self.ops["fetch"](self.store,
+                                                           addrs, need)
+                vals = torch.where(need[:, None], fvals, vals)
+                routed = routed & (~need | fok)
+                hops = hops + need.to(I32)
+            self._lease_tick(bump=True)
+            return addrs, found, acc, vals, routed & valid, hops
 
     def delete(self, keys, valid):
-        n = int(valid.sum())
-        self._ensure_log_room(n)
-        self._pending_bound += n
-        self.store, ok, found, nrep = self.ops["delete"](self.store, keys,
-                                                         valid)
-        return ok, found & valid, nrep
+        with self._mu:
+            n = int(valid.sum())
+            self._ensure_log_room(n)
+            self._pending_bound += n
+            op = self.ops[
+                "delete_degraded" if self._degraded() else "delete"]
+            self.store, ok, found, nrep = op(self.store, keys, valid)
+            self._lease_tick()
+            return ok, found & valid, nrep
 
     def scan(self, lo, hi, limit: int):
-        loa = lo.reshape(1).expand(self.G)
-        hia = hi.reshape(1).expand(self.G)
-        # the result width is static: one scan op per distinct limit
-        scan_op = (self.ops if limit == self.scan_limit else kv.make_ops(
-            self.cfg, self.G, self.capacity_q, limit))["scan"]
-        k, a, covered, self.store = scan_op(self.store, loa, hia)
-        n = (k != key_inf(k.dtype)).sum(dtype=I32)
-        self._pending_bound = 0          # scan drained the logs
-        return k, a, n, covered
+        with self._mu:
+            loa = lo.reshape(1).expand(self.G)
+            hia = hi.reshape(1).expand(self.G)
+            # the result width is static: one scan op per distinct limit
+            scan_op = (self.ops if limit == self.scan_limit else kv.make_ops(
+                self.cfg, self.G, self.capacity_q, limit))["scan"]
+            k, a, covered, self.store = scan_op(self.store, loa, hia)
+            n = (k != key_inf(k.dtype)).sum(dtype=I32)
+            self._pending_bound = 0          # scan drained the logs
+            self._lease_tick()
+            return k, a, n, covered
 
     def apply_async(self):
-        self.store = self.ops["apply"](self.store)
-        self._pending_bound = max(
-            0, self._pending_bound - self.cfg.async_apply_batch)
+        with self._mu:
+            self.store = self.ops["apply"](self.store)
+            self._pending_bound = max(
+                0, self._pending_bound - self.cfg.async_apply_batch)
+            self._lease_tick()
 
     def gc_round(self):
         """One routed flush of the pending free queues."""
-        self.store = self.ops["gc"](self.store)
+        with self._mu:
+            self.store = self.ops["gc"](self.store)
+            self._lease_tick()
 
     def pending_frees(self) -> int:
-        return int(lg.pending_count(self.store.data.freeq).sum())
+        with self._mu:
+            return int(lg.pending_count(self.store.data.freeq).sum())
 
     def drain(self):
-        while self.pending_ops() > 0:
-            self.apply_async()
-        self._pending_bound = 0
-        # flush the free queues until empty or stuck
-        prev = -1
-        while True:
-            cur = self.pending_frees()
-            if cur == 0 or cur == prev:
-                break
-            prev = cur
-            self.gc_round()
+        with self._mu:
+            while self.pending_ops() > 0:
+                self.apply_async()
+            self._pending_bound = 0
+            # flush the free queues until empty or stuck (frees addressed
+            # to a dead data shard stay queued)
+            prev = -1
+            while True:
+                cur = self.pending_frees()
+                if cur == 0 or cur == prev:
+                    break
+                prev = cur
+                self.gc_round()
 
     def pending_ops(self) -> int:
-        return int((self.store.blog.tail - self.store.blog.applied).max())
+        with self._mu:
+            return int((self.store.blog.tail
+                        - self.store.blog.applied).max())
 
     def telemetry_gauges(self) -> dict:
-        return kv.device_counters(self.store)
-
-    def lease_stalled(self) -> bool:
-        return False    # detection is off (lease_misses == 0)
+        with self._mu:
+            return kv.device_counters(self.store)
 
     def migrate_values(self) -> int:
-        raise NotImplementedError(f"value migration: {SLICE_2B}")
+        """Background value migration: move degraded-write strays home and
+        patch the index addresses; the pass's log barrier runs as apply
+        rounds.  Returns the values moved."""
+        with self._mu:
+            self.store, moved = kv.migrate_values(
+                self.store, self.cfg, apply_fn=self.ops["apply"])
+            return moved
 
-    def fail_server(self, server: int):
-        raise NotImplementedError(f"index-server failure: {SLICE_2B}")
+    # -- failures and recovery ---------------------------------------------
+    def _wipe_capability(self, what: str) -> bool:
+        # wiping needs a surviving copy to exist; with one group every
+        # replica lives on the failing server, so the failure degrades to
+        # mask-only, said out loud (FailResult.wiped + a warning)
+        if self.G > 1:
+            return True
+        warnings.warn(
+            f"single-device mesh: {what} degrades to mask-only (every "
+            "replica lives on the failing device, so no surviving copy "
+            "could exist; state is masked, NOT wiped)", RuntimeWarning,
+            stacklevel=3)
+        return False
 
-    def sever_server(self, server: int):
-        raise NotImplementedError(f"heartbeat severing: {SLICE_2B}")
+    def fail_server(self, server: int) -> FailResult:
+        with self._mu:
+            wiped = self._wipe_capability("fail_server")
+            self.store = kv.fail_server(self.store, server, wipe=wiped)
+            self._dead.add(server)
+            # a known-dead server no longer "stalls"
+            self._hb_misses[server] = 0
+            self._hb_t[server] = time.monotonic()
+            return FailResult(server, wiped)
 
-    def recover_server(self, server: int, **kw):
-        raise NotImplementedError(f"index-server recovery: {SLICE_2B}")
+    def sever_server(self, server: int) -> FailResult:
+        """Crash ``server`` without updating the routing view: its
+        heartbeats stop and its state is destroyed, but ``alive`` still
+        says up until the lease detector (or a recovery) demotes it."""
+        with self._mu:
+            wiped = self._wipe_capability("sever_server")
+            self.store = kv.sever_server(self.store, server, wipe=wiped)
+            self._severed.add(server)
+            return FailResult(server, wiped)
 
-    def fail_data_server(self, server: int):
-        raise NotImplementedError(f"data-server failure: {SLICE_2B}")
+    def recover_server(self, server: int, online: bool = True,
+                       re_replicate: bool = True) -> RecoverResult:
+        """Rebuild ``server`` and re-admit it.  ``online`` (default)
+        snapshot-clones and lets the pending-log delta stream in through
+        the ordinary apply rounds; ``re_replicate`` then verifies every
+        live holder against the group authorities and rebuilds
+        divergent copies."""
+        with self._mu:
+            if server in self._severed and server not in self._dead:
+                # an operator's recovery implies the failure is known
+                self._demote(server)
+            # a RecoveryError propagates with the host-side tracking and
+            # the store untouched: the server stays routed-dead
+            self.store = kv.recover_server(self.store, server, self.cfg,
+                                           online=online)
+            n_reb = 0
+            if re_replicate:
+                self.store, n_reb = kv.re_replicate(self.store, self.cfg)
+            self._severed.discard(server)
+            self._dead.discard(server)
+            self._hb_misses[server] = 0
+            self._hb_t[server] = time.monotonic()
+            self.telemetry.count("index_recoveries")
+            self.telemetry.span({"event": "recover", "plane": "index",
+                                 "server": server, "online": online})
+            return RecoverResult(server, online, n_reb, self.pending_ops())
 
-    def sever_data_server(self, server: int):
-        raise NotImplementedError(f"data-server severing: {SLICE_2B}")
+    def fail_data_server(self, server: int) -> FailResult:
+        with self._mu:
+            wiped = self._wipe_capability("fail_data_server")
+            self.store = kv.fail_data_server(self.store, server,
+                                             wipe=wiped)
+            self._data_dead.add(server)
+            self._data_hb_misses[server] = 0   # see fail_server
+            self._data_hb_t[server] = time.monotonic()
+            return FailResult(server, wiped)
+
+    def sever_data_server(self, server: int) -> FailResult:
+        """Crash ``server``'s DATA server without updating the routing
+        view: reads of its shard fail over to the mirrors per op at
+        once; writes nack and retry until the lease detector demotes
+        it."""
+        with self._mu:
+            wiped = self._wipe_capability("sever_data_server")
+            self.store = kv.sever_data_server(self.store, server,
+                                              wipe=wiped)
+            self._data_severed.add(server)
+            return FailResult(server, wiped)
 
     def recover_data_server(self, server: int):
-        raise NotImplementedError(f"data-server recovery: {SLICE_2B}")
-
-    def start_ticker(self) -> bool:
-        return False    # no lease to tick (lease_misses == 0), as in JAX
-
-    def stop_ticker(self) -> None:
-        return None     # no ticker was started
+        """Rebuild ``server``'s data shard from its mirrors and re-admit
+        it, from the oracle-masked or the lease-detected state alike."""
+        with self._mu:
+            if server in self._data_severed and \
+                    server not in self._data_dead:
+                self._demote_data(server)
+            self.store = kv.recover_data_server(
+                self.store, server, self.cfg, apply_fn=self.ops["apply"])
+            self._data_severed.discard(server)
+            self._data_dead.discard(server)
+            self._data_hb_misses[server] = 0
+            self._data_hb_t[server] = time.monotonic()
+            self.telemetry.count("data_recoveries")
+            self.telemetry.span({"event": "recover", "plane": "data",
+                                 "server": server})
 
 
 # ---------------------------------------------------------------------------
@@ -517,7 +849,30 @@ class HiStoreClient:
             torch.as_tensor(lo, dtype=kd, device=self.device),
             torch.as_tensor(hi, dtype=kd, device=self.device), limit)
         self.stats["scans"] += 1
-        cov = np.asarray(covered.cpu())
+        # scan-completeness retry: a group with no live, unsevered holder
+        # answered nothing.  Each rescan is an observation round (paced
+        # by _retry_pause under wall-clock leases), so the bounded
+        # retries let the lease detector demote the crashed holders;
+        # coverage only returns once they are recovered, so afterwards
+        # the scan reports the missing groups instead of looping
+        budget = min(self.max_retries,
+                     max(getattr(self.backend, "lease_misses", 0), 0) + 1)
+        tries = 0
+        cov = covered.cpu().numpy()
+        while not bool(cov.all()) and tries < budget:
+            # rescans help only while the detector watches a stalled
+            # heartbeat; once the holders are demoted (or oracle-failed)
+            # report after one round
+            if not self.backend.lease_stalled():
+                break
+            tries += 1
+            self.stats["retries"] += 1
+            self.telemetry.count("retries")
+            self._retry_pause(budget)
+            k, a, n, covered = self.backend.scan(
+                torch.as_tensor(lo, dtype=kd, device=self.device),
+                torch.as_tensor(hi, dtype=kd, device=self.device), limit)
+            cov = covered.cpu().numpy()
         missing = tuple(int(g) for g in np.nonzero(~cov)[0].tolist())
         tel = self.telemetry
         if tel.enabled:
@@ -525,7 +880,7 @@ class HiStoreClient:
             tel.observe("scan", time.perf_counter() - t0)
             if missing:
                 tel.count("incomplete_scans")
-            tel.span({"op": "scan", "limit": limit, "retries": 0,
+            tel.span({"op": "scan", "limit": limit, "retries": tries,
                       "seconds": time.perf_counter() - t0,
                       "missing_groups": list(missing)})
         lim = min(limit, k.shape[0])
@@ -576,10 +931,10 @@ class HiStoreClient:
             self.migrate()
 
     def start_ticker(self) -> bool:
-        """Start the backend's background lease ticker.  True when one is
-        running; False for backends without leases (LocalBackend tracks
-        liveness on the host, the port's DistributedBackend runs with
-        lease_misses=0)."""
+        """Start the backend's background lease ticker (idle-client
+        wall-clock failure detection).  True when one is running; False
+        for backends without leases (LocalBackend tracks liveness on the
+        host) or with detection off (lease_misses=0)."""
         fn = getattr(self.backend, "start_ticker", None)
         return bool(fn()) if fn else False
 
@@ -652,6 +1007,26 @@ class HiStoreClient:
         if gc:
             gc()
 
+    def _retry_pause(self, budget: Optional[int] = None):
+        """Wall-clock leases expire by elapsed time, not retry count: an
+        unpaced retry loop would run out of retries long before a crashed
+        server's lease can expire.  Pace the loop (the RPC client's
+        backoff) so its remaining budget spans at least one lease
+        timeout, only while the detector watches a stalled heartbeat; a
+        healthy push-back retry stays fast.  No-op in rounds mode, with
+        detection off, and for lease-less backends."""
+        be = self.backend
+        if getattr(be, "lease_clock", "") != "wall":
+            return
+        if getattr(be, "lease_misses", 0) <= 0:
+            return
+        if not be.lease_stalled():
+            return
+        # the first stalled round goes unpaced (the stall is only
+        # observable after it), so spread the timeout over budget - 1
+        n = max(budget if budget is not None else self.max_retries, 2)
+        time.sleep(be.lease_timeout_s / (n - 1))
+
     def _put_chunk(self, keys, vals):
         tel = self.telemetry
         tr = tel.tracing
@@ -684,6 +1059,7 @@ class HiStoreClient:
             self.stats["retries"] += 1
             tel.count("retries")
             tel.count("pushbacks")   # capacity push-back on a mutation
+            self._retry_pause()
             self._make_room()
         if tr:
             tel.span({"op": "put", "n": q, "retries": retries,
@@ -719,6 +1095,7 @@ class HiStoreClient:
             self.stats["retries"] += 1
             tel.count("retries")
             tel.count("pushbacks")
+            self._retry_pause()
             self._make_room()
         if tr:
             tel.span({"op": "delete", "n": q, "retries": retries,
@@ -760,6 +1137,7 @@ class HiStoreClient:
             retries += 1
             self.stats["retries"] += 1
             tel.count("retries")
+            self._retry_pause()
         if tr:
             tel.span({"op": "get", "n": q, "retries": retries,
                       "seconds": time.perf_counter() - t0, "events": ev})

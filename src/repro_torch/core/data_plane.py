@@ -1,5 +1,5 @@
-"""Data-server subsystem: the value plane of the store (port of the
-healthy parts of ``repro/core/data_plane.py``).
+"""Data-server subsystem: the value plane of the store (port of
+``repro/core/data_plane.py``).
 
   * **Slot allocator + GC** — every data shard tracks its slots with a
     ``used`` bitmap.  PUT allocates the lowest free slots; DELETE and
@@ -10,13 +10,21 @@ healthy parts of ``repro/core/data_plane.py``).
   * **Value replication** — each shard is mirrored on the next
     ``cfg.n_value_replicas`` devices (shifted layout, like the index
     backup logs: ``mirror[r, p]`` holds the copy of shard
-    ``(p - r - 1) mod G``).
-  * **Audits** — the host-side drain barrier (``drain_all_logs``) and
-    ``value_slot_audit``: every live address allocated, nothing orphaned
-    or referenced twice, no free-queue spill.
+    ``(p - r - 1) mod G``).  ``fail_data_server`` wipes a device's shard
+    and the mirrors it hosts; ``recover_data_server`` rebuilds from a
+    surviving mirror and mark-sweeps the allocator (``sweep``) against
+    the live index.
+  * **Value migration** — ``migrate_values`` moves values written off
+    their home shard during degraded writes back home and patches the
+    index addresses (hash + every sorted replica), so GETs are one-RTT
+    again (``GetResult.hops`` back to 1).
+  * **Audits** — the host-side drain barrier (``drain_all_logs``),
+    ``value_slot_audit`` and the last-resort rebuild authority
+    ``group_items_from_data`` (the keys stored with the data items).
 
-The data-server fail / sever / recover passes, ``sweep``,
-``migrate_values`` and ``group_items_from_data`` belong to slice 2b.
+The control-plane passes are eager and host-coordinated, as the JAX
+package's are; where JAX loops in Python over addresses or slots, the
+port runs the same step as tensor operations on the store's device.
 This module never imports ``kvstore``: it touches only the store's
 fields, so the dependency points one way.
 """
@@ -197,10 +205,11 @@ def drain_all_logs(store, cfg, apply_fn=None):
 
 
 def _group_items(store, cfg, g: int):
-    """Live (keys, addrs) of group ``g`` as numpy, from its authority:
-    the hash table when g's index server is alive, else the first live
-    (drained) sorted replica.  Call on a drained store.  Liveness here
-    is true liveness (alive minus severed)."""
+    """Live (keys, addrs) of group ``g`` as tensors on the store's
+    device, from its authority: the hash table when g's index server is
+    alive, else the first live (drained) sorted replica.  Call on a
+    drained store.  Liveness here is true liveness (alive minus
+    severed).  ``keys`` is None when only the raw hash slots answer."""
     R, G = store.blog.tail.shape
     alive = store.alive.cpu().numpy() & ~store.sever.cpu().numpy()
     srt0 = None
@@ -217,14 +226,16 @@ def _group_items(store, cfg, g: int):
             # replica keys + hash addrs, when the two agree on the items
             if (int(hix.n_items(hs)) == int(valid.sum())
                     and bool((f_h | ~valid).all())):
-                return keys[valid].cpu().numpy(), a_h[valid].cpu().numpy()
+                return keys[valid], a_h[valid]
         # replicas lost or out of sync: the raw hash slots (addresses
         # only, no keys recoverable)
-        return None, hs.addr[hix.valid_mask(hs)].cpu().numpy()
+        return None, hs.addr[hix.valid_mask(hs)]
+    dev = store.alive.device
     if srt0 is None:
-        return np.zeros((0,), np.int64), np.zeros((0,), np.int32)
+        return (torch.zeros((0,), dtype=torch.int64, device=dev),
+                torch.zeros((0,), dtype=I32, device=dev))
     keys, addrs, valid = six.items(srt0)
-    return keys[valid].cpu().numpy(), addrs[valid].cpu().numpy()
+    return keys[valid], addrs[valid]
 
 
 def _pending_free_addrs(freeq) -> np.ndarray:
@@ -285,8 +296,8 @@ def value_slot_audit(store, cfg, apply_fn=None) -> dict:
     dcap = int(st.data.vals.shape[1])
     dalive = effective_alive(st.data)
     used = st.data.used.cpu().numpy()
-    refs = np.concatenate([np.asarray(_group_items(st, cfg, g)[1], np.int64)
-                           for g in range(G)])
+    refs = np.concatenate([_group_items(st, cfg, g)[1].cpu().numpy()
+                           .astype(np.int64) for g in range(G)])
     refs = refs[refs >= 0]
     uniq, counts = np.unique(refs, return_counts=True)
     double = int((counts > 1).sum())
@@ -306,3 +317,275 @@ def value_slot_audit(store, cfg, apply_fn=None) -> dict:
             "fq_spill": spill,
             "agree": double == 0 and missing == 0 and orphaned == 0
             and spill == 0}
+
+
+def group_items_from_data(store, cfg, g: int, owner_group_fn):
+    """Last-resort rebuild authority: every allocated slot on every live
+    data shard with its stored key, kept where the key is owned by group
+    ``g`` (``owner_group_fn`` is the routing hash, injected to keep this
+    module independent of kvstore), as numpy (keys, addrs) in address
+    order.  Slots whose free is still pending in a queue are logically
+    dead and excluded.  Raises RecoveryError when a dead data shard
+    could be hiding slots.  The JAX package walks the slots in a Python
+    loop; here one mask over the [G * dcap] slots gives the same pairs
+    in the same order."""
+    G = int(store.alive.shape[0])
+    dcap = int(store.data.vals.shape[1])
+    dalive = effective_alive(store.data)
+    dead_shards = [int(s) for s in range(G) if not dalive[s]]
+    if dead_shards:
+        raise RecoveryError(
+            group=g,
+            searched=["sorted replicas", "hash", "data-plane slots"],
+            blockers=[f"data server {s}" for s in dead_shards])
+    dev = store.data.used.device
+    live = store.data.used.reshape(-1).clone()
+    pend = torch.as_tensor(
+        _pending_free_addrs(store.data.freeq).astype(np.int64), device=dev)
+    live[pend[(pend >= 0) & (pend < G * dcap)]] = False
+    ads = torch.nonzero(live).flatten()
+    ks = store.data.keys.reshape(-1)[ads]
+    sel = owner_group_fn(ks, G) == g
+    return ks[sel].cpu().numpy(), ads[sel].to(I32).cpu().numpy()
+
+
+def _wipe_data_state(data: DataPlane, dev: int) -> DataPlane:
+    """Destroy the data-plane state device ``dev`` held: its shard, every
+    mirror it hosts, and its pending free queue (the crash's data loss).
+    A new state: the old one is unchanged."""
+    every = slice(None)
+    return data._replace(
+        vals=tree.put_leaf(data.vals, 0, dev),
+        used=tree.put_leaf(data.used, False, dev),
+        mirror=tree.put_leaf(data.mirror, 0, every, dev),
+        keys=tree.put_leaf(data.keys, 0, dev),
+        kmirror=tree.put_leaf(data.kmirror, 0, every, dev),
+        freeq=tree.put(data.freeq, lg.clear(tree.at(data.freeq, dev)), dev))
+
+
+def fail_data_server(store, dev: int, wipe: bool = True):
+    """Oracle kill switch for the value plane: mask device ``dev``'s DATA
+    server dead with the client told at once, a failure domain separate
+    from the index server (paper §2).  ``wipe`` (default) destroys the
+    shard, the mirrors it hosts and its pending free queue, so recovery
+    must rebuild from surviving mirrors; leaked frees are reclaimed by
+    the recovery's mark-sweep."""
+    data = store.data._replace(
+        alive=tree.put_leaf(store.data.alive, False, dev))
+    if wipe:
+        data = _wipe_data_state(data, dev)
+    return store._replace(data=data)
+
+
+def sever_data_server(store, dev: int, wipe: bool = True):
+    """Crash device ``dev``'s DATA server without telling the client: its
+    shard state is destroyed (``wipe``) and its heartbeats stop, but
+    ``data.alive``, the client's routing view, still says up.  Local
+    value writes there are rejected, reads fail over to the mirrors per
+    op, and the lease detector demotes the device once its data
+    heartbeat stalls."""
+    data = store.data._replace(
+        sever=tree.put_leaf(store.data.sever, True, dev))
+    if wipe:
+        data = _wipe_data_state(data, dev)
+    return store._replace(data=data)
+
+
+def sweep(store, cfg, apply_fn=None):
+    """Mark-sweep GC reconciliation: on every live data shard ``used``
+    becomes exactly the slot set referenced by live index entries; the
+    free queues are superseded and cleared (fixes slot leaks from free
+    queues lost in a data-server crash)."""
+    st = drain_all_logs(store, cfg, apply_fn)
+    G = int(st.alive.shape[0])
+    dcap = int(st.data.vals.shape[1])
+    dev = st.data.used.device
+    marked = torch.zeros((G * dcap,), dtype=torch.bool, device=dev)
+    for g in range(G):
+        _, addrs = _group_items(st, cfg, g)
+        addrs = addrs.to(torch.int64)
+        marked[addrs[addrs >= 0]] = True
+    dalive = torch.as_tensor(effective_alive(st.data), device=dev)
+    used = torch.where(dalive[:, None], marked.view(G, dcap), st.data.used)
+    return st._replace(data=st.data._replace(
+        used=used, freeq=lg.clear(st.data.freeq)))
+
+
+def recover_data_server(store, dev: int, cfg, apply_fn=None):
+    """Recover device ``dev``'s data server (host-side control plane):
+
+      1. restore the shard from the first surviving mirror copy;
+      2. re-clone every mirror ``dev`` hosts from the live shard (or a
+         surviving mirror) of the same group;
+      3. mark-sweep the allocator bitmaps against the live index (also
+         reclaims frees leaked when the crash dropped ``dev``'s queue);
+      4. flip ``data.alive[dev]`` and clear a severed heartbeat, so the
+         recovered server leases normally again.
+    """
+    G = int(store.alive.shape[0])
+    Rv = int(store.data.mirror.shape[0])
+    dalive = effective_alive(store.data)
+    if bool(dalive[dev]):
+        return store
+    # the recovered server heartbeats again; the rebuild below reads
+    # true liveness, so a severed-but-undetected sibling is never a source
+    store = store._replace(data=store.data._replace(
+        sever=tree.put_leaf(store.data.sever, False, dev)))
+    dalive = dalive.copy()
+    dalive[dev] = False
+    data = store.data
+    if G > 1:
+        src = None
+        for r in range(Rv):
+            h = (dev + r + 1) % G
+            if h != dev and dalive[h]:
+                src = (r, h)
+                break
+        if src is None:
+            raise RecoveryError(group=dev,
+                                searched=[f"mirror {r} on device "
+                                          f"{(dev + r + 1) % G}"
+                                          for r in range(Rv)],
+                                blockers=[])
+        data = data._replace(
+            vals=tree.put_leaf(data.vals, data.mirror[src], dev),
+            keys=tree.put_leaf(data.keys, data.kmirror[src], dev))
+        for r in range(Rv):
+            s = (dev - r - 1) % G
+            if s == dev:
+                continue
+            if dalive[s]:
+                data = data._replace(
+                    mirror=tree.put_leaf(data.mirror, data.vals[s], r, dev),
+                    kmirror=tree.put_leaf(data.kmirror, data.keys[s], r,
+                                          dev))
+            else:
+                for r2 in range(Rv):
+                    h2 = (s + r2 + 1) % G
+                    if h2 != dev and dalive[h2]:
+                        data = data._replace(
+                            mirror=tree.put_leaf(data.mirror,
+                                                 data.mirror[r2, h2], r, dev),
+                            kmirror=tree.put_leaf(data.kmirror,
+                                                  data.kmirror[r2, h2], r,
+                                                  dev))
+                        break
+    data = data._replace(alive=tree.put_leaf(data.alive, True, dev))
+    return sweep(store._replace(data=data), cfg, apply_fn)
+
+
+def migrate_values(store, cfg, owner_group_fn, apply_fn=None):
+    """Background value migration (second-hop fetch elision): move values
+    that live off their owner group's shard, stranded there by degraded
+    writes, back home, free the old slots, and patch the index
+    addresses (hash + every sorted replica).  GETs after it are one-RTT
+    again (``GetResult.hops == 1``).
+
+    ``owner_group_fn(keys, G)`` is the routing hash; ``apply_fn`` the
+    store's apply op (the barrier then runs as incremental apply
+    rounds).  Returns (store, n_moved).  The groups go one after the
+    other, as in the JAX package (a group's homing frees slots a later
+    group may take); within a group the JAX package loops over the
+    stranded addresses in Python, here one tensor step takes them all:
+    the lowest free home slots in ascending order, a partial migration
+    when the home shard is full, the frees of dead shards kept in order
+    for device 0's free queue."""
+    st = drain_all_logs(store, cfg, apply_fn)
+    G = int(st.alive.shape[0])
+    R = int(st.blog.tail.shape[0])
+    dcap = int(st.data.vals.shape[1])
+    Rv = int(st.data.mirror.shape[0])
+    dalive = effective_alive(st.data)
+    data = st.data
+    dev = data.used.device
+    # flush pending frees first so their slots are reusable for homing
+    used = data.used.clone()
+    pend = _pending_free_addrs(data.freeq).astype(np.int64)
+    ps = pend // dcap
+    here = dalive[ps % G]
+    used[torch.as_tensor(ps[here] % G, device=dev),
+         torch.as_tensor(pend[here] % dcap, device=dev)] = False
+    kept_frees = [pend[~here]]
+    freeq = lg.clear(data.freeq)
+    vals, mirror = data.vals.clone(), data.mirror.clone()
+    dkeys, kmir = data.keys.clone(), data.kmirror.clone()
+    # the index leaves are copied once and patched in place below
+    hash_t = type(st.hash)(*[a.clone() for a in st.hash])
+    baddrs = st.bsorted.addrs.clone()
+    alive_idx = st.alive.cpu().numpy()
+    # the first live mirror holder of each shard (-1: none)
+    first_mirror = np.full((G,), -1, np.int64)
+    for s in range(G):
+        for r in range(Rv):
+            if dalive[(s + r + 1) % G]:
+                first_mirror[s] = r
+                break
+    moved = 0
+    for g in range(G):
+        if not dalive[g]:
+            continue                     # home shard down: nothing to do yet
+        keys, addrs = _group_items(st, cfg, g)
+        if keys is None or len(keys) == 0:
+            continue
+        addrs = addrs.to(torch.int64)
+        own = owner_group_fn(keys, G)
+        stale = (addrs >= 0) & (addrs // dcap != g) & (own == g)
+        mk, ma = keys[stale], addrs[stale]
+        if not len(ma):
+            continue
+        # read each stranded value: the shard's copy, else the first
+        # surviving mirror; a value with no live copy stays in place
+        s_np = (ma // dcap).cpu().numpy()
+        s, j = ma // dcap, ma % dcap
+        on_shard = torch.as_tensor(dalive[s_np], device=dev)
+        r_m = torch.as_tensor(first_mirror[s_np], device=dev)
+        okv = on_shard | (r_m >= 0)
+        r_c = torch.clamp(r_m, min=0)
+        vv = torch.where(on_shard[:, None], vals[s, j],
+                         mirror[r_c, (s + r_c + 1) % G, j])
+        free_home = torch.nonzero(~used[g]).flatten()
+        take = torch.nonzero(okv).flatten()
+        n = min(int(take.shape[0]), int(free_home.shape[0]))
+        if n == 0:
+            continue
+        take = take[:n]                  # partial migration if home is full
+        new_slots = free_home[:n]
+        mk, ma, vv = mk[take], ma[take], vv[take]
+        vals[g, new_slots] = vv
+        dkeys[g, new_slots] = mk
+        used[g, new_slots] = True
+        for r in range(Rv):
+            h = (g + r + 1) % G
+            if dalive[h]:
+                mirror[r, h, new_slots] = vv
+                kmir[r, h, new_slots] = mk
+        ms = (ma // dcap).cpu().numpy()
+        back = dalive[ms]
+        used[ma[torch.as_tensor(back, device=dev)] // dcap,
+             ma[torch.as_tensor(back, device=dev)] % dcap] = False
+        kept_frees.append(ma.cpu().numpy()[~back])
+        new_addrs = (g * dcap + new_slots).to(I32)
+        if bool(alive_idx[g]):
+            hs, _ = hix.insert(tree.at(hash_t, g), mk, new_addrs, cfg)
+            for leaf, v in zip(hash_t, hs):
+                leaf[g] = v
+        for r in range(R):
+            h = (g + r + 1) % G
+            skeys = st.bsorted.keys[r, h]
+            cap = skeys.shape[0]
+            pos = torch.searchsorted(skeys, mk)             # left side
+            hit = skeys[torch.clamp(pos, 0, cap - 1)] == mk
+            baddrs[r, h] = drop_set(baddrs[r, h],
+                                    torch.where(hit, pos, cap), new_addrs)
+        moved += n
+    kept = np.concatenate(kept_frees)
+    if len(kept):
+        ka = torch.as_tensor(kept.astype(np.int32), device=dev)
+        fq0, _ = lg.append(tree.at(freeq, 0),
+                           torch.zeros_like(ka, dtype=freeq.keys.dtype), ka,
+                           torch.ones_like(ka, dtype=torch.int8))
+        freeq = tree.put(freeq, fq0, 0)
+    data = data._replace(vals=vals, used=used, mirror=mirror, freeq=freeq,
+                         keys=dkeys, kmirror=kmir)
+    return (st._replace(hash=hash_t, bsorted=st.bsorted._replace(
+        addrs=baddrs), data=data), moved)

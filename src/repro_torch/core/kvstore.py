@@ -1,5 +1,5 @@
 """HiStore: the distributed key-value store over G index groups (port of
-the healthy path of ``repro/core/kvstore.py``).
+``repro/core/kvstore.py``).
 
 Topology: group g's primary server holds its hash table, its primary log
 and its data shard; the backup servers of groups g-1 and g-2 sit beside
@@ -17,19 +17,33 @@ indexing on the [G] axis (``verbs.py``): ``all_to_all`` a transpose,
 ``axis_index`` the loop's ``g``.  State is functional, as in JAX: an op
 returns a new store.
 
-Ops (``make_ops``), healthy path: routed two-sided PUT and DELETE with
-log replication to the live backups, one-sided GET through the fused
-group probe with a second-hop ``fetch``, the all-gathered SCAN after a
-full drain, the async ``apply``, the free-queue ``gc`` and the
-heartbeat ``tick``.  The degraded PUT and DELETE variants, the control
-plane (fail / sever / recover, ``re_replicate``) and value migration
-belong to slice 2b.
+Ops (``make_ops``): routed two-sided PUT and DELETE with log replication
+to the live backups, and their degraded variants (the old-slot replica
+probe at a temporary primary, one stacked group-probe call for the G
+servers, and the one-hop value displacement off a dead data shard);
+one-sided GET through the fused group probe with a second-hop
+``fetch``; the all-gathered SCAN after a full drain; the async
+``apply``, the free-queue ``gc`` and the heartbeat ``tick``.
+
+The host-side control plane: ``fail_server`` wipes a server's index
+state with the client told at once, ``sever_server`` wipes it and stops
+its heartbeats (the client's lease detector must notice);
+``recover_server`` rebuilds the hash and re-clones the replicas from
+the survivors, online (the pending window streams in through the
+ordinary apply rounds) or stop-the-world, falling back to the primary's
+hash + the keys stored with the data items, then to a data-plane slot
+scan, and raising RecoveryError only when no copy exists;
+``re_replicate`` verifies every live holder against its group's
+authority and rebuilds divergent copies.  The value plane's
+``fail_data_server`` / ``sever_data_server`` / ``recover_data_server``
+and ``migrate_values`` are ``data_plane.py``'s.
 """
 from __future__ import annotations
 
 import functools
 from typing import NamedTuple
 
+import numpy as np
 import torch
 
 from repro_torch.core import data_plane as dp
@@ -149,9 +163,12 @@ def _key_group_any(rk, valid, flag):
     return dp.spread_winner_addr(rk, valid, flag, zero) >= 0
 
 
-def _put_body(cfg, G, capacity, store: KVStore, keys, vals, valid):
-    """Routed PUT, healthy variant (every index and data server up, so no
-    old-slot replica probe and no value displacement)."""
+def _put_body(cfg, G, capacity, store: KVStore, keys, vals, valid,
+              degraded: bool):
+    """Routed PUT.  ``degraded`` is the liveness hint the backend picks
+    from its host-side view: the healthy variant assumes every index and
+    data server is up, so it skips the replica probe (the old-slot
+    lookup at a temporary primary) and the one-hop value displacement."""
     dev = keys.device
     me = _me(G, dev)
     bufs, slot, ok_route = _route_to_owner(
@@ -164,18 +181,34 @@ def _put_body(cfg, G, capacity, store: KVStore, keys, vals, valid):
     data = store.data
     dcap = data.vals.shape[1]
     dalive = data.alive & ~data.sever
+    # pre-batch address of the overwritten key: the hash at the true
+    # primary, the replica + pending log at a temporary primary (one
+    # stacked group probe for the G servers)
+    if degraded:
+        a_p, f_p, _, a_b, f_b, _, _ = kops.group_probe_stacked(
+            cfg, store.hash, store.bsorted, store.blog, rk)
+        probed = (torch.where(am_primary, a_p, a_b),
+                  torch.where(am_primary, f_p, f_b))
     # --- owner side: place the value, group by group ----------------------
     cols = {k: [] for k in ("winner", "old_a", "old_f", "inplace", "slot_d",
-                            "aok", "wslot", "wmask", "addr_lane")}
+                            "aok", "wslot", "wmask", "addr_lane", "allocw")}
     used, dvals, dkeys = [], [], []
     for g in range(G):
         rk_g, ok_g = rk[g], valid[g]
         winner = dp.winner_mask(rk_g, ok_g)
-        old_a, old_f, _ = kops.probe(cfg, tree.at(store.hash, g), rk_g)
+        if degraded:
+            old_a, old_f = probed[0][g], probed[1][g]
+        else:
+            old_a, old_f, _ = kops.probe(cfg, tree.at(store.hash, g), rk_g)
         # overwrite whose old slot is on my live shard: in place
         inplace = winner & old_f & (old_a // dcap == g) & dalive[g]
         allocw = winner & ~inplace
+        # free-queue push-back before anything commits: a lane that may
+        # queue a remote free (a moved overwrite; a displaced write whose
+        # rollback would queue) is admitted while the queue has room
         may_queue = allocw & old_f & (old_a >= 0) & (old_a // dcap != g)
+        if degraded:
+            may_queue = may_queue | (allocw & ~dalive[g])
         allocw = allocw & _fq_pregate(tree.at(data.freeq, g), may_queue)
         u, slot_d, aok = dp.alloc(data.used[g], allocw & dalive[g])
         wslot = torch.where(inplace, old_a % dcap,
@@ -190,23 +223,50 @@ def _put_body(cfg, G, capacity, store: KVStore, keys, vals, valid):
         for k, v in (("winner", winner), ("old_a", old_a), ("old_f", old_f),
                      ("inplace", inplace), ("slot_d", slot_d), ("aok", aok),
                      ("wslot", wslot), ("wmask", wmask),
-                     ("addr_lane", addr_lane)):
+                     ("addr_lane", addr_lane), ("allocw", allocw)):
             cols[k].append(v)
     c = {k: torch.stack(v) for k, v in cols.items()}
-    # --- mirror the writes on the next Rv devices -------------------------
+    writes = [(c["wslot"], rv, rk, c["wmask"])]
+    disp = torch.zeros_like(valid)
+    if degraded:
+        # my own data shard is dead: displace the value one hop (the
+        # neighbour's shard holds it until migrate_values brings it
+        # home).  As on each JAX device, the neighbour allocates for the
+        # forwarded lanes after its own allocation, on the same bitmap.
+        need_fwd = c["allocw"] & ~dalive[:, None]
+        f = replicate_shift({"v": rv, "k": rk, "need": need_fwd}, 1)
+        fslot, faok = [], []
+        for g in range(G):
+            used[g], fs, fa = dp.alloc(used[g], f["need"][g] & dalive[g])
+            ftgt = torch.where(fa, fs, dcap)
+            dvals[g] = drop_set_rows(dvals[g], ftgt, f["v"][g])
+            dkeys[g] = drop_set(dkeys[g], ftgt, f["k"][g])
+            fslot.append(fs)
+            faok.append(fa)
+        fslot, faok = torch.stack(fslot), torch.stack(faok)
+        back = replicate_shift({"slot": fslot, "aok": faok}, G - 1)
+        disp = need_fwd & back["aok"]
+        c["addr_lane"] = torch.where(
+            disp, ((me + 1) % G) * dcap + back["slot"],
+            c["addr_lane"]).to(I32)
+        writes.append((fslot, f["v"], f["k"], faok))
+    # --- mirror the writes on the next Rv devices, in order ---------------
     mirror, kmirror = data.mirror, data.kmirror
     if mirror.shape[0]:
         mir, kmir = [], []
         for r in range(mirror.shape[0]):
-            out = replicate_shift({"s": c["wslot"], "v": rv, "k": rk,
-                                   "m": c["wmask"]}, r + 1)
-            tgt = torch.where(out["m"] & dalive[:, None], out["s"], dcap)
-            mir.append(torch.stack([drop_set_rows(mirror[r, g], tgt[g],
-                                                  out["v"][g])
-                                    for g in range(G)]))
-            kmir.append(torch.stack([drop_set(kmirror[r, g], tgt[g],
-                                              out["k"][g])
-                                     for g in range(G)]))
+            m_r, k_r = list(mirror[r]), list(kmirror[r])
+            for ms, mv, mk, mm in writes:
+                out = replicate_shift({"s": ms, "v": mv, "k": mk, "m": mm},
+                                      r + 1)
+                tgt = torch.where(out["m"] & dalive[:, None], out["s"],
+                                  dcap)
+                for g in range(G):
+                    m_r[g] = drop_set_rows(m_r[g], tgt[g], out["v"][g])
+                    k_r[g] = drop_set(k_r[g], tgt[g], out["k"][g])
+            mir.append(torch.stack(m_r))
+            kmir.append(torch.stack(k_r))
+            del m_r, k_r        # the per-group copies, before the next stack
         mirror, kmirror = torch.stack(mir), torch.stack(kmir)
     # superseded duplicate lanes share their winner's address; a failed
     # allocation (-1) un-acks the whole duplicate group for a retry
@@ -246,8 +306,11 @@ def _put_body(cfg, G, capacity, store: KVStore, keys, vals, valid):
                                     free_local[g]),
                       c["slot_d"][g], c["aok"][g] & undo[g])
         for g in range(G)])
-    qmask = moved & ~free_local
-    freeq, fq_acc = _queue_remote_frees(data.freeq, rk, old_a, qmask)
+    # a displaced slot lives on the neighbour: its rollback is queued
+    undo_remote = disp & undo
+    qmask = (moved & ~free_local) | undo_remote
+    qaddr = torch.where(undo_remote, addr, old_a)
+    freeq, fq_acc = _queue_remote_frees(data.freeq, rk, qaddr, qmask)
     fq_spill = data.fq_spill + (qmask & ~fq_acc).sum(1, dtype=I32)
     ret = route_return({"ok": ok_req.to(I32), "addr": addr, "rep": nrep},
                        slot)
@@ -314,11 +377,14 @@ def _replicate_logs(blog, alive, rk, addr, ops, valid, rg, G, opcode):
     return tree.stack(logs), ok, nrep, ok_local
 
 
-def _delete_body(cfg, G, capacity, store: KVStore, keys, valid):
-    """Routed DELETE, healthy variant: a tombstone through the primary
-    log -> backup logs -> hash delete; the value slot is freed at once
-    (queued for the gc op when it lives on another shard).  The
-    tombstones compact out of the sorted replicas at apply time."""
+def _delete_body(cfg, G, capacity, store: KVStore, keys, valid,
+                 degraded: bool):
+    """Routed DELETE: a tombstone through the primary log -> backup logs
+    -> hash delete; the value slot is freed at once (queued for the gc
+    op when it lives on another shard).  The tombstones compact out of
+    the sorted replicas at apply time.  ``degraded`` as in _put_body:
+    with every server alive all requests land on true primaries, so the
+    healthy variant skips the replica probe."""
     dev = keys.device
     me = _me(G, dev)
     bufs, slot, ok_route = _route_to_owner(store, keys, valid, G, capacity)
@@ -330,20 +396,30 @@ def _delete_body(cfg, G, capacity, store: KVStore, keys, valid):
     data = store.data
     dcap = data.vals.shape[1]
     deff = data.alive & ~data.sever
-    olds, valids = [], []
+    if degraded:
+        # existence check before this batch's tombstones land: a
+        # temporary primary consults its replica + pending log, so
+        # DELETE reports found honestly while the true primary is down
+        a_p, f_p, _, a_b, found_b, _, _ = kops.group_probe_stacked(
+            cfg, store.hash, store.bsorted, store.blog, rk)
+        old_a = torch.where(am_primary, a_p, a_b)
+        old_f = torch.where(am_primary, f_p, found_b)
+    else:
+        probed = [kops.probe(cfg, tree.at(store.hash, g), rk[g])
+                  for g in range(G)]
+        old_a = torch.stack([p[0] for p in probed])
+        old_f = torch.stack([p[1] for p in probed])
+        found_b = torch.zeros_like(valid)       # no degraded lanes exist
+    valids = []
     for g in range(G):
-        old_a, old_f, _ = kops.probe(cfg, tree.at(store.hash, g), rk[g])
-        olds.append((old_a, old_f))
         # free-queue push-back before the tombstone lands; a nacked
         # winner takes its whole duplicate-key group with it
         winner0 = dp.winner_mask(rk[g], valid[g])
-        may_queue = (winner0 & old_f & (old_a >= 0)
-                     & ~((old_a // dcap == g) & deff[g]))
+        may_queue = (winner0 & old_f[g] & (old_a[g] >= 0)
+                     & ~((old_a[g] // dcap == g) & deff[g]))
         bad = may_queue & ~_fq_pregate(tree.at(data.freeq, g), may_queue)
         valids.append(valid[g] & ~_key_group_any(rk[g], valid[g], bad))
     valid = torch.stack(valids)
-    old_a = torch.stack([o[0] for o in olds])
-    old_f = torch.stack([o[1] for o in olds])
     ops = torch.where(valid & am_primary, six.OP_DEL, 0).to(torch.int8)
     plog, ok_p = lg.append_rows(store.plog, rk, addr, ops,
                                 valid & am_primary)
@@ -372,8 +448,7 @@ def _delete_body(cfg, G, capacity, store: KVStore, keys, valid):
     freeq, fq_acc = _queue_remote_frees(data.freeq, rk, old_a, qmask)
     fq_spill = data.fq_spill + (qmask & ~fq_acc).sum(1, dtype=I32)
     ok_req = valid & ok_rep & ((am_primary & ok_p) | ~am_primary)
-    # no degraded lanes exist on the healthy path: found_b is all False
-    found_req = torch.where(am_primary, found, False)
+    found_req = torch.where(am_primary, found, found_b & valid)
     ret = route_return({"ok": ok_req.to(I32), "found": found_req.to(I32),
                         "rep": nrep}, slot)
     new_store = _bump_hb(store._replace(
@@ -598,22 +673,28 @@ def make_ops(cfg, G: int, capacity_q: int = 64, scan_limit: int = 128):
     global [B] lane arrays, B a multiple of G):
 
     put(st, keys, vals, valid)  -> (st, ok, addrs, nrep)
+    put_degraded(...)           -> as put, plus the old-slot replica probe
+                                   at temporary primaries and the one-hop
+                                   value displacement off dead data shards
+                                   (use while any server is masked dead)
     get(st, keys, valid)        -> (addrs, found, accesses, vals, routed,
                                     val_ok)
     fetch(st, addrs, valid)     -> (st, vals, routed)  second-hop read
     delete(st, keys, valid)     -> (st, ok, found, nrep)
+    delete_degraded(...)        -> as delete, plus the replica probe that
+                                   answers found at a temporary primary
     apply(st)                   -> st
     gc(st)                      -> st   one free-queue flush round
     scan(st, lo, hi)            -> (keys, addrs, covered, st); lo, hi [G]
-    tick(st)                    -> st   heartbeat-only round
+    tick(st)                    -> st   heartbeat-only round"""
 
-    ``put_degraded`` and ``delete_degraded`` are slice 2b's."""
-
-    def put(st, keys, vals, valid):
-        st, ok, addrs, nrep = _put_body(cfg, G, capacity_q, st,
-                                        _rows(keys, G), _rows(vals, G),
-                                        _rows(valid, G))
-        return st, _flat(ok), _flat(addrs), _flat(nrep)
+    def put(degraded):
+        def op(st, keys, vals, valid):
+            st, ok, addrs, nrep = _put_body(
+                cfg, G, capacity_q, st, _rows(keys, G), _rows(vals, G),
+                _rows(valid, G), degraded)
+            return st, _flat(ok), _flat(addrs), _flat(nrep)
+        return op
 
     def get(st, keys, valid):
         return tuple(_flat(x) for x in _get_body(
@@ -624,12 +705,17 @@ def make_ops(cfg, G: int, capacity_q: int = 64, scan_limit: int = 128):
                                        _rows(valid, G))
         return st, _flat(vals), _flat(routed)
 
-    def delete(st, keys, valid):
-        st, ok, found, nrep = _delete_body(cfg, G, capacity_q, st,
-                                           _rows(keys, G), _rows(valid, G))
-        return st, _flat(ok), _flat(found), _flat(nrep)
+    def delete(degraded):
+        def op(st, keys, valid):
+            st, ok, found, nrep = _delete_body(
+                cfg, G, capacity_q, st, _rows(keys, G), _rows(valid, G),
+                degraded)
+            return st, _flat(ok), _flat(found), _flat(nrep)
+        return op
 
-    return {"put": put, "get": get, "fetch": fetch, "delete": delete,
+    return {"put": put(False), "put_degraded": put(True), "get": get,
+            "fetch": fetch, "delete": delete(False),
+            "delete_degraded": delete(True),
             "apply": lambda st: _apply_body(cfg, cfg.async_apply_batch, st),
             "gc": lambda st: _gc_body(G, capacity_q, st),
             "scan": lambda st, lo, hi: _scan_body(cfg, G, scan_limit, st,
@@ -678,3 +764,306 @@ def parity_report(store: KVStore, cfg, apply_fn=None) -> list:
                         and bool(((a_h == addrs) | ~valid).all())})
     out.append(dp.value_slot_audit(store, cfg, apply_fn))
     return out
+
+
+# ---------------------------------------------------------------------------
+# Failure & recovery protocol (paper §4.3, host-side control plane)
+# ---------------------------------------------------------------------------
+def _wipe_index_state(store: KVStore, dev: int) -> KVStore:
+    """Destroy the index state device ``dev`` held: the hash table and
+    primary log of group ``dev`` and every sorted replica + backup log
+    hosted on ``dev`` (the crash's data loss; the data shard survives:
+    data servers are a separate failure domain, paper §2).  A new store:
+    the old one is unchanged."""
+    every = slice(None)
+    h, s = store.hash, store.bsorted
+    INF = key_inf(s.keys.dtype)
+    return store._replace(
+        hash=tree.put(h, hix.HashIndex(0, 0, -1, 0), dev),
+        plog=tree.put(store.plog, lg.clear(tree.at(store.plog, dev)), dev),
+        bsorted=tree.put(s, six.SortedIndex(INF, -1, 0), every, dev),
+        blog=tree.put(store.blog, lg.clear(tree.at(store.blog, every, dev)),
+                      every, dev))
+
+
+def fail_server(store: KVStore, dev: int, wipe: bool = True) -> KVStore:
+    """Oracle kill switch: mask device ``dev``'s INDEX server dead with
+    the client told at once.  ``wipe`` (default) also destroys the index
+    state it held, so recovery must rebuild from surviving copies.  For
+    failures the client must discover through its leases, use
+    ``sever_server``."""
+    store = store._replace(alive=tree.put_leaf(store.alive, False, dev))
+    return _wipe_index_state(store, dev) if wipe else store
+
+
+def sever_server(store: KVStore, dev: int, wipe: bool = True) -> KVStore:
+    """Crash device ``dev``'s index server without telling the client:
+    its index state is destroyed (``wipe``) and its heartbeats stop, but
+    ``alive``, the client's routing view, still says up.  Requests
+    delivered there are dropped un-acked until the lease detector
+    notices the stalled heartbeat counter and demotes the device."""
+    store = store._replace(sever=tree.put_leaf(store.sever, True, dev))
+    return _wipe_index_state(store, dev) if wipe else store
+
+
+def fail_data_server(store: KVStore, dev: int, wipe: bool = True) -> KVStore:
+    """Mask device ``dev``'s DATA server dead (see data_plane.py)."""
+    return dp.fail_data_server(store, dev, wipe)
+
+
+def sever_data_server(store: KVStore, dev: int,
+                      wipe: bool = True) -> KVStore:
+    """Crash device ``dev``'s DATA server without telling the client, the
+    value plane's lease-detection kill switch (see data_plane.py)."""
+    return dp.sever_data_server(store, dev, wipe)
+
+
+def recover_data_server(store: KVStore, dev: int, cfg,
+                        apply_fn=None) -> KVStore:
+    """Rebuild device ``dev``'s data shard from its mirrors and mark-sweep
+    the allocator (see data_plane.py); ``apply_fn`` runs the sweep's log
+    barrier as incremental apply rounds."""
+    return dp.recover_data_server(store, dev, cfg, apply_fn)
+
+
+def migrate_values(store: KVStore, cfg, apply_fn=None):
+    """Background value migration: move degraded-write strays back to
+    their owner group's shard and patch the index addresses, restoring
+    one-RTT GETs (see data_plane.py).  Returns (store, n_moved)."""
+    return dp.migrate_values(store, cfg, owner_group, apply_fn)
+
+
+def _fresh_hash_like(hs) -> hix.HashIndex:
+    return hix.HashIndex(sig=torch.zeros_like(hs.sig),
+                         fp=torch.zeros_like(hs.fp),
+                         addr=torch.full_like(hs.addr, -1),
+                         fill=torch.zeros_like(hs.fill))
+
+
+def _hash_from_items(hs_like, keys, addrs, cfg):
+    """Fresh hash table holding exactly the given (distinct) items, in
+    the slots JAX's one padded batch gives them (``hix.rebuild``)."""
+    dev = hs_like.sig.device
+    k = torch.as_tensor(np.asarray(keys), device=dev)
+    a = torch.as_tensor(np.asarray(addrs, np.int32), device=dev)
+    return hix.rebuild(_fresh_hash_like(hs_like), k, a, cfg,
+                       torch.ones(k.shape, dtype=torch.bool, device=dev))
+
+
+def _sorted_from_items(srt_like, keys, addrs):
+    """Fresh sorted replica holding exactly the given items (a stable
+    sort on the key, as JAX's numpy argsort)."""
+    dev = srt_like.keys.device
+    cap = srt_like.keys.shape[0]
+    kd = srt_like.keys.dtype
+    k = torch.as_tensor(np.asarray(keys), device=dev).to(kd)
+    a = torch.as_tensor(np.asarray(addrs, np.int32), device=dev)
+    n = k.shape[0]
+    ks, order = torch.sort(k, stable=True)
+    out_k = torch.full((cap,), key_inf(kd), dtype=kd, device=dev)
+    out_a = torch.full((cap,), -1, dtype=I32, device=dev)
+    out_k[:n] = ks
+    out_a[:n] = a[order]
+    return six.SortedIndex(keys=out_k, addrs=out_a,
+                           size=torch.tensor(n, dtype=I32, device=dev))
+
+
+def _live_items(srt):
+    """(keys, addrs) of a sorted replica's live entries, as numpy."""
+    keys, addrs, valid = six.items(srt)
+    return keys[valid].cpu().numpy(), addrs[valid].cpu().numpy()
+
+
+def _group_authority_items(store: KVStore, cfg, g: int, eff):
+    """Host-side (keys, addrs) of group ``g`` from its best surviving
+    authority: the primary's hash (keys fetched from the data items, the
+    paper's rebuild from the data), else a live drained sorted replica,
+    else the data-plane slot scan.  Raises RecoveryError when none of
+    the three can answer."""
+    R, G = store.blog.tail.shape
+    if eff[g]:
+        hs = tree.at(store.hash, g)
+        addrs = hs.addr[hix.valid_mask(hs)].cpu().numpy()
+        try:
+            keys = dp.keys_for_addrs(store, addrs)
+        except dp.RecoveryError as e:
+            raise dp.RecoveryError(
+                g, ["hash + data-plane keys"] + e.searched, e.blockers)
+        return keys, addrs.astype(np.int32)
+    for r in range(R):
+        h = (g + r + 1) % G
+        if not eff[h]:
+            continue
+        srt, _ = dp.drain_pair(tree.at(store.bsorted, r, h),
+                               tree.at(store.blog, r, h), cfg)
+        return _live_items(srt)
+    return dp.group_items_from_data(store, cfg, g, owner_group)
+
+
+def recover_server(store: KVStore, dev: int, cfg,
+                   online: bool = True) -> KVStore:
+    """Recover device ``dev``'s index server from surviving copies
+    (host-side control plane, eager):
+
+      1. rebuild group ``dev``'s hash table from the first live sorted
+         replica of that group, the paper's hash-from-skiplist rebuild;
+      2. re-clone every sorted replica + backup log ``dev`` hosts from a
+         surviving copy of the same group;
+      3. clear a severed heartbeat and mark ``dev`` alive again.
+
+    ``online`` (default) clones snapshots: the source replica is not
+    drained first; its pending log is cloned alongside and streams into
+    the rebuilt replicas through the ordinary ``apply`` op while
+    foreground traffic continues, and the hash is the snapshot plus a
+    replay of the cloned pending window.  ``online=False`` drains, then
+    clones (stop the world).
+
+    Multi-failure fallback: a group with no live sorted replica rebuilds
+    from its primary's hash + the keys stored with the data items, else
+    from a full data-plane slot scan; RecoveryError (with the searched
+    sources and the blockers) is raised only when truly no copy
+    exists."""
+    R, G = store.blog.tail.shape
+    alive = store.alive.cpu().numpy()
+    sever = store.sever.cpu().numpy()
+    if bool(alive[dev]) and not bool(sever[dev]):
+        return store
+    # the recovered server heartbeats again; it stays routed-dead until
+    # the rebuild below completes
+    store = store._replace(sever=tree.put_leaf(store.sever, False, dev),
+                           alive=tree.put_leaf(store.alive, False, dev))
+    if G == 1:
+        # single-server store: nothing was wiped (no surviving copy could
+        # exist), recovery is just the liveness flip
+        return store._replace(alive=tree.put_leaf(store.alive, True, dev))
+    eff = alive & ~sever
+    eff[dev] = False
+
+    def first_live_holder(group, exclude):
+        for r in range(R):
+            h = (group + r + 1) % G
+            if h != exclude and eff[h]:
+                return r, h
+        return None
+
+    def drained(r, h):
+        """The (sorted, log) pair at (r, h), drained in the store when
+        recovering offline."""
+        nonlocal store
+        srt = tree.at(store.bsorted, r, h)
+        blog = tree.at(store.blog, r, h)
+        if not online:
+            srt, blog = dp.drain_pair(srt, blog, cfg)
+            store = store._replace(
+                bsorted=tree.put(store.bsorted, srt, r, h),
+                blog=tree.put(store.blog, blog, r, h))
+        return srt, blog
+
+    # -- 1. hash rebuild for group ``dev`` --------------------------------
+    src = first_live_holder(dev, dev)
+    hs_like = tree.at(store.hash, dev)
+    if src is not None:
+        srt, blog = drained(*src)
+        keys, addrs, valid = six.items(srt)
+        # the valid mask keeps empty sorted-array slots out of the table
+        new_hash = hix.rebuild(_fresh_hash_like(hs_like), keys, addrs, cfg,
+                               valid)
+        if online:
+            new_hash = hix.replay_pending(new_hash, blog, cfg)
+    else:
+        # every replica holder dead: the keys stored with the values
+        # reconstruct (key, addr) for any group (RecoveryError with the
+        # blockers when they can't)
+        new_hash = _hash_from_items(
+            hs_like, *dp.group_items_from_data(store, cfg, dev, owner_group),
+            cfg)
+    lcap = store.plog.keys.shape[1]
+    kd = store.plog.keys.dtype
+    empty_log = lg.create(lcap, store.plog.keys.device, kd)
+    store = store._replace(hash=tree.put(store.hash, new_hash, dev),
+                           plog=tree.put(store.plog, empty_log, dev))
+    # -- 2. sorted-replica rebuild for each group hosted on ``dev`` -------
+    for r2 in range(R):
+        g = (dev - r2 - 1) % G
+        src2 = first_live_holder(g, dev)
+        if src2 is not None:
+            # online: the clone carries the source's pending window; the
+            # ordinary apply op streams it into both copies identically
+            s_srt, s_blog = drained(*src2)
+            store = store._replace(
+                bsorted=tree.put(store.bsorted, s_srt, r2, dev),
+                blog=tree.put(store.blog, s_blog, r2, dev))
+        else:
+            # no live replica of group g anywhere else: rebuild this copy
+            # from the group's surviving authority
+            k_np, a_np = _group_authority_items(store, cfg, g, eff)
+            store = store._replace(
+                bsorted=tree.put(store.bsorted, _sorted_from_items(
+                    tree.at(store.bsorted, r2, dev), k_np, a_np), r2, dev),
+                blog=tree.put(store.blog, empty_log, r2, dev))
+    return store._replace(alive=tree.put_leaf(store.alive, True, dev))
+
+
+def re_replicate(store: KVStore, cfg) -> tuple:
+    """Post-recovery re-replication pass (closes the multi-failure
+    window): for every group, verify each live holder's sorted replica
+    against the group's authority (the primary's hash when alive, else
+    the first live replica) and rebuild any copy that diverged, so R
+    valid copies exist again before the next failure.  Verification
+    drains copies (like parity_report), so replicas with pending
+    catch-up debt compare clean and the online catch-up goes on.
+    Returns (store, n_rebuilt)."""
+    R, G = store.blog.tail.shape
+    eff = store.alive.cpu().numpy() & ~store.sever.cpu().numpy()
+    lcap = store.plog.keys.shape[1]
+    empty_log = lg.create(lcap, store.plog.keys.device,
+                          store.plog.keys.dtype)
+    rebuilt = 0
+    for g in range(G):
+        auth = None      # (keys, addrs) fetched lazily on first mismatch
+        src = None
+        if eff[g]:
+            hs = tree.at(store.hash, g)
+            n_auth = int(hix.n_items(hs))
+        else:
+            for r in range(R):
+                h = (g + r + 1) % G
+                if eff[h]:
+                    src = (r, h)
+                    break
+            if src is None:
+                continue       # nothing to verify against (recover first)
+            srt, _ = dp.drain_pair(tree.at(store.bsorted, *src),
+                                   tree.at(store.blog, *src), cfg)
+            auth = _live_items(srt)
+            n_auth = len(auth[0])
+        for r in range(R):
+            h = (g + r + 1) % G
+            if not eff[h] or (not eff[g] and src == (r, h)):
+                continue
+            srt = tree.at(store.bsorted, r, h)
+            dsrt, _ = dp.drain_pair(srt, tree.at(store.blog, r, h), cfg)
+            keys, addrs, valid = six.items(dsrt)
+            n_rep = int(valid.sum())
+            if eff[g]:
+                a_h, f_h, _ = kops.probe(cfg, hs, keys)
+                okk = (n_rep == n_auth and bool((f_h | ~valid).all())
+                       and bool(((a_h == addrs) | ~valid).all()))
+            else:
+                rk, ra = keys[valid].cpu().numpy(), addrs[valid].cpu().numpy()
+                okk = (n_rep == n_auth
+                       and bool(np.array_equal(rk, auth[0]))
+                       and bool(np.array_equal(ra, auth[1])))
+            if okk:
+                continue
+            if auth is None:
+                try:
+                    auth = _group_authority_items(store, cfg, g, eff)
+                except dp.RecoveryError:
+                    break      # unverifiable right now (data shard dead)
+            store = store._replace(
+                bsorted=tree.put(store.bsorted,
+                                 _sorted_from_items(srt, *auth), r, h),
+                blog=tree.put(store.blog, empty_log, r, h))
+            rebuilt += 1
+    return store, rebuilt

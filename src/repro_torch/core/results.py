@@ -68,3 +68,24 @@ class ScanResult(NamedTuple):
     def is_complete(self) -> bool:
         """True unless the scan is KNOWN to have missed a group."""
         return self.complete is not False
+
+
+class FailResult(NamedTuple):
+    """Outcome of a fail/sever kill switch: the capability the backend
+    actually exercised."""
+    server: int
+    wiped: bool           # False with a single group: every replica lives
+    # on the failing server, so no surviving copy could exist and the
+    # failure degrades to mask-only (state intact), with a warning
+
+
+class RecoverResult(NamedTuple):
+    """Outcome of a recovery: how it rebuilt and what else it repaired."""
+    server: int
+    online: bool          # snapshot-clone + streamed log catch-up (True)
+    #                       vs stop-the-world drain-then-clone
+    re_replicated: int    # replica copies the post-recovery
+    #                       re-replication pass rebuilt
+    catch_up_pending: int  # log entries still streaming into the rebuilt
+    #                       replicas when recovery returned (0 for
+    #                       offline recovery: the drain already ran)

@@ -25,3 +25,18 @@ def replicate(state, n: int):
     """``n`` copies of ``state`` stacked along a new leading axis."""
     return type(state)(*[leaf[None].expand((n,) + tuple(leaf.shape))
                          .clone() for leaf in state])
+
+
+def put_leaf(leaf, value, *idx):
+    """A copy of ``leaf`` with ``leaf[idx] = value`` (JAX's
+    ``.at[idx].set``); ``leaf`` is unchanged."""
+    leaf = leaf.clone()
+    leaf[idx] = value
+    return leaf
+
+
+def put(state, one, *idx):
+    """A new state equal to ``state`` with ``one`` set at ``idx`` on every
+    leaf (``put_leaf`` over a tree); ``state`` is unchanged."""
+    return type(state)(*[put_leaf(leaf, v, *idx)
+                         for leaf, v in zip(state, one)])

@@ -452,18 +452,47 @@ def test_g1_in_process_matches_jax(mix):
 
 
 def test_distributed_backend_scope():
-    """Leases on, the card without CUDA, and the slice-2b calls raise.
-    The ticker is not among them: with lease_misses=0 JAX answers it."""
-    with pytest.raises(NotImplementedError, match="slice 2b"):
-        DistributedBackend(2, scaled(lease_misses=3), 64, device="cpu")
-    c = HiStoreClient(DistributedBackend(2, _cfg(), 64, device="cpu"))
-    for call in (lambda: c.fail_server(0), lambda: c.sever_server(0),
-                 lambda: c.recover_server(0), lambda: c.fail_data_server(0),
-                 lambda: c.sever_data_server(0),
-                 lambda: c.recover_data_server(0), lambda: c.migrate()):
-        with pytest.raises(NotImplementedError, match="slice 2b"):
-            call()
-    assert c.backend.lease_stalled() is False
+    """Leases on (lease_misses=3, the paper's DEFAULT) construct, and the
+    seven failure-handling calls answer as JAX's DistributedBackend
+    answers them: at G = 1 in process, each kill switch mask-only with
+    its RuntimeWarning and FailResult(0, False), the recoveries and the
+    migration as JAX's, the store's leaves equal after the sequence; at
+    G = 2 the kill switch wipes."""
+    import warnings
+
+    kw = dict(use_kernels="off", lease_misses=3, lease_clock="rounds")
+    mesh = jax.make_mesh((1,), ("kv",),
+                         axis_types=(jax.sharding.AxisType.Auto,))
+    jc = JClient(JDist(mesh, jscaled(**kw), 64, capacity_q=8))
+    tc = HiStoreClient(DistributedBackend(1, scaled(**kw), 64, capacity_q=8,
+                                          device="cpu"))
+    for c in (jc, tc):
+        assert c.put(np.arange(1, 9) * 31, np.arange(8)).all_ok
+    calls = ("fail_server", "sever_server", "recover_server",
+             "fail_data_server", "sever_data_server", "recover_data_server",
+             "migrate")
+    for call in calls:
+        got = []
+        for c in (jc, tc):
+            with warnings.catch_warnings(record=True) as w:
+                warnings.simplefilter("always")
+                r = getattr(c, call)(*(() if call == "migrate" else (0,)))
+            got.append((None if r is None else tuple(np.asarray(r).tolist())
+                        if isinstance(r, tuple) else r,
+                        [str(x.message) for x in w]))
+        assert got[0] == got[1], (call, got)
+    assert tc.backend.lease_stalled() is jc.backend.lease_stalled()
+    assert tc.stats == jc.stats
+    want = jax.tree.map(np.asarray, jc.backend.store)
+    for path, x in _leaves(tc.backend.store).items():
+        y = want
+        for f in path.split("."):
+            y = getattr(y, f)
+        np.testing.assert_array_equal(x, y, err_msg=path)
+    c = HiStoreClient(DistributedBackend(2, scaled(lease_misses=3), 64,
+                                         device="cpu"))
+    assert c.backend.lease_misses == 3 and c.backend.lease_clock == "wall"
+    assert c.fail_server(0) == (0, True)
     assert c.backend.batch_multiple == 2
 
 
