@@ -169,7 +169,34 @@
     the engine's decode logits after each first-wave prompt (fresh
     slots): logged at bf16 over 64 layers, checked within 5e-4 at
     float32 on a 4-layer model of the same widths.
-11. The last two lines: the kernels as JSON (ten records, in the order
+11. Dense serving, the GQA family (phases 1-10 have left the card; the
+    bytes they still hold are logged).
+    (a) mistral-nemo-12b (configs/mistral_nemo_12b.py) at full width and
+    depth in bf16, the weights drawn on the card from ``--seed``, its
+    parameter count held to the one the config gives (12247782400) and
+    the peak memory logged; a warm-up prefill at S = 2048; one sequence
+    of prefill_32k (B = 1, S = 32768, the batch cut from 32 to 1)
+    through ``prefill``: finite logits, seconds and tokens/s; one
+    full-width AttnBlock (layer 0) on the prefill's tokens under
+    torch.profiler, its device time by operator; the ServingEngine of
+    phase 10 (4 slots, max_len 256, page 16) over phase 10's prompt set,
+    held to phase 10's checks, the launch counts set to 0 before it: the
+    directory must launch the hash probe, search and merge (every kernel
+    record gets ``launches_serving_dense``), the scan none; decode
+    steps/s and the model's share of the engine's time; prefill against
+    the engine's decode logits at bf16 (information).  (b) gemma3-27b at
+    full width, tied embeddings, the depth cut from 62 to 12 layers (two
+    (local x 5, attn) periods): the same prefill of 32768 tokens, the
+    local layers' sliding window at the published 1024: finite logits,
+    seconds.  (c) float32, TF32 off: mistral-nemo at full width on 4
+    layers in the engine over phase 10's prompts, the decode logits after
+    each fresh-slot prompt against prefill's; gemma3 at full width on 6
+    layers (5 local, 1 global), one 1280-token sequence decoded step by
+    step through ``decode_step`` (every local ring of 1024 wraps; q and kv
+    blocks of 256, since 1280 is not a multiple of 512), the decode
+    logits at the last 8 positions against the prefill's there; both
+    within CROSS_TOL.  Each model leaves the card before the next.
+12. The last two lines: the kernels as JSON (ten records, in the order
     of PERF.md's kernel table), then the device as JSON.
 
 Exits nonzero, printing no result, without CUDA or outside a checkout.
@@ -2234,6 +2261,13 @@ SERVE_MAX_NEW = 32
 INFO_S = 2048                    # the chunked jnp scan's length (info only)
 CROSS_LAYERS = 4                 # depth of the float32 cross-check model
 CROSS_TOL = 5e-4                 # rtol and atol of that cross-check
+DENSE_ARCH = "mistral-nemo-12b"  # phase 11 (a): full width and depth
+LOCAL_ARCH = "gemma3-27b"        # phase 11 (b): full width, depth cut
+LOCAL_LAYERS = 12                # two (local x 5, attn) periods of 62
+CROSS_LOCAL_LAYERS = 6           # (c): one period, 5 local and 1 global
+CROSS_LOCAL_S = 1280             # (c): every local ring of 1024 wraps
+CROSS_LOCAL_BLOCK = 256          # (c): q and kv blocks that divide 1280
+CROSS_LOCAL_LAST = 8             # (c): positions compared
 # the SFU's exponentials per clock per SM, compute capability 9.0 (CUDA C++
 # Programming Guide, arithmetic instruction throughput table)
 SFU_PER_CLOCK_PER_SM = 16
@@ -2271,8 +2305,8 @@ def scan_bound(torch, x, B_ssm, sfu_rate):
 
 
 def block_split(torch, cfg, model, tok):
-    """The device time of one full-width Mamba1Block of the prefill (layer
-    0, on the prefill's tokens) by operator: the block runs once under
+    """The device time of one full-width block of the prefill (layer 0, on
+    the prefill's tokens) by operator: the block runs once under
     torch.profiler (CPU and CUDA activity) after a warm-up; each
     operator's self device time (the kernels it launched itself), and the
     kernels no operator launched (the scan, launched through ctypes) by
@@ -2283,12 +2317,13 @@ def block_split(torch, cfg, model, tok):
 
     with torch.no_grad():
         x = _frontend(cfg, model, {"tokens": tok})
+        positions = torch.arange(x.shape[1], device=x.device)[None]
         block = model.layers[0]
-        block(cfg, x)
+        block(cfg, x, positions)
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
-            block(cfg, x)
+            block(cfg, x, positions)
             torch.cuda.synchronize()
     ops, total, attributed = {}, 0.0, 0.0
     for e in prof.key_averages():
@@ -2298,6 +2333,8 @@ def block_split(torch, cfg, model, tok):
         if us <= 0:
             continue
         if str(e.device_type).endswith("CPU"):
+            if not e.key.startswith("aten::"):
+                continue        # the profiler's own records (buffer waits)
             ops[e.key] = ops.get(e.key, 0.0) + us / 1e3
             attributed += us / 1e3
         else:
@@ -2307,7 +2344,8 @@ def block_split(torch, cfg, model, tok):
     ops["other kernels no operator launched"] = max(
         total - attributed - ops.get("mamba_scan.cu", 0.0), 0.0)
     ops = dict(sorted(ops.items(), key=lambda kv: -kv[1]))
-    log(f"serve: one Mamba1Block of the {tok.shape[1]}-token prefill by "
+    log(f"serve: one {type(block).__name__} of {cfg.name}'s "
+        f"{tok.shape[1]}-token prefill by "
         f"operator (torch.profiler, device ms): "
         + ", ".join(f"{k} {v:.3f}" for k, v in ops.items())
         + f"; all kernels {total:.3f} ms")
@@ -2343,12 +2381,17 @@ def drive_engine(torch, e, first, again):
     reqs = []
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    for batch in (first, again):
-        for prompt in batch:
-            e.submit(prompt, max_new=SERVE_MAX_NEW)
-            reqs.append(e.queue[-1])
-        e.run()
-    torch.cuda.synchronize()
+    try:
+        for batch in (first, again):
+            for prompt in batch:
+                e.submit(prompt, max_new=SERVE_MAX_NEW)
+                reqs.append(e.queue[-1])
+            e.run()
+        torch.cuda.synchronize()
+    finally:
+        # the wrapper refers to the engine: unwrap, so that dropping the
+        # engine frees its model at once, not at the next cycle collection
+        e._step = step
     return reqs, log, time.perf_counter() - t0, model_s[0]
 
 
@@ -2597,6 +2640,241 @@ def serving(torch, seed):
     return record, times, d_launches
 
 
+def dense_param_count(cfg):
+    """The parameters a dense GQA config gives: the embedding (and an
+    untied head), the final norm, and a layer's two norms, q/k/v/o and
+    the SwiGLU MLP."""
+    D, hd = cfg.d_model, cfg.resolved_head_dim
+    H, Hkv = cfg.n_heads, cfg.n_kv_heads
+    layer = (2 * D + 2 * D * H * hd + 2 * D * Hkv * hd
+             + 3 * D * cfg.d_ff)
+    tables = cfg.vocab_size * D * (1 if cfg.tie_embeddings else 2)
+    return tables + D + cfg.n_layers * layer
+
+
+def build_model(torch, cfg, gen, dev, label):
+    """A Model with random weights drawn on the card, its parameter count
+    held to the config's; returns (model, seconds, parameters, bytes)."""
+    from repro_torch.models import transformer as tr
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    model = tr.init_params(cfg, gen, device=dev)
+    torch.cuda.synchronize()
+    t = time.perf_counter() - t0
+    n = tr.count_params(model)
+    check(n == dense_param_count(cfg) and len(model.layers) == cfg.n_layers,
+          f"{label}: {n} parameters, {len(model.layers)} layers; the config "
+          f"gives {dense_param_count(cfg)}")
+    nbytes = sum(p.numel() * p.element_size() for p in model.parameters())
+    log(f"{label}: {cfg.name} built on the card in {t:.3f} s: "
+        f"{cfg.n_layers} layers, d_model {cfg.d_model}, {cfg.n_heads} heads"
+        f" ({cfg.n_kv_heads} kv), window {cfg.sliding_window}, vocab "
+        f"{cfg.vocab_size}, {n} parameters (the config's count), {nbytes} B"
+        f" ({cfg.dtype}); peak {torch.cuda.max_memory_allocated()} B")
+    return model, t, n, nbytes
+
+
+def timed_prefill(torch, cfg, model, tok):
+    from repro_torch.serving.serve_step import prefill
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    logits = prefill(cfg, model, {"tokens": tok})
+    torch.cuda.synchronize()
+    return logits, time.perf_counter() - t0
+
+
+def dense_serving(torch, seed):
+    """Phase 11, the dense GQA family: (a) mistral-nemo-12b at full width
+    and depth in bf16 (the 32768-token prefill, one block by operator,
+    the ServingEngine over its page directory), (b) gemma3-27b at full
+    width on 12 layers (the sliding-window prefill), (c) prefill against
+    decode at float32 on full-width layers, the local rings wrapped.
+    Returns (timings, the directory's launches)."""
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import SHAPES
+    from repro_torch.kernels import mamba_scan as ms
+    from repro_torch.kernels import ops
+    from repro_torch.models import transformer as tr
+    from repro_torch.serving.engine import ServingEngine
+    from repro_torch.serving.serve_step import prefill
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    t_phase = time.perf_counter()
+    shape = SHAPES["prefill_32k"]
+    S = shape.seq_len
+    out = {"held_bytes": torch.cuda.memory_allocated()}
+    log(f"dense: {out['held_bytes']} B on the card from earlier phases")
+
+    # -- (a) mistral-nemo-12b at full width and depth, bf16 ----------------
+    cfg = get_config(DENSE_ARCH)
+    torch.cuda.reset_peak_memory_stats()
+    model, out["init_s"], out["params"], out["param_bytes"] = build_model(
+        torch, cfg, gen, dev, "dense")
+    tok = torch.randint(0, cfg.vocab_size, (1, INFO_S), generator=gen,
+                        device=dev)
+    _, t_warm = timed_prefill(torch, cfg, model, tok)
+    log(f"dense: warm-up prefill at S = {INFO_S} in {t_warm:.3f} s")
+    tok = torch.randint(0, cfg.vocab_size, (1, S), generator=gen, device=dev)
+    torch.cuda.reset_peak_memory_stats()
+    logits, t_pre = timed_prefill(torch, cfg, model, tok)
+    peak_pre = torch.cuda.max_memory_allocated()
+    check(logits.shape == (1, cfg.vocab_size)
+          and bool(torch.isfinite(logits).all()), "dense: prefill logits")
+    log(f"dense: prefill of B = 1 x S = {S} (prefill_32k cut from batch "
+        f"{shape.global_batch} to 1) in {t_pre:.3f} s ({S / t_pre:.0f} "
+        f"tokens/s), peak {peak_pre} B ({peak_pre / 2**30:.3f} GiB)")
+    out.update(prefill_s=t_pre, prefill_tokens_per_s=S / t_pre,
+               prefill_peak_bytes=peak_pre, warmup_prefill_s=t_warm)
+    split, block_ms = block_split(torch, cfg, model, tok)
+    out["prefill_block_device_ms_by_op"] = split
+    out["prefill_block_device_ms"] = block_ms
+    del logits, tok
+
+    rng = np.random.default_rng(seed)
+    first, again = prompt_set(rng, cfg.vocab_size)
+    e = ServingEngine(cfg, model, batch_slots=SERVE_SLOTS,
+                      max_len=SERVE_MAX_LEN, page_size=SERVE_PAGE,
+                      device=dev)
+    zero_launches(ops)
+    ms.LAUNCHES["mamba_scan"] = 0
+    reqs, steps, t_eng, t_model = drive_engine(torch, e, first, again)
+    launches = dict(ops.LAUNCHES, mamba_scan=ms.LAUNCHES["mamba_scan"])
+    n_hash = check_engine(e, reqs, "dense engine")
+    n_tok = sum(len(r.tokens) for r in reqs)
+    n_steps = e.stats["decode_steps"]
+    log(f"dense: ServingEngine({SERVE_SLOTS} slots, max_len {SERVE_MAX_LEN},"
+        f" page {SERVE_PAGE}) answered {len(reqs)} requests in {t_eng:.3f} "
+        f"s: {n_steps} decode steps ({n_steps / t_eng:.2f} steps/s), "
+        f"{n_tok} tokens generated ({n_tok / t_eng:.1f} tokens/s), "
+        f"{sum(len(r.prompt) for r in reqs)} prompt tokens; the model's "
+        f"decode steps {t_model:.3f} s of it ({t_model / t_eng:.1%}), the "
+        f"directory and the engine's bookkeeping {t_eng - t_model:.3f} s; "
+        f"stats {json.dumps(e.stats)}; directory launches {launches}; "
+        f"{n_hash} prefix keys left in the hash")
+    for k in ("hash_probe", "sorted_search", "merge"):
+        check(launches[k] > 0, f"dense: the directory never ran {k}")
+    check(launches["mamba_scan"] == 0, "dense: the engine ran the scan")
+    gaps = []
+    for rid in range(SERVE_SLOTS):          # the first wave: fresh slots
+        p = first[rid]
+        want = prefill(cfg, model, {"tokens": torch.tensor([p], device=dev)})
+        got = prompt_end_logits(steps, rid, len(p))
+        gaps.append(float((got - want[0]).abs().max() / want.abs().max()))
+    log(f"dense: bf16, {cfg.n_layers} layers: decode logits after each "
+        f"first-wave prompt against prefill's, max abs gap over max |logit|"
+        f" {[round(g, 5) for g in gaps]} (information)")
+    out.update(engine_s=t_eng, engine_model_s=t_model,
+               engine_model_share=t_model / t_eng, requests=len(reqs),
+               decode_steps=n_steps, decode_steps_per_s=n_steps / t_eng,
+               tokens=n_tok, tokens_per_s=n_tok / t_eng, bf16_gaps=gaps,
+               stats=dict(e.stats), peak_bytes=torch.cuda.max_memory_allocated())
+    del e, steps, model
+    torch.cuda.empty_cache()
+
+    # -- (b) gemma3-27b at full width, depth cut: the sliding window -------
+    lcfg = get_config(LOCAL_ARCH).scaled(n_layers=LOCAL_LAYERS)
+    log(f"local: {LOCAL_ARCH}'s depth cut from "
+        f"{get_config(LOCAL_ARCH).n_layers} to {LOCAL_LAYERS} layers "
+        f"({LOCAL_LAYERS // (lcfg.local_global_pattern + 1)} periods of "
+        f"{lcfg.local_global_pattern} local + 1 global); width, window "
+        f"{lcfg.sliding_window} and tied embeddings as published")
+    torch.cuda.reset_peak_memory_stats()
+    model, out["local_init_s"], out["local_params"], _ = build_model(
+        torch, lcfg, gen, dev, "local")
+    tok = torch.randint(0, lcfg.vocab_size, (1, S), generator=gen,
+                        device=dev)
+    logits, t_loc = timed_prefill(torch, lcfg, model, tok)
+    peak_loc = torch.cuda.max_memory_allocated()
+    check(logits.shape == (1, lcfg.vocab_size)
+          and bool(torch.isfinite(logits).all()), "local: prefill logits")
+    log(f"local: prefill of B = 1 x S = {S} in {t_loc:.3f} s "
+        f"({S / t_loc:.0f} tokens/s), peak {peak_loc} B "
+        f"({peak_loc / 2**30:.3f} GiB)")
+    out.update(local_prefill_s=t_loc, local_prefill_tokens_per_s=S / t_loc,
+               local_peak_bytes=peak_loc)
+    del model, logits, tok
+    torch.cuda.empty_cache()
+
+    # -- (c) prefill against decode at float32, TF32 off --------------------
+    ccfg = cfg.scaled(n_layers=CROSS_LAYERS, dtype="float32")
+    cmodel = build_model(torch, ccfg, gen, dev, "dense cross-check")[0]
+    ce = ServingEngine(ccfg, cmodel, batch_slots=SERVE_SLOTS,
+                       max_len=SERVE_MAX_LEN, page_size=SERVE_PAGE,
+                       device=dev)
+    creqs, csteps, _, _ = drive_engine(torch, ce, first, again)
+    check_engine(ce, creqs, "dense cross-check engine")
+    cross = 0.0
+    for rid in range(SERVE_SLOTS):
+        p = first[rid]
+        want = prefill(ccfg, cmodel, {"tokens": torch.tensor([p],
+                                                             device=dev)})[0]
+        got = prompt_end_logits(csteps, rid, len(p))
+        gap = (got - want).abs()
+        check(bool((gap <= CROSS_TOL + CROSS_TOL * want.abs()).all()),
+              f"dense: request {rid}: decode logits differ from prefill's "
+              f"by {float(gap.max()):.4g} (float32, {CROSS_LAYERS} layers)")
+        cross = max(cross, float(gap.max()))
+    log(f"dense: float32, {CROSS_LAYERS} layers of full width: decode logits"
+        f" after each of the {SERVE_SLOTS} first-wave prompts equal "
+        f"prefill's within {CROSS_TOL} (max abs gap {cross:.4g})")
+    del ce, cmodel, csteps
+    torch.cuda.empty_cache()
+
+    gcfg = get_config(LOCAL_ARCH).scaled(
+        n_layers=CROSS_LOCAL_LAYERS, dtype="float32",
+        attn_q_block=CROSS_LOCAL_BLOCK, attn_kv_block=CROSS_LOCAL_BLOCK)
+    gmodel = build_model(torch, gcfg, gen, dev, "local cross-check")[0]
+    Sx = CROSS_LOCAL_S
+    tok = torch.randint(0, gcfg.vocab_size, (1, Sx), generator=gen,
+                        device=dev)
+    with torch.no_grad():
+        hidden, _ = tr.apply_model(gcfg, gmodel, {"tokens": tok})
+        want = tr.hidden_to_logits(gcfg, gmodel,
+                                   hidden[:, -CROSS_LOCAL_LAST:])[0]
+    del hidden
+    cache = tr.init_cache(gcfg, 1, Sx, device=dev)
+    caps = sorted({c["pos"].shape[1] for c in cache})
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    got = []
+    for t in range(Sx):
+        lg, cache = tr.decode_step(gcfg, gmodel, cache, {
+            "tokens": tok[:, t:t + 1],
+            "pos": torch.full((1,), t, dtype=torch.int32, device=dev)})
+        if t >= Sx - CROSS_LOCAL_LAST:
+            got.append(lg[0])
+    torch.cuda.synchronize()
+    t_dec = time.perf_counter() - t0
+    got = torch.stack(got)
+    gap = (got - want).abs()
+    ring_min = min(int(c["pos"].min()) for c in cache if
+                   c["pos"].shape[1] < Sx)
+    check(ring_min > 0, f"local: a local ring did not wrap ({ring_min})")
+    check(bool((gap <= CROSS_TOL + CROSS_TOL * want.abs()).all()),
+          f"local: decode logits at the last {CROSS_LOCAL_LAST} positions "
+          f"differ from prefill's by {float(gap.max()):.4g} (float32)")
+    log(f"local: float32, {CROSS_LOCAL_LAYERS} layers of full width "
+        f"({gcfg.layer_specs().count(('local', 'mlp'))} local), cache "
+        f"slots {caps}: {Sx} decode steps in {t_dec:.3f} s "
+        f"({Sx / t_dec:.1f} steps/s), every local ring wrapped (its oldest "
+        f"position {ring_min}); the logits at the last {CROSS_LOCAL_LAST} "
+        f"positions equal prefill's within {CROSS_TOL} (max abs gap "
+        f"{float(gap.max()):.4g})")
+    out.update(f32_cross_max_abs=cross,
+               local_f32_cross_max_abs=float(gap.max()),
+               local_decode_steps_per_s=Sx / t_dec)
+    del gmodel, cache, got, want, tok
+    torch.cuda.empty_cache()
+    out["phase_s"] = time.perf_counter() - t_phase
+    log(f"dense: phase 11 in {out['phase_s']:.1f} s")
+    return out, launches
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -2678,6 +2956,11 @@ def main(argv=None) -> int:
         k["launches_serving"] = s_launches[k["name"]]
     scan_rec["launches_dist_faults"] = f_launches["mamba_scan"]
     kernels.append(scan_rec)
+    torch.cuda.empty_cache()
+    dense_times, dense_launches = dense_serving(torch, args.seed)
+    log(f"dense: {json.dumps(dense_times)}")
+    for k in kernels:
+        k["launches_serving_dense"] = dense_launches[k["name"]]
     torch.cuda.synchronize()
     log(f"total: {time.perf_counter() - t_start:.1f} s")
     print(smi)

@@ -200,7 +200,10 @@ def _tree_index(tree, r):
 def params_from_numpy(params, cfg, device=None):
     """A ``Model`` on ``device`` (the card unless the caller names another)
     holding a JAX ``init_params`` tree's weights (numpy leaves), the
-    scanned stages' [n_rep, ...] leaves unstacked into layers."""
+    scanned stages' [n_rep, ...] leaves unstacked into layers: each
+    layer's ``ln1`` (and ``ln2``) scale and its ``mixer`` (and ``ffn``)
+    weights by name.  A config without a token frontend or without a
+    tied table has no ``embed``; a tied one has no ``lm_head``."""
     from repro_torch.models.transformer import Model
 
     model = Model(cfg, device=device)
@@ -223,17 +226,26 @@ def params_from_numpy(params, cfg, device=None):
         raise ValueError(f"{len(layers)} layers, the model has "
                          f"{len(model.layers)}")
     for block, leaves in zip(model.layers, layers):
-        load(block.ln1, leaves["ln1"]["scale"])
-        if set(leaves["mixer"]) != set(block.mixer.keys()):
-            raise ValueError(f"mixer leaves {sorted(leaves['mixer'])}")
-        for k, a in leaves["mixer"].items():
-            load(block.mixer[k], a)
+        norms = [k for k in ("ln1", "ln2") if hasattr(block, k)]
+        groups = [k for k in ("mixer", "ffn") if hasattr(block, k)]
+        if set(leaves) != set(norms + groups):
+            raise ValueError(f"layer leaves {sorted(leaves)}, the block has "
+                             f"{sorted(norms + groups)}")
+        for k in norms:
+            load(getattr(block, k), leaves[k]["scale"])
+        for g in groups:
+            dst = getattr(block, g)
+            if set(leaves[g]) != set(dst.keys()):
+                raise ValueError(f"{g} leaves {sorted(leaves[g])}")
+            for k, a in leaves[g].items():
+                load(dst[k], a)
     return model
 
 
 def cache_from_numpy(cache, cfg, device=None):
-    """The port's decode cache (one dict per layer) on ``device`` from a
-    JAX ``init_cache`` / ``decode_step`` cache (numpy leaves)."""
+    """The port's decode cache (one dict per layer: {conv, ssm} or
+    {k, v, pos}) on ``device`` from a JAX ``init_cache`` / ``decode_step``
+    cache (numpy leaves)."""
     from repro_torch.core.client import _resolve_device
 
     dev = _resolve_device(device, "cache_from_numpy")

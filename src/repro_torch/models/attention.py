@@ -1,0 +1,341 @@
+"""Attention, the GQA half (port of ``repro/models/attention.py``): global
+and sliding-window GQA for prefill (the blockwise online-softmax "flash"
+formulation, its divide-and-conquer causal variant and the
+materialised-scores oracle) and single-token decode over a
+position-tagged ring-buffer KV cache.
+
+Plain functions on tensors.  ``params`` is a block's mixer weights by the
+JAX package's names (``wq`` [D, H*hd], ``wk`` and ``wv`` [D, Hkv*hd],
+``wo`` [H*hd, D]), a dict or a ``ParameterDict``.  Query head
+h = kv * G + g: each of the Hkv key heads serves G = H // Hkv consecutive
+query heads.
+
+The products JAX takes with ``preferred_element_type=F32`` (the scores
+and P @ V) are float32 matmuls of float32 copies of their inputs: a
+product of two bf16 numbers is exact in float32, so the sums are JAX's up
+to their order.  The casts to the inputs' dtype sit where JAX's do (P
+before P @ V, each q block's output, the window's and the oracle's
+outputs).
+
+Where JAX scans the q blocks and, inside each, the kv blocks, this module
+carries the q blocks as a tensor axis and loops over the kv blocks only:
+each kv step updates the float32 running (max, sum, acc) of every q block
+it reaches, in JAX's kv order and with JAX's arithmetic per element, so a
+layer takes about nkv Python steps instead of nq x nkv (64 instead of
+4096 at S = 32768 with 512-blocks).  A causal kv step leaves out the q
+blocks it cannot reach, whose scores are all masked: after kv block 0,
+which every query reaches, such a step leaves (max, sum, acc) exactly as
+they were, so leaving it out changes no bit; and it masks only the q
+blocks that see part of the kv block (JAX's mask is all true elsewhere).
+The q blocks of one step go in chunks of at most ``SCORE_ELEMS`` scores,
+which bounds the memory.
+``_sliding_window`` gathers every q block's ``nwin`` kv blocks with one
+``unfold`` of the left-padded k and v.
+
+Left out, having no meaning on one card: the mesh hooks
+(``_constrain_cache``, ``_seq_shard_ok``, ``_sharded_cache_update``) and
+the ``decode_cache_hint`` branches of ``gqa_decode`` (the config field
+stays and does nothing), and ``unroll``, a knob of XLA's cost analysis.
+MLA is not ported yet (ROADMAP.md A3.3).
+"""
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.models.layers import apply_rope, dot, normal
+
+F32 = torch.float32
+NEG_INF = -1e30
+SCORE_ELEMS = 1 << 28      # float32 scores of one chunk of q blocks (1 GiB)
+MLA_ITEM = "ROADMAP.md A3.3 (MLA and MoE: deepseek-v2-lite, kimi-k2)"
+
+
+def _f32(t):
+    return t if t.dtype == F32 else t.float()
+
+
+def _blocks(what, n, blk):
+    """n // blk, raising where JAX's reshape into blocks fails."""
+    if n % blk:
+        raise ValueError(f"{what} length {n} is not a multiple of its "
+                         f"block {blk} (the JAX package's reshape fails too)")
+    return n // blk
+
+
+def _chunk(per_block: int) -> int:
+    """q blocks a chunk, for ``per_block`` scores each."""
+    return max(1, SCORE_ELEMS // max(per_block, 1))
+
+
+# ---------------------------------------------------------------------------
+# Parameter init
+# ---------------------------------------------------------------------------
+def attn_init(cfg, generator, device, kind: str = "gqa") -> dict:
+    if kind != "gqa":
+        raise NotImplementedError(
+            f"{kind!r} attention is not ported yet: {MLA_ITEM}")
+    dt = cfg.param_dtype
+    D = cfg.d_model
+    H, Hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
+    s = D ** -0.5
+    return {
+        "wq": normal((D, H * hd), s, dt, generator, device),
+        "wk": normal((D, Hkv * hd), s, dt, generator, device),
+        "wv": normal((D, Hkv * hd), s, dt, generator, device),
+        "wo": normal((H * hd, D), (H * hd) ** -0.5, dt, generator, device),
+    }
+
+
+# ---------------------------------------------------------------------------
+# Blockwise (flash-style) attention
+# ---------------------------------------------------------------------------
+def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
+                    q_block: int = 512, kv_block: int = 512,
+                    return_stats: bool = False):
+    """q: [B,Sq,H,hdq]; k: [B,Skv,Hkv,hdq]; v: [B,Skv,Hkv,hdv] -> [B,Sq,H,hdv].
+
+    ``causal`` assumes Sq == Skv.  ``window`` > 0 restricts each query to
+    the last ``window`` keys (implies causal).  With ``return_stats`` also
+    returns the per-row online-softmax stats (m, l), [B, Sq, Hkv, G]
+    float32 (used by the divide-and-conquer merge).
+    """
+    B, Sq, H, hdq = q.shape
+    Skv, Hkv, hdv = k.shape[1], k.shape[2], v.shape[3]
+    G = H // Hkv
+    qb = min(q_block, Sq)
+    kvb = min(kv_block, Skv)
+    nq = _blocks("query", Sq, qb)
+    scale = hdq ** -0.5
+    # [B, Hkv, nq, qb, G, hd]: each key head's queries, blocked
+    qh = _f32(q * scale).reshape(B, nq, qb, Hkv, G, hdq).permute(
+        0, 3, 1, 2, 4, 5).contiguous()
+
+    if window:
+        assert Sq == Skv
+        return _sliding_window(qh, k, v, window, qb)
+
+    nkv = _blocks("key", Skv, kvb)
+    kt = _f32(k).reshape(B, nkv, kvb, Hkv, hdq).permute(0, 3, 1, 4, 2)
+    vh = v.reshape(B, nkv, kvb, Hkv, hdv).permute(0, 3, 1, 2, 4)
+    m = torch.full((B, Hkv, nq, qb, G), NEG_INF, dtype=F32, device=q.device)
+    l = torch.zeros((B, Hkv, nq, qb, G), dtype=F32, device=q.device)
+    acc = torch.zeros((B, Hkv, nq, qb, G, hdv), dtype=F32, device=q.device)
+    step = _chunk(B * Hkv * qb * G * kvb)
+    ar_q = torch.arange(Sq, device=q.device).view(nq, qb)
+    ar_kv = torch.arange(kvb, device=q.device)
+    for kj in range(nkv):
+        kb = kt[:, :, kj]                                   # [B,Hkv,hd,kvb]
+        vb = _f32(vh[:, :, kj])                             # [B,Hkv,kvb,hdv]
+        # the q blocks this kv block reaches: all, or those whose last
+        # position is at or past the block's first
+        first = (kj * kvb) // qb if causal else 0
+        for a in range(first, nq, step):
+            b = min(a + step, nq)
+            n = b - a
+            s = torch.matmul(qh[:, :, a:b].reshape(B, Hkv, n * qb * G, hdq),
+                             kb).view(B, Hkv, n, qb, G, kvb)
+            # only the q blocks before the first that sees the whole kv
+            # block have masked scores
+            d = min(b, -(-((kj + 1) * kvb - 1) // qb)) if causal else a
+            if d > a:
+                mask = ar_q[a:d, :, None] >= (kj * kvb + ar_kv)
+                s[:, :, :d - a].masked_fill_(~mask[:, :, None, :], NEG_INF)
+            m_old = m[:, :, a:b]
+            m_new = torch.maximum(m_old, s.amax(dim=-1))
+            alpha = torch.exp(m_old - m_new)
+            p = torch.exp(s - m_new[..., None])
+            del s
+            l[:, :, a:b] = l[:, :, a:b] * alpha + p.sum(dim=-1)
+            pv = torch.matmul(_f32(p.to(v.dtype)).view(B, Hkv, n * qb * G,
+                                                       kvb), vb)
+            del p
+            acc[:, :, a:b] = (acc[:, :, a:b] * alpha[..., None]
+                              + pv.view(B, Hkv, n, qb, G, hdv))
+            m[:, :, a:b] = m_new
+    out = (acc / torch.clamp(l, min=1e-30)[..., None]).to(q.dtype)
+    # [B, Hkv, nq, qb, G, hdv] -> [B, Sq, H, hdv]
+    out = out.permute(0, 2, 3, 1, 4, 5).reshape(B, Sq, H, hdv)
+    if return_stats:
+        def rows(t):
+            return t.permute(0, 2, 3, 1, 4).reshape(B, Sq, Hkv, G)
+        return out, rows(m), rows(l)
+    return out
+
+
+def _merge_two(o1, m1, l1, o2, m2, l2, out_dtype):
+    """Merge two normalised online-softmax partial results over the same
+    queries but disjoint key sets."""
+    m = torch.maximum(m1, m2)
+    w1 = l1 * torch.exp(m1 - m)
+    w2 = l2 * torch.exp(m2 - m)
+    denom = torch.clamp(w1 + w2, min=1e-30)
+    B, S, H, _ = o1.shape            # stats are [B, S, Hkv, G]
+    w1e = w1.reshape(B, S, H)[..., None]
+    w2e = w2.reshape(B, S, H)[..., None]
+    de = denom.reshape(B, S, H)[..., None]
+    o = (_f32(o1) * w1e + _f32(o2) * w2e) / de
+    return o.to(out_dtype), m, w1 + w2
+
+
+def causal_divide_conquer(q, k, v, *, q_block: int = 512, leaf: int = 2048,
+                          return_stats: bool = False):
+    """Exact causal attention via causal(S) = [causal(front half)] ++
+    [merge(causal(back half), rect(back q x front kv))]: the strictly
+    upper half of the score matrix is never computed.  The recursion
+    bottoms out at ``leaf``, where the masked flash path runs."""
+    S = q.shape[1]
+    if S <= leaf:
+        return flash_attention(q, k, v, causal=True, q_block=q_block,
+                               kv_block=q_block, return_stats=return_stats)
+    h = S // 2
+    front = causal_divide_conquer(q[:, :h], k[:, :h], v[:, :h],
+                                  q_block=q_block, leaf=leaf,
+                                  return_stats=True)
+    back_diag = causal_divide_conquer(q[:, h:], k[:, h:], v[:, h:],
+                                      q_block=q_block, leaf=leaf,
+                                      return_stats=True)
+    back_rect = flash_attention(q[:, h:], k[:, :h], v[:, :h], causal=False,
+                                q_block=q_block, kv_block=q_block,
+                                return_stats=True)
+    o_b, m_b, l_b = _merge_two(*back_diag, *back_rect, q.dtype)
+    o_f, m_f, l_f = front
+    out = torch.cat([o_f, o_b], dim=1)
+    if return_stats:
+        return out, torch.cat([m_f, m_b], 1), torch.cat([l_f, l_b], 1)
+    return out
+
+
+def _sliding_window(qh, k, v, window: int, qb: int):
+    """Local attention: q block qi takes the nwin kv blocks covering
+    [qi*qb - window + 1, (qi+1)*qb) and masks exactly.  O(S * window).
+    ``qh``: the scaled queries, float32 [B, Hkv, nq, qb, G, hd]."""
+    B, Hkv, nq, _, G, hdq = qh.shape
+    hdv = v.shape[3]
+    S = nq * qb
+    nwin = (window + qb - 1) // qb + 1           # kv blocks per q block
+    pad = (nwin - 1) * qb
+    L = nwin * qb
+    # the windows of every q block: [B, Hkv, nq, hd, L] and [.., L, hdv]
+    kw = F.pad(_f32(k), (0, 0, 0, 0, pad, 0)).unfold(1, L, qb).permute(
+        0, 2, 1, 3, 4)
+    vw = F.pad(v, (0, 0, 0, 0, pad, 0)).unfold(1, L, qb).permute(
+        0, 2, 1, 4, 3)
+    q_pos = torch.arange(S, device=qh.device).view(nq, qb)
+    kv_pos = (q_pos[:, :1] - pad
+              + torch.arange(L, device=qh.device))        # [nq, L] logical
+    out = torch.empty((B, Hkv, nq, qb, G, hdv), dtype=k.dtype,
+                      device=qh.device)
+    step = _chunk(B * Hkv * qb * G * L)
+    for a in range(0, nq, step):
+        b = min(a + step, nq)
+        n = b - a
+        s = torch.matmul(qh[:, :, a:b].reshape(B, Hkv, n, qb * G, hdq),
+                         kw[:, :, a:b]).view(B, Hkv, n, qb, G, L)
+        qp, kp = q_pos[a:b, :, None], kv_pos[a:b, None, :]
+        mask = (qp >= kp) & (qp - kp < window) & (kp >= 0)   # [n, qb, L]
+        s = torch.where(mask[:, :, None, :], s, NEG_INF)
+        m = s.amax(dim=-1, keepdim=True)
+        p = torch.exp(s - m)
+        del s
+        l = p.sum(dim=-1)
+        pv = torch.matmul(_f32(p.to(v.dtype)).view(B, Hkv, n, qb * G, L),
+                          _f32(vw[:, :, a:b]))
+        del p
+        out[:, :, a:b] = (pv.view(B, Hkv, n, qb, G, hdv)
+                          / torch.clamp(l, min=1e-30)[..., None]).to(k.dtype)
+    return out.permute(0, 2, 3, 1, 4, 5).reshape(B, S, Hkv * G, hdv)
+
+
+# ---------------------------------------------------------------------------
+# GQA block (prefill)
+# ---------------------------------------------------------------------------
+def _qkv(cfg, params, x, positions, T):
+    B = x.shape[0]
+    H, Hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
+    q = dot(x, params["wq"]).reshape(B, T, H, hd)
+    k = dot(x, params["wk"]).reshape(B, T, Hkv, hd)
+    v = dot(x, params["wv"]).reshape(B, T, Hkv, hd)
+    return (apply_rope(q, positions, cfg.rope_theta),
+            apply_rope(k, positions, cfg.rope_theta), v)
+
+
+def gqa_apply(cfg, params, x, positions, *, window: int = 0):
+    B, S, _ = x.shape
+    q, k, v = _qkv(cfg, params, x, positions, S)
+    if cfg.attn_impl == "naive":
+        o = _naive_attention(q, k, v, window)
+    elif cfg.attn_block_skip and not window:
+        o = causal_divide_conquer(q, k, v, q_block=cfg.attn_q_block,
+                                  leaf=2 * cfg.attn_q_block)
+    else:
+        o = flash_attention(q, k, v, causal=True, window=window,
+                            q_block=cfg.attn_q_block,
+                            kv_block=cfg.attn_kv_block)
+    return dot(o.reshape(B, S, -1), params["wo"])
+
+
+def _naive_attention(q, k, v, window: int = 0):
+    """Materialised-scores oracle (tests and tiny shapes only)."""
+    B, S, H, hd = q.shape
+    Hkv = k.shape[2]
+    G = H // Hkv
+    qg = q.reshape(B, S, Hkv, G, hd)
+    s = torch.einsum("bqhgd,bkhd->bqhgk", _f32(qg), _f32(k)) * hd ** -0.5
+    qp = torch.arange(S, device=q.device)[:, None]
+    kp = torch.arange(S, device=q.device)[None, :]
+    mask = qp >= kp
+    if window:
+        mask &= (qp - kp) < window
+    s = torch.where(mask[None, :, None, None, :], s, NEG_INF)
+    p = torch.softmax(s, dim=-1)
+    o = torch.einsum("bqhgk,bkhd->bqhgd", _f32(p.to(v.dtype)),
+                     _f32(v)).to(q.dtype)
+    return o.reshape(B, S, H, hd)
+
+
+# ---------------------------------------------------------------------------
+# GQA decode (single token, ring-buffer cache)
+# ---------------------------------------------------------------------------
+def gqa_cache_init(cfg, batch: int, seq_len: int, device, *,
+                   window: int = 0) -> dict:
+    """``cap = min(window, seq_len)`` slots (``seq_len`` without a
+    window), each tagged with the position it holds (-1: empty)."""
+    cap = min(window, seq_len) if window else seq_len
+    Hkv, hd = cfg.n_kv_heads, cfg.resolved_head_dim
+    dt = cfg.param_dtype
+    return {
+        "k": torch.zeros((batch, cap, Hkv, hd), dtype=dt, device=device),
+        "v": torch.zeros((batch, cap, Hkv, hd), dtype=dt, device=device),
+        "pos": torch.full((batch, cap), -1, dtype=torch.int32,
+                          device=device),
+    }
+
+
+def gqa_decode(cfg, params, x, pos, cache, *, window: int = 0):
+    """x: [B, 1, D]; pos: [B] current position.  Returns (out [B,1,D], the
+    new cache): the token's k and v go to slot pos % cap of each row (one
+    target a row), then it attends over the slots whose tag is at most
+    pos (and, with a window, within it)."""
+    B = x.shape[0]
+    H, Hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
+    G = H // Hkv
+    q, k, v = _qkv(cfg, params, x, pos[:, None], 1)
+    cap = cache["k"].shape[1]
+    pos = pos.to(torch.int32)
+    slot = (pos % cap).long()
+    bidx = torch.arange(B, device=x.device)
+    k_cache = cache["k"].index_put((bidx, slot), k[:, 0])
+    v_cache = cache["v"].index_put((bidx, slot), v[:, 0])
+    pos_buf = cache["pos"].index_put((bidx, slot), pos)
+    qg = q.reshape(B, Hkv, G, hd) * hd ** -0.5
+    s = torch.einsum("bhgd,bkhd->bhgk", _f32(qg), _f32(k_cache))
+    valid = (pos_buf >= 0) & (pos_buf <= pos[:, None])
+    if window:
+        valid &= (pos[:, None] - pos_buf) < window
+    s = torch.where(valid[:, None, None, :], s, NEG_INF)
+    p = torch.softmax(s, dim=-1)
+    o = torch.einsum("bhgk,bkhd->bhgd", _f32(p.to(v.dtype)),
+                     _f32(v_cache)).to(x.dtype)
+    out = dot(o.reshape(B, 1, H * hd), params["wo"])
+    return out, {"k": k_cache, "v": v_cache, "pos": pos_buf}

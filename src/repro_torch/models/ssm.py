@@ -1,5 +1,5 @@
 """State-space blocks, Mamba-1 (port of the Mamba-1 half of
-``repro/models/ssm.py``; Mamba-2 is still to port, ROADMAP.md item 16).
+``repro/models/ssm.py``; Mamba-2 is still to port, ROADMAP.md A3.2).
 
 Plain functions on tensors.  ``p`` is a block's parameters by the JAX
 package's names (``in_x``, ``in_z``, ``conv_w``, ``conv_b``, ``x_proj``,

@@ -9,9 +9,11 @@ down; here ``apply_model`` and ``decode_step`` are a Python loop over
 The slice is forward-only: parameters carry no gradient, and ``remat``
 stays a config field with nothing to do.
 
-Only the Mamba-1 block (``("mamba1", None)``, the falcon-mamba family) is
-ported.  Every other mixer or ffn raises NotImplementedError naming its
-ROADMAP.md item.
+Ported blocks: ``Mamba1Block`` (``("mamba1", None)``, the falcon-mamba
+family) and ``AttnBlock`` (``("attn", "mlp")`` and ``("local", "mlp")``,
+the dense GQA family: mistral-nemo, command-r, gemma3, mistral-large,
+internvl2's backbone and musicgen).  MLA, MoE, Mamba-2 and the shared
+block raise NotImplementedError naming their ROADMAP.md item.
 """
 from __future__ import annotations
 
@@ -22,19 +24,18 @@ from torch import nn
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.client import _resolve_device
+from repro_torch.models import attention as attn
 from repro_torch.models import ssm
 from repro_torch.models.layers import (
-    embed_init, embed_lookup, lm_head_init, logits_from_hidden, rmsnorm,
-    rmsnorm_init,
+    embed_init, embed_lookup, lm_head_init, logits_from_hidden, mlp_apply,
+    mlp_init, rmsnorm, rmsnorm_init,
 )
 
 F32 = torch.float32
-MODELS_ITEM = ("ROADMAP.md item 16 (attention, MoE, Mamba-2 and the "
-               "shared block of the other model families)")
-
-
-def _unported(what) -> NotImplementedError:
-    return NotImplementedError(f"{what} is not ported yet: {MODELS_ITEM}")
+MAMBA2_ITEM = "ROADMAP.md A3.2 (Mamba-2 and the shared block: zamba2)"
+# the layer kinds still to port, by the ROADMAP.md item that ports them
+UNPORTED = {"mamba2": MAMBA2_ITEM, "mamba2+shared": MAMBA2_ITEM,
+            "mla": attn.MLA_ITEM, "moe": attn.MLA_ITEM}
 
 
 def _frozen(t) -> nn.Parameter:
@@ -56,21 +57,67 @@ class Mamba1Block(nn.Module):
             {k: _frozen(v) for k, v in
              ssm.mamba1_init(cfg, generator, device).items()})
 
-    def forward(self, cfg, x):
+    def forward(self, cfg, x, positions=None):
         h = rmsnorm(self.ln1, x, cfg.norm_eps)
         return x + ssm.mamba1_apply(cfg, self.mixer, h)
 
-    def decode(self, cfg, x, cache):
-        h = rmsnorm(self.ln1, x, cfg.norm_eps)
+    def decode(self, cfg, x, pos, cache):
+        h = rmsnorm(self.ln1, x, cfg.norm_eps)     # Mamba reads no position
         y, cache = ssm.mamba1_decode(cfg, self.mixer, h, cache)
         return x + y, cache
 
 
-def _mamba1_only(specs):
-    """The layer specs this slice runs; any other raises."""
+class AttnBlock(nn.Module):
+    """One dense layer: RMSNorm, GQA (global, or sliding-window for the
+    ``"local"`` spec), residual; RMSNorm, the SwiGLU MLP, residual.
+    ``mixer`` holds ``wq``/``wk``/``wv``/``wo``, ``ffn`` ``wi``/``wg``/``wo``
+    and ``ln1``/``ln2`` the norms' (1 + scale) parameters."""
+
+    def __init__(self, cfg: ModelConfig, spec, generator, device):
+        super().__init__()
+        dt = cfg.param_dtype
+        self.window = cfg.sliding_window if spec[0] == "local" else 0
+        self.ln1 = _frozen(rmsnorm_init(cfg.d_model, device))
+        self.mixer = nn.ParameterDict(
+            {k: _frozen(v) for k, v in
+             attn.attn_init(cfg, generator, device).items()})
+        self.ln2 = _frozen(rmsnorm_init(cfg.d_model, device))
+        self.ffn = nn.ParameterDict(
+            {k: _frozen(v) for k, v in
+             mlp_init(generator, cfg.d_model, cfg.d_ff, dt, device).items()})
+
+    def forward(self, cfg, x, positions):
+        h = rmsnorm(self.ln1, x, cfg.norm_eps)
+        x = x + attn.gqa_apply(cfg, self.mixer, h, positions,
+                               window=self.window)
+        return x + mlp_apply(self.ffn, rmsnorm(self.ln2, x, cfg.norm_eps))
+
+    def decode(self, cfg, x, pos, cache):
+        h = rmsnorm(self.ln1, x, cfg.norm_eps)
+        y, cache = attn.gqa_decode(cfg, self.mixer, h, pos, cache,
+                                   window=self.window)
+        x = x + y
+        return (x + mlp_apply(self.ffn, rmsnorm(self.ln2, x, cfg.norm_eps)),
+                cache)
+
+
+PORTED = (("mamba1", None), ("attn", "mlp"), ("local", "mlp"))
+
+
+def _check_ported(specs):
+    """Raise NotImplementedError, naming its ROADMAP.md item, for the
+    first layer spec this port cannot run yet."""
     for spec in specs:
-        if spec != ("mamba1", None):
-            raise _unported(f"the layer spec {spec!r}")
+        if spec not in PORTED:
+            item = UNPORTED.get(spec[0]) or UNPORTED[spec[1]]
+            raise NotImplementedError(
+                f"the layer spec {spec!r} is not ported yet: {item}")
+
+
+def _block(cfg, spec, generator, device):
+    if spec == ("mamba1", None):
+        return Mamba1Block(cfg, generator, device)
+    return AttnBlock(cfg, spec, generator, device)
 
 
 # ---------------------------------------------------------------------------
@@ -86,7 +133,7 @@ class Model(nn.Module):
                  generator: Optional[torch.Generator] = None):
         super().__init__()
         specs = cfg.layer_specs()
-        _mamba1_only(specs)
+        _check_ported(specs)
         dev = _resolve_device(device, "Model")
         if generator is None:
             generator = torch.Generator(device=dev).manual_seed(0)
@@ -100,7 +147,7 @@ class Model(nn.Module):
                                                 cfg.vocab_size, dt, dev))
         self.final_norm = _frozen(rmsnorm_init(cfg.d_model, dev))
         self.layers = nn.ModuleList(
-            [Mamba1Block(cfg, generator, dev) for _ in specs])
+            [_block(cfg, spec, generator, dev) for spec in specs])
 
     @property
     def device(self) -> torch.device:
@@ -126,10 +173,12 @@ def _frontend(cfg, model, inputs):
 def apply_model(cfg: ModelConfig, model: Model, inputs):
     """Prefill forward.  Returns (hidden [B,S,D], aux_loss)."""
     x = _frontend(cfg, model, inputs)
+    B, S, _ = x.shape
+    positions = torch.arange(S, device=x.device).expand(B, S)
     for block in model.layers:
-        x = block(cfg, x)
+        x = block(cfg, x, positions)
     x = rmsnorm(model.final_norm, x, cfg.norm_eps)
-    # the auxiliary loss is the MoE layers'; Mamba-1 layers add none
+    # the auxiliary loss is the MoE layers'; the ported layers add none
     return x, torch.zeros((), dtype=F32, device=x.device)
 
 
@@ -138,11 +187,17 @@ def hidden_to_logits(cfg, model, hidden):
 
 
 def init_cache(cfg: ModelConfig, batch: int, seq_len: int, *, device=None):
-    """One cache dict per layer, on ``device`` (the card by default)."""
+    """One cache dict per layer, on ``device`` (the card by default):
+    Mamba-1 layers {conv, ssm}, attention layers {k, v, pos} (a local
+    layer's ring holds min(sliding_window, seq_len) slots)."""
     specs = cfg.layer_specs()
-    _mamba1_only(specs)
+    _check_ported(specs)
     dev = _resolve_device(device, "init_cache")
-    return [ssm.mamba1_cache_init(cfg, batch, dev) for _ in specs]
+    return [ssm.mamba1_cache_init(cfg, batch, dev) if spec[0] == "mamba1"
+            else attn.gqa_cache_init(
+                cfg, batch, seq_len, dev,
+                window=cfg.sliding_window if spec[0] == "local" else 0)
+            for spec in specs]
 
 
 @torch.no_grad()
@@ -150,9 +205,10 @@ def decode_step(cfg: ModelConfig, model: Model, cache, inputs):
     """One decode step.  inputs: {tokens [B,1] | embeds [B,1,D], pos [B]}.
     Returns (logits [B,V] float32, new cache)."""
     x = _frontend(cfg, model, inputs)
+    pos = inputs["pos"]
     new_cache = []
     for block, c in zip(model.layers, cache):
-        x, c = block.decode(cfg, x, c)     # Mamba reads no position
+        x, c = block.decode(cfg, x, pos, c)
         new_cache.append(c)
     x = rmsnorm(model.final_norm, x, cfg.norm_eps)
     return logits_from_hidden(cfg, model, x)[:, 0], new_cache

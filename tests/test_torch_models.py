@@ -317,9 +317,19 @@ def test_model_init_shapes_match_jax():
 
 
 def test_unported_layers_raise():
-    for arch in ("musicgen-large", "zamba2-7b", "deepseek-v2-lite-16b"):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md item 16"):
-            tr.Model(tiny_config(arch), device="cpu")
+    """Mamba-2 and the shared block (zamba2) name ROADMAP.md A3.2, MLA
+    and MoE (deepseek-v2-lite, kimi-k2) A3.3; the dense and Mamba-1
+    families build."""
+    for arch, item in (("zamba2-7b", "ROADMAP.md A3.2"),
+                       ("deepseek-v2-lite-16b", "ROADMAP.md A3.3"),
+                       ("kimi-k2-1t-a32b", "ROADMAP.md A3.3")):
+        for fn in (lambda: tr.Model(tiny_config(arch), device="cpu"),
+                   lambda: tr.init_cache(tiny_config(arch), 2, 8,
+                                         device="cpu")):
+            with pytest.raises(NotImplementedError, match=item):
+                fn()
+    for arch in ("musicgen-large", ARCH):
+        tr.Model(tiny_config(arch), device="cpu")
 
 
 def test_entry_points_default_to_cuda():
