@@ -196,7 +196,30 @@
     blocks of 256, since 1280 is not a multiple of 512), the decode
     logits at the last 8 positions against the prefill's there; both
     within CROSS_TOL.  Each model leaves the card before the next.
-12. The last two lines: the kernels as JSON (ten records, in the order
+12. The hybrid and MoE families (the earlier phases have left the card;
+    the bytes they still hold are logged), bf16, the weights drawn on the
+    card from ``--seed``, each model off the card before the next.
+    (a) zamba2-7b (Mamba-2 with the weight-tied shared block after every
+    6th layer) and (b) deepseek-v2-lite-16b (MLA, 64 routed experts
+    top-6 and 2 shared) at full width and depth, their parameter counts
+    held to JAX's (7309292112 and 15708450304): a warm-up prefill at
+    S = 2048, one sequence of prefill_32k (B = 1, S = 32768): finite
+    logits, seconds, tokens/s, peak memory and the routed slots the MoE
+    capacity drops; zamba2's first Mamba2Block and first shared layer,
+    deepseek's first MoE layer, by operator (torch.profiler); phase 10's
+    engine run over phase 10's prompt set, held to phase 10's checks (the
+    directory must launch the hash probe, search and merge: every kernel
+    record gets ``launches_serving_hybrid`` and ``launches_serving_moe``;
+    the scan none), decode steps/s and the model's share of the engine's
+    time.  (c) kimi-k2-1t-a32b at full width on 2 of 61 layers (the
+    dense layer 0 and one MoE layer of 384 experts, top-8; 19923635200
+    parameters): the same prefill (16384 tokens if 32768 do not fit).
+    (d) float32, TF32 off: the engine's decode logits after each
+    fresh-slot prompt against prefill's within CROSS_TOL, zamba2 on 6
+    layers (five mamba2, one mamba2+shared) and deepseek on 3 (the dense
+    MLA layer and two MoE layers, capacity_factor n_experts / top_k, so
+    that prefill drops no slot).
+13. The last two lines: the kernels as JSON (ten records, in the order
     of PERF.md's kernel table), then the device as JSON.
 
 Exits nonzero, printing no result, without CUDA or outside a checkout.
@@ -2268,6 +2291,18 @@ CROSS_LOCAL_LAYERS = 6           # (c): one period, 5 local and 1 global
 CROSS_LOCAL_S = 1280             # (c): every local ring of 1024 wraps
 CROSS_LOCAL_BLOCK = 256          # (c): q and kv blocks that divide 1280
 CROSS_LOCAL_LAST = 8             # (c): positions compared
+HYBRID_ARCH = "zamba2-7b"        # phase 12 (a): full width and depth
+MLA_ARCH = "deepseek-v2-lite-16b"  # (b): full width and depth
+WIDE_MOE_ARCH = "kimi-k2-1t-a32b"  # (c): full width, depth cut
+WIDE_MOE_LAYERS = 2              # (c): the dense layer 0 and one MoE layer
+CROSS_HYBRID_LAYERS = 6          # (d): five mamba2 layers, one mamba2+shared
+CROSS_MOE_LAYERS = 3             # (d): the dense MLA layer, two MoE layers
+# the parameter counts jax.eval_shape gives over the JAX package's
+# init_params for these configs (kimi-k2 on WIDE_MOE_LAYERS layers);
+# tests/test_torch_moe.py::test_full_param_counts_match_jax holds the
+# port's Model to them
+FAMILY_PARAMS = {HYBRID_ARCH: 7309292112, MLA_ARCH: 15708450304,
+                 WIDE_MOE_ARCH: 19923635200}
 # the SFU's exponentials per clock per SM, compute capability 9.0 (CUDA C++
 # Programming Guide, arithmetic instruction throughput table)
 SFU_PER_CLOCK_PER_SM = 16
@@ -2304,9 +2339,9 @@ def scan_bound(torch, x, B_ssm, sfu_rate):
     return max(b_bytes, b_exp), b_bytes, b_exp, nbytes, exps
 
 
-def block_split(torch, cfg, model, tok):
-    """The device time of one full-width block of the prefill (layer 0, on
-    the prefill's tokens) by operator: the block runs once under
+def block_split(torch, cfg, model, tok, layer=0):
+    """The device time of one full-width block of the prefill (``layer``,
+    on the prefill's tokens) by operator: the block runs once under
     torch.profiler (CPU and CUDA activity) after a warm-up; each
     operator's self device time (the kernels it launched itself), and the
     kernels no operator launched (the scan, launched through ctypes) by
@@ -2318,12 +2353,12 @@ def block_split(torch, cfg, model, tok):
     with torch.no_grad():
         x = _frontend(cfg, model, {"tokens": tok})
         positions = torch.arange(x.shape[1], device=x.device)[None]
-        block = model.layers[0]
-        block(cfg, x, positions)
+        block = model.layers[layer]
+        block(cfg, x, positions, model.shared)
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
-            block(cfg, x, positions)
+            block(cfg, x, positions, model.shared)
             torch.cuda.synchronize()
     ops, total, attributed = {}, 0.0, 0.0
     for e in prof.key_averages():
@@ -2344,7 +2379,8 @@ def block_split(torch, cfg, model, tok):
     ops["other kernels no operator launched"] = max(
         total - attributed - ops.get("mamba_scan.cu", 0.0), 0.0)
     ops = dict(sorted(ops.items(), key=lambda kv: -kv[1]))
-    log(f"serve: one {type(block).__name__} of {cfg.name}'s "
+    log(f"serve: one {type(block).__name__} (layer {layer}, "
+        f"{cfg.layer_specs()[layer]}) of {cfg.name}'s "
         f"{tok.shape[1]}-token prefill by "
         f"operator (torch.profiler, device ms): "
         + ", ".join(f"{k} {v:.3f}" for k, v in ops.items())
@@ -2425,6 +2461,93 @@ def check_engine(e, reqs, label):
     return n_hash
 
 
+def engine_run(torch, cfg, model, dev, first, again, label):
+    """Phase 10's ServingEngine over ``first`` and ``again``, the launch
+    counts set to 0 before it, held to phase 10's checks: the directory
+    launched the hash probe, search and merge, the scan none.  Returns
+    (metrics, the launches, the per-step log)."""
+    from repro_torch.kernels import mamba_scan as ms
+    from repro_torch.kernels import ops
+    from repro_torch.serving.engine import ServingEngine
+
+    e = ServingEngine(cfg, model, batch_slots=SERVE_SLOTS,
+                      max_len=SERVE_MAX_LEN, page_size=SERVE_PAGE,
+                      device=dev)
+    zero_launches(ops)
+    ms.LAUNCHES["mamba_scan"] = 0
+    reqs, steps, t_eng, t_model = drive_engine(torch, e, first, again)
+    launches = dict(ops.LAUNCHES, mamba_scan=ms.LAUNCHES["mamba_scan"])
+    n_hash = check_engine(e, reqs, f"{label} engine")
+    n_tok = sum(len(r.tokens) for r in reqs)
+    n_steps = e.stats["decode_steps"]
+    log(f"{label}: ServingEngine({SERVE_SLOTS} slots, max_len "
+        f"{SERVE_MAX_LEN}, page {SERVE_PAGE}) answered {len(reqs)} requests "
+        f"in {t_eng:.3f} s: {n_steps} decode steps ({n_steps / t_eng:.2f} "
+        f"steps/s), {n_tok} tokens generated ({n_tok / t_eng:.1f} "
+        f"tokens/s), {sum(len(r.prompt) for r in reqs)} prompt tokens; the "
+        f"model's decode steps {t_model:.3f} s of it ({t_model / t_eng:.1%})"
+        f", the directory and the engine's bookkeeping {t_eng - t_model:.3f}"
+        f" s; stats {json.dumps(e.stats)}; directory launches {launches}; "
+        f"{n_hash} prefix keys left in the hash")
+    for k in ("hash_probe", "sorted_search", "merge"):
+        check(launches[k] > 0, f"{label}: the directory never ran {k}")
+    check(launches["mamba_scan"] == 0, f"{label}: the engine ran the scan")
+    out = dict(engine_s=t_eng, engine_model_s=t_model,
+               engine_model_share=t_model / t_eng, requests=len(reqs),
+               decode_steps=n_steps, decode_steps_per_s=n_steps / t_eng,
+               tokens=n_tok, tokens_per_s=n_tok / t_eng, stats=dict(e.stats))
+    return out, launches, steps
+
+
+def prefill_gaps(torch, cfg, model, dev, first, steps, label):
+    """Prefill's last-position logits against the engine's decode logits
+    after each first-wave prompt (fresh slots), max abs gap over max
+    |logit| (information at bf16)."""
+    from repro_torch.serving.serve_step import prefill
+
+    gaps = []
+    for rid in range(SERVE_SLOTS):          # the first wave: fresh slots
+        p = first[rid]
+        want = prefill(cfg, model, {"tokens": torch.tensor([p], device=dev)})
+        got = prompt_end_logits(steps, rid, len(p))
+        gaps.append(float((got - want[0]).abs().max() / want.abs().max()))
+    log(f"{label}: {cfg.dtype}, {cfg.n_layers} layers: decode logits after "
+        f"each first-wave prompt against prefill's, max abs gap over max "
+        f"|logit| {[round(g, 5) for g in gaps]} (information)")
+    return gaps
+
+
+def cross_check(torch, cfg, model, dev, first, again, label):
+    """The engine (float32) over ``first`` and ``again``: the decode
+    logits after each fresh-slot prompt equal prefill's within
+    CROSS_TOL.  Returns the largest gap."""
+    from repro_torch.serving.engine import ServingEngine
+    from repro_torch.serving.serve_step import prefill
+
+    e = ServingEngine(cfg, model, batch_slots=SERVE_SLOTS,
+                      max_len=SERVE_MAX_LEN, page_size=SERVE_PAGE,
+                      device=dev)
+    reqs, steps, _, _ = drive_engine(torch, e, first, again)
+    check_engine(e, reqs, f"{label} cross-check engine")
+    del e
+    cross = 0.0
+    for rid in range(SERVE_SLOTS):
+        p = first[rid]
+        want = prefill(cfg, model, {"tokens": torch.tensor([p],
+                                                           device=dev)})[0]
+        got = prompt_end_logits(steps, rid, len(p))
+        gap = (got - want).abs()
+        check(bool((gap <= CROSS_TOL + CROSS_TOL * want.abs()).all()),
+              f"{label}: request {rid}: decode logits differ from prefill's "
+              f"by {float(gap.max()):.4g} ({cfg.dtype}, {cfg.n_layers} "
+              f"layers)")
+        cross = max(cross, float(gap.max()))
+    log(f"{label}: {cfg.dtype}, {cfg.n_layers} layers of full width: decode "
+        f"logits after each of the {SERVE_SLOTS} first-wave prompts equal "
+        f"prefill's within {CROSS_TOL} (max abs gap {cross:.4g})")
+    return cross
+
+
 def serving(torch, seed):
     """The serving path of falcon-mamba-7b at full width and depth, bf16,
     weights drawn on the card from ``seed``: a warm-up prefill and the
@@ -2439,7 +2562,6 @@ def serving(torch, seed):
     from repro_torch.kernels import ops
     from repro_torch.models import ssm
     from repro_torch.models import transformer as tr
-    from repro_torch.serving.engine import ServingEngine
     from repro_torch.serving.serve_step import prefill
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -2566,77 +2688,24 @@ def serving(torch, seed):
     # -- the engine over its HiStore page directory ------------------------
     rng = np.random.default_rng(seed)
     first, again = prompt_set(rng, cfg.vocab_size)
-    e = ServingEngine(cfg, model, batch_slots=SERVE_SLOTS,
-                      max_len=SERVE_MAX_LEN, page_size=SERVE_PAGE,
-                      device=dev)
-    zero_launches(ops)
-    ms.LAUNCHES["mamba_scan"] = 0
-    reqs, steps, t_eng, t_model = drive_engine(torch, e, first, again)
-    d_launches = dict(ops.LAUNCHES)
-    n_hash = check_engine(e, reqs, "serve engine")
-    n_tok = sum(len(r.tokens) for r in reqs)
-    n_steps = e.stats["decode_steps"]
-    log(f"serve: ServingEngine({SERVE_SLOTS} slots, max_len {SERVE_MAX_LEN},"
-        f" page {SERVE_PAGE}) answered {len(reqs)} requests in {t_eng:.3f} "
-        f"s: {n_steps} decode steps ({n_steps / t_eng:.2f} steps/s), "
-        f"{n_tok} tokens generated ({n_tok / t_eng:.1f} tokens/s), "
-        f"{sum(len(r.prompt) for r in reqs)} prompt tokens; the model's "
-        f"decode steps {t_model:.3f} s of it, the directory and the "
-        f"engine's bookkeeping {t_eng - t_model:.3f} s; stats "
-        f"{json.dumps(e.stats)}; directory launches {d_launches}; "
-        f"{n_hash} prefix keys left in the hash")
-    for k in ("hash_probe", "sorted_search", "merge"):
-        check(d_launches[k] > 0, f"serve: the directory never ran {k}")
-    check(ms.LAUNCHES["mamba_scan"] == 0, "serve: decode ran the scan")
-
+    eng, d_launches, steps = engine_run(torch, cfg, model, dev, first, again,
+                                        "serve")
     # -- prefill against decode, bf16 at full depth (information) ----------
-    gaps = []
-    for rid in range(SERVE_SLOTS):          # the first wave: fresh slots
-        p = first[rid]
-        want = prefill(cfg, model, {"tokens": torch.tensor([p], device=dev)})
-        got = prompt_end_logits(steps, rid, len(p))
-        gaps.append(float((got - want[0]).abs().max()
-                          / want.abs().max()))
-    log(f"serve: bf16, {cfg.n_layers} layers: decode logits after each "
-        f"first-wave prompt against prefill's, max abs gap over max |logit|"
-        f" {[round(g, 5) for g in gaps]} (information)")
+    gaps = prefill_gaps(torch, cfg, model, dev, first, steps, "serve")
     peak = torch.cuda.max_memory_allocated()
-    stats = dict(e.stats)
-    del e, steps, model
+    del steps, model
     torch.cuda.empty_cache()
 
     # -- the cross-check at float32, CROSS_LAYERS layers of full width ----
     ccfg = cfg.scaled(n_layers=CROSS_LAYERS, dtype="float32")
     cmodel = tr.init_params(ccfg, gen, device=dev)
-    ce = ServingEngine(ccfg, cmodel, batch_slots=SERVE_SLOTS,
-                       max_len=SERVE_MAX_LEN, page_size=SERVE_PAGE,
-                       device=dev)
-    creqs, csteps, _, _ = drive_engine(torch, ce, first, again)
-    check_engine(ce, creqs, "serve cross-check engine")
-    cross = 0.0
-    for rid in range(SERVE_SLOTS):
-        p = first[rid]
-        want = prefill(ccfg, cmodel, {"tokens": torch.tensor([p],
-                                                             device=dev)})[0]
-        got = prompt_end_logits(csteps, rid, len(p))
-        gap = (got - want).abs()
-        check(bool((gap <= CROSS_TOL + CROSS_TOL * want.abs()).all()),
-              f"serve: request {rid}: decode logits differ from prefill's "
-              f"by {float(gap.max()):.4g} (float32, {CROSS_LAYERS} layers)")
-        cross = max(cross, float(gap.max()))
-    log(f"serve: float32, {CROSS_LAYERS} layers of full width: decode logits"
-        f" after each of the {SERVE_SLOTS} first-wave prompts equal "
-        f"prefill's within {CROSS_TOL} (max abs gap {cross:.4g})")
-    del ce, cmodel, csteps
+    cross = cross_check(torch, ccfg, cmodel, dev, first, again, "serve")
+    del cmodel
     torch.cuda.empty_cache()
     times = dict(init_s=t_init, params=n_params, param_bytes=p_bytes,
                  prefill_s=t_prefill, prefill_tokens_per_s=S / t_prefill,
-                 prefill_peak_bytes=peak_prefill, engine_s=t_eng,
-                 engine_model_s=t_model,
-                 requests=len(reqs), decode_steps=n_steps,
-                 decode_steps_per_s=n_steps / t_eng, tokens=n_tok,
-                 tokens_per_s=n_tok / t_eng, peak_bytes=peak,
-                 bf16_gaps=gaps, f32_cross_max_abs=cross, stats=stats)
+                 prefill_peak_bytes=peak_prefill, peak_bytes=peak,
+                 bf16_gaps=gaps, f32_cross_max_abs=cross, **eng)
     return record, times, d_launches
 
 
@@ -2652,20 +2721,22 @@ def dense_param_count(cfg):
     return tables + D + cfg.n_layers * layer
 
 
-def build_model(torch, cfg, gen, dev, label):
+def build_model(torch, cfg, gen, dev, label, count=None):
     """A Model with random weights drawn on the card, its parameter count
-    held to the config's; returns (model, seconds, parameters, bytes)."""
+    held to ``count`` (by default the one a dense config gives); returns
+    (model, seconds, parameters, bytes)."""
     from repro_torch.models import transformer as tr
 
+    count = dense_param_count(cfg) if count is None else count
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     model = tr.init_params(cfg, gen, device=dev)
     torch.cuda.synchronize()
     t = time.perf_counter() - t0
     n = tr.count_params(model)
-    check(n == dense_param_count(cfg) and len(model.layers) == cfg.n_layers,
+    check(n == count and len(model.layers) == cfg.n_layers,
           f"{label}: {n} parameters, {len(model.layers)} layers; the config "
-          f"gives {dense_param_count(cfg)}")
+          f"gives {count}")
     nbytes = sum(p.numel() * p.element_size() for p in model.parameters())
     log(f"{label}: {cfg.name} built on the card in {t:.3f} s: "
         f"{cfg.n_layers} layers, d_model {cfg.d_model}, {cfg.n_heads} heads"
@@ -2685,6 +2756,69 @@ def timed_prefill(torch, cfg, model, tok):
     return logits, time.perf_counter() - t0
 
 
+class DropCounter:
+    """Counts, on the card, the routed (token, expert) slots the MoE's
+    capacity drops while it is entered: it wraps ``moe.dispatch_plan``,
+    whose ``keep`` marks the slots kept."""
+
+    def __init__(self, moe):
+        self.moe, self.plan = moe, moe.dispatch_plan
+        self.dropped, self.slots, self.calls = [], 0, 0
+
+    def __enter__(self):
+        def plan(cfg, eidx, C):
+            out = self.plan(cfg, eidx, C)
+            self.dropped.append((~out[3]).sum())
+            self.slots += out[3].numel()
+            self.calls += 1
+            return out
+
+        self.moe.dispatch_plan = plan
+        return self
+
+    def __exit__(self, *exc):
+        self.moe.dispatch_plan = self.plan
+
+    def summary(self):
+        d = [int(x) for x in self.dropped]
+        return dict(dropped_slots=sum(d), routed_slots=self.slots,
+                    moe_layers=self.calls,
+                    dropped_share=sum(d) / max(self.slots, 1),
+                    dropped_max_layer=max(d, default=0))
+
+
+def family_prefill(torch, cfg, model, gen, dev, S, label):
+    """A warm-up prefill at INFO_S, then one sequence of S tokens: finite
+    logits, seconds, tokens/s, peak memory and the slots the MoE layers'
+    capacity dropped.  Returns (metrics, the tokens)."""
+    from repro_torch.configs.base import SHAPES
+    from repro_torch.models import moe
+
+    tok = torch.randint(0, cfg.vocab_size, (1, INFO_S), generator=gen,
+                        device=dev)
+    _, t_warm = timed_prefill(torch, cfg, model, tok)
+    tok = torch.randint(0, cfg.vocab_size, (1, S), generator=gen, device=dev)
+    torch.cuda.reset_peak_memory_stats()
+    with DropCounter(moe) as drops:
+        logits, t_pre = timed_prefill(torch, cfg, model, tok)
+    peak = torch.cuda.max_memory_allocated()
+    check(logits.shape == (1, cfg.vocab_size)
+          and bool(torch.isfinite(logits).all()), f"{label}: prefill logits")
+    d = drops.summary()
+    log(f"{label}: warm-up prefill at S = {INFO_S} in {t_warm:.3f} s; "
+        f"prefill of B = 1 x S = {S} (prefill_32k cut from batch "
+        f"{SHAPES['prefill_32k'].global_batch} to 1) in {t_pre:.3f} s "
+        f"({S / t_pre:.0f} tokens/s), peak {peak} B "
+        f"({peak / 2**30:.3f} GiB)" + (
+            f"; the MoE capacity dropped {d['dropped_slots']} of "
+            f"{d['routed_slots']} routed slots over {d['moe_layers']} layers"
+            f" (at most {d['dropped_max_layer']} in a layer)"
+            if d["moe_layers"] else ""))
+    return dict(prefill_s=t_pre, prefill_tokens_per_s=S / t_pre,
+                prefill_peak_bytes=peak, warmup_prefill_s=t_warm,
+                prefill_S=S, **d), tok
+
+
 def dense_serving(torch, seed):
     """Phase 11, the dense GQA family: (a) mistral-nemo-12b at full width
     and depth in bf16 (the 32768-token prefill, one block by operator,
@@ -2694,19 +2828,14 @@ def dense_serving(torch, seed):
     Returns (timings, the directory's launches)."""
     from repro_torch.configs import get_config
     from repro_torch.configs.base import SHAPES
-    from repro_torch.kernels import mamba_scan as ms
-    from repro_torch.kernels import ops
     from repro_torch.models import transformer as tr
-    from repro_torch.serving.engine import ServingEngine
-    from repro_torch.serving.serve_step import prefill
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(seed)
     t_phase = time.perf_counter()
-    shape = SHAPES["prefill_32k"]
-    S = shape.seq_len
+    S = SHAPES["prefill_32k"].seq_len
     out = {"held_bytes": torch.cuda.memory_allocated()}
     log(f"dense: {out['held_bytes']} B on the card from earlier phases")
 
@@ -2715,65 +2844,21 @@ def dense_serving(torch, seed):
     torch.cuda.reset_peak_memory_stats()
     model, out["init_s"], out["params"], out["param_bytes"] = build_model(
         torch, cfg, gen, dev, "dense")
-    tok = torch.randint(0, cfg.vocab_size, (1, INFO_S), generator=gen,
-                        device=dev)
-    _, t_warm = timed_prefill(torch, cfg, model, tok)
-    log(f"dense: warm-up prefill at S = {INFO_S} in {t_warm:.3f} s")
-    tok = torch.randint(0, cfg.vocab_size, (1, S), generator=gen, device=dev)
-    torch.cuda.reset_peak_memory_stats()
-    logits, t_pre = timed_prefill(torch, cfg, model, tok)
-    peak_pre = torch.cuda.max_memory_allocated()
-    check(logits.shape == (1, cfg.vocab_size)
-          and bool(torch.isfinite(logits).all()), "dense: prefill logits")
-    log(f"dense: prefill of B = 1 x S = {S} (prefill_32k cut from batch "
-        f"{shape.global_batch} to 1) in {t_pre:.3f} s ({S / t_pre:.0f} "
-        f"tokens/s), peak {peak_pre} B ({peak_pre / 2**30:.3f} GiB)")
-    out.update(prefill_s=t_pre, prefill_tokens_per_s=S / t_pre,
-               prefill_peak_bytes=peak_pre, warmup_prefill_s=t_warm)
+    res, tok = family_prefill(torch, cfg, model, gen, dev, S, "dense")
+    out.update(res)
     split, block_ms = block_split(torch, cfg, model, tok)
     out["prefill_block_device_ms_by_op"] = split
     out["prefill_block_device_ms"] = block_ms
-    del logits, tok
+    del tok
 
     rng = np.random.default_rng(seed)
     first, again = prompt_set(rng, cfg.vocab_size)
-    e = ServingEngine(cfg, model, batch_slots=SERVE_SLOTS,
-                      max_len=SERVE_MAX_LEN, page_size=SERVE_PAGE,
-                      device=dev)
-    zero_launches(ops)
-    ms.LAUNCHES["mamba_scan"] = 0
-    reqs, steps, t_eng, t_model = drive_engine(torch, e, first, again)
-    launches = dict(ops.LAUNCHES, mamba_scan=ms.LAUNCHES["mamba_scan"])
-    n_hash = check_engine(e, reqs, "dense engine")
-    n_tok = sum(len(r.tokens) for r in reqs)
-    n_steps = e.stats["decode_steps"]
-    log(f"dense: ServingEngine({SERVE_SLOTS} slots, max_len {SERVE_MAX_LEN},"
-        f" page {SERVE_PAGE}) answered {len(reqs)} requests in {t_eng:.3f} "
-        f"s: {n_steps} decode steps ({n_steps / t_eng:.2f} steps/s), "
-        f"{n_tok} tokens generated ({n_tok / t_eng:.1f} tokens/s), "
-        f"{sum(len(r.prompt) for r in reqs)} prompt tokens; the model's "
-        f"decode steps {t_model:.3f} s of it ({t_model / t_eng:.1%}), the "
-        f"directory and the engine's bookkeeping {t_eng - t_model:.3f} s; "
-        f"stats {json.dumps(e.stats)}; directory launches {launches}; "
-        f"{n_hash} prefix keys left in the hash")
-    for k in ("hash_probe", "sorted_search", "merge"):
-        check(launches[k] > 0, f"dense: the directory never ran {k}")
-    check(launches["mamba_scan"] == 0, "dense: the engine ran the scan")
-    gaps = []
-    for rid in range(SERVE_SLOTS):          # the first wave: fresh slots
-        p = first[rid]
-        want = prefill(cfg, model, {"tokens": torch.tensor([p], device=dev)})
-        got = prompt_end_logits(steps, rid, len(p))
-        gaps.append(float((got - want[0]).abs().max() / want.abs().max()))
-    log(f"dense: bf16, {cfg.n_layers} layers: decode logits after each "
-        f"first-wave prompt against prefill's, max abs gap over max |logit|"
-        f" {[round(g, 5) for g in gaps]} (information)")
-    out.update(engine_s=t_eng, engine_model_s=t_model,
-               engine_model_share=t_model / t_eng, requests=len(reqs),
-               decode_steps=n_steps, decode_steps_per_s=n_steps / t_eng,
-               tokens=n_tok, tokens_per_s=n_tok / t_eng, bf16_gaps=gaps,
-               stats=dict(e.stats), peak_bytes=torch.cuda.max_memory_allocated())
-    del e, steps, model
+    eng, launches, steps = engine_run(torch, cfg, model, dev, first, again,
+                                      "dense")
+    gaps = prefill_gaps(torch, cfg, model, dev, first, steps, "dense")
+    out.update(eng, bf16_gaps=gaps,
+               peak_bytes=torch.cuda.max_memory_allocated())
+    del steps, model
     torch.cuda.empty_cache()
 
     # -- (b) gemma3-27b at full width, depth cut: the sliding window -------
@@ -2803,26 +2888,8 @@ def dense_serving(torch, seed):
     # -- (c) prefill against decode at float32, TF32 off --------------------
     ccfg = cfg.scaled(n_layers=CROSS_LAYERS, dtype="float32")
     cmodel = build_model(torch, ccfg, gen, dev, "dense cross-check")[0]
-    ce = ServingEngine(ccfg, cmodel, batch_slots=SERVE_SLOTS,
-                       max_len=SERVE_MAX_LEN, page_size=SERVE_PAGE,
-                       device=dev)
-    creqs, csteps, _, _ = drive_engine(torch, ce, first, again)
-    check_engine(ce, creqs, "dense cross-check engine")
-    cross = 0.0
-    for rid in range(SERVE_SLOTS):
-        p = first[rid]
-        want = prefill(ccfg, cmodel, {"tokens": torch.tensor([p],
-                                                             device=dev)})[0]
-        got = prompt_end_logits(csteps, rid, len(p))
-        gap = (got - want).abs()
-        check(bool((gap <= CROSS_TOL + CROSS_TOL * want.abs()).all()),
-              f"dense: request {rid}: decode logits differ from prefill's "
-              f"by {float(gap.max()):.4g} (float32, {CROSS_LAYERS} layers)")
-        cross = max(cross, float(gap.max()))
-    log(f"dense: float32, {CROSS_LAYERS} layers of full width: decode logits"
-        f" after each of the {SERVE_SLOTS} first-wave prompts equal "
-        f"prefill's within {CROSS_TOL} (max abs gap {cross:.4g})")
-    del ce, cmodel, csteps
+    cross = cross_check(torch, ccfg, cmodel, dev, first, again, "dense")
+    del cmodel
     torch.cuda.empty_cache()
 
     gcfg = get_config(LOCAL_ARCH).scaled(
@@ -2873,6 +2940,102 @@ def dense_serving(torch, seed):
     out["phase_s"] = time.perf_counter() - t_phase
     log(f"dense: phase 11 in {out['phase_s']:.1f} s")
     return out, launches
+
+
+def family_serving(torch, seed):
+    """Phase 12, the hybrid and MoE families: (a) zamba2-7b and (b)
+    deepseek-v2-lite-16b at full width and depth in bf16 (the
+    32768-token prefill, blocks by operator, the ServingEngine over its
+    page directory), (c) kimi-k2 at full width on 2 layers (the prefill),
+    (d) prefill against decode at float32 on full-width layers.  Returns
+    (timings, the hybrid engine's launches, the MoE engine's)."""
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import SHAPES
+    from repro_torch.models import transformer as tr
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    t_phase = time.perf_counter()
+    S = SHAPES["prefill_32k"].seq_len
+    out = {"held_bytes": torch.cuda.memory_allocated()}
+    log(f"families: {out['held_bytes']} B on the card from earlier phases")
+    rng = np.random.default_rng(seed)
+    launches = {}
+
+    # -- (a) zamba2-7b, (b) deepseek-v2-lite-16b: full width and depth -----
+    for key, arch in (("hybrid", HYBRID_ARCH), ("moe", MLA_ARCH)):
+        cfg = get_config(arch)
+        torch.cuda.reset_peak_memory_stats()
+        model, t_init, n, nbytes = build_model(torch, cfg, gen, dev, key,
+                                               FAMILY_PARAMS[arch])
+        res, tok = family_prefill(torch, cfg, model, gen, dev, S, key)
+        res.update(init_s=t_init, params=n, param_bytes=nbytes)
+        # the first Mamba2Block and the first shared layer; the first MoE
+        # layer
+        layers = ([0, cfg.shared_attn_every - 1] if key == "hybrid"
+                  else [cfg.first_k_dense])
+        for i in layers:
+            split, block_ms = block_split(torch, cfg, model, tok, i)
+            res[f"layer{i}_device_ms_by_op"] = split
+            res[f"layer{i}_device_ms"] = block_ms
+        del tok
+        first, again = prompt_set(rng, cfg.vocab_size)
+        eng, launches[key], steps = engine_run(torch, cfg, model, dev,
+                                               first, again, key)
+        res.update(eng, bf16_gaps=prefill_gaps(torch, cfg, model, dev, first,
+                                               steps, key),
+                   peak_bytes=torch.cuda.max_memory_allocated())
+        out[key] = res
+        del steps, model
+        torch.cuda.empty_cache()
+
+        # -- (d) prefill against decode at float32, TF32 off ---------------
+        # the MoE model's capacity_factor is n_experts / top_k, so that
+        # its prefill drops no slot: decode (4 tokens, capacity 8) never
+        # drops one, and with drops prefill and decode compute different
+        # functions, in the JAX package too
+        ccfg = cfg.scaled(
+            n_layers=CROSS_HYBRID_LAYERS if key == "hybrid"
+            else CROSS_MOE_LAYERS, dtype="float32",
+            capacity_factor=(cfg.n_experts / cfg.top_k if cfg.n_experts
+                             else cfg.capacity_factor))
+        cmodel = tr.init_params(ccfg, gen, device=dev)
+        log(f"{key} cross-check: {ccfg.n_layers} layers "
+            f"{ccfg.layer_specs()}, capacity_factor {ccfg.capacity_factor}")
+        out[key]["f32_cross_max_abs"] = cross_check(
+            torch, ccfg, cmodel, dev, first, again, f"{key} cross-check")
+        del cmodel
+        torch.cuda.empty_cache()
+
+    # -- (c) kimi-k2 at full width on its first 2 of 61 layers -------------
+    kcfg = get_config(WIDE_MOE_ARCH).scaled(n_layers=WIDE_MOE_LAYERS)
+    log(f"wide-moe: {WIDE_MOE_ARCH}'s depth cut from "
+        f"{get_config(WIDE_MOE_ARCH).n_layers} to {WIDE_MOE_LAYERS} layers "
+        f"{kcfg.layer_specs()}; width, {kcfg.n_experts} experts, top-"
+        f"{kcfg.top_k} as published")
+    torch.cuda.reset_peak_memory_stats()
+    model, t_init, n, nbytes = build_model(torch, kcfg, gen, dev, "wide-moe",
+                                           FAMILY_PARAMS[WIDE_MOE_ARCH])
+    for Sk in (S, S // 2):
+        try:
+            res, tok = family_prefill(torch, kcfg, model, gen, dev, Sk,
+                                      "wide-moe")
+            break
+        except torch.cuda.OutOfMemoryError:
+            if Sk != S:
+                raise
+            log(f"wide-moe: a prefill of {Sk} tokens does not fit; cut to "
+                f"{Sk // 2}")
+            torch.cuda.empty_cache()
+    res.update(init_s=t_init, params=n, param_bytes=nbytes)
+    out["wide_moe"] = res
+    del model, tok
+    torch.cuda.empty_cache()
+    out["phase_s"] = time.perf_counter() - t_phase
+    log(f"families: phase 12 in {out['phase_s']:.1f} s")
+    return out, launches["hybrid"], launches["moe"]
 
 
 def main(argv=None) -> int:
@@ -2961,6 +3124,12 @@ def main(argv=None) -> int:
     log(f"dense: {json.dumps(dense_times)}")
     for k in kernels:
         k["launches_serving_dense"] = dense_launches[k["name"]]
+    torch.cuda.empty_cache()
+    fam_times, hyb_launches, moe_launches = family_serving(torch, args.seed)
+    log(f"families: {json.dumps(fam_times)}")
+    for k in kernels:
+        k["launches_serving_hybrid"] = hyb_launches[k["name"]]
+        k["launches_serving_moe"] = moe_launches[k["name"]]
     torch.cuda.synchronize()
     log(f"total: {time.perf_counter() - t_start:.1f} s")
     print(smi)

@@ -3,9 +3,10 @@
 The single-node store: ``HiStoreClient`` over ``LocalBackend``
 (PUT/GET/DELETE/SCAN, the asynchronous log->sorted apply, failure and
 recovery), and the healthy distributed store over G index groups on one
-device (``DistributedBackend``).  The serving path of the Mamba-1 model
-family (falcon-mamba-7b): ``configs``, ``models`` (``Model`` with its
-``Mamba1Block`` layers), ``serving.serve_step.prefill`` and
+device (``DistributedBackend``).  The serving path of every model
+family of ``configs`` (Mamba-1, the dense GQA family, zamba2's Mamba-2
+with its shared block, MLA and MoE): ``models`` (``Model`` with its
+blocks), ``serving.serve_step.prefill`` and
 ``serving.engine.ServingEngine``, whose page directory is a
 ``HiStoreClient``.  The index hot path and the Mamba-1 scan run through
 hand-written CUDA kernels (``kernels/csrc``) for tensors on the card and

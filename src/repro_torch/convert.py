@@ -197,13 +197,48 @@ def _tree_index(tree, r):
     return np.asarray(tree)[r]
 
 
+def _children(dst):
+    """A module's or ParameterDict's leaves and sub-dicts by name: its
+    parameters and child modules (an int field such as a block's window
+    is neither)."""
+    if isinstance(dst, torch.nn.ParameterDict):
+        return {k: dst[k] for k in dst.keys()}
+    out = dict(dst.named_parameters(recurse=False))
+    out.update(dst.named_children())
+    return out
+
+
+def _load_tree(load, dst, src, path):
+    """Load a JAX leaf tree into a module or ParameterDict, name for
+    name: a norm's ``{"scale": a}`` leaf into its (1 + scale) parameter,
+    a nested dict into a nested ParameterDict or module."""
+    if isinstance(dst, torch.Tensor):
+        if isinstance(src, dict):
+            if set(src) != {"scale"}:
+                raise ValueError(f"{path}: leaves {sorted(src)}, a norm "
+                                 f"parameter takes {{'scale'}}")
+            src = src["scale"]
+        load(dst, src)
+        return
+    have = _children(dst)
+    if not isinstance(src, dict) or set(src) != set(have):
+        got = sorted(src) if isinstance(src, dict) else type(src).__name__
+        raise ValueError(f"{path}: leaves {got}, the port has "
+                         f"{sorted(have)}")
+    for k, v in src.items():
+        _load_tree(load, have[k], v, f"{path}.{k}")
+
+
 def params_from_numpy(params, cfg, device=None):
     """A ``Model`` on ``device`` (the card unless the caller names another)
     holding a JAX ``init_params`` tree's weights (numpy leaves), the
     scanned stages' [n_rep, ...] leaves unstacked into layers: each
     layer's ``ln1`` (and ``ln2``) scale and its ``mixer`` (and ``ffn``)
-    weights by name.  A config without a token frontend or without a
-    tied table has no ``embed``; a tied one has no ``lm_head``."""
+    weights by name, nested leaves included (Mamba-2's ``norm``, MLA's
+    ``kv_norm``, the MoE's ``shared`` MLP), and ``params["shared"]``, the
+    weight-tied block, into ``model.shared``.  A config without a token
+    frontend or without a tied table has no ``embed``; a tied one has no
+    ``lm_head``."""
     from repro_torch.models.transformer import Model
 
     model = Model(cfg, device=device)
@@ -221,33 +256,32 @@ def params_from_numpy(params, cfg, device=None):
     if hasattr(model, "lm_head"):
         load(model.lm_head, params["lm_head"]["table"])
     load(model.final_norm, params["final_norm"]["scale"])
+    if ("shared" in params) != (model.shared is not None):
+        raise ValueError("the JAX tree and the config disagree on the "
+                         "shared block")
+    if model.shared is not None:
+        _load_tree(load, model.shared, params["shared"], "shared")
     layers = _layer_leaves(params["stages"], cfg)
     if len(layers) != len(model.layers):
         raise ValueError(f"{len(layers)} layers, the model has "
                          f"{len(model.layers)}")
-    for block, leaves in zip(model.layers, layers):
-        norms = [k for k in ("ln1", "ln2") if hasattr(block, k)]
-        groups = [k for k in ("mixer", "ffn") if hasattr(block, k)]
-        if set(leaves) != set(norms + groups):
-            raise ValueError(f"layer leaves {sorted(leaves)}, the block has "
-                             f"{sorted(norms + groups)}")
-        for k in norms:
-            load(getattr(block, k), leaves[k]["scale"])
-        for g in groups:
-            dst = getattr(block, g)
-            if set(leaves[g]) != set(dst.keys()):
-                raise ValueError(f"{g} leaves {sorted(leaves[g])}")
-            for k, a in leaves[g].items():
-                load(dst[k], a)
+    for i, (block, leaves) in enumerate(zip(model.layers, layers)):
+        _load_tree(load, block, leaves, f"layer {i}")
     return model
 
 
+def _cache_tree(tree, dev):
+    if isinstance(tree, dict):
+        return {k: _cache_tree(v, dev) for k, v in tree.items()}
+    return _tensor(tree, dev)
+
+
 def cache_from_numpy(cache, cfg, device=None):
-    """The port's decode cache (one dict per layer: {conv, ssm} or
-    {k, v, pos}) on ``device`` from a JAX ``init_cache`` / ``decode_step``
-    cache (numpy leaves)."""
+    """The port's decode cache (one dict per layer: {conv, ssm}, {conv_x,
+    conv_B, conv_C, ssm}, {"mamba": ..., "shared": ...}, {k, v, pos} or
+    {ckv, k_rope, pos}) on ``device`` from a JAX ``init_cache`` /
+    ``decode_step`` cache (numpy leaves)."""
     from repro_torch.core.client import _resolve_device
 
     dev = _resolve_device(device, "cache_from_numpy")
-    return [{k: _tensor(v, dev) for k, v in layer.items()}
-            for layer in _layer_leaves(cache, cfg)]
+    return [_cache_tree(layer, dev) for layer in _layer_leaves(cache, cfg)]

@@ -47,9 +47,10 @@ def drop_amax(base, idx, vals):
 def drop_set_rows(base, rows, vals):
     """New [n, W] tensor equal to ``base`` with ``base[rows] = vals`` where
     ``0 <= rows < n``: JAX's ``x.at[rows].set(vals, mode="drop")`` on
-    whole rows."""
+    whole rows.  The rows go into an [n + 1, W] buffer, every
+    out-of-range row to its last row, which is cut off."""
     n, W = base.shape
-    flat = rows.to(torch.int64)[:, None] * W + torch.arange(
-        W, device=base.device)
-    flat = torch.where(((rows >= 0) & (rows < n))[:, None], flat, n * W)
-    return drop_set(base, flat.reshape(-1), vals.reshape(-1))
+    buf = torch.empty((n + 1, W), dtype=base.dtype, device=base.device)
+    buf[:n].copy_(base)
+    buf.index_put_((_route(rows, n),), vals.reshape(-1, W).to(base.dtype))
+    return buf[:n]

@@ -1,14 +1,26 @@
-"""Attention, the GQA half (port of ``repro/models/attention.py``): global
-and sliding-window GQA for prefill (the blockwise online-softmax "flash"
-formulation, its divide-and-conquer causal variant and the
+"""Attention (port of ``repro/models/attention.py``): global and
+sliding-window GQA and MLA for prefill (the blockwise online-softmax
+"flash" formulation, its divide-and-conquer causal variant and the
 materialised-scores oracle) and single-token decode over a
 position-tagged ring-buffer KV cache.
 
 Plain functions on tensors.  ``params`` is a block's mixer weights by the
-JAX package's names (``wq`` [D, H*hd], ``wk`` and ``wv`` [D, Hkv*hd],
-``wo`` [H*hd, D]), a dict or a ``ParameterDict``.  Query head
-h = kv * G + g: each of the Hkv key heads serves G = H // Hkv consecutive
-query heads.
+JAX package's names, a dict or a ``ParameterDict``: GQA's ``wq``
+[D, H*hd], ``wk`` and ``wv`` [D, Hkv*hd], ``wo`` [H*hd, D]; MLA's ``wq``
+[D, H*(nope+rope)], ``w_dkv`` [D, r], ``w_kr`` [D, rope], ``w_uk``
+[r, H*nope], ``w_uv`` [r, H*hv], ``wo`` [H*hv, D] and ``kv_norm``, the
+latent's RMSNorm (1 + scale) tensor (JAX's ``{"scale"}`` leaf).  Query
+head h = kv * G + g: each of the Hkv key heads serves G = H // Hkv
+consecutive query heads.
+
+MLA prefills decompressed (keys and values up-projected from the latent,
+the rope key shared by every head) through the same attention functions,
+with a value width (``v_head_dim``) other than the key width
+(``qk_nope_dim + qk_rope_dim``); the naive oracle keeps JAX's reshape to
+the key width, so it raises where the two differ, as JAX's does.  MLA
+decodes in the absorbed form over the compressed cache {ckv, k_rope,
+pos}: ``w_uk`` folded into the query and ``w_uv`` applied after the
+weighted sum, with JAX's casts after each float32-accumulated product.
 
 The products JAX takes with ``preferred_element_type=F32`` (the scores
 and P @ V) are float32 matmuls of float32 copies of their inputs: a
@@ -34,21 +46,21 @@ which bounds the memory.
 
 Left out, having no meaning on one card: the mesh hooks
 (``_constrain_cache``, ``_seq_shard_ok``, ``_sharded_cache_update``) and
-the ``decode_cache_hint`` branches of ``gqa_decode`` (the config field
-stays and does nothing), and ``unroll``, a knob of XLA's cost analysis.
-MLA is not ported yet (ROADMAP.md A3.3).
+the ``decode_cache_hint`` branches of ``gqa_decode`` and ``mla_decode``
+(the config field stays and does nothing), and ``unroll``, a knob of
+XLA's cost analysis.
 """
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
 
-from repro_torch.models.layers import apply_rope, dot, normal
+from repro_torch.models.layers import (apply_rope, dot, normal, rmsnorm,
+                                       rmsnorm_init)
 
 F32 = torch.float32
 NEG_INF = -1e30
 SCORE_ELEMS = 1 << 28      # float32 scores of one chunk of q blocks (1 GiB)
-MLA_ITEM = "ROADMAP.md A3.3 (MLA and MoE: deepseek-v2-lite, kimi-k2)"
 
 
 def _f32(t):
@@ -72,11 +84,22 @@ def _chunk(per_block: int) -> int:
 # Parameter init
 # ---------------------------------------------------------------------------
 def attn_init(cfg, generator, device, kind: str = "gqa") -> dict:
-    if kind != "gqa":
-        raise NotImplementedError(
-            f"{kind!r} attention is not ported yet: {MLA_ITEM}")
     dt = cfg.param_dtype
     D = cfg.d_model
+    if kind == "mla":
+        H, r = cfg.n_heads, cfg.kv_lora_rank
+        nope, rope, hv = cfg.qk_nope_dim, cfg.qk_rope_dim, cfg.v_head_dim
+        s = D ** -0.5
+        return {
+            "wq": normal((D, H * (nope + rope)), s, dt, generator, device),
+            "w_dkv": normal((D, r), s, dt, generator, device),
+            "w_kr": normal((D, rope), s, dt, generator, device),
+            "w_uk": normal((r, H * nope), r ** -0.5, dt, generator, device),
+            "w_uv": normal((r, H * hv), r ** -0.5, dt, generator, device),
+            "wo": normal((H * hv, D), (H * hv) ** -0.5, dt, generator,
+                         device),
+            "kv_norm": rmsnorm_init(r, device),
+        }
     H, Hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
     s = D ** -0.5
     return {
@@ -260,18 +283,23 @@ def _qkv(cfg, params, x, positions, T):
             apply_rope(k, positions, cfg.rope_theta), v)
 
 
+def _attend(cfg, q, k, v, window: int = 0):
+    """Causal attention by ``cfg``'s choice: the oracle, the
+    divide-and-conquer path (global layers) or the flash path."""
+    if cfg.attn_impl == "naive":
+        return _naive_attention(q, k, v, window)
+    if cfg.attn_block_skip and not window:
+        return causal_divide_conquer(q, k, v, q_block=cfg.attn_q_block,
+                                     leaf=2 * cfg.attn_q_block)
+    return flash_attention(q, k, v, causal=True, window=window,
+                           q_block=cfg.attn_q_block,
+                           kv_block=cfg.attn_kv_block)
+
+
 def gqa_apply(cfg, params, x, positions, *, window: int = 0):
     B, S, _ = x.shape
     q, k, v = _qkv(cfg, params, x, positions, S)
-    if cfg.attn_impl == "naive":
-        o = _naive_attention(q, k, v, window)
-    elif cfg.attn_block_skip and not window:
-        o = causal_divide_conquer(q, k, v, q_block=cfg.attn_q_block,
-                                  leaf=2 * cfg.attn_q_block)
-    else:
-        o = flash_attention(q, k, v, causal=True, window=window,
-                            q_block=cfg.attn_q_block,
-                            kv_block=cfg.attn_kv_block)
+    o = _attend(cfg, q, k, v, window)
     return dot(o.reshape(B, S, -1), params["wo"])
 
 
@@ -339,3 +367,78 @@ def gqa_decode(cfg, params, x, pos, cache, *, window: int = 0):
                      _f32(v_cache)).to(x.dtype)
     out = dot(o.reshape(B, 1, H * hd), params["wo"])
     return out, {"k": k_cache, "v": v_cache, "pos": pos_buf}
+
+
+# ---------------------------------------------------------------------------
+# MLA (prefill decompressed; decode absorbed over the compressed cache)
+# ---------------------------------------------------------------------------
+def mla_apply(cfg, params, x, positions):
+    B, S, _ = x.shape
+    H = cfg.n_heads
+    nope, rope_d, hv = cfg.qk_nope_dim, cfg.qk_rope_dim, cfg.v_head_dim
+    q = dot(x, params["wq"]).reshape(B, S, H, nope + rope_d)
+    q_nope, q_rope = q[..., :nope], q[..., nope:]
+    q_rope = apply_rope(q_rope, positions, cfg.rope_theta)
+    ckv = rmsnorm(params["kv_norm"], dot(x, params["w_dkv"]), cfg.norm_eps)
+    k_rope = apply_rope(dot(x, params["w_kr"])[..., None, :], positions,
+                        cfg.rope_theta)                       # [B,S,1,rope]
+    k_nope = dot(ckv, params["w_uk"]).reshape(B, S, H, nope)
+    v = dot(ckv, params["w_uv"]).reshape(B, S, H, hv)
+    qf = torch.cat([q_nope, q_rope], dim=-1)
+    kf = torch.cat([k_nope, k_rope.expand(B, S, H, rope_d)], dim=-1)
+    o = _attend(cfg, qf, kf, v)
+    return dot(o.reshape(B, S, H * hv), params["wo"])
+
+
+def mla_cache_init(cfg, batch: int, seq_len: int, device) -> dict:
+    dt = cfg.param_dtype
+    return {
+        "ckv": torch.zeros((batch, seq_len, cfg.kv_lora_rank), dtype=dt,
+                           device=device),
+        "k_rope": torch.zeros((batch, seq_len, cfg.qk_rope_dim), dtype=dt,
+                              device=device),
+        "pos": torch.full((batch, seq_len), -1, dtype=torch.int32,
+                          device=device),
+    }
+
+
+def mla_decode(cfg, params, x, pos, cache):
+    """Absorbed-matrix decode over the compressed cache.  x: [B, 1, D];
+    pos: [B].  The token's latent and rope key go to slot pos % cap of
+    each row (one target a row); the products JAX takes with
+    ``preferred_element_type=F32`` are float32 matmuls of float32 copies,
+    each cast to x's dtype where JAX casts."""
+    B = x.shape[0]
+    H = cfg.n_heads
+    r, nope, rope_d, hv = (cfg.kv_lora_rank, cfg.qk_nope_dim,
+                           cfg.qk_rope_dim, cfg.v_head_dim)
+    q = dot(x, params["wq"]).reshape(B, H, nope + rope_d)
+    q_nope, q_rope = q[..., :nope], q[..., nope:]
+    q_rope = apply_rope(q_rope[:, None], pos[:, None], cfg.rope_theta)[:, 0]
+    ckv_t = rmsnorm(params["kv_norm"], dot(x, params["w_dkv"])[:, 0],
+                    cfg.norm_eps)
+    k_rope_t = apply_rope(dot(x, params["w_kr"])[:, :, None, :],
+                          pos[:, None], cfg.rope_theta)[:, 0, 0]
+    cap = cache["ckv"].shape[1]
+    pos = pos.to(torch.int32)
+    slot = (pos % cap).long()
+    bidx = torch.arange(B, device=x.device)
+    ckv_c = cache["ckv"].index_put((bidx, slot), ckv_t)
+    kr_c = cache["k_rope"].index_put((bidx, slot), k_rope_t)
+    pos_buf = cache["pos"].index_put((bidx, slot), pos)
+    # absorb W_uk into q: q_abs[b,h,r] = q_nope[b,h,n] . W_uk[r, h, n]
+    w_uk = params["w_uk"].reshape(r, H, nope)
+    q_abs = torch.einsum("bhn,rhn->bhr", _f32(q_nope),
+                         _f32(w_uk)).to(x.dtype)
+    scale = (nope + rope_d) ** -0.5
+    s = (torch.einsum("bhr,bsr->bhs", _f32(q_abs), _f32(ckv_c))
+         + torch.einsum("bhd,bsd->bhs", _f32(q_rope), _f32(kr_c))) * scale
+    valid = (pos_buf >= 0) & (pos_buf <= pos[:, None])
+    s = torch.where(valid[:, None, :], s, NEG_INF)
+    p = torch.softmax(s, dim=-1)
+    ctx = torch.einsum("bhs,bsr->bhr", _f32(p.to(x.dtype)),
+                       _f32(ckv_c)).to(x.dtype)
+    w_uv = params["w_uv"].reshape(r, H, hv)
+    o = torch.einsum("bhr,rhv->bhv", _f32(ctx), _f32(w_uv)).to(x.dtype)
+    out = dot(o.reshape(B, 1, H * hv), params["wo"])
+    return out, {"ckv": ckv_c, "k_rope": kr_c, "pos": pos_buf}

@@ -1,0 +1,154 @@
+"""Mixture-of-Experts FFN with sort-based capacity dispatch (port of
+``repro/models/moe.py``).
+
+The router (float32) picks each token's top-k experts; the (token,
+expert) slots are sorted by expert, ranked within their expert and
+written into a fixed-capacity [E, C, D] buffer; slots past an expert's
+capacity C are dropped.  The router adds the load-balance and z losses.
+``params`` holds ``router`` [D, E] float32, ``e_wi``/``e_wg`` [E, D, F],
+``e_wo`` [E, F, D] and, with shared experts, ``shared`` (a SwiGLU MLP of
+width F * n_shared_experts), a dict or a ``ParameterDict``.
+
+Every ``moe_impl`` takes the sort dispatch: JAX's shard_map dispatch
+(``_dispatch_smap``) runs only with a mesh set, and the port has none, so
+JAX without a mesh and the port compute the same function.
+
+Three rules hold the port to JAX's answer:
+
+  * top-k keeps JAX's tie rule, the lower expert first among equal
+    probabilities (bf16 router logits tie often): the first k of a stable
+    descending sort, where ``torch.topk`` promises no order for ties;
+  * the sort by expert is stable, as ``jnp.argsort`` is, and the dispatch
+    write uses ``core/scatter.py``'s drop emulation (the targets of the
+    kept slots are unique);
+  * the combine adds each token's k contributions in the sorted order
+    (ascending expert), one by one in the activations' dtype from zeros,
+    as JAX's ``.at[t_s].add`` applies its updates; no ``index_add_``,
+    whose order on the card is not fixed.
+
+The expert products JAX takes with ``preferred_element_type=F32`` run in
+groups of experts: ``h`` and ``ys`` as matmuls in the activations' dtype
+(float32 accumulation, one rounding: JAX's cast), the gate ``g`` as a
+float32 matmul of float32 copies (JAX keeps it float32); a group's
+float32 weights hold at most ``EXPERT_ELEMS`` elements.
+"""
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.core.scatter import drop_set_rows
+from repro_torch.models.layers import dot, mlp_apply, mlp_init, normal
+
+F32 = torch.float32
+EXPERT_ELEMS = 1 << 28     # float32 gate weights of one expert group (1 GiB)
+
+
+def moe_init(cfg, generator, device) -> dict:
+    dt = cfg.param_dtype
+    D, E, Fd = cfg.d_model, cfg.n_experts, cfg.moe_d_ff
+    s_in, s_ff = D ** -0.5, Fd ** -0.5
+    p = {
+        "router": normal((D, E), s_in, F32, generator, device),
+        "e_wi": normal((E, D, Fd), s_in, dt, generator, device),
+        "e_wg": normal((E, D, Fd), s_in, dt, generator, device),
+        "e_wo": normal((E, Fd, D), s_ff, dt, generator, device),
+    }
+    if cfg.n_shared_experts:
+        p["shared"] = mlp_init(generator, D, Fd * cfg.n_shared_experts, dt,
+                               device)
+    return p
+
+
+def _capacity(cfg, T: int) -> int:
+    c = int(T * cfg.top_k * cfg.capacity_factor / cfg.n_experts)
+    return max(8, (c + 7) // 8 * 8)
+
+
+def route(cfg, params, xf):
+    """The router: (logits [T,E] float32, probs, top-k experts [T,k] with
+    the lower index first on ties, their normalised gates)."""
+    logits = dot(xf, params["router"]).float()                      # [T,E]
+    probs = torch.softmax(logits, dim=-1)
+    top = torch.sort(probs, dim=-1, descending=True, stable=True)
+    gate, eidx = top.values[:, :cfg.top_k], top.indices[:, :cfg.top_k]
+    gate = gate / torch.clamp(gate.sum(-1, keepdim=True), min=1e-9)
+    return logits, probs, eidx, gate
+
+
+def moe_apply(cfg, params, x):
+    """x: [B,S,D] -> (y [B,S,D], aux_loss scalar float32)."""
+    B, S, D = x.shape
+    E, k = cfg.n_experts, cfg.top_k
+    T = B * S
+    xf = x.reshape(T, D)
+    logits, probs, eidx, gate = route(cfg, params, xf)
+    # aux losses: load-balance (Switch) + router z-loss
+    density = torch.bincount(eidx.reshape(-1), minlength=E).float() / (T * k)
+    aux = E * torch.sum(density * probs.mean(0))
+    zloss = torch.mean(torch.logsumexp(logits, dim=-1) ** 2)
+    aux_loss = 0.01 * aux + 0.001 * zloss
+    out = _dispatch(cfg, params, xf, eidx, gate, _capacity(cfg, T))
+    if cfg.n_shared_experts:
+        out = out + mlp_apply(params["shared"], xf)
+    return out.reshape(B, S, D), aux_loss
+
+
+def dispatch_plan(cfg, eidx, C):
+    """The sort dispatch's bookkeeping: (order, the sorted slots' experts,
+    tokens and ranks, keep, dest).  Slot i = t * k + j is token t's j-th
+    choice; ``dest`` is its row of the [E * C] buffer, E * C where
+    dropped."""
+    T, k = eidx.shape
+    E = cfg.n_experts
+    e_flat = eidx.reshape(-1)
+    order = torch.sort(e_flat, stable=True).indices
+    e_s = e_flat[order]
+    t_s = order // k
+    counts = torch.bincount(e_flat, minlength=E)
+    starts = torch.cumsum(counts, 0) - counts                      # exclusive
+    rank = torch.arange(T * k, device=eidx.device) - starts[e_s]
+    keep = rank < C
+    dest = torch.where(keep, e_s * C + rank, E * C)
+    return order, e_s, t_s, keep, dest
+
+
+def _experts(params, xs):
+    """The SwiGLU experts on their [E, C, D] buffer, in groups of experts
+    whose float32 gate weights hold at most EXPERT_ELEMS elements."""
+    E, _, D = xs.shape
+    Fd = params["e_wi"].shape[2]
+    ys = torch.empty_like(xs)
+    step = max(1, EXPERT_ELEMS // (D * Fd))
+    for a in range(0, E, step):
+        b = min(a + step, E)
+        xa = xs[a:b]
+        h = torch.bmm(xa, params["e_wi"][a:b].to(xs.dtype))
+        g = torch.bmm(xa.float(), params["e_wg"][a:b].float())
+        h = h * F.silu(g).to(h.dtype)
+        ys[a:b] = torch.bmm(h, params["e_wo"][a:b].to(xs.dtype))
+    return ys
+
+
+def _dispatch(cfg, params, xf, eidx, gate, C):
+    """Global sort-based dispatch into the [E, C, D] buffer, the experts,
+    and the combine in JAX's update order."""
+    T, D = xf.shape
+    E, k = cfg.n_experts, cfg.top_k
+    order, e_s, t_s, keep, dest = dispatch_plan(cfg, eidx, C)
+    g_s = gate.reshape(-1)[order]
+    xs = drop_set_rows(torch.zeros((E * C, D), dtype=xf.dtype,
+                                   device=xf.device), dest, xf[t_s])
+    ys = _experts(params, xs.view(E, C, D))
+    ys_flat = torch.cat([ys.reshape(E * C, D),
+                         torch.zeros((1, D), dtype=xf.dtype,
+                                     device=xf.device)])
+    contrib = ys_flat[dest] * (g_s * keep)[:, None].to(xf.dtype)   # sorted
+    # each token's k slots in sorted order: its experts ascending
+    at = torch.empty_like(order)
+    at[order] = torch.arange(T * k, device=xf.device)       # slot -> sorted
+    seq = torch.sort(at.view(T, k), dim=1).values
+    out = torch.zeros((T, D), dtype=xf.dtype, device=xf.device)
+    for j in range(k):
+        out = out + contrib[seq[:, j]]
+    return out

@@ -1,10 +1,13 @@
-"""State-space blocks, Mamba-1 (port of the Mamba-1 half of
-``repro/models/ssm.py``; Mamba-2 is still to port, ROADMAP.md A3.2).
+"""State-space blocks, Mamba-1 and Mamba-2 (port of
+``repro/models/ssm.py``).
 
 Plain functions on tensors.  ``p`` is a block's parameters by the JAX
-package's names (``in_x``, ``in_z``, ``conv_w``, ``conv_b``, ``x_proj``,
-``dt_proj``, ``dt_bias``, ``A_log``, ``ssm_D``, ``out_proj``), a dict or a
-``ParameterDict``.
+package's names, a dict or a ``ParameterDict``: Mamba-1's ``in_x``,
+``in_z``, ``conv_w``, ``conv_b``, ``x_proj``, ``dt_proj``, ``dt_bias``,
+``A_log``, ``ssm_D``, ``out_proj``; Mamba-2's ``in_z``, ``in_x``, ``in_B``,
+``in_C``, ``in_dt``, the three convs' ``conv_{x,B,C}{w,b}``, ``dt_bias``,
+``A_log``, ``ssm_D``, ``norm`` (the gated RMSNorm's (1 + scale) tensor,
+JAX's ``{"scale"}`` leaf) and ``out_proj``.
 
 ``mamba1_apply`` has the JAX package's three scans, chosen by
 ``cfg.ssm_impl``:
@@ -17,7 +20,22 @@ package's names (``in_x``, ``in_z``, ``conv_w``, ``conv_b``, ``x_proj``,
     kernel for CUDA tensors, its plain version on the CPU).
   * ``"stub"``: the analysis placeholder with the kernel's I/O shapes.
 
-Decode is the single-step recurrence over the carried (conv, ssm) state.
+``mamba2_apply`` is the SSD in matmul form, chunks of
+``min(cfg.ssm_chunk, S)`` steps; it ignores ``ssm_impl``, as JAX's does.
+JAX scans the chunks one by one (``_ssd_chunk``); here the chunks are a
+tensor axis.  Of a chunk's terms only the state it hands on reads the
+carry, ``h_out = exp(cum_T) * h_in + dh``: the intra-chunk output, ``dh``
+and the decay are computed for many chunks at once, the carry runs as a
+loop of two operations a chunk on [B, H, P, N], and the inter-chunk
+output follows for all chunks from the stacked states that enter them.
+The arithmetic per element is JAX's.  B/C group g serves heads
+``g*hg .. (g+1)*hg - 1`` (JAX's ``jnp.repeat``, element by element): the
+heads are viewed as [G, hg] rather than the groups repeated.  The
+[n, T, T, H] float32 terms of one pass hold at most ``SSD_ELEMS``
+elements.
+
+Decode is the single-step recurrence over the carried state: (conv, ssm)
+for Mamba-1, (conv_x, conv_B, conv_C, ssm) for Mamba-2.
 """
 from __future__ import annotations
 
@@ -25,10 +43,11 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels.mamba_scan import mamba_scan
-from repro_torch.models.layers import normal
+from repro_torch.models.layers import normal, rmsnorm, rmsnorm_init
 
 F32 = torch.float32
 KERNEL_BLOCK = 128     # the Pallas kernel's default d_block and seq_chunk
+SSD_ELEMS = 1 << 28    # float32 [n, T, T, H] elements of one SSD pass (1 GiB)
 
 
 def _causal_conv(x, w, b):
@@ -192,3 +211,194 @@ def mamba1_decode(cfg, p, u, cache):
     y = torch.einsum("bdn,bn->bd", h, C_ssm.float())
     out = _finish(p, y, x, z, u)
     return out[:, None], {"conv": conv_state, "ssm": h}
+
+
+# ===========================================================================
+# Mamba-2 (SSD)
+# ===========================================================================
+def mamba2_dims(cfg):
+    di = cfg.ssm_expand * cfg.d_model
+    H = di // cfg.ssm_head_dim
+    G, N = cfg.ssm_groups, cfg.ssm_state
+    return di, H, G, N
+
+
+def mamba2_init(cfg, generator, device) -> dict:
+    dt = cfg.param_dtype
+    D, k = cfg.d_model, cfg.ssm_conv
+    di, H, G, N = mamba2_dims(cfg)
+    s = D ** -0.5
+
+    def zeros(n):
+        return torch.zeros((n,), dtype=dt, device=device)
+
+    return {
+        "in_z": normal((D, di), s, dt, generator, device),
+        "in_x": normal((D, di), s, dt, generator, device),
+        "in_B": normal((D, G * N), s, dt, generator, device),
+        "in_C": normal((D, G * N), s, dt, generator, device),
+        "in_dt": normal((D, H), s, dt, generator, device),
+        "conv_xw": normal((k, di), 0.2, dt, generator, device),
+        "conv_xb": zeros(di),
+        "conv_Bw": normal((k, G * N), 0.2, dt, generator, device),
+        "conv_Bb": zeros(G * N),
+        "conv_Cw": normal((k, G * N), 0.2, dt, generator, device),
+        "conv_Cb": zeros(G * N),
+        "dt_bias": torch.full((H,), -4.6, dtype=F32, device=device),
+        "A_log": torch.log(torch.linspace(1.0, 16.0, H, dtype=F32,
+                                          device=device)),
+        "ssm_D": torch.ones((H,), dtype=F32, device=device),
+        "norm": rmsnorm_init(di, device),
+        "out_proj": normal((di, D), di ** -0.5, dt, generator, device),
+    }
+
+
+def _ssd_local(x, Bm, Cm, a_log, dt):
+    """The terms of n chunks that do not read the carry.  x: [B,n,T,H,P];
+    Bm/Cm: [B,n,T,G,N]; a_log/dt: [B,n,T,H].  Returns (y_intra
+    [B,n,T,H,P], dh [B,n,H,P,N], the decay exp(cum_T) [B,n,H], cum)."""
+    Bsz, n, T, H, P = x.shape
+    G, N = Bm.shape[3], Bm.shape[4]
+    hg = H // G
+    cum = torch.cumsum(a_log, dim=2)                         # [B,n,T,H]
+    # intra-chunk: L[t,s] = exp(cum_t - cum_s), t >= s
+    Ldiff = cum[:, :, :, None, :] - cum[:, :, None, :, :]    # [B,n,T,S,H]
+    tril = torch.ones((T, T), dtype=torch.bool, device=x.device).tril()
+    L = torch.where(tril[:, :, None], torch.exp(Ldiff), 0.0)
+    del Ldiff
+    CB = torch.einsum("bctgn,bcsgn->bctsg", Cm.float(), Bm.float())
+    # head h = g * hg + j takes group g's CB
+    W = (CB[..., None] * L.reshape(Bsz, n, T, T, G, hg)).reshape(
+        Bsz, n, T, T, H)
+    del L, CB
+    xdt = x.float() * dt[..., None]                          # [B,n,T,H,P]
+    y_intra = torch.einsum("bctsh,bcshp->bcthp", W, xdt)
+    del W
+    # state update: sum_s exp(cum_T - cum_s) dt_s x_s B_s
+    w_end = torch.exp(cum[:, :, -1:, :] - cum)               # [B,n,T,H]
+    dh = torch.einsum("bctgjp,bctgn->bcgjpn",
+                      (xdt * w_end[..., None]).reshape(Bsz, n, T, G, hg, P),
+                      Bm.float()).reshape(Bsz, n, H, P, N)
+    return y_intra, dh, torch.exp(cum[:, :, -1]), cum
+
+
+def _ssd_inter(Cm, h_in, cum):
+    """y_inter[t] = exp(cum_t) * C_t . h_in for n chunks.  Cm: [B,n,T,G,N];
+    h_in: [B,n,H,P,N], the state entering each chunk."""
+    Bsz, n, T, G, N = Cm.shape
+    H, P = h_in.shape[2], h_in.shape[3]
+    y = torch.einsum("bctgn,bcgjpn->bctgjp", Cm.float(),
+                     h_in.reshape(Bsz, n, G, H // G, P, N))
+    return y.reshape(Bsz, n, T, H, P) * torch.exp(cum)[..., None]
+
+
+def _ssd_chunk(h_in, x, Bm, Cm, a_log, dt):
+    """One SSD chunk in matmul form (JAX's ``_ssd_chunk``).
+    h_in: [B,H,P,N]; x: [B,T,H,P]; Bm/Cm: [B,T,G,N]; a_log: [B,T,H] (log
+    decay); dt: [B,T,H].  Returns (y [B,T,H,P], h_out)."""
+    y_intra, dh, decay, cum = _ssd_local(x[:, None], Bm[:, None],
+                                         Cm[:, None], a_log[:, None],
+                                         dt[:, None])
+    y = y_intra + _ssd_inter(Cm[:, None], h_in[:, None], cum)
+    h_out = decay[:, 0, :, None, None] * h_in + dh[:, 0]
+    return y[:, 0], h_out
+
+
+def mamba2_apply(cfg, p, u):
+    """u: [B,S,D] -> [B,S,D] (full-sequence / prefill path)."""
+    B, S, D = u.shape
+    di, H, G, N = mamba2_dims(cfg)
+    P = cfg.ssm_head_dim
+    T = min(cfg.ssm_chunk, S)
+    if S % T:
+        raise ValueError(f"mamba2_apply: S={S} is not a multiple of the SSD "
+                         f"chunk {T} (the JAX package's reshape fails too)")
+    nchunk = S // T
+    z = u @ p["in_z"]
+    x = u @ p["in_x"]
+    Bm = u @ p["in_B"]
+    Cm = u @ p["in_C"]
+    dt_in = u @ p["in_dt"]
+    x = _causal_conv(x, p["conv_xw"], p["conv_xb"])
+    Bm = _causal_conv(Bm, p["conv_Bw"], p["conv_Bb"])
+    Cm = _causal_conv(Cm, p["conv_Cw"], p["conv_Cb"])
+    x = F.silu(x.float()).to(x.dtype)
+    Bm = F.silu(Bm.float()).to(Bm.dtype)
+    Cm = F.silu(Cm.float()).to(Cm.dtype)
+    dt = F.softplus(dt_in.float() + p["dt_bias"])                    # [B,S,H]
+    a_log = -torch.exp(p["A_log"]) * dt                              # [B,S,H]
+    xc = x.view(B, nchunk, T, H, P)
+    bc = Bm.view(B, nchunk, T, G, N)
+    cc = Cm.view(B, nchunk, T, G, N)
+    ac = a_log.view(B, nchunk, T, H)
+    dc = dt.view(B, nchunk, T, H)
+    step = max(1, SSD_ELEMS // (B * T * T * H))       # chunks a pass
+    y = torch.empty((B, nchunk, T, H, P), dtype=F32, device=u.device)
+    dh = torch.empty((B, nchunk, H, P, N), dtype=F32, device=u.device)
+    decay = torch.empty((B, nchunk, H), dtype=F32, device=u.device)
+    cum = torch.empty((B, nchunk, T, H), dtype=F32, device=u.device)
+    for a in range(0, nchunk, step):
+        b = min(a + step, nchunk)
+        y[:, a:b], dh[:, a:b], decay[:, a:b], cum[:, a:b] = _ssd_local(
+            xc[:, a:b], bc[:, a:b], cc[:, a:b], ac[:, a:b], dc[:, a:b])
+    # the carry: the state entering each chunk, h_out = exp(cum_T) h_in + dh
+    h_in = torch.empty((B, nchunk, H, P, N), dtype=F32, device=u.device)
+    h = torch.zeros((B, H, P, N), dtype=F32, device=u.device)
+    for c in range(nchunk):
+        h_in[:, c] = h
+        h = decay[:, c, :, None, None] * h + dh[:, c]
+    del dh, h
+    for a in range(0, nchunk, step):
+        b = min(a + step, nchunk)
+        y[:, a:b] = y[:, a:b] + _ssd_inter(cc[:, a:b], h_in[:, a:b],
+                                           cum[:, a:b])
+    del h_in
+    y = y.view(B, S, H, P) + p["ssm_D"][:, None] * x.view(B, S, H, P).float()
+    y = y.reshape(B, S, di) * F.silu(z.float())
+    y = rmsnorm(p["norm"], y.to(u.dtype), cfg.norm_eps)
+    return y @ p["out_proj"]
+
+
+def mamba2_cache_init(cfg, batch: int, device) -> dict:
+    di, H, G, N = mamba2_dims(cfg)
+    dt = cfg.param_dtype
+    k1 = cfg.ssm_conv - 1
+    return {
+        "conv_x": torch.zeros((batch, k1, di), dtype=dt, device=device),
+        "conv_B": torch.zeros((batch, k1, G * N), dtype=dt, device=device),
+        "conv_C": torch.zeros((batch, k1, G * N), dtype=dt, device=device),
+        "ssm": torch.zeros((batch, H, cfg.ssm_head_dim, N), dtype=F32,
+                           device=device),
+    }
+
+
+def mamba2_decode(cfg, p, u, cache):
+    """u: [B,1,D] -> ([B,1,D], new cache)."""
+    B = u.shape[0]
+    di, H, G, N = mamba2_dims(cfg)
+    P = cfg.ssm_head_dim
+    hg = H // G
+    z = u[:, 0] @ p["in_z"]
+    x = u[:, 0] @ p["in_x"]
+    Bm = u[:, 0] @ p["in_B"]
+    Cm = u[:, 0] @ p["in_C"]
+    dt_in = u[:, 0] @ p["in_dt"]
+    x, conv_x = _conv_step(cache["conv_x"], x, p["conv_xw"], p["conv_xb"])
+    Bm, conv_B = _conv_step(cache["conv_B"], Bm, p["conv_Bw"], p["conv_Bb"])
+    Cm, conv_C = _conv_step(cache["conv_C"], Cm, p["conv_Cw"], p["conv_Cb"])
+    x = F.silu(x.float()).to(x.dtype).view(B, H, P)
+    Bm = F.silu(Bm.float()).to(Bm.dtype).view(B, G, N)
+    Cm = F.silu(Cm.float()).to(Cm.dtype).view(B, G, N)
+    dt = F.softplus(dt_in.float() + p["dt_bias"])                    # [B,H]
+    a = torch.exp(-torch.exp(p["A_log"]) * dt)                       # [B,H]
+    Be = torch.repeat_interleave(Bm.float(), hg, dim=1)              # [B,H,N]
+    Ce = torch.repeat_interleave(Cm.float(), hg, dim=1)
+    dh = torch.einsum("bhp,bhn->bhpn", x.float() * dt[..., None], Be)
+    h = a[:, :, None, None] * cache["ssm"] + dh
+    y = torch.einsum("bhpn,bhn->bhp", h, Ce)
+    y = y + p["ssm_D"][:, None] * x.float()
+    y = y.reshape(B, di) * F.silu(z.float())
+    y = rmsnorm(p["norm"], y.to(u.dtype), cfg.norm_eps)
+    out = y @ p["out_proj"]
+    return out[:, None], {"conv_x": conv_x, "conv_B": conv_B,
+                          "conv_C": conv_C, "ssm": h}

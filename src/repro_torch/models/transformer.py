@@ -1,19 +1,24 @@
 """Decoder stack driven by ModelConfig (port of
 ``repro/models/transformer.py``).
 
-``Model`` holds the embedding, the final norm and an ``nn.ModuleList`` of
-blocks, one per layer in ``cfg.layer_specs()`` order.  The JAX package
-stacks repeated layers into scanned stages to keep XLA's compile time
-down; here ``apply_model`` and ``decode_step`` are a Python loop over
-``model.layers``, and a decode cache is a list with one dict per layer.
-The slice is forward-only: parameters carry no gradient, and ``remat``
-stays a config field with nothing to do.
+``Model`` holds the embedding, the final norm, an ``nn.ModuleList`` of
+blocks, one per layer in ``cfg.layer_specs()`` order, and, for a config
+with ``shared_attn_every``, the one weight-tied ``SharedBlock`` that
+every ``"mamba2+shared"`` layer calls (``model.shared``: its weights are
+held, and counted, once).  The JAX package stacks repeated layers into
+scanned stages to keep XLA's compile time down; here ``apply_model`` and
+``decode_step`` are a Python loop over ``model.layers``, and a decode
+cache is a list with one dict per layer.  The slice is forward-only:
+parameters carry no gradient, and ``remat`` stays a config field with
+nothing to do.
 
-Ported blocks: ``Mamba1Block`` (``("mamba1", None)``, the falcon-mamba
-family) and ``AttnBlock`` (``("attn", "mlp")`` and ``("local", "mlp")``,
-the dense GQA family: mistral-nemo, command-r, gemma3, mistral-large,
-internvl2's backbone and musicgen).  MLA, MoE, Mamba-2 and the shared
-block raise NotImplementedError naming their ROADMAP.md item.
+Blocks, by layer spec (mixer, ffn), for every config of
+``repro_torch.configs``: ``Mamba1Block`` (``("mamba1", None)``,
+falcon-mamba), ``Mamba2Block`` (``("mamba2", None)`` and
+``("mamba2+shared", None)``, zamba2) and ``AttnBlock`` (a GQA, local or
+MLA mixer with an MLP or MoE ffn: the dense family, deepseek-v2-lite's
+MLA and kimi-k2's GQA with MoE).  A block's ``forward`` returns (x, its
+MoE auxiliary loss or None), its ``decode`` (x, its new cache).
 """
 from __future__ import annotations
 
@@ -25,6 +30,7 @@ from torch import nn
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.client import _resolve_device
 from repro_torch.models import attention as attn
+from repro_torch.models import moe
 from repro_torch.models import ssm
 from repro_torch.models.layers import (
     embed_init, embed_lookup, lm_head_init, logits_from_hidden, mlp_apply,
@@ -32,18 +38,23 @@ from repro_torch.models.layers import (
 )
 
 F32 = torch.float32
-MAMBA2_ITEM = "ROADMAP.md A3.2 (Mamba-2 and the shared block: zamba2)"
-# the layer kinds still to port, by the ROADMAP.md item that ports them
-UNPORTED = {"mamba2": MAMBA2_ITEM, "mamba2+shared": MAMBA2_ITEM,
-            "mla": attn.MLA_ITEM, "moe": attn.MLA_ITEM}
+MIXERS = ("attn", "local", "mla", "mamba1", "mamba2", "mamba2+shared")
 
 
 def _frozen(t) -> nn.Parameter:
     return nn.Parameter(t, requires_grad=False)
 
 
+def _params(tree: dict) -> nn.ParameterDict:
+    """A ParameterDict of frozen parameters from a dict of tensors, a
+    nested dict becoming a nested ParameterDict (MoE's ``shared``)."""
+    return nn.ParameterDict(
+        {k: _params(v) if isinstance(v, dict) else _frozen(v)
+         for k, v in tree.items()})
+
+
 # ---------------------------------------------------------------------------
-# Single block
+# Blocks
 # ---------------------------------------------------------------------------
 class Mamba1Block(nn.Module):
     """One falcon-mamba layer: RMSNorm, then the Mamba-1 mixer, residual.
@@ -53,70 +64,138 @@ class Mamba1Block(nn.Module):
     def __init__(self, cfg: ModelConfig, generator, device):
         super().__init__()
         self.ln1 = _frozen(rmsnorm_init(cfg.d_model, device))
-        self.mixer = nn.ParameterDict(
-            {k: _frozen(v) for k, v in
-             ssm.mamba1_init(cfg, generator, device).items()})
+        self.mixer = _params(ssm.mamba1_init(cfg, generator, device))
 
-    def forward(self, cfg, x, positions=None):
+    def forward(self, cfg, x, positions=None, shared=None):
         h = rmsnorm(self.ln1, x, cfg.norm_eps)
-        return x + ssm.mamba1_apply(cfg, self.mixer, h)
+        return x + ssm.mamba1_apply(cfg, self.mixer, h), None
 
-    def decode(self, cfg, x, pos, cache):
+    def decode(self, cfg, x, pos, cache, shared=None):
         h = rmsnorm(self.ln1, x, cfg.norm_eps)     # Mamba reads no position
         y, cache = ssm.mamba1_decode(cfg, self.mixer, h, cache)
         return x + y, cache
 
 
-class AttnBlock(nn.Module):
-    """One dense layer: RMSNorm, GQA (global, or sliding-window for the
-    ``"local"`` spec), residual; RMSNorm, the SwiGLU MLP, residual.
-    ``mixer`` holds ``wq``/``wk``/``wv``/``wo``, ``ffn`` ``wi``/``wg``/``wo``
-    and ``ln1``/``ln2`` the norms' (1 + scale) parameters."""
+class SharedBlock(nn.Module):
+    """Zamba2's weight-tied block: RMSNorm, global GQA, residual;
+    RMSNorm, the SwiGLU MLP, residual.  ``attn`` holds
+    ``wq``/``wk``/``wv``/``wo``, ``mlp`` ``wi``/``wg``/``wo``."""
 
-    def __init__(self, cfg: ModelConfig, spec, generator, device):
+    def __init__(self, cfg: ModelConfig, generator, device):
         super().__init__()
         dt = cfg.param_dtype
-        self.window = cfg.sliding_window if spec[0] == "local" else 0
         self.ln1 = _frozen(rmsnorm_init(cfg.d_model, device))
-        self.mixer = nn.ParameterDict(
-            {k: _frozen(v) for k, v in
-             attn.attn_init(cfg, generator, device).items()})
+        self.attn = _params(attn.attn_init(cfg, generator, device))
         self.ln2 = _frozen(rmsnorm_init(cfg.d_model, device))
-        self.ffn = nn.ParameterDict(
-            {k: _frozen(v) for k, v in
-             mlp_init(generator, cfg.d_model, cfg.d_ff, dt, device).items()})
+        self.mlp = _params(mlp_init(generator, cfg.d_model, cfg.d_ff, dt,
+                                    device))
 
     def forward(self, cfg, x, positions):
         h = rmsnorm(self.ln1, x, cfg.norm_eps)
-        x = x + attn.gqa_apply(cfg, self.mixer, h, positions,
-                               window=self.window)
-        return x + mlp_apply(self.ffn, rmsnorm(self.ln2, x, cfg.norm_eps))
+        x = x + attn.gqa_apply(cfg, self.attn, h, positions)
+        return x + mlp_apply(self.mlp, rmsnorm(self.ln2, x, cfg.norm_eps))
 
     def decode(self, cfg, x, pos, cache):
         h = rmsnorm(self.ln1, x, cfg.norm_eps)
-        y, cache = attn.gqa_decode(cfg, self.mixer, h, pos, cache,
-                                   window=self.window)
+        y, cache = attn.gqa_decode(cfg, self.attn, h, pos, cache)
         x = x + y
-        return (x + mlp_apply(self.ffn, rmsnorm(self.ln2, x, cfg.norm_eps)),
+        return (x + mlp_apply(self.mlp, rmsnorm(self.ln2, x, cfg.norm_eps)),
                 cache)
 
 
-PORTED = (("mamba1", None), ("attn", "mlp"), ("local", "mlp"))
+class Mamba2Block(nn.Module):
+    """One zamba2 layer: RMSNorm, the Mamba-2 mixer, residual; a
+    ``"mamba2+shared"`` layer then runs the model's ``SharedBlock``
+    (passed in as ``shared``).  Its decode cache is the mixer's
+    {conv_x, conv_B, conv_C, ssm}, or {"mamba": that, "shared": the
+    shared attention's {k, v, pos}} for a shared layer."""
+
+    def __init__(self, cfg: ModelConfig, spec, generator, device):
+        super().__init__()
+        self.calls_shared = spec[0] == "mamba2+shared"
+        self.ln1 = _frozen(rmsnorm_init(cfg.d_model, device))
+        self.mixer = _params(ssm.mamba2_init(cfg, generator, device))
+
+    def forward(self, cfg, x, positions, shared=None):
+        h = rmsnorm(self.ln1, x, cfg.norm_eps)
+        x = x + ssm.mamba2_apply(cfg, self.mixer, h)
+        if self.calls_shared:
+            x = shared(cfg, x, positions)
+        return x, None
+
+    def decode(self, cfg, x, pos, cache, shared=None):
+        h = rmsnorm(self.ln1, x, cfg.norm_eps)
+        mcache = cache["mamba"] if self.calls_shared else cache
+        y, mcache = ssm.mamba2_decode(cfg, self.mixer, h, mcache)
+        x = x + y
+        if not self.calls_shared:
+            return x, mcache
+        x, scache = shared.decode(cfg, x, pos, cache["shared"])
+        return x, {"mamba": mcache, "shared": scache}
 
 
-def _check_ported(specs):
-    """Raise NotImplementedError, naming its ROADMAP.md item, for the
-    first layer spec this port cannot run yet."""
-    for spec in specs:
-        if spec not in PORTED:
-            item = UNPORTED.get(spec[0]) or UNPORTED[spec[1]]
-            raise NotImplementedError(
-                f"the layer spec {spec!r} is not ported yet: {item}")
+class AttnBlock(nn.Module):
+    """One attention layer: RMSNorm, the mixer (GQA, global or
+    sliding-window for the ``"local"`` spec, or MLA), residual; RMSNorm,
+    the ffn (the SwiGLU MLP or the MoE), residual.  ``mixer`` holds the
+    attention weights, ``ffn`` the MLP's ``wi``/``wg``/``wo`` or the MoE's
+    ``router``/``e_wi``/``e_wg``/``e_wo`` (and ``shared``), and
+    ``ln1``/``ln2`` the norms' (1 + scale) parameters."""
+
+    def __init__(self, cfg: ModelConfig, spec, generator, device):
+        super().__init__()
+        mixer, ffn = spec
+        dt = cfg.param_dtype
+        self.mla = mixer == "mla"
+        self.moe = ffn == "moe"
+        self.window = cfg.sliding_window if mixer == "local" else 0
+        self.ln1 = _frozen(rmsnorm_init(cfg.d_model, device))
+        self.mixer = _params(attn.attn_init(
+            cfg, generator, device, "mla" if self.mla else "gqa"))
+        self.ln2 = _frozen(rmsnorm_init(cfg.d_model, device))
+        self.ffn = _params(
+            moe.moe_init(cfg, generator, device) if self.moe else
+            mlp_init(generator, cfg.d_model, cfg.d_ff, dt, device))
+
+    def _ffn(self, cfg, x):
+        h = rmsnorm(self.ln2, x, cfg.norm_eps)
+        if self.moe:
+            y, aux = moe.moe_apply(cfg, self.ffn, h)
+            return x + y, aux
+        return x + mlp_apply(self.ffn, h), None
+
+    def forward(self, cfg, x, positions, shared=None):
+        h = rmsnorm(self.ln1, x, cfg.norm_eps)
+        if self.mla:
+            x = x + attn.mla_apply(cfg, self.mixer, h, positions)
+        else:
+            x = x + attn.gqa_apply(cfg, self.mixer, h, positions,
+                                   window=self.window)
+        return self._ffn(cfg, x)
+
+    def decode(self, cfg, x, pos, cache, shared=None):
+        h = rmsnorm(self.ln1, x, cfg.norm_eps)
+        if self.mla:
+            y, cache = attn.mla_decode(cfg, self.mixer, h, pos, cache)
+        else:
+            y, cache = attn.gqa_decode(cfg, self.mixer, h, pos, cache,
+                                       window=self.window)
+        return self._ffn(cfg, x + y)[0], cache
+
+
+def _check_spec(spec):
+    """JAX's ``_block_init`` raises ValueError on a mixer it does not
+    know; so does the port."""
+    if spec[0] not in MIXERS:
+        raise ValueError(f"unknown layer spec {spec!r}")
 
 
 def _block(cfg, spec, generator, device):
-    if spec == ("mamba1", None):
+    _check_spec(spec)
+    if spec[0] == "mamba1":
         return Mamba1Block(cfg, generator, device)
+    if spec[0].startswith("mamba2"):
+        return Mamba2Block(cfg, spec, generator, device)
     return AttnBlock(cfg, spec, generator, device)
 
 
@@ -127,13 +206,15 @@ class Model(nn.Module):
     """The embedding (or an untied ``lm_head``), the final norm and one
     block per layer, built with random weights from ``generator`` on
     ``device``: the card unless the caller names another device.  With no
-    generator, one seeded with 0 on that device."""
+    generator, one seeded with 0 on that device.  A config with
+    ``shared_attn_every`` also holds the weight-tied ``shared`` block."""
 
     def __init__(self, cfg: ModelConfig, *, device=None,
                  generator: Optional[torch.Generator] = None):
         super().__init__()
         specs = cfg.layer_specs()
-        _check_ported(specs)
+        for spec in specs:
+            _check_spec(spec)
         dev = _resolve_device(device, "Model")
         if generator is None:
             generator = torch.Generator(device=dev).manual_seed(0)
@@ -146,6 +227,8 @@ class Model(nn.Module):
             self.lm_head = _frozen(lm_head_init(generator, cfg.d_model,
                                                 cfg.vocab_size, dt, dev))
         self.final_norm = _frozen(rmsnorm_init(cfg.d_model, dev))
+        self.shared = (SharedBlock(cfg, generator, dev)
+                       if cfg.shared_attn_every else None)
         self.layers = nn.ModuleList(
             [_block(cfg, spec, generator, dev) for spec in specs])
 
@@ -175,29 +258,47 @@ def apply_model(cfg: ModelConfig, model: Model, inputs):
     x = _frontend(cfg, model, inputs)
     B, S, _ = x.shape
     positions = torch.arange(S, device=x.device).expand(B, S)
+    aux_total = torch.zeros((), dtype=F32, device=x.device)
     for block in model.layers:
-        x = block(cfg, x, positions)
+        x, aux = block(cfg, x, positions, model.shared)
+        if aux is not None:                  # the MoE layers' losses
+            aux_total = aux_total + aux
     x = rmsnorm(model.final_norm, x, cfg.norm_eps)
-    # the auxiliary loss is the MoE layers'; the ported layers add none
-    return x, torch.zeros((), dtype=F32, device=x.device)
+    return x, aux_total
 
 
 def hidden_to_logits(cfg, model, hidden):
     return logits_from_hidden(cfg, model, hidden)
 
 
+def _block_cache_init(cfg, spec, batch, seq_len, dev):
+    mixer = spec[0]
+    if mixer in ("attn", "local"):
+        return attn.gqa_cache_init(
+            cfg, batch, seq_len, dev,
+            window=cfg.sliding_window if mixer == "local" else 0)
+    if mixer == "mla":
+        return attn.mla_cache_init(cfg, batch, seq_len, dev)
+    if mixer == "mamba1":
+        return ssm.mamba1_cache_init(cfg, batch, dev)
+    if mixer == "mamba2":
+        return ssm.mamba2_cache_init(cfg, batch, dev)
+    if mixer == "mamba2+shared":
+        return {"mamba": ssm.mamba2_cache_init(cfg, batch, dev),
+                "shared": attn.gqa_cache_init(cfg, batch, seq_len, dev)}
+    raise ValueError(f"unknown layer spec {spec!r}")
+
+
 def init_cache(cfg: ModelConfig, batch: int, seq_len: int, *, device=None):
-    """One cache dict per layer, on ``device`` (the card by default):
-    Mamba-1 layers {conv, ssm}, attention layers {k, v, pos} (a local
-    layer's ring holds min(sliding_window, seq_len) slots)."""
-    specs = cfg.layer_specs()
-    _check_ported(specs)
+    """One cache dict per layer, on ``device`` (the card by default), as
+    JAX's ``init_cache`` gives it: Mamba-1 {conv, ssm}; Mamba-2 {conv_x,
+    conv_B, conv_C, ssm}, and for a shared layer {"mamba": that, "shared":
+    {k, v, pos} of ``seq_len`` slots}; GQA {k, v, pos} (a local layer's
+    ring holds min(sliding_window, seq_len) slots); MLA {ckv, k_rope,
+    pos}."""
     dev = _resolve_device(device, "init_cache")
-    return [ssm.mamba1_cache_init(cfg, batch, dev) if spec[0] == "mamba1"
-            else attn.gqa_cache_init(
-                cfg, batch, seq_len, dev,
-                window=cfg.sliding_window if spec[0] == "local" else 0)
-            for spec in specs]
+    return [_block_cache_init(cfg, spec, batch, seq_len, dev)
+            for spec in cfg.layer_specs()]
 
 
 @torch.no_grad()
@@ -208,7 +309,7 @@ def decode_step(cfg: ModelConfig, model: Model, cache, inputs):
     pos = inputs["pos"]
     new_cache = []
     for block, c in zip(model.layers, cache):
-        x, c = block.decode(cfg, x, pos, c)
+        x, c = block.decode(cfg, x, pos, c, model.shared)
         new_cache.append(c)
     x = rmsnorm(model.final_norm, x, cfg.norm_eps)
     return logits_from_hidden(cfg, model, x)[:, 0], new_cache

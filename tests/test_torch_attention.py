@@ -274,9 +274,33 @@ def test_gqa_decode_steps_equal_apply(window):
 
 
 def test_mla_raises():
-    cfg = tiny_config("deepseek-v2-lite-16b")
-    with pytest.raises(NotImplementedError, match="A3.3"):
-        at.attn_init(cfg, torch.Generator(), "cpu", "mla")
+    """MLA is ported (ROADMAP.md A3.3): ``attn_init(..., "mla")`` builds
+    JAX's leaves (``kv_norm`` the norm's tensor) and the flash path
+    matches JAX's; what raises is what JAX raises on, the naive oracle
+    where the value width (16) is not the key width (24), since both
+    reshape the output to the key width (tests/test_torch_moe.py holds
+    the rest of MLA)."""
+    jcfg, cfg = (jtiny("deepseek-v2-lite-16b"),
+                 tiny_config("deepseek-v2-lite-16b"))
+    jp = jat.attn_init(jcfg, jax.random.PRNGKey(0), "mla")
+    tp = at.attn_init(cfg, torch.Generator().manual_seed(0), "cpu", "mla")
+    assert ({k: tuple(v.shape) for k, v in tp.items()}
+            == {k: tuple((v["scale"] if k == "kv_norm" else v).shape)
+                for k, v in jp.items()})
+    tp = {k: torch.as_tensor(np.array(v["scale"] if k == "kv_norm" else v))
+          for k, v in jp.items()}
+    x = np.random.default_rng(0).standard_normal(
+        (2, 16, cfg.d_model)).astype(np.float32)
+    pos = np.broadcast_to(np.arange(16), (2, 16)).copy()
+    _close(at.mla_apply(cfg, tp, torch.as_tensor(x), torch.as_tensor(pos)),
+           jat.mla_apply(jcfg, jp, jnp.asarray(x), jnp.asarray(pos)), "mla")
+    naive = dict(attn_impl="naive")
+    with pytest.raises(TypeError):
+        jat.mla_apply(jcfg.scaled(**naive), jp, jnp.asarray(x),
+                      jnp.asarray(pos))
+    with pytest.raises(RuntimeError):
+        at.mla_apply(cfg.scaled(**naive), tp, torch.as_tensor(x),
+                     torch.as_tensor(pos))
 
 
 # ---------------------------------------------------------------------------

@@ -317,19 +317,41 @@ def test_model_init_shapes_match_jax():
 
 
 def test_unported_layers_raise():
-    """Mamba-2 and the shared block (zamba2) name ROADMAP.md A3.2, MLA
-    and MoE (deepseek-v2-lite, kimi-k2) A3.3; the dense and Mamba-1
-    families build."""
-    for arch, item in (("zamba2-7b", "ROADMAP.md A3.2"),
-                       ("deepseek-v2-lite-16b", "ROADMAP.md A3.3"),
-                       ("kimi-k2-1t-a32b", "ROADMAP.md A3.3")):
-        for fn in (lambda: tr.Model(tiny_config(arch), device="cpu"),
-                   lambda: tr.init_cache(tiny_config(arch), 2, 8,
-                                         device="cpu")):
-            with pytest.raises(NotImplementedError, match=item):
-                fn()
-    for arch in ("musicgen-large", ARCH):
-        tr.Model(tiny_config(arch), device="cpu")
+    """No family is left unported (zamba2's Mamba-2 and shared block,
+    ROADMAP.md A3.2; deepseek-v2-lite's MLA and the MoE of it and kimi-k2,
+    A3.3): every config's tiny twin builds with JAX's parameter count,
+    and its init_cache, apply_model and decode_step answer with JAX's
+    shapes.  What raises is what JAX raises on: a layer spec it does not
+    know (ValueError in its _block_init)."""
+    for arch in J_ARCH_IDS:
+        jcfg, cfg = jtiny(arch), tiny_config(arch)
+        model = tr.Model(cfg, device="cpu")
+        jshape = jax.eval_shape(lambda k: jtr.init_params(jcfg, k),
+                                jax.random.PRNGKey(0))
+        assert tr.count_params(model) == jtr.count_params(jshape), arch
+        cache = tr.init_cache(cfg, 2, 8, device="cpu")
+        want = convert.cache_from_numpy(
+            jax.tree.map(np.asarray, jtr.init_cache(jcfg, 2, 8)), cfg, "cpu")
+        assert (jax.tree.map(lambda t: (tuple(t.shape), t.dtype), cache)
+                == jax.tree.map(lambda t: (tuple(t.shape), t.dtype), want))
+        if cfg.frontend == "token":
+            inp = {"tokens": torch.zeros((2, 8), dtype=torch.int64)}
+        else:
+            inp = {"embeds": torch.zeros((2, 8, cfg.d_model))}
+        h, aux = tr.apply_model(cfg, model, inp)
+        assert h.shape == (2, 8, cfg.d_model) and aux.shape == ()
+        step = {k: v[:, :1] for k, v in inp.items()}
+        step["pos"] = torch.zeros((2,), dtype=torch.int32)
+        logits, _ = tr.decode_step(cfg, model, cache, step)
+        assert logits.shape == (2, cfg.vocab_size)
+    bad = "rnn"
+    with pytest.raises(ValueError):
+        jtr.init_params(jtiny(ARCH, mamba_version=0, attn_kind=bad),
+                        jax.random.PRNGKey(0))
+    for fn in (lambda c: tr.Model(c, device="cpu"),
+               lambda c: tr.init_cache(c, 2, 8, device="cpu")):
+        with pytest.raises(ValueError, match="unknown layer spec"):
+            fn(tiny_config(ARCH, mamba_version=0, attn_kind=bad))
 
 
 def test_entry_points_default_to_cuda():
