@@ -219,7 +219,27 @@
     layers (five mamba2, one mamba2+shared) and deepseek on 3 (the dense
     MLA layer and two MoE layers, capacity_factor n_experts / top_k, so
     that prefill drops no slot).
-13. The last two lines: the kernels as JSON (ten records, in the order
+13. Training (the earlier phases have left the card), TF32 off.  (a)
+    musicgen-large at full width and depth in bf16 (3229812736
+    parameters, held to JAX's count), weights drawn on the card from
+    ``--seed``, ``SyntheticLM(2048, 4096, 8, seed)``: train_4k's batch of
+    256 cut to 8, the largest that fits; 4 steps of ``train_step`` at lr
+    3e-4, the kernels' launch counts set to 0 before them (no kernel
+    lies on the training path: every record gets ``launches_training``);
+    loss and grad norm finite at every step, step 0's loss within 1.5 of
+    ln 2048; seconds a step, tokens/s, the model-FLOPs share of 989.4
+    TFLOP/s and the peak memory beside the 38.8 GB of state; whether a
+    batch of 9 would fit (one forward and backward, logged); the last
+    step split into the forward, the backward (with each layer's
+    recompute) and the AdamW update, by CUDA events, with each part's
+    top operators (torch.profiler).  (b) tiny musicgen-large in float32,
+    the same weights and batches on the CPU and the card, 2 steps: loss
+    and grad norm within 1e-4, every parameter within ``params_agree``.
+    (c) examples/train_lm_torch.py's default size: a crash at step 3
+    after a checkpoint at 2, the resume to 6 (its history from step 2),
+    the parameters against an uninterrupted run's, whose loss must fall
+    below step 0's; the checkpoints in a temporary directory.
+14. The last two lines: the kernels as JSON (ten records, in the order
     of PERF.md's kernel table), then the device as JSON.
 
 Exits nonzero, printing no result, without CUDA or outside a checkout.
@@ -3038,6 +3058,338 @@ def family_serving(torch, seed):
     return out, launches["hybrid"], launches["moe"]
 
 
+# ---------------------------------------------------------------------------
+# Phase 13: training
+# ---------------------------------------------------------------------------
+TRAIN_ARCH = "musicgen-large"     # (a): full width and depth
+TRAIN_PARAMS = 3229812736         # jax.eval_shape over JAX's init_params
+# (a): SHAPES["train_4k"]'s 256 cut to the largest batch that fits on an
+# 80 GB H100 (``fits`` probes one sequence more)
+TRAIN_BATCH = 8
+TRAIN_STEPS = 4                   # (a): steps; the last one split
+TRAIN_LR = 3e-4
+# (a): step 0's loss within this of ln V.  Logits of unit variance give
+# ln V + 0.5 on average; at one batch a random 48-layer stack's logits
+# lean toward or away from its targets by up to about 1 more
+LOSS0_MARGIN = 1.5
+BF16_PEAK = 989.4e12              # H100 SXM dense bf16 FLOP/s, data sheet
+TINY_STEPS, TINY_LR = 2, 3e-3     # (b): the card against the CPU
+METRIC_RTOL = 1e-4                # (b): loss and grad norm
+PARAM_ATOL, PARAM_OUTLIERS = 1e-5, 1e-3   # (b), (c): see params_agree
+CRASH_AT, CRASH_CKPT, CRASH_STEPS = 3, 2, 6  # (c)
+
+
+def params_agree(torch, a, b, lr, steps, label):
+    """Two trees of parameters (stacked, any devices) after ``steps``
+    AdamW steps at ``lr`` from the same start: every element within
+    2 * lr * steps (AdamW moves an element by about lr * sign(gradient)
+    however small the gradient, so one whose gradient is within float32
+    noise of zero may step the other way: at most 2 * lr a step) and
+    all but PARAM_OUTLIERS of them within PARAM_ATOL.  Returns (the
+    largest gap, the share beyond PARAM_ATOL)."""
+    from repro_torch.pytree import leaves
+
+    d = torch.cat([(x.float().cpu() - y.float().cpu()).abs().ravel()
+                   for x, y in zip(leaves(a), leaves(b))])
+    worst, share = float(d.max()), float((d > PARAM_ATOL).float().mean())
+    check(worst <= 2 * lr * steps and share <= PARAM_OUTLIERS,
+          f"{label}: parameters {worst} apart, {share:.2e} beyond "
+          f"{PARAM_ATOL}")
+    return worst, share
+
+
+def top_ops(prof, n=6):
+    """The ``n`` operators with the most self device time (ms)."""
+    ops = {}
+    for e in prof.key_averages():
+        us = getattr(e, "self_device_time_total", None)
+        if us is None:
+            us = getattr(e, "self_cuda_time_total", 0)
+        if us > 0 and str(e.device_type).endswith("CPU") and \
+                e.key.startswith("aten::"):
+            ops[e.key] = round(us / 1e3, 3)
+    return dict(sorted(ops.items(), key=lambda kv: -kv[1])[:n])
+
+
+def step_split(torch, cfg, model, opt, batch):
+    """One train step in its three parts, as ``train_step`` runs them:
+    the forward (each layer's input saved, nothing inside it, under
+    remat), the backward (each layer's forward recomputed, then its
+    gradients) and the AdamW update, each under its own torch.profiler
+    and between CUDA events.  Returns (loss, grad norm, {part: device
+    ms}, {part: its top operators})."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.convert import param_tree
+    from repro_torch.optim.adamw import adamw_update
+    from repro_torch.pytree import leaves, unflatten
+    from repro_torch.train.step import loss_fn
+
+    names = ("forward", "backward with the recompute", "adamw")
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(2 * 3)]
+    profs = [profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) for _ in names]
+
+    class Part:
+        def __init__(self, i):
+            self.i = i
+
+        def __enter__(self):
+            profs[self.i].__enter__()
+            ev[2 * self.i].record()
+
+        def __exit__(self, *exc):
+            ev[2 * self.i + 1].record()
+            torch.cuda.synchronize()
+            profs[self.i].__exit__(*exc)
+
+    params = param_tree(model, cfg)
+    flat = leaves(params)
+    with Part(0), torch.enable_grad():
+        loss, _ = loss_fn(cfg, model, batch)
+    with Part(1):
+        grads = torch.autograd.grad(loss, flat, allow_unused=True,
+                                    materialize_grads=True)
+    with Part(2):
+        _, _, gnorm = adamw_update(params, unflatten(params, grads), opt,
+                                   lr=TRAIN_LR)
+    split = {k: ev[2 * i].elapsed_time(ev[2 * i + 1])
+             for i, k in enumerate(names)}
+    return (float(loss.detach()), float(gnorm), split,
+            {k: top_ops(p) for k, p in zip(names, profs)})
+
+
+def fits(torch, cfg, model, batch):
+    """Whether one forward and backward of ``batch`` fits on the card
+    beside the model and its AdamW state (the batch-size probe: an
+    out-of-memory error is the answer, not a failure)."""
+    import gc
+
+    from repro_torch.train.step import value_and_grad
+
+    try:
+        value_and_grad(cfg, model, batch)
+        return True
+    except torch.cuda.OutOfMemoryError:
+        return False
+    finally:
+        gc.collect()
+        torch.cuda.empty_cache()
+
+
+def train_full(torch, seed, dev, batch=TRAIN_BATCH):
+    """(a) musicgen-large at full width and depth, bf16, seq 4096:
+    TRAIN_STEPS steps of ``train_step``, the last one split, then whether
+    one sequence more would fit.  Returns (figures, the kernels' launches
+    over the measured steps)."""
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import SHAPES
+    from repro_torch.convert import param_tree
+    from repro_torch.data.pipeline import SyntheticLM, make_batch
+    from repro_torch.kernels import mamba_scan as ms
+    from repro_torch.kernels import ops
+    from repro_torch.optim.adamw import adamw_init
+    from repro_torch.train.step import train_step
+
+    cfg = get_config(TRAIN_ARCH)
+    S = SHAPES["train_4k"].seq_len
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    torch.cuda.reset_peak_memory_stats()
+    model, t_init, n, nbytes = build_model(torch, cfg, gen, dev, "train",
+                                           TRAIN_PARAMS)
+    opt = adamw_init(param_tree(model, cfg))
+    # the state a step holds: weights, their gradients (the weights'
+    # dtype), float32 m and v
+    state = 2 * nbytes + 8 * n
+    held = torch.cuda.memory_allocated()
+    log(f"train: {TRAIN_ARCH}, global batch {batch} (train_4k's "
+        f"{SHAPES['train_4k'].global_batch} cut to {batch}), seq {S}, "
+        f"remat {cfg.remat!r}, lr {TRAIN_LR}; state {state} B (weights, "
+        f"bf16 gradients, float32 m and v), {held} B held before the "
+        f"first step")
+    ds = SyntheticLM(cfg.vocab_size, S, batch, seed=seed)
+    zero_launches(ops)
+    ms.LAUNCHES["mamba_scan"] = 0
+    losses, gnorms, secs = [], [], []
+    for step in range(TRAIN_STEPS):
+        b = make_batch(ds, step, device=dev, dtype=cfg.param_dtype)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if step < TRAIN_STEPS - 1:
+            model, opt, m = train_step(cfg, model, opt, b, lr=TRAIN_LR)
+            loss, gnorm = float(m["loss"]), float(m["grad_norm"])
+        else:       # the last step, its parts timed and profiled apart
+            loss, gnorm, split_ms, split_ops = step_split(torch, cfg, model,
+                                                          opt, b)
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+        losses.append(loss)
+        gnorms.append(gnorm)
+        log(f"train: step {step} loss {loss:.4f} grad_norm {gnorm:.4f} in "
+            f"{secs[-1]:.3f} s")
+    launches = dict(ops.LAUNCHES, mamba_scan=ms.LAUNCHES["mamba_scan"])
+    peak = torch.cuda.max_memory_allocated()
+    ln_v = float(np.log(cfg.vocab_size))
+    check(all(np.isfinite(losses)) and all(np.isfinite(gnorms)),
+          f"train: a loss or grad norm is not finite: {losses} {gnorms}")
+    check(abs(losses[0] - ln_v) < LOSS0_MARGIN,
+          f"train: step 0's loss {losses[0]} is not within {LOSS0_MARGIN} "
+          f"of ln {cfg.vocab_size} = {ln_v:.4f}")
+    # no check that the loss falls: AdamW's first steps, as the JAX
+    # package takes them (no warm-up, every element moved by about lr),
+    # raise it at this width; (c) checks the fall
+    # the steps between the first and the profiled last
+    steady = float(np.mean(secs[1:-1]))
+    tok_s = batch * S / steady
+    mfu = 6 * n * tok_s / BF16_PEAK
+    per_seq = (peak - held - nbytes) / batch
+    log(f"train: steady {steady:.3f} s a step ({tok_s:.0f} tokens/s, model "
+        f"FLOPs share {mfu:.4f} of {BF16_PEAK:.4g}); peak {peak} B "
+        f"({peak / 2**30:.3f} GiB) against {state} B of state; about "
+        f"{per_seq / 2**30:.3f} GiB a sequence above the weights, their "
+        f"gradients and m and v; launches {launches}")
+    log(f"train: step {TRAIN_STEPS - 1} split (CUDA events, ms, "
+        f"{sum(split_ms.values()) / 1e3:.3f} s in all) "
+        f"{json.dumps(split_ms)}; its top operators (torch.profiler, self "
+        f"device ms) {json.dumps(split_ops)}")
+    b = make_batch(SyntheticLM(cfg.vocab_size, S, batch + 1, seed=seed), 0,
+                   device=dev, dtype=cfg.param_dtype)
+    more = fits(torch, cfg, model, b)
+    log(f"train: a batch of {batch + 1}, one forward and backward beside "
+        f"the state: {'fits' if more else 'out of memory'}")
+    out = dict(arch=TRAIN_ARCH, params=n, param_bytes=nbytes,
+               state_bytes=state, batch=batch, seq=S, init_s=t_init,
+               losses=losses, grad_norms=gnorms, step_s=secs,
+               steady_step_s=steady, tokens_per_s=tok_s, mfu=mfu,
+               peak_bytes=peak, per_sequence_bytes=per_seq,
+               next_batch_fits=more, split_ms=split_ms, split_ops=split_ops)
+    del model, opt, b
+    torch.cuda.empty_cache()
+    return out, launches
+
+
+def train_card_vs_cpu(torch, seed, dev):
+    """(b) tiny musicgen-large in float32, the same weights and batches
+    on the CPU and the card, TINY_STEPS train steps: loss and grad norm
+    within METRIC_RTOL, every parameter by ``params_agree``."""
+    import copy
+
+    from repro_torch.configs.tiny import tiny_config
+    from repro_torch.convert import param_tree, stack_tree
+    from repro_torch.data.pipeline import SyntheticLM, make_batch
+    from repro_torch.models import transformer as tr
+    from repro_torch.optim.adamw import adamw_init
+    from repro_torch.train.step import train_step
+
+    cfg = tiny_config(TRAIN_ARCH)
+    cpu = tr.Model(cfg, device="cpu",
+                   generator=torch.Generator().manual_seed(seed))
+    gpu = copy.deepcopy(cpu).to(dev)
+    ds = SyntheticLM(cfg.vocab_size, 32, 4, seed=seed)
+    sides = [[cpu, adamw_init(param_tree(cpu, cfg)), "cpu"],
+             [gpu, adamw_init(param_tree(gpu, cfg)), dev]]
+    gaps = {"loss": 0.0, "grad_norm": 0.0}
+    for step in range(TINY_STEPS):
+        ms = []
+        for side in sides:
+            side[0], side[1], m = train_step(
+                cfg, side[0], side[1],
+                make_batch(ds, step, device=side[2]), lr=TINY_LR)
+            ms.append(m)
+        for k in gaps:
+            a, b = float(ms[0][k]), float(ms[1][k])
+            check(abs(a - b) <= METRIC_RTOL * abs(a),
+                  f"train card vs cpu: step {step} {k} {b} against {a}")
+            gaps[k] = max(gaps[k], abs(a - b) / abs(a))
+    worst, share = params_agree(
+        torch, stack_tree(param_tree(sides[0][0], cfg)),
+        stack_tree(param_tree(sides[1][0], cfg)), TINY_LR, TINY_STEPS,
+        "train card vs cpu")
+    log(f"train: tiny {TRAIN_ARCH} float32, {TINY_STEPS} steps, card "
+        f"against CPU: loss and grad norm within {json.dumps(gaps)} "
+        f"(relative), parameters within {worst:.3e} ({share:.2e} beyond "
+        f"{PARAM_ATOL})")
+    return dict(metric_gaps=gaps, param_max_gap=worst,
+                param_share_beyond=share)
+
+
+def train_crash_resume(torch, seed, dev):
+    """(c) examples/train_lm_torch.py's default size on the card: a crash
+    at CRASH_AT after a checkpoint at CRASH_CKPT, the resume to
+    CRASH_STEPS, against an uninterrupted run (``params_agree``: the
+    card's backward sums in no fixed order), whose loss must fall below
+    step 0's.  The checkpoint directory
+    is a temporary one, removed after."""
+    import importlib.util
+    import tempfile
+
+    from repro_torch.checkpoint.checkpoint import latest_step
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.convert import param_tree, stack_tree
+    from repro_torch.train.trainer import train
+
+    spec = importlib.util.spec_from_file_location(
+        "train_lm_torch", ROOT / "examples" / "train_lm_torch.py")
+    ex = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(ex)
+    cfg = ex.demo_config()
+    shape = ShapeSpec("demo", 128, 8, "train")
+    lr = 1e-3
+    kw = dict(lr=lr, seed=seed, device=dev)
+    with tempfile.TemporaryDirectory() as d:
+        try:
+            train(cfg, shape, steps=2 * CRASH_STEPS, ckpt_dir=d,
+                  ckpt_every=CRASH_CKPT, fail_at=CRASH_AT, log_every=1, **kw)
+            crashed = ""
+        except RuntimeError as e:
+            crashed = str(e)
+        check(crashed == f"injected failure at step {CRASH_AT}",
+              f"train crash: {crashed!r}")
+        check(latest_step(d) == CRASH_CKPT, "train crash: no checkpoint at "
+              f"{CRASH_CKPT}")
+        res = train(cfg, shape, steps=CRASH_STEPS, ckpt_dir=d,
+                    ckpt_every=CRASH_CKPT, log_every=1, **kw)
+    hist = res["history"]
+    check(hist[0]["step"] == CRASH_CKPT, f"train resume: history starts at "
+          f"{hist[0]['step']}")
+    ref = train(cfg, shape, steps=CRASH_STEPS, log_every=1, **kw)
+    losses = [h["loss"] for h in ref["history"]]
+    check(min(losses[1:]) < losses[0], f"train: no step beat step 0's "
+          f"loss: {losses}")
+    worst, share = params_agree(
+        torch, stack_tree(param_tree(res["model"], cfg)),
+        stack_tree(param_tree(ref["model"], cfg)), lr, CRASH_STEPS,
+        "train resume")
+    log(f"train: crash at {CRASH_AT}, resume from {CRASH_CKPT} to "
+        f"{CRASH_STEPS} on {cfg.name} ({cfg.d_model} wide, {cfg.n_layers} "
+        f"layers, seq {shape.seq_len}, batch {shape.global_batch}): last "
+        f"loss {hist[-1]['loss']:.6f} against {ref['history'][-1]['loss']:.6f}"
+        f" uninterrupted, parameters within {worst:.3e} ({share:.2e} "
+        f"beyond {PARAM_ATOL})")
+    return dict(uninterrupted_losses=losses, resumed_loss=hist[-1]["loss"],
+                uninterrupted_loss=ref["history"][-1]["loss"],
+                param_max_gap=worst, param_share_beyond=share)
+
+
+def training(torch, seed):
+    """Phase 13: (a) musicgen-large trained at full width and depth, (b)
+    the card against the CPU, (c) crash and resume.  Returns (figures,
+    the kernels' launches over (a)'s steps)."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda")
+    t_phase = time.perf_counter()
+    out = {"held_bytes": torch.cuda.memory_allocated()}
+    log(f"train: {out['held_bytes']} B on the card from earlier phases")
+    out["full"], launches = train_full(torch, seed, dev)
+    out["card_vs_cpu"] = train_card_vs_cpu(torch, seed, dev)
+    out["crash_resume"] = train_crash_resume(torch, seed, dev)
+    torch.cuda.empty_cache()
+    out["phase_s"] = time.perf_counter() - t_phase
+    log(f"train: phase 13 in {out['phase_s']:.1f} s")
+    return out, launches
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -3130,6 +3482,11 @@ def main(argv=None) -> int:
     for k in kernels:
         k["launches_serving_hybrid"] = hyb_launches[k["name"]]
         k["launches_serving_moe"] = moe_launches[k["name"]]
+    torch.cuda.empty_cache()
+    train_times, train_launches = training(torch, args.seed)
+    log(f"training: {json.dumps(train_times)}")
+    for k in kernels:
+        k["launches_training"] = train_launches[k["name"]]
     torch.cuda.synchronize()
     log(f"total: {time.perf_counter() - t_start:.1f} s")
     print(smi)

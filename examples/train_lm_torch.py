@@ -1,0 +1,66 @@
+"""End-to-end training on the PyTorch port: a ~15M-parameter decoder
+trained on the synthetic LM stream, with checkpoints and restart.
+
+    python examples/train_lm_torch.py --steps 100 [--device cpu]
+    python examples/train_lm_torch.py --steps 200   # resumes!
+
+The port's counterpart of ``examples/train_lm.py``: the same flags and
+printed lines, plus ``--device``, the card unless it names another.
+Pass --d-model 704 --n-layers 12 for the ~100M run.  Loss on the
+synthetic copy-structure stream drops from ~ln(V) toward the copy floor.
+The checkpoint directory (by default under the temporary directory) is
+in the JAX package's format: either package resumes the other's run.
+"""
+import argparse
+import os
+import sys
+import tempfile
+from pathlib import Path
+
+sys.path.insert(0, str(Path(__file__).resolve().parents[1] / "src"))
+
+from repro_torch.configs.base import ModelConfig, ShapeSpec  # noqa: E402
+from repro_torch.core.client import _resolve_device  # noqa: E402
+from repro_torch.models.transformer import Model, count_params  # noqa: E402
+from repro_torch.train.trainer import train  # noqa: E402
+
+
+def demo_config(d_model: int = 384, n_layers: int = 6) -> ModelConfig:
+    return ModelConfig(
+        name="train-lm-demo", family="dense",
+        n_layers=n_layers, d_model=d_model,
+        n_heads=max(4, d_model // 64), n_kv_heads=max(2, d_model // 128),
+        head_dim=64, d_ff=d_model * 4, vocab_size=2048,
+        attn_q_block=64, attn_kv_block=64, dtype="float32",
+    )
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--steps", type=int, default=100)
+    ap.add_argument("--d-model", type=int, default=384)
+    ap.add_argument("--n-layers", type=int, default=6)
+    ap.add_argument("--seq-len", type=int, default=128)
+    ap.add_argument("--batch", type=int, default=8)
+    ap.add_argument("--lr", type=float, default=1e-3)
+    ap.add_argument("--ckpt-dir", default=os.path.join(
+        tempfile.gettempdir(), "repro_train_lm_torch"))
+    ap.add_argument("--device", default=None,
+                    help="torch device (default: the card)")
+    args = ap.parse_args(argv)
+
+    cfg = demo_config(args.d_model, args.n_layers)
+    dev = _resolve_device(args.device, "train_lm_torch")
+    n = count_params(Model(cfg, device="cpu"))
+    print(f"model: {n/1e6:.1f}M params, device={dev}")
+    shape = ShapeSpec("demo", args.seq_len, args.batch, "train")
+    out = train(cfg, shape, steps=args.steps, ckpt_dir=args.ckpt_dir,
+                ckpt_every=25, lr=args.lr, log_every=5, device=dev)
+    h = out["history"]
+    print(f"loss: {h[0]['loss']:.3f} -> {h[-1]['loss']:.3f} "
+          f"over steps {h[0]['step']}..{h[-1]['step']}")
+    return out
+
+
+if __name__ == "__main__":
+    main()

@@ -8,7 +8,11 @@ family of ``configs`` (Mamba-1, the dense GQA family, zamba2's Mamba-2
 with its shared block, MLA and MoE): ``models`` (``Model`` with its
 blocks), ``serving.serve_step.prefill`` and
 ``serving.engine.ServingEngine``, whose page directory is a
-``HiStoreClient``.  The index hot path and the Mamba-1 scan run through
+``HiStoreClient``.  Training of every family: ``train.trainer.train``
+over ``train.step.train_step``, ``optim`` (the JAX package's AdamW and
+int8 compression), ``data`` (the synthetic stream) and ``checkpoint``
+(the JAX package's file format, so either package resumes the other's
+run).  The index hot path and the Mamba-1 scan run through
 hand-written CUDA kernels (``kernels/csrc``) for tensors on the card and
 through plain PyTorch for tensors on the CPU; ``repro_torch.kernels`` is
 the whole dispatch surface of ``repro.kernels``, its legacy wrappers

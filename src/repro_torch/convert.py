@@ -1,8 +1,10 @@
 """Carry state across from the JAX package: a store's state, and a
-model's weights and decode cache.
+model's weights and decode cache; and back: a model's weights and its
+AdamW state as the JAX package's trees (``params_to_numpy``,
+``opt_to_numpy``), the layout of both packages' checkpoints.
 
-Every function takes the state as numpy leaves with the JAX package's
-field names — e.g. ``jax.tree.map(np.asarray, backend.group)``,
+Every function of the way in takes the state as numpy leaves with the
+JAX package's field names — e.g. ``jax.tree.map(np.asarray, backend.group)``,
 ``jax.tree.map(np.asarray, backend.store)`` or
 ``jax.tree.map(np.asarray, params)`` — and builds the port's state on
 ``device``.  This module reads attributes and keys only; it imports
@@ -19,6 +21,7 @@ from repro_torch.core import index_group as ig
 from repro_torch.core import kvstore as kv
 from repro_torch.core import log as lg
 from repro_torch.core import sorted_index as si
+from repro_torch.pytree import tree_map
 
 
 def _t(a, device):
@@ -208,27 +211,6 @@ def _children(dst):
     return out
 
 
-def _load_tree(load, dst, src, path):
-    """Load a JAX leaf tree into a module or ParameterDict, name for
-    name: a norm's ``{"scale": a}`` leaf into its (1 + scale) parameter,
-    a nested dict into a nested ParameterDict or module."""
-    if isinstance(dst, torch.Tensor):
-        if isinstance(src, dict):
-            if set(src) != {"scale"}:
-                raise ValueError(f"{path}: leaves {sorted(src)}, a norm "
-                                 f"parameter takes {{'scale'}}")
-            src = src["scale"]
-        load(dst, src)
-        return
-    have = _children(dst)
-    if not isinstance(src, dict) or set(src) != set(have):
-        got = sorted(src) if isinstance(src, dict) else type(src).__name__
-        raise ValueError(f"{path}: leaves {got}, the port has "
-                         f"{sorted(have)}")
-    for k, v in src.items():
-        _load_tree(load, have[k], v, f"{path}.{k}")
-
-
 def params_from_numpy(params, cfg, device=None):
     """A ``Model`` on ``device`` (the card unless the caller names another)
     holding a JAX ``init_params`` tree's weights (numpy leaves), the
@@ -242,31 +224,7 @@ def params_from_numpy(params, cfg, device=None):
     from repro_torch.models.transformer import Model
 
     model = Model(cfg, device=device)
-    dev = model.device
-
-    def load(param, a):
-        t = _tensor(a, dev)
-        if t.shape != param.shape or t.dtype != param.dtype:
-            raise ValueError(f"leaf {tuple(t.shape)} {t.dtype} does not fit "
-                             f"{tuple(param.shape)} {param.dtype}")
-        param.data = t
-
-    if hasattr(model, "embed"):
-        load(model.embed, params["embed"]["table"])
-    if hasattr(model, "lm_head"):
-        load(model.lm_head, params["lm_head"]["table"])
-    load(model.final_norm, params["final_norm"]["scale"])
-    if ("shared" in params) != (model.shared is not None):
-        raise ValueError("the JAX tree and the config disagree on the "
-                         "shared block")
-    if model.shared is not None:
-        _load_tree(load, model.shared, params["shared"], "shared")
-    layers = _layer_leaves(params["stages"], cfg)
-    if len(layers) != len(model.layers):
-        raise ValueError(f"{len(layers)} layers, the model has "
-                         f"{len(model.layers)}")
-    for i, (block, leaves) in enumerate(zip(model.layers, layers)):
-        _load_tree(load, block, leaves, f"layer {i}")
+    load_stacked(param_tree(model, cfg), params)
     return model
 
 
@@ -285,3 +243,163 @@ def cache_from_numpy(cache, cfg, device=None):
 
     dev = _resolve_device(device, "cache_from_numpy")
     return [_cache_tree(layer, dev) for layer in _layer_leaves(cache, cfg)]
+
+
+# ---------------------------------------------------------------------------
+# The way back: a Model's weights and its AdamW state in JAX's layout
+# ---------------------------------------------------------------------------
+# the port's tensors that JAX holds as a norm's {"scale": ...} leaf
+NORMS = ("ln1", "ln2", "norm", "kv_norm")
+
+
+def _block_tree(dst) -> dict:
+    """A block's (or ParameterDict's) parameters as the JAX package's
+    leaf dict: a norm's (1 + scale) tensor as {"scale": it}."""
+    out = {}
+    for k, v in _children(dst).items():
+        if isinstance(v, torch.Tensor):
+            out[k] = {"scale": v} if k in NORMS else v
+        else:
+            out[k] = _block_tree(v)
+    return out
+
+
+def _stack_lists(trees):
+    """Block trees of one structure -> one tree whose leaves are the
+    lists of their leaves (a scanned stage's [n_rep, ...] stack)."""
+    if isinstance(trees[0], dict):
+        return {k: _stack_lists([t[k] for t in trees]) for k in trees[0]}
+    return list(trees)
+
+
+def param_tree(model, cfg) -> dict:
+    """The model's parameters (the tensors themselves) in the JAX
+    package's params layout: ``embed``/``lm_head`` {"table"},
+    ``final_norm`` {"scale"}, ``shared``, and ``stages`` from
+    ``layer_plan``, a single stage one layer's dict and a scanned stage a
+    tuple, one dict a pattern position, whose leaves are lists of that
+    position's parameter in each repeat (JAX's [n_rep, ...] stack).  In
+    ``pytree`` order these are JAX's leaves, a stack's layers in repeat
+    order; AdamW and the global norm run over this tree."""
+    from repro_torch.configs.base import layer_plan
+
+    tree = {}
+    if hasattr(model, "embed"):
+        tree["embed"] = {"table": model.embed}
+    if hasattr(model, "lm_head"):
+        tree["lm_head"] = {"table": model.lm_head}
+    tree["final_norm"] = {"scale": model.final_norm}
+    if model.shared is not None:
+        tree["shared"] = _block_tree(model.shared)
+    stages, i = [], 0
+    for st in layer_plan(cfg):
+        L = len(st.pattern)
+        if st.kind == "single":
+            stages.append(_block_tree(model.layers[i]))
+        else:
+            stages.append(tuple(
+                _stack_lists([_block_tree(model.layers[i + r * L + pos])
+                               for r in range(st.n_rep)])
+                for pos in range(L)))
+        i += st.n_rep * L
+    if i != len(model.layers):
+        raise ValueError(f"the plan covers {i} layers, the model has "
+                         f"{len(model.layers)}")
+    tree["stages"] = stages
+    return tree
+
+
+def _is_stack(x) -> bool:
+    return isinstance(x, list) and len(x) > 0 and torch.is_tensor(x[0])
+
+
+def _map_stacks(fn, tree):
+    """``fn`` over the leaves of a tree of ``param_tree``'s structure, a
+    list of layers' tensors (a stack) counting as one leaf."""
+    if _is_stack(tree) or torch.is_tensor(tree):
+        return fn(tree)
+    if isinstance(tree, dict):
+        return {k: _map_stacks(fn, v) for k, v in tree.items()}
+    return type(tree)(_map_stacks(fn, v) for v in tree)
+
+
+def stack_tree(tree):
+    """The tree in JAX's layout: each stack stacked along a new leading
+    axis (new tensors), every leaf detached; ready to save."""
+    return _map_stacks(lambda x: torch.stack([t.detach() for t in x])
+                      if isinstance(x, list) else x.detach(), tree)
+
+
+def stack_like(tree):
+    """``stack_tree``'s shapes and dtypes as meta tensors: nothing is
+    allocated."""
+    def meta(x):
+        one = x[0] if isinstance(x, list) else x
+        lead = (len(x),) if isinstance(x, list) else ()
+        return torch.empty(lead + tuple(one.shape), dtype=one.dtype,
+                           device="meta")
+    return _map_stacks(meta, tree)
+
+
+@torch.no_grad()
+def load_stacked(dst, src, path="params"):
+    """Write ``src`` (JAX's layout, stacked; tensors or numpy arrays)
+    into ``dst`` (``param_tree``'s structure), leaf for leaf: repeat r of
+    a stack into the list's r-th tensor.  Shapes and dtypes must match."""
+    if _is_stack(dst) or torch.is_tensor(dst):
+        parts = dst if _is_stack(dst) else [dst]
+        t = src if torch.is_tensor(src) else _tensor(src, parts[0].device)
+        want = ((len(parts),) if _is_stack(dst) else ()) + tuple(
+            parts[0].shape)
+        if tuple(t.shape) != want or t.dtype != parts[0].dtype:
+            raise ValueError(f"{path}: leaf {tuple(t.shape)} {t.dtype} does "
+                             f"not fit {want} {parts[0].dtype}")
+        for r, p in enumerate(parts):
+            p.copy_(t[r] if _is_stack(dst) else t)
+        return
+    if isinstance(dst, dict):
+        if not isinstance(src, dict) or set(src) != set(dst):
+            raise ValueError(f"{path}: leaves {sorted(src)}, the port has "
+                             f"{sorted(dst)}")
+        for k in dst:
+            load_stacked(dst[k], src[k], f"{path}/{k}")
+        return
+    if len(src) != len(dst):
+        raise ValueError(f"{path}: {len(src)} entries, the port has "
+                         f"{len(dst)}")
+    for i, (d, s) in enumerate(zip(dst, src)):
+        load_stacked(d, s, f"{path}/{i}")
+
+
+def _numpy(t) -> np.ndarray:
+    """A tensor as a numpy array; bf16, which numpy has no type for here,
+    as float32 (every bf16 value is a float32 value)."""
+    t = t.detach().cpu()
+    return (t.float() if t.dtype == torch.bfloat16 else t).numpy()
+
+
+def params_to_numpy(model, cfg) -> dict:
+    """The model's weights as the JAX package's ``init_params`` tree of
+    numpy arrays (``param_tree`` stacked): the inverse of
+    ``params_from_numpy`` (bf16 weights come back as float32 arrays of
+    the same values)."""
+    return tree_map(_numpy, stack_tree(param_tree(model, cfg)))
+
+
+def opt_to_numpy(opt) -> dict:
+    """An AdamW state over ``param_tree`` ({"m", "v", "step"}) as the JAX
+    package's ``adamw_init`` tree of numpy arrays."""
+    return tree_map(_numpy, stack_tree(opt))
+
+
+def opt_from_numpy(opt, model, cfg) -> dict:
+    """The AdamW state over ``param_tree(model, cfg)`` from a JAX
+    ``adamw_init`` / ``adamw_update`` state (numpy leaves), on the
+    model's device."""
+    from repro_torch.optim.adamw import adamw_init
+
+    state = adamw_init(param_tree(model, cfg))
+    load_stacked(state["m"], opt["m"], "opt/m")
+    load_stacked(state["v"], opt["v"], "opt/v")
+    state["step"] = _t(np.asarray(opt["step"], np.int32), model.device)
+    return state

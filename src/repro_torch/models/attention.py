@@ -141,42 +141,73 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
     nkv = _blocks("key", Skv, kvb)
     kt = _f32(k).reshape(B, nkv, kvb, Hkv, hdq).permute(0, 3, 1, 4, 2)
     vh = v.reshape(B, nkv, kvb, Hkv, hdv).permute(0, 3, 1, 2, 4)
-    m = torch.full((B, Hkv, nq, qb, G), NEG_INF, dtype=F32, device=q.device)
-    l = torch.zeros((B, Hkv, nq, qb, G), dtype=F32, device=q.device)
-    acc = torch.zeros((B, Hkv, nq, qb, G, hdv), dtype=F32, device=q.device)
     step = _chunk(B * Hkv * qb * G * kvb)
+    nchunk = -(-nq // step)
     ar_q = torch.arange(Sq, device=q.device).view(nq, qb)
     ar_kv = torch.arange(kvb, device=q.device)
+    # chunk c of the q blocks, [c * step, (c + 1) * step), holds the
+    # running (max, sum, acc) of its blocks from lo on: each kv step hands
+    # the blocks it reaches new tensors, so that nothing autograd saved is
+    # written over, and a block no later kv step reaches is finished
+    # (divided by its sum) and leaves the state
+    state = {}                                  # c -> (lo, m, l, acc)
+    outs, ms, ls = [], [], []
+
+    def finish(c, upto):
+        lo, mc, lc, ac = state.pop(c)
+        k = min(upto - lo, mc.shape[2])
+        outs.append((ac[:, :, :k] / torch.clamp(lc[:, :, :k], min=1e-30)
+                     [..., None]).to(q.dtype))
+        ms.append(mc[:, :, :k])
+        ls.append(lc[:, :, :k])
+        if k < mc.shape[2]:
+            state[c] = (lo + k, mc[:, :, k:], lc[:, :, k:], ac[:, :, k:])
+
     for kj in range(nkv):
         kb = kt[:, :, kj]                                   # [B,Hkv,hd,kvb]
         vb = _f32(vh[:, :, kj])                             # [B,Hkv,kvb,hdv]
         # the q blocks this kv block reaches: all, or those whose last
         # position is at or past the block's first
         first = (kj * kvb) // qb if causal else 0
-        for a in range(first, nq, step):
-            b = min(a + step, nq)
+        for c in sorted(state):
+            if state[c][0] < first:
+                finish(c, first)
+        for c in range(first // step, nchunk):
+            a, b = max(first, c * step), min((c + 1) * step, nq)
             n = b - a
             s = torch.matmul(qh[:, :, a:b].reshape(B, Hkv, n * qb * G, hdq),
                              kb).view(B, Hkv, n, qb, G, kvb)
             # only the q blocks before the first that sees the whole kv
-            # block have masked scores
+            # block have masked scores (the product's own output, which
+            # its backward does not read)
             d = min(b, -(-((kj + 1) * kvb - 1) // qb)) if causal else a
             if d > a:
                 mask = ar_q[a:d, :, None] >= (kj * kvb + ar_kv)
                 s[:, :, :d - a].masked_fill_(~mask[:, :, None, :], NEG_INF)
-            m_old = m[:, :, a:b]
+            if c in state:
+                _, m_old, l_old, acc_old = state[c]
+            else:
+                m_old = torch.full((B, Hkv, n, qb, G), NEG_INF, dtype=F32,
+                                   device=q.device)
+                l_old = torch.zeros_like(m_old)
+                acc_old = torch.zeros((B, Hkv, n, qb, G, hdv), dtype=F32,
+                                      device=q.device)
             m_new = torch.maximum(m_old, s.amax(dim=-1))
             alpha = torch.exp(m_old - m_new)
             p = torch.exp(s - m_new[..., None])
             del s
-            l[:, :, a:b] = l[:, :, a:b] * alpha + p.sum(dim=-1)
+            l_new = l_old * alpha + p.sum(dim=-1)
             pv = torch.matmul(_f32(p.to(v.dtype)).view(B, Hkv, n * qb * G,
                                                        kvb), vb)
             del p
-            acc[:, :, a:b] = (acc[:, :, a:b] * alpha[..., None]
-                              + pv.view(B, Hkv, n, qb, G, hdv))
-            m[:, :, a:b] = m_new
-    out = (acc / torch.clamp(l, min=1e-30)[..., None]).to(q.dtype)
+            acc_new = (acc_old * alpha[..., None]
+                       + pv.view(B, Hkv, n, qb, G, hdv))
+            state[c] = (a, m_new, l_new, acc_new)
+            del m_old, l_old, acc_old
+    for c in sorted(state):
+        finish(c, nq)
+    out = torch.cat(outs, dim=2)
+    m, l = torch.cat(ms, dim=2), torch.cat(ls, dim=2)
     # [B, Hkv, nq, qb, G, hdv] -> [B, Sq, H, hdv]
     out = out.permute(0, 2, 3, 1, 4, 5).reshape(B, Sq, H, hdv)
     if return_stats:

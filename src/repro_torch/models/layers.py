@@ -95,7 +95,9 @@ def embed_init(generator, vocab: int, d_model: int, dtype, device):
 
 
 def embed_lookup(table, tokens):
-    return table[tokens.long()]
+    """The table's rows; ``F.embedding``, whose gradient adds each row's
+    contributions in a fixed order on the CPU (indexing's does not)."""
+    return F.embedding(tokens.long(), table)
 
 
 def lm_head_init(generator, d_model: int, vocab: int, dtype, device):

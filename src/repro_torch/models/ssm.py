@@ -103,15 +103,16 @@ def mamba1_init(cfg, generator, device) -> dict:
 def _scan_chunks(a, b):
     """Inclusive scan along axis 2 of [B, nchunk, T, di, N] pairs under
     (a_l, b_l) . (a_r, b_r) = (a_l a_r, a_r b_l + b_r): log2(T) steps."""
-    a_cum, b_scan = a.clone(), b.clone()
+    a_cum, b_scan = a, b
     T = a.shape[2]
     off = 1
     while off < T:
+        # new tensors a step: the products' backward reads the old ones
         ar, br = a_cum[:, :, off:], b_scan[:, :, off:]
         new_b = ar * b_scan[:, :, :-off] + br
         new_a = ar * a_cum[:, :, :-off]
-        b_scan[:, :, off:] = new_b
-        a_cum[:, :, off:] = new_a
+        b_scan = torch.cat([b_scan[:, :, :off], new_b], dim=2)
+        a_cum = torch.cat([a_cum[:, :, :off], new_a], dim=2)
         off *= 2
     return a_cum, b_scan
 

@@ -8,9 +8,13 @@ every ``"mamba2+shared"`` layer calls (``model.shared``: its weights are
 held, and counted, once).  The JAX package stacks repeated layers into
 scanned stages to keep XLA's compile time down; here ``apply_model`` and
 ``decode_step`` are a Python loop over ``model.layers``, and a decode
-cache is a list with one dict per layer.  The slice is forward-only:
-parameters carry no gradient, and ``remat`` stays a config field with
-nothing to do.
+cache is a list with one dict per layer.  Parameters are built with
+``requires_grad`` off, so that serving builds no graph; the train step
+(``train/step.py``) switches it on.  ``apply_model`` under autograd with
+``cfg.remat == "unit"`` checkpoints each layer: the JAX package
+checkpoints each scanned pattern unit, and one layer is the port's unit
+(the gradients are the same function).  ``decode_step`` runs under
+``torch.no_grad``.
 
 Blocks, by layer spec (mixer, ffn), for every config of
 ``repro_torch.configs``: ``Mamba1Block`` (``("mamba1", None)``,
@@ -26,6 +30,7 @@ from typing import Optional
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.client import _resolve_device
@@ -252,15 +257,19 @@ def _frontend(cfg, model, inputs):
     return inputs["embeds"]
 
 
-@torch.no_grad()
 def apply_model(cfg: ModelConfig, model: Model, inputs):
-    """Prefill forward.  Returns (hidden [B,S,D], aux_loss)."""
+    """Train/prefill forward.  Returns (hidden [B,S,D], aux_loss)."""
     x = _frontend(cfg, model, inputs)
     B, S, _ = x.shape
     positions = torch.arange(S, device=x.device).expand(B, S)
     aux_total = torch.zeros((), dtype=F32, device=x.device)
+    remat = cfg.remat == "unit" and torch.is_grad_enabled()
     for block in model.layers:
-        x, aux = block(cfg, x, positions, model.shared)
+        if remat:
+            x, aux = checkpoint(block, cfg, x, positions, model.shared,
+                                use_reentrant=False)
+        else:
+            x, aux = block(cfg, x, positions, model.shared)
         if aux is not None:                  # the MoE layers' losses
             aux_total = aux_total + aux
     x = rmsnorm(model.final_norm, x, cfg.norm_eps)

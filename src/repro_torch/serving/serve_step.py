@@ -9,13 +9,16 @@ from __future__ import annotations
 
 import functools
 
+import torch
+
 from repro_torch.models.layers import logits_from_hidden
 from repro_torch.models.transformer import apply_model, decode_step, init_cache
 
 
+@torch.no_grad()
 def prefill(cfg, model, inputs):
-    """Full-prompt forward; returns float32 logits at the final position
-    [B, V].  With ``cfg.ssm_impl="pallas"`` each Mamba-1 layer's scan is
+    """Full-prompt forward, building no graph; returns float32 logits at
+    the final position [B, V].  With ``cfg.ssm_impl="pallas"`` each Mamba-1 layer's scan is
     the fused kernel (``kernels/mamba_scan.py``)."""
     hidden, _ = apply_model(cfg, model, inputs)
     last = hidden[:, -1:]

@@ -14,12 +14,18 @@ against the JAX package's.
   masked), and the port must give the same.
 * ``histore_cluster_torch``: its lines (bit-equality with the JAX
   example is tests/test_torch_dist_selftest.py's).
+* ``train_lm_torch``: a few steps on the CPU at a small size, then a
+  second run that resumes from the first one's checkpoint; the lines
+  keep the format of ``examples/train_lm.py``'s (which fails on this
+  jax: its ``make_local_mesh`` gives Explicit axes, ROADMAP.md section
+  C); trainer parity is tests/test_torch_trainer.py's.
 """
 from __future__ import annotations
 
 import contextlib
 import importlib.util
 import io
+import re
 from pathlib import Path
 
 import jax
@@ -69,9 +75,10 @@ def test_quickstart_runs_on_the_card_by_default():
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present")
     for name in ("quickstart_torch", "serve_kv_cache_torch",
-                 "histore_cluster_torch"):
+                 "histore_cluster_torch", "train_lm_torch"):
         with pytest.raises(RuntimeError, match="CUDA is not available"):
-            _lines(_load(name).main)
+            _lines(_load(name).main, *([[]] if name == "train_lm_torch"
+                                       else []))
 
 
 def test_serve_kv_cache_lines_match_jax():
@@ -81,6 +88,27 @@ def test_serve_kv_cache_lines_match_jax():
     lines, _ = _lines(_load("serve_kv_cache_torch").main, device="cpu")
     assert lines == jlines
     assert lines[-1] == "serving example OK"
+
+
+def test_train_lm_example_runs_and_resumes(tmp_path):
+    small = ["--d-model", "64", "--n-layers", "2", "--seq-len", "32",
+             "--batch", "4", "--device", "cpu", "--ckpt-dir", str(tmp_path)]
+    main = _load("train_lm_torch").main
+    lines, out = _lines(main, ["--steps", "6"] + small)
+    assert re.fullmatch(r"model: \d+\.\dM params, device=cpu", lines[0])
+    # examples/train_lm.py's f-strings: the trainer's [train] line, then
+    # the loss over the logged steps
+    train_line = r"\[train\] step=(\d+) loss=\d+\.\d{4} gnorm=\d+\.\d{3}"
+    assert [int(re.fullmatch(train_line, x)[1]) for x in lines[1:-1]] == [
+        0, 5]
+    assert re.fullmatch(r"loss: \d+\.\d{3} -> \d+\.\d{3} over steps 0\.\.5",
+                        lines[-1])
+    lines, out = _lines(main, ["--steps", "12"] + small)
+    assert [int(re.fullmatch(train_line, x)[1]) for x in lines[1:-1]] == [
+        10, 11]                           # resumed at 6, not restarted
+    assert lines[-1].endswith("over steps 10..11")
+    assert sorted(p.name for p in tmp_path.glob("step_*.npz")) == [
+        "step_00000006.npz", "step_00000012.npz"]
 
 
 def test_cluster_example_runs():
