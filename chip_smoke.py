@@ -239,7 +239,26 @@
     after a checkpoint at 2, the resume to 6 (its history from step 2),
     the parameters against an uninterrupted run's, whose loss must fall
     below step 0's; the checkpoints in a temporary directory.
-14. The last two lines: the kernels as JSON (ten records, in the order
+14. The tools (TF32 off; the kernels' launch counts set to 0 before it:
+    every record gets ``launches_tools``, expected 0).  (a) The dry run,
+    ``repro_torch.launch.dryrun`` over every (arch x shape) cell on the
+    one-card mesh, on the meta device (nothing allocated), a worker
+    process a CPU core: 33 cells ok, 7 skipped, 0 errors; a line a cell
+    (compute_s, memory_s, dominant, state GiB, fits) and the wall time.
+    (b) Phase 13's measured musicgen-large step beside the dry run's
+    compute term for the same cell cut to batch 8 (GEMM FLOPs over
+    989.4 TFLOP/s), the measured step over it, and phase 13's model-FLOPs
+    share (``model_flops``).  (c) The GPipe pipeline
+    (``train/pipeline.py``) at full width: S = 4 stages, each one
+    musicgen-large AttnBlock (d_model 2048, 32 heads, d_ff 8192), M = 8
+    microbatches of one sequence of PIPE_SEQ tokens; in float32 the
+    pipelined output and every parameter gradient against serial
+    application within PIPE_RTOL (relative to each tensor's largest
+    magnitude); in bf16 the max abs error logged; the pipelined and the
+    serial step (forward and backward) timed by CUDA events at both
+    dtypes, the peak memory logged.  (d) ``train/elastic_selftest.py``
+    on the card (ELASTIC-SELFTEST-OK).
+15. The last two lines: the kernels as JSON (ten records, in the order
     of PERF.md's kernel table), then the device as JSON.
 
 Exits nonzero, printing no result, without CUDA or outside a checkout.
@@ -257,7 +276,10 @@ from pathlib import Path
 import numpy as np
 
 ROOT = Path(__file__).resolve().parent
-HBM_BYTES_PER_S = 3.35e12        # H100 SXM HBM3, NVIDIA's data sheet
+sys.path.insert(0, str(ROOT / "src"))
+from repro_torch.roofline.analysis import HW  # noqa: E402
+
+HBM_BYTES_PER_S = HW.hbm_bw      # H100 SXM HBM3, NVIDIA's data sheet
 # the data sheet's float32 rate outside the tensor cores; it has no int32
 # row, and the card's int32 rate is not above it, so the compare bound it
 # gives is a lower bound on the time
@@ -3072,7 +3094,7 @@ TRAIN_LR = 3e-4
 # ln V + 0.5 on average; at one batch a random 48-layer stack's logits
 # lean toward or away from its targets by up to about 1 more
 LOSS0_MARGIN = 1.5
-BF16_PEAK = 989.4e12              # H100 SXM dense bf16 FLOP/s, data sheet
+BF16_PEAK = HW.peak_flops         # H100 SXM dense bf16 FLOP/s, data sheet
 TINY_STEPS, TINY_LR = 2, 3e-3     # (b): the card against the CPU
 METRIC_RTOL = 1e-4                # (b): loss and grad norm
 PARAM_ATOL, PARAM_OUTLIERS = 1e-5, 1e-3   # (b), (c): see params_agree
@@ -3183,12 +3205,13 @@ def train_full(torch, seed, dev, batch=TRAIN_BATCH):
     one sequence more would fit.  Returns (figures, the kernels' launches
     over the measured steps)."""
     from repro_torch.configs import get_config
-    from repro_torch.configs.base import SHAPES
+    from repro_torch.configs.base import SHAPES, ShapeSpec
     from repro_torch.convert import param_tree
     from repro_torch.data.pipeline import SyntheticLM, make_batch
     from repro_torch.kernels import mamba_scan as ms
     from repro_torch.kernels import ops
     from repro_torch.optim.adamw import adamw_init
+    from repro_torch.roofline.analysis import active_params, model_flops
     from repro_torch.train.step import train_step
 
     cfg = get_config(TRAIN_ARCH)
@@ -3241,7 +3264,9 @@ def train_full(torch, seed, dev, batch=TRAIN_BATCH):
     # the steps between the first and the profiled last
     steady = float(np.mean(secs[1:-1]))
     tok_s = batch * S / steady
-    mfu = 6 * n * tok_s / BF16_PEAK
+    mfu = model_flops(cfg, *active_params(cfg, param_tree(model, cfg)),
+                      ShapeSpec("train_4k", S, batch, "train")
+                      ) / steady / BF16_PEAK
     per_seq = (peak - held - nbytes) / batch
     log(f"train: steady {steady:.3f} s a step ({tok_s:.0f} tokens/s, model "
         f"FLOPs share {mfu:.4f} of {BF16_PEAK:.4g}); peak {peak} B "
@@ -3390,6 +3415,219 @@ def training(torch, seed):
     return out, launches
 
 
+# ---------------------------------------------------------------------------
+# Phase 14: the tools (dry run, roofline, pipeline, elastic self-test)
+# ---------------------------------------------------------------------------
+PIPE_STAGES, PIPE_MICRO = 4, 8    # (c): S stages, M microbatches
+PIPE_SEQ = 1024                   # (c): tokens a microbatch (one sequence)
+# (c): float32, TF32 off: the pipelined output and gradients against
+# serial application, relative to each tensor's largest magnitude (the
+# stages' batched GEMMs under vmap sum in another order than the serial
+# ones)
+PIPE_RTOL = 1e-4
+DRY_CELLS = (33, 7)               # (a): cells ok and skipped, one card
+
+
+def dry_run_all(torch):
+    """(a) The dry run over every cell on the one-card mesh.  Returns
+    (the records, seconds)."""
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import local_mesh
+
+    t0 = time.perf_counter()
+    recs = dryrun.run(dryrun.all_cells(), local_mesh(),
+                      ROOT / "chiprun_out" / "dryrun_torch")
+    secs = time.perf_counter() - t0
+    n = {k: sum(r["status"] == k for r in recs)
+         for k in ("ok", "skipped", "error")}
+    check((n["ok"], n["skipped"], n["error"]) == DRY_CELLS + (0,),
+          f"dry run: {n}, want {DRY_CELLS[0]} ok and {DRY_CELLS[1]} "
+          f"skipped")
+    check(all(r["card_bytes"] == torch.cuda.get_device_properties(0)
+              .total_memory for r in recs if r["status"] == "ok"),
+          "dry run: a cell did not read the card's memory")
+    log(f"tools: dry run of {len(recs)} cells on the one-card mesh in "
+        f"{secs:.2f} s: {json.dumps(n)}")
+    return recs, secs
+
+
+def step_vs_compute(torch, train_full_out):
+    """(b) Phase 13's measured step beside the dry run's compute term for
+    the same cell cut to its batch."""
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.launch.dryrun import tune_for_shape
+    from repro_torch.roofline.analysis import roofline_terms
+    from repro_torch.roofline.compositional import compositional_cost
+
+    cfg = get_config(TRAIN_ARCH)
+    shape = ShapeSpec("train_4k", train_full_out["seq"],
+                      train_full_out["batch"], "train")
+    tuned = compositional_cost(tune_for_shape(cfg, shape), shape)
+    run = compositional_cost(cfg, shape)       # phase 13's blocks of 512
+    terms = roofline_terms(tuned["flops"], tuned["bytes_unfused"], 0.0)
+    step = train_full_out["steady_step_s"]
+    out = dict(flops_dry_run=tuned["flops"], flops_phase13_blocks=run["flops"],
+               bytes_unfused=tuned["bytes_unfused"], roofline=terms,
+               step_s=step, step_over_compute=step / terms["compute_s"],
+               model_flops_share=train_full_out["mfu"])
+    log(f"tools: {TRAIN_ARCH} train at batch {shape.global_batch} x "
+        f"{shape.seq_len}: the dry run's compute term {terms['compute_s']:.4f}"
+        f" s ({tuned['flops']:.6g} GEMM FLOPs at attention blocks of 1024; "
+        f"{run['flops']:.6g} at phase 13's 512), memory term "
+        f"{terms['memory_s']:.4f} s (unfused bytes); phase 13's step "
+        f"{step:.4f} s = {out['step_over_compute']:.3f} x the compute term; "
+        f"model-FLOPs share {out['model_flops_share']:.4f}")
+    return out
+
+
+def pipeline_stages(torch, cfg, dev, dtype, seed):
+    """(c) PIPE_STAGES musicgen-large AttnBlocks on the card, their
+    parameters stacked [S, ...] by name, and the stage function (one
+    block by ``torch.func.functional_call``) with its positions."""
+    from repro_torch.models.transformer import AttnBlock
+
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    blocks = [AttnBlock(cfg, ("attn", "mlp"), gen, dev)
+              for _ in range(PIPE_STAGES)]
+    stacked = {k: torch.stack([dict(b.named_parameters())[k].detach()
+                               for b in blocks]).to(dtype)
+               for k, _ in blocks[0].named_parameters()}
+    block = blocks[0].to(dtype)
+    positions = torch.arange(PIPE_SEQ, device=dev)[None]
+
+    def stage_fn(p, x):
+        return torch.func.functional_call(block, p,
+                                          (cfg, x, positions))[0]
+    return stacked, stage_fn
+
+
+def pipeline_step(torch, run, params, x, tgt):
+    """Forward and backward of ``run(params, x)``'s mean squared error
+    against ``tgt``: (outputs, the parameters' gradients by name)."""
+    flat = {k: v.detach().requires_grad_(True) for k, v in params.items()}
+    with torch.enable_grad():
+        out = run(flat, x)
+        loss = torch.mean((out.float() - tgt) ** 2)
+        grads = torch.autograd.grad(loss, list(flat.values()))
+    return out.detach(), dict(zip(flat, grads))
+
+
+def pipeline_full(torch, seed, dev):
+    """(c) The pipeline at musicgen-large's width against serial
+    application, float32 then bf16."""
+    from repro_torch.configs import get_config
+    from repro_torch.train.pipeline import pipeline_apply
+
+    cfg = get_config(TRAIN_ARCH)
+    out = {"stages": PIPE_STAGES, "microbatches": PIPE_MICRO,
+           "seq": PIPE_SEQ}
+    for dtype in (torch.float32, torch.bfloat16):
+        name = str(dtype).removeprefix("torch.")
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        params, stage_fn = pipeline_stages(torch, cfg, dev, dtype, seed)
+        gen = torch.Generator(device=dev).manual_seed(seed + 1)
+        x = torch.randn((PIPE_MICRO, 1, PIPE_SEQ, cfg.d_model),
+                        generator=gen, device=dev).to(dtype)
+        tgt = torch.randn(x.shape, generator=gen, device=dev)
+
+        def piped(p, xs):
+            return pipeline_apply(stage_fn, p, xs)
+
+        def serial(p, xs):
+            ys = []
+            for m in range(PIPE_MICRO):
+                h = xs[m]
+                for s in range(PIPE_STAGES):
+                    h = stage_fn({k: v[s] for k, v in p.items()}, h)
+                ys.append(h)
+            return torch.stack(ys)
+
+        res, ms_ = {}, {}
+        for label, run in (("pipelined", piped), ("serial", serial)):
+            pipeline_step(torch, run, params, x, tgt)        # warm-up
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+            ev[0].record()
+            res[label] = pipeline_step(torch, run, params, x, tgt)
+            ev[1].record()
+            torch.cuda.synchronize()
+            ms_[label] = ev[0].elapsed_time(ev[1])
+        (y_p, g_p), (y_s, g_s) = res["pipelined"], res["serial"]
+        check(bool(torch.isfinite(y_p.float()).all()),
+              f"pipeline {name}: outputs not finite")
+        errs = {"output": float((y_p.float() - y_s.float()).abs().max())}
+        scale = {"output": float(y_s.float().abs().max())}
+        for k in g_s:
+            errs[k] = float((g_p[k].float() - g_s[k].float()).abs().max())
+            scale[k] = float(g_s[k].float().abs().max())
+        worst = max(errs[k] / max(scale[k], 1e-30) for k in errs)
+        if dtype == torch.float32:
+            check(worst <= PIPE_RTOL, f"pipeline float32: pipelined against "
+                  f"serial {worst:.3e} > {PIPE_RTOL} (relative): "
+                  f"{json.dumps(errs)}")
+        peak = torch.cuda.max_memory_allocated()
+        out[name] = dict(step_ms=ms_, max_abs_err=errs["output"],
+                         max_rel_err=worst, grad_max_abs_err=max(
+                             v for k, v in errs.items() if k != "output"),
+                         peak_bytes=peak)
+        log(f"tools: pipeline {name}, {PIPE_STAGES} stages of a "
+            f"{cfg.name} AttnBlock (d_model {cfg.d_model}, {cfg.n_heads} "
+            f"heads, d_ff {cfg.d_ff}), {PIPE_MICRO} microbatches of one "
+            f"{PIPE_SEQ}-token sequence, {PIPE_STAGES + PIPE_MICRO - 1} "
+            f"ticks: step (forward + backward, CUDA events) pipelined "
+            f"{ms_['pipelined']:.3f} ms, serial {ms_['serial']:.3f} ms; "
+            f"pipelined against serial: output max abs err "
+            f"{errs['output']:.3e}, worst relative (output and every "
+            f"gradient) {worst:.3e}; peak {peak} B "
+            f"({peak / 2**30:.3f} GiB)")
+        del params, stage_fn, piped, serial, x, tgt, res, y_p, y_s, g_p, g_s
+    torch.cuda.empty_cache()
+    return out
+
+
+def tools(torch, seed, train_full_out):
+    """Phase 14: (a) the dry run, (b) phase 13's step beside its compute
+    term, (c) the pipeline at full width, (d) the elastic self-test.
+    Returns (figures, the kernels' launches over the phase)."""
+    import contextlib
+    import io
+
+    from repro_torch.kernels import mamba_scan as ms
+    from repro_torch.kernels import ops
+    from repro_torch.train import elastic_selftest
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda")
+    t_phase = time.perf_counter()
+    zero_launches(ops)
+    ms.LAUNCHES["mamba_scan"] = 0
+    out = {}
+    recs, out["dry_run_s"] = dry_run_all(torch)
+    out["dry_run"] = {f"{r['arch']}/{r['shape']}": {
+        k: r[k] for k in ("status", "roofline", "fits_one_card", "flops",
+                          "bytes_unfused", "model_flops_global")
+        if k in r} for r in recs}
+    out["step_vs_compute"] = step_vs_compute(torch, train_full_out)
+    out["pipeline"] = pipeline_full(torch, seed, dev)
+    t0 = time.perf_counter()
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = elastic_selftest.main(["--device", "cuda"])
+    check(rc == 0 and "ELASTIC-SELFTEST-OK" in buf.getvalue(),
+          f"elastic self-test: {buf.getvalue()[-2000:]}")
+    out["selftest_s"] = time.perf_counter() - t0
+    log(f"tools: elastic self-test on the card in {out['selftest_s']:.2f} s: "
+        f"{' / '.join(ln for ln in buf.getvalue().splitlines() if ln.endswith(' ok'))}"
+        f"; ELASTIC-SELFTEST-OK")
+    launches = dict(ops.LAUNCHES, mamba_scan=ms.LAUNCHES["mamba_scan"])
+    torch.cuda.empty_cache()
+    out["phase_s"] = time.perf_counter() - t_phase
+    log(f"tools: phase 14 in {out['phase_s']:.1f} s; launches {launches}")
+    return out, launches
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -3402,7 +3640,6 @@ def main(argv=None) -> int:
         print("chip_smoke: CUDA is not available; this script measures the "
               "port on an NVIDIA GPU", file=sys.stderr)
         return 1
-    sys.path.insert(0, str(ROOT / "src"))
     from repro_torch.configs.histore import DEFAULT, scaled
     from repro_torch.kernels import _build
 
@@ -3487,6 +3724,11 @@ def main(argv=None) -> int:
     log(f"training: {json.dumps(train_times)}")
     for k in kernels:
         k["launches_training"] = train_launches[k["name"]]
+    torch.cuda.empty_cache()
+    tool_times, tool_launches = tools(torch, args.seed, train_times["full"])
+    log(f"tools: {json.dumps(tool_times)}")
+    for k in kernels:
+        k["launches_tools"] = tool_launches[k["name"]]
     torch.cuda.synchronize()
     log(f"total: {time.perf_counter() - t_start:.1f} s")
     print(smi)

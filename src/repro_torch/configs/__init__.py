@@ -2,8 +2,8 @@
 this package registers every assigned architecture.  The paper's own
 HiStore configuration is ``configs/histore.py``."""
 from repro_torch.configs.base import (  # noqa: F401
-    ModelConfig, ShapeSpec, SHAPES, Stage, layer_plan, shape_applicable,
-    get_config, all_archs, register,
+    ModelConfig, ShapeSpec, SHAPES, Stage, layer_plan, input_specs,
+    shape_applicable, get_config, all_archs, register,
 )
 
 # Assigned architectures (one module per arch id).

@@ -9,9 +9,8 @@ Python loop and uses the plan only to carry stacked weights across
 (``convert.py``).
 
 Input shapes are the four assigned shape points (train_4k / prefill_32k /
-decode_32k / long_500k).  ``input_specs`` (the JAX dry-run's
-ShapeDtypeStructs) is not ported: it waits for the roofline/dry-run item
-of ROADMAP.md.
+decode_32k / long_500k); ``input_specs`` gives a cell's model inputs as
+meta-device tensors, as the JAX package's dry run takes them.
 """
 from __future__ import annotations
 
@@ -237,6 +236,32 @@ def shape_applicable(cfg: ModelConfig, shape: ShapeSpec) -> tuple[bool, str]:
         return False, ("skip: pure full-attention arch; long_500k requires "
                        "sub-quadratic attention (see DESIGN.md)")
     return True, ""
+
+
+def input_specs(cfg: ModelConfig, shape: ShapeSpec) -> dict:
+    """Meta-device stand-ins for every model input (no allocation), the
+    JAX package's keys, shapes and dtypes.
+
+    train/prefill: token ids (or precomputed frontend embeddings for
+    vlm/audio stubs) + labels.  decode: one new token per sequence + per-seq
+    position, with the KV cache handled separately.
+    """
+    B, S = shape.global_batch, shape.seq_len
+    dt = cfg.param_dtype
+
+    def meta(shape, dtype):
+        return torch.empty(shape, dtype=dtype, device="meta")
+
+    T = S if shape.kind in ("train", "prefill") else 1
+    if cfg.frontend == "embed":
+        d = {"embeds": meta((B, T, cfg.d_model), dt)}
+    else:
+        d = {"tokens": meta((B, T), torch.int32)}
+    if shape.kind in ("train", "prefill"):
+        d["targets"] = meta((B, S), torch.int32)
+    else:
+        d["pos"] = meta((B,), torch.int32)
+    return d
 
 
 # ---------------------------------------------------------------------------

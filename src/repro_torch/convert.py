@@ -272,17 +272,39 @@ def _stack_lists(trees):
     return list(trees)
 
 
+def stage_layout(per_layer, cfg) -> list:
+    """A list of one tree a layer, in layer order, in the JAX package's
+    stage layout (``layer_plan``): a single stage its layer's tree, a
+    scanned stage a tuple, one tree a pattern position, whose leaves are
+    lists of that position's leaf in each repeat (JAX's [n_rep, ...]
+    stack).  For parameters (``param_tree``) and decode caches
+    (``init_cache``'s list)."""
+    from repro_torch.configs.base import layer_plan
+
+    stages, i = [], 0
+    for st in layer_plan(cfg):
+        L = len(st.pattern)
+        if st.kind == "single":
+            stages.append(per_layer[i])
+        else:
+            stages.append(tuple(
+                _stack_lists([per_layer[i + r * L + pos]
+                              for r in range(st.n_rep)])
+                for pos in range(L)))
+        i += st.n_rep * L
+    if i != len(per_layer):
+        raise ValueError(f"the plan covers {i} layers, the model has "
+                         f"{len(per_layer)}")
+    return stages
+
+
 def param_tree(model, cfg) -> dict:
     """The model's parameters (the tensors themselves) in the JAX
     package's params layout: ``embed``/``lm_head`` {"table"},
-    ``final_norm`` {"scale"}, ``shared``, and ``stages`` from
-    ``layer_plan``, a single stage one layer's dict and a scanned stage a
-    tuple, one dict a pattern position, whose leaves are lists of that
-    position's parameter in each repeat (JAX's [n_rep, ...] stack).  In
-    ``pytree`` order these are JAX's leaves, a stack's layers in repeat
-    order; AdamW and the global norm run over this tree."""
-    from repro_torch.configs.base import layer_plan
-
+    ``final_norm`` {"scale"}, ``shared``, and ``stages`` by
+    ``stage_layout``.  In ``pytree`` order these are JAX's leaves, a
+    stack's layers in repeat order; AdamW and the global norm run over
+    this tree."""
     tree = {}
     if hasattr(model, "embed"):
         tree["embed"] = {"table": model.embed}
@@ -291,21 +313,8 @@ def param_tree(model, cfg) -> dict:
     tree["final_norm"] = {"scale": model.final_norm}
     if model.shared is not None:
         tree["shared"] = _block_tree(model.shared)
-    stages, i = [], 0
-    for st in layer_plan(cfg):
-        L = len(st.pattern)
-        if st.kind == "single":
-            stages.append(_block_tree(model.layers[i]))
-        else:
-            stages.append(tuple(
-                _stack_lists([_block_tree(model.layers[i + r * L + pos])
-                               for r in range(st.n_rep)])
-                for pos in range(L)))
-        i += st.n_rep * L
-    if i != len(model.layers):
-        raise ValueError(f"the plan covers {i} layers, the model has "
-                         f"{len(model.layers)}")
-    tree["stages"] = stages
+    tree["stages"] = stage_layout([_block_tree(b) for b in model.layers],
+                                  cfg)
     return tree
 
 

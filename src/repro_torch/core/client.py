@@ -53,9 +53,6 @@ from repro_torch.core.results import (DeleteResult, FailResult, GetResult,
                                       PutResult, RecoverResult, ScanResult)
 from repro_torch.core.scatter import drop_set_rows
 
-SLICE_2 = "the distributed store (slice 2)"
-
-
 def _resolve_device(device, who: str = "LocalBackend") -> torch.device:
     """The card unless the caller names another device; no silent CPU."""
     dev = torch.device("cuda" if device is None else device)
@@ -243,17 +240,20 @@ class LocalBackend:
 
     def sever_server(self, server: int = 0):
         raise NotImplementedError(
-            f"heartbeat severing needs the lease detector of {SLICE_2}")
+            "heartbeat severing needs the distributed backend's "
+            "lease detector; LocalBackend liveness is host-side")
 
     def sever_data_server(self, server: int = 0):
         raise NotImplementedError(
-            f"data-server heartbeat severing needs the lease detector of "
-            f"{SLICE_2}")
+            "data-server heartbeat severing needs the distributed "
+            "backend's lease detector; LocalBackend owns a single "
+            "unreplicated shard")
 
     def fail_data_server(self, server: int = 0):
         raise NotImplementedError(
-            f"LocalBackend owns a single unreplicated value shard; "
-            f"data-server failures are modelled by {SLICE_2}")
+            "LocalBackend owns a single unreplicated value shard — no "
+            "surviving copy could exist; data-server failures are "
+            "modelled by DistributedBackend (cfg.n_value_replicas)")
 
     recover_data_server = fail_data_server
 

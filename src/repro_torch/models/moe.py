@@ -76,6 +76,14 @@ def route(cfg, params, xf):
     return logits, probs, eidx, gate
 
 
+def expert_counts(e_flat, E):
+    """Each expert's slot count, int64 [E]: ``torch.bincount``'s answer
+    as a sum of one-hot rows, which has a meta kernel (the dry run counts
+    this module on the meta device)."""
+    return torch.sum(e_flat[:, None] == torch.arange(E, device=e_flat.device),
+                     dim=0)
+
+
 def moe_apply(cfg, params, x):
     """x: [B,S,D] -> (y [B,S,D], aux_loss scalar float32)."""
     B, S, D = x.shape
@@ -84,7 +92,7 @@ def moe_apply(cfg, params, x):
     xf = x.reshape(T, D)
     logits, probs, eidx, gate = route(cfg, params, xf)
     # aux losses: load-balance (Switch) + router z-loss
-    density = torch.bincount(eidx.reshape(-1), minlength=E).float() / (T * k)
+    density = expert_counts(eidx.reshape(-1), E).float() / (T * k)
     aux = E * torch.sum(density * probs.mean(0))
     zloss = torch.mean(torch.logsumexp(logits, dim=-1) ** 2)
     aux_loss = 0.01 * aux + 0.001 * zloss
@@ -105,7 +113,7 @@ def dispatch_plan(cfg, eidx, C):
     order = torch.sort(e_flat, stable=True).indices
     e_s = e_flat[order]
     t_s = order // k
-    counts = torch.bincount(e_flat, minlength=E)
+    counts = expert_counts(e_flat, E)
     starts = torch.cumsum(counts, 0) - counts                      # exclusive
     rank = torch.arange(T * k, device=eidx.device) - starts[e_s]
     keep = rank < C

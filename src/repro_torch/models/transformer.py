@@ -263,16 +263,24 @@ def apply_model(cfg: ModelConfig, model: Model, inputs):
     B, S, _ = x.shape
     positions = torch.arange(S, device=x.device).expand(B, S)
     aux_total = torch.zeros((), dtype=F32, device=x.device)
-    remat = cfg.remat == "unit" and torch.is_grad_enabled()
     for block in model.layers:
-        if remat:
-            x, aux = checkpoint(block, cfg, x, positions, model.shared,
-                                use_reentrant=False)
-        else:
-            x, aux = block(cfg, x, positions, model.shared)
-        if aux is not None:                  # the MoE layers' losses
-            aux_total = aux_total + aux
+        x, aux_total = layer_step(cfg, block, x, positions, model.shared,
+                                  aux_total)
     x = rmsnorm(model.final_norm, x, cfg.norm_eps)
+    return x, aux_total
+
+
+def layer_step(cfg, block, x, positions, shared, aux_total):
+    """One layer of ``apply_model``: the block (checkpointed under
+    autograd with ``cfg.remat == "unit"``), its MoE loss added to
+    ``aux_total``.  Returns (x, aux_total)."""
+    if cfg.remat == "unit" and torch.is_grad_enabled():
+        x, aux = checkpoint(block, cfg, x, positions, shared,
+                            use_reentrant=False)
+    else:
+        x, aux = block(cfg, x, positions, shared)
+    if aux is not None:                      # the MoE layers' losses
+        aux_total = aux_total + aux
     return x, aux_total
 
 

@@ -58,14 +58,24 @@ def adamw_update(params, grads, state, *, lr=3e-4, b1=0.9, b2=0.95,
     bc2 = 1.0 - torch.pow(one * b2, stepf)
     for p, g, m, v in zip(leaves(params), leaves(grads),
                           leaves(state["m"]), leaves(state["v"])):
-        g = g.to(F32) * scale
-        m_new = b1 * m + (1 - b1) * g
-        v_new = b2 * v + (1 - b2) * g * g
-        mh = m_new / bc1
-        vh = v_new / bc2
-        pf = p.to(F32)
-        delta = mh / (torch.sqrt(vh) + eps) + weight_decay * pf
-        p.copy_((pf - lr * delta).to(p.dtype))
-        m.copy_(m_new)
-        v.copy_(v_new)
+        leaf_update(p, g, m, v, scale, bc1, bc2, lr=lr, b1=b1, b2=b2,
+                    eps=eps, weight_decay=weight_decay)
     return params, {"m": state["m"], "v": state["v"], "step": step}, gnorm
+
+
+@torch.no_grad()
+def leaf_update(p, g, m, v, scale, bc1, bc2, *, lr=3e-4, b1=0.9, b2=0.95,
+                eps=1e-8, weight_decay=0.1):
+    """``adamw_update``'s step of one leaf, in place: the clip ``scale``
+    and the bias corrections ``bc1``, ``bc2`` are the step's float32
+    scalars."""
+    g = g.to(F32) * scale
+    m_new = b1 * m + (1 - b1) * g
+    v_new = b2 * v + (1 - b2) * g * g
+    mh = m_new / bc1
+    vh = v_new / bc2
+    pf = p.to(F32)
+    delta = mh / (torch.sqrt(vh) + eps) + weight_decay * pf
+    p.copy_((pf - lr * delta).to(p.dtype))
+    m.copy_(m_new)
+    v.copy_(v_new)

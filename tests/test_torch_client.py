@@ -1,7 +1,7 @@
 """The port's HiStoreClient over LocalBackend, held against the JAX
 package's client and the dict + sorted-list Oracle on seeded traces,
-plus the port's device rule, its import boundary and the calls left for
-slice 2."""
+plus the port's device rule, its import boundary and the distributed
+store's calls, which LocalBackend refuses as JAX's does."""
 from __future__ import annotations
 
 import os
@@ -141,14 +141,20 @@ def test_default_device_is_the_card(monkeypatch):
 
 
 def test_out_of_scope_calls_raise():
-    """The distributed store's calls (slice 2) raise, naming the slice.
-    The ticker is not among them: JAX answers it on LocalBackend."""
+    """LocalBackend refuses the distributed store's calls with JAX's
+    messages, which name the distributed backend.  The ticker is not
+    among them: JAX answers it on LocalBackend."""
     c = HiStoreClient(LocalBackend(64, scaled(**TRACE_CFG), device="cpu"))
-    for call in (lambda: c.sever_server(0), lambda: c.sever_data_server(0),
-                 lambda: c.fail_data_server(0),
-                 lambda: c.recover_data_server(0)):
-        with pytest.raises(NotImplementedError, match="slice 2"):
-            call()
+    jc = JClient(JLocal(64, jscaled(**TRACE_CFG)))
+    for name in ("sever_server", "sever_data_server", "fail_data_server",
+                 "recover_data_server"):
+        msgs = []
+        for client in (jc, c):
+            with pytest.raises(NotImplementedError,
+                               match="[Dd]istributed[ B]") as e:
+                getattr(client, name)(0)
+            msgs.append(str(e.value))
+        assert msgs[0] == msgs[1], name
 
 
 def test_ticker_answers_as_jax_on_local_backend():
