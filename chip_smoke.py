@@ -145,6 +145,27 @@
    group probe, hash probe, merge and search must each have launched;
    the phase's seconds and peak memory are logged; every kernel record
    gets ``launches_dist_faults``.
+9c. The distributed store over ranks, one process a rank
+   (``repro_torch.launch.ranks.spawn``, ``core/comm.py``), at phase 7's
+   sizes and config (8 groups of 2**21 slots, capacity_q 1024, leases
+   off), its workload drawn from ``--seed``: a load of 2**22 keys, 4
+   mixed rounds (PUT, DELETE with absent keys, GET, apply, GC, 4 SCANs),
+   a read-back, drain and ``parity_report``, index server 3 failed, 4
+   degraded rounds, ``recover_server(3)`` (with the migration), a
+   read-back, drain and ``parity_report``; every answer checked against
+   the run's live set.  It runs first on one process (no process group),
+   then over W ranks of NCCL, W the largest of 1, 2, 4, 8 no more than
+   the cards (rank r on cuda:r; the kernels built once before the
+   spawn); then, gloo taking CUDA tensors, over 4 gloo ranks sharing the
+   card at a quarter of the load, against a one-process run of that
+   load.  On every rank the sha256 of every answer, and on rank 0 of
+   every leaf of the store gathered over the ranks, must equal the
+   one-process run's; the hash probe, search, group probe and merge
+   must launch on every rank.  Logged a rank: PUT/s, GET/s, SCAN ms,
+   the collectives a PUT chunk, GET chunk and SCAN with their bytes,
+   the host ms of one exchange, shift, all_gather and all-reduce call
+   (synchronized), peak memory.  Every kernel record gets
+   ``launches_dist_ranks`` (NCCL rank 0's).
 10. The serving path of falcon-mamba-7b (configs/falcon_mamba_7b.py) at
     full width and depth in bf16, the weights drawn on the card from
     ``--seed`` (parameter count and peak memory logged): a warm-up
@@ -266,6 +287,7 @@ Exits nonzero, printing no result, without CUDA or outside a checkout.
 from __future__ import annotations
 
 import argparse
+import hashlib
 import json
 import re
 import subprocess
@@ -2318,6 +2340,301 @@ def compare_group_probe_degraded(torch, cfg, probe_at):
     return err, c
 
 
+RANK_WORLDS = (1, 2, 4, 8)         # phase 9c: the largest <= the cards
+RANK_ROUNDS = 4                   # 9c's mixed rounds, healthy and degraded
+RANK_TIMEOUT_S = 420              # each spawn of 9c, its process groups too
+RANK_FAIL = 3                     # the index server 9c fails and recovers
+# gloo's all_to_all_single and all_gather take CUDA tensors (checked on the
+# card: the PR 27 entry of PERF.md), so 9c also runs 4 ranks over gloo
+# sharing the one card, at a quarter of the load: at the full load that
+# run took 105 s of the phase's 182
+GLOO_CUDA = True
+GLOO_LOAD_CUT = 4
+RANK_KERNELS = ("hash_probe", "sorted_search", "group_probe", "merge")
+# phase 7's sizes (the gloo run cuts the load)
+RANK_SIZES = {"keys": DIST_KEYS, "capacity": DIST_CAPACITY,
+              "capacity_q": DIST_CAPACITY_Q, "chunk": CHUNK}
+
+
+def _digest(*xs):
+    """sha256 of arrays or tensors, their dtypes and shapes included."""
+    h = hashlib.sha256()
+    for x in xs:
+        a = np.ascontiguousarray(x.cpu().numpy() if hasattr(x, "cpu")
+                                 else np.asarray(x))
+        h.update(f"{a.dtype}{a.shape}".encode())
+        h.update(a.tobytes())
+    return h.hexdigest()
+
+
+def rank_client(cfg, sizes, device, comm=None):
+    from repro_torch.core.client import DistributedBackend, HiStoreClient
+
+    be = DistributedBackend(DIST_GROUPS, cfg, sizes["capacity"],
+                            capacity_q=sizes["capacity_q"], device=device,
+                            comm=comm)
+    return HiStoreClient(be, max_batch=sizes["chunk"])
+
+
+def rank_workload(torch, client, cfg, seed, sizes):
+    """Phase 9c's workload on ``client`` (a DistributedBackend of phase
+    7's size, on one process or over ranks): the same calls from
+    ``seed`` wherever it runs.  Returns (the sha256 of every answer in
+    order, the gathered store's leaves by path, figures)."""
+    from repro_torch.core import kvstore as kv
+    from repro_torch.kernels import mamba_scan as ms
+    from repro_torch.kernels import ops
+
+    be = client.backend
+    comm, dev = be.comm, be.device
+    n_load, CH = sizes["keys"], sizes["chunk"]
+    rng = np.random.default_rng(seed)
+    need = n_load + 2 * RANK_ROUNDS * CH // 2
+    uniq = np.unique(rng.integers(0, 2 ** 31 - 1, int(need * 1.02) + 1024))
+    check(len(uniq) >= need, "9c: not enough distinct keys drawn")
+    keys = uniq[rng.permutation(len(uniq))[:need]].astype(np.int32)
+    live = np.zeros(need, bool)
+    vals = (keys.astype(np.int64)[:, None]
+            * np.arange(1, cfg.value_words + 1) % (2 ** 31 - 1)).astype(
+                np.int32)
+    answers, fig = [], {}
+    n_put = [n_load]
+
+    def sync():
+        torch.cuda.synchronize(dev)
+
+    def per_op(n_ops):
+        st = comm.stats
+        return {k: {"calls": st["calls"][k] / n_ops,
+                    "bytes": st["bytes"][k] / n_ops} for k in st["calls"]}
+
+    def read_back(label):
+        idx = np.arange(n_put[0])
+        comm.reset_stats()
+        t0 = time.perf_counter()
+        r = client.get(keys[idx])
+        found = r.found.cpu().numpy()
+        sync()
+        t = time.perf_counter() - t0
+        answers.append(_digest(r.addrs, r.found, r.values, r.routed,
+                               r.hops))
+        check(np.array_equal(found, live[idx]), f"9c {label}: found")
+        check(np.array_equal(r.values.cpu().numpy()[found],
+                             vals[idx][found]), f"9c {label}: values")
+        fig[f"{label}_get_per_s"] = len(idx) / t
+        fig[f"{label}_collectives_per_get_chunk"] = per_op(
+            -(-len(idx) // CH))
+
+    def rounds(label):
+        for rnd in range(RANK_ROUNDS):
+            p = np.concatenate([
+                rng.choice(np.nonzero(live)[0], CH // 2, replace=False),
+                np.arange(n_put[0], n_put[0] + CH // 2)])
+            n_put[0] += CH // 2
+            vals[p] += 1
+            r = client.put(keys[p], vals[p])
+            answers.append(_digest(r.ok, r.addrs, r.replicas))
+            check(r.all_ok, f"9c {label} round {rnd}: PUT not acked")
+            live[p] = True
+            d = rng.choice(np.nonzero(live)[0], 3 * CH // 16,
+                           replace=False)
+            r = client.delete(np.concatenate([keys[d],
+                                              -keys[d[:CH // 16]] - 1]))
+            answers.append(_digest(r.ok, r.found, r.replicas))
+            check(r.found.cpu().numpy()[:len(d)].all(),
+                  f"9c {label} round {rnd}: DELETE found")
+            live[d] = False
+            g = rng.choice(n_put[0], CH, replace=False)
+            r = client.get(keys[g])
+            answers.append(_digest(r.addrs, r.found, r.values, r.routed,
+                                   r.hops))
+            check(np.array_equal(r.found.cpu().numpy(), live[g]),
+                  f"9c {label} round {rnd}: GET")
+            client.apply()
+            be.gc_round()
+            for _ in range(SCANS):
+                lo = int(rng.integers(0, 2 ** 31 - 2 ** 25))
+                r = client.scan(lo, lo + 2 ** 24)
+                answers.append(_digest(r.keys, r.addrs, r.count))
+                n = int(r.count)
+                want = np.sort(keys[live & (keys >= lo)
+                                    & (keys <= lo + 2 ** 24)])[:128]
+                check(n == len(want) and np.array_equal(
+                    r.keys.cpu().numpy()[:n], want),
+                    f"9c {label} round {rnd}: SCAN")
+
+    def parity(label):
+        client.drain()
+        report = kv.parity_report(be.store, cfg, comm=comm)
+        answers.append(_digest(np.frombuffer(json.dumps(report).encode(),
+                                             np.uint8)))
+        check(all(e["agree"] for e in report), f"9c {label}: parity")
+        check(report[-1]["live"] == int(live.sum()),
+              f"9c {label}: {report[-1]['live']} live slots")
+
+    zero_launches(ops)
+    ms.LAUNCHES["mamba_scan"] = 0
+    comm.reset_stats()
+    t0 = time.perf_counter()
+    r = client.put(keys[:n_load], vals[:n_load])
+    ok = r.ok.cpu().numpy()
+    sync()
+    fig["load_s"] = time.perf_counter() - t0
+    answers.append(_digest(r.ok, r.addrs, r.replicas))
+    check(ok.all(), f"9c load: {(~ok).sum()} PUTs not acknowledged")
+    live[:n_load] = True
+    fig["put_per_s"] = n_load / fig["load_s"]
+    fig["collectives_per_put_chunk"] = per_op(n_load // CH)
+    t0 = time.perf_counter()
+    rounds("healthy")
+    sync()
+    fig["healthy_rounds_s"] = time.perf_counter() - t0
+    read_back("read_back")
+    scan = client.metrics().latency["scan"]
+    fig["scan_ms"] = scan.mean * 1e3
+    comm.reset_stats()
+    client.scan(0, 2 ** 31 - 2)
+    fig["collectives_per_scan"] = per_op(1)
+    parity("healthy")
+    client.fail_server(RANK_FAIL)
+    t0 = time.perf_counter()
+    rounds("degraded")
+    sync()
+    fig["degraded_rounds_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    rr = client.recover_server(RANK_FAIL)
+    sync()
+    fig["recover_s"] = time.perf_counter() - t0
+    answers.append(_digest(np.array([rr.server, rr.online,
+                                     rr.re_replicated, rr.catch_up_pending,
+                                     client.stats["migrated"]])))
+    read_back("recovered")
+    parity("recovered")
+    fig["launches"] = dict(ops.LAUNCHES, mamba_scan=ms.LAUNCHES["mamba_scan"])
+    fig["ops"] = {k: client.stats[k] for k in ("puts", "gets", "deletes",
+                                               "scans", "retries",
+                                               "migrated")}
+    whole = kv.gathered(be.store, comm)
+    leaves = {}
+    if comm.rank == 0:
+        for path, leaf in _store_leaves(whole):
+            leaves[path] = _digest(leaf)
+    return answers, leaves, fig
+
+
+def _store_leaves(x, path=""):
+    if hasattr(x, "_fields"):
+        for f in x._fields:
+            yield from _store_leaves(getattr(x, f),
+                                     f"{path}.{f}" if path else f)
+    else:
+        yield path, x
+
+
+def collective_ms(torch, comm, sizes, iters=50):
+    """Host milliseconds a call (synchronized) of the Comm's collectives
+    at the workload's shapes: a GET chunk's key exchange, a PUT's shift
+    of its lanes, a SCAN's all_gather."""
+    dev = comm.device
+    L, G, CH = comm.L, comm.G, sizes["chunk"]
+    x = {"k": torch.zeros((L, G * sizes["capacity_q"]), dtype=torch.int32,
+                          device=dev)}
+    lanes = torch.zeros((L, CH // G), dtype=torch.int32, device=dev)
+    scan = torch.zeros((L, 2, 128), dtype=torch.int32, device=dev)
+    out = {}
+    one = torch.ones((), dtype=torch.int64, device=dev)
+    for name, fn in (("exchange", lambda: comm.exchange(x)),
+                     ("shift", lambda: comm.shift(lanes, 1)),
+                     ("all_gather", lambda: comm.all_gather(scan)),
+                     ("agree", lambda: comm.agree(one))):
+        fn()
+        torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize(dev)
+        out[name] = (time.perf_counter() - t0) / iters * 1e3
+    return out
+
+
+def rank_phase(rank, world, device, seed, sizes):
+    """One rank of phase 9c (run by ``launch/ranks.spawn``)."""
+    import torch
+
+    from repro_torch.configs.histore import scaled
+    from repro_torch.launch import ranks
+
+    cfg = scaled(lease_misses=0)
+    torch.cuda.reset_peak_memory_stats(device)
+    comm = ranks.comm(DIST_GROUPS, device)
+    client = rank_client(cfg, sizes, device, comm)
+    answers, leaves, fig = rank_workload(torch, client, cfg, seed, sizes)
+    fig["peak_bytes"] = torch.cuda.max_memory_allocated(device)
+    fig["collective_ms"] = collective_ms(torch, comm, sizes)
+    fig["device"] = str(device)
+    return answers, leaves, fig
+
+
+def dist_ranks(torch, seed):
+    """Phase 9c: the distributed store over ranks, one process a rank,
+    held bit for bit against the one-process backend on the same
+    workload.  Returns (figures, rank 0's launches over NCCL)."""
+    from repro_torch.configs.histore import scaled
+    from repro_torch.launch import ranks
+
+    cfg = scaled(lease_misses=0)
+    W = max(w for w in RANK_WORLDS if w <= torch.cuda.device_count())
+    t_phase = time.perf_counter()
+    out = {}
+
+    def one_process(sz):
+        torch.cuda.reset_peak_memory_stats()
+        client = rank_client(cfg, sz, torch.device("cuda"))
+        answers, leaves, fig = rank_workload(torch, client, cfg, seed, sz)
+        fig["peak_bytes"] = torch.cuda.max_memory_allocated()
+        del client
+        torch.cuda.empty_cache()
+        log(f"ranks: one process at {sz['keys']} keys, {len(answers)} "
+            f"answers, {len(leaves)} leaves: {json.dumps(fig)}")
+        out[f"one_process_{sz['keys']}"] = fig
+        return answers, leaves
+
+    runs = [("nccl", W, "nccl", RANK_SIZES)]
+    if GLOO_CUDA:
+        runs.append(("gloo4", 4, "gloo", dict(
+            RANK_SIZES, keys=RANK_SIZES["keys"] // GLOO_LOAD_CUT)))
+    launches = None
+    for name, world, backend, sz in runs:
+        answers, leaves = one_process(sz)
+        t0 = time.perf_counter()
+        res = ranks.spawn(rank_phase, world, device="cuda", backend=backend,
+                          timeout_s=RANK_TIMEOUT_S, args=(seed, sz))
+        wall = time.perf_counter() - t0
+        for r, (a, _, f) in enumerate(res):
+            first = next((i for i, (x, y) in enumerate(zip(a, answers))
+                          if x != y), min(len(a), len(answers)))
+            check(a == answers, f"9c {name} rank {r}: answers differ from "
+                  f"the one-process run from call {first}")
+            for k in RANK_KERNELS:
+                check(f["launches"][k] > 0,
+                      f"9c {name} rank {r}: kernel {k} was not launched")
+        check(res[0][1] == leaves,
+              f"9c {name}: gathered leaves differ: "
+              f"{[k for k in leaves if res[0][1].get(k) != leaves[k]][:5]}")
+        figs = [f for _, _, f in res]
+        out[name] = {"world": world, "backend": backend, "keys": sz["keys"],
+                     "wall_s": wall, "ranks": figs}
+        log(f"ranks: {name}: W = {world} over {backend} at {sz['keys']} "
+            f"keys, answers and the gathered leaves bit-equal to one "
+            f"process; {wall:.1f} s with the processes' start; "
+            + json.dumps(figs))
+        if launches is None:
+            launches = figs[0]["launches"]
+    out["phase_s"] = time.perf_counter() - t_phase
+    log(f"ranks: phase 9c in {out['phase_s']:.1f} s")
+    return out, launches
+
+
 SERVE_ARCH = "falcon-mamba-7b"
 SERVE_SLOTS, SERVE_MAX_LEN, SERVE_PAGE = 4, 256, 16
 SERVE_REQUESTS = 8               # first run: two waves over the 4 slots
@@ -3699,14 +4016,19 @@ def main(argv=None) -> int:
     gp_rec["max_abs_err"] = max(gp_rec["max_abs_err"], err)
     gp_rec["degraded"] = degraded
     torch.cuda.empty_cache()
+    rank_times, rank_launches = dist_ranks(torch, args.seed)
+    log(f"ranks: {json.dumps(rank_times)}")
+    torch.cuda.empty_cache()
     scan_rec, s_times, s_launches = serving(torch, args.seed)
     log(f"serve: {json.dumps(s_times)}")
     for k in kernels:
         k["launches_fail_recover"] = fr_launches[k["name"]]
         k["launches_distributed"] = d_launches[k["name"]]
         k["launches_dist_faults"] = f_launches[k["name"]]
+        k["launches_dist_ranks"] = rank_launches[k["name"]]
         k["launches_serving"] = s_launches[k["name"]]
     scan_rec["launches_dist_faults"] = f_launches["mamba_scan"]
+    scan_rec["launches_dist_ranks"] = rank_launches["mamba_scan"]
     kernels.append(scan_rec)
     torch.cuda.empty_cache()
     dense_times, dense_launches = dense_serving(torch, args.seed)

@@ -7,8 +7,11 @@ Modules (the same names as the JAX package's ``core``):
   log           — append-only update log with an applied prefix
   index_group   — 1 hash + N sorted replicas + logs, failure/recovery
   data_plane    — the value plane: slot allocator, mirrors, free queues
-  verbs         — the RDMA verbs over G groups stacked on one device
+  comm          — the store's collectives over W ranks (one process: none)
+  verbs         — the RDMA verbs over G groups (stacked on one device, or
+                  G / W a rank through comm)
   kvstore       — the distributed store over G index groups
+  dist_selftest — the distributed protocol battery over W ranks
   tree          — NamedTuple states stacked along [G] / [R, G] axes
   client        — HiStoreClient over LocalBackend / DistributedBackend
   results       — PutResult/GetResult/DeleteResult/ScanResult,

@@ -4,6 +4,7 @@
     client = HiStoreClient(LocalBackend(4096, cfg))        # on cuda
     client = HiStoreClient(LocalBackend(4096, cfg, device="cpu"))
     client = HiStoreClient(DistributedBackend(8, cfg, 4096))  # 8 groups
+    client = HiStoreClient(DistributedBackend(8, cfg, 4096, comm=comm))
 
     res = client.put(keys, values)       # PutResult(ok, addrs, retries)
     res = client.get(keys)               # GetResult(addrs, found, acc, vals)
@@ -21,10 +22,15 @@ the value migration after every recovery (``migrate_on_recover``).  The
 port runs eagerly: ``jax.jit`` has no counterpart here.
 
 ``DistributedBackend`` runs the distributed store: G index groups
-stacked on one device (``kvstore.py``), with index- and data-server
-failures (oracle ``fail_*`` and heartbeat-severing ``sever_*``),
-online recovery with re-replication, value migration, and the lease
-detector with its background ticker (wall-clock or rounds leases).
+stacked on one device (``kvstore.py``), or over the W ranks of a
+``Comm`` (``comm.py``; one process a card, each holding G / W groups),
+with index- and data-server failures (oracle ``fail_*`` and
+heartbeat-severing ``sever_*``), online recovery with re-replication,
+value migration, and the lease detector with its background ticker
+(wall-clock or rounds leases).  Over ranks the client is SPMD: every
+rank makes the same calls with the same global inputs and gets the
+whole answer; the ticker and the data servers' fail / sever / recover
+stay one-rank only.
 Under wall-clock leases the client paces its retries
 (``_retry_pause``) so a retry loop spans a lease timeout, and a SCAN
 that missed a group retries while a stalled heartbeat is being watched,
@@ -48,6 +54,7 @@ from repro_torch.core import log as lg
 from repro_torch.core import telemetry as tm
 from repro_torch.core import tree
 from repro_torch.core.backend import Backend  # noqa: F401  (re-export)
+from repro_torch.core.comm import Comm
 from repro_torch.core.hashing import I32, key_dtype, key_inf, next_pow2
 from repro_torch.core.results import (DeleteResult, FailResult, GetResult,
                                       PutResult, RecoverResult, ScanResult)
@@ -320,26 +327,34 @@ def _lease_ticker_loop(ref, stop: threading.Event) -> None:
 
 
 class DistributedBackend:
-    """The kvstore ops over ``groups`` index groups stacked on one device
-    (the JAX package's takes a mesh of G devices; one card has none):
-    routed two-sided PUT/DELETE with log replication, one-sided GET with
-    the second-hop fetch, the all-gathered SCAN, the value plane's GC
-    flush and migration, index- and data-server failure and recovery,
-    and lease-based failure detection with its background ticker.  All
-    state lives on ``device``: the card unless the caller passes
-    another."""
+    """The kvstore ops over ``groups`` index groups (the JAX package's
+    takes a mesh of G devices): routed two-sided PUT/DELETE with log
+    replication, one-sided GET with the second-hop fetch, the
+    all-gathered SCAN, the value plane's GC flush and migration, index-
+    and data-server failure and recovery, and lease-based failure
+    detection with its background ticker.  Without ``comm`` the groups
+    are stacked on one device; with one (``comm.py``), over its ranks,
+    each holding G / W of them, every rank running the same calls.  All
+    state lives on ``device``: the card (the comm's) unless the caller
+    passes another."""
 
     def __init__(self, groups: int, cfg, capacity_per_group: int = 4096, *,
-                 capacity_q: int = 64, scan_limit: int = 128, device=None):
+                 capacity_q: int = 64, scan_limit: int = 128, device=None,
+                 comm=None):
+        self.comm = comm if comm is not None else Comm.single(groups)
+        if device is None:
+            device = self.comm.device
         self.device = _resolve_device(device, "DistributedBackend")
         self.cfg = cfg
         self.telemetry = tm.Telemetry(getattr(cfg, "telemetry",
                                               "counters"))
         self.G = groups
-        self.store = kv.create(groups, capacity_per_group, cfg, self.device)
+        self.store = kv.create(groups, capacity_per_group, cfg, self.device,
+                               self.comm)
         self.capacity_q = capacity_q
         self.scan_limit = scan_limit
-        self.ops = kv.make_ops(cfg, groups, capacity_q, scan_limit)
+        self.ops = kv.make_ops(cfg, groups, capacity_q, scan_limit,
+                               self.comm)
         self.batch_multiple = groups
         self.value_words = cfg.value_words
         self.max_mutation_batch = cfg.log_capacity
@@ -420,9 +435,10 @@ class DistributedBackend:
             self.store = self.ops["tick"](self.store)
         now = time.monotonic()
         self._last_traffic_t = now
-        # one device-to-host copy for both planes' counters
-        hb, dhb = torch.stack([self.store.hb,
-                               self.store.data.hb]).cpu().numpy()
+        # one device-to-host copy for both planes' counters (gathered
+        # over the ranks)
+        hb, dhb = self.comm.all_gather(torch.stack(
+            [self.store.hb, self.store.data.hb], 1)).T.cpu().numpy()
         self._age_plane(hb, self._last_hb, self._hb_misses, self._hb_t,
                         self._dead, self._demote, now)
         self._age_plane(dhb, self._last_data_hb, self._data_hb_misses,
@@ -434,7 +450,10 @@ class DistributedBackend:
     def _age_plane(self, hb, last, misses, last_t, dead, demote,
                    now: float):
         """Age one plane's leases against its freshly read counters (the
-        one aging body both planes share)."""
+        one aging body both planes share).  The ranks' wall clocks
+        differ, so over ranks a wall-clock expiry on any rank demotes on
+        all of them."""
+        expired = np.zeros((self.G,), bool)
         for g in range(self.G):
             if g in dead:
                 continue
@@ -443,8 +462,11 @@ class DistributedBackend:
                 last_t[g] = now
             else:
                 misses[g] += 1
-                if self._lease_expired(misses, last_t, g, now):
-                    demote(g, detected=True)
+                expired[g] = self._lease_expired(misses, last_t, g, now)
+        if self.lease_clock == "wall" and self.comm.distributed:
+            expired = self.comm.agree(torch.as_tensor(expired)).cpu().numpy()
+        for g in np.nonzero(expired)[0]:
+            demote(int(g), detected=True)
 
     def _demote(self, g: int, detected: bool = False):
         """Degraded routing for index server ``g``: the client-side half
@@ -486,7 +508,14 @@ class DistributedBackend:
         heartbeat-only tick round, so wall-clock leases expire with zero
         foreground ops.  No-op when detection is off.  Returns True if a
         ticker is running, and False when a previous one gave up after
-        repeated tick errors (``stop_ticker()`` clears that latch)."""
+        repeated tick errors (``stop_ticker()`` clears that latch).
+        Raises over more than one rank: the thread would call collectives
+        at its own times, on one rank only."""
+        if self.comm.world > 1:
+            raise NotImplementedError(
+                f"start_ticker over {self.comm.world} ranks: the background "
+                "lease ticker across ranks (ticks agreed by every rank) is "
+                "not ported yet; age the leases with foreground traffic")
         if self.lease_misses <= 0:
             return False
         if self._ticker_gave_up:
@@ -568,7 +597,7 @@ class DistributedBackend:
             hia = hi.reshape(1).expand(self.G)
             # the result width is static: one scan op per distinct limit
             scan_op = (self.ops if limit == self.scan_limit else kv.make_ops(
-                self.cfg, self.G, self.capacity_q, limit))["scan"]
+                self.cfg, self.G, self.capacity_q, limit, self.comm))["scan"]
             k, a, covered, self.store = scan_op(self.store, loa, hia)
             n = (k != key_inf(k.dtype)).sum(dtype=I32)
             self._pending_bound = 0          # scan drained the logs
@@ -590,7 +619,8 @@ class DistributedBackend:
 
     def pending_frees(self) -> int:
         with self._mu:
-            return int(lg.pending_count(self.store.data.freeq).sum())
+            return int(self.comm.agree(
+                lg.pending_count(self.store.data.freeq).sum(), "sum"))
 
     def drain(self):
         with self._mu:
@@ -609,12 +639,13 @@ class DistributedBackend:
 
     def pending_ops(self) -> int:
         with self._mu:
-            return int((self.store.blog.tail
-                        - self.store.blog.applied).max())
+            return int(self.comm.agree(
+                (self.store.blog.tail - self.store.blog.applied).max(),
+                "max"))
 
     def telemetry_gauges(self) -> dict:
         with self._mu:
-            return kv.device_counters(self.store)
+            return kv.device_counters(self.store, self.comm)
 
     def migrate_values(self) -> int:
         """Background value migration: move degraded-write strays home and
@@ -622,7 +653,8 @@ class DistributedBackend:
         rounds.  Returns the values moved."""
         with self._mu:
             self.store, moved = kv.migrate_values(
-                self.store, self.cfg, apply_fn=self.ops["apply"])
+                self.store, self.cfg, apply_fn=self.ops["apply"],
+                comm=self.comm)
             return moved
 
     # -- failures and recovery ---------------------------------------------
@@ -642,7 +674,8 @@ class DistributedBackend:
     def fail_server(self, server: int) -> FailResult:
         with self._mu:
             wiped = self._wipe_capability("fail_server")
-            self.store = kv.fail_server(self.store, server, wipe=wiped)
+            self.store = kv.fail_server(self.store, server, wipe=wiped,
+                                        comm=self.comm)
             self._dead.add(server)
             # a known-dead server no longer "stalls"
             self._hb_misses[server] = 0
@@ -655,7 +688,8 @@ class DistributedBackend:
         says up until the lease detector (or a recovery) demotes it."""
         with self._mu:
             wiped = self._wipe_capability("sever_server")
-            self.store = kv.sever_server(self.store, server, wipe=wiped)
+            self.store = kv.sever_server(self.store, server, wipe=wiped,
+                                         comm=self.comm)
             self._severed.add(server)
             return FailResult(server, wiped)
 
@@ -673,10 +707,11 @@ class DistributedBackend:
             # a RecoveryError propagates with the host-side tracking and
             # the store untouched: the server stays routed-dead
             self.store = kv.recover_server(self.store, server, self.cfg,
-                                           online=online)
+                                           online=online, comm=self.comm)
             n_reb = 0
             if re_replicate:
-                self.store, n_reb = kv.re_replicate(self.store, self.cfg)
+                self.store, n_reb = kv.re_replicate(self.store, self.cfg,
+                                                    comm=self.comm)
             self._severed.discard(server)
             self._dead.discard(server)
             self._hb_misses[server] = 0
@@ -690,7 +725,7 @@ class DistributedBackend:
         with self._mu:
             wiped = self._wipe_capability("fail_data_server")
             self.store = kv.fail_data_server(self.store, server,
-                                             wipe=wiped)
+                                             wipe=wiped, comm=self.comm)
             self._data_dead.add(server)
             self._data_hb_misses[server] = 0   # see fail_server
             self._data_hb_t[server] = time.monotonic()
@@ -704,7 +739,7 @@ class DistributedBackend:
         with self._mu:
             wiped = self._wipe_capability("sever_data_server")
             self.store = kv.sever_data_server(self.store, server,
-                                              wipe=wiped)
+                                              wipe=wiped, comm=self.comm)
             self._data_severed.add(server)
             return FailResult(server, wiped)
 
@@ -716,7 +751,8 @@ class DistributedBackend:
                     server not in self._data_dead:
                 self._demote_data(server)
             self.store = kv.recover_data_server(
-                self.store, server, self.cfg, apply_fn=self.ops["apply"])
+                self.store, server, self.cfg, apply_fn=self.ops["apply"],
+                comm=self.comm)
             self._data_severed.discard(server)
             self._data_dead.discard(server)
             self._data_hb_misses[server] = 0

@@ -25,6 +25,11 @@
 The control-plane passes are eager and host-coordinated, as the JAX
 package's are; where JAX loops in Python over addresses or slots, the
 port runs the same step as tensor operations on the store's device.
+Over W ranks a rank holds the shards of its L groups ([L] leaves;
+``alive`` and ``sever`` replicated [G]); the audits read gathered state
+through the store's ``Comm``, the migration homes each group's strays
+on its owner, and the data servers' recovery and sweep run on one
+process only.
 This module never imports ``kvstore``: it touches only the store's
 fields, so the dependency points one way.
 """
@@ -39,6 +44,7 @@ from repro_torch.core import hash_index as hix
 from repro_torch.core import log as lg
 from repro_torch.core import sorted_index as six
 from repro_torch.core import tree
+from repro_torch.core.comm import Comm
 from repro_torch.core.hashing import I32, key_dtype
 from repro_torch.core.scatter import drop_set
 from repro_torch.kernels import ops as kops
@@ -61,34 +67,56 @@ class RecoveryError(RuntimeError):
 
 
 class DataPlane(NamedTuple):
-    vals: torch.Tensor     # [G, dcap, W] int32   primary copy of each shard
-    used: torch.Tensor     # [G, dcap] bool       slot allocator bitmap
-    mirror: torch.Tensor   # [Rv, G, dcap, W]     mirror[r, p] holds the
+    # L shards a rank (L = G on one process); alive and sever replicated
+    vals: torch.Tensor     # [L, dcap, W] int32   primary copy of each shard
+    used: torch.Tensor     # [L, dcap] bool       slot allocator bitmap
+    mirror: torch.Tensor   # [Rv, L, dcap, W]     mirror[r, p] holds the
     #                        copy of shard (p - r - 1) mod G
-    freeq: lg.UpdateLog    # leaves [G, fq]       pending remote frees
+    freeq: lg.UpdateLog    # leaves [L, fq]       pending remote frees
     alive: torch.Tensor    # [G] bool             data-server liveness
-    keys: torch.Tensor     # [G, dcap]            key stored with each slot
-    kmirror: torch.Tensor  # [Rv, G, dcap]        key copies, like mirror
-    fq_spill: torch.Tensor  # [G] int32           frees a full queue rejected
-    hb: torch.Tensor       # [G] int32            data-server heartbeats
+    keys: torch.Tensor     # [L, dcap]            key stored with each slot
+    kmirror: torch.Tensor  # [Rv, L, dcap]        key copies, like mirror
+    fq_spill: torch.Tensor  # [L] int32           frees a full queue rejected
+    hb: torch.Tensor       # [L] int32            data-server heartbeats
     sever: torch.Tensor    # [G] bool             crashed, not yet detected
 
 
-def create(G: int, dcap: int, cfg, device) -> DataPlane:
+# the group axis of each leaf (None: replicated [G])
+GROUP_AXES = DataPlane(vals=0, used=0, mirror=1, freeq=0, alive=None,
+                       keys=0, kmirror=1, fq_spill=0, hb=0, sever=None)
+
+
+def create(G: int, dcap: int, cfg, device, L=None) -> DataPlane:
+    """The value plane of G groups, the L (default G) of one rank."""
     W, Rv = cfg.value_words, cfg.n_value_replicas
+    L = G if L is None else L
     return DataPlane(
-        vals=torch.zeros((G, dcap, W), dtype=I32, device=device),
-        used=torch.zeros((G, dcap), dtype=torch.bool, device=device),
-        mirror=torch.zeros((Rv, G, dcap, W), dtype=I32, device=device),
-        freeq=tree.replicate(lg.create(cfg.log_capacity, device), G),
+        vals=torch.zeros((L, dcap, W), dtype=I32, device=device),
+        used=torch.zeros((L, dcap), dtype=torch.bool, device=device),
+        mirror=torch.zeros((Rv, L, dcap, W), dtype=I32, device=device),
+        freeq=tree.replicate(lg.create(cfg.log_capacity, device), L),
         alive=torch.ones((G,), dtype=torch.bool, device=device),
-        keys=torch.zeros((G, dcap), dtype=key_dtype(), device=device),
-        kmirror=torch.zeros((Rv, G, dcap), dtype=key_dtype(),
+        keys=torch.zeros((L, dcap), dtype=key_dtype(), device=device),
+        kmirror=torch.zeros((Rv, L, dcap), dtype=key_dtype(),
                             device=device),
-        fq_spill=torch.zeros((G,), dtype=I32, device=device),
-        hb=torch.zeros((G,), dtype=I32, device=device),
+        fq_spill=torch.zeros((L,), dtype=I32, device=device),
+        hb=torch.zeros((L,), dtype=I32, device=device),
         sever=torch.zeros((G,), dtype=torch.bool, device=device),
     )
+
+
+def store_comm(store, comm=None):
+    """``comm``, else the one-process comm of a store whose sharded
+    leaves hold every group; a store sharded over ranks must come with
+    its comm."""
+    if comm is not None:
+        return comm
+    d = store.data
+    G, L = int(d.alive.shape[0]), int(d.hb.shape[0])
+    if L != G:
+        raise ValueError(f"a store sharded {L} of {G} groups a rank needs "
+                         "its comm")
+    return Comm.single(G)
 
 
 def alloc(used, want):
@@ -159,15 +187,18 @@ def effective_alive(data) -> np.ndarray:
     return data.alive.cpu().numpy() & ~data.sever.cpu().numpy()
 
 
-def device_counters(data: DataPlane) -> dict:
+def device_counters(data: DataPlane, comm=None) -> dict:
     """The value plane's device counters as host ints (snapshot time
     only): live data servers, heartbeat total, frees rejected by a full
-    free queue (``fq_spill``) and the free queues' pending entries."""
+    free queue (``fq_spill``) and the free queues' pending entries, the
+    totals summed over ``comm``'s ranks."""
+    cm = comm if comm is not None else Comm.single(int(data.alive.shape[0]))
     return {
         "live_data_servers": int(data.alive.sum()),
-        "data_heartbeats": int(data.hb.sum()),
-        "fq_spill": int(data.fq_spill.sum()),
-        "freeq_pending": int(lg.pending_count(data.freeq).sum()),
+        "data_heartbeats": int(cm.agree(data.hb.sum(), "sum")),
+        "fq_spill": int(cm.agree(data.fq_spill.sum(), "sum")),
+        "freeq_pending": int(cm.agree(lg.pending_count(data.freeq).sum(),
+                                      "sum")),
     }
 
 
@@ -180,46 +211,45 @@ def drain_pair(srt, blog, cfg):
     return srt, blog
 
 
-def drain_all_logs(store, cfg, apply_fn=None):
+def drain_all_logs(store, cfg, apply_fn=None, comm=None):
     """Apply every pending backup-log entry of every replica: the
     serializability barrier in front of every control-plane pass.
     ``apply_fn`` (store -> store), when given, is the store's
     incremental apply op, run in rounds until the logs are empty;
-    otherwise each (replica, holder) pair is drained on its own."""
-    if int(lg.pending_count(store.blog).max()) == 0:
+    otherwise each (replica, holder) pair is drained on its own.  Over
+    ranks each rank drains its own holders, for as many apply rounds as
+    the ranks agree on (every round bumps the heartbeats, as on one
+    process)."""
+    cm = store_comm(store, comm)
+
+    def pending():
+        return int(cm.agree(lg.pending_count(store.blog).max(), "max"))
+
+    if pending() == 0:
         return store        # already drained: one sync
     if apply_fn is not None:
         rounds = max(1, -(-cfg.log_capacity // cfg.async_apply_batch))
         for _ in range(rounds):
             store = apply_fn(store)
-            if int(lg.pending_count(store.blog).max()) == 0:
+            if pending() == 0:
                 break
         return store
-    R, G = store.blog.tail.shape
+    R, L = store.blog.tail.shape
     pairs = [[drain_pair(tree.at(store.bsorted, r, h),
                          tree.at(store.blog, r, h), cfg)
-              for h in range(G)] for r in range(R)]
+              for h in range(L)] for r in range(R)]
     return store._replace(
         bsorted=tree.stack([[p[0] for p in row] for row in pairs]),
         blog=tree.stack([[p[1] for p in row] for row in pairs]))
 
 
-def _group_items(store, cfg, g: int):
-    """Live (keys, addrs) of group ``g`` as tensors on the store's
-    device, from its authority: the hash table when g's index server is
-    alive, else the first live (drained) sorted replica.  Call on a
-    drained store.  Liveness here is true liveness (alive minus
-    severed).  ``keys`` is None when only the raw hash slots answer."""
-    R, G = store.blog.tail.shape
-    alive = store.alive.cpu().numpy() & ~store.sever.cpu().numpy()
-    srt0 = None
-    for r in range(R):
-        h = (g + r + 1) % G
-        if alive[h] or G == 1:
-            srt0 = tree.at(store.bsorted, r, h)
-            break
-    if alive[g]:
-        hs = tree.at(store.hash, g)
+def _items_from(cfg, hs, srt0, dev):
+    """Live (keys, addrs) of one group from its authority: its hash
+    table ``hs`` (None: its index server is dead) checked against its
+    first live drained sorted replica ``srt0`` (None: no live holder),
+    else that replica.  ``keys`` is None when only the raw hash slots
+    answer."""
+    if hs is not None:
         if srt0 is not None:
             keys, _, valid = six.items(srt0)
             a_h, f_h, _ = kops.probe(cfg, hs, keys)
@@ -230,12 +260,55 @@ def _group_items(store, cfg, g: int):
         # replicas lost or out of sync: the raw hash slots (addresses
         # only, no keys recoverable)
         return None, hs.addr[hix.valid_mask(hs)]
-    dev = store.alive.device
     if srt0 is None:
         return (torch.zeros((0,), dtype=torch.int64, device=dev),
                 torch.zeros((0,), dtype=I32, device=dev))
     keys, addrs, valid = six.items(srt0)
     return keys[valid], addrs[valid]
+
+
+def _first_live_replica(g: int, alive, R: int, G: int):
+    """The first replica r whose holder g + r + 1 is alive (None: none)."""
+    return next((r for r in range(R) if alive[(g + r + 1) % G] or G == 1),
+                None)
+
+
+def _group_items(store, cfg, g: int, comm=None):
+    """Live (keys, addrs) of group ``g`` as tensors on the store's
+    device, from its authority (``_items_from``): the hash table when
+    g's index server is alive, else the first live (drained) sorted
+    replica.  Call on a drained store.  Liveness here is true liveness
+    (alive minus severed).  Over ranks every rank reads the group from
+    its owners."""
+    cm = store_comm(store, comm)
+    R, G = store.blog.tail.shape[0], cm.G
+    alive = store.alive.cpu().numpy() & ~store.sever.cpu().numpy()
+    r = _first_live_replica(g, alive, R, G)
+    srt0 = (None if r is None else
+            cm.group_leaves(tree.at(store.bsorted, r), (g + r + 1) % G))
+    hs = cm.group_leaves(store.hash, g) if alive[g] else None
+    return _items_from(cfg, hs, srt0, store.alive.device)
+
+
+def _own_group_items(store, cfg, cm):
+    """``_group_items`` of each of this rank's L groups, read where they
+    live: the hash rows are local, and each group's first live replica
+    comes home from its holder g + r + 1 by a shift of -(r + 1) (one
+    shift per replica index in use)."""
+    R, G = store.blog.tail.shape[0], cm.G
+    alive = store.alive.cpu().numpy() & ~store.sever.cpu().numpy()
+    first = [_first_live_replica(g, alive, R, G) for g in range(G)]
+    home = {r: type(store.bsorted)(*[cm.shift(x, -(r + 1)) for x in
+                                     tree.at(store.bsorted, r)])
+            for r in sorted(set(first) - {None})}
+    out = []
+    for i in range(cm.L):
+        g = cm.g0 + i
+        r = first[g]
+        out.append(_items_from(
+            cfg, tree.at(store.hash, i) if alive[g] else None,
+            None if r is None else tree.at(home[r], i), store.alive.device))
+    return out
 
 
 def _pending_free_addrs(freeq) -> np.ndarray:
@@ -249,17 +322,19 @@ def _pending_free_addrs(freeq) -> np.ndarray:
     return np.concatenate(out) if out else np.zeros((0,), np.int32)
 
 
-def keys_for_addrs(store, addrs: np.ndarray) -> np.ndarray:
+def keys_for_addrs(store, addrs: np.ndarray, comm=None) -> np.ndarray:
     """The key stored with each address, from the live shard's key
     column, else a surviving key mirror: the paper's rebuild of the
     index from the data items.  Raises RecoveryError when an address's
-    every data holder is dead."""
+    every data holder is dead.  Over ranks it reads the gathered key
+    columns."""
+    cm = store_comm(store, comm)
     G = int(store.alive.shape[0])
     dcap = int(store.data.vals.shape[1])
     Rv = int(store.data.kmirror.shape[0])
     dalive = effective_alive(store.data)
-    dkeys = store.data.keys.cpu().numpy()
-    kmir = store.data.kmirror.cpu().numpy()
+    dkeys = cm.all_gather(store.data.keys).cpu().numpy()
+    kmir = cm.all_gather(store.data.kmirror, 1).cpu().numpy()
     a = np.asarray(addrs, np.int64)
     s, j = a // dcap, a % dcap
     out = np.zeros((len(a),), dkeys.dtype)
@@ -278,7 +353,7 @@ def keys_for_addrs(store, addrs: np.ndarray) -> np.ndarray:
     return out
 
 
-def value_slot_audit(store, cfg, apply_fn=None) -> dict:
+def value_slot_audit(store, cfg, apply_fn=None, comm=None) -> dict:
     """Value-slot accounting audit (eager):
 
       * every live index address maps to an allocated slot on its shard
@@ -290,13 +365,15 @@ def value_slot_audit(store, cfg, apply_fn=None) -> dict:
 
     The JAX package counts orphans with a Python loop over the slots;
     here the referenced and pending slots are marked in bitmaps, which
-    counts the same slots."""
-    st = drain_all_logs(store, cfg, apply_fn)
+    counts the same slots.  Over ranks it reads gathered state and every
+    rank returns the same entry."""
+    cm = store_comm(store, comm)
+    st = drain_all_logs(store, cfg, apply_fn, cm)
     G = int(st.alive.shape[0])
     dcap = int(st.data.vals.shape[1])
     dalive = effective_alive(st.data)
-    used = st.data.used.cpu().numpy()
-    refs = np.concatenate([_group_items(st, cfg, g)[1].cpu().numpy()
+    used = cm.all_gather(st.data.used).cpu().numpy()
+    refs = np.concatenate([_group_items(st, cfg, g, cm)[1].cpu().numpy()
                            .astype(np.int64) for g in range(G)])
     refs = refs[refs >= 0]
     uniq, counts = np.unique(refs, return_counts=True)
@@ -304,13 +381,14 @@ def value_slot_audit(store, cfg, apply_fn=None) -> dict:
     shard, slot = uniq // dcap, uniq % dcap
     live_shard = dalive[shard]
     missing = int((~used[shard[live_shard], slot[live_shard]]).sum())
-    pending = np.unique(_pending_free_addrs(st.data.freeq).astype(np.int64))
+    pending = np.unique(_pending_free_addrs(
+        cm.gather_tree(st.data.freeq)).astype(np.int64))
     marked = np.zeros(G * dcap, bool)
     for a in (uniq, pending):
         marked[a[(a >= 0) & (a < G * dcap)]] = True
     marked = marked.reshape(G, dcap)
     orphaned = int((used & ~marked)[dalive].sum())
-    spill = int(st.data.fq_spill.sum())
+    spill = int(cm.agree(st.data.fq_spill.sum(), "sum"))
     return {"group": -1, "replica": -1, "holder": -1, "kind": "value_slots",
             "live": int(len(uniq)), "pending_free": int(len(pending)),
             "double": double, "missing": missing, "orphaned": orphaned,
@@ -319,7 +397,7 @@ def value_slot_audit(store, cfg, apply_fn=None) -> dict:
             and spill == 0}
 
 
-def group_items_from_data(store, cfg, g: int, owner_group_fn):
+def group_items_from_data(store, cfg, g: int, owner_group_fn, comm=None):
     """Last-resort rebuild authority: every allocated slot on every live
     data shard with its stored key, kept where the key is owned by group
     ``g`` (``owner_group_fn`` is the routing hash, injected to keep this
@@ -328,7 +406,8 @@ def group_items_from_data(store, cfg, g: int, owner_group_fn):
     dead and excluded.  Raises RecoveryError when a dead data shard
     could be hiding slots.  The JAX package walks the slots in a Python
     loop; here one mask over the [G * dcap] slots gives the same pairs
-    in the same order."""
+    in the same order.  Over ranks it reads the gathered shards."""
+    cm = store_comm(store, comm)
     G = int(store.alive.shape[0])
     dcap = int(store.data.vals.shape[1])
     dalive = effective_alive(store.data)
@@ -339,12 +418,14 @@ def group_items_from_data(store, cfg, g: int, owner_group_fn):
             searched=["sorted replicas", "hash", "data-plane slots"],
             blockers=[f"data server {s}" for s in dead_shards])
     dev = store.data.used.device
-    live = store.data.used.reshape(-1).clone()
+    live = cm.all_gather(store.data.used).reshape(-1).clone()
+    dkeys = cm.all_gather(store.data.keys)
     pend = torch.as_tensor(
-        _pending_free_addrs(store.data.freeq).astype(np.int64), device=dev)
+        _pending_free_addrs(cm.gather_tree(store.data.freeq))
+        .astype(np.int64), device=dev)
     live[pend[(pend >= 0) & (pend < G * dcap)]] = False
     ads = torch.nonzero(live).flatten()
-    ks = store.data.keys.reshape(-1)[ads]
+    ks = dkeys.reshape(-1)[ads]
     sel = owner_group_fn(ks, G) == g
     return ks[sel].cpu().numpy(), ads[sel].to(I32).cpu().numpy()
 
@@ -474,7 +555,7 @@ def recover_data_server(store, dev: int, cfg, apply_fn=None):
     return sweep(store._replace(data=data), cfg, apply_fn)
 
 
-def migrate_values(store, cfg, owner_group_fn, apply_fn=None):
+def migrate_values(store, cfg, owner_group_fn, apply_fn=None, comm=None):
     """Background value migration (second-hop fetch elision): move values
     that live off their owner group's shard, stranded there by degraded
     writes, back home, free the old slots, and patch the index
@@ -489,103 +570,164 @@ def migrate_values(store, cfg, owner_group_fn, apply_fn=None):
     stranded addresses in Python, here one tensor step takes them all:
     the lowest free home slots in ascending order, a partial migration
     when the home shard is full, the frees of dead shards kept in order
-    for device 0's free queue."""
-    st = drain_all_logs(store, cfg, apply_fn)
-    G = int(st.alive.shape[0])
+    for device 0's free queue.
+
+    Over W ranks each group is homed by its owner.  Every rank learns
+    every group's stranded addresses (an all_gather of a few addresses a
+    group) and replays the groups' order on the host: how many each
+    group takes (its shard's free slots, plus those that earlier groups
+    freed there) and which slots each frees.  That count needs each
+    stranded slot allocated and referenced once, which the value-slot
+    audit checks (no address missing or double).  The values come from
+    the rank that holds each (a ``psum``), the new slots from each
+    group's owner (an all_gather), and every rank writes only its own
+    rows: shards, mirrors, hash tables and sorted replicas."""
+    cm = store_comm(store, comm)
+    st = drain_all_logs(store, cfg, apply_fn, cm)
+    G, L, g0 = cm.G, cm.L, cm.g0
     R = int(st.blog.tail.shape[0])
     dcap = int(st.data.vals.shape[1])
     Rv = int(st.data.mirror.shape[0])
     dalive = effective_alive(st.data)
     data = st.data
     dev = data.used.device
+    mine = (np.arange(G) >= g0) & (np.arange(G) < g0 + L)
     # flush pending frees first so their slots are reusable for homing
     used = data.used.clone()
-    pend = _pending_free_addrs(data.freeq).astype(np.int64)
-    ps = pend // dcap
-    here = dalive[ps % G]
-    used[torch.as_tensor(ps[here] % G, device=dev),
-         torch.as_tensor(pend[here] % dcap, device=dev)] = False
+    pend = _pending_free_addrs(cm.gather_tree(data.freeq)).astype(np.int64)
+    ps = (pend // dcap) % G
+    here = dalive[ps]
+    flush = here & mine[ps]
+    used[torch.as_tensor(ps[flush] - g0, device=dev),
+         torch.as_tensor(pend[flush] % dcap, device=dev)] = False
     kept_frees = [pend[~here]]
     freeq = lg.clear(data.freeq)
-    vals, mirror = data.vals.clone(), data.mirror.clone()
-    dkeys, kmir = data.keys.clone(), data.kmirror.clone()
-    # the index leaves are copied once and patched in place below
-    hash_t = type(st.hash)(*[a.clone() for a in st.hash])
-    baddrs = st.bsorted.addrs.clone()
-    alive_idx = st.alive.cpu().numpy()
     # the first live mirror holder of each shard (-1: none)
     first_mirror = np.full((G,), -1, np.int64)
-    for s in range(G):
+    for sh in range(G):
         for r in range(Rv):
-            if dalive[(s + r + 1) % G]:
-                first_mirror[s] = r
+            if dalive[(sh + r + 1) % G]:
+                first_mirror[sh] = r
                 break
-    moved = 0
-    for g in range(G):
-        if not dalive[g]:
-            continue                     # home shard down: nothing to do yet
-        keys, addrs = _group_items(st, cfg, g)
-        if keys is None or len(keys) == 0:
+    # each own group's strays that have a live copy, in index order
+    strays = []
+    for i, (keys, addrs) in enumerate(_own_group_items(st, cfg, cm)):
+        g = g0 + i
+        if not dalive[g] or keys is None or len(keys) == 0:
+            strays.append(None)           # home shard down, or no keys
             continue
         addrs = addrs.to(torch.int64)
-        own = owner_group_fn(keys, G)
-        stale = (addrs >= 0) & (addrs // dcap != g) & (own == g)
+        stale = ((addrs >= 0) & (addrs // dcap != g)
+                 & (owner_group_fn(keys, G) == g))
         mk, ma = keys[stale], addrs[stale]
-        if not len(ma):
-            continue
-        # read each stranded value: the shard's copy, else the first
-        # surviving mirror; a value with no live copy stays in place
-        s_np = (ma // dcap).cpu().numpy()
-        s, j = ma // dcap, ma % dcap
-        on_shard = torch.as_tensor(dalive[s_np], device=dev)
-        r_m = torch.as_tensor(first_mirror[s_np], device=dev)
-        okv = on_shard | (r_m >= 0)
-        r_c = torch.clamp(r_m, min=0)
-        vv = torch.where(on_shard[:, None], vals[s, j],
-                         mirror[r_c, (s + r_c + 1) % G, j])
-        free_home = torch.nonzero(~used[g]).flatten()
-        take = torch.nonzero(okv).flatten()
-        n = min(int(take.shape[0]), int(free_home.shape[0]))
-        if n == 0:
-            continue
-        take = take[:n]                  # partial migration if home is full
-        new_slots = free_home[:n]
-        mk, ma, vv = mk[take], ma[take], vv[take]
-        vals[g, new_slots] = vv
-        dkeys[g, new_slots] = mk
-        used[g, new_slots] = True
-        for r in range(Rv):
-            h = (g + r + 1) % G
-            if dalive[h]:
-                mirror[r, h, new_slots] = vv
-                kmir[r, h, new_slots] = mk
-        ms = (ma // dcap).cpu().numpy()
-        back = dalive[ms]
-        used[ma[torch.as_tensor(back, device=dev)] // dcap,
-             ma[torch.as_tensor(back, device=dev)] % dcap] = False
-        kept_frees.append(ma.cpu().numpy()[~back])
-        new_addrs = (g * dcap + new_slots).to(I32)
-        if bool(alive_idx[g]):
-            hs, _ = hix.insert(tree.at(hash_t, g), mk, new_addrs, cfg)
-            for leaf, v in zip(hash_t, hs):
-                leaf[g] = v
-        for r in range(R):
-            h = (g + r + 1) % G
-            skeys = st.bsorted.keys[r, h]
-            cap = skeys.shape[0]
-            pos = torch.searchsorted(skeys, mk)             # left side
-            hit = skeys[torch.clamp(pos, 0, cap - 1)] == mk
-            baddrs[r, h] = drop_set(baddrs[r, h],
-                                    torch.where(hit, pos, cap), new_addrs)
-        moved += n
+        sh = (ma // dcap).cpu().numpy()
+        live = torch.as_tensor(dalive[sh] | (first_mirror[sh] >= 0),
+                               device=dev)
+        strays.append((mk[live], ma[live]))
+    cnt = cm.all_gather(torch.tensor(
+        [0 if x is None else int(x[1].shape[0]) for x in strays],
+        dtype=torch.int64, device=dev)).cpu().numpy()
+    width = int(cnt.max())
+    kdt = st.bsorted.keys.dtype
+    n = np.zeros((G,), np.int64)
+    if width:
+        K = torch.zeros((L, width), dtype=kdt, device=dev)
+        A = torch.zeros((L, width), dtype=torch.int64, device=dev)
+        for i, x in enumerate(strays):
+            if x is not None:
+                K[i, :x[0].shape[0]], A[i, :x[1].shape[0]] = x
+        K, A = cm.all_gather(K), cm.all_gather(A)
+        A_np = A.cpu().numpy()
+        # the groups' order, replayed: a group takes the lowest free
+        # slots of its shard (the stranded slots that earlier groups freed
+        # there among them) and frees its strays' slots on live shards
+        nfree = cm.all_gather((~used).sum(1)).cpu().numpy()
+        freed = [[] for _ in range(G)]          # slots freed on each shard
+        before = [np.zeros((0,), np.int64)] * G  # ... before its group ran
+        for g in range(G):
+            before[g] = np.asarray(freed[g], np.int64)
+            n[g] = min(int(cnt[g]), int(nfree[g]) + len(freed[g]))
+            a = A_np[g, :n[g]]
+            back = dalive[a // dcap]
+            for sh, j in zip(a[back] // dcap, a[back] % dcap):
+                freed[sh].append(j)
+            kept_frees.append(a[~back])
+    moved = int(n.sum())
+    if moved:
+        # the values, from the rank that holds each (its shard, else its
+        # first live mirror)
+        tg = np.repeat(np.arange(G), n)
+        tk = np.concatenate([np.arange(k) for k in n])
+        ta = A_np[tg, tk]
+        sh, j = ta // dcap, ta % dcap
+        on = dalive[sh]
+        rm = np.where(on, 0, first_mirror[sh])
+        hg = np.where(on, sh, (sh + rm + 1) % G)
+        vv = torch.zeros((len(ta), data.vals.shape[2]), dtype=data.vals.dtype,
+                         device=dev)
+        for src, pick in ((data.vals[None], on), (data.mirror, ~on)):
+            sel = np.nonzero(pick & mine[hg])[0]
+            vv[torch.as_tensor(sel, device=dev)] = src[
+                torch.as_tensor(rm[sel], device=dev),
+                torch.as_tensor(hg[sel] - g0, device=dev),
+                torch.as_tensor(j[sel], device=dev)]
+        vv = cm.psum(vv)
+        start = np.concatenate([[0], np.cumsum(n)])
+        # each own group's new home slots, the lowest free
+        NS = torch.zeros((L, width), dtype=torch.int64, device=dev)
+        for i in range(L):
+            g = g0 + i
+            if n[g]:
+                fh = ~used[i]
+                fh[torch.as_tensor(before[g], device=dev)] = True
+                NS[i, :n[g]] = torch.nonzero(fh).flatten()[:n[g]]
+        NS = cm.all_gather(NS)
+        # the strays' old slots freed on own live shards
+        for sh_ in np.nonzero(mine)[0]:
+            if freed[sh_]:
+                used[sh_ - g0, torch.as_tensor(np.asarray(freed[sh_]),
+                                               device=dev)] = False
+        vals, mirror = data.vals.clone(), data.mirror.clone()
+        dkeys, kmir = data.keys.clone(), data.kmirror.clone()
+        # the index leaves are copied once and patched in place below
+        hash_t = type(st.hash)(*[a.clone() for a in st.hash])
+        baddrs = st.bsorted.addrs.clone()
+        alive_idx = st.alive.cpu().numpy()
+        for g in np.nonzero(n)[0]:
+            ns, mk = NS[g, :n[g]], K[g, :n[g]]
+            v = vv[start[g]:start[g + 1]]
+            new_addrs = (int(g) * dcap + ns).to(I32)
+            if mine[g]:
+                i = g - g0
+                vals[i, ns], dkeys[i, ns], used[i, ns] = v, mk, True
+                if bool(alive_idx[g]):
+                    hs, _ = hix.insert(tree.at(hash_t, i), mk, new_addrs,
+                                       cfg)
+                    for leaf, x in zip(hash_t, hs):
+                        leaf[i] = x
+            for r in range(Rv):
+                h = (g + r + 1) % G
+                if dalive[h] and mine[h]:
+                    mirror[r, h - g0, ns], kmir[r, h - g0, ns] = v, mk
+            for r in range(R):
+                h = (g + r + 1) % G
+                if not mine[h]:
+                    continue
+                skeys = st.bsorted.keys[r, h - g0]
+                cap = skeys.shape[0]
+                pos = torch.searchsorted(skeys, mk)             # left side
+                hit = skeys[torch.clamp(pos, 0, cap - 1)] == mk
+                baddrs[r, h - g0] = drop_set(
+                    baddrs[r, h - g0], torch.where(hit, pos, cap), new_addrs)
+        st = st._replace(hash=hash_t, bsorted=st.bsorted._replace(
+            addrs=baddrs))
+        data = data._replace(vals=vals, mirror=mirror, keys=dkeys,
+                             kmirror=kmir)
     kept = np.concatenate(kept_frees)
-    if len(kept):
+    if len(kept) and mine[0]:
         ka = torch.as_tensor(kept.astype(np.int32), device=dev)
         fq0, _ = lg.append(tree.at(freeq, 0),
                            torch.zeros_like(ka, dtype=freeq.keys.dtype), ka,
                            torch.ones_like(ka, dtype=torch.int8))
         freeq = tree.put(freeq, fq0, 0)
-    data = data._replace(vals=vals, used=used, mirror=mirror, freeq=freeq,
-                         keys=dkeys, kmirror=kmir)
-    return (st._replace(hash=hash_t, bsorted=st.bsorted._replace(
-        addrs=baddrs), data=data), moved)
+    return st._replace(data=data._replace(used=used, freeq=freeq)), moved

@@ -1,16 +1,19 @@
-"""RDMA-verb analogues over G index groups on one device (port of
+"""RDMA-verb analogues over G index groups (port of
 ``repro/core/verbs.py``).
 
 The JAX package runs one group per device under ``shard_map`` and maps
-the paper's verbs onto collectives.  Here the G devices' buffers are
-stacked along a leading [G] axis of one tensor on one card, and every
-collective becomes tensor indexing on that axis:
+the paper's verbs onto collectives.  Here a ``Comm`` (``comm.py``) does:
+over W ranks of a process group each holds L = G / W groups stacked
+along a leading [L] axis and the verbs are collectives; on one process
+(``Comm.single``, the default) the G groups are stacked on one card and
+every collective is tensor indexing on that axis:
 
-  one-sided READ / two-sided SEND -> ``route_build`` + ``exchange`` (an
-                      ``all_to_all``: a transpose of the [G, G, c]
-                      exchange buffers) + ``route_return``;
-  log replication  -> ``replicate_shift`` (a ``ppermute`` by +s: a roll
-                      along the [G] axis).
+  one-sided READ / two-sided SEND -> ``route_build`` (local) +
+                      ``Comm.exchange`` (an ``all_to_all``: on one
+                      process a transpose of the [G, G, c] exchange
+                      buffers) + ``route_return``;
+  log replication  -> ``Comm.shift`` (a ``ppermute`` by +s: on one
+                      process a roll along the [G] axis).
 
 Routing is capacity-based: each device sends at most ``capacity``
 entries to each destination; overflow lanes are reported to the caller,
@@ -66,23 +69,11 @@ def route_build(dest, payloads: dict, n_dev: int, capacity: int):
     return bufs, slot, ok
 
 
-def exchange(bufs: dict):
-    """``all_to_all`` of a dict of [D, D * c, ...] buffers (forward or
-    reverse): device d's chunk j goes to device j's chunk d."""
-    out = {}
-    for name, arr in bufs.items():
-        D = arr.shape[0]
-        c = arr.shape[1] // D
-        tail = tuple(arr.shape[2:])
-        out[name] = (arr.reshape((D, D, c) + tail).transpose(0, 1)
-                     .reshape(arr.shape))
-    return out
-
-
-def route_return(result_bufs: dict, slot):
-    """Send per-request results back and gather each query's answer
-    (slot [D, q]; a slot past the buffer reads a zero row)."""
-    back = exchange(result_bufs)
+def route_return(result_bufs: dict, slot, comm):
+    """Send per-request results back over ``comm``'s exchange and gather
+    each query's answer (slot [L, q]; a slot past the buffer reads a
+    zero row)."""
+    back = comm.exchange(result_bufs)
     out = {}
     for name, arr in back.items():
         D, n = arr.shape[:2]
@@ -91,12 +82,3 @@ def route_return(result_bufs: dict, slot):
         out[name] = padded[_rows(D, arr.device),
                            torch.clamp(slot.to(torch.int64), 0, n)]
     return out
-
-
-def replicate_shift(x, shift: int):
-    """``ppermute`` by +shift along the ring of devices: device d's [d]
-    slice lands at d + shift (the primary -> backup push).  ``x`` is a
-    tensor or a dict of tensors stacked on a leading [D] axis."""
-    if isinstance(x, dict):
-        return {k: replicate_shift(v, shift) for k, v in x.items()}
-    return torch.roll(x, shift, dims=0)

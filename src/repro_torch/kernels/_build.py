@@ -74,7 +74,7 @@ SIGNATURES = {
     },
     "group_probe": {
         "histore_group_probe": ([P] * 7 + [I64, INT, I64, INT, INT, INT, I64,
-                                           I64, INT, INT, P], INT),
+                                           I64, INT, INT, INT, INT, P], INT),
     },
     "sort_stable": {
         "histore_sort_stable_scratch_bytes": ([I64, I64], I64),

@@ -14,9 +14,12 @@
 // newest entry first, else from its sorted replica; window_scan.cuh has
 // the semantics and the reference's KEY_INF quirk); and the key's owner
 // group.  Each lane hashes its key on the
-// card (key_mix.cuh): the descriptors, the owner group og and the replica
-// it selects, rep_sel[r] = (og == (g - r - 1) mod G), unless rep_sel is
-// given (ops.group_probe, one group, JAX's signature).  The store's
+// card (key_mix.cuh): the descriptors, the owner group og among the
+// store's `groups` and the replica it selects, rep_sel[r] = (og ==
+// (g0 + g - r - 1) mod groups), unless rep_sel is given (ops.group_probe,
+// one group, JAX's signature).  The stack holds the G servers g0 ..
+// g0 + G - 1 of the store: all of them on one process (g0 = 0, groups =
+// G), a rank's L of them over W ranks.  The store's
 // stacked leaves are read by base pointer and strides: nothing is copied
 // or built per call.
 //
@@ -80,7 +83,7 @@ __global__ void group_finish_kernel(const int32_t* __restrict__ rkeys,
     out[GQ + qi] = h.acc;
     out[2 * GQ + qi] = b.addr;
     out[3 * GQ + qi] = b.acc;
-    out[4 * GQ + qi] = histore::owner_group(m, G);
+    out[4 * GQ + qi] = histore::owner_group(m, select.G);
     found[qi] = uint8_t(h.found);
     found[GQ + qi] = uint8_t(b.found);
   }
@@ -96,21 +99,23 @@ bool aligned16(const void* p, int64_t stride) {
 // HashTables (nb a power of two); replicas: the StackedReplicas (both host
 // structs, laid out as repro_torch.kernels._build's); out: [5, G, Q] int32
 // (h_addr, h_acc, b_addr, b_acc, owner group); found: [2, G, Q] bool
-// (h_found, b_found); best: [G, Q] int32 scratch.
+// (h_found, b_found); best: [G, Q] int32 scratch; groups: the store's
+// group count, g0: the stack's first group (G, 0 on one process).
 extern "C" int histore_group_probe(const void* rkeys, const void* rep_sel,
                                    const void* tables, const void* replicas,
                                    void* out, void* found, void* best,
                                    long long Q, int G,
                                    long long nb, int cs, int S, int R,
                                    long long cap, long long lcap, int fanout,
-                                   int levels, void* stream) {
+                                   int levels, int groups, int g0,
+                                   void* stream) {
   if (G < 1 || R < 1 || cap < 1 || lcap < 1 || nb < 1 || (nb & (nb - 1)) ||
-      cs < 1 || S < 1)
+      cs < 1 || S < 1 || g0 < 0 || groups < g0 + G)
     return (int)cudaErrorInvalidValue;
   const HashTables ht = *(const HashTables*)tables;
   const histore::StackedReplicas rp =
       *(const histore::StackedReplicas*)replicas;
-  const histore::Select select{(const int32_t*)rep_sel, R, G};
+  const histore::Select select{(const int32_t*)rep_sel, R, groups, g0};
   if (Q > 0) {
     cudaStream_t s = (cudaStream_t)stream;
     cudaError_t e = histore::launch_window_scan(rkeys, select, rp, best, Q, G,

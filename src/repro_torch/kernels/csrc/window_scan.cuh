@@ -141,15 +141,16 @@ __device__ __forceinline__ int last_selected(const int32_t* rep_sel,
   return sel;
 }
 
-// the replica that answers lane qi (= g * Q + q) of server g: rep_sel
-// [G * Q, R] read from memory, or, where it is null, the last replica
-// server g holds of the key's owner group (the shifted layout)
+// the replica that answers lane qi (= g * Q + q) of the stack's server g:
+// rep_sel [G * Q, R] read from memory, or, where it is null, the last
+// replica server g0 + g holds of the key's owner group among the store's
+// G groups (the shifted layout; a rank's stack holds groups g0 ..)
 struct Select {
   const int32_t* rep_sel;
-  int R, G;
+  int R, G, g0;
   __device__ int operator()(int64_t qi, int32_t q, int g) const {
     if (rep_sel != nullptr) return last_selected(rep_sel, qi, R);
-    return owned_replica(owner_group(key_mix(q), G), g, G, R);
+    return owned_replica(owner_group(key_mix(q), G), g0 + g, G, R);
   }
 };
 
@@ -284,8 +285,8 @@ static inline cudaError_t launch_window_scan(const void* rkeys,
                                              const Replicas& rp, void* best,
                                              long long Q, int R,
                                              long long lcap, cudaStream_t s) {
-  return launch_window_scan(rkeys, Select{(const int32_t*)rep_sel, R, 1}, rp,
-                            best, Q, 1, R, lcap, s);
+  return launch_window_scan(rkeys, Select{(const int32_t*)rep_sel, R, 1, 0},
+                            rp, best, Q, 1, R, lcap, s);
 }
 
 // the backup half of query qi (key q, answered by replica sel of group g,

@@ -356,18 +356,25 @@ def _leaf(name, t, dtype, shape, lead):
 
 
 def group_probe_cuda(rkeys, rep_sel, hidx, bsorted, blog,
-                     slots_per_bucket: int, fanout: int):
+                     slots_per_bucket: int, fanout: int, groups=None,
+                     g0: int = 0):
     """The fused GET probe of G servers in one call.  rkeys: [G, Q] int32,
     the keys each server received (hashed on the card); rep_sel: [G, Q, R]
     int32, or None to select by each key's owner group (``replica_select``,
     computed on the card); hidx: a HashIndex with leaves [G, nb, CS] and
     [G, nb]; bsorted / blog: SortedIndex / UpdateLog states with leaves
     [R, G, cap] / [R, G, lcap] and applied and tail [R, G] (read on the
-    card).  The leaves are read in place through their strides.  Returns
-    (h_addr, h_found, h_acc, b_addr, b_found, b_acc, owner group), each
-    [G, Q], the found flags bool and the rest int32."""
+    card).  The leaves are read in place through their strides.  The
+    stack's G servers are the store's groups g0 .. g0 + G - 1 of
+    ``groups`` (default G: the whole store).  Returns (h_addr, h_found,
+    h_acc, b_addr, b_found, b_acc, owner group), each [G, Q], the found
+    flags bool and the rest int32."""
     _check("rkeys", rkeys, I32, 2)
     G, Q = rkeys.shape
+    groups = G if groups is None else int(groups)
+    if g0 < 0 or groups < g0 + G:
+        raise ValueError(f"group_probe: servers {g0}..{g0 + G - 1} are not "
+                         f"groups of a store of {groups}")
     nb, cs = _table_shape("group_probe", *hidx)
     R = blog.tail.shape[0]
     cap, lcap = bsorted.keys.shape[-1], blog.keys.shape[-1]
@@ -399,7 +406,8 @@ def group_probe_cuda(rkeys, rep_sel, hidx, bsorted, blog,
             ctypes.addressof(tables), ctypes.addressof(reps),
             out.data_ptr(), found.data_ptr(), best.data_ptr(), Q, G, nb, cs,
             slots_per_bucket, R, cap, lcap, fanout,
-            six.directory_levels(cap, fanout), _stream(rkeys))
+            six.directory_levels(cap, fanout), groups, int(g0),
+            _stream(rkeys))
     _raise_on(st, "group_probe")
     LAUNCHES["group_probe"] += 1
     return out[0], found[0], out[1], out[2], found[1], out[3], out[4]
@@ -561,31 +569,37 @@ def replica_select(og, g: int, G: int, R: int):
                        dim=1)
 
 
-def server_inputs(hidx, bsorted, blog, rk, g: int):
-    """What server g's group probe reads for its lanes ``rk`` [Q], from
-    the store's stacked leaves (hidx [G, ...], bsorted / blog [R, G,
-    ...]): its hash, the R sorted replicas and backup logs it holds, and
-    ``rep_sel`` [Q, R] from the lanes' owner groups.  Returns (hash,
-    sorted, logs, rep_sel), the arguments of the per-group
+def server_inputs(hidx, bsorted, blog, rk, g: int, groups=None,
+                  g0: int = 0):
+    """What the stack's server g (the store's group g0 + g of ``groups``,
+    default the stack's size) reads in its group probe for its lanes
+    ``rk`` [Q], from the stacked leaves (hidx [G, ...], bsorted / blog
+    [R, G, ...]): its hash, the R sorted replicas and backup logs it
+    holds, and ``rep_sel`` [Q, R] from the lanes' owner groups.  Returns
+    (hash, sorted, logs, rep_sel), the arguments of the per-group
     ``group_probe``."""
     R, G = blog.tail.shape
+    groups = G if groups is None else groups
     srt = tuple(tree.at(bsorted, r, g) for r in range(R))
     blg = tuple(tree.at(blog, r, g) for r in range(R))
     return (tree.at(hidx, g), srt, blg,
-            replica_select(owner_group(rk, G), g, G, R))
+            replica_select(owner_group(rk, groups), g0 + g, groups, R))
 
 
-def group_probe_stacked_plain(cfg, hidx, bsorted, blog, rk):
-    """The plain version of the stacked group probe: for each server g,
-    group_probe_plain over ``server_inputs``.  Returns (h_addr, h_found
-    bool, h_acc, b_addr, b_found bool, b_acc, owner group), each
-    [G, Q]."""
+def group_probe_stacked_plain(cfg, hidx, bsorted, blog, rk, groups=None,
+                              g0: int = 0):
+    """The plain version of the stacked group probe: for each server g of
+    the stack (the store's group g0 + g of ``groups``), group_probe_plain
+    over ``server_inputs``.  Returns (h_addr, h_found bool, h_acc,
+    b_addr, b_found bool, b_acc, owner group), each [G, Q]."""
+    groups = rk.shape[0] if groups is None else groups
     outs = []
     for g in range(rk.shape[0]):
-        h, srt, blg, sel = server_inputs(hidx, bsorted, blog, rk[g], g)
+        h, srt, blg, sel = server_inputs(hidx, bsorted, blog, rk[g], g,
+                                         groups, g0)
         outs.append(group_probe_plain(cfg, h, srt, blg, rk[g], sel))
     return (*[torch.stack(x) for x in zip(*outs)],
-            owner_group(rk, rk.shape[0]))
+            owner_group(rk, groups))
 
 
 def _compare_exchange(keys, vals, j, asc):
@@ -752,19 +766,23 @@ def group_probe(cfg, hidx, sorted_r, blogs_r, keys, rep_sel):
     return tuple(t[0] for t in out[:6])
 
 
-def group_probe_stacked(cfg, hidx, bsorted, blog, rk):
+def group_probe_stacked(cfg, hidx, bsorted, blog, rk, groups=None,
+                        g0: int = 0):
     """The fused GET probe of the G servers of a distributed GET chunk in
     one call: server g probes its hash and the replicas it holds for its
     lanes ``rk[g]``, each lane selecting by its key's owner group (the
     JAX op body's ``rep_sel``).  hidx: HashIndex leaves [G, ...]; bsorted
-    / blog: [R, G, ...] (the store's); rk: [G, Q].  Returns (h_addr,
+    / blog: [R, G, ...] (the store's, or a rank's L of them: the store's
+    groups g0 .. g0 + L - 1 of ``groups``); rk: [G, Q].  Returns (h_addr,
     h_found bool, h_acc, b_addr, b_found bool, b_acc, owner group), each
     [G, Q]; row g of the first six is group_probe's answer for server g.
     Bit-exact with group_probe_stacked_plain."""
     if not kernels_enabled(cfg, rk.device):
-        return group_probe_stacked_plain(cfg, hidx, bsorted, blog, rk)
+        return group_probe_stacked_plain(cfg, hidx, bsorted, blog, rk,
+                                         groups, g0)
     return group_probe_cuda(rk.to(I32).contiguous(), None, hidx, bsorted,
-                            blog, cfg.slots_per_bucket, cfg.fanout)
+                            blog, cfg.slots_per_bucket, cfg.fanout, groups,
+                            g0)
 
 
 def sort(cfg, keys, vals):

@@ -1,1 +1,2 @@
-"""Launchers: the production mesh as a layout plan, and the dry run."""
+"""Launchers: the production mesh as a layout plan, the dry run, and
+the distributed store's rank processes (``ranks``)."""

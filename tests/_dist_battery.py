@@ -19,6 +19,7 @@ reduced replication), then R = 3's scan duty.  The env has:
   arr(a)                   a numpy array as the package's array
   own(keys)                the owner group of each key, as numpy
   directory_levels(cap, fanout)
+  hash_fill(store, g)      group g's hash fill counts, as numpy
 
 ``run(env)`` returns (record, stores): ``record`` maps a step's name to
 the numpy outputs of its op (JSON data for the client's answers), and
@@ -32,7 +33,7 @@ import warnings
 
 import numpy as np
 
-from _dist_fault_schedules import _digest, host, plain
+from _answers import _digest, host, plain
 
 
 def leaves(tree, prefix, out, path=""):
@@ -124,7 +125,7 @@ def run(env):
 
     # --- failure: server 2 down (index state WIPED, must rebuild) ------------
     store = env.kv.fail_server(store, 2)
-    assert int(host(store.hash.fill)[2].sum()) == 0, "dead hash must be wiped"
+    assert int(env.hash_fill(store, 2).sum()) == 0, "dead hash must be wiped"
     _, found2, acc2, *_ = keep(
         "get_degraded", *ops["get"](store, A(keys[G:]), A(all_valid[G:])))
     assert found2.all(), "degraded get found"
@@ -164,7 +165,7 @@ def run(env):
         "a single failure leaves every group >= 1 live holder: covered"
     # --- recovery: rebuild hash from replica, re-clone replicas --------------
     store = env.kv.recover_server(store, 2, cfg)
-    assert int(host(store.hash.fill)[2].sum()) > 0, \
+    assert int(env.hash_fill(store, 2).sum()) > 0, \
         "recovery must rebuild hash"
     found4 = keep("get_recovered", *ops["get"](store, A(keys[G:]),
                                                A(all_valid[G:])))[1]

@@ -26,6 +26,7 @@ import json
 
 import numpy as np
 
+from _answers import _digest, host, plain
 from oracle import (FaultInjector, Oracle, assert_equivalent, gen_ops,
                     replay, splice_faults)
 
@@ -35,49 +36,6 @@ CAP = 512
 # leases on the rounds clock (deterministic), lease_misses 2
 CFG_KW = dict(log_capacity=512, async_apply_batch=128, lease_misses=2,
               lease_clock="rounds", use_kernels="off")
-
-
-def host(x):
-    """A JAX array or a (CPU or CUDA) torch tensor as numpy."""
-    if type(x).__module__.startswith("torch"):
-        x = x.cpu()
-    return np.asarray(x)
-
-
-def plain(x):
-    """JSON-able data of a result, tuple or array."""
-    if x is None or isinstance(x, (bool, int, float, str)):
-        return x
-    if isinstance(x, (np.integer,)):
-        return int(x)
-    if isinstance(x, (np.bool_,)):
-        return bool(x)
-    if isinstance(x, (tuple, list)):
-        return [plain(v) for v in x]
-    if isinstance(x, dict):
-        return {str(k): plain(v) for k, v in x.items()}
-    if hasattr(x, "shape"):
-        return host(x).tolist()
-    return str(x)
-
-
-def _digest(name, r):
-    """The answer of a client op, as lists (every lane and field the
-    result holds, values by their first word)."""
-    if name == "put":
-        return [host(r.ok).tolist(), host(r.addrs).tolist(), r.retries,
-                host(r.replicas).tolist()]
-    if name == "get":
-        f = host(r.found).astype(bool)
-        return [f.tolist(), host(r.addrs).tolist(),
-                (host(r.values)[:, 0] * f).tolist(),
-                host(r.routed).tolist(), host(r.hops).tolist()]
-    if name == "delete":
-        return [host(r.ok).tolist(), host(r.found).tolist(), r.retries,
-                host(r.replicas).tolist()]
-    n = int(host(r.count))
-    return [n, host(r.keys)[:n].tolist(), host(r.addrs)[:n].tolist(),
-            r.complete, list(r.missing_groups)]
 
 
 class Rec:

@@ -36,10 +36,13 @@ import pytest
 import torch
 
 import _dist_battery as battery
+import _dist_ranks
 from repro_torch.configs.histore import scaled
 from repro_torch.core import kvstore as kv
 from repro_torch.core import sorted_index as six
 from repro_torch.core.client import DistributedBackend, HiStoreClient
+from repro_torch.kernels import ops
+from repro_torch.launch import ranks
 
 ROOT = Path(__file__).resolve().parents[1]
 G = 8
@@ -80,7 +83,8 @@ env = types.SimpleNamespace(
     arr=jnp.asarray,
     own=lambda k: np.asarray(kv.owner_group(
         jnp.asarray(np.asarray(k), key_dtype()), G)),
-    directory_levels=six.directory_levels)
+    directory_levels=six.directory_levels,
+    hash_fill=lambda st, g: np.asarray(st.hash.fill)[g])
 out = {}
 rec, stores = battery.run(env)
 out.update({f"rec/{k}": v for k, v in rec.items()})
@@ -113,7 +117,7 @@ np.savez(sys.argv[1], **out)
 
 
 @pytest.fixture(scope="module")
-def jax8(tmp_path_factory):
+def jax8_npz(tmp_path_factory):
     path = tmp_path_factory.mktemp("jax8") / "battery.npz"
     env = {**os.environ, "PYTHONPATH": f"{ROOT / 'src'}:{ROOT / 'tests'}",
            "XLA_FLAGS": "--xla_force_host_platform_device_count=8",
@@ -122,7 +126,12 @@ def jax8(tmp_path_factory):
                        capture_output=True, text=True, cwd=ROOT, env=env,
                        timeout=900)
     assert r.returncode == 0, r.stderr[-4000:]
-    with np.load(path) as z:
+    return path
+
+
+@pytest.fixture(scope="module")
+def jax8(jax8_npz):
+    with np.load(jax8_npz) as z:
         return {k: z[k] for k in z.files}
 
 
@@ -141,7 +150,8 @@ def _port_env():
                 G, cfg, cap, capacity_q=capacity_q, scan_limit=scan_limit,
                 device="cpu"), **kw),
         arr=torch.as_tensor, own=own,
-        directory_levels=six.directory_levels)
+        directory_levels=six.directory_levels,
+        hash_fill=lambda st, g: st.hash.fill[g].numpy())
 
 
 @pytest.fixture(scope="module")
@@ -212,3 +222,47 @@ def test_cluster_example_matches_jax(jax8):
                                  if k.startswith("cluster/leaf/"))
     for k, v in got.items():
         _equal(v, jax8[k], k)
+
+
+def test_cluster_example_over_ranks_prints_jax_lines(jax8):
+    """``examples/histore_cluster_torch.py --ranks 2`` on gloo ranks: rank
+    0 prints the JAX example's lines, the other rank nothing."""
+    env = {**os.environ, "PYTHONPATH": str(ROOT / "src")}
+    r = subprocess.run(
+        [sys.executable, str(ROOT / "examples" / "histore_cluster_torch.py"),
+         "--ranks", "2", "--device", "cpu"], capture_output=True, text=True,
+        cwd=ROOT, env=env, timeout=300)
+    assert r.returncode == 0, r.stderr[-4000:]
+    assert r.stdout.splitlines() == str(jax8["cluster/stdout"]).splitlines()
+
+
+@pytest.mark.parametrize("world", [8, 4])
+def test_battery_over_ranks_matches_jax(jax8_npz, world):
+    """The battery over ``world`` gloo ranks on the CPU (8: JAX's one group
+    a device; 4: two groups a rank), each rank a process: on every rank
+    every op output, client answer and gathered store leaf is bit-equal
+    to JAX's, dtype included (``_dist_ranks.battery_vs_jax``)."""
+    counts = ranks.spawn(_dist_ranks.battery_vs_jax, world, device="cpu",
+                         timeout_s=600, args=(str(jax8_npz),))
+    assert len(counts) == world and len(set(counts)) == 1
+    assert counts[0] > 100
+
+
+@pytest.mark.requires_cuda
+def test_cuda_group_probe_at_g0_matches_plain():
+    """group_probe.cu on a rank's stack (servers g0 .. g0 + L - 1 of the
+    store's 8, the global G and g0 passed) equals its plain version, on a
+    degraded store whose lanes reach the hash, replica and log paths."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU with CUDA: the kernels are CUDA "
+                    "C++ built with nvcc and have no CPU mode")
+    cfg, st, rk = _dist_ranks.probe_case("cuda")
+    for g0, L in ((0, 8), (1, 1), (2, 2), (4, 4), (3, 5)):
+        args = (*_dist_ranks.rows_of(st, g0, L), rk[g0:g0 + L], G, g0)
+        n0 = ops.LAUNCHES["group_probe"]
+        got = ops.group_probe_stacked(cfg, *args)
+        assert ops.LAUNCHES["group_probe"] == n0 + 1
+        want = ops.group_probe_stacked_plain(cfg, *args)
+        for i, (x, y) in enumerate(zip(got, want)):
+            assert x.dtype == y.dtype, (g0, L, i)
+            assert torch.equal(x, y), (g0, L, i)

@@ -17,6 +17,7 @@ import torch
 
 from repro.core import verbs as jverbs
 from repro_torch.core import verbs
+from repro_torch.core.comm import Comm
 
 
 def _payloads(rng, D, q, W):
@@ -65,7 +66,8 @@ def test_exchange_and_route_return_match_jax(D, c):
     rng = np.random.default_rng(D + c)
     a = rng.integers(-9, 9, (D, D * c)).astype(np.int32)
     b = rng.integers(-9, 9, (D, D * c, 3)).astype(np.int32)
-    got = verbs.exchange({"a": torch.as_tensor(a), "b": torch.as_tensor(b)})
+    one = Comm.single(D)
+    got = one.exchange({"a": torch.as_tensor(a), "b": torch.as_tensor(b)})
     want = _vmapped(lambda x, y: jverbs.exchange({"a": x, "b": y}, "kv"))(
         jnp.asarray(a), jnp.asarray(b))
     for n in ("a", "b"):
@@ -74,7 +76,7 @@ def test_exchange_and_route_return_match_jax(D, c):
     slot = rng.integers(0, D * c + 3, (D, 7)).astype(np.int32)
     got = verbs.route_return({"a": torch.as_tensor(a),
                               "b": torch.as_tensor(b)},
-                             torch.as_tensor(slot))
+                             torch.as_tensor(slot), one)
     want = _vmapped(lambda x, y, s: jverbs.route_return({"a": x, "b": y}, s,
                                                         "kv"))(
         jnp.asarray(a), jnp.asarray(b), jnp.asarray(slot))
@@ -88,15 +90,16 @@ def test_replicate_shift_matches_jax(D, shift):
     rng = np.random.default_rng(D * 10 + shift)
     x = rng.integers(-9, 9, (D, 6)).astype(np.int32)
     m = rng.integers(0, 2, (D, 6)).astype(bool)
-    got = verbs.replicate_shift({"x": torch.as_tensor(x),
-                                 "m": torch.as_tensor(m)}, shift)
+    one = Comm.single(D)
+    got = one.shift({"x": torch.as_tensor(x), "m": torch.as_tensor(m)},
+                    shift)
     want = _vmapped(lambda u, v: jverbs.replicate_shift({"x": u, "m": v},
                                                         shift, "kv"))(
         jnp.asarray(x), jnp.asarray(m))
     for n in ("x", "m"):
         np.testing.assert_array_equal(got[n].numpy(), np.asarray(want[n]))
     np.testing.assert_array_equal(
-        verbs.replicate_shift(torch.as_tensor(x), shift).numpy(),
+        one.shift(torch.as_tensor(x), shift).numpy(),
         np.roll(x, shift, axis=0))
 
 
@@ -108,7 +111,8 @@ def test_routed_round_trip():
     dest = torch.as_tensor(rng.integers(0, D + 1, (D, q)).astype(np.int32))
     keys = torch.as_tensor(rng.integers(1, 10 ** 6, (D, q)).astype(np.int32))
     bufs, slot, ok = verbs.route_build(dest, {"k": (keys, 0)}, D, cap)
-    back = verbs.route_return(verbs.exchange(bufs), slot)["k"]
+    one = Comm.single(D)
+    back = verbs.route_return(one.exchange(bufs), slot, one)["k"]
     routed = ok & (dest < D)
     assert torch.equal(back[routed], keys[routed])
     assert not bool(back[~routed].any())
