@@ -165,7 +165,25 @@
    the collectives a PUT chunk, GET chunk and SCAN with their bytes,
    the host ms of one exchange, shift, all_gather and all-reduce call
    (synchronized), peak memory.  Every kernel record gets
-   ``launches_dist_ranks`` (NCCL rank 0's).
+   ``launches_dist_ranks`` (NCCL rank 0's).  Then, in the same spawns
+   and against the same one-process runs, the data-plane and ticker
+   segment on a store of its own (phase 7's groups, 2**20 keys, a
+   quarter in the gloo run; leases on the rounds clock): data server 5
+   fails (wiped), 2 degraded mixed rounds, ``recover_data_server(5)``
+   (its shard from the mirror, the allocator's sweep, the migration), a
+   read-back one hop a key; data server 2 severed, found by the
+   detector, recovered; a read, then no foreground op while the
+   wall-clock ticker finds index server 6 severed (within the lease
+   timeout, an interval and 5 s of slack, no sooner than the timeout by
+   each rank's clock), ``recover_server(6)``, a read-back, drain and
+   ``parity_report``.  The answers, the detector's lists and the
+   gathered leaves (but the heartbeat counters, which count the
+   ticker's rounds) equal the one-process run's, and the four kernels
+   launch on every rank.  Logged a rank: each recovery's seconds and
+   collectives by kind with their bytes (``move`` the shard copies,
+   ``to_owners`` the sweep's addresses), the ticker's detection seconds
+   and rounds, peak memory; every kernel record gets
+   ``launches_dist_ranks_faults`` (NCCL rank 0's).
 10. The serving path of falcon-mamba-7b (configs/falcon_mamba_7b.py) at
     full width and depth in bf16, the weights drawn on the card from
     ``--seed`` (parameter count and peak memory logged): a warm-up
@@ -2352,8 +2370,17 @@ GLOO_CUDA = True
 GLOO_LOAD_CUT = 4
 RANK_KERNELS = ("hash_probe", "sorted_search", "group_probe", "merge")
 # phase 7's sizes (the gloo run cuts the load)
+# and the keys of 9c's data-plane and ticker segment (``rank_faults``):
+# its own store of phase 7's size at 2^20 keys (the gloo run cuts them
+# too), leases on the rounds clock, the ticker on the wall clock
 RANK_SIZES = {"keys": DIST_KEYS, "capacity": DIST_CAPACITY,
-              "capacity_q": DIST_CAPACITY_Q, "chunk": CHUNK}
+              "capacity_q": DIST_CAPACITY_Q, "chunk": CHUNK,
+              "fault_keys": 1 << 20}
+FAULT_DATA = 5                   # the data server failed (wiped)
+FAULT_ROUNDS = 2                 # degraded mixed rounds while it is down
+FAULT_SEVER_DATA = 2             # the data server severed, then detected
+FAULT_SEVER_INDEX = 6            # the index server severed under the ticker
+TICKER_SLACK_S = 5.0             # detection within timeout + interval + this
 
 
 def _digest(*xs):
@@ -2376,86 +2403,104 @@ def rank_client(cfg, sizes, device, comm=None):
     return HiStoreClient(be, max_batch=sizes["chunk"])
 
 
-def rank_workload(torch, client, cfg, seed, sizes):
-    """Phase 9c's workload on ``client`` (a DistributedBackend of phase
-    7's size, on one process or over ranks): the same calls from
-    ``seed`` wherever it runs.  Returns (the sha256 of every answer in
-    order, the gathered store's leaves by path, figures)."""
-    from repro_torch.core import kvstore as kv
-    from repro_torch.kernels import mamba_scan as ms
-    from repro_torch.kernels import ops
+class _RankRun:
+    """The calls phase 9c makes on a client (a DistributedBackend on one
+    process or over ranks), drawn from ``seed`` so that they are the
+    same wherever they run: a key pool with its values and live mask,
+    the sha256 of every answer in order, and figures."""
 
-    be = client.backend
-    comm, dev = be.comm, be.device
-    n_load, CH = sizes["keys"], sizes["chunk"]
-    rng = np.random.default_rng(seed)
-    need = n_load + 2 * RANK_ROUNDS * CH // 2
-    uniq = np.unique(rng.integers(0, 2 ** 31 - 1, int(need * 1.02) + 1024))
-    check(len(uniq) >= need, "9c: not enough distinct keys drawn")
-    keys = uniq[rng.permutation(len(uniq))[:need]].astype(np.int32)
-    live = np.zeros(need, bool)
-    vals = (keys.astype(np.int64)[:, None]
-            * np.arange(1, cfg.value_words + 1) % (2 ** 31 - 1)).astype(
-                np.int32)
-    answers, fig = [], {}
-    n_put = [n_load]
+    def __init__(self, torch, client, cfg, seed, n_load, extra):
+        self.torch, self.client, self.cfg = torch, client, cfg
+        self.be = client.backend
+        self.comm, self.dev = self.be.comm, self.be.device
+        self.CH = client.max_batch
+        self.rng = np.random.default_rng(seed)
+        need = n_load + extra
+        uniq = np.unique(self.rng.integers(0, 2 ** 31 - 1,
+                                           int(need * 1.02) + 1024))
+        check(len(uniq) >= need, "9c: not enough distinct keys drawn")
+        self.keys = uniq[self.rng.permutation(len(uniq))[:need]].astype(
+            np.int32)
+        self.live = np.zeros(need, bool)
+        self.vals = (self.keys.astype(np.int64)[:, None]
+                     * np.arange(1, cfg.value_words + 1)
+                     % (2 ** 31 - 1)).astype(np.int32)
+        self.answers, self.fig = [], {}
+        self.n_put = n_load
 
-    def sync():
-        torch.cuda.synchronize(dev)
+    def sync(self):
+        self.torch.cuda.synchronize(self.dev)
 
-    def per_op(n_ops):
-        st = comm.stats
+    def per_op(self, n_ops):
+        st = self.comm.stats
         return {k: {"calls": st["calls"][k] / n_ops,
                     "bytes": st["bytes"][k] / n_ops} for k in st["calls"]}
 
-    def read_back(label):
-        idx = np.arange(n_put[0])
-        comm.reset_stats()
+    def load(self):
+        n = self.n_put
+        self.comm.reset_stats()
         t0 = time.perf_counter()
-        r = client.get(keys[idx])
-        found = r.found.cpu().numpy()
-        sync()
-        t = time.perf_counter() - t0
-        answers.append(_digest(r.addrs, r.found, r.values, r.routed,
-                               r.hops))
-        check(np.array_equal(found, live[idx]), f"9c {label}: found")
-        check(np.array_equal(r.values.cpu().numpy()[found],
-                             vals[idx][found]), f"9c {label}: values")
-        fig[f"{label}_get_per_s"] = len(idx) / t
-        fig[f"{label}_collectives_per_get_chunk"] = per_op(
-            -(-len(idx) // CH))
+        r = self.client.put(self.keys[:n], self.vals[:n])
+        ok = r.ok.cpu().numpy()
+        self.sync()
+        self.fig["load_s"] = time.perf_counter() - t0
+        self.answers.append(_digest(r.ok, r.addrs, r.replicas))
+        check(ok.all(), f"9c load: {(~ok).sum()} PUTs not acknowledged")
+        self.live[:n] = True
+        self.fig["put_per_s"] = n / self.fig["load_s"]
+        self.fig["collectives_per_put_chunk"] = self.per_op(n // self.CH)
 
-    def rounds(label):
-        for rnd in range(RANK_ROUNDS):
+    def read_back(self, label):
+        idx = np.arange(self.n_put)
+        self.comm.reset_stats()
+        t0 = time.perf_counter()
+        r = self.client.get(self.keys[idx])
+        found = r.found.cpu().numpy()
+        self.sync()
+        t = time.perf_counter() - t0
+        self.answers.append(_digest(r.addrs, r.found, r.values, r.routed,
+                                    r.hops))
+        check(np.array_equal(found, self.live[idx]), f"9c {label}: found")
+        check(np.array_equal(r.values.cpu().numpy()[found],
+                             self.vals[idx][found]), f"9c {label}: values")
+        self.fig[f"{label}_get_per_s"] = len(idx) / t
+        self.fig[f"{label}_collectives_per_get_chunk"] = self.per_op(
+            -(-len(idx) // self.CH))
+        return r
+
+    def rounds(self, label, n_rounds):
+        client, rng, CH = self.client, self.rng, self.CH
+        keys, vals, live = self.keys, self.vals, self.live
+        for rnd in range(n_rounds):
             p = np.concatenate([
                 rng.choice(np.nonzero(live)[0], CH // 2, replace=False),
-                np.arange(n_put[0], n_put[0] + CH // 2)])
-            n_put[0] += CH // 2
+                np.arange(self.n_put, self.n_put + CH // 2)])
+            self.n_put += CH // 2
             vals[p] += 1
             r = client.put(keys[p], vals[p])
-            answers.append(_digest(r.ok, r.addrs, r.replicas))
+            self.answers.append(_digest(r.ok, r.addrs, r.replicas))
             check(r.all_ok, f"9c {label} round {rnd}: PUT not acked")
             live[p] = True
             d = rng.choice(np.nonzero(live)[0], 3 * CH // 16,
                            replace=False)
             r = client.delete(np.concatenate([keys[d],
                                               -keys[d[:CH // 16]] - 1]))
-            answers.append(_digest(r.ok, r.found, r.replicas))
+            self.answers.append(_digest(r.ok, r.found, r.replicas))
             check(r.found.cpu().numpy()[:len(d)].all(),
                   f"9c {label} round {rnd}: DELETE found")
             live[d] = False
-            g = rng.choice(n_put[0], CH, replace=False)
+            g = rng.choice(self.n_put, CH, replace=False)
             r = client.get(keys[g])
-            answers.append(_digest(r.addrs, r.found, r.values, r.routed,
-                                   r.hops))
+            self.answers.append(_digest(r.addrs, r.found, r.values,
+                                        r.routed, r.hops))
             check(np.array_equal(r.found.cpu().numpy(), live[g]),
                   f"9c {label} round {rnd}: GET")
             client.apply()
-            be.gc_round()
+            self.be.gc_round()
             for _ in range(SCANS):
                 lo = int(rng.integers(0, 2 ** 31 - 2 ** 25))
                 r = client.scan(lo, lo + 2 ** 24)
-                answers.append(_digest(r.keys, r.addrs, r.count))
+                self.answers.append(_digest(r.keys, r.addrs, r.count))
                 n = int(r.count)
                 want = np.sort(keys[live & (keys >= lo)
                                     & (keys <= lo + 2 ** 24)])[:128]
@@ -2463,63 +2508,173 @@ def rank_workload(torch, client, cfg, seed, sizes):
                     r.keys.cpu().numpy()[:n], want),
                     f"9c {label} round {rnd}: SCAN")
 
-    def parity(label):
-        client.drain()
-        report = kv.parity_report(be.store, cfg, comm=comm)
-        answers.append(_digest(np.frombuffer(json.dumps(report).encode(),
-                                             np.uint8)))
+    def parity(self, label):
+        from repro_torch.core import kvstore as kv
+
+        self.client.drain()
+        report = kv.parity_report(self.be.store, self.cfg, comm=self.comm)
+        self.answers.append(_digest(np.frombuffer(
+            json.dumps(report).encode(), np.uint8)))
         check(all(e["agree"] for e in report), f"9c {label}: parity")
-        check(report[-1]["live"] == int(live.sum()),
+        check(report[-1]["live"] == int(self.live.sum()),
               f"9c {label}: {report[-1]['live']} live slots")
 
+    def leaves(self, skip=()):
+        """sha256 of each leaf of the gathered store (rank 0 only), those
+        named in ``skip`` left out."""
+        from repro_torch.core import kvstore as kv
+
+        whole = kv.gathered(self.be.store, self.comm)
+        if self.comm.rank != 0:
+            return {}
+        return {path: _digest(leaf) for path, leaf in _store_leaves(whole)
+                if path not in skip}
+
+
+def rank_workload(torch, client, cfg, seed, sizes):
+    """Phase 9c's workload on ``client`` (a DistributedBackend of phase
+    7's size, on one process or over ranks): the same calls from
+    ``seed`` wherever it runs.  Returns (the sha256 of every answer in
+    order, the gathered store's leaves by path, figures)."""
+    from repro_torch.kernels import mamba_scan as ms
+    from repro_torch.kernels import ops
+
+    run = _RankRun(torch, client, cfg, seed, sizes["keys"],
+                   2 * RANK_ROUNDS * sizes["chunk"] // 2)
+    fig = run.fig
     zero_launches(ops)
     ms.LAUNCHES["mamba_scan"] = 0
-    comm.reset_stats()
+    run.load()
     t0 = time.perf_counter()
-    r = client.put(keys[:n_load], vals[:n_load])
-    ok = r.ok.cpu().numpy()
-    sync()
-    fig["load_s"] = time.perf_counter() - t0
-    answers.append(_digest(r.ok, r.addrs, r.replicas))
-    check(ok.all(), f"9c load: {(~ok).sum()} PUTs not acknowledged")
-    live[:n_load] = True
-    fig["put_per_s"] = n_load / fig["load_s"]
-    fig["collectives_per_put_chunk"] = per_op(n_load // CH)
-    t0 = time.perf_counter()
-    rounds("healthy")
-    sync()
+    run.rounds("healthy", RANK_ROUNDS)
+    run.sync()
     fig["healthy_rounds_s"] = time.perf_counter() - t0
-    read_back("read_back")
+    run.read_back("read_back")
     scan = client.metrics().latency["scan"]
     fig["scan_ms"] = scan.mean * 1e3
-    comm.reset_stats()
+    run.comm.reset_stats()
     client.scan(0, 2 ** 31 - 2)
-    fig["collectives_per_scan"] = per_op(1)
-    parity("healthy")
+    fig["collectives_per_scan"] = run.per_op(1)
+    run.parity("healthy")
     client.fail_server(RANK_FAIL)
     t0 = time.perf_counter()
-    rounds("degraded")
-    sync()
+    run.rounds("degraded", RANK_ROUNDS)
+    run.sync()
     fig["degraded_rounds_s"] = time.perf_counter() - t0
     t0 = time.perf_counter()
     rr = client.recover_server(RANK_FAIL)
-    sync()
+    run.sync()
     fig["recover_s"] = time.perf_counter() - t0
-    answers.append(_digest(np.array([rr.server, rr.online,
-                                     rr.re_replicated, rr.catch_up_pending,
-                                     client.stats["migrated"]])))
-    read_back("recovered")
-    parity("recovered")
+    run.answers.append(_digest(np.array([
+        rr.server, rr.online, rr.re_replicated, rr.catch_up_pending,
+        client.stats["migrated"]])))
+    run.read_back("recovered")
+    run.parity("recovered")
     fig["launches"] = dict(ops.LAUNCHES, mamba_scan=ms.LAUNCHES["mamba_scan"])
     fig["ops"] = {k: client.stats[k] for k in ("puts", "gets", "deletes",
                                                "scans", "retries",
                                                "migrated")}
-    whole = kv.gathered(be.store, comm)
-    leaves = {}
-    if comm.rank == 0:
-        for path, leaf in _store_leaves(whole):
-            leaves[path] = _digest(leaf)
-    return answers, leaves, fig
+    return run.answers, run.leaves(), fig
+
+
+def rank_faults(torch, client, cfg, seed, n_keys):
+    """Phase 9c's data-plane and ticker segment on ``client`` (its own
+    store, leases on the rounds clock), the same calls wherever it runs:
+    data server 5 fails (wiped), two degraded mixed rounds, its recovery
+    (the shard from its mirror, the allocator's sweep, the migration);
+    data server 2 severed, found by the detector, recovered; then, with
+    no foreground op, index server 6 severed under the wall-clock ticker,
+    which must demote it within the lease timeout and an interval plus
+    slack, then its recovery and a read-back.  Returns (the answers'
+    sha256 with the detector's lists, the gathered leaves' sha256 but
+    the heartbeat counters, which count the ticker's rounds, figures)."""
+    from repro_torch.kernels import mamba_scan as ms
+    from repro_torch.kernels import ops
+
+    be = client.backend
+    run = _RankRun(torch, client, cfg, seed + 1, n_keys,
+                   FAULT_ROUNDS * client.max_batch // 2)
+    fig, comm = run.fig, run.comm
+
+    def timed(label, call):
+        comm.reset_stats()
+        t0 = time.perf_counter()
+        out = call()
+        run.sync()
+        fig[f"{label}_s"] = time.perf_counter() - t0
+        fig[f"{label}_collectives"] = {
+            k: {"calls": comm.stats["calls"][k],
+                "bytes": comm.stats["bytes"][k]} for k in comm.stats["calls"]}
+        return out
+
+    def note(*xs):
+        run.answers.append(_digest(np.frombuffer(json.dumps(
+            [list(x) if isinstance(x, (set, tuple)) else x for x in xs],
+            default=int).encode(), np.uint8)))
+
+    zero_launches(ops)
+    ms.LAUNCHES["mamba_scan"] = 0
+    run.load()
+    note(client.fail_data_server(FAULT_DATA))
+    t0 = time.perf_counter()
+    run.rounds("data_degraded", FAULT_ROUNDS)
+    run.sync()
+    fig["data_degraded_rounds_s"] = time.perf_counter() - t0
+    timed("data_recover", lambda: client.recover_data_server(FAULT_DATA))
+    note(client.stats["migrated"], be.detected, be.detected_data)
+    r = run.read_back("data_recovered")
+    check(bool((r.hops == 1).all()), "9c faults: GETs one hop again")
+    note(client.sever_data_server(FAULT_SEVER_DATA))
+    probe = run.keys[:client.max_batch]
+    n = 0
+    while FAULT_SEVER_DATA not in be._data_dead:
+        r = client.get(probe)
+        run.answers.append(_digest(r.addrs, r.found, r.values, r.hops))
+        n += 1
+        check(n <= 2 * cfg.lease_misses, "9c faults: data lease not found")
+    fig["data_detect_rounds"] = n
+    check(be.detected_data == [FAULT_SEVER_DATA], "9c faults: detected")
+    timed("data_sever_recover",
+          lambda: client.recover_data_server(FAULT_SEVER_DATA))
+    note(client.stats["migrated"], be.detected, be.detected_data)
+    # the wall-clock ticker: a read renews every lease, then no
+    # foreground op runs until the ticker demotes the severed server
+    be.lease_clock = "wall"
+    r = client.get(probe)
+    run.answers.append(_digest(r.addrs, r.found, r.values, r.hops))
+    check(client.start_ticker(), "9c faults: ticker")
+    try:
+        stats0 = dict(client.stats)
+        client.sever_server(FAULT_SEVER_INDEX)
+        t0 = time.monotonic()
+        t_hb = float(be._hb_t[FAULT_SEVER_INDEX])   # its last advance
+        budget = be.lease_timeout_s + be.lease_interval_s + TICKER_SLACK_S
+        while FAULT_SEVER_INDEX not in be._dead:
+            time.sleep(0.005)
+            check(time.monotonic() - t0 <= budget,
+                  "9c faults: the ticker found no idle sever in time")
+        fig["ticker_detect_s"] = time.monotonic() - t0
+        check(time.monotonic() - t_hb >= be.lease_timeout_s,
+              "9c faults: demoted before the lease ran out")
+        check(dict(client.stats) == stats0, "9c faults: a foreground op")
+        fig["ticker_rounds"] = client.metrics().counters.get(
+            "ticker_rounds", 0)
+    finally:
+        client.stop_ticker()
+        be.lease_clock = "rounds"
+    note(be.detected, be.detected_data, sorted(be._dead))
+    rr = timed("index_recover",
+               lambda: client.recover_server(FAULT_SEVER_INDEX))
+    note(rr.server, rr.online, rr.re_replicated, rr.catch_up_pending,
+         client.stats["migrated"])
+    r = run.read_back("faults_final")
+    check(bool((r.hops == 1).all()), "9c faults: final GETs one hop")
+    run.parity("faults_final")
+    fig["launches"] = dict(ops.LAUNCHES, mamba_scan=ms.LAUNCHES["mamba_scan"])
+    fig["ops"] = {k: client.stats[k] for k in ("puts", "gets", "deletes",
+                                               "scans", "retries",
+                                               "migrated")}
+    return run.answers, run.leaves(skip=("hb", "data.hb")), fig
 
 
 def _store_leaves(x, path=""):
@@ -2558,7 +2713,8 @@ def collective_ms(torch, comm, sizes, iters=50):
 
 
 def rank_phase(rank, world, device, seed, sizes):
-    """One rank of phase 9c (run by ``launch/ranks.spawn``)."""
+    """One rank of phase 9c (run by ``launch/ranks.spawn``): the workload,
+    then the data-plane and ticker segment on a store of its own."""
     import torch
 
     from repro_torch.configs.histore import scaled
@@ -2572,17 +2728,34 @@ def rank_phase(rank, world, device, seed, sizes):
     fig["peak_bytes"] = torch.cuda.max_memory_allocated(device)
     fig["collective_ms"] = collective_ms(torch, comm, sizes)
     fig["device"] = str(device)
-    return answers, leaves, fig
+    del client
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(device)
+    fcfg = scaled(lease_clock="rounds")
+    comm.reset_stats()
+    client = rank_client(fcfg, sizes, device, comm)
+    faults = rank_faults(torch, client, fcfg, seed, sizes["fault_keys"])
+    faults[2]["peak_bytes"] = torch.cuda.max_memory_allocated(device)
+    return answers, leaves, fig, faults
+
+
+def _same_answers(got, want, what):
+    first = next((i for i, (x, y) in enumerate(zip(got, want)) if x != y),
+                 min(len(got), len(want)))
+    check(got == want, f"{what}: answers differ from the one-process run "
+          f"from call {first}")
 
 
 def dist_ranks(torch, seed):
     """Phase 9c: the distributed store over ranks, one process a rank,
     held bit for bit against the one-process backend on the same
-    workload.  Returns (figures, rank 0's launches over NCCL)."""
+    workload, then the data-plane and ticker segment likewise.  Returns
+    (figures, rank 0's launches over NCCL in the workload and in the
+    segment)."""
     from repro_torch.configs.histore import scaled
     from repro_torch.launch import ranks
 
-    cfg = scaled(lease_misses=0)
+    cfg, fcfg = scaled(lease_misses=0), scaled(lease_clock="rounds")
     W = max(w for w in RANK_WORLDS if w <= torch.cuda.device_count())
     t_phase = time.perf_counter()
     out = {}
@@ -2597,42 +2770,64 @@ def dist_ranks(torch, seed):
         log(f"ranks: one process at {sz['keys']} keys, {len(answers)} "
             f"answers, {len(leaves)} leaves: {json.dumps(fig)}")
         out[f"one_process_{sz['keys']}"] = fig
-        return answers, leaves
+        torch.cuda.reset_peak_memory_stats()
+        client = rank_client(fcfg, sz, torch.device("cuda"))
+        faults = rank_faults(torch, client, fcfg, seed, sz["fault_keys"])
+        faults[2]["peak_bytes"] = torch.cuda.max_memory_allocated()
+        del client
+        torch.cuda.empty_cache()
+        log(f"ranks: faults, one process at {sz['fault_keys']} keys, "
+            f"{len(faults[0])} answers, {len(faults[1])} leaves: "
+            f"{json.dumps(faults[2])}")
+        out[f"one_process_faults_{sz['fault_keys']}"] = faults[2]
+        return answers, leaves, faults
 
     runs = [("nccl", W, "nccl", RANK_SIZES)]
     if GLOO_CUDA:
-        runs.append(("gloo4", 4, "gloo", dict(
-            RANK_SIZES, keys=RANK_SIZES["keys"] // GLOO_LOAD_CUT)))
-    launches = None
+        runs.append(("gloo4", 4, "gloo", {
+            **RANK_SIZES, "keys": RANK_SIZES["keys"] // GLOO_LOAD_CUT,
+            "fault_keys": RANK_SIZES["fault_keys"] // GLOO_LOAD_CUT}))
+    launches = faults_launches = None
     for name, world, backend, sz in runs:
-        answers, leaves = one_process(sz)
+        answers, leaves, faults = one_process(sz)
         t0 = time.perf_counter()
         res = ranks.spawn(rank_phase, world, device="cuda", backend=backend,
                           timeout_s=RANK_TIMEOUT_S, args=(seed, sz))
         wall = time.perf_counter() - t0
-        for r, (a, _, f) in enumerate(res):
-            first = next((i for i, (x, y) in enumerate(zip(a, answers))
-                          if x != y), min(len(a), len(answers)))
-            check(a == answers, f"9c {name} rank {r}: answers differ from "
-                  f"the one-process run from call {first}")
+        for r, (a, _, f, (fa, _, ff)) in enumerate(res):
+            _same_answers(a, answers, f"9c {name} rank {r}")
+            _same_answers(fa, faults[0], f"9c {name} faults rank {r}")
             for k in RANK_KERNELS:
                 check(f["launches"][k] > 0,
                       f"9c {name} rank {r}: kernel {k} was not launched")
-        check(res[0][1] == leaves,
-              f"9c {name}: gathered leaves differ: "
-              f"{[k for k in leaves if res[0][1].get(k) != leaves[k]][:5]}")
-        figs = [f for _, _, f in res]
+                check(ff["launches"][k] > 0, f"9c {name} faults rank {r}: "
+                      f"kernel {k} was not launched")
+        for what, got, want in (("", res[0][1], leaves),
+                                (" faults", res[0][3][1], faults[1])):
+            check(got == want, f"9c {name}{what}: gathered leaves differ: "
+                  f"{[k for k in want if got.get(k) != want[k]][:5]}")
+        figs = [f for _, _, f, _ in res]
+        ffigs = [x[2] for _, _, _, x in res]
         out[name] = {"world": world, "backend": backend, "keys": sz["keys"],
-                     "wall_s": wall, "ranks": figs}
+                     "fault_keys": sz["fault_keys"], "wall_s": wall,
+                     "ranks": figs, "faults": ffigs}
         log(f"ranks: {name}: W = {world} over {backend} at {sz['keys']} "
             f"keys, answers and the gathered leaves bit-equal to one "
             f"process; {wall:.1f} s with the processes' start; "
             + json.dumps(figs))
+        log(f"ranks: {name} faults at {sz['fault_keys']} keys: answers, "
+            f"detector lists and the gathered leaves bit-equal to one "
+            f"process; " + json.dumps([{
+                k: f[k] for k in ("data_recover_s", "data_recover_collectives",
+                                  "data_sever_recover_s", "ticker_detect_s",
+                                  "ticker_rounds", "index_recover_s",
+                                  "peak_bytes")} for f in ffigs]))
         if launches is None:
-            launches = figs[0]["launches"]
+            launches, faults_launches = figs[0]["launches"], \
+                ffigs[0]["launches"]
     out["phase_s"] = time.perf_counter() - t_phase
     log(f"ranks: phase 9c in {out['phase_s']:.1f} s")
-    return out, launches
+    return out, launches, faults_launches
 
 
 SERVE_ARCH = "falcon-mamba-7b"
@@ -4016,7 +4211,8 @@ def main(argv=None) -> int:
     gp_rec["max_abs_err"] = max(gp_rec["max_abs_err"], err)
     gp_rec["degraded"] = degraded
     torch.cuda.empty_cache()
-    rank_times, rank_launches = dist_ranks(torch, args.seed)
+    rank_times, rank_launches, rank_f_launches = dist_ranks(torch,
+                                                            args.seed)
     log(f"ranks: {json.dumps(rank_times)}")
     torch.cuda.empty_cache()
     scan_rec, s_times, s_launches = serving(torch, args.seed)
@@ -4026,9 +4222,11 @@ def main(argv=None) -> int:
         k["launches_distributed"] = d_launches[k["name"]]
         k["launches_dist_faults"] = f_launches[k["name"]]
         k["launches_dist_ranks"] = rank_launches[k["name"]]
+        k["launches_dist_ranks_faults"] = rank_f_launches[k["name"]]
         k["launches_serving"] = s_launches[k["name"]]
     scan_rec["launches_dist_faults"] = f_launches["mamba_scan"]
     scan_rec["launches_dist_ranks"] = rank_launches["mamba_scan"]
+    scan_rec["launches_dist_ranks_faults"] = rank_f_launches["mamba_scan"]
     kernels.append(scan_rec)
     torch.cuda.empty_cache()
     dense_times, dense_launches = dense_serving(torch, args.seed)

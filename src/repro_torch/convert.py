@@ -74,24 +74,36 @@ def backend_from_numpy(group, vals, used, cfg, device, *,
     return be
 
 
-def store_from_numpy(store, cfg, device) -> kv.KVStore:
+def store_from_numpy(store, cfg, device, comm=None) -> kv.KVStore:
     """A KVStore on ``device`` from a JAX KVStore's numpy leaves, their
     [G] and [R, G] layouts kept (hash, primary logs, the shifted sorted
     replicas and backup logs, the value plane, liveness and
-    heartbeats)."""
-    d = store.data
+    heartbeats).  With ``comm`` (``Comm``) each rank takes its L groups'
+    rows of every sharded leaf and the replicated ``alive`` and
+    ``sever`` whole."""
+    def leaf(a, axis):
+        a = np.asarray(a)
+        if comm is not None and axis is not None:
+            a = a.take(np.arange(comm.g0, comm.g0 + comm.L), axis)
+        return _t(a, device)
+
+    def state(cls, src, axis):
+        return cls(*[leaf(getattr(src, f), axis) for f in cls._fields])
+
+    ax, dax, d = kv.GROUP_AXES, dp.GROUP_AXES, store.data
     data = dp.DataPlane(**{
-        f: (_state(lg.UpdateLog, d.freeq, device) if f == "freeq"
-            else _t(getattr(d, f), device)) for f in dp.DataPlane._fields})
+        f: (state(lg.UpdateLog, d.freeq, dax.freeq) if f == "freeq"
+            else leaf(getattr(d, f), getattr(dax, f)))
+        for f in dp.DataPlane._fields})
     return kv.KVStore(
-        hash=_state(hi.HashIndex, store.hash, device),
-        plog=_state(lg.UpdateLog, store.plog, device),
-        bsorted=_state(si.SortedIndex, store.bsorted, device),
-        blog=_state(lg.UpdateLog, store.blog, device),
+        hash=state(hi.HashIndex, store.hash, ax.hash),
+        plog=state(lg.UpdateLog, store.plog, ax.plog),
+        bsorted=state(si.SortedIndex, store.bsorted, ax.bsorted),
+        blog=state(lg.UpdateLog, store.blog, ax.blog),
         data=data,
-        alive=_t(store.alive, device).bool(),
-        sever=_t(store.sever, device).bool(),
-        hb=_t(store.hb, device),
+        alive=leaf(store.alive, ax.alive).bool(),
+        sever=leaf(store.sever, ax.sever).bool(),
+        hb=leaf(store.hb, ax.hb),
     )
 
 
@@ -128,7 +140,7 @@ def distributed_backend_from_numpy(store, cfg, device, *,
                                    capacity_q: int = 64,
                                    scan_limit: int = 128,
                                    pending_bound: int | None = None,
-                                   lease: dict | None = None):
+                                   lease: dict | None = None, comm=None):
     """A DistributedBackend on ``device`` holding a JAX
     DistributedBackend's store (numpy leaves).  ``pending_bound`` is the
     host-side bound on the backup logs' pending entries (default: their
@@ -136,15 +148,17 @@ def distributed_backend_from_numpy(store, cfg, device, *,
     carries its liveness and lease state across, so a store taken in
     the middle of a failure goes on as the source would: the same
     servers dead and severed, the same stalled rounds, the stall timers
-    as old as they were."""
+    as old as they were.  With ``comm`` (every rank calls it with the
+    same leaves) each rank holds its L groups' rows and the whole
+    replicated host state, as the backend over ranks does."""
     import time
 
     from repro_torch.core.client import DistributedBackend
 
     G, dcap = np.asarray(store.data.used).shape
     be = DistributedBackend(G, cfg, dcap, capacity_q=capacity_q,
-                            scan_limit=scan_limit, device=device)
-    be.store = store_from_numpy(store, cfg, be.device)
+                            scan_limit=scan_limit, device=device, comm=comm)
+    be.store = store_from_numpy(store, cfg, be.device, comm)
     be._pending_bound = (be.pending_ops() if pending_bound is None
                          else pending_bound)
     if lease is not None:

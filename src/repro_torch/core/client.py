@@ -29,8 +29,25 @@ heartbeat-severing ``sever_*``), online recovery with re-replication,
 value migration, and the lease detector with its background ticker
 (wall-clock or rounds leases).  Over ranks the client is SPMD: every
 rank makes the same calls with the same global inputs and gets the
-whole answer; the ticker and the data servers' fail / sever / recover
-stay one-rank only.
+whole answer, and the host-side liveness and lease tracking is the
+same on every rank after every call.
+
+The ticker over ranks.  A tick reads every rank's heartbeats and agrees
+the expiries, so its collectives must take the same place in every
+rank's stream of ops; a thread ticking at its own time would pair them
+with another rank's foreground collectives.  Each rank's ticker thread
+therefore runs rounds in lock step with the others', on a gloo group of
+their own (``Comm.host``), never on the store's group.  A round opens
+only where its rank is idle (no foreground op inside, none for a lease
+interval), and while it is open a new foreground op waits.  The ranks
+first all_gather (stop, the count of foreground ops so far or -1 where
+not idle): only where every rank is idle after the same count (the
+client is SPMD, so the count names the place in the op stream) does the
+round tick, bumping each rank's heartbeats, all_gathering the counters and
+agreeing the expiries over the host group, so each demotion lands
+between the same two foreground ops on every rank.  Otherwise the round
+does nothing and the foreground ops age the leases themselves.  A stop
+on any rank ends every rank's ticker at the same round.
 Under wall-clock leases the client paces its retries
 (``_retry_pause``) so a retry loop spans a lease timeout, and a SCAN
 that missed a group retries while a stalled heartbeat is being watched,
@@ -268,14 +285,57 @@ class LocalBackend:
 # ---------------------------------------------------------------------------
 # Distributed backend: G index groups on one device
 # ---------------------------------------------------------------------------
+class _OpLock:
+    """The distributed backend's lock: reentrant, it serializes the
+    foreground ops, counts them (``seq``, outermost entries only) and
+    holds a new one back while a ticker round is open; a round opens
+    only while no foreground op is inside (see the module docstring)."""
+
+    def __init__(self):
+        self._lock = threading.RLock()
+        self._cv = threading.Condition()
+        self._depth = 0          # the foreground thread's nesting
+        self._round = False      # a ticker round is open
+        self.seq = 0
+
+    def __enter__(self):
+        self._lock.acquire()
+        with self._cv:
+            if self._depth == 0:
+                while self._round:
+                    self._cv.wait()
+                self.seq += 1
+            self._depth += 1
+        return self
+
+    def __exit__(self, *exc):
+        with self._cv:
+            self._depth -= 1
+        self._lock.release()
+
+    def open_round(self, ready) -> int:
+        """Open a ticker round if no foreground op is inside and
+        ``ready()``: the count of foreground ops so far, else -1."""
+        with self._cv:
+            if self._depth or not ready():
+                return -1
+            self._round = True
+            return self.seq
+
+    def close_round(self):
+        with self._cv:
+            self._round = False
+            self._cv.notify_all()
+
+
 def _lease_ticker_loop(ref, stop: threading.Event) -> None:
     """Background ticker body (module-level: the thread holds only a WEAK
-    reference to the backend).  Polls at a fraction of the idle interval
-    so a tick lands within one interval of the threshold being crossed;
-    ``stop`` is this thread's own event, so a ticker orphaned by a
-    timed-out stop_ticker() stays stopped after start_ticker() installs
-    a replacement; a garbage-collected backend ends the loop at the next
-    wake-up.
+    reference to the backend).  Runs a round (``_ticker_round``) at a
+    fraction of the idle interval so a tick lands within one interval of
+    the threshold being crossed; ``stop`` is this thread's own event, so
+    a ticker orphaned by a timed-out stop_ticker() stays stopped after
+    start_ticker() installs a replacement; a garbage-collected backend
+    ends the loop at the next wake-up.
 
     On the card the tick is PyTorch work on the store's device, queued
     on ``torch.cuda.current_stream()``: in this thread, as in the main
@@ -290,22 +350,17 @@ def _lease_ticker_loop(ref, stop: threading.Event) -> None:
         if be is None:
             return
         quantum = max(be.lease_interval_s / 5.0, 0.01)
-        interval = be.lease_interval_s
         be = None                      # never hold the ref across a wait
-        if stop.wait(quantum):
-            return
+        stopping = stop.wait(quantum)
         be = ref()
         if be is None:
             return
         try:
-            if time.monotonic() - be._last_traffic_t < interval:
+            ticked, ended = be._ticker_round(stopping)
+            if ended:
+                return
+            if not ticked:
                 continue
-            with be._mu:
-                # re-check under the lock: a foreground op may have just
-                # run (its _lease_tick refreshed the timestamp)
-                if time.monotonic() - be._last_traffic_t < interval:
-                    continue
-                be._lease_tick(bump=True)
             be.telemetry.count("ticker_rounds")
             fails = 0
         except Exception as e:   # noqa: BLE001 — a daemon thread must not
@@ -395,9 +450,15 @@ class DistributedBackend:
         self.detected: list[int] = []       # index demotions the detector
         self.detected_data: list[int] = []  # data demotions the detector
         # the store and the lease state are shared with the background
-        # ticker thread: one reentrant lock serializes every op
-        self._mu = threading.RLock()
+        # ticker thread: one reentrant lock serializes every op, and a
+        # ticker round holds new ops back
+        self._mu = _OpLock()
         self._last_traffic_t = now
+        # the comm _lease_tick gathers and agrees over: the store's, and
+        # the host group's (comm.host(), made by start_ticker) while a
+        # ticker round ticks
+        self._lease_comm = self.comm
+        self._host: Optional[Comm] = None
         self._ticker: Optional[threading.Thread] = None
         self._ticker_stop: Optional[threading.Event] = None
         self._ticker_gave_up = False   # the loop died on repeated errors
@@ -437,22 +498,25 @@ class DistributedBackend:
         self._last_traffic_t = now
         # one device-to-host copy for both planes' counters (gathered
         # over the ranks)
-        hb, dhb = self.comm.all_gather(torch.stack(
-            [self.store.hb, self.store.data.hb], 1)).T.cpu().numpy()
+        cm = self._lease_comm
+        hb, dhb = cm.all_gather(torch.stack(
+            [self.store.hb, self.store.data.hb], 1).to(
+                cm.device or self.device)).T.cpu().numpy()
         self._age_plane(hb, self._last_hb, self._hb_misses, self._hb_t,
-                        self._dead, self._demote, now)
+                        self._dead, self._demote, now, cm)
         self._age_plane(dhb, self._last_data_hb, self._data_hb_misses,
                         self._data_hb_t, self._data_dead,
-                        self._demote_data, now)
+                        self._demote_data, now, cm)
         self._last_hb = hb
         self._last_data_hb = dhb
 
     def _age_plane(self, hb, last, misses, last_t, dead, demote,
-                   now: float):
+                   now: float, cm):
         """Age one plane's leases against its freshly read counters (the
         one aging body both planes share).  The ranks' wall clocks
-        differ, so over ranks a wall-clock expiry on any rank demotes on
-        all of them."""
+        differ, so over ranks a wall-clock lease expires where it has
+        run out on every rank (``cm``'s agree of the minimum): no rank
+        demotes a server sooner than its own clock says."""
         expired = np.zeros((self.G,), bool)
         for g in range(self.G):
             if g in dead:
@@ -463,8 +527,9 @@ class DistributedBackend:
             else:
                 misses[g] += 1
                 expired[g] = self._lease_expired(misses, last_t, g, now)
-        if self.lease_clock == "wall" and self.comm.distributed:
-            expired = self.comm.agree(torch.as_tensor(expired)).cpu().numpy()
+        if self.lease_clock == "wall" and cm.distributed:
+            expired = cm.agree(torch.as_tensor(expired),
+                               "min").cpu().numpy().astype(bool)
         for g in np.nonzero(expired)[0]:
             demote(int(g), detected=True)
 
@@ -508,20 +573,16 @@ class DistributedBackend:
         heartbeat-only tick round, so wall-clock leases expire with zero
         foreground ops.  No-op when detection is off.  Returns True if a
         ticker is running, and False when a previous one gave up after
-        repeated tick errors (``stop_ticker()`` clears that latch).
-        Raises over more than one rank: the thread would call collectives
-        at its own times, on one rank only."""
-        if self.comm.world > 1:
-            raise NotImplementedError(
-                f"start_ticker over {self.comm.world} ranks: the background "
-                "lease ticker across ranks (ticks agreed by every rank) is "
-                "not ported yet; age the leases with foreground traffic")
+        repeated tick errors (``stop_ticker()`` clears that latch).  Over
+        ranks every rank calls it, and the tickers tick in agreed rounds
+        (the module docstring)."""
         if self.lease_misses <= 0:
             return False
         if self._ticker_gave_up:
             return False
         if self._ticker is not None and self._ticker.is_alive():
             return True
+        self._host = self.comm.host()
         stop = threading.Event()
         self._ticker_stop = stop
         # the thread holds only a weak reference to this backend (and a
@@ -533,6 +594,31 @@ class DistributedBackend:
         weakref.finalize(self, stop.set)
         self._ticker.start()
         return True
+
+    def _ticker_round(self, stopping: bool) -> tuple:
+        """One round of the background ticker, in lock step with the
+        other ranks' (the module docstring): it ticks, as a foreground
+        read-only op would, where every rank is idle after the same count
+        of foreground ops and none is stopping.  Returns (ticked, ended:
+        a rank stopped, so every ticker ends)."""
+        seq = self._mu.open_round(lambda: not stopping and (
+            time.monotonic() - self._last_traffic_t
+            >= self.lease_interval_s))
+        try:
+            host = self._host
+            v = host.all_gather(torch.tensor([[int(stopping), seq]]))
+            ended = bool(v[:, 0].any())
+            if ended or seq < 0 or not bool((v[:, 1] == seq).all()):
+                return False, ended
+            self._lease_comm = host
+            try:
+                self._lease_tick(bump=True)
+            finally:
+                self._lease_comm = self.comm
+            return True, False
+        finally:
+            if seq >= 0:
+                self._mu.close_round()
 
     def stop_ticker(self) -> None:
         # an explicit stop also clears the give-up latch

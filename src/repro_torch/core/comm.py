@@ -17,6 +17,14 @@ W = G is JAX's layout of one group a device.  The verbs of
   all_gather     JAX's ``all_gather`` along the group axis;
   group_leaves   one group's state, broadcast from its owner (the
                  host-side control plane reads survivors through it);
+  to_owners      rows sent to the rank that owns each row's group (the
+                 allocator's sweep sends each slot mark to its shard):
+                 an all_gather of the counts, then one
+                 ``all_to_all_single`` with split sizes;
+  move           point-to-point copies of whole tensors from one
+                 group's owner to another's (a data shard rebuilt from
+                 a mirror), one ``all_to_all_single`` a leaf, with
+                 split sizes that leave every other rank out;
   psum           an all-reduce sum, which brings rows from the one rank
                  that holds each to every rank;
   agree          an all-reduce of a host decision, so that every rank
@@ -24,7 +32,12 @@ W = G is JAX's layout of one group a device.  The verbs of
 
 ``Comm.single(G)`` has no process group: all G groups on one device, the
 exchange a transpose, the shift a ``torch.roll``, ``all_gather`` and
-``group_leaves`` indexing.  No collective is called on that path.
+``group_leaves`` indexing, ``to_owners`` and ``move`` the tensors
+themselves.  No collective is called on that path.
+
+``host()`` is a second Comm over the same ranks on a gloo group of its
+own, on the CPU: the lease ticker's rounds run there, off the store's
+op stream, so its collectives never pair with the store's.
 
 Every collective counts its calls and the bytes this rank sends
 (``stats``), by kind.  Bool tensors travel as uint8.
@@ -62,6 +75,7 @@ class Comm:
         self.device = torch.device(device) if device is not None else None
         self.stats = {"calls": Counter(), "bytes": Counter()}
         self._plans = {}
+        self._host = None
 
     @classmethod
     def single(cls, G: int) -> "Comm":
@@ -115,14 +129,15 @@ class Comm:
     def reset_stats(self):
         self.stats = {"calls": Counter(), "bytes": Counter()}
 
-    def _a2a(self, x, out_rows=None, in_rows=None):
+    def _a2a(self, x, out_rows=None, in_rows=None, kind="all_to_all"):
         """all_to_all_single of x along dim 0 (equal chunks, or the split
-        sizes given); returns the received tensor."""
+        sizes given), counted under ``kind``; returns the received
+        tensor."""
         import torch.distributed as dist
         send = _wire(x)
         n = send.shape[0] if out_rows is None else sum(out_rows)
         recv = send.new_empty((n,) + tuple(send.shape[1:]))
-        self._count("all_to_all", send.numel() * send.element_size())
+        self._count(kind, send.numel() * send.element_size())
         dist.all_to_all_single(recv, send, out_rows, in_rows,
                                group=self.group)
         return recv.view(torch.bool) if x.dtype == torch.bool else recv
@@ -221,6 +236,79 @@ class Comm:
             out.append(buf.view(torch.bool) if leaf.dtype == torch.bool
                        else buf)
         return type(state)(*out)
+
+    def to_owners(self, x, groups):
+        """Each row of ``x`` [n, ...] to the rank that owns group
+        ``groups[i]`` (a [n] tensor of global groups): returns the rows
+        this rank received, by source rank, each source's rows in their
+        order.  Counts travel first (an all_gather of [W] a rank).
+        ``x`` itself on one process."""
+        if not self.distributed:
+            return x
+        dest = torch.div(groups, self.L, rounding_mode="floor").long()
+        order = torch.argsort(dest, stable=True)
+        sent = torch.bincount(dest, minlength=self.world)
+        counts = self.all_gather(sent[None])            # [W src, W dst]
+        return self._a2a(x[order], counts[:, self.rank].tolist(),
+                         sent.tolist(), kind="to_owners")
+
+    def move(self, moves, like):
+        """Copies of whole tensors between groups' owners.  ``moves`` is
+        a list of (source group, destination group, tensors), the
+        tensors a tuple shaped like ``like`` on the source's owner (None
+        on every other rank; ``like`` is a tuple of tensors of each
+        leaf's shape and dtype, on every rank).  Returns, for each move,
+        its tuple on the destination's owner and None elsewhere.  The
+        plan is the same on every rank; a move within a rank copies
+        nothing, the others take one ``all_to_all_single`` a leaf in
+        which only their two ranks send or receive.  On one process
+        every move is within the rank."""
+        out = [None] * len(moves)
+        remote = []
+        for i, (s, d, t) in enumerate(moves):
+            if self.owner(s) != self.owner(d):
+                remote.append(i)
+            elif self.owns(d):
+                out[i] = t
+        if not remote:
+            return out
+        send = sorted((self.owner(moves[i][1]), i) for i in remote
+                      if self.owns(moves[i][0]))
+        recv = sorted((self.owner(moves[i][0]), i) for i in remote
+                      if self.owns(moves[i][1]))
+        in_rows = np.bincount(np.asarray([r for r, _ in send], np.int64),
+                              minlength=self.world)
+        out_rows = np.bincount(np.asarray([r for r, _ in recv], np.int64),
+                               minlength=self.world)
+        got = [[] for _ in recv]
+        for j, t0 in enumerate(like):
+            x = (torch.stack([moves[i][2][j] for _, i in send]) if send
+                 else t0.new_empty((0,) + tuple(t0.shape)))
+            y = self._a2a(x, out_rows.tolist(), in_rows.tolist(),
+                          kind="move")
+            for k in range(len(recv)):
+                got[k].append(y[k])
+        for k, (_, i) in enumerate(recv):
+            out[i] = tuple(got[k])
+        return out
+
+    def host(self) -> "Comm":
+        """This Comm's ranks on a gloo group of their own, on the CPU
+        (itself on one process): host decisions taken off the store's op
+        stream (the lease ticker's rounds) go through it, so that their
+        collectives never pair with the store's.  Made at the first call,
+        which every rank makes (``new_group`` is collective)."""
+        if not self.distributed:
+            return self
+        if self._host is None:
+            import datetime
+
+            import torch.distributed as dist
+            g = dist.new_group(dist.get_process_group_ranks(self.group),
+                               backend="gloo",
+                               timeout=datetime.timedelta(seconds=60))
+            self._host = Comm(self.G, g, "cpu")
+        return self._host
 
     def psum(self, x):
         """JAX's ``psum`` over the ranks, in x's own dtype: the rank

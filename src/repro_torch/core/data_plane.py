@@ -28,8 +28,9 @@ port runs the same step as tensor operations on the store's device.
 Over W ranks a rank holds the shards of its L groups ([L] leaves;
 ``alive`` and ``sever`` replicated [G]); the audits read gathered state
 through the store's ``Comm``, the migration homes each group's strays
-on its owner, and the data servers' recovery and sweep run on one
-process only.
+on its owner, a failure wipes on the failed server's owner, the sweep
+sends each live address to its shard's owner, and a recovery moves the
+shard's copies from their holders' owners to its own.
 This module never imports ``kvstore``: it touches only the store's
 fields, so the dependency points one way.
 """
@@ -430,69 +431,82 @@ def group_items_from_data(store, cfg, g: int, owner_group_fn, comm=None):
     return ks[sel].cpu().numpy(), ads[sel].to(I32).cpu().numpy()
 
 
-def _wipe_data_state(data: DataPlane, dev: int) -> DataPlane:
+def _wipe_data_state(data: DataPlane, dev: int, cm) -> DataPlane:
     """Destroy the data-plane state device ``dev`` held: its shard, every
     mirror it hosts, and its pending free queue (the crash's data loss).
-    A new state: the old one is unchanged."""
+    A new state: the old one is unchanged.  Only ``dev``'s owner rank
+    holds it."""
+    if not cm.owns(dev):
+        return data
     every = slice(None)
     return data._replace(
-        vals=tree.put_leaf(data.vals, 0, dev),
-        used=tree.put_leaf(data.used, False, dev),
-        mirror=tree.put_leaf(data.mirror, 0, every, dev),
-        keys=tree.put_leaf(data.keys, 0, dev),
-        kmirror=tree.put_leaf(data.kmirror, 0, every, dev),
-        freeq=tree.put(data.freeq, lg.clear(tree.at(data.freeq, dev)), dev))
+        vals=tree.put_leaf(data.vals, 0, dev, comm=cm),
+        used=tree.put_leaf(data.used, False, dev, comm=cm),
+        mirror=tree.put_leaf(data.mirror, 0, every, dev, comm=cm),
+        keys=tree.put_leaf(data.keys, 0, dev, comm=cm),
+        kmirror=tree.put_leaf(data.kmirror, 0, every, dev, comm=cm),
+        freeq=tree.put(data.freeq, lg.clear(tree.at(data.freeq, dev,
+                                                    comm=cm)),
+                       dev, comm=cm))
 
 
-def fail_data_server(store, dev: int, wipe: bool = True):
+def fail_data_server(store, dev: int, wipe: bool = True, comm=None):
     """Oracle kill switch for the value plane: mask device ``dev``'s DATA
     server dead with the client told at once, a failure domain separate
     from the index server (paper §2).  ``wipe`` (default) destroys the
     shard, the mirrors it hosts and its pending free queue, so recovery
     must rebuild from surviving mirrors; leaked frees are reclaimed by
-    the recovery's mark-sweep."""
+    the recovery's mark-sweep.  Over ranks the replicated ``alive``
+    flips on every rank and ``dev``'s owner wipes its rows."""
     data = store.data._replace(
         alive=tree.put_leaf(store.data.alive, False, dev))
     if wipe:
-        data = _wipe_data_state(data, dev)
+        data = _wipe_data_state(data, dev, store_comm(store, comm))
     return store._replace(data=data)
 
 
-def sever_data_server(store, dev: int, wipe: bool = True):
+def sever_data_server(store, dev: int, wipe: bool = True, comm=None):
     """Crash device ``dev``'s DATA server without telling the client: its
     shard state is destroyed (``wipe``) and its heartbeats stop, but
     ``data.alive``, the client's routing view, still says up.  Local
     value writes there are rejected, reads fail over to the mirrors per
     op, and the lease detector demotes the device once its data
-    heartbeat stalls."""
+    heartbeat stalls.  Over ranks as ``fail_data_server``."""
     data = store.data._replace(
         sever=tree.put_leaf(store.data.sever, True, dev))
     if wipe:
-        data = _wipe_data_state(data, dev)
+        data = _wipe_data_state(data, dev, store_comm(store, comm))
     return store._replace(data=data)
 
 
-def sweep(store, cfg, apply_fn=None):
+def sweep(store, cfg, apply_fn=None, comm=None):
     """Mark-sweep GC reconciliation: on every live data shard ``used``
     becomes exactly the slot set referenced by live index entries; the
     free queues are superseded and cleared (fixes slot leaks from free
-    queues lost in a data-server crash)."""
-    st = drain_all_logs(store, cfg, apply_fn)
-    G = int(st.alive.shape[0])
-    dcap = int(st.data.vals.shape[1])
+    queues lost in a data-server crash).
+
+    Each rank reads its own groups' items (``_own_group_items``); their
+    addresses point into any shard, so each goes to its shard's owner
+    (``Comm.to_owners``: 4 bytes a live item, where an all-reduce of the
+    [G, dcap] bitmap would move the whole capacity), which marks and
+    writes its own live shards."""
+    cm = store_comm(store, comm)
+    st = drain_all_logs(store, cfg, apply_fn, cm)
+    L, dcap = cm.L, int(st.data.vals.shape[1])
     dev = st.data.used.device
-    marked = torch.zeros((G * dcap,), dtype=torch.bool, device=dev)
-    for g in range(G):
-        _, addrs = _group_items(st, cfg, g)
-        addrs = addrs.to(torch.int64)
-        marked[addrs[addrs >= 0]] = True
-    dalive = torch.as_tensor(effective_alive(st.data), device=dev)
-    used = torch.where(dalive[:, None], marked.view(G, dcap), st.data.used)
+    addrs = torch.cat([a.to(I32) for _, a in _own_group_items(st, cfg, cm)])
+    addrs = addrs[addrs >= 0]
+    addrs = cm.to_owners(addrs, torch.div(addrs, dcap,
+                                          rounding_mode="floor"))
+    marked = torch.zeros((L * dcap,), dtype=torch.bool, device=dev)
+    marked[addrs.long() - cm.g0 * dcap] = True
+    dalive = torch.as_tensor(cm.loc(effective_alive(st.data)), device=dev)
+    used = torch.where(dalive[:, None], marked.view(L, dcap), st.data.used)
     return st._replace(data=st.data._replace(
         used=used, freeq=lg.clear(st.data.freeq)))
 
 
-def recover_data_server(store, dev: int, cfg, apply_fn=None):
+def recover_data_server(store, dev: int, cfg, apply_fn=None, comm=None):
     """Recover device ``dev``'s data server (host-side control plane):
 
       1. restore the shard from the first surviving mirror copy;
@@ -502,8 +516,15 @@ def recover_data_server(store, dev: int, cfg, apply_fn=None):
          reclaims frees leaked when the crash dropped ``dev``'s queue);
       4. flip ``data.alive[dev]`` and clear a severed heartbeat, so the
          recovered server leases normally again.
-    """
-    G = int(store.alive.shape[0])
+
+    Every source is chosen from the replicated liveness, so each rank
+    takes the same plan, and RecoveryError (no live mirror) is raised on
+    every rank before anything is written.  Over ranks each copy travels
+    from its holder's owner to ``dev``'s owner (``Comm.move``: the
+    shard and a mirror a value replica, with their key columns), which
+    writes them."""
+    cm = store_comm(store, comm)
+    G = cm.G
     Rv = int(store.data.mirror.shape[0])
     dalive = effective_alive(store.data)
     if bool(dalive[dev]):
@@ -516,43 +537,53 @@ def recover_data_server(store, dev: int, cfg, apply_fn=None):
     dalive[dev] = False
     data = store.data
     if G > 1:
-        src = None
-        for r in range(Rv):
-            h = (dev + r + 1) % G
-            if h != dev and dalive[h]:
-                src = (r, h)
-                break
+        def holder(s):
+            """The first live holder (r, h) of a mirror of shard s,
+            ``dev`` aside (None: none)."""
+            return next(((r, (s + r + 1) % G) for r in range(Rv)
+                         if (s + r + 1) % G != dev
+                         and dalive[(s + r + 1) % G]), None)
+
+        def mirror_of(r, h):          # (values, keys) of mirror r on h
+            if not cm.owns(h):
+                return None
+            return data.mirror[r, cm.local(h)], data.kmirror[r, cm.local(h)]
+
+        src = holder(dev)
         if src is None:
             raise RecoveryError(group=dev,
                                 searched=[f"mirror {r} on device "
                                           f"{(dev + r + 1) % G}"
                                           for r in range(Rv)],
                                 blockers=[])
-        data = data._replace(
-            vals=tree.put_leaf(data.vals, data.mirror[src], dev),
-            keys=tree.put_leaf(data.keys, data.kmirror[src], dev))
+        # (source group, the copy there, where it goes: None the shard,
+        # else the mirror slot r that dev hosts)
+        moves = [(src[1], mirror_of(*src), None)]
         for r in range(Rv):
             s = (dev - r - 1) % G
             if s == dev:
                 continue
             if dalive[s]:
-                data = data._replace(
-                    mirror=tree.put_leaf(data.mirror, data.vals[s], r, dev),
-                    kmirror=tree.put_leaf(data.kmirror, data.keys[s], r,
-                                          dev))
-            else:
-                for r2 in range(Rv):
-                    h2 = (s + r2 + 1) % G
-                    if h2 != dev and dalive[h2]:
-                        data = data._replace(
-                            mirror=tree.put_leaf(data.mirror,
-                                                 data.mirror[r2, h2], r, dev),
-                            kmirror=tree.put_leaf(data.kmirror,
-                                                  data.kmirror[r2, h2], r,
-                                                  dev))
-                        break
+                moves.append((s, (data.vals[cm.local(s)],
+                                  data.keys[cm.local(s)])
+                              if cm.owns(s) else None, r))
+            elif (h2 := holder(s)) is not None:
+                moves.append((h2[1], mirror_of(*h2), r))
+        got = cm.move([(a, dev, t) for a, t, _ in moves],
+                      (data.vals[0], data.keys[0]))
+        if cm.owns(dev):
+            i = cm.local(dev)
+            vals, keys = data.vals.clone(), data.keys.clone()
+            mirror, kmirror = data.mirror.clone(), data.kmirror.clone()
+            for (_, _, r), (v, k) in zip(moves, got):
+                if r is None:
+                    vals[i], keys[i] = v, k
+                else:
+                    mirror[r, i], kmirror[r, i] = v, k
+            data = data._replace(vals=vals, keys=keys, mirror=mirror,
+                                 kmirror=kmirror)
     data = data._replace(alive=tree.put_leaf(data.alive, True, dev))
-    return sweep(store._replace(data=data), cfg, apply_fn)
+    return sweep(store._replace(data=data), cfg, apply_fn, cm)
 
 
 def migrate_values(store, cfg, owner_group_fn, apply_fn=None, comm=None):

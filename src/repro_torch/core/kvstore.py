@@ -42,9 +42,10 @@ authority and rebuilds divergent copies.  Over ranks the control plane
 reads a survivor through ``Comm.group_leaves`` (a broadcast from its
 owner) and writes on the owner rank only.  The value plane's
 ``fail_data_server`` / ``sever_data_server`` / ``recover_data_server``
-and ``migrate_values`` are ``data_plane.py``'s; over W > 1 ranks the
-first three raise (not ported across ranks yet) and ``migrate_values``
-homes each group's strays on its owner.
+and ``migrate_values`` are ``data_plane.py``'s, over ranks too: a
+failure wipes on the failed server's owner, a recovery moves the
+shard's copies to its owner and sweeps the allocator there, and the
+migration homes each group's strays on its owner.
 """
 from __future__ import annotations
 
@@ -877,42 +878,25 @@ def sever_server(store: KVStore, dev: int, wipe: bool = True,
             else store)
 
 
-def _one_rank(store, comm, what: str):
-    """Refuse a value-plane control-plane pass over more than one rank:
-    its cross-rank form is not ported yet."""
-    cm = store_comm(store, comm)
-    if cm.world > 1:
-        raise NotImplementedError(
-            f"{what} over {cm.world} ranks: the data servers' fail, sever "
-            "and recover (with the allocator's sweep) across ranks are not "
-            "ported yet; run the store on one rank (one process holds "
-            "every group)")
-
-
 def fail_data_server(store: KVStore, dev: int, wipe: bool = True,
                      comm=None) -> KVStore:
-    """Mask device ``dev``'s DATA server dead (see data_plane.py).  One
-    rank only."""
-    _one_rank(store, comm, "fail_data_server")
-    return dp.fail_data_server(store, dev, wipe)
+    """Mask device ``dev``'s DATA server dead (see data_plane.py)."""
+    return dp.fail_data_server(store, dev, wipe, comm)
 
 
 def sever_data_server(store: KVStore, dev: int, wipe: bool = True,
                       comm=None) -> KVStore:
     """Crash device ``dev``'s DATA server without telling the client, the
-    value plane's lease-detection kill switch (see data_plane.py).  One
-    rank only."""
-    _one_rank(store, comm, "sever_data_server")
-    return dp.sever_data_server(store, dev, wipe)
+    value plane's lease-detection kill switch (see data_plane.py)."""
+    return dp.sever_data_server(store, dev, wipe, comm)
 
 
 def recover_data_server(store: KVStore, dev: int, cfg,
                         apply_fn=None, comm=None) -> KVStore:
     """Rebuild device ``dev``'s data shard from its mirrors and mark-sweep
     the allocator (see data_plane.py); ``apply_fn`` runs the sweep's log
-    barrier as incremental apply rounds.  One rank only."""
-    _one_rank(store, comm, "recover_data_server")
-    return dp.recover_data_server(store, dev, cfg, apply_fn)
+    barrier as incremental apply rounds."""
+    return dp.recover_data_server(store, dev, cfg, apply_fn, comm)
 
 
 def migrate_values(store: KVStore, cfg, apply_fn=None, comm=None):

@@ -18,7 +18,8 @@ and returns (record, client): ``record`` is plain JSON data (every
 client call's answer and the detector's lists after it, every
 ``FailResult`` / ``RecoverResult``, the parity reports, ``client.stats``
 and the gauges), ``client`` the client, whose store leaves the caller
-compares.  Nothing here imports JAX or PyTorch.
+compares (``assert_record_equal``, ``leaf_tree``).  Nothing here imports
+JAX or PyTorch.
 """
 from __future__ import annotations
 
@@ -36,6 +37,42 @@ CAP = 512
 # leases on the rounds clock (deterministic), lease_misses 2
 CFG_KW = dict(log_capacity=512, async_apply_batch=128, lease_misses=2,
               lease_clock="rounds", use_kernels="off")
+
+
+def assert_record_equal(got, want, label):
+    """Equal records, the first difference named."""
+    assert sorted(got) == sorted(want), label
+    for key in want:
+        if key == "log":
+            assert len(got[key]) == len(want[key]), (label, "log length")
+            for i, (a, b) in enumerate(zip(got[key], want[key])):
+                assert a == b, (f"{label}: call {i} ({b[0]}) differs:\n"
+                                f"  got={a}\n  want={b}")
+        else:
+            assert got[key] == want[key], (f"{label}: {key} differs:\n"
+                                           f"  got={got[key]}\n"
+                                           f"  want={want[key]}")
+
+
+def leaf_tree(arrays, prefix):
+    """The numpy leaves ``{prefix}/leaf/{dotted path}`` of ``arrays`` as a
+    tree of namespaces, the shape a carry takes (``convert``'s
+    ``*_from_numpy``)."""
+    import types
+
+    root = {}
+    for k, v in arrays.items():
+        if k.startswith(f"{prefix}/leaf/"):
+            node = root
+            *parents, name = k.split("/leaf/")[1].split(".")
+            for p in parents:
+                node = node.setdefault(p, {})
+            node[name] = v
+
+    def build(d):
+        return types.SimpleNamespace(**{k: build(v) if isinstance(v, dict)
+                                        else v for k, v in d.items()})
+    return build(root)
 
 
 class Rec:

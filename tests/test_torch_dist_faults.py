@@ -19,6 +19,14 @@ schedules assert the Oracle and their own checks on both sides.  The
 subprocess also carries one store across in the middle of an outage.
 G = 1 (mask-only failures), the wall-clock ticker and its give-up latch
 run in process.
+
+Over gloo ranks on the CPU (``repro_torch.launch.ranks.spawn``, rank
+bodies in ``tests/_dist_ranks.py``, each spawn with its timeout): every
+schedule and the carry over 4 ranks in one spawn, the multi-failure and
+the data-server detection over 8 (one group a rank), each rank's record
+equal to JAX's and the gathered leaves bit-equal; the ticker over 2
+ranks in one spawn (an idle sever detected on both, the give-up latch,
+foreground ops from a thread while the tickers tick).
 """
 from __future__ import annotations
 
@@ -38,6 +46,7 @@ import pytest
 import torch
 
 import _dist_fault_schedules as S
+import _dist_ranks
 from oracle import FaultInjector
 from repro.configs.histore import scaled as jscaled
 from repro.core.client import DistributedBackend as JDist
@@ -47,6 +56,7 @@ from repro_torch.convert import distributed_backend_from_numpy
 from repro_torch.core import kvstore as kv
 from repro_torch.core.client import DistributedBackend, HiStoreClient
 from repro_torch.core.results import FailResult, RecoverResult
+from repro_torch.launch import ranks
 
 ROOT = Path(__file__).resolve().parents[1]
 G = S.G
@@ -139,36 +149,8 @@ def _assert_leaves_equal(store, jax8, prefix):
         np.testing.assert_array_equal(x, want[path], err_msg=path)
 
 
-def _ns(jax8, prefix):
-    """The numpy leaves under ``prefix`` as a tree of namespaces."""
-    root = {}
-    for k, v in jax8.items():
-        if k.startswith(f"{prefix}/leaf/"):
-            node = root
-            *parents, name = k.split("/leaf/")[1].split(".")
-            for p in parents:
-                node = node.setdefault(p, {})
-            node[name] = v
-
-    def build(d):
-        return types.SimpleNamespace(**{k: build(v) if isinstance(v, dict)
-                                        else v for k, v in d.items()})
-    return build(root)
-
-
-def _assert_record_equal(got, want, label):
-    """Equal records, the first difference named."""
-    assert sorted(got) == sorted(want), label
-    for key in want:
-        if key == "log":
-            assert len(got[key]) == len(want[key]), (label, "log length")
-            for i, (a, b) in enumerate(zip(got[key], want[key])):
-                assert a == b, (f"{label}: call {i} ({b[0]}) differs:\n"
-                                f"  torch={a}\n  jax={b}")
-        else:
-            assert got[key] == want[key], (f"{label}: {key} differs:\n"
-                                           f"  torch={got[key]}\n"
-                                           f"  jax={want[key]}")
+_ns = S.leaf_tree
+_assert_record_equal = S.assert_record_equal
 
 
 # the JAX side's schedules in three subprocesses that run at once: most of
@@ -203,6 +185,14 @@ def jax8(tmp_path_factory):
         with np.load(tmp / f"{i}.npz") as z:
             out.update({k: z[k] for k in z.files})
     return out
+
+
+@pytest.fixture(scope="module")
+def jax8_npz(jax8, tmp_path_factory):
+    """The JAX records and leaves as an ``.npz`` the rank processes read."""
+    path = tmp_path_factory.mktemp("jax8r") / "faults.npz"
+    np.savez(path, **jax8)
+    return str(path)
 
 
 @pytest.mark.parametrize("name", list(S.SCHEDULES))
@@ -410,6 +400,60 @@ def test_ticker_thread_serializes_with_foreground_ops():
     assert not errors, errors
     assert client.metrics().counters.get("ticker_rounds", 0) > 0
     assert client.backend.detected == []
+
+
+@pytest.mark.parametrize("world,names,timeout_s", [
+    (4, list(S.SCHEDULES) + ["carry"], 600),
+    (8, ["multi_failure", "data_server_detection"], 300)])
+def test_schedules_over_ranks_match_jax(jax8, jax8_npz, world, names,
+                                        timeout_s):
+    """The schedules (and the mid-outage carry, through
+    ``distributed_backend_from_numpy(..., comm=)``) over ``world`` gloo
+    ranks, one spawn: the data servers' fail / sever / recover with the
+    allocator's sweep, the index servers', the detector and the
+    migration, on every rank a record equal to JAX's 8-device mesh and
+    the gathered store leaves bit-equal, dtype too."""
+    if world == 8:
+        rec = json.loads(str(jax8["multi_failure/rec"]))
+        assert rec["recovery_error"][2] == ["data server 6"]
+        rec = json.loads(str(jax8["data_server_detection/rec"]))
+        assert rec["detected_data"] == [4]
+    out = ranks.spawn(_dist_ranks.faults_vs_jax, world, device="cpu",
+                      timeout_s=timeout_s, args=(jax8_npz, names))
+    assert len(out) == world
+    assert all(o == out[0] for o in out) and sorted(out[0]) == sorted(names)
+    assert all(n > 20 for n in out[0].values())
+
+
+@pytest.fixture(scope="module")
+def ticker2():
+    """The ticker's three cases over 2 gloo ranks, one spawn
+    (``_dist_ranks.ticker_cases``): each rank's results by case."""
+    return ranks.spawn(_dist_ranks.ticker_cases, 2, device="cpu",
+                       timeout_s=240)
+
+
+def test_ticker_over_ranks_detects_an_idle_sever(ticker2):
+    """The wall-clock ticker over 2 gloo ranks: with zero foreground ops
+    both ranks demote the severed index server in the same round, no
+    sooner than the lease timeout, and stop (``ticker_idle_sever``)."""
+    assert all(took < 5.25 and rounds > 0
+               for took, rounds in (r["ticker_idle_sever"] for r in ticker2))
+
+
+def test_ticker_over_ranks_gave_up_is_latched(ticker2):
+    """Three tick errors on each of 2 gloo ranks end both tickers in the
+    same round, latched and counted as on one process
+    (``ticker_gave_up``)."""
+    got = [r["ticker_gave_up"] for r in ticker2]
+    assert got[0] == got[1] and got[0]["ticker_errors"] == 3
+
+
+def test_ticker_over_ranks_serializes_with_foreground_ops(ticker2):
+    """Foreground PUTs and GETs from a thread on each of 2 gloo ranks
+    while the tickers tick in their own rounds: right answers, no hang
+    inside the spawn's timeout (``ticker_foreground``)."""
+    assert all(r["ticker_foreground"] > 0 for r in ticker2)
 
 
 @pytest.mark.requires_cuda

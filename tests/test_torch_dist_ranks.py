@@ -7,9 +7,9 @@ group_leaves, agree) equal the one-process verbs on random int32, int8
 and bool buffers at W = 1, 2, 4 and 8, one spawn a W
 (``repro_torch.launch.ranks.spawn``, each with its timeout).  On one
 process the store calls no collective.  The stacked group probe's plain
-version at g0 > 0 equals the matching rows of the whole stack.  What is
-not ported across ranks (the ticker, the data servers' fail / sever /
-recover) raises, and a store sharded over ranks needs its comm.
+version at g0 > 0 equals the matching rows of the whole stack.  The data servers' fail / sever / recover and
+the ticker, once refused over ranks, answer as one process does, and
+a store sharded over ranks needs its comm.
 ``python -m repro_torch.core.dist_selftest --ranks 2
 --device cpu`` ends with DIST-SELFTEST-OK.  The battery over 8 and 4
 ranks against JAX's 8-device mesh is in ``test_torch_dist_selftest.py``.
@@ -25,7 +25,9 @@ import pytest
 import torch
 
 import _dist_ranks as R
+from repro_torch.configs.histore import scaled
 from repro_torch.core import kvstore as kv
+from repro_torch.core.client import DistributedBackend
 from repro_torch.kernels import ops
 from repro_torch.launch import ranks
 
@@ -85,12 +87,44 @@ def test_group_probe_plain_at_g0(g0, L):
 
 
 def test_unported_work_raises_over_ranks():
-    msgs = ranks.spawn(R.refused, 2, device="cpu", timeout_s=TIMEOUT_S)
-    for m in msgs:
-        assert "ticker across ranks" in m["start_ticker"]
-        for k in ("fail_data_server", "sever_data_server",
-                  "recover_data_server"):
-            assert "not ported yet" in m[k] and "2 ranks" in m[k], m[k]
+    """The work this test once found refused over ranks (the data
+    servers' fail / sever / recover, the ticker) now answers on 2 ranks
+    as on one process (``_dist_ranks.answered`` holds each rank's
+    answers and gathered store against a one-process client's)."""
+    answers = ranks.spawn(R.answered, 2, device="cpu", timeout_s=TIMEOUT_S)
+    assert answers[0] == answers[1]
+    fail, read, audit, moved, sever, last, lost = answers[0]
+    assert fail == [3, True] and sever == [2, True]
+    assert read[0] and 2 in read[1]          # shard 3 read from a mirror
+    assert audit["agree"] and moved > 0      # the strays swept, then home
+    assert last[0] and set(last[1]) == {1}   # home again: one hop
+    assert last[3] == [2] and last[4] == []  # 2 detected, then recovered
+    assert lost == [4, ["mirror 0 on device 5"], [], [4, 5]]
+
+
+def test_one_process_data_plane_calls_no_collective(monkeypatch):
+    """W = 1 without a process group: the data servers' fail, sever and
+    recovery (the sweep and the copies from the mirrors) and the
+    ticker's round run with every collective made to raise."""
+    import torch.distributed as dist
+
+    def boom(*a, **k):
+        raise AssertionError("a collective on the one-process path")
+
+    for name in ("all_to_all_single", "all_gather", "broadcast",
+                 "all_reduce", "new_group"):
+        monkeypatch.setattr(dist, name, boom)
+    cfg, st, _ = R.probe_case("cpu")
+    st = kv.recover_server(st, 5, cfg)
+    for dev, kill in ((2, kv.fail_data_server), (6, kv.sever_data_server)):
+        st = kv.recover_data_server(kill(st, dev), dev, cfg)
+    assert all(p["agree"] for p in kv.parity_report(st, cfg))
+    be = DistributedBackend(R.G, scaled(use_kernels="off"), 64,
+                            device="cpu")
+    be._host = be.comm.host()
+    be._last_traffic_t -= 999.0
+    assert be._ticker_round(False) == (True, False)
+    assert be._ticker_round(True) == (False, True)
 
 
 def test_sharded_store_needs_its_comm():
