@@ -297,7 +297,44 @@
     serial step (forward and backward) timed by CUDA events at both
     dtypes, the peak memory logged.  (d) ``train/elastic_selftest.py``
     on the card (ELASTIC-SELFTEST-OK).
-15. The last two lines: the kernels as JSON (ten records, in the order
+15. Training over ranks (``train/dp.py``: one process a rank over
+    ``torch.distributed``; TF32 off; the kernels' launch counts set to 0
+    in every rank process and here: every record gets
+    ``launches_training_ranks``, expected 0).  First, here: (b)'s and
+    (b')'s one-process references and (d)'s stacked reference.  Then 4
+    gloo ranks sharing the card (``rank_gloo``):
+    (b) musicgen-large at full width on 4 of 48 layers (cut:
+    276842496 parameters, about 2.8 GB of checkpointed state), global
+    batch 2 x 4096 (train_4k's 256 cut to 2), 3 steps over ranks 0-1
+    from ``--seed`` with a checkpoint at step 2: each step's loss and
+    grad norm within 1e-3 (relative) of the one-process run of the same
+    batch; each rank's m and v bytes as ``opt_pspecs`` plans, at most
+    half of the one-process run's plus the leaves that fall back to
+    whole.  (b') At the same time over ranks 2-3, deepseek-v2-lite-16b
+    at full width on 2 of 27 layers (cut: the dense first layer and one
+    MoE layer of 64 experts, top 6), float32 (cut from bf16, so that the
+    ranks and one process route the same tokens), global batch 2 x 1024
+    (a row a rank), 2 steps: the MoE's global statistics, capacity and
+    slot ranks over gloo on CUDA tensors, where autograd runs the
+    backward, and so each checkpointed layer's recompute with its
+    collectives, on a thread of its own; each step's loss and grad norm
+    within 1e-4 of one process.  (c) The pipeline with one stage a rank
+    at phase 14's width (4 musicgen-large AttnBlocks, 8 microbatches of
+    1024 tokens, float32): rank 0 runs the stacked ``pipeline_apply``
+    and broadcasts each stage's reference; every rank's outputs,
+    gradients and one SGD step's parameters within phase 14's PIPE_RTOL;
+    seconds beside the stacked step's.  (d) The compressed all-reduce, one AttnBlock's
+    gradients a rank (67112960 elements): bit-equal (sha256) to the
+    stacked version; seconds and bytes (the int32 payload).  (e) The
+    elastic self-test over the 4 ranks (``run_ranks``).  Then W = the
+    card count NCCL ranks (``rank_nccl``; 1 here): (a) musicgen-large at
+    full width and depth, bf16, batch 8 x 4096 from phase 13's seed, 2
+    steps: losses and grad norms bit-equal to phase 13's first 2 at
+    W = 1 (within 2e-3 relative over more cards), peak under 79 GiB,
+    seconds a step beside phase 13's, the gradient all-reduce's bytes and
+    seconds a step; then (b)'s step-2 checkpoint resumed on rank 0 alone
+    (the elastic move 2 -> 1): its step within 1e-3 of the gloo run's.
+16. The last two lines: the kernels as JSON (ten records, in the order
     of PERF.md's kernel table), then the device as JSON.
 
 Exits nonzero, printing no result, without CUDA or outside a checkout.
@@ -307,6 +344,7 @@ from __future__ import annotations
 import argparse
 import hashlib
 import json
+import os
 import re
 import subprocess
 import sys
@@ -3320,8 +3358,8 @@ class DropCounter:
         self.dropped, self.slots, self.calls = [], 0, 0
 
     def __enter__(self):
-        def plan(cfg, eidx, C):
-            out = self.plan(cfg, eidx, C)
+        def plan(cfg, eidx, C, base=None):
+            out = self.plan(cfg, eidx, C, base)
             self.dropped.append((~out[3]).sum())
             self.slots += out[3].numel()
             self.calls += 1
@@ -4131,13 +4169,587 @@ def tools(torch, seed, train_full_out):
           f"elastic self-test: {buf.getvalue()[-2000:]}")
     out["selftest_s"] = time.perf_counter() - t0
     log(f"tools: elastic self-test on the card in {out['selftest_s']:.2f} s: "
-        f"{' / '.join(ln for ln in buf.getvalue().splitlines() if ln.endswith(' ok'))}"
+        f"{' / '.join(ln for ln in buf.getvalue().splitlines() if ' ok' in ln)}"
         f"; ELASTIC-SELFTEST-OK")
     launches = dict(ops.LAUNCHES, mamba_scan=ms.LAUNCHES["mamba_scan"])
     torch.cuda.empty_cache()
     out["phase_s"] = time.perf_counter() - t_phase
     log(f"tools: phase 14 in {out['phase_s']:.1f} s; launches {launches}")
     return out, launches
+
+
+# ---------------------------------------------------------------------------
+# Phase 15: training over ranks (torch.distributed, one process a rank)
+# ---------------------------------------------------------------------------
+RANKS_TRAIN_STEPS = 2             # (a): phase 13's first steps again
+RANKS_EQUAL_RTOL = 2e-3           # (a) over more than one card
+CUT_LAYERS = 4                    # (b): of musicgen-large's 48
+CUT_BATCH, CUT_STEPS, CUT_CKPT = 2, 3, 2   # (b): global batch, steps, ckpt
+CUT_RTOL = 1e-3                   # (b): each step against one process
+MOE_ARCH = "deepseek-v2-lite-16b"  # (b'): the MoE over 2 gloo ranks
+MOE_LAYERS = 2                    # (b'): the dense first layer, one MoE
+MOE_SEQ, MOE_BATCH, MOE_STEPS = 1024, 2, 2   # (b'): a row a rank
+MOE_RTOL = 1e-4                   # (b'): float32, TF32 off
+PIPE_RANKS = 4                    # (c): stages, one a gloo rank
+COMP_RANKS = 4                    # (d): gloo ranks
+CARD_BYTES = 79 * 2 ** 30         # (a): the peak must stay under this
+TRAIN_SEQ = 4096                  # SHAPES["train_4k"]'s sequence
+RANKS_TIMEOUT_S = 600             # each spawn of phase 15
+
+
+def kernel_launches():
+    """The kernels' launch counts in this process."""
+    from repro_torch.kernels import mamba_scan as ms
+    from repro_torch.kernels import ops
+    return dict(ops.LAUNCHES, mamba_scan=ms.LAUNCHES["mamba_scan"])
+
+
+def zero_kernel_launches():
+    from repro_torch.kernels import mamba_scan as ms
+    from repro_torch.kernels import ops
+    zero_launches(ops)
+    ms.LAUNCHES["mamba_scan"] = 0
+
+
+def _no_tf32(torch):
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+
+def cut_config():
+    """(b): musicgen-large at full width on CUT_LAYERS layers."""
+    from repro_torch.configs import get_config
+    return get_config(TRAIN_ARCH).scaled(n_layers=CUT_LAYERS)
+
+
+def moe_config():
+    """(b'): deepseek-v2-lite-16b at full width on MOE_LAYERS layers, in
+    float32 so that the ranks and one process route the same tokens."""
+    from repro_torch.configs import get_config
+    return get_config(MOE_ARCH).scaled(n_layers=MOE_LAYERS, dtype="float32")
+
+
+def zero_plan_bytes(torch, cfg, world):
+    """(whole m bytes, the bytes opt_pspecs plans for one rank of
+    {"data": world, "model": 1}, the bytes of the leaves that fall back
+    to whole)."""
+    from repro_torch.convert import param_tree, stack_like
+    from repro_torch.models.transformer import Model
+    from repro_torch.pytree import leaves, leaves_with_path, tree_map
+    from repro_torch.sharding.partition import (opt_pspecs, per_device_bytes,
+                                                spec_at)
+
+    like = tree_map(lambda t: torch.empty(t.shape, dtype=torch.float32,
+                                          device="meta"),
+                    stack_like(param_tree(Model(cfg, device="meta",
+                                                generator=torch.Generator()),
+                                          cfg)))
+    mesh = {"data": world, "model": 1}
+    plan = opt_pspecs(cfg, {"m": like}, mesh)["m"]
+    whole = sum(4 * x.numel() for x in leaves(like))
+    fallback = sum(4 * x.numel() for p, x in leaves_with_path(like)
+                   if "data" not in spec_at(plan, p))
+    return whole, per_device_bytes(like, plan, mesh), fallback
+
+
+def train_over(torch, dp, seed, cfg, seq, batch, steps, ckpt_dir,
+               ckpt_every):
+    """(a), (b) and its resume, or (b'): ``train`` of ``cfg`` over ``dp``
+    from ``seed``, the gradient all-reduce timed apart (CUDA synchronised
+    around it).  Returns the history, the all-reduce's seconds and bytes a
+    step, the peak memory and this rank's m and v bytes."""
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.train import step as st
+    from repro_torch.train.trainer import train
+
+    device = dp.device
+    red_s, red_b = [], []
+    inner = st.reduce_grads
+
+    def timed(group, grads):
+        torch.cuda.synchronize(device)
+        t0 = time.perf_counter()
+        inner(group, grads)
+        torch.cuda.synchronize(device)
+        red_s.append(time.perf_counter() - t0)
+        red_b.append(sum(g.numel() * g.element_size() for g in grads))
+
+    st.reduce_grads = timed
+    dp.reset_stats()
+    torch.cuda.reset_peak_memory_stats(device)
+    t0 = time.perf_counter()
+    try:
+        out = train(cfg, ShapeSpec("train", seq, batch, "train"),
+                    steps=steps, ckpt_dir=ckpt_dir, ckpt_every=ckpt_every,
+                    lr=TRAIN_LR, seed=seed, log_every=1, dp=dp)
+    finally:
+        st.reduce_grads = inner
+    torch.cuda.synchronize(device)
+    h = out["history"]
+    res = dict(steps=[x["step"] for x in h], losses=[x["loss"] for x in h],
+               grad_norms=[x["grad_norm"] for x in h],
+               wall_s=[x["wall_s"] for x in h],
+               run_s=time.perf_counter() - t0, reduce_s=red_s,
+               reduce_bytes=red_b,
+               peak_bytes=torch.cuda.max_memory_allocated(device),
+               m_bytes=out["zero"].nbytes(out["opt"]["m"]),
+               v_bytes=out["zero"].nbytes(out["opt"]["v"]),
+               collective_bytes=dict(dp.stats["bytes"]))
+    del out
+    torch.cuda.empty_cache()
+    return res
+
+
+def step_seconds(wall):
+    """Seconds of each step from the history's cumulative wall clock."""
+    return [b - a for a, b in zip([0.0] + wall[:-1], wall)]
+
+
+def rank_nccl(rank, world, device, seed, resume_dir):
+    """The NCCL ranks of phase 15 (one a card): (a) at full width and
+    depth, then (b)'s elastic move, the 2-rank checkpoint resumed on rank
+    0 alone."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.configs import get_config
+    from repro_torch.train.dp import DP
+
+    _no_tf32(torch)
+    zero_kernel_launches()
+    one = dist.new_group([0])            # every rank makes it
+    full = train_over(torch, DP(dist.group.WORLD, device), seed,
+                      get_config(TRAIN_ARCH), TRAIN_SEQ, TRAIN_BATCH,
+                      RANKS_TRAIN_STEPS, None, 50)
+    moved = None
+    if rank == 0:
+        t0 = time.perf_counter()
+        moved = train_over(torch, DP(one, device), seed, cut_config(),
+                           TRAIN_SEQ, CUT_BATCH, CUT_STEPS, resume_dir,
+                           CUT_CKPT)
+        moved["wall_s_all"] = time.perf_counter() - t0
+    dist.barrier()
+    return dict(full=full, moved=moved, launches=kernel_launches())
+
+
+def rank_gloo(rank, world, device, seed, ckpt_dir, want_comp):
+    """The 4 gloo ranks of phase 15, sharing the card: (b) over ranks 0-1
+    while (b') runs over ranks 2-3, (c) the pipeline, (d) the compressed
+    all-reduce, (e) the elastic self-test.  Returns each part's figures
+    and the kernels' launches."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.train import elastic_selftest
+    from repro_torch.train.dp import DP
+
+    _no_tf32(torch)
+    zero_kernel_launches()
+    pairs = [dist.new_group([0, 1]), dist.new_group([2, 3])]   # every rank
+    dp = DP(dist.group.WORLD, device)
+    out = {}
+    t0 = time.perf_counter()
+    pair = DP(pairs[rank // 2], device)
+    if rank < 2:
+        out["cut"] = train_over(torch, pair, seed, cut_config(), TRAIN_SEQ,
+                                CUT_BATCH, CUT_STEPS, ckpt_dir, CUT_CKPT)
+    else:
+        out["moe"] = train_over(torch, pair, seed, moe_config(), MOE_SEQ,
+                                MOE_BATCH, MOE_STEPS, None, 50)
+    out["pair_s"] = time.perf_counter() - t0
+    dp.barrier()
+    t0 = time.perf_counter()
+    out["pipeline"] = pipeline_over(torch, dp, seed)
+    out["pipeline_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    out["compressed"] = compressed_over(torch, dp, seed, want_comp[rank])
+    out["compressed_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    elastic_selftest.run_ranks(dp)
+    out["selftest_s"] = time.perf_counter() - t0
+    out["launches"] = kernel_launches()
+    return out
+
+
+def pipeline_over(torch, dp, seed, lr=1e-2):
+    """(c) on ``dp``'s PIPE_RANKS ranks: rank 0 runs the stacked
+    pipeline over phase 14's 4 AttnBlocks at float32 (the reference) and
+    broadcasts each stage's gradients and one SGD step's parameters; then
+    every rank runs its stage of the pipeline over ranks on the same
+    inputs and holds its outputs, gradients and stepped parameters within
+    PIPE_RTOL (relative to each tensor's largest magnitude).  Returns the
+    worst errors and the step's seconds."""
+    from repro_torch.configs import get_config
+    from repro_torch.train.pipeline import pipeline_apply
+
+    cfg = get_config(TRAIN_ARCH)
+    dev = dp.device
+    params, stage_fn = pipeline_stages(torch, cfg, dev, torch.float32, seed)
+    gen = torch.Generator(device=dev).manual_seed(seed + 1)
+    x = torch.randn((PIPE_MICRO, 1, PIPE_SEQ, cfg.d_model), generator=gen,
+                    device=dev)
+    tgt = torch.randn(x.shape, generator=gen, device=dev)
+    y_ref = torch.empty_like(x)
+    mine = {k: v[dp.rank].clone() for k, v in params.items()}
+    ref = {k: torch.empty_like(v) for k, v in mine.items()}
+    stacked_s = None
+    if dp.rank == 0:
+        def piped(p, xs):
+            return pipeline_apply(stage_fn, p, xs)
+
+        pipeline_step(torch, piped, params, x, tgt)     # warm-up
+        torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        y, g_ref = pipeline_step(torch, piped, params, x, tgt)
+        torch.cuda.synchronize(dev)
+        stacked_s = time.perf_counter() - t0
+        y_ref.copy_(y)
+        del y
+    dp.broadcast(y_ref, 0)
+    refs = {}
+    for s in range(dp.world):
+        for k in ref:
+            buf = g_ref[k][s].contiguous() if dp.rank == 0 else ref[k]
+            dp.broadcast(buf, 0)
+            if s == dp.rank:
+                refs[k] = buf.clone()
+    if dp.rank == 0:
+        del g_ref
+    del params
+    torch.cuda.empty_cache()
+
+    def run(p, xs):
+        return pipeline_apply(stage_fn, p, xs, dp)
+
+    pipeline_step(torch, run, mine, x, tgt)             # warm-up
+    dp.reset_stats()
+    torch.cuda.synchronize(dev)
+    t0 = time.perf_counter()
+    y, grads = pipeline_step(torch, run, mine, x, tgt)
+    torch.cuda.synchronize(dev)
+    secs = time.perf_counter() - t0
+
+    def rel(a, b):
+        return float((a - b).abs().max() / max(float(b.abs().max()), 1e-30))
+
+    errs = {"output": rel(y, y_ref)}
+    for k, g in grads.items():
+        errs[f"grad {k}"] = rel(g, refs[k])
+        errs[f"param {k}"] = rel(mine[k] - lr * g, mine[k] - lr * refs[k])
+    worst = max(errs.values())
+    check(worst <= PIPE_RTOL, f"15c rank {dp.rank}: one stage a rank against"
+          f" the stacked pipeline {worst:.3e} > {PIPE_RTOL}: "
+          f"{json.dumps(errs)}")
+    return dict(max_rel_err=worst, output_rel_err=errs["output"],
+                step_s=secs, stacked_step_s=stacked_s,
+                shift_bytes=dp.stats["bytes"]["shift"])
+
+
+def block_grads(torch, cfg, device, seed, rank):
+    """(d): one AttnBlock's gradient shapes, random (0.01 x normal) from
+    ``seed`` and ``rank``."""
+    from repro_torch.models.transformer import AttnBlock
+
+    shapes = {k: v.shape for k, v in AttnBlock(
+        cfg, ("attn", "mlp"), torch.Generator(), "meta").named_parameters()}
+    gen = torch.Generator(device=device).manual_seed(seed * 1000 + rank)
+    return {k: torch.randn(s, generator=gen, device=device) * 0.01
+            for k, s in sorted(shapes.items())}
+
+
+def _digest_tree(torch, tree):
+    h = hashlib.sha256()
+    for k in sorted(tree):
+        h.update(tree[k].contiguous().view(torch.uint8).cpu().numpy()
+                 .tobytes())
+    return h.hexdigest()
+
+
+def compressed_want(torch, seed):
+    """(d)'s stacked version on this process: each rank's (mean, new
+    error state) digests."""
+    from repro_torch.configs import get_config
+    from repro_torch.optim.compression import dp_allreduce_compressed
+
+    cfg = get_config(TRAIN_ARCH)
+    dev = torch.device("cuda")
+    gs = [block_grads(torch, cfg, dev, seed, r) for r in range(COMP_RANKS)]
+    stacked = {k: torch.stack([g[k] for g in gs]) for k in gs[0]}
+    del gs
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out, new_e = dp_allreduce_compressed(
+        stacked, {k: torch.zeros_like(v) for k, v in stacked.items()})
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    want = [(_digest_tree(torch, {k: v[r] for k, v in out.items()}),
+             _digest_tree(torch, {k: v[r] for k, v in new_e.items()}))
+            for r in range(COMP_RANKS)]
+    del stacked, out, new_e
+    torch.cuda.empty_cache()
+    return want, secs
+
+
+def compressed_over(torch, dp, seed, want):
+    """(d) on this rank: its AttnBlock-sized gradients through
+    ``dp_allreduce_compressed`` over ``dp``, bit-equal to the stacked
+    version's row (``want``: its digests)."""
+    from repro_torch.configs import get_config
+    from repro_torch.optim.compression import dp_allreduce_compressed
+
+    g = block_grads(torch, get_config(TRAIN_ARCH), dp.device, seed, dp.rank)
+    err = {k: torch.zeros_like(v) for k, v in g.items()}
+    dp_allreduce_compressed(g, err, dp)                 # warm-up
+    dp.reset_stats()
+    torch.cuda.synchronize(dp.device)
+    t0 = time.perf_counter()
+    out, new_e = dp_allreduce_compressed(g, err, dp)
+    torch.cuda.synchronize(dp.device)
+    secs = time.perf_counter() - t0
+    got = (_digest_tree(torch, out), _digest_tree(torch, new_e))
+    check(got == tuple(want), f"15d rank {dp.rank}: the mean or the error "
+          f"state differs from the stacked version's")
+    return dict(seconds=secs, elements=sum(v.numel() for v in g.values()),
+                bytes=dict(dp.stats["bytes"]))
+
+
+def training_ranks(torch, seed, train13):
+    """Phase 15: training over ranks.  (b) one process; the 4 gloo ranks
+    ((b) over 2 of them, (c), (d), (e)); the NCCL ranks ((a), (b)'s
+    resume).  Returns (figures, the kernels' launches summed over every
+    rank and this process)."""
+    import shutil
+    import tempfile
+
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.launch import ranks
+    from repro_torch.models.transformer import count_params
+    from repro_torch.train.trainer import train
+
+    _no_tf32(torch)
+    t_phase = time.perf_counter()
+    zero_kernel_launches()
+    torch.cuda.empty_cache()
+    out = {"held_bytes": torch.cuda.memory_allocated()}
+    log(f"ranks-train: {out['held_bytes']} B on the card from earlier "
+        f"phases")
+    cfg = cut_config()
+    whole, planned, fallback = zero_plan_bytes(torch, cfg, 2)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    one = train(cfg, ShapeSpec("train_4k", TRAIN_SEQ, CUT_BATCH, "train"),
+                steps=CUT_STEPS, lr=TRAIN_LR, seed=seed, log_every=1,
+                device="cuda")
+    torch.cuda.synchronize()
+    one_s = time.perf_counter() - t0
+    n_cut = count_params(one["model"])
+    ref = one["history"]
+    del one
+    moe_cfg = moe_config()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    one = train(moe_cfg, ShapeSpec("train", MOE_SEQ, MOE_BATCH, "train"),
+                steps=MOE_STEPS, lr=TRAIN_LR, seed=seed, log_every=1,
+                device="cuda")
+    torch.cuda.synchronize()
+    moe_one = dict(s=time.perf_counter() - t0,
+                   n=count_params(one["model"]), history=one["history"])
+    del one
+    torch.cuda.empty_cache()
+    want_comp, comp_stacked_s = compressed_want(torch, seed)
+    W = torch.cuda.device_count()
+    with tempfile.TemporaryDirectory(prefix="phase15-") as d:
+        a, b = Path(d) / "gloo", Path(d) / "resume"
+        t0 = time.perf_counter()
+        gl = ranks.spawn(rank_gloo, 4, device="cuda", backend="gloo",
+                         timeout_s=RANKS_TIMEOUT_S,
+                         args=(seed, str(a), want_comp))
+        gloo_wall = time.perf_counter() - t0
+        ckpt_bytes = (a / f"step_{CUT_CKPT:08d}.npz").stat().st_size
+        b.mkdir()
+        for name in (f"step_{CUT_CKPT:08d}.npz",
+                     f"manifest_{CUT_CKPT:08d}.json"):
+            shutil.copy(a / name, b / name)
+        t0 = time.perf_counter()
+        nc = ranks.spawn(rank_nccl, W, device="cuda", backend="nccl",
+                         timeout_s=RANKS_TIMEOUT_S, args=(seed, str(b)))
+        nccl_wall = time.perf_counter() - t0
+    out["gloo_wall_s"], out["nccl_wall_s"] = gloo_wall, nccl_wall
+    out["full"] = ranks_full_report(nc, train13, W)
+    out["cut"] = ranks_cut_report(gl, nc[0]["moved"], ref, one_s, n_cut,
+                                  whole, planned, fallback, ckpt_bytes)
+    out["moe"] = ranks_moe_report(gl, moe_one)
+    out["pipeline"] = ranks_pipeline_report(gl)
+    out["compressed"] = ranks_compressed_report(gl, comp_stacked_s)
+    out["selftest_s"] = gl[0]["selftest_s"]
+    log(f"ranks-train: (e) elastic self-test over 4 gloo ranks on the card "
+        f"in {out['selftest_s']:.2f} s (its lines above); "
+        f"ELASTIC-SELFTEST-OK; the gloo ranks {gloo_wall:.1f} s and the "
+        f"NCCL rank(s) {nccl_wall:.1f} s with the processes' start")
+    counts = [x["launches"] for x in gl + nc] + [kernel_launches()]
+    launches = {k: sum(c[k] for c in counts) for k in counts[0]}
+    out["phase_s"] = time.perf_counter() - t_phase
+    log(f"ranks-train: phase 15 in {out['phase_s']:.1f} s; launches "
+        f"{launches}")
+    return out, launches
+
+
+def ranks_full_report(nc, train13, W):
+    """(a): the NCCL ranks against phase 13's first steps."""
+    fulls = [x["full"] for x in nc]
+    r0 = fulls[0]
+    want_l = train13["losses"][:RANKS_TRAIN_STEPS]
+    want_g = train13["grad_norms"][:RANKS_TRAIN_STEPS]
+    for r, x in enumerate(fulls):
+        check(x["losses"] == r0["losses"], f"15a: rank {r}'s losses differ")
+    if W == 1:
+        check(r0["losses"] == want_l and r0["grad_norms"] == want_g,
+              f"15a: W = 1 is not bit-equal to phase 13: {r0['losses']} "
+              f"{r0['grad_norms']} against {want_l} {want_g}")
+        how = "bit-equal to"
+    else:
+        gap = max(abs(a - b) / abs(b) for a, b in zip(
+            r0["losses"] + r0["grad_norms"], want_l + want_g))
+        check(gap <= RANKS_EQUAL_RTOL, f"15a: {gap} from phase 13")
+        how = f"within {gap:.3e} of"
+    peak = max(x["peak_bytes"] for x in fulls)
+    check(peak < CARD_BYTES, f"15a: peak {peak} B")
+    secs = step_seconds(r0["wall_s"])
+    log(f"ranks-train: (a) {TRAIN_ARCH} full width and depth over {W} NCCL "
+        f"rank(s), batch {TRAIN_BATCH} x {TRAIN_SEQ}: losses "
+        f"{r0['losses']} grad norms {r0['grad_norms']} ({how} phase 13's "
+        f"first {RANKS_TRAIN_STEPS}); seconds a step {secs} (phase 13: "
+        f"{train13['step_s'][:RANKS_TRAIN_STEPS]}); gradient all-reduce "
+        f"{r0['reduce_bytes']} B in {r0['reduce_s']} s a step; peak {peak} "
+        f"B ({peak / 2**30:.3f} GiB; phase 13 {train13['peak_bytes']} B); m "
+        f"bytes a rank {r0['m_bytes']}; collectives {r0['collective_bytes']}"
+        f" B")
+    return dict(world=W, losses=r0["losses"], grad_norms=r0["grad_norms"],
+                step_s=secs, phase13_step_s=train13["step_s"][
+                    :RANKS_TRAIN_STEPS], reduce_s=r0["reduce_s"],
+                reduce_bytes=r0["reduce_bytes"], peak_bytes=peak,
+                m_bytes=r0["m_bytes"], run_s=r0["run_s"],
+                collective_bytes=r0["collective_bytes"])
+
+
+def ranks_moe_report(gl, one):
+    """(b'): the MoE over gloo ranks 2-3 against one process."""
+    runs = [x["moe"] for x in gl[2:]]
+    g = runs[0]
+    check(runs[1]["losses"] == g["losses"], "15b': rank 3's losses differ")
+    check(g["steps"] == [h["step"] for h in one["history"]],
+          f"15b': steps {g['steps']}")
+    gaps = []
+    for i, h in enumerate(one["history"]):
+        for k, key in (("losses", "loss"), ("grad_norms", "grad_norm")):
+            gap = abs(g[k][i] - h[key]) / abs(h[key])
+            check(gap <= MOE_RTOL, f"15b': step {i} {key} {g[k][i]} against "
+                  f"one process's {h[key]}")
+            gaps.append(gap)
+    secs = step_seconds(g["wall_s"])
+    log(f"ranks-train: (b') {MOE_ARCH} full width on {MOE_LAYERS} layers "
+        f"(cut; {one['n']} parameters; float32, TF32 off), batch "
+        f"{MOE_BATCH} x {MOE_SEQ}, over 2 gloo ranks on the card (remat "
+        f"'unit': the MoE's collectives run again in the backward's "
+        f"recompute, on autograd's device thread): losses {g['losses']} "
+        f"grad norms {g['grad_norms']}, within {max(gaps):.3e} of one "
+        f"process ({[h['loss'] for h in one['history']]}; "
+        f"{one['s']:.2f} s); seconds a step {secs}; the gradient "
+        f"all-reduce {g['reduce_bytes']} B in {g['reduce_s']} s a step; m "
+        f"bytes a rank {g['m_bytes']}; peak {g['peak_bytes']} B; "
+        f"{gl[2]['pair_s']:.2f} s beside (b)'s {gl[0]['pair_s']:.2f}")
+    return dict(losses=g["losses"], grad_norms=g["grad_norms"],
+                one_losses=[h["loss"] for h in one["history"]],
+                one_grad_norms=[h["grad_norm"] for h in one["history"]],
+                max_rel_gap=max(gaps), step_s=secs, one_s=one["s"],
+                params=one["n"], reduce_s=g["reduce_s"],
+                reduce_bytes=g["reduce_bytes"], m_bytes=g["m_bytes"],
+                peak_bytes=g["peak_bytes"], pair_s=gl[2]["pair_s"])
+
+
+def ranks_cut_report(gl, moved, ref, one_s, n, whole, planned, fallback,
+                     ckpt_bytes):
+    """(b): the 2 gloo ranks against one process, ZeRO-1's bytes, the
+    resume on one NCCL rank."""
+    runs = [x["cut"] for x in gl[:2]]
+    g = runs[0]
+    gaps = []
+    for i, h in enumerate(ref):
+        for k, key in (("losses", "loss"), ("grad_norms", "grad_norm")):
+            gap = abs(g[k][i] - h[key]) / abs(h[key])
+            check(gap <= CUT_RTOL, f"15b: step {i} {key} {g[k][i]} against "
+                  f"one process's {h[key]}")
+            gaps.append(gap)
+    for r, x in enumerate(runs):
+        check(x["losses"] == g["losses"], f"15b: rank {r}'s losses differ")
+        check(x["m_bytes"] == x["v_bytes"] == planned
+              and planned <= whole / 2 + fallback,
+              f"15b: rank {r} holds {x['m_bytes']} B of m, the plan "
+              f"{planned} (whole {whole}, fallback {fallback})")
+    check(moved["steps"] == [CUT_CKPT], f"15b: the resume ran "
+          f"{moved['steps']}")
+    moved_gap = abs(moved["losses"][0] - g["losses"][CUT_CKPT]) / abs(
+        g["losses"][CUT_CKPT])
+    check(moved_gap <= CUT_RTOL, f"15b: the resumed step {CUT_CKPT} loss "
+          f"{moved['losses'][0]} against {g['losses'][CUT_CKPT]}")
+    log(f"ranks-train: (b) {TRAIN_ARCH} at full width on {CUT_LAYERS} of 48 "
+        f"layers ({n} parameters), global batch {CUT_BATCH} x {TRAIN_SEQ}, "
+        f"{CUT_STEPS} steps over 2 gloo ranks on the card, a checkpoint at "
+        f"{CUT_CKPT} ({ckpt_bytes} B): losses {g['losses']} grad norms "
+        f"{g['grad_norms']}, within {max(gaps):.3e} (relative) of one "
+        f"process's {[h['loss'] for h in ref]}; m and v a rank "
+        f"{g['m_bytes']} B each (one process {whole}, the plan {planned}, "
+        f"{fallback} B of leaves whole); seconds a step "
+        f"{step_seconds(g['wall_s'])}, {g['run_s']:.2f} s in all with the "
+        f"checkpoints (one process {one_s:.2f} s for {CUT_STEPS} steps), "
+        f"gradient all-reduce {g['reduce_bytes']} B in {g['reduce_s']} s a "
+        f"step; the step-{CUT_CKPT} checkpoint resumed on one NCCL rank: "
+        f"step {CUT_CKPT} loss {moved['losses'][0]} against the gloo run's "
+        f"{g['losses'][CUT_CKPT]} ({moved_gap:.3e}), {moved['run_s']:.2f} s")
+    return dict(layers=CUT_LAYERS, params=n, losses=g["losses"],
+                grad_norms=g["grad_norms"],
+                one_process_losses=[h["loss"] for h in ref],
+                max_rel_gap=max(gaps), m_bytes=g["m_bytes"],
+                whole_m_bytes=whole, planned_m_bytes=planned,
+                fallback_m_bytes=fallback, step_s=step_seconds(g["wall_s"]),
+                run_s=g["run_s"], reduce_s=g["reduce_s"],
+                reduce_bytes=g["reduce_bytes"], checkpoint_bytes=ckpt_bytes,
+                one_process_s=one_s, resumed_loss=moved["losses"][0],
+                resumed_gap=moved_gap, resume_run_s=moved["run_s"])
+
+
+def ranks_pipeline_report(gl):
+    """(c): the pipeline's errors and seconds over the gloo ranks."""
+    p = [x["pipeline"] for x in gl]
+    worst = max(x["max_rel_err"] for x in p)
+    secs = [x["step_s"] for x in p]
+    log(f"ranks-train: (c) the pipeline, {PIPE_RANKS} stages of a "
+        f"{TRAIN_ARCH} AttnBlock, one a gloo rank on the card, "
+        f"{PIPE_MICRO} microbatches of {PIPE_SEQ} tokens, float32: outputs,"
+        f" gradients and one SGD step's parameters within {worst:.3e} "
+        f"(relative) of the stacked pipeline; a step (forward and backward) "
+        f"{max(secs):.3f} s over ranks (handoffs {p[0]['shift_bytes']} B a "
+        f"rank), {p[0]['stacked_step_s']:.3f} s stacked on rank 0; "
+        f"{gl[0]['pipeline_s']:.1f} s with the reference")
+    return dict(max_rel_err=worst, output_rel_err=max(
+        x["output_rel_err"] for x in p), step_s=secs,
+        stacked_step_s=p[0]["stacked_step_s"],
+        shift_bytes=p[0]["shift_bytes"], part_s=gl[0]["pipeline_s"])
+
+
+def ranks_compressed_report(gl, stacked_s):
+    """(d): the compressed all-reduce's seconds and bytes."""
+    c = [x["compressed"] for x in gl]
+    n = c[0]["elements"]
+    log(f"ranks-train: (d) the compressed all-reduce over {COMP_RANKS} gloo "
+        f"ranks on the card, one {TRAIN_ARCH} AttnBlock's gradients a rank "
+        f"({n} elements): bit-equal to the stacked version; "
+        f"{max(x['seconds'] for x in c):.3f} s over ranks, {stacked_s:.3f} "
+        f"s stacked; bytes a rank {c[0]['bytes']} (the int32 payload, "
+        f"{4 * n} B, as large as float32's)")
+    return dict(elements=n, seconds=[x["seconds"] for x in c],
+                stacked_s=stacked_s, bytes=c[0]["bytes"],
+                part_s=gl[0]["compressed_s"])
 
 
 def main(argv=None) -> int:
@@ -4249,6 +4861,12 @@ def main(argv=None) -> int:
     log(f"tools: {json.dumps(tool_times)}")
     for k in kernels:
         k["launches_tools"] = tool_launches[k["name"]]
+    torch.cuda.empty_cache()
+    rank_train_times, rank_train_launches = training_ranks(
+        torch, args.seed, train_times["full"])
+    log(f"ranks-train: {json.dumps(rank_train_times)}")
+    for k in kernels:
+        k["launches_training_ranks"] = rank_train_launches[k["name"]]
     torch.cuda.synchronize()
     log(f"total: {time.perf_counter() - t_start:.1f} s")
     print(smi)

@@ -78,16 +78,14 @@ def _torch_dtype(dtype) -> torch.dtype:
     return getattr(torch, _dtype_name(dtype))
 
 
-def restore_checkpoint(ckpt_dir, step: int, like_tree, *, device=None):
-    """Step ``step`` in the structure of ``like_tree`` (leaves with
-    ``.shape`` and ``.dtype``, torch's or numpy's), as tensors on
-    ``device`` (the card unless the caller names another), each cast to
-    its ``like`` leaf's dtype where the file's differs."""
-    dev = _resolve_device(device, "restore_checkpoint")
+def read_leaves(ckpt_dir, step: int, like_tree):
+    """Step ``step``'s leaves of ``like_tree``'s structure (leaves with
+    ``.shape`` and ``.dtype``, torch's or numpy's) one at a time, in tree
+    order, as CPU tensors, each cast to its ``like`` leaf's dtype where
+    the file's differs: the file is read a leaf at a time."""
     ckpt_dir = Path(ckpt_dir)
     data = np.load(ckpt_dir / f"step_{step:08d}.npz")
     manifest = json.loads((ckpt_dir / f"manifest_{step:08d}.json").read_text())
-    vals = []
     for path, like in leaves_with_path(like_tree):
         key = path_key(path)
         arr = data[key]
@@ -96,8 +94,16 @@ def restore_checkpoint(ckpt_dir, step: int, like_tree, *, device=None):
             t = torch.from_numpy(arr.view(np.int16)).view(torch.bfloat16)
         else:
             t = torch.from_numpy(arr)
-        vals.append(t.to(dev).to(_torch_dtype(like.dtype)))
-    return unflatten(like_tree, vals)
+        yield t.to(_torch_dtype(like.dtype))
+
+
+def restore_checkpoint(ckpt_dir, step: int, like_tree, *, device=None):
+    """Step ``step`` in the structure of ``like_tree`` (``read_leaves``)
+    as tensors on ``device`` (the card unless the caller names
+    another)."""
+    dev = _resolve_device(device, "restore_checkpoint")
+    return unflatten(like_tree, [t.to(dev) for t in
+                                 read_leaves(ckpt_dir, step, like_tree)])
 
 
 class AsyncCheckpointer:
@@ -110,8 +116,11 @@ class AsyncCheckpointer:
         self.ckpt_dir = Path(ckpt_dir)
         self._thread: threading.Thread | None = None
 
-    def save(self, step: int, tree):
-        host_tree = tree_map(
+    def save(self, step: int, tree, *, copy: bool = True):
+        """Write ``tree`` as step ``step`` on the background thread;
+        ``copy=False`` where the tree is host tensors of its own, which
+        nothing writes after the call."""
+        host_tree = tree if not copy else tree_map(
             lambda t: t.detach().to("cpu", copy=True) if torch.is_tensor(t)
             else np.array(t, copy=True), tree)
         self.wait()

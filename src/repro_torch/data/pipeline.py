@@ -6,8 +6,11 @@ a restart is exactly-once: after restoring a checkpoint at step k, batch
 k is the one the crashed run would have drawn.  ``SyntheticLM`` is a
 numpy copy of the JAX package's stream and gives its arrays bit for bit;
 ``make_batch`` puts a batch on the device (the card unless the caller
-names another).  The JAX package's mesh and per-shard placement have no
-meaning on one card and are left out.
+names another).  Over ranks (``train/dp.py``) each rank draws the global
+batch on the host, as the JAX package's ``make_batch`` does, and keeps
+its rows (``rows=dp.rows(global_batch)``, JAX's per-shard placement): a
+batch is the same whatever the number of ranks, which keeps an elastic
+resume exact.
 
 The synthetic LM stream is a Zipf-ish token mixture with a short-range
 copy structure, so tiny models show a real, monotonically improving loss.
@@ -56,12 +59,16 @@ class SyntheticLM:
 
 
 def make_batch(ds: SyntheticLM, step: int, *, device=None,
-               dtype=None) -> dict:
+               dtype=None, rows=None) -> dict:
     """Host batch -> tensors on ``device``; with ``dtype`` the embeds are
     cast to it (round to nearest even, as numpy's cast to bfloat16 in the
-    JAX package)."""
+    JAX package); with ``rows`` (a slice) only those rows of the global
+    batch."""
     dev = _resolve_device(device, "make_batch")
-    out = {k: torch.from_numpy(v).to(dev) for k, v in ds.batch(step).items()}
+    host = ds.batch(step)
+    if rows is not None:
+        host = {k: np.ascontiguousarray(v[rows]) for k, v in host.items()}
+    out = {k: torch.from_numpy(v).to(dev) for k, v in host.items()}
     if dtype is not None and "embeds" in out:
         out["embeds"] = out["embeds"].to(dtype)
     return out

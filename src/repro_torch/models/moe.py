@@ -26,6 +26,19 @@ Three rules hold the port to JAX's answer:
     as JAX's ``.at[t_s].add`` applies its updates; no ``index_add_``,
     whose order on the card is not fixed.
 
+Over ranks (a group of W > 1 set by ``sharding/context.py``'s
+``use_dp`` while a loss and its gradient are taken, the backward's
+recompute included) each rank holds its rows of the global batch, and
+the MoE keeps the global semantics GSPMD gives the JAX step: one
+``all_gather`` of the ranks' [E] expert counts gives the global density
+(no gradient), the capacity ``_capacity(cfg, T_global)``, and each
+slot's rank within its expert in JAX's global sort: its rank on this
+rank plus the counts that lower ranks route to that expert.  So the
+slots kept are exactly those the global sort keeps.  ``p_mean`` and the
+z-loss are the rank's sums over the global token count: the ranks' aux
+losses sum to the global one.  The experts are row-wise, so each rank
+runs only its own kept slots, in an [E, min(C, T_local), D] buffer.
+
 The expert products JAX takes with ``preferred_element_type=F32`` run in
 groups of experts: ``h`` and ``ys`` as matmuls in the activations' dtype
 (float32 accumulation, one rounding: JAX's cast), the gate ``g`` as a
@@ -39,6 +52,7 @@ import torch.nn.functional as F
 
 from repro_torch.core.scatter import drop_set_rows
 from repro_torch.models.layers import dot, mlp_apply, mlp_init, normal
+from repro_torch.sharding.context import current_dp
 
 F32 = torch.float32
 EXPERT_ELEMS = 1 << 28     # float32 gate weights of one expert group (1 GiB)
@@ -91,22 +105,53 @@ def moe_apply(cfg, params, x):
     T = B * S
     xf = x.reshape(T, D)
     logits, probs, eidx, gate = route(cfg, params, xf)
-    # aux losses: load-balance (Switch) + router z-loss
-    density = expert_counts(eidx.reshape(-1), E).float() / (T * k)
-    aux = E * torch.sum(density * probs.mean(0))
-    zloss = torch.mean(torch.logsumexp(logits, dim=-1) ** 2)
-    aux_loss = 0.01 * aux + 0.001 * zloss
-    out = _dispatch(cfg, params, xf, eidx, gate, _capacity(cfg, T))
+    dp = current_dp()
+    if dp is not None and dp.world > 1:
+        aux_loss, C, base = _global_stats(cfg, dp, logits, probs, eidx)
+        out = _dispatch(cfg, params, xf, eidx, gate, C, base)
+    else:
+        # aux losses: load-balance (Switch) + router z-loss
+        density = expert_counts(eidx.reshape(-1), E).float() / (T * k)
+        aux = E * torch.sum(density * probs.mean(0))
+        zloss = torch.mean(torch.logsumexp(logits, dim=-1) ** 2)
+        aux_loss = 0.01 * aux + 0.001 * zloss
+        out = _dispatch(cfg, params, xf, eidx, gate, _capacity(cfg, T))
     if cfg.n_shared_experts:
         out = out + mlp_apply(params["shared"], xf)
     return out.reshape(B, S, D), aux_loss
 
 
-def dispatch_plan(cfg, eidx, C):
+def _global_stats(cfg, dp, logits, probs, eidx):
+    """The router statistics over ``dp``'s ranks (every rank holds T
+    tokens): (this rank's share of the aux loss, the global capacity,
+    the [E] counts lower ranks route to each expert)."""
+    T, k = eidx.shape
+    E = cfg.n_experts
+    T_all = T * dp.world
+    with torch.no_grad():
+        counts = dp.all_gather(expert_counts(eidx.reshape(-1), E)[None])
+    density = counts.sum(0).float() / (T_all * k)
+    aux = E * torch.sum(density * (probs.sum(0) / T_all))
+    zloss = torch.sum(torch.logsumexp(logits, dim=-1) ** 2) / T_all
+    return (0.01 * aux + 0.001 * zloss, _capacity(cfg, T_all),
+            counts[:dp.rank].sum(0))
+
+
+def buffer_rows(C, T, base):
+    """Rows of an expert's dispatch buffer: C, or over ranks (``base``
+    given) min(C, T): a rank keeps at most C - base of an expert's slots,
+    and routes at most T there."""
+    return C if base is None else min(C, T)
+
+
+def dispatch_plan(cfg, eidx, C, base=None):
     """The sort dispatch's bookkeeping: (order, the sorted slots' experts,
     tokens and ranks, keep, dest).  Slot i = t * k + j is token t's j-th
-    choice; ``dest`` is its row of the [E * C] buffer, E * C where
-    dropped."""
+    choice; ``dest`` is its row of the [E * rows] buffer
+    (``buffer_rows``), E * rows where dropped.  ``base`` (over ranks)
+    holds the slots lower ranks route to each expert: a slot is kept
+    where its rank in the global sort, base plus its rank here, is
+    below C."""
     T, k = eidx.shape
     E = cfg.n_experts
     e_flat = eidx.reshape(-1)
@@ -116,8 +161,9 @@ def dispatch_plan(cfg, eidx, C):
     counts = expert_counts(e_flat, E)
     starts = torch.cumsum(counts, 0) - counts                      # exclusive
     rank = torch.arange(T * k, device=eidx.device) - starts[e_s]
-    keep = rank < C
-    dest = torch.where(keep, e_s * C + rank, E * C)
+    rows = buffer_rows(C, T, base)
+    keep = rank < C if base is None else base[e_s] + rank < C
+    dest = torch.where(keep, e_s * rows + rank, E * rows)
     return order, e_s, t_s, keep, dest
 
 
@@ -138,17 +184,19 @@ def _experts(params, xs):
     return ys
 
 
-def _dispatch(cfg, params, xf, eidx, gate, C):
+def _dispatch(cfg, params, xf, eidx, gate, C, base=None):
     """Global sort-based dispatch into the [E, C, D] buffer, the experts,
-    and the combine in JAX's update order."""
+    and the combine in JAX's update order.  Over ranks (``base``) the
+    buffer holds this rank's kept slots (``dispatch_plan``)."""
     T, D = xf.shape
     E, k = cfg.n_experts, cfg.top_k
-    order, e_s, t_s, keep, dest = dispatch_plan(cfg, eidx, C)
+    order, e_s, t_s, keep, dest = dispatch_plan(cfg, eidx, C, base)
+    rows = buffer_rows(C, T, base)
     g_s = gate.reshape(-1)[order]
-    xs = drop_set_rows(torch.zeros((E * C, D), dtype=xf.dtype,
+    xs = drop_set_rows(torch.zeros((E * rows, D), dtype=xf.dtype,
                                    device=xf.device), dest, xf[t_s])
-    ys = _experts(params, xs.view(E, C, D))
-    ys_flat = torch.cat([ys.reshape(E * C, D),
+    ys = _experts(params, xs.view(E, rows, D))
+    ys_flat = torch.cat([ys.reshape(E * rows, D),
                          torch.zeros((1, D), dtype=xf.dtype,
                                      device=xf.device)])
     contrib = ys_flat[dest] * (g_s * keep)[:, None].to(xf.dtype)   # sorted

@@ -15,6 +15,19 @@ are one leaf's size.  Where the JAX function returns new arrays, this one
 writes each parameter, m and v in place (a tensor is mutable, and the
 model's parameters are the tensors to update): every leaf's new value is
 computed from the old ones as JAX computes it, then written over them.
+
+ZeRO-1 over ranks (``Zero1``, as ``cfg.zero1`` asks): each rank holds
+and updates only its slice of m and v and of the parameters, then the
+parameter slices are all-gathered.  The slices are the JAX plan,
+``sharding/partition.opt_pspecs`` of the state over the mesh
+{"data": W, "model": 1} (the specs ``make_sharded_step`` gives its m
+and v): the data axis on the first unsharded dim it divides of JAX's
+stacked shape.  Where that dim is a scanned stage's stack axis, a rank's
+slice is a set of whole layers of the port's list layout
+(``convert.param_tree``); a leaf with no such dim is updated whole on
+every rank, as JAX's spec falls back to replicated.  The gradients are
+the summed ones on every rank, so their global norm, taken before the
+update, is the same on every rank.
 """
 from __future__ import annotations
 
@@ -48,6 +61,18 @@ def adamw_update(params, grads, state, *, lr=3e-4, b1=0.9, b2=0.95,
     """One AdamW step over the tree.  Returns (params, the new state, the
     gradients' global norm before clipping); ``params`` and the state's m
     and v are the same tensors, written in place."""
+    step, gnorm, scale, bc1, bc2 = _step_scalars(state, grads, b1, b2,
+                                                 clip_norm)
+    for p, g, m, v in zip(leaves(params), leaves(grads),
+                          leaves(state["m"]), leaves(state["v"])):
+        leaf_update(p, g, m, v, scale, bc1, bc2, lr=lr, b1=b1, b2=b2,
+                    eps=eps, weight_decay=weight_decay)
+    return params, {"m": state["m"], "v": state["v"], "step": step}, gnorm
+
+
+def _step_scalars(state, grads, b1, b2, clip_norm):
+    """(the new step count, the gradients' global norm, the clip scale,
+    the two bias corrections), float32 scalars but the int32 step."""
     step = state["step"] + 1
     gnorm = global_norm(grads)
     one = torch.ones((), dtype=F32, device=gnorm.device)
@@ -56,11 +81,7 @@ def adamw_update(params, grads, state, *, lr=3e-4, b1=0.9, b2=0.95,
     stepf = step.to(F32)
     bc1 = 1.0 - torch.pow(one * b1, stepf)
     bc2 = 1.0 - torch.pow(one * b2, stepf)
-    for p, g, m, v in zip(leaves(params), leaves(grads),
-                          leaves(state["m"]), leaves(state["v"])):
-        leaf_update(p, g, m, v, scale, bc1, bc2, lr=lr, b1=b1, b2=b2,
-                    eps=eps, weight_decay=weight_decay)
-    return params, {"m": state["m"], "v": state["v"], "step": step}, gnorm
+    return step, gnorm, scale, bc1, bc2
 
 
 @torch.no_grad()
@@ -79,3 +100,177 @@ def leaf_update(p, g, m, v, scale, bc1, bc2, *, lr=3e-4, b1=0.9, b2=0.95,
     p.copy_((pf - lr * delta).to(p.dtype))
     m.copy_(m_new)
     v.copy_(v_new)
+
+
+# ---------------------------------------------------------------------------
+# ZeRO-1 over ranks
+# ---------------------------------------------------------------------------
+WHOLE = ()                  # a view: the whole leaf
+
+
+def _narrow(t, view):
+    return t if view == WHOLE else t.narrow(*view)
+
+
+def _data_dim(spec):
+    """The dim a spec puts the data axis on, or None."""
+    for i, e in enumerate(spec):
+        if e == "data" or (isinstance(e, tuple) and "data" in e):
+            return i
+    return None
+
+
+class Zero1:
+    """The ZeRO-1 plan of ``params`` (``convert.param_tree``'s layout)
+    over ``dp``'s ranks.  For each JAX leaf (a stack of layers counts as
+    one), ``shards`` holds (its first port leaf, its port leaves, whether
+    it is a stack, the data dim of its stacked shape or None); for each
+    port leaf, ``views`` holds this rank's slice: ``WHOLE``, (dim, start,
+    size), or None where the layer is another rank's.  The state is
+    {"m": [a float32 slice or None a port leaf], "v": [...], "step"}."""
+
+    def __init__(self, cfg, params, dp):
+        from repro_torch.convert import _is_stack, stack_like
+        from repro_torch.sharding.partition import opt_pspecs
+
+        self.dp = dp
+        W, r = dp.world, dp.rank
+        specs = opt_pspecs(cfg, {"m": stack_like(params)}, dp.mesh)["m"]
+        self.shards, self.views = [], []
+
+        def walk(p, s):
+            if _is_stack(p) or torch.is_tensor(p):
+                ts = p if _is_stack(p) else [p]
+                d = _data_dim(s)
+                self.shards.append((len(self.views), len(ts), _is_stack(p),
+                                    d))
+                for j, t in enumerate(ts):
+                    if d is None:
+                        self.views.append(WHOLE)
+                    elif _is_stack(p) and d == 0:
+                        per = len(ts) // W
+                        self.views.append(WHOLE if j // per == r else None)
+                    else:
+                        e = d - 1 if _is_stack(p) else d
+                        size = t.shape[e] // W
+                        self.views.append((e, r * size, size))
+                return
+            if isinstance(p, dict):
+                for k in sorted(p):
+                    walk(p[k], s[k])
+            else:
+                for x, sx in zip(p, s):
+                    walk(x, sx)
+
+        walk(params, specs)
+
+    def init(self, params) -> dict:
+        """Zeros of this rank's slices; step 0."""
+        def zeros(p, view):
+            if view is None:
+                return None
+            return torch.zeros(_narrow(p, view).shape, dtype=F32,
+                               device=p.device)
+
+        flat = leaves(params)
+        return {"m": [zeros(p, w) for p, w in zip(flat, self.views)],
+                "v": [zeros(p, w) for p, w in zip(flat, self.views)],
+                "step": torch.zeros((), dtype=torch.int32,
+                                    device=flat[0].device)}
+
+    @staticmethod
+    def nbytes(slices) -> int:
+        """The bytes of one rank's m (or v) slices."""
+        return sum(x.numel() * x.element_size() for x in slices
+                   if x is not None)
+
+    @torch.no_grad()
+    def update(self, params, grads, state, *, lr=3e-4, b1=0.9, b2=0.95,
+               eps=1e-8, weight_decay=0.1, clip_norm=1.0):
+        """``adamw_update`` on this rank's slices, then the parameters'
+        slices all-gathered.  Returns (the new state, the global norm)."""
+        step, gnorm, scale, bc1, bc2 = _step_scalars(state, grads, b1, b2,
+                                                     clip_norm)
+        for p, g, m, v, view in zip(leaves(params), leaves(grads),
+                                    state["m"], state["v"], self.views):
+            if view is not None:
+                leaf_update(_narrow(p, view), _narrow(g, view), m, v, scale,
+                            bc1, bc2, lr=lr, b1=b1, b2=b2, eps=eps,
+                            weight_decay=weight_decay)
+        self._gather_params([p.detach() for p in leaves(params)])
+        return {"m": state["m"], "v": state["v"], "step": step}, gnorm
+
+    def _gather_params(self, flat):
+        """The parameters' slices all-gathered in place."""
+        dp, W, r = self.dp, self.dp.world, self.dp.rank
+        if W == 1:
+            return
+        for first, n, stacked, d in self.shards:
+            ts = flat[first:first + n]
+            if d is None:               # updated whole on every rank
+                continue
+            if stacked and d == 0:
+                per = n // W
+                for j in range(per):
+                    dp.all_gather_into([ts[q * per + j] for q in range(W)],
+                                       ts[r * per + j])
+                continue
+            for t, (e, start, size) in zip(ts, self.views[first:first + n]):
+                mine = t.narrow(e, start, size)
+                bufs = [torch.empty(mine.shape, dtype=t.dtype, device=t.device)
+                        for _ in range(W)]
+                dp.all_gather_into(bufs, mine)
+                for q in range(W):
+                    t.narrow(e, q * size, size).copy_(bufs[q])
+
+    def _gather_to_root(self, k, slices, to):
+        """JAX leaf ``k``'s (``shards``' order) port leaves whole, float32
+        on ``to``, from the ranks' ``slices`` of them: a list on rank 0,
+        None on the others.  Each slice goes to rank 0 only."""
+        dp, W = self.dp, self.dp.world
+        first, n, stacked, d = self.shards[k]
+        mine = slices[first:first + n]
+        root = dp.rank == 0
+        if d is None:                   # whole on every rank
+            return [x.to(to, copy=True) for x in mine] if root else None
+        out = [None] * n
+        if stacked and d == 0:          # a rank's slice is whole layers
+            per = n // W
+            for j in range(per):
+                parts = dp.gather(mine[dp.rank * per + j])
+                for q in range(W if root else 0):
+                    out[q * per + j] = parts[q].to(to)
+        else:
+            for j, (e, _, _) in enumerate(self.views[first:first + n]):
+                parts = dp.gather(mine[j])
+                if root:
+                    out[j] = torch.cat(parts, e).to(to)
+        return out if root else None
+
+    @torch.no_grad()
+    def gather_state(self, params, state, to="cpu"):
+        """The whole state on rank 0, in ``param_tree``'s structure
+        ({"m", "v", "step"}, float32 tensors on ``to``), None on the
+        other ranks: a collective, leaf by leaf; no rank but 0 holds more
+        than its slices.  Every tensor is a copy of its own."""
+        from repro_torch.pytree import unflatten
+        whole = {}
+        for key in ("m", "v"):
+            got = [self._gather_to_root(k, state[key], to)
+                   for k in range(len(self.shards))]
+            whole[key] = None if got[0] is None else unflatten(
+                params, [x for g in got for x in g])
+        if self.dp.rank != 0:
+            return None
+        return dict(whole, step=state["step"].to(to, copy=True))
+
+    @torch.no_grad()
+    def cut(self, k, full, device) -> list:
+        """This rank's slices of JAX leaf ``k`` (``shards``' order) from
+        ``full``, its whole stacked tensor on any device: float32 tensors
+        on ``device``, None for another rank's layers."""
+        first, n, stacked, _ = self.shards[k]
+        parts = list(full.unbind(0)) if stacked else [full]
+        return [None if w is None else
+                _narrow(x, w).to(device, F32).contiguous().clone()
+                for x, w in zip(parts, self.views[first:first + n])]

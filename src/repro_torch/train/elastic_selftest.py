@@ -2,30 +2,43 @@
 ``repro/train/elastic_selftest.py``).
 
     PYTHONPATH=src python -m repro_torch.train.elastic_selftest [--device cpu]
+    PYTHONPATH=src python -m repro_torch.train.elastic_selftest --ranks W [--device cpu] [--backend gloo]
+    PYTHONPATH=src torchrun --nproc-per-node W -m repro_torch.train.elastic_selftest [--device cpu]
 
 On the card unless ``--device`` names another device.  The JAX package
-runs its checks on 8 forced host devices; the port's run on one device,
-each mesh axis a leading tensor axis:
+runs its checks on 8 forced host devices.  With ``--ranks W`` (or under
+torchrun) the port runs them over W processes, one a rank
+(``launch/ranks.py``: NCCL with rank r on ``cuda:r``, gloo on the CPU,
+``--backend gloo`` for gloo ranks sharing the card), the ranks the data
+axis of a mesh {"data": W, "model": 1}; rank 0 prints.  Without it they
+run in one process, each mesh axis a leading tensor axis:
 
-1. Elastic restart: train tiny mistral-nemo-12b 4 steps with a checkpoint
-   at 4 on the device, then resume to step 8 on the CPU.  The JAX test
-   resumes on a mesh of another (data, model) split; one card has no
-   second mesh, so the port moves the run to another device instead.
-   Asserts the resumed run starts at step 4 from parameters equal to the
-   ones saved, and that its last loss is below the first run's first.
-2. Pipeline: the 4-stage GPipe schedule on a stacked stage axis
-   (``train/pipeline.py``) equals serial application, and a toy pipeline
-   trains (the loss falls under 0.95 x the first in 20 steps).
+1. Elastic re-mesh.  Over ranks: train tiny mistral-nemo-12b 4 steps over
+   the W ranks with a checkpoint at 4, then resume it over the first
+   max(W // 2, 1) ranks to step 8 (JAX's (4 data x 2 model) -> (2 x 4)
+   restated on the data axis; the model axis over ranks is slice 9 of
+   the port).  In one process the run moves from the device to the CPU
+   instead.  Asserts the resumed run starts at step 4 from parameters
+   equal to the ones saved, and that its last loss is below the first
+   run's first.
+2. Pipeline: the 4-stage GPipe schedule (over ranks: W stages, one a
+   rank; ``train/pipeline.py``) equals serial application, and a toy
+   pipeline trains (the loss falls under 0.95 x the first in 20 steps).
 3. Compressed DP sync: the int8 error-feedback all-reduce over 8 ranks
-   stacked on one axis matches the float32 mean within 5%.
+   (over ranks: the W ranks, each its own leaf; in one process 8 stacked
+   on one axis) matches the float32 mean within 5%, and over ranks equals
+   the stacked version bit for bit.
 4. ``moe_impl="smap"`` equals the sort dispatch exactly: the port has no
-   mesh, so every ``moe_impl`` takes the sort dispatch.
+   mesh, so every ``moe_impl`` takes the sort dispatch (one process).
 5. Decode with ``decode_cache_hint`` equals plain decode exactly: the
    hint only constrains JAX's cache sharding, and the port ignores it.
+
+Ends with ELASTIC-SELFTEST-OK.
 """
 from __future__ import annotations
 
 import argparse
+import os
 import sys
 import tempfile
 
@@ -36,13 +49,16 @@ from repro_torch.configs.base import ShapeSpec
 from repro_torch.configs.tiny import tiny_config
 from repro_torch.convert import param_tree, stack_tree
 from repro_torch.core.client import _resolve_device
+from repro_torch.launch import ranks
 from repro_torch.models import transformer as tr
 from repro_torch.models.moe import moe_apply, moe_init
 from repro_torch.optim.adamw import adamw_init
 from repro_torch.optim.compression import dp_allreduce_compressed
 from repro_torch.pytree import leaves
 from repro_torch.train.pipeline import make_pipeline_train_step, pipeline_apply
-from repro_torch.train.trainer import restore_state, train
+from repro_torch.train.dp import DP
+from repro_torch.train.trainer import (param_checksum, restore_state,
+                                       train)
 
 SHAPE = ShapeSpec("tiny", 32, 8, "train")
 F32 = torch.float32
@@ -53,7 +69,9 @@ def _check(cond, msg):
         raise AssertionError(msg)
 
 
-def check_elastic(dev):
+def check_elastic(dev, dp=None):
+    if dp is not None:
+        return _elastic_ranks(dp)
     other = torch.device("cpu")
     cfg = tiny_config("mistral-nemo-12b")
     kw = dict(ckpt_every=4, lr=3e-3, log_every=1)
@@ -76,8 +94,45 @@ def check_elastic(dev):
     print("elastic ok", flush=True)
 
 
-def check_pipeline(dev):
-    S, M, mb, d = 4, 8, 4, 16
+def _elastic_ranks(dp):
+    """Train over every rank of ``dp``, then resume over its first half."""
+    import torch.distributed as dist
+
+    cfg = tiny_config("mistral-nemo-12b")
+    kw = dict(ckpt_every=4, lr=3e-3, log_every=1)
+    half = max(dp.world // 2, 1)
+    ranks_b = [dist.get_global_rank(dp.group, r) for r in range(half)]
+    sub = dist.new_group(ranks_b)      # every rank makes it, in one order
+    d = [tempfile.mkdtemp(prefix="elastic-") if dp.rank == 0 else None]
+    dist.broadcast_object_list(d, dist.get_global_rank(dp.group, 0),
+                               group=dp.group)
+    d = d[0]
+    out_a = train(cfg, SHAPE, steps=4, ckpt_dir=d, dp=dp, **kw)
+    saved = param_checksum(out_a["model"], cfg)
+    if dp.rank < half:
+        out_b = train(cfg, SHAPE, steps=8, ckpt_dir=d,
+                      dp=DP(sub, dp.device), **kw)
+        h = out_b["history"]
+        _check(h[0]["step"] == 4, f"resumed at step {h[0]['step']}, not 4")
+        _check(h[-1]["loss"] < out_a["history"][0]["loss"],
+               f"last loss {h[-1]['loss']} is not below the first run's "
+               f"first {out_a['history'][0]['loss']}")
+        # the state the resumed run started from is run A's: its
+        # parameters restored from the step-4 file
+        model = tr.Model(cfg, device=dp.device)
+        restore_state(d, 4, model, cfg, adamw_init(param_tree(model, cfg)))
+        _check(torch.equal(param_checksum(model, cfg), saved),
+               "the restored parameters differ from the saved ones")
+    dp.barrier()
+    if dp.rank == 0:
+        import shutil
+        shutil.rmtree(d, ignore_errors=True)
+        print(f"elastic ok ({dp.world} ranks -> {half})", flush=True)
+
+
+def check_pipeline(dev, dp=None):
+    S = 4 if dp is None else dp.world
+    M, mb, d = 8, 4, 16
     rng = np.random.RandomState(0)
     w = torch.tensor(rng.randn(S, d, d) * (d ** -0.5), dtype=F32,
                      device=dev)
@@ -85,8 +140,9 @@ def check_pipeline(dev):
     def stage_fn(p, x):
         return torch.tanh(x @ p)
 
+    mine = w if dp is None else w[dp.rank]
     x = torch.tensor(rng.randn(M, mb, d), dtype=F32, device=dev)
-    y_pipe = pipeline_apply(stage_fn, w, x)
+    y_pipe = pipeline_apply(stage_fn, mine, x, dp)
     # serial reference
     y_ref = x
     for s in range(S):
@@ -98,25 +154,37 @@ def check_pipeline(dev):
     def loss_fn(out, t):
         return torch.mean((out - t) ** 2)
 
-    step = make_pipeline_train_step(stage_fn, loss_fn, lr=0.1)
-    w2, l0 = step(w, x, tgt)
+    step = make_pipeline_train_step(stage_fn, loss_fn, lr=0.1, dp=dp)
+    w2, l0 = step(mine, x, tgt)
     for _ in range(20):
         w2, loss = step(w2, x, tgt)
     _check(float(loss) < float(l0) * 0.95, (float(l0), float(loss)))
-    print("pipeline ok", flush=True)
+    if dp is None or dp.rank == 0:
+        print("pipeline ok" + ("" if dp is None else
+                               f" ({S} stages, one a rank)"), flush=True)
 
 
-def check_compressed_dp(dev):
+def check_compressed_dp(dev, dp=None):
+    n = 8 if dp is None else dp.world
     rng = np.random.RandomState(1)
-    g_shards = torch.tensor(rng.randn(8, 32, 16) * 0.01, dtype=F32,
-                            device=dev)
-    err = torch.zeros((8, 32, 16), dtype=F32, device=dev)
-    out, _ = dp_allreduce_compressed({"g": g_shards}, {"g": err})
+    g_shards = torch.tensor(rng.randn(max(n, 8), 32, 16)[:n] * 0.01,
+                            dtype=F32, device=dev)
+    err = torch.zeros((n, 32, 16), dtype=F32, device=dev)
+    stacked, _ = dp_allreduce_compressed({"g": g_shards}, {"g": err})
+    out = stacked
+    if dp is not None:
+        out, _ = dp_allreduce_compressed({"g": g_shards[dp.rank]},
+                                         {"g": err[dp.rank]}, dp)
+        _check(torch.equal(out["g"], stacked["g"][dp.rank]),
+               "the compressed all-reduce over ranks differs from the "
+               "stacked one")
+        out = {"g": out["g"][None]}
     ref = g_shards.mean(0)
     got = out["g"][0]
     rel = float((got - ref).abs().max() / ref.abs().max())
     _check(rel < 0.05, rel)
-    print("compressed-dp ok", flush=True)
+    if dp is None or dp.rank == 0:
+        print(f"compressed-dp ok ({n} ranks)", flush=True)
 
 
 @torch.no_grad()
@@ -159,17 +227,56 @@ def check_decode_hint_parity(dev):
     print("decode-hint ok", flush=True)
 
 
+def run_ranks(dp):
+    """The five checks over ``dp``'s ranks (the one-process ones on rank
+    0); rank 0 prints."""
+    check_elastic(dp.device, dp)
+    check_pipeline(dp.device, dp)
+    check_compressed_dp(dp.device, dp)
+    if dp.rank == 0:
+        check_moe_smap_parity(dp.device)
+        check_decode_hint_parity(dp.device)
+    dp.barrier()
+
+
+def _rank_main(rank, world, device):
+    import torch.distributed as dist
+    run_ranks(DP(dist.group.WORLD, device))
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--device", default=None,
                     help="the card unless this names another device")
+    ap.add_argument("--ranks", type=int, default=0,
+                    help="processes, one a rank (default: one process, no "
+                         "process group)")
+    ap.add_argument("--backend", default=None,
+                    help="nccl (the card's default) or gloo")
+    ap.add_argument("--timeout", type=float, default=600.0,
+                    help="seconds before a rank's collective or the whole "
+                         "spawned run gives up")
     args = ap.parse_args(argv)
-    dev = _resolve_device(args.device, "elastic_selftest")
-    check_elastic(dev)
-    check_pipeline(dev)
-    check_compressed_dp(dev)
-    check_moe_smap_parity(dev)
-    check_decode_hint_parity(dev)
+    if "RANK" in os.environ and "WORLD_SIZE" in os.environ:
+        import torch.distributed as dist
+        rank, world, dev = ranks.init_from_env(
+            _resolve_device(args.device, "elastic_selftest").type,
+            backend=args.backend, timeout_s=args.timeout)
+        _rank_main(rank, world, dev)
+        dist.destroy_process_group()
+        if rank != 0:
+            return 0
+    elif args.ranks:
+        dev = _resolve_device(args.device, "elastic_selftest")
+        ranks.spawn(_rank_main, args.ranks, device=dev.type,
+                    backend=args.backend, timeout_s=args.timeout)
+    else:
+        dev = _resolve_device(args.device, "elastic_selftest")
+        check_elastic(dev)
+        check_pipeline(dev)
+        check_compressed_dp(dev)
+        check_moe_smap_parity(dev)
+        check_decode_hint_parity(dev)
     print("ELASTIC-SELFTEST-OK", flush=True)
     return 0
 

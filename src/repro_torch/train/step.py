@@ -14,6 +14,16 @@ weight-tied shared block (its gradient sums over every layer that calls
 it), MLA and the MoE (CE plus the router's aux loss).
 ``ssm_impl="pallas"`` raises: the fused scan is forward-only in both
 packages (the JAX kernel has no VJP, and ``jax.grad`` fails there).
+
+Over ranks (``dp``, ``train/dp.py``) each rank's loss is its share of
+the global loss, so that the ranks' gradients sum to the global one, as
+GSPMD keeps the JAX step's global semantics: the CE is the rank's CE sum
+over the global count of valid targets (summed over the ranks first,
+with no gradient), and the MoE router's statistics and capacity are
+taken over the global token set (``models/moe.py``, under ``use_dp``).
+The gradients are then all-reduced in place, leaf by leaf in their own
+dtype (``reduce_grads``), and the metrics summed.  One process (no
+``dp``) takes the one-process path, whose answers stay bit for bit.
 """
 from __future__ import annotations
 
@@ -27,6 +37,7 @@ from repro_torch.models.layers import logits_from_hidden
 from repro_torch.models.transformer import apply_model
 from repro_torch.optim.adamw import adamw_update
 from repro_torch.pytree import leaves, unflatten
+from repro_torch.sharding.context import use_dp
 
 F32 = torch.float32
 LOSS_CHUNK = 512
@@ -54,7 +65,10 @@ def _ce_chunk(cfg, model, hidden_chunk, target_chunk):
     return loss.sum(), valid.sum(dtype=torch.int32)
 
 
-def blockwise_ce(cfg, model, hidden, targets):
+def blockwise_ce(cfg, model, hidden, targets, n_valid_all=None):
+    """The mean CE over the valid targets; with ``n_valid_all`` (the
+    global count over the ranks) the CE sum over it instead: this rank's
+    share."""
     B, S, D = hidden.shape
     c = min(LOSS_CHUNK, S)
     if S % c:
@@ -71,40 +85,71 @@ def blockwise_ce(cfg, model, hidden, targets):
             ls, nv = _ce_chunk(*args)
         loss_sum = loss_sum + ls
         n_valid = n_valid + nv
+    if n_valid_all is not None:
+        n_valid = n_valid_all
     return loss_sum / torch.clamp(n_valid, min=1)
 
 
-def loss_fn(cfg, model, batch):
+def loss_fn(cfg, model, batch, n_valid=None):
     """(CE + the MoE aux, {"ce", "aux"}) of ``batch`` ({tokens | embeds,
-    targets})."""
+    targets}); with ``n_valid`` the CE is over that count
+    (``blockwise_ce``)."""
     check_trainable(cfg)
     hidden, aux = apply_model(cfg, model, batch)
-    ce = blockwise_ce(cfg, model, hidden, batch["targets"])
+    ce = blockwise_ce(cfg, model, hidden, batch["targets"], n_valid)
     return ce + aux, {"ce": ce, "aux": aux}
 
 
-def value_and_grad(cfg, model, batch):
+def value_and_grad(cfg, model, batch, dp=None):
     """(loss, metrics, gradients in ``param_tree``'s layout): the
     parameters' ``requires_grad`` is switched on, and the gradients are
-    new tensors (``.grad`` is not touched)."""
+    new tensors (``.grad`` is not touched).  With ``dp`` (a group over
+    which the batch's rows are split) the loss is the rank's share and
+    the gradients and metrics come back summed over the ranks: those of
+    the global batch."""
     params = param_tree(model, cfg)
     flat = leaves(params)
     for p in flat:
         p.requires_grad_(True)
-    with torch.enable_grad():
-        loss, metrics = loss_fn(cfg, model, batch)
+    ranks = dp is not None and dp.distributed
+    n_valid = (dp.sum_((batch["targets"] >= 0).sum(dtype=torch.int32))
+               if ranks else None)
+    with use_dp(dp if ranks else None), torch.enable_grad():
+        loss, metrics = loss_fn(cfg, model, batch, n_valid)
         grads = torch.autograd.grad(loss, flat, allow_unused=True,
                                     materialize_grads=True)
-    metrics = {k: v.detach() for k, v in metrics.items()}
-    return loss.detach(), metrics, unflatten(params, grads)
+    loss, metrics = loss.detach(), {k: v.detach() for k, v in metrics.items()}
+    if ranks:
+        reduce_grads(dp, grads)
+        sums = dp.sum_(torch.stack([loss, metrics["ce"],
+                                    metrics["aux"].to(loss.dtype)]))
+        loss, metrics = sums[0], {"ce": sums[1], "aux": sums[2]}
+    return loss, metrics, unflatten(params, grads)
 
 
-def train_step(cfg, model, opt_state, batch, *, lr: float = 3e-4):
+def reduce_grads(dp, grads):
+    """Sum the ranks' gradients in place, leaf by leaf in the leaves'
+    own dtype (no float32 copy of the gradients is made: at full width
+    it would not fit beside the state)."""
+    with torch.no_grad():
+        for g in grads:
+            dp.sum_(g)
+
+
+def train_step(cfg, model, opt_state, batch, *, lr: float = 3e-4, dp=None,
+               zero=None):
     """One full training step (fwd + bwd + AdamW).  The model's
     parameters and the state's m and v are updated in place; returns
-    (model, the new opt state, {ce, aux, loss, grad_norm} as tensors)."""
-    loss, metrics, grads = value_and_grad(cfg, model, batch)
-    _, opt_state, gnorm = adamw_update(param_tree(model, cfg), grads,
+    (model, the new opt state, {ce, aux, loss, grad_norm} as tensors).
+    ``dp``: the group the batch's rows are split over (``value_and_grad``);
+    ``zero``: the ZeRO-1 plan (``optim/adamw.py``'s ``Zero1``) whose
+    slice of m and v ``opt_state`` holds."""
+    loss, metrics, grads = value_and_grad(cfg, model, batch, dp)
+    if zero is None:
+        _, opt_state, gnorm = adamw_update(param_tree(model, cfg), grads,
+                                           opt_state, lr=lr)
+    else:
+        opt_state, gnorm = zero.update(param_tree(model, cfg), grads,
                                        opt_state, lr=lr)
     metrics = dict(metrics, loss=loss, grad_norm=gnorm)
     return model, opt_state, metrics

@@ -10,8 +10,22 @@ Fault-tolerance model, as the JAX package's:
 
 The checkpoint holds {"params", "opt": {"m", "v", "step"}} in the JAX
 package's layout (``convert.param_tree``, stacked), so a run either
-package starts the other resumes.  The mesh, the sharded step and the
-partition specs have no meaning on one card and are left out.
+package starts the other resumes.
+
+Over ranks (``dp``, ``train/dp.py``: one process a rank, the W ranks the
+data axis of the mesh {"data": W, "model": 1}) the step is JAX's sharded
+step restated: each rank takes its rows of the global batch
+(``dp.rows``; every rank the whole batch where W does not divide it, as
+``batch_pspec`` falls back, and then no gradient is summed), its loss is
+its share of the global loss and the gradients are summed
+(``train/step.py``), and the optimizer state is ZeRO-1 sharded
+(``optim/adamw.py``'s ``Zero1``).  Rank 0 draws the weights from the seed
+and broadcasts them; every rank's parameter checksum is then checked
+equal.  A checkpoint is one file whatever W is: the m and v slices are
+gathered to rank 0, which writes the JAX package's format, so a run resumes
+over any number of ranks (the elastic re-mesh) and in either package.
+Restoring, every rank reads the file a leaf at a time and keeps its
+slice.  ``fail_at`` waits for the writer, then raises on every rank.
 """
 from __future__ import annotations
 
@@ -21,14 +35,16 @@ from dataclasses import dataclass
 import torch
 
 from repro_torch.checkpoint.checkpoint import (AsyncCheckpointer, latest_step,
-                                               restore_checkpoint)
+                                               read_leaves, restore_checkpoint)
 from repro_torch.configs.base import ModelConfig, ShapeSpec
 from repro_torch.convert import (load_stacked, param_tree, stack_like,
                                  stack_tree)
 from repro_torch.core.client import _resolve_device
 from repro_torch.data.pipeline import SyntheticLM, make_batch
 from repro_torch.models.transformer import Model
-from repro_torch.optim.adamw import adamw_init
+from repro_torch.optim.adamw import Zero1, adamw_init
+from repro_torch.pytree import leaves, tree_map
+from repro_torch.train.dp import DP, check_ranks
 from repro_torch.train.step import check_trainable, train_step
 
 
@@ -62,25 +78,53 @@ def restore_state(ckpt_dir, step: int, model: Model, cfg: ModelConfig,
 def train(cfg: ModelConfig, shape: ShapeSpec, *, steps: int, ckpt_dir=None,
           ckpt_every: int = 50, lr: float = 3e-4, seed: int = 0,
           log_every: int = 10, fail_at: int | None = None,
-          device=None) -> dict:
+          device=None, dp=None) -> dict:
     """Run (or resume) training on ``device`` (the card unless the caller
-    names another).  With no checkpoint to resume from, the weights are
-    drawn from a generator seeded with ``seed``.  ``fail_at`` raises
-    midway to exercise the crash/restart path in tests.  Returns
-    {"history", "model", "opt"}."""
+    names another), or over ``dp``'s ranks on ``dp.device``.  With no
+    checkpoint to resume from, the weights are drawn from a generator
+    seeded with ``seed``.  ``fail_at`` raises midway to exercise the
+    crash/restart path in tests.  Returns {"history", "model", "opt",
+    "zero"}: over ranks "opt" holds this rank's slices and "zero" the
+    plan; in one process "opt" is the whole state and "zero" None."""
     check_trainable(cfg)
-    dev = _resolve_device(device, "train")
-    ds = SyntheticLM(cfg.vocab_size, shape.seq_len, shape.global_batch,
-                     seed=seed,
+    if dp is None or not dp.distributed:
+        dp = DP.single(_resolve_device(device, "train"))
+    check_ranks(cfg, dp)
+    dev = dp.device
+    B = shape.global_batch
+    ds = SyntheticLM(cfg.vocab_size, shape.seq_len, B, seed=seed,
                      embed_dim=cfg.d_model if cfg.frontend == "embed" else 0)
     model = Model(cfg, device=dev,
                   generator=torch.Generator(device=dev).manual_seed(seed))
-    opt = adamw_init(param_tree(model, cfg))
+    if dp.distributed:
+        # every rank draws from the seed; rank 0's draw is broadcast, so
+        # that the ranks hold rank 0's weights whatever their generators
+        # give
+        with torch.no_grad():
+            for p in leaves(param_tree(model, cfg)):
+                dp.broadcast(p.detach(), 0)
+        zero = Zero1(cfg, param_tree(model, cfg), dp)
+        opt = zero.init(param_tree(model, cfg))
+    else:
+        zero, opt = None, adamw_init(param_tree(model, cfg))
     start = 0
-    ckpt = AsyncCheckpointer(ckpt_dir) if ckpt_dir else None
-    if ckpt_dir and (s := latest_step(ckpt_dir)) is not None:
-        opt = restore_state(ckpt_dir, s, model, cfg, opt)
-        start = s
+    last = latest_step(ckpt_dir) if ckpt_dir else None
+    if dp.distributed:
+        last = int(dp.agree(-1 if last is None else last, "min"))
+        last = None if last < 0 else last
+    if last is not None:
+        opt = (restore_ranks(ckpt_dir, last, model, cfg, zero) if zero
+               else restore_state(ckpt_dir, last, model, cfg, opt))
+        start = last
+    if dp.distributed:
+        check_replicas(model, cfg, dp)
+    ckpt = AsyncCheckpointer(ckpt_dir) if ckpt_dir and dp.rank == 0 else None
+
+    def save(at):
+        tree = (rank_state(model, cfg, opt, zero, dp) if zero
+                else state_tree(model, cfg, opt))
+        if ckpt:
+            ckpt.save(at, tree, copy=zero is None)
 
     history = []
     t0 = time.time()
@@ -88,19 +132,80 @@ def train(cfg: ModelConfig, shape: ShapeSpec, *, steps: int, ckpt_dir=None,
         if fail_at is not None and step == fail_at:
             if ckpt:
                 ckpt.wait()
+            dp.barrier()            # the checkpoint is durable on every rank
             raise RuntimeError(f"injected failure at step {step}")
-        batch = make_batch(ds, step, device=dev, dtype=cfg.param_dtype)
-        model, opt, metrics = train_step(cfg, model, opt, batch, lr=lr)
+        batch = make_batch(ds, step, device=dev, dtype=cfg.param_dtype,
+                           rows=dp.rows(B))
+        model, opt, metrics = train_step(cfg, model, opt, batch, lr=lr,
+                                         dp=dp if dp.shards(B) else None,
+                                         zero=zero)
         if step % log_every == 0 or step == steps - 1:
             m = {k: float(v) for k, v in metrics.items()}
             m["step"] = step
             m["wall_s"] = round(time.time() - t0, 2)
             history.append(m)
-            print(f"[train] step={step} loss={m['loss']:.4f} "
-                  f"gnorm={m['grad_norm']:.3f}", flush=True)
-        if ckpt and (step + 1) % ckpt_every == 0:
-            ckpt.save(step + 1, state_tree(model, cfg, opt))
-    if ckpt:
-        ckpt.save(steps, state_tree(model, cfg, opt))
-        ckpt.wait()
-    return {"history": history, "model": model, "opt": opt}
+            if dp.rank == 0:
+                over = f" ranks={dp.world}" if dp.distributed else ""
+                print(f"[train] step={step} loss={m['loss']:.4f} "
+                      f"gnorm={m['grad_norm']:.3f}{over}", flush=True)
+        if ckpt_dir and (step + 1) % ckpt_every == 0:
+            save(step + 1)
+    if ckpt_dir:
+        save(steps)
+        if ckpt:
+            ckpt.wait()
+        dp.barrier()
+    return {"history": history, "model": model, "opt": opt, "zero": zero}
+
+
+def param_checksum(model: Model, cfg: ModelConfig):
+    """Each parameter leaf's float64 sum and sum of squares: [2 n]."""
+    return torch.stack([f(p.detach().double()) for p in
+                        leaves(param_tree(model, cfg))
+                        for f in (torch.sum, lambda x: torch.sum(x * x))])
+
+
+def check_replicas(model: Model, cfg: ModelConfig, dp):
+    """Raise unless every rank holds the same parameters (checksums)."""
+    sums = dp.all_gather(param_checksum(model, cfg)[None])
+    if not bool((sums == sums[0]).all()):
+        bad = [r for r in range(dp.world) if not torch.equal(sums[r],
+                                                             sums[0])]
+        raise RuntimeError(f"rank {dp.rank}: the parameters of ranks {bad} "
+                           f"differ from rank 0's")
+
+
+@torch.no_grad()
+def rank_state(model: Model, cfg: ModelConfig, opt: dict, zero: Zero1,
+               dp):
+    """The checkpoint tree on rank 0 (the JAX layout, on the CPU), None on
+    the others: m and v gathered to rank 0 from every rank's slices.
+    Every tensor is a copy of its own, so the writer needs none."""
+    whole = zero.gather_state(param_tree(model, cfg), opt)
+    if dp.rank != 0:
+        return None
+    return {"params": tree_map(lambda t: t.to("cpu", copy=True),
+                               stack_tree(param_tree(model, cfg))),
+            "opt": stack_tree(whole)}
+
+
+def restore_ranks(ckpt_dir, step: int, model: Model, cfg: ModelConfig,
+                  zero: Zero1) -> dict:
+    """Load checkpoint ``step`` into the model's parameters; returns this
+    rank's slices of m and v.  The file is read a leaf at a time, and
+    each m and v leaf is cut to this rank's slices at once."""
+    params = param_tree(model, cfg)
+    like = stack_like(params)
+    load_stacked(params, restore_checkpoint(ckpt_dir, step,
+                                            {"params": like},
+                                            device=model.device)["params"])
+    f32 = tree_map(lambda t: torch.empty(t.shape, dtype=torch.float32,
+                                         device="meta"), like)
+    opt = {"step": restore_checkpoint(ckpt_dir, step, {"opt": {
+        "step": torch.empty((), dtype=torch.int32, device="meta")}},
+        device=model.device)["opt"]["step"]}
+    for key in ("m", "v"):
+        opt[key] = [x for k, full in enumerate(read_leaves(
+            ckpt_dir, step, {"opt": {key: f32}}))
+            for x in zero.cut(k, full, model.device)]
+    return opt

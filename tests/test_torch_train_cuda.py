@@ -2,7 +2,9 @@
 the CPU: tiny configs of every family, float32 with TF32 off, two AdamW
 steps.  The file imports no JAX, so that it runs where only PyTorch is
 installed; tests/test_torch_train.py and tests/test_torch_train_families.py
-hold the CPU path to the JAX package.
+hold the CPU path to the JAX package.  Last, the MoE over 2 gloo ranks
+on CUDA tensors against one process on the card (the rank body is
+tests/_train_ranks.py's, which imports no JAX either).
 
 Tolerances: the loss and grad norm within 1e-4 (relative; cuBLAS and the
 CPU sum in other orders), every parameter within 2 * lr * steps and all
@@ -61,3 +63,31 @@ def test_cuda_train_step_matches_cpu(cuda_device, arch):
                        leaves(stack_tree(param_tree(gpu, cfg))))])
     assert float(d.max()) <= 2 * LR * STEPS
     assert float((d > 1e-5).float().mean()) <= 1e-3
+
+
+@pytest.mark.requires_cuda
+def test_moe_over_gloo_ranks_on_the_card(tmp_path):
+    """The MoE at DROP_CF over 2 gloo ranks on CUDA tensors against one
+    process on the card: the global capacity and slot ranks hold in the
+    backward's recompute too.  Float32 with TF32 off; the loss and grad
+    norm within 1e-4 relative (cuBLAS sums in other orders at other batch
+    sizes, as above)."""
+    import _train_ranks as R
+    from repro_torch.launch import ranks
+
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU with CUDA: the MoE over gloo "
+                    "ranks on CUDA tensors")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    R.init_checkpoint(R.MOE_ARCH, tmp_path / "init")
+    a = R.copy_dir(tmp_path / "init", tmp_path / "ranks")
+    b = R.copy_dir(tmp_path / "init", tmp_path / "one")
+    got = ranks.spawn(R.moe_on_card, 2, device="cuda", backend="gloo",
+                      timeout_s=300, args=(str(a),))
+    want = R.run(R.cfg_of(R.MOE_ARCH, capacity_factor=R.DROP_CF), b,
+                 device="cuda")
+    assert got[0]["loss"] == got[1]["loss"]
+    assert got[0]["step"] == want["step"]
+    for k in ("loss", "grad_norm"):
+        for x, y in zip(got[0][k], want[k]):
+            assert abs(x - y) <= 1e-4 * abs(y), (k, got[0][k], want[k])
