@@ -300,9 +300,9 @@
 15. Training over ranks (``train/dp.py``: one process a rank over
     ``torch.distributed``; TF32 off; the kernels' launch counts set to 0
     in every rank process and here: every record gets
-    ``launches_training_ranks``, expected 0).  First, here: (b)'s and
-    (b')'s one-process references and (d)'s stacked reference.  Then 4
-    gloo ranks sharing the card (``rank_gloo``):
+    ``launches_training_ranks``, expected 0).  First, here: (a)'s, (b)'s
+    and (b')'s one-process references and (d)'s stacked reference.  Then
+    4 gloo ranks sharing the card (``rank_gloo``):
     (b) musicgen-large at full width on 4 of 48 layers (cut:
     276842496 parameters, about 2.8 GB of checkpointed state), global
     batch 2 x 4096 (train_4k's 256 cut to 2), 3 steps over ranks 0-1
@@ -325,16 +325,39 @@
     gradients and one SGD step's parameters within phase 14's PIPE_RTOL;
     seconds beside the stacked step's.  (d) The compressed all-reduce, one AttnBlock's
     gradients a rank (67112960 elements): bit-equal (sha256) to the
-    stacked version; seconds and bytes (the int32 payload).  (e) The
-    elastic self-test over the 4 ranks (``run_ranks``).  Then W = the
-    card count NCCL ranks (``rank_nccl``; 1 here): (a) musicgen-large at
-    full width and depth, bf16, batch 8 x 4096 from phase 13's seed, 2
-    steps: losses and grad norms bit-equal to phase 13's first 2 at
+    stacked version; seconds and bytes (the int32 payload).  (The
+    elastic self-test over the 4 ranks is phase 16's (d), in the same
+    spawn.)  Then W = the card count NCCL ranks (``rank_nccl``; 1 here):
+    (a) musicgen-large at full width on RANKS_FULL_LAYERS (8) of its 48
+    layers, bf16, batch 8 x 4096 from ``--seed``, 2 steps: losses and
+    grad norms bit-equal to the one-process run of the same depth at
     W = 1 (within 2e-3 relative over more cards), peak under 79 GiB,
-    seconds a step beside phase 13's, the gradient all-reduce's bytes and
-    seconds a step; then (b)'s step-2 checkpoint resumed on rank 0 alone
-    (the elastic move 2 -> 1): its step within 1e-3 of the gloo run's.
-16. The last two lines: the kernels as JSON (ten records, in the order
+    seconds a step, the gradient all-reduce's bytes and seconds a step;
+    then (b)'s step-2 checkpoint resumed on rank 0 alone (the elastic
+    move 2 -> 1): its step within 1e-3 of the gloo run's.
+16. The mesh's model axis over ranks (``train/dp.Ranks``: rank r at data
+    index r // m and model index r % m; tensor parallelism,
+    ``sharding/tp.py``), on the same 4 gloo ranks after phase 15's parts
+    (TF32 off; the kernels' counts set to 0 there and here: every record
+    gets ``launches_model_axis``, expected 0; phase 16 takes at most
+    MA_BUDGET_S seconds, its one-process reference included).  Its lines
+    start "ranks-model:".  (a) musicgen-large at full width on 4 layers,
+    float32, batch 2 x 1024, 2 steps on (2 data x 2 model) and (1 x 2):
+    each step's loss and grad norm within 1e-4 (relative) of one process
+    on the card; each rank's parameter bytes against the whole's; the
+    model group's all-reduces.  (b) deepseek-v2-lite-16b at full width on
+    2 layers (phase 15's (b')) on (2 x 2), the experts cut over model:
+    within 1e-4 of one process (phase 15's reference), the kept slots of
+    every dispatch plan equal to one process's.  (c) Under ``use_mesh`` on
+    (2 x 2): deepseek's ``moe_impl="smap"`` ``moe_apply`` at full width
+    within 1e-5 (relative) of ``smap_stacked``; mistral-nemo-12b at full
+    width on 2 layers, float32, 4 decode steps of batch 4 with
+    ``decode_cache_hint`` (each GQA cache's 64 slots cut to 32 a rank)
+    within 2e-4 + 2e-4 x |plain| of the whole model's plain decode.  (d)
+    The elastic self-test's checks over the 4 ranks (``run_ranks``, what
+    ``elastic_selftest --ranks 4 --backend gloo`` runs: (2 x 2) -> (1 x 4),
+    smap and the hint on (2 x 2)).
+17. The last two lines: the kernels as JSON (ten records, in the order
     of PERF.md's kernel table), then the device as JSON.
 
 Exits nonzero, printing no result, without CUDA or outside a checkout.
@@ -4181,7 +4204,8 @@ def tools(torch, seed, train_full_out):
 # ---------------------------------------------------------------------------
 # Phase 15: training over ranks (torch.distributed, one process a rank)
 # ---------------------------------------------------------------------------
-RANKS_TRAIN_STEPS = 2             # (a): phase 13's first steps again
+RANKS_TRAIN_STEPS = 2             # (a): steps
+RANKS_FULL_LAYERS = 8             # (a): of musicgen-large's 48
 RANKS_EQUAL_RTOL = 2e-3           # (a) over more than one card
 CUT_LAYERS = 4                    # (b): of musicgen-large's 48
 CUT_BATCH, CUT_STEPS, CUT_CKPT = 2, 3, 2   # (b): global batch, steps, ckpt
@@ -4214,6 +4238,12 @@ def zero_kernel_launches():
 def _no_tf32(torch):
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+
+
+def full_cut_config():
+    """(a): musicgen-large at full width on RANKS_FULL_LAYERS layers."""
+    from repro_torch.configs import get_config
+    return get_config(TRAIN_ARCH).scaled(n_layers=RANKS_FULL_LAYERS)
 
 
 def cut_config():
@@ -4306,20 +4336,19 @@ def step_seconds(wall):
 
 
 def rank_nccl(rank, world, device, seed, resume_dir):
-    """The NCCL ranks of phase 15 (one a card): (a) at full width and
-    depth, then (b)'s elastic move, the 2-rank checkpoint resumed on rank
-    0 alone."""
+    """The NCCL ranks of phase 15 (one a card): (a) at full width on
+    RANKS_FULL_LAYERS layers, then (b)'s elastic move, the 2-rank
+    checkpoint resumed on rank 0 alone."""
     import torch
     import torch.distributed as dist
 
-    from repro_torch.configs import get_config
     from repro_torch.train.dp import DP
 
     _no_tf32(torch)
     zero_kernel_launches()
     one = dist.new_group([0])            # every rank makes it
     full = train_over(torch, DP(dist.group.WORLD, device), seed,
-                      get_config(TRAIN_ARCH), TRAIN_SEQ, TRAIN_BATCH,
+                      full_cut_config(), TRAIN_SEQ, TRAIN_BATCH,
                       RANKS_TRAIN_STEPS, None, 50)
     moved = None
     if rank == 0:
@@ -4333,14 +4362,14 @@ def rank_nccl(rank, world, device, seed, resume_dir):
 
 
 def rank_gloo(rank, world, device, seed, ckpt_dir, want_comp):
-    """The 4 gloo ranks of phase 15, sharing the card: (b) over ranks 0-1
-    while (b') runs over ranks 2-3, (c) the pipeline, (d) the compressed
-    all-reduce, (e) the elastic self-test.  Returns each part's figures
-    and the kernels' launches."""
+    """The 4 gloo ranks of phases 15 and 16, sharing the card: (b) over
+    ranks 0-1 while (b') runs over ranks 2-3, (c) the pipeline, (d) the
+    compressed all-reduce (phase 15's launches read here); then phase 16
+    (``model_axis_ranks``, whose (d) is the elastic self-test over the 4
+    ranks).  Returns each part's figures and each phase's launches."""
     import torch
     import torch.distributed as dist
 
-    from repro_torch.train import elastic_selftest
     from repro_torch.train.dp import DP
 
     _no_tf32(torch)
@@ -4364,10 +4393,8 @@ def rank_gloo(rank, world, device, seed, ckpt_dir, want_comp):
     t0 = time.perf_counter()
     out["compressed"] = compressed_over(torch, dp, seed, want_comp[rank])
     out["compressed_s"] = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    elastic_selftest.run_ranks(dp)
-    out["selftest_s"] = time.perf_counter() - t0
     out["launches"] = kernel_launches()
+    out["model_axis"] = model_axis_ranks(torch, dp, pair, seed)
     return out
 
 
@@ -4548,15 +4575,35 @@ def training_ranks(torch, seed, train13):
     moe_cfg = moe_config()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    one = train(moe_cfg, ShapeSpec("train", MOE_SEQ, MOE_BATCH, "train"),
-                steps=MOE_STEPS, lr=TRAIN_LR, seed=seed, log_every=1,
-                device="cuda")
+    with KeptSlots() as spy:
+        one = train(moe_cfg, ShapeSpec("train", MOE_SEQ, MOE_BATCH, "train"),
+                    steps=MOE_STEPS, lr=TRAIN_LR, seed=seed, log_every=1,
+                    device="cuda")
     torch.cuda.synchronize()
     moe_one = dict(s=time.perf_counter() - t0,
-                   n=count_params(one["model"]), history=one["history"])
+                   n=count_params(one["model"]), history=one["history"],
+                   kept=spy.kept)
+    del one
+    torch.cuda.empty_cache()
+    full_cfg = full_cut_config()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    one = train(full_cfg, ShapeSpec("train_4k", TRAIN_SEQ, TRAIN_BATCH,
+                                    "train"),
+                steps=RANKS_TRAIN_STEPS, lr=TRAIN_LR, seed=seed,
+                log_every=1, device="cuda")
+    torch.cuda.synchronize()
+    full_one = dict(s=time.perf_counter() - t0, history=one["history"],
+                    n=count_params(one["model"]))
     del one
     torch.cuda.empty_cache()
     want_comp, comp_stacked_s = compressed_want(torch, seed)
+    main15 = kernel_launches()
+    zero_kernel_launches()             # phase 16 from here
+    t16 = time.perf_counter()
+    ma_ref = ma_reference(torch, seed)
+    ma_ref_s = time.perf_counter() - t16
+    main16 = kernel_launches()
     W = torch.cuda.device_count()
     with tempfile.TemporaryDirectory(prefix="phase15-") as d:
         a, b = Path(d) / "gloo", Path(d) / "resume"
@@ -4575,56 +4622,64 @@ def training_ranks(torch, seed, train13):
                          timeout_s=RANKS_TIMEOUT_S, args=(seed, str(b)))
         nccl_wall = time.perf_counter() - t0
     out["gloo_wall_s"], out["nccl_wall_s"] = gloo_wall, nccl_wall
-    out["full"] = ranks_full_report(nc, train13, W)
+    out["full"] = ranks_full_report(nc, full_one, train13, W)
     out["cut"] = ranks_cut_report(gl, nc[0]["moved"], ref, one_s, n_cut,
                                   whole, planned, fallback, ckpt_bytes)
     out["moe"] = ranks_moe_report(gl, moe_one)
     out["pipeline"] = ranks_pipeline_report(gl)
     out["compressed"] = ranks_compressed_report(gl, comp_stacked_s)
-    out["selftest_s"] = gl[0]["selftest_s"]
-    log(f"ranks-train: (e) elastic self-test over 4 gloo ranks on the card "
-        f"in {out['selftest_s']:.2f} s (its lines above); "
-        f"ELASTIC-SELFTEST-OK; the gloo ranks {gloo_wall:.1f} s and the "
-        f"NCCL rank(s) {nccl_wall:.1f} s with the processes' start")
-    counts = [x["launches"] for x in gl + nc] + [kernel_launches()]
+    log(f"ranks-train: the gloo ranks {gloo_wall:.1f} s (phase 16's part "
+        f"in it) and the NCCL rank(s) {nccl_wall:.1f} s with the processes' "
+        f"start")
+    counts = [x["launches"] for x in gl + nc] + [main15]
     launches = {k: sum(c[k] for c in counts) for k in counts[0]}
-    out["phase_s"] = time.perf_counter() - t_phase
-    log(f"ranks-train: phase 15 in {out['phase_s']:.1f} s; launches "
-        f"{launches}")
-    return out, launches
+    ma_out, ma_launches = model_axis_report(gl, ma_ref, moe_one)
+    ma_launches = {k: v + main16[k] for k, v in ma_launches.items()}
+    ma_out["phase_s"] += ma_ref_s
+    ma_out["reference_s"] = ma_ref_s
+    log(f"ranks-model: phase 16 with its one-process reference "
+        f"({ma_ref_s:.1f} s) in {ma_out['phase_s']:.1f} s; launches "
+        f"{ma_launches}")
+    check(ma_out["phase_s"] <= MA_BUDGET_S, f"16: {ma_out['phase_s']:.1f} s "
+          f"past its {MA_BUDGET_S} s")
+    out["phase_s"] = time.perf_counter() - t_phase - ma_out["phase_s"]
+    log(f"ranks-train: phase 15 in {out['phase_s']:.1f} s (phase 16's "
+        f"{ma_out['phase_s']:.1f} s apart); launches {launches}")
+    return out, launches, ma_out, ma_launches
 
 
-def ranks_full_report(nc, train13, W):
-    """(a): the NCCL ranks against phase 13's first steps."""
+def ranks_full_report(nc, full_one, train13, W):
+    """(a): the NCCL ranks against one process at the same depth."""
     fulls = [x["full"] for x in nc]
     r0 = fulls[0]
-    want_l = train13["losses"][:RANKS_TRAIN_STEPS]
-    want_g = train13["grad_norms"][:RANKS_TRAIN_STEPS]
+    want_l = [h["loss"] for h in full_one["history"]]
+    want_g = [h["grad_norm"] for h in full_one["history"]]
     for r, x in enumerate(fulls):
         check(x["losses"] == r0["losses"], f"15a: rank {r}'s losses differ")
     if W == 1:
         check(r0["losses"] == want_l and r0["grad_norms"] == want_g,
-              f"15a: W = 1 is not bit-equal to phase 13: {r0['losses']} "
+              f"15a: W = 1 is not bit-equal to one process: {r0['losses']} "
               f"{r0['grad_norms']} against {want_l} {want_g}")
         how = "bit-equal to"
     else:
         gap = max(abs(a - b) / abs(b) for a, b in zip(
             r0["losses"] + r0["grad_norms"], want_l + want_g))
-        check(gap <= RANKS_EQUAL_RTOL, f"15a: {gap} from phase 13")
+        check(gap <= RANKS_EQUAL_RTOL, f"15a: {gap} from one process")
         how = f"within {gap:.3e} of"
     peak = max(x["peak_bytes"] for x in fulls)
     check(peak < CARD_BYTES, f"15a: peak {peak} B")
     secs = step_seconds(r0["wall_s"])
-    log(f"ranks-train: (a) {TRAIN_ARCH} full width and depth over {W} NCCL "
+    log(f"ranks-train: (a) {TRAIN_ARCH} full width on {RANKS_FULL_LAYERS} of "
+        f"48 layers ({full_one['n']} parameters, bf16) over {W} NCCL "
         f"rank(s), batch {TRAIN_BATCH} x {TRAIN_SEQ}: losses "
-        f"{r0['losses']} grad norms {r0['grad_norms']} ({how} phase 13's "
-        f"first {RANKS_TRAIN_STEPS}); seconds a step {secs} (phase 13: "
-        f"{train13['step_s'][:RANKS_TRAIN_STEPS]}); gradient all-reduce "
-        f"{r0['reduce_bytes']} B in {r0['reduce_s']} s a step; peak {peak} "
-        f"B ({peak / 2**30:.3f} GiB; phase 13 {train13['peak_bytes']} B); m "
-        f"bytes a rank {r0['m_bytes']}; collectives {r0['collective_bytes']}"
-        f" B")
-    return dict(world=W, losses=r0["losses"], grad_norms=r0["grad_norms"],
+        f"{r0['losses']} grad norms {r0['grad_norms']} ({how} one process "
+        f"at the same depth, {full_one['s']:.2f} s); seconds a step {secs} "
+        f"(phase 13's 48 layers: {train13['step_s'][:RANKS_TRAIN_STEPS]}); "
+        f"gradient all-reduce {r0['reduce_bytes']} B in {r0['reduce_s']} s "
+        f"a step; peak {peak} B ({peak / 2**30:.3f} GiB); m bytes a rank "
+        f"{r0['m_bytes']}; collectives {r0['collective_bytes']} B")
+    return dict(world=W, layers=RANKS_FULL_LAYERS, losses=r0["losses"],
+                grad_norms=r0["grad_norms"], one_losses=want_l,
                 step_s=secs, phase13_step_s=train13["step_s"][
                     :RANKS_TRAIN_STEPS], reduce_s=r0["reduce_s"],
                 reduce_bytes=r0["reduce_bytes"], peak_bytes=peak,
@@ -4752,6 +4807,345 @@ def ranks_compressed_report(gl, stacked_s):
                 part_s=gl[0]["compressed_s"])
 
 
+# ---------------------------------------------------------------------------
+# Phase 16: the mesh's model axis over ranks (tensor parallelism)
+# ---------------------------------------------------------------------------
+MA_LAYERS = 4                     # (a): of musicgen-large's 48
+MA_SEQ, MA_BATCH, MA_STEPS = 1024, 2, 2     # (a): float32
+MA_MESHES = ({"data": 1, "model": 2}, {"data": 2, "model": 2})
+MA_RTOL = 1e-4                    # (a), (b): each step against one process
+MA_MESH = {"data": 2, "model": 2}  # (b), (c)
+MA_SMAP_RTOL = 1e-5               # (c): smap against its stacked form
+MA_DECODE_ARCH = "mistral-nemo-12b"
+MA_DECODE_LAYERS, MA_DECODE_B, MA_DECODE_S = 2, 4, 64
+MA_DECODE_STEPS, MA_DECODE_TOL = 4, 2e-4
+MA_BUDGET_S = 150                 # phase 16's seconds, its reference included
+
+
+def ma_train_config():
+    """(a): musicgen-large at full width on MA_LAYERS layers, float32."""
+    from repro_torch.configs import get_config
+    return get_config(TRAIN_ARCH).scaled(n_layers=MA_LAYERS,
+                                         dtype="float32")
+
+
+class KeptSlots:
+    """The MoE's kept slots a dispatch plan (``moe.dispatch_plan``), in
+    call order, while installed."""
+
+    def __init__(self):
+        from repro_torch.models import moe
+        self.moe, self.inner, self.kept = moe, moe.dispatch_plan, []
+
+    def __enter__(self):
+        def spy(cfg, eidx, C, base=None):
+            res = self.inner(cfg, eidx, C, base)
+            self.kept.append(int(res[3].sum()))
+            return res
+        self.moe.dispatch_plan = spy
+        return self
+
+    def __exit__(self, *exc):
+        self.moe.dispatch_plan = self.inner
+
+
+def ma_train(torch, dp, seed, cfg, mesh, seq, batch, steps):
+    """(a) or (b) on this rank: ``train`` over ``dp``'s ranks on ``mesh``
+    from ``seed``.  Returns the history, this rank's parameter bytes,
+    the model group's collectives and the MoE's kept slots a plan."""
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.convert import param_tree
+    from repro_torch.pytree import leaves
+    from repro_torch.train.trainer import train
+
+    device = dp.device
+    torch.cuda.synchronize(device)
+    t0 = time.perf_counter()
+    with KeptSlots() as spy:
+        out = train(cfg, ShapeSpec("train", seq, batch, "train"),
+                    steps=steps, lr=TRAIN_LR, seed=seed, log_every=1,
+                    dp=dp, mesh=mesh)
+    torch.cuda.synchronize(device)
+    h = out["history"]
+    r = out["ranks"]
+    res = dict(losses=[x["loss"] for x in h],
+               grad_norms=[x["grad_norm"] for x in h],
+               wall_s=[x["wall_s"] for x in h],
+               run_s=time.perf_counter() - t0,
+               param_bytes=sum(p.numel() * p.element_size() for p in
+                               leaves(param_tree(out["model"], cfg))),
+               m_bytes=out["zero"].nbytes(out["opt"]["m"]),
+               model_calls=dict(r.model.stats["calls"]),
+               model_bytes=dict(r.model.stats["bytes"]),
+               coords=r.coords, kept=spy.kept)
+    del out
+    torch.cuda.empty_cache()
+    return res
+
+
+def ma_smap(torch, dp, seed):
+    """(c): deepseek-v2-lite-16b's MoE at full width, float32, with
+    moe_impl="smap" under use_mesh on MA_MESH (each rank its data shard's
+    rows and expert shard) against ``smap_stacked`` on the same inputs.
+    Returns the worst relative gap and the aux loss's."""
+    from repro_torch.models.layers import mlp_apply
+    from repro_torch.models.moe import (moe_apply, moe_init, route,
+                                        smap_stacked)
+    from repro_torch.sharding.context import use_mesh
+    from repro_torch.train.dp import Ranks
+
+    cfg = moe_config().scaled(moe_impl="smap")
+    dev = dp.device
+    gen = torch.Generator(device=dev).manual_seed(seed + 16)
+    with torch.no_grad():
+        params = moe_init(cfg, gen, dev)
+        x = torch.randn((MOE_BATCH, MOE_SEQ, cfg.d_model), generator=gen,
+                        device=dev)
+        ranks = Ranks(dp, MA_MESH)
+        E_l = cfg.n_experts // MA_MESH["model"]
+        j = ranks.model.rank
+        mine = {k: (v[j * E_l:(j + 1) * E_l] if k.startswith("e_") else v)
+                for k, v in params.items()}
+        torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        with use_mesh(ranks):
+            y, aux = moe_apply(cfg, mine, x[ranks.data.rows(MOE_BATCH)])
+        torch.cuda.synchronize(dev)
+        secs = time.perf_counter() - t0
+        y = ranks.data.all_gather(y.contiguous(), 0)
+        aux = ranks.data.sum_(aux.clone())
+        xf = x.reshape(-1, cfg.d_model)
+        _, _, eidx, gate = route(cfg, params, xf)
+        t0 = time.perf_counter()
+        want, keep = smap_stacked(cfg, params, xf, eidx, gate,
+                                  MA_MESH["data"], MA_MESH["model"])
+        want = want + mlp_apply(params["shared"], xf)
+        torch.cuda.synchronize(dev)
+        stacked_s = time.perf_counter() - t0
+        gap = float((y.reshape(want.shape) - want).abs().max()
+                    / want.abs().max())
+        check(gap <= MA_SMAP_RTOL, f"16c rank {dp.rank}: smap {gap:.3e} "
+              f"from its stacked form")
+    return dict(rel_gap=gap, aux=float(aux), seconds=secs,
+                stacked_s=stacked_s, kept=int(keep.sum()),
+                slots=int(eidx.numel()))
+
+
+def ma_decode(torch, dp, seed):
+    """(c): mistral-nemo-12b at full width on MA_DECODE_LAYERS layers,
+    float32: MA_DECODE_STEPS decode steps of the whole model (plain) on
+    every rank, then of the model cut to each rank's shard under use_mesh
+    with decode_cache_hint on MA_MESH, each GQA cache's slots cut over
+    the model axis.  Returns the worst gap, the seconds a step both ways
+    and the cache's slots a rank."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import transformer as tr
+    from repro_torch.sharding.context import use_mesh
+    from repro_torch.train.dp import Ranks
+
+    cfg = get_config(MA_DECODE_ARCH).scaled(
+        n_layers=MA_DECODE_LAYERS, dtype="float32", decode_cache_hint=True)
+    dev = dp.device
+    B, S = MA_DECODE_B, MA_DECODE_S
+
+    def inputs(t, rows=slice(None)):
+        return {"tokens": torch.full((B, 1), 3 + t, dtype=torch.int32,
+                                     device=dev)[rows],
+                "pos": torch.full((B,), t, dtype=torch.int32,
+                                  device=dev)[rows]}
+
+    with torch.no_grad():
+        model = tr.Model(cfg, device=dev,
+                         generator=torch.Generator(device=dev).manual_seed(
+                             seed + 17))
+        cache = tr.init_cache(cfg, B, S, device=dev)
+        ref, plain_s = [], []
+        for t in range(MA_DECODE_STEPS):
+            t0 = time.perf_counter()
+            lg, cache = tr.decode_step(cfg, model, cache, inputs(t))
+            torch.cuda.synchronize(dev)
+            plain_s.append(time.perf_counter() - t0)
+            ref.append(lg)
+        del cache
+        ranks = Ranks(dp, MA_MESH)
+        model.cut_to(ranks)
+        torch.cuda.empty_cache()
+        rows = ranks.data.rows(B)
+        gaps, hint_s = [], []
+        with use_mesh(ranks):
+            cache = tr.init_cache(cfg, B, S, device=dev, ranks=ranks)
+            slots = cache[0]["k"].shape[1]
+            for t in range(MA_DECODE_STEPS):
+                t0 = time.perf_counter()
+                lg, cache = tr.decode_step(cfg, model, cache, inputs(t, rows))
+                torch.cuda.synchronize(dev)
+                hint_s.append(time.perf_counter() - t0)
+                lg = ranks.data.all_gather(lg.contiguous(), 0)
+                gaps.append(float(((lg - ref[t]).abs()
+                                   - MA_DECODE_TOL * ref[t].abs()).max()))
+        worst = max(gaps)
+        check(worst <= MA_DECODE_TOL, f"16c rank {dp.rank}: decode with the "
+              f"hint {worst:.3e} past {MA_DECODE_TOL} + {MA_DECODE_TOL} x "
+              f"|plain|")
+        del model, cache, ref
+    torch.cuda.empty_cache()
+    return dict(worst=worst, plain_s=plain_s, hint_s=hint_s, slots=slots,
+                whole_slots=S)
+
+
+def model_axis_ranks(torch, dp, pair, seed):
+    """Phase 16 on the 4 gloo ranks (the kernels' counts set to 0 first):
+    (a) on (2 x 2) over all 4, then on (1 x 2) over ranks 0-1; (b) on
+    (2 x 2); (c) smap and the decode hint on (2 x 2); (d) the elastic
+    self-test's checks over the 4 ranks (``run_ranks``: what
+    ``elastic_selftest --ranks 4 --backend gloo`` runs).  Returns each
+    part's figures, its seconds and the kernels' launches."""
+    from repro_torch.train import elastic_selftest
+
+    zero_kernel_launches()
+    dp.barrier()
+    t_phase = time.perf_counter()
+    out = {"a": {}}
+    cfg = ma_train_config()
+    t0 = time.perf_counter()
+    out["a"]["2x2"] = ma_train(torch, dp, seed, cfg, MA_MESHES[1], MA_SEQ,
+                               MA_BATCH, MA_STEPS)
+    if dp.rank < 2:
+        out["a"]["1x2"] = ma_train(torch, pair, seed, cfg, MA_MESHES[0],
+                                   MA_SEQ, MA_BATCH, MA_STEPS)
+    dp.barrier()
+    out["a_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    out["b"] = ma_train(torch, dp, seed, moe_config(), MA_MESH, MOE_SEQ,
+                        MOE_BATCH, MOE_STEPS)
+    out["b_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    out["smap"] = ma_smap(torch, dp, seed)
+    out["decode"] = ma_decode(torch, dp, seed)
+    out["c_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    elastic_selftest.run_ranks(dp)
+    out["d_s"] = time.perf_counter() - t0
+    out["launches"] = kernel_launches()
+    out["phase_s"] = time.perf_counter() - t_phase
+    return out
+
+
+def ma_reference(torch, seed):
+    """(a)'s one-process run on the card (TF32 off), and its parameter
+    count."""
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.models.transformer import count_params
+    from repro_torch.train.trainer import train
+
+    cfg = ma_train_config()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    one = train(cfg, ShapeSpec("train", MA_SEQ, MA_BATCH, "train"),
+                steps=MA_STEPS, lr=TRAIN_LR, seed=seed, log_every=1,
+                device="cuda")
+    torch.cuda.synchronize()
+    res = dict(history=one["history"], s=time.perf_counter() - t0,
+               n=count_params(one["model"]))
+    del one
+    torch.cuda.empty_cache()
+    return res
+
+
+def _gaps(got, history, what):
+    gaps = []
+    for i, h in enumerate(history):
+        for k, key in (("losses", "loss"), ("grad_norms", "grad_norm")):
+            gap = abs(got[k][i] - h[key]) / abs(h[key])
+            check(gap <= MA_RTOL, f"{what}: step {i} {key} {got[k][i]} "
+                  f"against one process's {h[key]}")
+            gaps.append(gap)
+    return max(gaps)
+
+
+def model_axis_report(gl, ref, moe_one):
+    """Phase 16's lines: (a) against one process with each rank's bytes,
+    (b) with the drops, (c), (d)."""
+    ma = [x["model_axis"] for x in gl]
+    out = {"phase_s": max(x["phase_s"] for x in ma)}
+    whole = 4 * ref["n"]
+    for name in ("2x2", "1x2"):
+        runs = [x["a"][name] for x in ma if name in x["a"]]
+        g = runs[0]
+        for r, x in enumerate(runs):
+            check(x["losses"] == g["losses"], f"16a {name}: rank {r}'s "
+                  f"losses differ")
+        gap = _gaps(g, ref["history"], f"16a {name}")
+        per = [x["param_bytes"] for x in runs]
+        steps = MA_STEPS
+        log(f"ranks-model: (a) {TRAIN_ARCH} full width on {MA_LAYERS} layers "
+            f"({ref['n']} parameters, float32, TF32 off), batch {MA_BATCH} x "
+            f"{MA_SEQ}, {steps} steps on ({name.replace('x', ' data x ')} "
+            f"model) gloo ranks on the card: losses {g['losses']} grad norms "
+            f"{g['grad_norms']}, within {gap:.3e} (relative) of one process "
+            f"({[h['loss'] for h in ref['history']]}, {ref['s']:.2f} s); "
+            f"parameter bytes a rank {per} against the whole's {whole}; m "
+            f"bytes a rank {g['m_bytes']}; seconds a step "
+            f"{step_seconds(g['wall_s'])}; the model group's collectives "
+            f"{g['model_calls']} ({g['model_bytes']} B) over {steps} steps")
+        out[f"a_{name}"] = dict(losses=g["losses"], grad_norms=g["grad_norms"],
+                                max_rel_gap=gap, param_bytes=per,
+                                whole_bytes=whole, m_bytes=g["m_bytes"],
+                                step_s=step_seconds(g["wall_s"]),
+                                model_calls=g["model_calls"],
+                                model_bytes=g["model_bytes"])
+    b = [x["b"] for x in ma]
+    g = b[0]
+    gap = _gaps(g, moe_one["history"], "16b")
+    by = {x["coords"]: x["kept"] for x in b}
+    kept = [sum(by[(d, 0)][i] for d in range(MA_MESH["data"]))
+            for i in range(len(by[(0, 0)]))]
+    check(kept == moe_one["kept"], f"16b: kept slots {kept} against one "
+          f"process's {moe_one['kept']}")
+    log(f"ranks-model: (b) {MOE_ARCH} full width on {MOE_LAYERS} layers "
+        f"(float32), batch {MOE_BATCH} x {MOE_SEQ}, {MOE_STEPS} steps on (2 "
+        f"data x 2 model) gloo ranks, the experts cut over model: losses "
+        f"{g['losses']} grad norms {g['grad_norms']}, within {gap:.3e} of "
+        f"one process; kept slots a plan {kept} equal to one process's; "
+        f"parameter bytes a rank {[x['param_bytes'] for x in b]}; seconds a "
+        f"step {step_seconds(g['wall_s'])}; the model group's collectives "
+        f"{g['model_calls']}")
+    out["b"] = dict(losses=g["losses"], max_rel_gap=gap, kept=kept,
+                    param_bytes=[x["param_bytes"] for x in b],
+                    step_s=step_seconds(g["wall_s"]),
+                    model_calls=g["model_calls"])
+    sm = [x["smap"] for x in ma]
+    dec = [x["decode"] for x in ma]
+    log(f"ranks-model: (c) under use_mesh on (2 x 2): {MOE_ARCH}'s smap "
+        f"moe_apply at full width (float32, {MOE_BATCH} x {MOE_SEQ} tokens) "
+        f"within {max(x['rel_gap'] for x in sm):.3e} (relative) of its "
+        f"stacked form, {sm[0]['kept']} of {sm[0]['slots']} slots kept, "
+        f"{max(x['seconds'] for x in sm):.3f} s over ranks, "
+        f"{sm[0]['stacked_s']:.3f} s stacked; {MA_DECODE_ARCH} full width on "
+        f"{MA_DECODE_LAYERS} layers (float32), {MA_DECODE_STEPS} decode "
+        f"steps of batch {MA_DECODE_B} with decode_cache_hint, {dec[0]['slots']}"
+        f" of {dec[0]['whole_slots']} cache slots a rank: the logits within "
+        f"{MA_DECODE_TOL} + {MA_DECODE_TOL} x |plain| (worst margin "
+        f"{max(x['worst'] for x in dec):.3e}); seconds a step "
+        f"{dec[0]['hint_s']} (plain {dec[0]['plain_s']})")
+    out["c"] = dict(smap_rel_gap=max(x["rel_gap"] for x in sm),
+                    smap_s=[x["seconds"] for x in sm],
+                    stacked_s=sm[0]["stacked_s"], kept=sm[0]["kept"],
+                    slots=sm[0]["slots"],
+                    decode_worst=max(x["worst"] for x in dec),
+                    decode_s=dec[0]["hint_s"], plain_s=dec[0]["plain_s"],
+                    cache_slots=dec[0]["slots"])
+    out["parts_s"] = {k: ma[0][f"{k}_s"] for k in ("a", "b", "c", "d")}
+    log(f"ranks-model: (d) the elastic self-test over the 4 gloo ranks (its "
+        f"lines above: (2 x 2) -> (1 x 4), smap and the hint on (2 x 2)) in "
+        f"{ma[0]['d_s']:.2f} s; ELASTIC-SELFTEST-OK")
+    counts = [x["launches"] for x in ma]
+    launches = {k: sum(c[k] for c in counts) for k in counts[0]}
+    log(f"ranks-model: phase 16 in {out['phase_s']:.1f} s (parts "
+        f"{json.dumps(out['parts_s'])}); launches {launches}")
+    return out, launches
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -4862,11 +5256,14 @@ def main(argv=None) -> int:
     for k in kernels:
         k["launches_tools"] = tool_launches[k["name"]]
     torch.cuda.empty_cache()
-    rank_train_times, rank_train_launches = training_ranks(
-        torch, args.seed, train_times["full"])
+    (rank_train_times, rank_train_launches, model_axis_times,
+     model_axis_launches) = training_ranks(torch, args.seed,
+                                           train_times["full"])
     log(f"ranks-train: {json.dumps(rank_train_times)}")
+    log(f"ranks-model: {json.dumps(model_axis_times)}")
     for k in kernels:
         k["launches_training_ranks"] = rank_train_launches[k["name"]]
+        k["launches_model_axis"] = model_axis_launches[k["name"]]
     torch.cuda.synchronize()
     log(f"total: {time.perf_counter() - t_start:.1f} s")
     print(smi)

@@ -4,6 +4,7 @@ trained on the synthetic LM stream, with checkpoints and restart.
     python examples/train_lm_torch.py --steps 100 [--device cpu]
     python examples/train_lm_torch.py --steps 200   # resumes!
     python examples/train_lm_torch.py --steps 100 --ranks 2 [--device cpu]
+    python examples/train_lm_torch.py --steps 100 --ranks 4 --model 2 [--device cpu]
     torchrun --nproc-per-node 2 examples/train_lm_torch.py --steps 100
 
 The port's counterpart of ``examples/train_lm.py``: the same flags and
@@ -11,8 +12,10 @@ printed lines, plus ``--device``, the card unless it names another.
 The JAX example trains over every device of the host; ``--ranks W``
 trains over W processes, one a rank (NCCL with rank r on ``cuda:r``,
 gloo on the CPU; under torchrun each process joins torchrun's group),
-the ranks the data axis with ZeRO-1, rank 0 printing.  A checkpoint is
-one file whatever W is, so a run resumes over another number of ranks.
+rank 0 printing: the ranks a mesh of W / M data x M model (``--model
+M``, 1 by default), the batch split over data with ZeRO-1 and the
+weights cut over model (tensor parallelism).  A checkpoint is one file
+whatever the mesh is, so a run resumes on another mesh.
 Pass --d-model 704 --n-layers 12 for the ~100M run.  Loss on the
 synthetic copy-structure stream drops from ~ln(V) toward the copy floor.
 The checkpoint directory (by default under the temporary directory) is
@@ -57,6 +60,9 @@ def parse(argv=None):
                     help="torch device (default: the card)")
     ap.add_argument("--ranks", type=int, default=0,
                     help="processes, one a rank (default: one process)")
+    ap.add_argument("--model", type=int, default=1,
+                    help="the mesh's model axis over the ranks (tensor "
+                         "parallelism); the rest is the data axis")
     return ap.parse_args(argv)
 
 
@@ -64,10 +70,15 @@ def run(args, dev, dp=None, say=print):
     cfg = demo_config(args.d_model, args.n_layers)
     n = count_params(Model(cfg, device="cpu"))
     where = f"device={dev}" + ("" if dp is None else f", ranks={dp.world}")
+    mesh = None
+    if dp is not None and args.model > 1:
+        mesh = {"data": dp.world // args.model, "model": args.model}
+        where += f", model={args.model}"
     say(f"model: {n/1e6:.1f}M params, {where}")
     shape = ShapeSpec("demo", args.seq_len, args.batch, "train")
     out = train(cfg, shape, steps=args.steps, ckpt_dir=args.ckpt_dir,
-                ckpt_every=25, lr=args.lr, log_every=5, device=dev, dp=dp)
+                ckpt_every=25, lr=args.lr, log_every=5, device=dev, dp=dp,
+                mesh=mesh)
     h = out["history"]
     say(f"loss: {h[0]['loss']:.3f} -> {h[-1]['loss']:.3f} "
         f"over steps {h[0]['step']}..{h[-1]['step']}")

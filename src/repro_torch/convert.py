@@ -242,6 +242,15 @@ def params_from_numpy(params, cfg, device=None):
     return model
 
 
+def shard_params_from_numpy(params, cfg, ranks, device=None):
+    """``params_from_numpy``'s ``Model``, cut to ``ranks``' model index's
+    shard (``Model.cut_to``): a JAX tree carried onto one rank of a
+    (data x model) mesh."""
+    model = params_from_numpy(params, cfg, device)
+    model.cut_to(ranks)
+    return model
+
+
 def _cache_tree(tree, dev):
     if isinstance(tree, dict):
         return {k: _cache_tree(v, dev) for k, v in tree.items()}

@@ -44,11 +44,29 @@ which bounds the memory.
 ``_sliding_window`` gathers every q block's ``nwin`` kv blocks with one
 ``unfold`` of the left-padded k and v.
 
-Left out, having no meaning on one card: the mesh hooks
-(``_constrain_cache``, ``_seq_shard_ok``, ``_sharded_cache_update``) and
-the ``decode_cache_hint`` branches of ``gqa_decode`` and ``mla_decode``
-(the config field stays and does nothing), and ``unroll``, a knob of
-XLA's cost analysis.
+Over the model axis (``sharding/tp.py``; the weights cut by
+``sharding/partition.cut_model``): ``wq``, ``wk``, ``wv`` (MLA: ``wq``,
+``w_dkv``, ``w_uk``, ``w_uv``) are column-cut and ``wo`` row-cut, one
+all-reduce a block.  Where the cut falls on query heads (H divisible by
+the model size) a rank attends over its own heads: the keys and values
+it needs come from its own columns where the key heads are cut too, and
+otherwise (a cut inside a key head, as tiny mistral-nemo's 2 key heads
+at 4 ranks) the key and value columns are gathered to whole heads and
+the rank takes the heads its queries read (``_kv_sel``).  Where it does
+not, every projection is gathered whole, the attention runs on every
+head, and the output is split again for the row-cut ``wo``.  MLA's
+latent (``w_dkv``) is gathered whole for its norm; its rope key
+(``w_kr``) is whole.  The GQA decode cache holds the rank's key heads
+(or every head), MLA's the whole latent.
+
+Under ``sharding/context.use_mesh`` with ``cfg.decode_cache_hint`` (JAX's
+``_seq_shard_ok``: the slots divide over the model axis and the batch
+over data) a GQA cache is cut along its slots over the model axis
+(``init_cache`` marks it): the token's slot is written on its owner
+only (``_sharded_cache_update``), each rank scores its slots, and the
+softmax's max and sum and the weighted partials are all-reduced.  MLA's
+cache keeps only the data cut, as JAX's constraint does.  Left out:
+``unroll``, a knob of XLA's cost analysis.
 """
 from __future__ import annotations
 
@@ -57,6 +75,8 @@ import torch.nn.functional as F
 
 from repro_torch.models.layers import (apply_rope, dot, normal, rmsnorm,
                                        rmsnorm_init)
+from repro_torch.sharding import tp
+from repro_torch.sharding.context import current_model
 
 F32 = torch.float32
 NEG_INF = -1e30
@@ -304,14 +324,75 @@ def _sliding_window(qh, k, v, window: int, qb: int):
 # ---------------------------------------------------------------------------
 # GQA block (prefill)
 # ---------------------------------------------------------------------------
-def _qkv(cfg, params, x, positions, T):
+def _qkv(cfg, params, x, positions, T, plan=None):
+    """q, k, v of a GQA block, rope applied: every head, or with ``plan``
+    (``_gqa_local``) this rank's query heads and the key heads they
+    read."""
     B = x.shape[0]
     H, Hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
-    q = dot(x, params["wq"]).reshape(B, T, H, hd)
-    k = dot(x, params["wk"]).reshape(B, T, Hkv, hd)
-    v = dot(x, params["wv"]).reshape(B, T, Hkv, hd)
+    if plan is not None:
+        _, H_l, kv = plan
+        xc = tp.copy(x)
+        q = dot(xc, params["wq"]).reshape(B, T, H_l, hd)
+        k, v = (_kv_local(x, xc, params[n], B, T, Hkv, hd, kv)
+                for n in ("wk", "wv"))
+    elif any(tp.cut(params[n]) is not None for n in ("wq", "wk", "wv")):
+        q = _proj(x, params["wq"]).reshape(B, T, H, hd)
+        k = _proj(x, params["wk"]).reshape(B, T, Hkv, hd)
+        v = _proj(x, params["wv"]).reshape(B, T, Hkv, hd)
+    else:
+        q = dot(x, params["wq"]).reshape(B, T, H, hd)
+        k = dot(x, params["wk"]).reshape(B, T, Hkv, hd)
+        v = dot(x, params["wv"]).reshape(B, T, Hkv, hd)
     return (apply_rope(q, positions, cfg.rope_theta),
             apply_rope(k, positions, cfg.rope_theta), v)
+
+
+def _proj(x, w):
+    """``dot(x, w)`` whole on every rank: a column-cut weight's slices
+    gathered."""
+    if tp.cut(w) is None:
+        return dot(x, w)
+    return tp.gather(dot(tp.copy(x), w), -1)
+
+
+def _kv_local(x, xc, w, B, T, Hkv, hd, kv):
+    """The key (or value) heads this rank's queries read: its own
+    columns (``kv`` None), or those heads of the whole projection."""
+    if kv is None:
+        return dot(xc, w).reshape(B, T, -1, hd)
+    whole = (tp.gather(dot(xc, w), -1) if tp.cut(w) is not None
+             else dot(x, w))
+    return tp.copy(whole).reshape(B, T, Hkv, hd)[:, :, kv]
+
+
+def _kv_sel(h0: int, n: int, per: int):
+    """The key heads that query heads h0 .. h0 + n - 1 read (each key
+    head serves ``per`` consecutive query heads), one entry for each
+    group of queries that shares one; where the queries split a key
+    head's group unevenly, one entry a query."""
+    idx = [(h0 + i) // per for i in range(n)]
+    uniq = sorted(set(idx))
+    if n % len(uniq) == 0 and all(idx.count(u) == n // len(uniq)
+                                  for u in uniq):
+        return uniq
+    return idx
+
+
+def _gqa_local(cfg, params):
+    """(h0, H_l, the key heads to take or None) where the model axis cuts
+    the query heads evenly (this rank runs heads h0 .. h0 + H_l - 1), or
+    None: the block runs every head."""
+    if tp.cut(params["wq"]) is None:
+        return None
+    r, m = tp.rank_parts()
+    H, Hkv = cfg.n_heads, cfg.n_kv_heads
+    if H % m:
+        return None
+    H_l = H // m
+    aligned = tp.cut(params["wk"]) is not None and Hkv % m == 0
+    return r * H_l, H_l, None if aligned else _kv_sel(r * H_l, H_l,
+                                                      H // Hkv)
 
 
 def _attend(cfg, q, k, v, window: int = 0):
@@ -329,9 +410,10 @@ def _attend(cfg, q, k, v, window: int = 0):
 
 def gqa_apply(cfg, params, x, positions, *, window: int = 0):
     B, S, _ = x.shape
-    q, k, v = _qkv(cfg, params, x, positions, S)
+    plan = _gqa_local(cfg, params)
+    q, k, v = _qkv(cfg, params, x, positions, S, plan)
     o = _attend(cfg, q, k, v, window)
-    return dot(o.reshape(B, S, -1), params["wo"])
+    return tp.row(o.reshape(B, S, -1), params["wo"], plan is not None)
 
 
 def _naive_attention(q, k, v, window: int = 0):
@@ -357,18 +439,49 @@ def _naive_attention(q, k, v, window: int = 0):
 # GQA decode (single token, ring-buffer cache)
 # ---------------------------------------------------------------------------
 def gqa_cache_init(cfg, batch: int, seq_len: int, device, *,
-                   window: int = 0) -> dict:
+                   window: int = 0, heads=None, seq_parts: int = 1) -> dict:
     """``cap = min(window, seq_len)`` slots (``seq_len`` without a
-    window), each tagged with the position it holds (-1: empty)."""
+    window), each tagged with the position it holds (-1: empty); of
+    ``heads`` key heads (all by default), or of cap / ``seq_parts`` slots
+    marked as a cut along the slots (``use_mesh`` and the hint)."""
     cap = min(window, seq_len) if window else seq_len
     Hkv, hd = cfg.n_kv_heads, cfg.resolved_head_dim
+    Hkv = Hkv if heads is None else heads
     dt = cfg.param_dtype
-    return {
-        "k": torch.zeros((batch, cap, Hkv, hd), dtype=dt, device=device),
-        "v": torch.zeros((batch, cap, Hkv, hd), dtype=dt, device=device),
-        "pos": torch.full((batch, cap), -1, dtype=torch.int32,
+    c = {"k": torch.zeros((batch, cap // seq_parts, Hkv, hd), dtype=dt,
                           device=device),
-    }
+         "v": torch.zeros((batch, cap // seq_parts, Hkv, hd), dtype=dt,
+                          device=device),
+         "pos": torch.full((batch, cap // seq_parts), -1, dtype=torch.int32,
+                           device=device)}
+    return _mark_seq(c, seq_parts)
+
+
+def _mark_seq(c, parts):
+    if parts > 1:
+        for t in c.values():
+            tp.mark(t, 1, parts)
+    return c
+
+
+def gqa_cache_layout(cfg, seq_len: int, window: int, r: int, m: int,
+                     seq: bool) -> dict:
+    """``gqa_cache_init``'s keywords for model index ``r`` of ``m``:
+    the slots cut where ``seq`` (the hint under ``use_mesh``) and they
+    divide, else the key heads this rank's queries read (``_gqa_local``
+    of a model cut by ``cut_model``), else every head."""
+    cap = min(window, seq_len) if window else seq_len
+    if m == 1:
+        return {}
+    if seq and cap % m == 0 and cap >= m:
+        return {"seq_parts": m}
+    H, Hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
+    if (H * hd) % m or H % m:
+        return {}
+    H_l = H // m
+    if (Hkv * hd) % m == 0 and Hkv % m == 0:
+        return {"heads": Hkv // m}
+    return {"heads": len(_kv_sel(r * H_l, H_l, H // Hkv))}
 
 
 def gqa_decode(cfg, params, x, pos, cache, *, window: int = 0):
@@ -377,48 +490,113 @@ def gqa_decode(cfg, params, x, pos, cache, *, window: int = 0):
     target a row), then it attends over the slots whose tag is at most
     pos (and, with a window, within it)."""
     B = x.shape[0]
-    H, Hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
+    hd = cfg.resolved_head_dim
+    seq = tp.cut(cache["k"]) is not None
+    plan = None if seq else _gqa_local(cfg, params)
+    q, k, v = _qkv(cfg, params, x, pos[:, None], 1, plan)
+    H, Hkv = q.shape[2], k.shape[2]
     G = H // Hkv
-    q, k, v = _qkv(cfg, params, x, pos[:, None], 1)
-    cap = cache["k"].shape[1]
     pos = pos.to(torch.int32)
-    slot = (pos % cap).long()
-    bidx = torch.arange(B, device=x.device)
-    k_cache = cache["k"].index_put((bidx, slot), k[:, 0])
-    v_cache = cache["v"].index_put((bidx, slot), v[:, 0])
-    pos_buf = cache["pos"].index_put((bidx, slot), pos)
+    if seq:
+        k_cache, v_cache, pos_buf = _sharded_cache_update(
+            cache, k[:, 0], v[:, 0], pos)
+    else:
+        cap = cache["k"].shape[1]
+        slot = (pos % cap).long()
+        bidx = torch.arange(B, device=x.device)
+        k_cache = cache["k"].index_put((bidx, slot), k[:, 0])
+        v_cache = cache["v"].index_put((bidx, slot), v[:, 0])
+        pos_buf = cache["pos"].index_put((bidx, slot), pos)
     qg = q.reshape(B, Hkv, G, hd) * hd ** -0.5
     s = torch.einsum("bhgd,bkhd->bhgk", _f32(qg), _f32(k_cache))
     valid = (pos_buf >= 0) & (pos_buf <= pos[:, None])
     if window:
         valid &= (pos[:, None] - pos_buf) < window
     s = torch.where(valid[:, None, None, :], s, NEG_INF)
-    p = torch.softmax(s, dim=-1)
-    o = torch.einsum("bhgk,bkhd->bhgd", _f32(p.to(v.dtype)),
-                     _f32(v_cache)).to(x.dtype)
-    out = dot(o.reshape(B, 1, H * hd), params["wo"])
-    return out, {"k": k_cache, "v": v_cache, "pos": pos_buf}
+    if seq:
+        o = _seq_softmax_pv(s, v_cache, x.dtype)
+    else:
+        p = torch.softmax(s, dim=-1)
+        o = torch.einsum("bhgk,bkhd->bhgd", _f32(p.to(v.dtype)),
+                         _f32(v_cache)).to(x.dtype)
+    out = tp.row(o.reshape(B, 1, H * hd), params["wo"], plan is not None)
+    return out, _mark_seq({"k": k_cache, "v": v_cache, "pos": pos_buf},
+                          cache["k"].model_parts if seq else 1)
+
+
+def _sharded_cache_update(cache, k_new, v_new, pos):
+    """JAX's ``_sharded_cache_update``: the token's slot written only on
+    the model index that holds it (this rank holds slots r * capl ..
+    (r + 1) * capl - 1)."""
+    r, m = tp.rank_parts()
+    capl = cache["k"].shape[1]
+    slot = (pos % (capl * m)).long()
+    local = slot - r * capl
+    mine = (local >= 0) & (local < capl)
+    li = torch.where(mine, local, 0)
+    bidx = torch.arange(k_new.shape[0], device=k_new.device)
+    out = []
+    for t, new in ((cache["k"], k_new), (cache["v"], v_new),
+                   (cache["pos"], pos)):
+        old = t[bidx, li]
+        keep = mine.view((-1,) + (1,) * (new.dim() - 1))
+        out.append(t.index_put((bidx, li), torch.where(keep, new, old)))
+    return out
+
+
+def _seq_softmax_pv(s, v_cache, dtype):
+    """softmax(s) @ v over the slots of every model index: each rank's
+    scores ``s`` [B, Hkv, G, capl] and slots; the max, the sum and the
+    weighted partials all-reduced over model."""
+    g = current_model()
+    mx = g.max_(s.amax(dim=-1, keepdim=True).contiguous())
+    p = torch.exp(s - mx)
+    den = g.sum_(p.sum(dim=-1).contiguous())
+    acc = g.sum_(torch.einsum("bhgk,bkhd->bhgd", _f32(p.to(v_cache.dtype)),
+                              _f32(v_cache)).contiguous())
+    return (acc / den[..., None]).to(dtype)
 
 
 # ---------------------------------------------------------------------------
 # MLA (prefill decompressed; decode absorbed over the compressed cache)
 # ---------------------------------------------------------------------------
+def _mla_local(cfg, params):
+    """The query heads this rank runs, H / m, where the model axis cuts
+    MLA's heads evenly (``wq``, ``w_uk``, ``w_uv`` and ``wo``); None:
+    every head."""
+    if any(tp.cut(params[n]) is None for n in ("wq", "w_uk", "w_uv", "wo")):
+        return None
+    _, m = tp.rank_parts()
+    return None if cfg.n_heads % m else cfg.n_heads // m
+
+
 def mla_apply(cfg, params, x, positions):
     B, S, _ = x.shape
     H = cfg.n_heads
     nope, rope_d, hv = cfg.qk_nope_dim, cfg.qk_rope_dim, cfg.v_head_dim
-    q = dot(x, params["wq"]).reshape(B, S, H, nope + rope_d)
+    H_l = _mla_local(cfg, params)
+    if H_l is None:
+        q = _proj(x, params["wq"]).reshape(B, S, H, nope + rope_d)
+    else:
+        q = dot(tp.copy(x), params["wq"]).reshape(B, S, H_l, nope + rope_d)
+    Hh = q.shape[2]
     q_nope, q_rope = q[..., :nope], q[..., nope:]
     q_rope = apply_rope(q_rope, positions, cfg.rope_theta)
-    ckv = rmsnorm(params["kv_norm"], dot(x, params["w_dkv"]), cfg.norm_eps)
+    ckv = rmsnorm(params["kv_norm"], _proj(x, params["w_dkv"]),
+                  cfg.norm_eps)
     k_rope = apply_rope(dot(x, params["w_kr"])[..., None, :], positions,
                         cfg.rope_theta)                       # [B,S,1,rope]
-    k_nope = dot(ckv, params["w_uk"]).reshape(B, S, H, nope)
-    v = dot(ckv, params["w_uv"]).reshape(B, S, H, hv)
+    if H_l is None:
+        k_nope = _proj(ckv, params["w_uk"]).reshape(B, S, H, nope)
+        v = _proj(ckv, params["w_uv"]).reshape(B, S, H, hv)
+    else:
+        ckv, k_rope = tp.copy(ckv), tp.copy(k_rope)
+        k_nope = dot(ckv, params["w_uk"]).reshape(B, S, H_l, nope)
+        v = dot(ckv, params["w_uv"]).reshape(B, S, H_l, hv)
     qf = torch.cat([q_nope, q_rope], dim=-1)
-    kf = torch.cat([k_nope, k_rope.expand(B, S, H, rope_d)], dim=-1)
+    kf = torch.cat([k_nope, k_rope.expand(B, S, Hh, rope_d)], dim=-1)
     o = _attend(cfg, qf, kf, v)
-    return dot(o.reshape(B, S, H * hv), params["wo"])
+    return tp.row(o.reshape(B, S, Hh * hv), params["wo"], H_l is not None)
 
 
 def mla_cache_init(cfg, batch: int, seq_len: int, device) -> dict:
@@ -438,15 +616,21 @@ def mla_decode(cfg, params, x, pos, cache):
     pos: [B].  The token's latent and rope key go to slot pos % cap of
     each row (one target a row); the products JAX takes with
     ``preferred_element_type=F32`` are float32 matmuls of float32 copies,
-    each cast to x's dtype where JAX casts."""
+    each cast to x's dtype where JAX casts.  Over the model axis a rank
+    absorbs and attends with its own heads (``_mla_local``), or with
+    every head, the cut weights gathered whole."""
     B = x.shape[0]
-    H = cfg.n_heads
     r, nope, rope_d, hv = (cfg.kv_lora_rank, cfg.qk_nope_dim,
                            cfg.qk_rope_dim, cfg.v_head_dim)
+    H_l = _mla_local(cfg, params)
+    if H_l is None:
+        params = {n: tp.whole(w) if torch.is_tensor(w) else w
+                  for n, w in params.items()}
+    H = cfg.n_heads if H_l is None else H_l
     q = dot(x, params["wq"]).reshape(B, H, nope + rope_d)
     q_nope, q_rope = q[..., :nope], q[..., nope:]
     q_rope = apply_rope(q_rope[:, None], pos[:, None], cfg.rope_theta)[:, 0]
-    ckv_t = rmsnorm(params["kv_norm"], dot(x, params["w_dkv"])[:, 0],
+    ckv_t = rmsnorm(params["kv_norm"], _proj(x, params["w_dkv"])[:, 0],
                     cfg.norm_eps)
     k_rope_t = apply_rope(dot(x, params["w_kr"])[:, :, None, :],
                           pos[:, None], cfg.rope_theta)[:, 0, 0]
@@ -471,5 +655,5 @@ def mla_decode(cfg, params, x, pos, cache):
                        _f32(ckv_c)).to(x.dtype)
     w_uv = params["w_uv"].reshape(r, H, hv)
     o = torch.einsum("bhr,rhv->bhv", _f32(ctx), _f32(w_uv)).to(x.dtype)
-    out = dot(o.reshape(B, 1, H * hv), params["wo"])
+    out = tp.row(o.reshape(B, 1, H * hv), params["wo"], H_l is not None)
     return out, {"ckv": ckv_c, "k_rope": kr_c, "pos": pos_buf}

@@ -11,11 +11,19 @@ Initialisers draw from an explicit ``torch.Generator`` straight into the
 target dtype on the target device (no float32 or host copy), so a
 full-width model is built on the card.  They do not give the JAX
 package's numbers: tests carry weights across with ``convert.py``.
+
+Over the model axis (``sharding/tp.py``) the MLP is Megatron's:
+``wi`` and ``wg`` column-cut, ``wo`` row-cut, one all-reduce; the
+embedding's vocab rows are cut (a masked lookup, then an all-reduce),
+and so are the head's vocab columns (``logits_local``; the tied head is
+the embedding's transpose, cut the same way).
 """
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
+
+from repro_torch.sharding import tp
 
 F32 = torch.float32
 
@@ -81,6 +89,12 @@ def mlp_init(generator, d_model: int, d_ff: int, dtype, device) -> dict:
 
 
 def mlp_apply(params, x):
+    if tp.cut(params["wo"]) is not None:
+        xc = tp.copy(x)
+        h = dot(xc, params["wi"])
+        g = dot(xc, params["wg"])
+        h = h * F.silu(g.float()).to(h.dtype)
+        return tp.reduce(dot(h, params["wo"]))
     h = dot(x, params["wi"])
     g = dot(x, params["wg"])
     h = h * F.silu(g.float()).to(h.dtype)
@@ -97,7 +111,14 @@ def embed_init(generator, vocab: int, d_model: int, dtype, device):
 def embed_lookup(table, tokens):
     """The table's rows; ``F.embedding``, whose gradient adds each row's
     contributions in a fixed order on the CPU (indexing's does not)."""
-    return F.embedding(tokens.long(), table)
+    if tp.cut(table) is None:
+        return F.embedding(tokens.long(), table)
+    r, _ = tp.rank_parts()
+    n = table.shape[0]
+    local = tokens.long() - r * n
+    mine = (local >= 0) & (local < n)
+    rows = F.embedding(torch.where(mine, local, 0), table)
+    return tp.reduce(torch.where(mine[..., None], rows, 0))
 
 
 def lm_head_init(generator, d_model: int, vocab: int, dtype, device):
@@ -108,5 +129,15 @@ def logits_from_hidden(cfg, model, x):
     """x: [B, T, D] -> float32 logits [B, T, V] (the tied embedding's
     transpose, or the untied ``[D, V]`` head), products summed in float32
     as the JAX package's ``preferred_element_type=F32`` does."""
-    w = model.embed.t() if cfg.tie_embeddings else model.lm_head
-    return torch.matmul(x.float(), w.float())
+    logits, sliced = logits_local(cfg, model, x)
+    return tp.gather(logits, -1) if sliced else logits
+
+
+def logits_local(cfg, model, x):
+    """(this rank's vocab columns of the float32 logits, whether they
+    are a slice): the whole logits where the head is whole."""
+    w = model.embed if cfg.tie_embeddings else model.lm_head
+    sliced = tp.cut(w) is not None
+    w = w.t() if cfg.tie_embeddings else w
+    return torch.matmul((tp.copy(x) if sliced else x).float(),
+                        w.float()), sliced

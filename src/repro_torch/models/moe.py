@@ -9,9 +9,10 @@ capacity C are dropped.  The router adds the load-balance and z losses.
 ``e_wo`` [E, F, D] and, with shared experts, ``shared`` (a SwiGLU MLP of
 width F * n_shared_experts), a dict or a ``ParameterDict``.
 
-Every ``moe_impl`` takes the sort dispatch: JAX's shard_map dispatch
-(``_dispatch_smap``) runs only with a mesh set, and the port has none, so
-JAX without a mesh and the port compute the same function.
+Every ``moe_impl`` takes the sort dispatch but ``"smap"`` under
+``sharding/context.use_mesh`` (JAX's ``_dispatch_smap``, which runs only
+where ``get_mesh()`` is set; JAX's trainer never sets it, so training
+takes the sort dispatch there too, on any mesh).
 
 Three rules hold the port to JAX's answer:
 
@@ -39,6 +40,20 @@ z-loss are the rank's sums over the global token count: the ranks' aux
 losses sum to the global one.  The experts are row-wise, so each rank
 runs only its own kept slots, in an [E, min(C, T_local), D] buffer.
 
+Over the model axis the experts are cut (``e_wi``, ``e_wg``, ``e_wo``
+hold the rank's E / m experts; the router is whole).  The sort dispatch
+keeps its global plan and each model rank runs only its experts' kept
+slots; the combine is all-reduced over model, so the drops are one
+process's.  The shard_map dispatch (``_dispatch_smap``, under
+``use_mesh``) is JAX's: each (data shard, expert shard) selects its own
+tokens with a capacity per data shard and expert, C = max(8,
+(int(Tl * k * cf) // E + 7) // 8 * 8), Tl the shard's tokens, in the
+order ``lexsort((pos, e_loc))``, and the output is summed over model; it
+falls back to the sort dispatch where E % m is not 0 (T % data is 0 by
+construction: a rank holds its data shard's rows), as JAX does.
+``smap_stacked`` is its one-process form, the data and expert shards
+leading loop axes: the plain version the rank form is held against.
+
 The expert products JAX takes with ``preferred_element_type=F32`` run in
 groups of experts: ``h`` and ``ys`` as matmuls in the activations' dtype
 (float32 accumulation, one rounding: JAX's cast), the gate ``g`` as a
@@ -52,7 +67,8 @@ import torch.nn.functional as F
 
 from repro_torch.core.scatter import drop_set_rows
 from repro_torch.models.layers import dot, mlp_apply, mlp_init, normal
-from repro_torch.sharding.context import current_dp
+from repro_torch.sharding import tp
+from repro_torch.sharding.context import current_dp, get_mesh
 
 F32 = torch.float32
 EXPERT_ELEMS = 1 << 28     # float32 gate weights of one expert group (1 GiB)
@@ -108,14 +124,20 @@ def moe_apply(cfg, params, x):
     dp = current_dp()
     if dp is not None and dp.world > 1:
         aux_loss, C, base = _global_stats(cfg, dp, logits, probs, eidx)
-        out = _dispatch(cfg, params, xf, eidx, gate, C, base)
     else:
         # aux losses: load-balance (Switch) + router z-loss
         density = expert_counts(eidx.reshape(-1), E).float() / (T * k)
         aux = E * torch.sum(density * probs.mean(0))
         zloss = torch.mean(torch.logsumexp(logits, dim=-1) ** 2)
         aux_loss = 0.01 * aux + 0.001 * zloss
-        out = _dispatch(cfg, params, xf, eidx, gate, _capacity(cfg, T))
+        C, base = _capacity(cfg, T), None
+    mesh = get_mesh()
+    if (cfg.moe_impl == "smap" and mesh is not None
+            and E % mesh.model.world == 0):
+        out = _dispatch_smap(cfg, params, xf, eidx, gate, mesh.model.rank,
+                             mesh.model.world)
+    else:
+        out = _dispatch(cfg, params, xf, eidx, gate, C, base)
     if cfg.n_shared_experts:
         out = out + mlp_apply(params["shared"], xf)
     return out.reshape(B, S, D), aux_loss
@@ -187,16 +209,32 @@ def _experts(params, xs):
 def _dispatch(cfg, params, xf, eidx, gate, C, base=None):
     """Global sort-based dispatch into the [E, C, D] buffer, the experts,
     and the combine in JAX's update order.  Over ranks (``base``) the
-    buffer holds this rank's kept slots (``dispatch_plan``)."""
+    buffer holds this rank's kept slots (``dispatch_plan``); over the
+    model axis, those of its experts, the combine summed over model."""
     T, D = xf.shape
-    E, k = cfg.n_experts, cfg.top_k
+    k = cfg.top_k
     order, e_s, t_s, keep, dest = dispatch_plan(cfg, eidx, C, base)
     rows = buffer_rows(C, T, base)
     g_s = gate.reshape(-1)[order]
-    xs = drop_set_rows(torch.zeros((E * rows, D), dtype=xf.dtype,
+    E_l = params["e_wi"].shape[0]
+    cut = tp.cut(params["e_wi"]) is not None
+    if cut:
+        j = tp.rank_parts()[0]
+        keep = keep & (e_s // E_l == j)
+        dest = torch.where(keep, dest - j * E_l * rows, E_l * rows)
+        xf, g_s = tp.copy(xf), tp.copy(g_s)
+    out = _run(params, xf, order, t_s, keep, dest, g_s, E_l, rows, k)
+    return tp.reduce(out) if cut else out
+
+
+def _run(params, xf, order, t_s, keep, dest, g_s, E_l, rows, k):
+    """The dispatch write into the [E_l * rows] buffer, the experts, and
+    each token's k contributions added in the sorted order."""
+    T, D = xf.shape
+    xs = drop_set_rows(torch.zeros((E_l * rows, D), dtype=xf.dtype,
                                    device=xf.device), dest, xf[t_s])
-    ys = _experts(params, xs.view(E, rows, D))
-    ys_flat = torch.cat([ys.reshape(E * rows, D),
+    ys = _experts(params, xs.view(E_l, rows, D))
+    ys_flat = torch.cat([ys.reshape(E_l * rows, D),
                          torch.zeros((1, D), dtype=xf.dtype,
                                      device=xf.device)])
     contrib = ys_flat[dest] * (g_s * keep)[:, None].to(xf.dtype)   # sorted
@@ -208,3 +246,63 @@ def _dispatch(cfg, params, xf, eidx, gate, C, base=None):
     for j in range(k):
         out = out + contrib[seq[:, j]]
     return out
+
+
+def _smap_shard(cfg, params, x_l, e_l, g_l, j, m):
+    """One (data shard, expert shard j of m) of JAX's ``_dispatch_smap``
+    body, before the sum over model: the shard's tokens ``x_l`` [Tl, D],
+    their experts and gates; ``params`` holds the shard's E / m experts
+    (or all E, of which it takes its own)."""
+    Tl = x_l.shape[0]
+    E, k = cfg.n_experts, cfg.top_k
+    E_l = E // m
+    if params["e_wi"].shape[0] != E_l:
+        params = {n: params[n][j * E_l:(j + 1) * E_l]
+                  for n in ("e_wi", "e_wg", "e_wo")}
+    C = max(8, (int(Tl * k * cfg.capacity_factor) // E + 7) // 8 * 8)
+    e_flat = e_l.reshape(-1)
+    mine = (e_flat >= j * E_l) & (e_flat < (j + 1) * E_l)
+    e_loc = torch.where(mine, e_flat - j * E_l, E_l)
+    order = torch.sort(e_loc, stable=True).indices      # lexsort((pos, e))
+    e_s = e_loc[order]
+    t_s = order // k
+    counts = expert_counts(e_loc, E_l + 1)
+    starts = torch.cumsum(counts, 0) - counts
+    rank = torch.arange(Tl * k, device=x_l.device) - starts[e_s]
+    keep = (e_s < E_l) & (rank < C)
+    dest = torch.where(keep, e_s * C + rank, E_l * C)
+    g_s = g_l.reshape(-1)[order]
+    return _run(params, x_l, order, t_s, keep, dest, g_s, E_l, C, k), keep
+
+
+def _dispatch_smap(cfg, params, xf, eidx, gate, j, m):
+    """JAX's shard_map dispatch on this rank: its data shard's tokens,
+    its expert shard j of m; the output summed over model."""
+    g = gate.to(xf.dtype)
+    if tp.cut(params["e_wi"]) is not None:
+        xf, g = tp.copy(xf), tp.copy(g)
+    out, _ = _smap_shard(cfg, params, xf, eidx, g, j, m)
+    return tp.reduce(out)
+
+
+def smap_stacked(cfg, params, xf, eidx, gate, d: int, m: int):
+    """``_dispatch_smap`` in one process over a (d data x m model) mesh:
+    the d data shards of the tokens and the m expert shards as loop axes,
+    each data shard's m partial outputs summed in model order.  Returns
+    (the output [T, D], each shard's kept slots [d, m, Tl * k] in its
+    sorted order)."""
+    T, D = xf.shape
+    Tl = T // d
+    g = gate.to(xf.dtype)
+    outs, keeps = [], []
+    for i in range(d):
+        rows = slice(i * Tl, (i + 1) * Tl)
+        acc, ks = None, []
+        for j in range(m):
+            o, kp = _smap_shard(cfg, params, xf[rows], eidx[rows], g[rows],
+                                j, m)
+            acc = o if acc is None else acc + o
+            ks.append(kp)
+        outs.append(acc)
+        keeps.append(torch.stack(ks))
+    return torch.cat(outs), torch.stack(keeps)

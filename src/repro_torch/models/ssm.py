@@ -36,6 +36,21 @@ elements.
 
 Decode is the single-step recurrence over the carried state: (conv, ssm)
 for Mamba-1, (conv_x, conv_B, conv_C, ssm) for Mamba-2.
+
+Over the model axis (``sharding/tp.py``) the channels are cut: Mamba-1's
+``in_x``, ``in_z``, the conv, ``dt_proj``, ``dt_bias``, ``A_log`` and
+``ssm_D`` hold the rank's channels, and ``x_proj`` and ``out_proj`` are
+row-cut (``dbc`` all-reduced before its split into dt, B and C; the
+output all-reduced).  Mamba-2's ``in_x``, ``in_z`` and the x conv hold
+the rank's heads' channels; ``in_B``, ``in_C`` and their convs are cut on
+G * N, and B and C are gathered whole and the rank takes the groups its
+heads read (tiny zamba2 at 4 ranks holds half a group); ``in_dt``, the
+2-D ``dt_bias``, ``A_log`` and the gated norm's scale are whole, of which
+a rank takes its heads (channels), while the 1-D ``dt_bias`` and
+``ssm_D`` are cut; the gated RMSNorm's sum of squares is all-reduced.
+Where the model axis cuts d_inner but not Mamba-2's heads, the cut
+weights are gathered whole and the block runs every head.  A decode
+cache holds the rank's channels (``cache_parts``).
 """
 from __future__ import annotations
 
@@ -44,6 +59,7 @@ import torch.nn.functional as F
 
 from repro_torch.kernels.mamba_scan import mamba_scan
 from repro_torch.models.layers import normal, rmsnorm, rmsnorm_init
+from repro_torch.sharding import tp
 
 F32 = torch.float32
 KERNEL_BLOCK = 128     # the Pallas kernel's default d_block and seq_chunk
@@ -137,10 +153,21 @@ def _check_shapes(cfg, S, di):
         raise ValueError(f"unknown ssm_impl {cfg.ssm_impl!r}")
 
 
+def _mamba1_local(p):
+    """Mamba-1's weights for this rank's channels: the per-channel ones
+    the rules leave whole split to its slice."""
+    out = dict(p.items())
+    for n, d in (("conv_w", 1), ("conv_b", 0), ("dt_proj", 1),
+                 ("dt_bias", 0), ("A_log", 0), ("ssm_D", 0)):
+        out[n] = tp.local(p[n], d)
+    return out
+
+
 def _finish(p, y, x, z, u):
     y = y + p["ssm_D"] * x.float()
     y = y * F.silu(z.float())
-    return y.to(u.dtype) @ p["out_proj"]
+    out = y.to(u.dtype) @ p["out_proj"]
+    return out if tp.cut(p["out_proj"]) is None else tp.reduce(out)
 
 
 def mamba1_apply(cfg, p, u):
@@ -149,11 +176,18 @@ def mamba1_apply(cfg, p, u):
     N = cfg.ssm_state
     di, R = mamba1_dims(cfg)
     _check_shapes(cfg, S, di)
+    cut = tp.cut(p["in_x"]) is not None
+    if cut:
+        u = tp.copy(u)
+        di = p["in_x"].shape[1]
+        p = _mamba1_local(p)
     x = u @ p["in_x"]
     z = u @ p["in_z"]
     x = _causal_conv(x, p["conv_w"], p["conv_b"])
     x = F.silu(x.float()).to(x.dtype)
     dbc = x @ p["x_proj"]
+    if cut:
+        dbc = tp.copy(tp.reduce(dbc))
     dt_in, B_ssm, C_ssm = torch.split(dbc, [R, N, N], dim=-1)
     dt = F.softplus((dt_in @ p["dt_proj"]).float() + p["dt_bias"])  # [B,S,di]
     A = -torch.exp(p["A_log"])                                        # [di,N]
@@ -184,8 +218,10 @@ def mamba1_apply(cfg, p, u):
     return _finish(p, y.reshape(B, S, di), x, z, u)
 
 
-def mamba1_cache_init(cfg, batch: int, device) -> dict:
-    di, _ = mamba1_dims(cfg)
+def mamba1_cache_init(cfg, batch: int, device, parts: int = 1) -> dict:
+    """The decode cache; of d_inner / ``parts`` channels
+    (``cache_parts``)."""
+    di = mamba1_dims(cfg)[0] // parts
     return {
         "conv": torch.zeros((batch, cfg.ssm_conv - 1, di),
                             dtype=cfg.param_dtype, device=device),
@@ -200,9 +236,13 @@ def mamba1_decode(cfg, p, u, cache):
     di, R = mamba1_dims(cfg)
     x = u[:, 0] @ p["in_x"]
     z = u[:, 0] @ p["in_z"]
+    if tp.cut(p["in_x"]) is not None:
+        p = _mamba1_local(p)
     x, conv_state = _conv_step(cache["conv"], x, p["conv_w"], p["conv_b"])
     x = F.silu(x.float()).to(x.dtype)
     dbc = x @ p["x_proj"]
+    if tp.cut(p["x_proj"]) is not None:
+        dbc = tp.reduce(dbc)
     dt_in, B_ssm, C_ssm = torch.split(dbc, [R, N, N], dim=-1)
     dt = F.softplus((dt_in @ p["dt_proj"]).float() + p["dt_bias"])  # [B,di]
     A = -torch.exp(p["A_log"])
@@ -305,6 +345,57 @@ def _ssd_chunk(h_in, x, Bm, Cm, a_log, dt):
     return y[:, 0], h_out
 
 
+def _mamba2_local(cfg, p):
+    """(this rank's first head, its head count) where the model axis cuts
+    Mamba-2's heads evenly; None where nothing is cut."""
+    if tp.cut(p["in_x"]) is None:
+        return None
+    r, m = tp.rank_parts()
+    _, H, _, _ = mamba2_dims(cfg)
+    if H % m:
+        return None
+    return r * (H // m), H // m
+
+
+def _mamba2_channels(p):
+    """Mamba-2's per-channel and per-head weights for this rank's heads:
+    those the rules leave whole split to its slice."""
+    out = dict(p.items())
+    for n, d in (("conv_xw", 1), ("conv_xb", 0), ("dt_bias", 0),
+                 ("A_log", 0), ("ssm_D", 0), ("norm", 0)):
+        out[n] = tp.local(p[n], d)
+    return out
+
+
+def _mamba2_whole(p):
+    """The block's weights with every cut one gathered whole."""
+    return {k: tp.whole(v) if torch.is_tensor(v) else v
+            for k, v in p.items()}
+
+
+def _bc_local(t, w, h0, n_h, hg, G, N):
+    """B (or C), conv and silu applied, as [.., G_l, N] for this rank's
+    heads: its G * N columns gathered whole, then the groups its heads
+    read (``attention._kv_sel``'s rule)."""
+    from repro_torch.models.attention import _kv_sel
+    if tp.cut(w) is not None:
+        t = tp.gather(t, -1)
+    sel = _kv_sel(h0, n_h, hg)
+    return tp.copy(t).view(t.shape[:-1] + (G, N))[..., sel, :]
+
+
+def _gated_norm(p, y, dtype, eps, local):
+    """The gated RMSNorm over d_inner; over the model axis the sum of
+    squares all-reduced and the rank's channels of the scale taken."""
+    if not local:
+        return rmsnorm(p["norm"], y.to(dtype), eps)
+    di = y.shape[-1] * tp.rank_parts()[1]
+    xf = y.to(dtype).float()
+    ss = tp.copy(tp.reduce(torch.sum(xf * xf, dim=-1, keepdim=True)))
+    out = xf * torch.rsqrt(ss / di + eps) * (1.0 + p["norm"])
+    return out.to(dtype)
+
+
 def mamba2_apply(cfg, p, u):
     """u: [B,S,D] -> [B,S,D] (full-sequence / prefill path)."""
     B, S, D = u.shape
@@ -315,10 +406,16 @@ def mamba2_apply(cfg, p, u):
         raise ValueError(f"mamba2_apply: S={S} is not a multiple of the SSD "
                          f"chunk {T} (the JAX package's reshape fails too)")
     nchunk = S // T
-    z = u @ p["in_z"]
-    x = u @ p["in_x"]
-    Bm = u @ p["in_B"]
-    Cm = u @ p["in_C"]
+    local = _mamba2_local(cfg, p)
+    if local is None and tp.cut(p["in_x"]) is not None:
+        p = _mamba2_whole(p)
+    elif local is not None:
+        p = _mamba2_channels(p)
+    uc = u if local is None else tp.copy(u)
+    z = uc @ p["in_z"]
+    x = uc @ p["in_x"]
+    Bm = uc @ p["in_B"]
+    Cm = uc @ p["in_C"]
     dt_in = u @ p["in_dt"]
     x = _causal_conv(x, p["conv_xw"], p["conv_xb"])
     Bm = _causal_conv(Bm, p["conv_Bw"], p["conv_Bb"])
@@ -326,11 +423,19 @@ def mamba2_apply(cfg, p, u):
     x = F.silu(x.float()).to(x.dtype)
     Bm = F.silu(Bm.float()).to(Bm.dtype)
     Cm = F.silu(Cm.float()).to(Cm.dtype)
+    A_log = p["A_log"]
+    if local is not None:
+        h0, n_h = local
+        hg = H // G
+        Bm = _bc_local(Bm, p["in_B"], h0, n_h, hg, G, N)
+        Cm = _bc_local(Cm, p["in_C"], h0, n_h, hg, G, N)
+        H, G, di = n_h, Bm.shape[-2], n_h * P
+        dt_in = tp.split(dt_in, -1)
     dt = F.softplus(dt_in.float() + p["dt_bias"])                    # [B,S,H]
-    a_log = -torch.exp(p["A_log"]) * dt                              # [B,S,H]
+    a_log = -torch.exp(A_log) * dt                                   # [B,S,H]
     xc = x.view(B, nchunk, T, H, P)
-    bc = Bm.view(B, nchunk, T, G, N)
-    cc = Cm.view(B, nchunk, T, G, N)
+    bc = Bm.reshape(B, nchunk, T, G, N)
+    cc = Cm.reshape(B, nchunk, T, G, N)
     ac = a_log.view(B, nchunk, T, H)
     dc = dt.view(B, nchunk, T, H)
     step = max(1, SSD_ELEMS // (B * T * T * H))       # chunks a pass
@@ -356,21 +461,36 @@ def mamba2_apply(cfg, p, u):
     del h_in
     y = y.view(B, S, H, P) + p["ssm_D"][:, None] * x.view(B, S, H, P).float()
     y = y.reshape(B, S, di) * F.silu(z.float())
-    y = rmsnorm(p["norm"], y.to(u.dtype), cfg.norm_eps)
-    return y @ p["out_proj"]
+    y = _gated_norm(p, y, u.dtype, cfg.norm_eps, local is not None)
+    return tp.row(y, p["out_proj"], local is not None)
 
 
-def mamba2_cache_init(cfg, batch: int, device) -> dict:
+def mamba2_cache_init(cfg, batch: int, device, parts: int = 1) -> dict:
+    """The decode cache; of the rank's channels and heads where the model
+    axis cuts them (``parts``, ``cache_parts``)."""
     di, H, G, N = mamba2_dims(cfg)
     dt = cfg.param_dtype
     k1 = cfg.ssm_conv - 1
+    gn = G * N // parts if (G * N) % parts == 0 else G * N
     return {
-        "conv_x": torch.zeros((batch, k1, di), dtype=dt, device=device),
-        "conv_B": torch.zeros((batch, k1, G * N), dtype=dt, device=device),
-        "conv_C": torch.zeros((batch, k1, G * N), dtype=dt, device=device),
-        "ssm": torch.zeros((batch, H, cfg.ssm_head_dim, N), dtype=F32,
-                           device=device),
+        "conv_x": torch.zeros((batch, k1, di // parts), dtype=dt,
+                              device=device),
+        "conv_B": torch.zeros((batch, k1, gn), dtype=dt, device=device),
+        "conv_C": torch.zeros((batch, k1, gn), dtype=dt, device=device),
+        "ssm": torch.zeros((batch, H // parts, cfg.ssm_head_dim, N),
+                           dtype=F32, device=device),
     }
+
+
+def cache_parts(cfg, m: int) -> int:
+    """The model axis's cut of a Mamba block's decode cache: m where the
+    rules cut its channels (and, for Mamba-2, its heads evenly), else 1
+    (the cut weights then run whole)."""
+    if cfg.mamba_version == 1:
+        di = mamba1_dims(cfg)[0]
+        return m if di % m == 0 and di >= m else 1
+    di, H, _, _ = mamba2_dims(cfg)
+    return m if di % m == 0 and H % m == 0 and di >= m else 1
 
 
 def mamba2_decode(cfg, p, u, cache):
@@ -379,6 +499,11 @@ def mamba2_decode(cfg, p, u, cache):
     di, H, G, N = mamba2_dims(cfg)
     P = cfg.ssm_head_dim
     hg = H // G
+    local = _mamba2_local(cfg, p)
+    if local is None and tp.cut(p["in_x"]) is not None:
+        p = _mamba2_whole(p)
+    elif local is not None:
+        p = _mamba2_channels(p)
     z = u[:, 0] @ p["in_z"]
     x = u[:, 0] @ p["in_x"]
     Bm = u[:, 0] @ p["in_B"]
@@ -387,11 +512,21 @@ def mamba2_decode(cfg, p, u, cache):
     x, conv_x = _conv_step(cache["conv_x"], x, p["conv_xw"], p["conv_xb"])
     Bm, conv_B = _conv_step(cache["conv_B"], Bm, p["conv_Bw"], p["conv_Bb"])
     Cm, conv_C = _conv_step(cache["conv_C"], Cm, p["conv_Cw"], p["conv_Cb"])
+    A_log = p["A_log"]
+    Bm = F.silu(Bm.float()).to(Bm.dtype)
+    Cm = F.silu(Cm.float()).to(Cm.dtype)
+    if local is not None:
+        h0, n_h = local
+        Bm = _bc_local(Bm, p["in_B"], h0, n_h, hg, G, N)
+        Cm = _bc_local(Cm, p["in_C"], h0, n_h, hg, G, N)
+        H, G, di = n_h, Bm.shape[-2], n_h * P
+        hg = H // G
+        dt_in = tp.split(dt_in, -1)
     x = F.silu(x.float()).to(x.dtype).view(B, H, P)
-    Bm = F.silu(Bm.float()).to(Bm.dtype).view(B, G, N)
-    Cm = F.silu(Cm.float()).to(Cm.dtype).view(B, G, N)
+    Bm = Bm.reshape(B, G, N)
+    Cm = Cm.reshape(B, G, N)
     dt = F.softplus(dt_in.float() + p["dt_bias"])                    # [B,H]
-    a = torch.exp(-torch.exp(p["A_log"]) * dt)                       # [B,H]
+    a = torch.exp(-torch.exp(A_log) * dt)                            # [B,H]
     Be = torch.repeat_interleave(Bm.float(), hg, dim=1)              # [B,H,N]
     Ce = torch.repeat_interleave(Cm.float(), hg, dim=1)
     dh = torch.einsum("bhp,bhn->bhpn", x.float() * dt[..., None], Be)
@@ -399,7 +534,7 @@ def mamba2_decode(cfg, p, u, cache):
     y = torch.einsum("bhpn,bhn->bhp", h, Ce)
     y = y + p["ssm_D"][:, None] * x.float()
     y = y.reshape(B, di) * F.silu(z.float())
-    y = rmsnorm(p["norm"], y.to(u.dtype), cfg.norm_eps)
-    out = y @ p["out_proj"]
+    y = _gated_norm(p, y, u.dtype, cfg.norm_eps, local is not None)
+    out = tp.row(y, p["out_proj"], local is not None)
     return out[:, None], {"conv_x": conv_x, "conv_B": conv_B,
                           "conv_C": conv_C, "ssm": h}

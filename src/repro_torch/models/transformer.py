@@ -23,6 +23,13 @@ falcon-mamba), ``Mamba2Block`` (``("mamba2", None)`` and
 MLA mixer with an MLP or MoE ffn: the dense family, deepseek-v2-lite's
 MLA and kimi-k2's GQA with MoE).  A block's ``forward`` returns (x, its
 MoE auxiliary loss or None), its ``decode`` (x, its new cache).
+
+Over a (data x model) mesh of ranks (``train/dp.Ranks``) a ``Model`` is
+built whole and cut to its rank's shard (``Model.cut_to``:
+``sharding/partition.cut_model``); the layers then run on their slices
+(``sharding/tp.py``) while ``sharding/context.use_dp`` holds the model
+group.  ``init_cache`` with ``ranks`` gives the rank's rows and its cut
+of each layer's cache.
 """
 from __future__ import annotations
 
@@ -241,6 +248,16 @@ class Model(nn.Module):
     def device(self) -> torch.device:
         return self.final_norm.device
 
+    def cut_to(self, ranks) -> list:
+        """Cut the weights in place to ``ranks``' model index's slices
+        (``sharding/partition.cut_model``); returns each leaf's cut dim
+        in ``convert.param_tree`` order (None: whole)."""
+        from repro_torch.sharding.partition import cut_model
+        self.model_dims = cut_model(self, self.cfg, ranks.mesh,
+                                    ranks.model.rank)
+        self.model_group = ranks.model
+        return self.model_dims
+
     def forward(self, inputs):
         return apply_model(self.cfg, self, inputs)
 
@@ -257,8 +274,27 @@ def _frontend(cfg, model, inputs):
     return inputs["embeds"]
 
 
+def _groups(model):
+    """The model group of a cut model for a forward the caller has not
+    put under ``use_dp`` (a decode or a prefill; the train step sets it
+    for the loss and its gradient)."""
+    import contextlib
+
+    from repro_torch.sharding.context import (current_dp, current_model,
+                                              use_dp)
+    g = getattr(model, "model_group", None)
+    if g is None or current_model() is not None:
+        return contextlib.nullcontext()
+    return use_dp(current_dp(), g)
+
+
 def apply_model(cfg: ModelConfig, model: Model, inputs):
     """Train/prefill forward.  Returns (hidden [B,S,D], aux_loss)."""
+    with _groups(model):
+        return _apply(cfg, model, inputs)
+
+
+def _apply(cfg, model, inputs):
     x = _frontend(cfg, model, inputs)
     B, S, _ = x.shape
     positions = torch.arange(S, device=x.device).expand(B, S)
@@ -288,33 +324,51 @@ def hidden_to_logits(cfg, model, hidden):
     return logits_from_hidden(cfg, model, hidden)
 
 
-def _block_cache_init(cfg, spec, batch, seq_len, dev):
+def _block_cache_init(cfg, spec, batch, seq_len, dev, r=0, m=1,
+                      seq=False):
     mixer = spec[0]
     if mixer in ("attn", "local"):
+        window = cfg.sliding_window if mixer == "local" else 0
         return attn.gqa_cache_init(
-            cfg, batch, seq_len, dev,
-            window=cfg.sliding_window if mixer == "local" else 0)
+            cfg, batch, seq_len, dev, window=window,
+            **attn.gqa_cache_layout(cfg, seq_len, window, r, m, seq))
     if mixer == "mla":
         return attn.mla_cache_init(cfg, batch, seq_len, dev)
     if mixer == "mamba1":
-        return ssm.mamba1_cache_init(cfg, batch, dev)
+        return ssm.mamba1_cache_init(cfg, batch, dev, ssm.cache_parts(cfg, m))
     if mixer == "mamba2":
-        return ssm.mamba2_cache_init(cfg, batch, dev)
+        return ssm.mamba2_cache_init(cfg, batch, dev, ssm.cache_parts(cfg, m))
     if mixer == "mamba2+shared":
-        return {"mamba": ssm.mamba2_cache_init(cfg, batch, dev),
-                "shared": attn.gqa_cache_init(cfg, batch, seq_len, dev)}
+        return {"mamba": ssm.mamba2_cache_init(cfg, batch, dev,
+                                               ssm.cache_parts(cfg, m)),
+                "shared": attn.gqa_cache_init(
+                    cfg, batch, seq_len, dev,
+                    **attn.gqa_cache_layout(cfg, seq_len, 0, r, m, seq))}
     raise ValueError(f"unknown layer spec {spec!r}")
 
 
-def init_cache(cfg: ModelConfig, batch: int, seq_len: int, *, device=None):
+def init_cache(cfg: ModelConfig, batch: int, seq_len: int, *, device=None,
+               ranks=None):
     """One cache dict per layer, on ``device`` (the card by default), as
     JAX's ``init_cache`` gives it: Mamba-1 {conv, ssm}; Mamba-2 {conv_x,
     conv_B, conv_C, ssm}, and for a shared layer {"mamba": that, "shared":
     {k, v, pos} of ``seq_len`` slots}; GQA {k, v, pos} (a local layer's
     ring holds min(sliding_window, seq_len) slots); MLA {ckv, k_rope,
-    pos}."""
+    pos}.  With ``ranks`` (a ``train/dp.Ranks`` whose model index's cut
+    the model holds) the rank's rows of the batch and its cut of each
+    cache: the channels and heads the layers' cut weights run, or, under
+    ``use_mesh`` with ``cfg.decode_cache_hint`` where the batch divides
+    over data, a GQA cache's slots over the model axis."""
     dev = _resolve_device(device, "init_cache")
-    return [_block_cache_init(cfg, spec, batch, seq_len, dev)
+    r, m, seq = 0, 1, False
+    if ranks is not None:
+        from repro_torch.sharding.context import get_mesh
+        rows = ranks.data.rows(batch)
+        seq = (get_mesh() is not None and cfg.decode_cache_hint
+               and ranks.data.shards(batch))
+        batch = rows.stop - rows.start
+        r, m = ranks.model.rank, ranks.model.world
+    return [_block_cache_init(cfg, spec, batch, seq_len, dev, r, m, seq)
             for spec in cfg.layer_specs()]
 
 
@@ -322,6 +376,11 @@ def init_cache(cfg: ModelConfig, batch: int, seq_len: int, *, device=None):
 def decode_step(cfg: ModelConfig, model: Model, cache, inputs):
     """One decode step.  inputs: {tokens [B,1] | embeds [B,1,D], pos [B]}.
     Returns (logits [B,V] float32, new cache)."""
+    with _groups(model):
+        return _decode(cfg, model, cache, inputs)
+
+
+def _decode(cfg, model, cache, inputs):
     x = _frontend(cfg, model, inputs)
     pos = inputs["pos"]
     new_cache = []

@@ -28,6 +28,19 @@ slice is a set of whole layers of the port's list layout
 every rank, as JAX's spec falls back to replicated.  The gradients are
 the summed ones on every rank, so their global norm, taken before the
 update, is the same on every rank.
+
+Over a (data x model) mesh (``model``, the model group, and ``dims``,
+each port leaf's cut over it: ``Model.cut_to``) a rank's leaves are its
+model slices, the plan is ``opt_pspecs`` over {"data": d, "model": m}
+of the whole shapes, and the data axis goes on the first dim the model
+axis leaves whole (``_with_extra_data``: it may be another dim than at
+m = 1).  m and v follow the parameter's model cut: JAX's ``opt_pspecs``
+reads the state under its "m" key, so its embedding and head tables
+lose their model entry there (replicated over model, the data axis on
+the vocab), where the port's rank holds the data slice of its own
+vocab rows; a leaf whose model slice the data axis does not divide
+stays whole.  The global norm counts a cut leaf once, as the sum over model
+of its slices' sums of squares, and a whole leaf once.
 """
 from __future__ import annotations
 
@@ -48,11 +61,19 @@ def adamw_init(params) -> dict:
             "step": torch.zeros((), dtype=torch.int32, device=dev)}
 
 
-def global_norm(tree):
+def global_norm(tree, model=None, dims=None):
     """sqrt of the float32 sum, over the leaves in tree order, of each
-    leaf's float32 sum of squares."""
-    parts = [torch.sum(torch.square(x.float())) for x in leaves(tree)]
-    return torch.sqrt(torch.sum(torch.stack(parts)))
+    leaf's float32 sum of squares; over the model group ``model`` a leaf
+    cut over it (``dims``) counts the sum of its slices' sums (one
+    all-reduce)."""
+    parts = torch.stack([torch.sum(torch.square(x.float()))
+                         for x in leaves(tree)])
+    if model is not None and model.world > 1:
+        cut = torch.tensor([d is not None for d in dims],
+                           device=parts.device)
+        whole = model.sum_(torch.where(cut, parts, 0.0))
+        parts = torch.where(cut, whole, parts)
+    return torch.sqrt(torch.sum(parts))
 
 
 @torch.no_grad()
@@ -70,11 +91,11 @@ def adamw_update(params, grads, state, *, lr=3e-4, b1=0.9, b2=0.95,
     return params, {"m": state["m"], "v": state["v"], "step": step}, gnorm
 
 
-def _step_scalars(state, grads, b1, b2, clip_norm):
+def _step_scalars(state, grads, b1, b2, clip_norm, model=None, dims=None):
     """(the new step count, the gradients' global norm, the clip scale,
     the two bias corrections), float32 scalars but the int32 step."""
     step = state["step"] + 1
-    gnorm = global_norm(grads)
+    gnorm = global_norm(grads, model, dims)
     one = torch.ones((), dtype=F32, device=gnorm.device)
     scale = torch.minimum(one, (one * clip_norm)
                           / torch.maximum(gnorm, one * 1e-9))
@@ -129,19 +150,34 @@ class Zero1:
     size), or None where the layer is another rank's.  The state is
     {"m": [a float32 slice or None a port leaf], "v": [...], "step"}."""
 
-    def __init__(self, cfg, params, dp):
+    def __init__(self, cfg, params, dp, model=None, dims=None):
         from repro_torch.convert import _is_stack, stack_like
+        from repro_torch.pytree import unflatten
         from repro_torch.sharding.partition import opt_pspecs
 
-        self.dp = dp
+        self.dp, self.model = dp, model
         W, r = dp.world, dp.rank
-        specs = opt_pspecs(cfg, {"m": stack_like(params)}, dp.mesh)["m"]
+        m = 1 if model is None else model.world
+        flat = leaves(params)
+        self.dims = dims if dims is not None else [None] * len(flat)
+        whole = unflatten(params, [
+            torch.empty(tuple(n * (m if i == d else 1)
+                              for i, n in enumerate(t.shape)),
+                        dtype=t.dtype, device="meta")
+            for t, d in zip(flat, self.dims)])
+        mesh = {"data": W, "model": m}
+        self.whole_like = stack_like(whole)   # JAX's shapes, meta tensors
+        specs = opt_pspecs(cfg, {"m": self.whole_like}, mesh)["m"]
         self.shards, self.views = [], []
 
         def walk(p, s):
             if _is_stack(p) or torch.is_tensor(p):
                 ts = p if _is_stack(p) else [p]
                 d = _data_dim(s)
+                if d is not None and not (_is_stack(p) and d == 0):
+                    e = d - 1 if _is_stack(p) else d
+                    if ts[0].shape[e] % W:      # the model slice does
+                        d = None                # not divide: kept whole
                 self.shards.append((len(self.views), len(ts), _is_stack(p),
                                     d))
                 for j, t in enumerate(ts):
@@ -189,8 +225,8 @@ class Zero1:
                eps=1e-8, weight_decay=0.1, clip_norm=1.0):
         """``adamw_update`` on this rank's slices, then the parameters'
         slices all-gathered.  Returns (the new state, the global norm)."""
-        step, gnorm, scale, bc1, bc2 = _step_scalars(state, grads, b1, b2,
-                                                     clip_norm)
+        step, gnorm, scale, bc1, bc2 = _step_scalars(
+            state, grads, b1, b2, clip_norm, self.model, self.dims)
         for p, g, m, v, view in zip(leaves(params), leaves(grads),
                                     state["m"], state["v"], self.views):
             if view is not None:
@@ -251,16 +287,23 @@ class Zero1:
     def gather_state(self, params, state, to="cpu"):
         """The whole state on rank 0, in ``param_tree``'s structure
         ({"m", "v", "step"}, float32 tensors on ``to``), None on the
-        other ranks: a collective, leaf by leaf; no rank but 0 holds more
-        than its slices.  Every tensor is a copy of its own."""
+        other ranks: a collective, leaf by leaf (over data, then, on
+        data index 0, over model on the device); no rank but 0 holds
+        more than its slices.  Every tensor is a copy of its own."""
         from repro_torch.pytree import unflatten
+        from repro_torch.sharding.partition import gather_leaves
+        over_model = self.model is not None and self.model.world > 1
+        at = state["step"].device if over_model else to
         whole = {}
         for key in ("m", "v"):
-            got = [self._gather_to_root(k, state[key], to)
+            got = [self._gather_to_root(k, state[key], at)
                    for k in range(len(self.shards))]
-            whole[key] = None if got[0] is None else unflatten(
-                params, [x for g in got for x in g])
-        if self.dp.rank != 0:
+            flat = None if got[0] is None else [x for g in got for x in g]
+            if over_model and flat is not None:
+                flat = gather_leaves(flat, self.dims, self.model)
+                flat = None if flat is None else [x.to(to) for x in flat]
+            whole[key] = None if flat is None else unflatten(params, flat)
+        if whole["m"] is None:
             return None
         return dict(whole, step=state["step"].to(to, copy=True))
 
@@ -271,6 +314,17 @@ class Zero1:
         on ``device``, None for another rank's layers."""
         first, n, stacked, _ = self.shards[k]
         parts = list(full.unbind(0)) if stacked else [full]
+        parts = [self.model_slice(x, d) for x, d in
+                 zip(parts, self.dims[first:first + n])]
         return [None if w is None else
                 _narrow(x, w).to(device, F32).contiguous().clone()
                 for x, w in zip(parts, self.views[first:first + n])]
+
+    def model_slice(self, t, d):
+        """This rank's model slice of a whole port leaf ``t`` cut on
+        ``d`` (None: whole)."""
+        if d is None or self.model is None or self.model.world == 1:
+            return t
+        size = t.shape[d] // self.model.world
+        return t.narrow(d, self.model.rank * size, size)
+

@@ -1,36 +1,79 @@
-"""The data-parallel group the model's collectives read while a loss and
-its gradient are taken (the port's counterpart of the JAX package's
-``sharding/context.use_mesh``).
+"""Two process-wide slots the layers read (the port's counterparts of
+the JAX package's GSPMD partitioning and of its ``sharding/context``
+mesh):
 
-    with use_dp(dp):        # train/step.py's value_and_grad
-        ...                 # models/moe.py: current_dp() is dp
+    with use_dp(dp, model):   # train/step.py's value_and_grad
+        ...                   # current_dp(): the data group (models/moe.py)
+                              # current_model(): the model group (the
+                              # tensor-parallel layers)
+    with use_mesh(ranks):     # JAX's use_mesh: get_mesh() is ranks
+        ...                   # moe_impl="smap" and decode_cache_hint
 
-The group sits in one slot of the process, not in a ``ContextVar``: on
-the card, autograd runs the backward, and so the forward that
-``remat="unit"`` recomputes there, on a thread of its own, which does
-not see the caller's context variables.  A process takes one training
-step at a time, so one slot is enough.  The slot is below both the
-models and the trainer, which import it.
+The first slot is what GSPMD does for the JAX step: the groups the
+layers' collectives run over while a loss, its gradient or a forward is
+taken.  The second is JAX's ``use_mesh`` / ``get_mesh`` and switches only
+what JAX switches with it: the shard_map MoE dispatch and the
+sequence-sharded decode cache.  Setting the first never sets the second:
+JAX's trainer jits its step over a mesh without ``use_mesh``, and its MoE
+takes the sort dispatch there.  ``use_mesh`` sets the groups too, as a
+JAX mesh shards the arrays it constrains.
+
+Both are slots of the process, not ``ContextVar``s: on the card autograd
+runs the backward, and so the forward that ``remat="unit"`` recomputes
+there, on a thread of its own, which does not see the caller's context
+variables.  A process takes one step at a time, so one slot each is
+enough.  The slots sit below both the models and the trainer, which
+import them.
 """
 from __future__ import annotations
 
 import contextlib
 
-_DP = None
+_GROUPS = (None, None)          # (data, model)
+_MESH = None
 
 
 @contextlib.contextmanager
-def use_dp(dp):
-    """Make ``dp`` the group ``current_dp`` answers, on every thread,
+def use_dp(dp, model=None):
+    """Make ``dp`` (the data group) and ``model`` (the model group) the
+    groups ``current_dp`` and ``current_model`` answer, on every thread,
     inside the block."""
-    global _DP
-    prev, _DP = _DP, dp
+    global _GROUPS
+    prev, _GROUPS = _GROUPS, (dp, model)
     try:
         yield dp
     finally:
-        _DP = prev
+        _GROUPS = prev
 
 
 def current_dp():
-    """The group set by ``use_dp``, or None."""
-    return _DP
+    """The data group set by ``use_dp``, or None."""
+    return _GROUPS[0]
+
+
+def current_model():
+    """The model group set by ``use_dp``, or None: a group of one
+    process counts as none."""
+    m = _GROUPS[1]
+    return m if m is not None and m.world > 1 else None
+
+
+@contextlib.contextmanager
+def use_mesh(ranks):
+    """JAX's ``use_mesh``: ``get_mesh`` answers ``ranks`` (a
+    ``train/dp.Ranks``) inside the block, whose data and model groups are
+    the layers' groups there too."""
+    global _MESH
+    prev = _MESH
+    _MESH = ranks
+    try:
+        with use_dp(ranks.data if ranks.data.world > 1 else None,
+                    ranks.model):
+            yield ranks
+    finally:
+        _MESH = prev
+
+
+def get_mesh():
+    """The ranks set by ``use_mesh``, or None."""
+    return _MESH

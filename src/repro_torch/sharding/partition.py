@@ -15,8 +15,12 @@ A mesh is a dict of axis sizes (``launch/mesh.py``).  A spec is a tuple
 with one entry a dimension: ``None`` (replicated), an axis name, or a
 tuple of names; a spec tree has the input tree's structure.  The JAX
 package turns specs into ``NamedSharding``s and lets XLA place the
-arrays; the port has one card and no SPMD partitioner, so the specs only
-plan: ``per_device_bytes`` is what each device would hold.
+arrays; the port has no SPMD partitioner.  The specs plan
+(``per_device_bytes`` is what each device would hold), and over ranks
+they place: ``model_dims`` reads each leaf's "model" entry, ``shard_tree``
+cuts a rank's slices by them, ``unshard_tree`` concatenates the slices
+back to the whole leaves, and ``cut_model`` cuts a ``Model``'s weights
+in place to its rank's shard (``sharding/tp.py``'s mark on each).
 
 Rules are keyed on (leaf name, trailing ndim); stacked stage leaves
 (leading [n_rep] axis) reuse the block rules with the prefix replicated.
@@ -27,6 +31,8 @@ meta device.
 from __future__ import annotations
 
 import math
+
+import torch
 
 from repro_torch.pytree import leaves_with_path, unflatten
 
@@ -282,3 +288,110 @@ def per_device_bytes(tree, specs, mesh) -> int:
                           for s in spec_at(specs, path) if s is not None)
         total += leaf.numel() * leaf.element_size() // split
     return total
+
+
+# ---------------------------------------------------------------------------
+# The placer: a rank's slices of the "model" axis
+# ---------------------------------------------------------------------------
+def _jax_leaves(tree, specs):
+    """[(port leaves, spec, stacked)] of ``convert.param_tree``'s layout,
+    a stack (a list of layers' tensors) counting as one JAX leaf."""
+    from repro_torch.convert import _is_stack
+    out = []
+
+    def walk(p, s):
+        if _is_stack(p) or torch.is_tensor(p):
+            out.append((p if _is_stack(p) else [p], s, _is_stack(p)))
+        elif isinstance(p, dict):
+            for k in sorted(p):
+                walk(p[k], s[k])
+        else:
+            for x, sx in zip(p, s):
+                walk(x, sx)
+
+    walk(tree, specs)
+    return out
+
+
+def model_dims(cfg, tree, mesh) -> list:
+    """For each port leaf of ``tree`` (``param_tree``'s layout, whole
+    leaves), in tree order, the dim ``param_pspecs`` cuts over "model"
+    (in the port leaf's own dims), or None.  A cut of a scanned stage's
+    stack axis (the 2-D rules of ``ssm_D`` and Mamba-2's ``A_log`` match
+    their stacked [n_rep, H] leaves) would hand whole layers to model
+    indices; the port's per-layer leaves stay whole there."""
+    from repro_torch.convert import stack_like
+    specs = param_pspecs(cfg, stack_like(tree), mesh)
+    dims = []
+    for ts, spec, stacked in _jax_leaves(tree, specs):
+        d = next((i for i, e in enumerate(spec) if e == "model"
+                  or (isinstance(e, tuple) and "model" in e)), None)
+        if d is not None and stacked:
+            d = None if d == 0 else d - 1
+        dims += [d] * len(ts)
+    return dims
+
+
+def _slice(t, d, r, m):
+    if d is None:
+        return t
+    n = t.shape[d] // m
+    return t.narrow(d, r * n, n)
+
+
+def shard_tree(cfg, tree, mesh, r: int):
+    """Model index ``r``'s slices of ``tree`` (whole leaves, on any
+    device, the meta device too): views, in ``tree``'s structure."""
+    from repro_torch.pytree import leaves
+    m = mesh.get("model", 1)
+    return unflatten(tree, [_slice(t, d, r, m) for t, d in zip(
+        leaves(tree), model_dims(cfg, tree, mesh))])
+
+
+def unshard_tree(shards: list, dims: list):
+    """The inverse of ``shard_tree``: the model indices' slices (a list of
+    trees, in index order) concatenated into whole leaves along
+    ``dims`` (``model_dims`` of the whole tree)."""
+    from repro_torch.pytree import leaves
+    flat = [leaves(t) for t in shards]
+    return unflatten(shards[0], [
+        parts[0] if d is None else torch.cat(list(parts), d)
+        for d, parts in zip(dims, zip(*flat))])
+
+
+@torch.no_grad()
+def cut_model(model, cfg, mesh, r: int) -> list:
+    """Cut ``model``'s weights (whole) in place to model index ``r``'s
+    slices, each marked with its dim (``sharding/tp.mark``); returns
+    ``model_dims``.  A model axis of one cuts nothing."""
+    from repro_torch.convert import param_tree
+    from repro_torch.pytree import leaves
+    from repro_torch.sharding.tp import mark
+    m = mesh.get("model", 1)
+    tree = param_tree(model, cfg)
+    if m == 1:
+        return [None] * len(leaves(tree))
+    dims = model_dims(cfg, tree, mesh)
+    for p, d in zip(leaves(tree), dims):
+        if d is not None:
+            p.data = _slice(p.data, d, r, m).clone()
+            mark(p, d, m)
+    return dims
+
+
+@torch.no_grad()
+def gather_leaves(flat, dims, group):
+    """Whole leaves on model index 0 of ``group`` (the model group) from
+    its ranks' slices ``flat`` (cut on ``dims``, None: whole), None on
+    the other indices: one gather to index 0 a cut leaf, the collective
+    form of ``unshard_tree``."""
+    if group is None or group.world == 1:
+        return list(flat)
+    out = []
+    for t, d in zip(flat, dims):
+        if d is None:
+            out.append(t)
+            continue
+        parts = group.gather(t.contiguous())
+        out.append(None if parts is None else torch.cat(parts, d))
+    return out if group.rank == 0 else None

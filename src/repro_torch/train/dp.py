@@ -3,10 +3,15 @@ joined in a ``torch.distributed`` process group (NCCL on the card, gloo
 on the CPU; ``launch/ranks.py`` starts and joins them).
 
 The JAX package trains SPMD over a ("data", "model") mesh: the step is
-jitted with the batch sharded over "data" and the optimizer state
-sharded over it too (ZeRO-1).  Here the W ranks are the data axis of the
-mesh {"data": W, "model": 1}; the model axis over ranks (tensor and
-expert parallelism, FSDP) is slice 9 of the port and raises.
+jitted with the batch sharded over "data", the optimizer state sharded
+over it too (ZeRO-1), and the weights over "model" (tensor and expert
+parallelism).  Here a ``DP`` is one axis's group, and ``Ranks`` the mesh
+{"data": d, "model": m} over W = d * m ranks: rank r sits at data index
+r // m and model index r % m, the device order of
+``jax.make_mesh((d, m), ("data", "model"))``.  Its data group is the d
+ranks of one model index, its model group the m consecutive ranks of
+one data index.  FSDP (``cfg.fsdp``) over ranks is slice 10 of the port
+and raises.
 
     dp = DP(dist.group.WORLD, device)      # or DP.single(device)
     batch rows: dp.rows(global_batch)      # this rank's contiguous rows
@@ -37,15 +42,15 @@ from collections import Counter
 
 import torch
 
-SLICE9 = ("is slice 9 of the port (the mesh's model axis over ranks: "
-          "tensor parallelism, moe_impl='smap', the sequence-sharded "
-          "decode cache, FSDP); the JAX package does this work, the "
-          "port does not yet")
+SLICE10 = ("is slice 10 of the port (FSDP: the parameters sharded over "
+           "the data axis; the sequence over data at batch 1); the JAX "
+           "package does this work, the port does not yet")
 
 class DP:
-    """Rank, world, device and process group of the data axis.  ``mesh``
-    (a dict, ``launch/mesh.py``) is checked against the group: its data
-    axes must hold W devices and a model axis over 1 raises."""
+    """Rank, world, device and process group of one mesh axis (the data
+    axis, unless ``Ranks`` makes it the model axis).  ``mesh`` (a dict,
+    ``launch/mesh.py``) is checked against the group: it must hold W
+    devices."""
 
     def __init__(self, group=None, device=None, mesh=None):
         if group is None:
@@ -66,10 +71,6 @@ class DP:
     @property
     def distributed(self) -> bool:
         return self.group is not None
-
-    @property
-    def mesh(self) -> dict:
-        return {"data": self.world, "model": 1}
 
     def __repr__(self):
         return f"DP(rank={self.rank}, world={self.world}, {self.device})"
@@ -208,28 +209,80 @@ class DP:
             dist.barrier(group=self.group)
 
 
+class Ranks:
+    """The mesh {"data": d, "model": m} over ``dp``'s W = d * m ranks:
+    ``all`` (every rank: the weights' broadcast, host decisions,
+    barriers), ``data`` and ``model`` (this rank's groups), ``mesh``,
+    ``rank`` and ``device``.  Every rank makes every group, in one order
+    (the data groups, then the model groups); an axis of one rank is
+    ``DP.single`` and calls no collective; a data axis of every rank is
+    ``dp`` itself, and a model axis of every rank runs over ``dp``'s
+    group with counts of its own.  A "pod" axis folds into the data
+    axis."""
+
+    def __init__(self, dp: DP, mesh: dict | None = None):
+        mesh = dict(mesh) if mesh is not None else {"data": dp.world,
+                                                    "model": 1}
+        mesh.setdefault("model", 1)
+        check_mesh(mesh, dp.world)
+        m = mesh["model"]
+        d = dp.world // m
+        self.all, self.mesh, self.device = dp, mesh, dp.device
+        self.rank = dp.rank
+        i, j = coords(self.rank, mesh)
+        single = DP.single(dp.device)
+        if m == 1:
+            self.data, self.model = (dp if d > 1 else single), single
+            return
+        if d == 1:
+            self.data, self.model = single, DP(dp.group, dp.device)
+            return
+        import torch.distributed as dist
+        glob = [dist.get_global_rank(dp.group, r) for r in range(dp.world)]
+        data = [dist.new_group([glob[a * m + b] for a in range(d)])
+                for b in range(m)]
+        model = [dist.new_group(glob[a * m:(a + 1) * m]) for a in range(d)]
+        self.data, self.model = DP(data[j], dp.device), DP(model[i],
+                                                          dp.device)
+
+    @property
+    def distributed(self) -> bool:
+        return self.all.distributed
+
+    @property
+    def world(self) -> int:
+        return self.all.world
+
+    @property
+    def coords(self) -> tuple:
+        """(data index, model index) of this rank."""
+        return self.data.rank, self.model.rank
+
+    def __repr__(self):
+        return f"Ranks(rank={self.rank}, mesh={self.mesh}, {self.device})"
+
+
+def coords(rank: int, mesh: dict) -> tuple:
+    """(data index, model index) of ``rank`` on ``mesh``: JAX's
+    ``make_mesh`` device order, the model index fastest."""
+    m = mesh.get("model", 1)
+    return rank // m, rank % m
+
+
 def check_mesh(mesh: dict, world: int):
-    """A training mesh over ``world`` ranks: every rank on the data axes,
-    a model axis of 1."""
-    if mesh.get("model", 1) > 1:
-        raise NotImplementedError(
-            f"mesh {mesh}: a model axis over ranks {SLICE9}")
-    data = 1
-    for a in ("pod", "data"):
-        data *= mesh.get(a, 1)
-    if data != world:
-        raise ValueError(f"mesh {mesh}: {data} devices on the data axes, "
+    """A training mesh over ``world`` ranks: its axes hold them all."""
+    n = 1
+    for a in ("pod", "data", "model"):
+        n *= mesh.get(a, 1)
+    if n != world:
+        raise ValueError(f"mesh {mesh}: {n} devices on its axes, "
                          f"{world} ranks")
 
 
 def check_ranks(cfg, dp):
-    """Raise for what training over ``dp`` needs of slice 9: the expert-
-    parallel dispatch and FSDP over more than one rank."""
-    if dp is None or dp.world == 1:
-        return
-    if cfg.moe_impl == "smap":
+    """Raise for what training over ``dp`` needs of slice 10: FSDP over
+    more than one rank."""
+    world = 1 if dp is None else dp.world
+    if world > 1 and cfg.fsdp:
         raise NotImplementedError(
-            f"{cfg.name}: moe_impl='smap' over {dp.world} ranks {SLICE9}")
-    if cfg.fsdp:
-        raise NotImplementedError(
-            f"{cfg.name}: cfg.fsdp over {dp.world} ranks {SLICE9}")
+            f"{cfg.name}: cfg.fsdp over {world} ranks {SLICE10}")

@@ -24,6 +24,17 @@ taken over the global token set (``models/moe.py``, under ``use_dp``).
 The gradients are then all-reduced in place, leaf by leaf in their own
 dtype (``reduce_grads``), and the metrics summed.  One process (no
 ``dp``) takes the one-process path, whose answers stay bit for bit.
+
+Over the model axis too (a model cut by ``Model.cut_to``, whose model
+group ``train/dp.Ranks`` gave it) the layers run on their slices
+(``sharding/tp.py``) and the head's logits are this rank's vocab
+columns: the CE takes the max over the ranks' columns (all-reduced, no
+gradient), the sum of exponentials and the target's logit summed over
+model.  The loss is then whole on every model rank; the gradients are
+summed over data only, since a cut leaf's gradient is its own and a
+whole leaf's is equal on every model rank (``sharding/tp.py``'s copy and
+reduce pairs).  The layers that ``remat="unit"`` checkpoints run their
+collectives again in the recompute, in one order on every rank.
 """
 from __future__ import annotations
 
@@ -33,11 +44,12 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.convert import param_tree
-from repro_torch.models.layers import logits_from_hidden
+from repro_torch.models.layers import logits_local
 from repro_torch.models.transformer import apply_model
 from repro_torch.optim.adamw import adamw_update
 from repro_torch.pytree import leaves, unflatten
-from repro_torch.sharding.context import use_dp
+from repro_torch.sharding import tp
+from repro_torch.sharding.context import current_model, use_dp
 
 F32 = torch.float32
 LOSS_CHUNK = 512
@@ -56,13 +68,32 @@ def check_trainable(cfg):
 def _ce_chunk(cfg, model, hidden_chunk, target_chunk):
     """hidden: [B,c,D]; targets: [B,c] -> (sum_loss, n_valid); a target
     of -1 drops out of both."""
-    logits = logits_from_hidden(cfg, model, hidden_chunk)     # [B,c,V] f32
-    lse = torch.logsumexp(logits, dim=-1)
+    logits, sliced = logits_local(cfg, model, hidden_chunk)  # [B,c,V] f32
     valid = target_chunk >= 0
-    picked = torch.gather(logits, -1, torch.where(
-        valid, target_chunk, 0).long()[..., None])[..., 0]
+    tgt = torch.where(valid, target_chunk, 0).long()
+    if sliced:
+        lse, picked = _vocab_parallel(logits, tgt)
+    else:
+        lse = torch.logsumexp(logits, dim=-1)
+        picked = torch.gather(logits, -1, tgt[..., None])[..., 0]
     loss = torch.where(valid, lse - picked, 0.0)
     return loss.sum(), valid.sum(dtype=torch.int32)
+
+
+def _vocab_parallel(logits, tgt):
+    """(logsumexp, the target's logit) of logits whose vocab columns are
+    cut over the model group: this rank holds columns r * Vl .. (r + 1)
+    * Vl - 1."""
+    g = current_model()
+    with torch.no_grad():
+        mx = g.max_(logits.amax(dim=-1).contiguous())
+    se = tp.reduce(torch.exp(logits - mx[..., None]).sum(dim=-1))
+    Vl = logits.shape[-1]
+    local = tgt - g.rank * Vl
+    mine = (local >= 0) & (local < Vl)
+    picked = torch.gather(logits, -1, torch.where(mine, local, 0)[..., None])
+    picked = tp.reduce(torch.where(mine, picked[..., 0], 0.0))
+    return torch.log(se) + mx, picked
 
 
 def blockwise_ce(cfg, model, hidden, targets, n_valid_all=None):
@@ -106,7 +137,8 @@ def value_and_grad(cfg, model, batch, dp=None):
     new tensors (``.grad`` is not touched).  With ``dp`` (a group over
     which the batch's rows are split) the loss is the rank's share and
     the gradients and metrics come back summed over the ranks: those of
-    the global batch."""
+    the global batch.  A model cut over the model axis
+    (``Model.cut_to``) runs its layers over its model group."""
     params = param_tree(model, cfg)
     flat = leaves(params)
     for p in flat:
@@ -114,7 +146,9 @@ def value_and_grad(cfg, model, batch, dp=None):
     ranks = dp is not None and dp.distributed
     n_valid = (dp.sum_((batch["targets"] >= 0).sum(dtype=torch.int32))
                if ranks else None)
-    with use_dp(dp if ranks else None), torch.enable_grad():
+    groups = use_dp(dp if ranks else None,
+                    getattr(model, "model_group", None))
+    with groups, torch.enable_grad():
         loss, metrics = loss_fn(cfg, model, batch, n_valid)
         grads = torch.autograd.grad(loss, flat, allow_unused=True,
                                     materialize_grads=True)

@@ -26,6 +26,17 @@ gathered to rank 0, which writes the JAX package's format, so a run resumes
 over any number of ranks (the elastic re-mesh) and in either package.
 Restoring, every rank reads the file a leaf at a time and keeps its
 slice.  ``fail_at`` waits for the writer, then raises on every rank.
+
+Over a (data x model) mesh (``mesh={"data": d, "model": m}`` beside
+``dp``, the group of all d * m ranks: ``train/dp.Ranks``) the model is
+built whole, rank 0's weights are broadcast and, from a checkpoint,
+restored whole, and then every rank cuts it to its model index's shard
+(``Model.cut_to``); the batch's rows split over data, the step's layers
+run over the model group, ZeRO-1 cuts the state over data beside the
+model cut, and the checksum sums a cut leaf's slices over model.  A
+checkpoint is still one file in JAX's format: the ZeRO slices gathered
+over data and the model slices over model to rank 0; a restore cuts by
+the mesh it runs on, whatever mesh wrote the file.
 """
 from __future__ import annotations
 
@@ -44,7 +55,7 @@ from repro_torch.data.pipeline import SyntheticLM, make_batch
 from repro_torch.models.transformer import Model
 from repro_torch.optim.adamw import Zero1, adamw_init
 from repro_torch.pytree import leaves, tree_map
-from repro_torch.train.dp import DP, check_ranks
+from repro_torch.train.dp import DP, Ranks, check_ranks
 from repro_torch.train.step import check_trainable, train_step
 
 
@@ -78,19 +89,23 @@ def restore_state(ckpt_dir, step: int, model: Model, cfg: ModelConfig,
 def train(cfg: ModelConfig, shape: ShapeSpec, *, steps: int, ckpt_dir=None,
           ckpt_every: int = 50, lr: float = 3e-4, seed: int = 0,
           log_every: int = 10, fail_at: int | None = None,
-          device=None, dp=None) -> dict:
+          device=None, dp=None, mesh=None) -> dict:
     """Run (or resume) training on ``device`` (the card unless the caller
-    names another), or over ``dp``'s ranks on ``dp.device``.  With no
-    checkpoint to resume from, the weights are drawn from a generator
-    seeded with ``seed``.  ``fail_at`` raises midway to exercise the
-    crash/restart path in tests.  Returns {"history", "model", "opt",
-    "zero"}: over ranks "opt" holds this rank's slices and "zero" the
-    plan; in one process "opt" is the whole state and "zero" None."""
+    names another), or over ``dp``'s ranks on ``dp.device``, the mesh
+    ``mesh`` ({"data": d, "model": m}; by default every rank on data).
+    With no checkpoint to resume from, the weights are drawn from a
+    generator seeded with ``seed``.  ``fail_at`` raises midway to
+    exercise the crash/restart path in tests.  Returns {"history",
+    "model", "opt", "zero", "ranks"}: over ranks "model" holds this
+    rank's shard, "opt" its slices and "zero" the plan; in one process
+    "opt" is the whole state and "zero" None."""
     check_trainable(cfg)
     if dp is None or not dp.distributed:
         dp = DP.single(_resolve_device(device, "train"))
     check_ranks(cfg, dp)
+    ranks = Ranks(dp, mesh)
     dev = dp.device
+    data, tpg = ranks.data, ranks.model
     B = shape.global_batch
     ds = SyntheticLM(cfg.vocab_size, shape.seq_len, B, seed=seed,
                      embed_dim=cfg.d_model if cfg.frontend == "embed" else 0)
@@ -103,25 +118,26 @@ def train(cfg: ModelConfig, shape: ShapeSpec, *, steps: int, ckpt_dir=None,
         with torch.no_grad():
             for p in leaves(param_tree(model, cfg)):
                 dp.broadcast(p.detach(), 0)
-        zero = Zero1(cfg, param_tree(model, cfg), dp)
-        opt = zero.init(param_tree(model, cfg))
-    else:
-        zero, opt = None, adamw_init(param_tree(model, cfg))
-    start = 0
     last = latest_step(ckpt_dir) if ckpt_dir else None
     if dp.distributed:
         last = int(dp.agree(-1 if last is None else last, "min"))
         last = None if last < 0 else last
-    if last is not None:
-        opt = (restore_ranks(ckpt_dir, last, model, cfg, zero) if zero
-               else restore_state(ckpt_dir, last, model, cfg, opt))
-        start = last
-    if dp.distributed:
+        if last is not None:
+            restore_params(ckpt_dir, last, model, cfg)
+        dims = model.cut_to(ranks)
+        zero = Zero1(cfg, param_tree(model, cfg), data, tpg, dims)
+        opt = (restore_opt(ckpt_dir, last, zero, dev) if last is not None
+               else zero.init(param_tree(model, cfg)))
         check_replicas(model, cfg, dp)
+    else:
+        zero, opt = None, adamw_init(param_tree(model, cfg))
+        if last is not None:
+            opt = restore_state(ckpt_dir, last, model, cfg, opt)
+    start = last or 0
     ckpt = AsyncCheckpointer(ckpt_dir) if ckpt_dir and dp.rank == 0 else None
 
     def save(at):
-        tree = (rank_state(model, cfg, opt, zero, dp) if zero
+        tree = (rank_state(model, cfg, opt, zero, ranks) if zero
                 else state_tree(model, cfg, opt))
         if ckpt:
             ckpt.save(at, tree, copy=zero is None)
@@ -135,9 +151,10 @@ def train(cfg: ModelConfig, shape: ShapeSpec, *, steps: int, ckpt_dir=None,
             dp.barrier()            # the checkpoint is durable on every rank
             raise RuntimeError(f"injected failure at step {step}")
         batch = make_batch(ds, step, device=dev, dtype=cfg.param_dtype,
-                           rows=dp.rows(B))
+                           rows=data.rows(B))
+        split = data.distributed and data.shards(B)
         model, opt, metrics = train_step(cfg, model, opt, batch, lr=lr,
-                                         dp=dp if dp.shards(B) else None,
+                                         dp=data if split else None,
                                          zero=zero)
         if step % log_every == 0 or step == steps - 1:
             m = {k: float(v) for k, v in metrics.items()}
@@ -146,6 +163,8 @@ def train(cfg: ModelConfig, shape: ShapeSpec, *, steps: int, ckpt_dir=None,
             history.append(m)
             if dp.rank == 0:
                 over = f" ranks={dp.world}" if dp.distributed else ""
+                if tpg.world > 1:
+                    over += f" model={tpg.world}"
                 print(f"[train] step={step} loss={m['loss']:.4f} "
                       f"gnorm={m['grad_norm']:.3f}{over}", flush=True)
         if ckpt_dir and (step + 1) % ckpt_every == 0:
@@ -155,18 +174,28 @@ def train(cfg: ModelConfig, shape: ShapeSpec, *, steps: int, ckpt_dir=None,
         if ckpt:
             ckpt.wait()
         dp.barrier()
-    return {"history": history, "model": model, "opt": opt, "zero": zero}
+    return {"history": history, "model": model, "opt": opt, "zero": zero,
+            "ranks": ranks}
 
 
 def param_checksum(model: Model, cfg: ModelConfig):
-    """Each parameter leaf's float64 sum and sum of squares: [2 n]."""
-    return torch.stack([f(p.detach().double()) for p in
+    """Each parameter leaf's float64 sum and sum of squares: [2 n]; of a
+    model cut over the model axis, a cut leaf's sums summed over its
+    slices."""
+    sums = torch.stack([f(p.detach().double()) for p in
                         leaves(param_tree(model, cfg))
                         for f in (torch.sum, lambda x: torch.sum(x * x))])
+    g = getattr(model, "model_group", None)
+    if g is None or g.world == 1:
+        return sums
+    cut = torch.tensor([d is not None for d in model.model_dims
+                        for _ in range(2)], device=sums.device)
+    return torch.where(cut, g.sum_(torch.where(cut, sums, 0.0)), sums)
 
 
 def check_replicas(model: Model, cfg: ModelConfig, dp):
-    """Raise unless every rank holds the same parameters (checksums)."""
+    """Raise unless every rank of ``dp`` holds the same parameters
+    (checksums)."""
     sums = dp.all_gather(param_checksum(model, cfg)[None])
     if not bool((sums == sums[0]).all()):
         bad = [r for r in range(dp.world) if not torch.equal(sums[r],
@@ -176,36 +205,55 @@ def check_replicas(model: Model, cfg: ModelConfig, dp):
 
 
 @torch.no_grad()
-def rank_state(model: Model, cfg: ModelConfig, opt: dict, zero: Zero1,
-               dp):
-    """The checkpoint tree on rank 0 (the JAX layout, on the CPU), None on
-    the others: m and v gathered to rank 0 from every rank's slices.
-    Every tensor is a copy of its own, so the writer needs none."""
-    whole = zero.gather_state(param_tree(model, cfg), opt)
-    if dp.rank != 0:
+def whole_params(model: Model, cfg: ModelConfig, ranks) -> list | None:
+    """The parameters' whole leaves (``param_tree`` order, detached) on
+    rank 0, None on the others: the model slices gathered over data
+    index 0's model group."""
+    flat = [p.detach() for p in leaves(param_tree(model, cfg))]
+    if ranks.model.world == 1:
+        return flat if ranks.rank == 0 else None
+    if ranks.data.rank != 0:
         return None
+    from repro_torch.sharding.partition import gather_leaves
+    return gather_leaves(flat, model.model_dims, ranks.model)
+
+
+@torch.no_grad()
+def rank_state(model: Model, cfg: ModelConfig, opt: dict, zero: Zero1,
+               ranks):
+    """The checkpoint tree on rank 0 (the JAX layout, on the CPU), None on
+    the others: m and v gathered to rank 0 from every rank's slices, and
+    the parameters' model slices.  Every tensor is a copy of its own."""
+    from repro_torch.pytree import unflatten
+    whole = zero.gather_state(param_tree(model, cfg), opt)
+    flat = whole_params(model, cfg, ranks)
+    if ranks.rank != 0:
+        return None
+    params = unflatten(param_tree(model, cfg), flat)
     return {"params": tree_map(lambda t: t.to("cpu", copy=True),
-                               stack_tree(param_tree(model, cfg))),
+                               stack_tree(params)),
             "opt": stack_tree(whole)}
 
 
-def restore_ranks(ckpt_dir, step: int, model: Model, cfg: ModelConfig,
-                  zero: Zero1) -> dict:
-    """Load checkpoint ``step`` into the model's parameters; returns this
-    rank's slices of m and v.  The file is read a leaf at a time, and
-    each m and v leaf is cut to this rank's slices at once."""
+def restore_params(ckpt_dir, step: int, model: Model, cfg: ModelConfig):
+    """Load checkpoint ``step``'s parameters into ``model`` (whole)."""
     params = param_tree(model, cfg)
-    like = stack_like(params)
     load_stacked(params, restore_checkpoint(ckpt_dir, step,
-                                            {"params": like},
+                                            {"params": stack_like(params)},
                                             device=model.device)["params"])
+
+
+def restore_opt(ckpt_dir, step: int, zero: Zero1, device) -> dict:
+    """This rank's slices of checkpoint ``step``'s m and v (``zero``'s
+    plan, its model cut first): the file is read a leaf at a time, and
+    each leaf is cut at once."""
     f32 = tree_map(lambda t: torch.empty(t.shape, dtype=torch.float32,
-                                         device="meta"), like)
+                                         device="meta"), zero.whole_like)
     opt = {"step": restore_checkpoint(ckpt_dir, step, {"opt": {
         "step": torch.empty((), dtype=torch.int32, device="meta")}},
-        device=model.device)["opt"]["step"]}
+        device=device)["opt"]["step"]}
     for key in ("m", "v"):
         opt[key] = [x for k, full in enumerate(read_leaves(
             ckpt_dir, step, {"opt": {key: f32}}))
-            for x in zero.cut(k, full, model.device)]
+            for x in zero.cut(k, full, device)]
     return opt

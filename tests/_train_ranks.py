@@ -268,23 +268,28 @@ def compressed(rank, world, device, path):
 
 
 def refusals(rank, world, device):
-    """What training over ranks leaves to slice 9 raises
-    NotImplementedError on every rank, before any collective."""
+    """What slice 9 left: moe_impl='smap' trains over the ranks (the sort
+    dispatch, as JAX's train takes it), and a mesh with a model axis
+    builds; what training over ranks leaves to slice 10 (FSDP) raises
+    NotImplementedError on every rank, before any collective.  Returns
+    (the smap run's losses, what FSDP raised, the model axis's size)."""
     import torch.distributed as dist
 
     from repro_torch.train.dp import DP
     from repro_torch.train.trainer import train
 
     dp = DP(dist.group.WORLD, device)
-    said = []
-    for cfg in (cfg_of(MOE_ARCH, moe_impl="smap"),
-                cfg_of("mistral-nemo-12b", fsdp=True)):
-        try:
-            train(cfg, shape_of(), steps=1, device="cpu", dp=dp)
-        except NotImplementedError as e:
-            said.append(str(e))
+    out = train(cfg_of(MOE_ARCH, moe_impl="smap"), shape_of(), steps=1,
+                device="cpu", dp=dp)
+    said = [[h["loss"] for h in out["history"]]]
+    calls = dict(dp.stats["calls"])
     try:
-        DP(dist.group.WORLD, device, mesh={"data": world // 2, "model": 2})
+        train(cfg_of("mistral-nemo-12b", fsdp=True), shape_of(), steps=1,
+              device="cpu", dp=dp)
     except NotImplementedError as e:
         said.append(str(e))
+    assert dict(dp.stats["calls"]) == calls, dp.stats
+    mesh = DP(dist.group.WORLD, device, mesh={"data": world // 2,
+                                             "model": 2})
+    said.append(mesh.world)
     return said

@@ -43,7 +43,7 @@ import torch
 import _train_ranks as R
 from _train_parity import METRIC_TOL, PARAM_ATOL, PARAM_OUTLIERS
 from repro_torch.launch import ranks
-from repro_torch.train.dp import DP, SLICE9, check_mesh, check_ranks
+from repro_torch.train.dp import DP, SLICE10, check_mesh, check_ranks
 
 ROOT = Path(__file__).resolve().parents[1]
 TIMEOUT_S = 300
@@ -515,9 +515,10 @@ def test_elastic_selftest_module_over_two_ranks(runs):
     assert rc == 0, err[-4000:]
     lines = out.splitlines()
     assert lines[-1] == "ELASTIC-SELFTEST-OK"
-    for ok in ("elastic ok (2 ranks -> 1)", "pipeline ok (2 stages, one a "
-               "rank)", "compressed-dp ok (2 ranks)", "moe-smap ok",
-               "decode-hint ok"):
+    for ok in ("elastic ok (1 data x 2 model -> 2 data x 1 model)",
+               "pipeline ok (2 stages, one a rank)",
+               "compressed-dp ok (2 ranks)", "moe-smap ok (1 data x 2 model)",
+               "decode-hint ok (1 data x 2 model)"):
         assert ok in lines, (ok, lines)
 
 
@@ -551,16 +552,26 @@ def test_train_lm_example_over_two_ranks(runs):
 
 
 def test_slice9_work_raises_over_ranks(runs):
-    """moe_impl='smap' and cfg.fsdp over 2 ranks, and a mesh with a model
-    axis, raise NotImplementedError naming slice 9, on every rank."""
+    """Slice 9's work no longer raises: moe_impl='smap' trains over 2
+    ranks (every rank the same loss), and a mesh with a model axis builds
+    and is checked against the ranks.  cfg.fsdp over 2 ranks raises
+    NotImplementedError naming slice 10, on every rank, before any
+    collective."""
     for said in runs.refusals:
-        assert len(said) == 3 and all(SLICE9 in s for s in said), said
-    with pytest.raises(NotImplementedError, match="slice 9"):
+        assert len(said) == 3, said
+        assert said[0] == runs.refusals[0][0] and len(said[0]) == 1, said
+        assert SLICE10 in said[1] and "slice 10" in said[1], said
+        assert said[2] == 2, said
+    check_mesh({"data": 1, "model": 2}, 2)
+    with pytest.raises(ValueError, match="2 ranks"):
         check_mesh({"data": 2, "model": 4}, 2)
     with pytest.raises(ValueError, match="2 ranks"):
         check_mesh({"data": 4, "model": 1}, 2)
     one = types.SimpleNamespace(world=1)
-    check_ranks(R.cfg_of(R.MOE_ARCH, moe_impl="smap"), one)
+    check_ranks(R.cfg_of("mistral-nemo-12b", fsdp=True), one)
+    with pytest.raises(NotImplementedError, match="slice 10"):
+        check_ranks(R.cfg_of("mistral-nemo-12b", fsdp=True),
+                    types.SimpleNamespace(world=2))
 
 
 def test_one_process_group_calls_no_collective(monkeypatch):
