@@ -147,8 +147,9 @@
    gets ``launches_dist_faults``.
 9c. The distributed store over ranks, one process a rank
    (``repro_torch.launch.ranks.spawn``, ``core/comm.py``), at phase 7's
-   sizes and config (8 groups of 2**21 slots, capacity_q 1024, leases
-   off), its workload drawn from ``--seed``: a load of 2**22 keys, 4
+   config (8 groups of 2**21 slots, capacity_q 1024, leases off), its
+   workload drawn from ``--seed``: a load of 2**21 keys (half phase 7's,
+   to keep the script inside its time), 4
    mixed rounds (PUT, DELETE with absent keys, GET, apply, GC, 4 SCANs),
    a read-back, drain and ``parity_report``, index server 3 failed, 4
    degraded rounds, ``recover_server(3)`` (with the migration), a
@@ -167,7 +168,7 @@
    (synchronized), peak memory.  Every kernel record gets
    ``launches_dist_ranks`` (NCCL rank 0's).  Then, in the same spawns
    and against the same one-process runs, the data-plane and ticker
-   segment on a store of its own (phase 7's groups, 2**20 keys, a
+   segment on a store of its own (phase 7's groups, 2**19 keys, a
    quarter in the gloo run; leases on the rounds clock): data server 5
    fails (wiped), 2 degraded mixed rounds, ``recover_data_server(5)``
    (its shard from the mirror, the allocator's sweep, the migration), a
@@ -262,7 +263,7 @@
     musicgen-large at full width and depth in bf16 (3229812736
     parameters, held to JAX's count), weights drawn on the card from
     ``--seed``, ``SyntheticLM(2048, 4096, 8, seed)``: train_4k's batch of
-    256 cut to 8, the largest that fits; 4 steps of ``train_step`` at lr
+    256 cut to 8, the largest that fits; 3 steps of ``train_step`` at lr
     3e-4, the kernels' launch counts set to 0 before them (no kernel
     lies on the training path: every record gets ``launches_training``);
     loss and grad norm finite at every step, step 0's loss within 1.5 of
@@ -357,7 +358,29 @@
     The elastic self-test's checks over the 4 ranks (``run_ranks``, what
     ``elastic_selftest --ranks 4 --backend gloo`` runs: (2 x 2) -> (1 x 4),
     smap and the hint on (2 x 2)).
-17. The last two lines: the kernels as JSON (ten records, in the order
+17. The rest of the mesh's data axis over ranks (FSDP,
+    ``sharding/fsdp.py``: the parameters cut over data beside the model
+    cut and gathered a layer at a time; the sequence cut over data at a
+    global batch of 1), on the same 4 gloo ranks after phase 16 (TF32
+    off; the kernels' counts set to 0 there and here: every record gets
+    ``launches_data_axis``, expected 0; phase 17 takes at most
+    DA_BUDGET_S seconds, its one-process references included, which
+    run here first, each freed before the spawn).  Its lines start
+    "ranks-data:".  (a) kimi-k2-1t-a32b at full width on its dense
+    layer 0 (2833273856 parameters; its MoE layer cannot hold a training
+    state on one card), bf16, fsdp from its config, batch 1 x 4096 on
+    (2 data x 2 model): FSDP, the tensor cut and the sequence cut at
+    once; 2 steps, each loss and grad norm within 1e-3 (relative) of
+    one process; each rank's held parameter bytes against the whole,
+    its peak, the data group's gathered and reduce-scattered bytes a
+    step (``DP.stats``).  (b) The sequence cut of the Mamba families,
+    float32, batch 1 x 4096 on (4 x 1): falcon-mamba-7b on 2 of 64
+    layers and zamba2-7b on 6 (five Mamba-2 layers and the shared block
+    once), each within 1e-4 of one process.  (c) Phase 16 (b)'s
+    deepseek run again with fsdp=True: within 1e-5 of 16 (b)'s history
+    (the same global step), the kept slots equal, each rank's parameter
+    bytes below 16 (b)'s.
+18. The last two lines: the kernels as JSON (ten records, in the order
     of PERF.md's kernel table), then the device as JSON.
 
 Exits nonzero, printing no result, without CUDA or outside a checkout.
@@ -2430,13 +2453,13 @@ RANK_FAIL = 3                     # the index server 9c fails and recovers
 GLOO_CUDA = True
 GLOO_LOAD_CUT = 4
 RANK_KERNELS = ("hash_probe", "sorted_search", "group_probe", "merge")
-# phase 7's sizes (the gloo run cuts the load)
+# phase 7's groups at half its keys (the gloo run cuts the load more)
 # and the keys of 9c's data-plane and ticker segment (``rank_faults``):
-# its own store of phase 7's size at 2^20 keys (the gloo run cuts them
+# its own store of phase 7's size at 2^19 keys (the gloo run cuts them
 # too), leases on the rounds clock, the ticker on the wall clock
-RANK_SIZES = {"keys": DIST_KEYS, "capacity": DIST_CAPACITY,
+RANK_SIZES = {"keys": DIST_KEYS // 2, "capacity": DIST_CAPACITY,
               "capacity_q": DIST_CAPACITY_Q, "chunk": CHUNK,
-              "fault_keys": 1 << 20}
+              "fault_keys": 1 << 19}
 FAULT_DATA = 5                   # the data server failed (wiped)
 FAULT_ROUNDS = 2                 # degraded mixed rounds while it is down
 FAULT_SEVER_DATA = 2             # the data server severed, then detected
@@ -3661,7 +3684,7 @@ TRAIN_PARAMS = 3229812736         # jax.eval_shape over JAX's init_params
 # (a): SHAPES["train_4k"]'s 256 cut to the largest batch that fits on an
 # 80 GB H100 (``fits`` probes one sequence more)
 TRAIN_BATCH = 8
-TRAIN_STEPS = 4                   # (a): steps; the last one split
+TRAIN_STEPS = 3                   # (a): steps; the last one split
 TRAIN_LR = 3e-4
 # (a): step 0's loss within this of ln V.  Logits of unit variance give
 # ln V + 0.5 on average; at one batch a random 48-layer stack's logits
@@ -4362,11 +4385,12 @@ def rank_nccl(rank, world, device, seed, resume_dir):
 
 
 def rank_gloo(rank, world, device, seed, ckpt_dir, want_comp):
-    """The 4 gloo ranks of phases 15 and 16, sharing the card: (b) over
+    """The 4 gloo ranks of phases 15-17, sharing the card: (b) over
     ranks 0-1 while (b') runs over ranks 2-3, (c) the pipeline, (d) the
     compressed all-reduce (phase 15's launches read here); then phase 16
     (``model_axis_ranks``, whose (d) is the elastic self-test over the 4
-    ranks).  Returns each part's figures and each phase's launches."""
+    ranks) and phase 17 (``data_axis_ranks``).  Returns each part's
+    figures and each phase's launches."""
     import torch
     import torch.distributed as dist
 
@@ -4395,6 +4419,7 @@ def rank_gloo(rank, world, device, seed, ckpt_dir, want_comp):
     out["compressed_s"] = time.perf_counter() - t0
     out["launches"] = kernel_launches()
     out["model_axis"] = model_axis_ranks(torch, dp, pair, seed)
+    out["data_axis"] = data_axis_ranks(torch, dp, seed)
     return out
 
 
@@ -4604,6 +4629,11 @@ def training_ranks(torch, seed, train13):
     ma_ref = ma_reference(torch, seed)
     ma_ref_s = time.perf_counter() - t16
     main16 = kernel_launches()
+    zero_kernel_launches()             # phase 17 from here
+    t17 = time.perf_counter()
+    da_ref = da_reference(torch, seed)
+    da_ref_s = time.perf_counter() - t17
+    main17 = kernel_launches()
     W = torch.cuda.device_count()
     with tempfile.TemporaryDirectory(prefix="phase15-") as d:
         a, b = Path(d) / "gloo", Path(d) / "resume"
@@ -4642,10 +4672,21 @@ def training_ranks(torch, seed, train13):
         f"{ma_launches}")
     check(ma_out["phase_s"] <= MA_BUDGET_S, f"16: {ma_out['phase_s']:.1f} s "
           f"past its {MA_BUDGET_S} s")
-    out["phase_s"] = time.perf_counter() - t_phase - ma_out["phase_s"]
-    log(f"ranks-train: phase 15 in {out['phase_s']:.1f} s (phase 16's "
-        f"{ma_out['phase_s']:.1f} s apart); launches {launches}")
-    return out, launches, ma_out, ma_launches
+    da_out, da_launches = data_axis_report(gl, da_ref)
+    da_launches = {k: v + main17[k] for k, v in da_launches.items()}
+    da_out["phase_s"] += da_ref_s
+    da_out["reference_s"] = da_ref_s
+    log(f"ranks-data: phase 17 with its one-process references "
+        f"({da_ref_s:.1f} s) in {da_out['phase_s']:.1f} s; launches "
+        f"{da_launches}")
+    check(da_out["phase_s"] <= DA_BUDGET_S, f"17: {da_out['phase_s']:.1f} s "
+          f"past its {DA_BUDGET_S} s")
+    out["phase_s"] = (time.perf_counter() - t_phase - ma_out["phase_s"]
+                      - da_out["phase_s"])
+    log(f"ranks-train: phase 15 in {out['phase_s']:.1f} s (phases 16's "
+        f"{ma_out['phase_s']:.1f} s and 17's {da_out['phase_s']:.1f} s "
+        f"apart); launches {launches}")
+    return out, launches, ma_out, ma_launches, da_out, da_launches
 
 
 def ranks_full_report(nc, full_one, train13, W):
@@ -4859,7 +4900,9 @@ def ma_train(torch, dp, seed, cfg, mesh, seq, batch, steps):
     from repro_torch.train.trainer import train
 
     device = dp.device
+    dp.reset_stats()                  # the data group may be dp itself
     torch.cuda.synchronize(device)
+    torch.cuda.reset_peak_memory_stats(device)
     t0 = time.perf_counter()
     with KeptSlots() as spy:
         out = train(cfg, ShapeSpec("train", seq, batch, "train"),
@@ -4877,6 +4920,9 @@ def ma_train(torch, dp, seed, cfg, mesh, seq, batch, steps):
                m_bytes=out["zero"].nbytes(out["opt"]["m"]),
                model_calls=dict(r.model.stats["calls"]),
                model_bytes=dict(r.model.stats["bytes"]),
+               data_calls=dict(r.data.stats["calls"]),
+               data_bytes=dict(r.data.stats["bytes"]),
+               peak_bytes=torch.cuda.max_memory_allocated(device),
                coords=r.coords, kept=spy.kept)
     del out
     torch.cuda.empty_cache()
@@ -5146,6 +5192,202 @@ def model_axis_report(gl, ref, moe_one):
     return out, launches
 
 
+# ---------------------------------------------------------------------------
+# Phase 17: the rest of the mesh's data axis over ranks
+# ---------------------------------------------------------------------------
+DA_ARCH = "kimi-k2-1t-a32b"       # (a): full width, its dense layer 0
+DA_PARAMS = 2833273856            # (a): the embedding, the head, layer 0
+DA_SEQ, DA_STEPS = 4096, 2        # (a), (b): batch 1 x 4096
+DA_MESH = {"data": 2, "model": 2}  # (a), (c)
+DA_RTOL_BF16 = 1e-3               # (a): phase 15 (b)'s bf16 tolerance
+DA_MAMBA = (("falcon-mamba-7b", 2), ("zamba2-7b", 6))   # (b): layers
+DA_MAMBA_MESH = {"data": 4, "model": 1}
+DA_RTOL = 1e-4                    # (b): float32, TF32 off
+DA_FSDP_RTOL = 1e-5               # (c): the same global step as 16 (b)
+DA_BUDGET_S = 200                 # phase 17's seconds, its references included
+
+
+def da_kimi_config():
+    """(a): kimi-k2-1t-a32b at full width on its dense layer 0 (its MoE
+    layer cannot hold a training state on one card), bf16, fsdp from its
+    own config."""
+    from repro_torch.configs import get_config
+    return get_config(DA_ARCH).scaled(n_layers=1, first_k_dense=1)
+
+
+def da_mamba_config(arch, layers):
+    """(b): ``arch`` at full width on ``layers`` layers, float32, the
+    chunked scan (the fused one is forward-only)."""
+    from repro_torch.configs import get_config
+    return get_config(arch).scaled(n_layers=layers, dtype="float32",
+                                   ssm_impl="jnp")
+
+
+def da_reference(torch, seed):
+    """Phase 17's one-process runs on the card (TF32 off), each freed
+    before the next: (a), then (b)'s two configs, batch 1 x DA_SEQ.
+    Returns {key: history, seconds, parameter count, peak}."""
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.models.transformer import count_params
+    from repro_torch.train.trainer import train
+
+    runs = [("a", da_kimi_config())] + [
+        (arch, da_mamba_config(arch, n)) for arch, n in DA_MAMBA]
+    res = {}
+    for key, cfg in runs:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        one = train(cfg, ShapeSpec("train", DA_SEQ, 1, "train"),
+                    steps=DA_STEPS, lr=TRAIN_LR, seed=seed, log_every=1,
+                    device="cuda")
+        torch.cuda.synchronize()
+        res[key] = dict(history=one["history"], s=time.perf_counter() - t0,
+                        n=count_params(one["model"]),
+                        peak=torch.cuda.max_memory_allocated())
+        del one
+        torch.cuda.empty_cache()
+    check(res["a"]["n"] == DA_PARAMS, f"17a: {res['a']['n']} parameters, "
+          f"the config gives {DA_PARAMS}")
+    return res
+
+
+def data_axis_ranks(torch, dp, seed):
+    """Phase 17 on the 4 gloo ranks (the kernels' counts set to 0 first):
+    (a) kimi-k2 on DA_MESH at batch 1 x DA_SEQ (FSDP, the tensor cut and
+    the sequence cut at once); (b) the Mamba configs on DA_MAMBA_MESH at
+    batch 1 x DA_SEQ (the sequence cut over 4); (c) phase 16 (b)'s
+    deepseek run again with fsdp=True.  Returns each part's figures, its
+    seconds and the kernels' launches."""
+    zero_kernel_launches()
+    dp.barrier()
+    t_phase = time.perf_counter()
+    out = {}
+    t0 = time.perf_counter()
+    out["a"] = ma_train(torch, dp, seed, da_kimi_config(), DA_MESH, DA_SEQ,
+                        1, DA_STEPS)
+    out["a_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    out["b"] = {arch: ma_train(torch, dp, seed, da_mamba_config(arch, n),
+                               DA_MAMBA_MESH, DA_SEQ, 1, DA_STEPS)
+                for arch, n in DA_MAMBA}
+    out["b_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    out["c"] = ma_train(torch, dp, seed, moe_config().scaled(fsdp=True),
+                        MA_MESH, MOE_SEQ, MOE_BATCH, MOE_STEPS)
+    out["c_s"] = time.perf_counter() - t0
+    out["launches"] = kernel_launches()
+    out["phase_s"] = time.perf_counter() - t_phase
+    return out
+
+
+def _rel_gaps(got, history, rtol, what):
+    gaps = []
+    for i, h in enumerate(history):
+        for k, key in (("losses", "loss"), ("grad_norms", "grad_norm")):
+            gap = abs(got[k][i] - h[key]) / abs(h[key])
+            check(gap <= rtol, f"{what}: step {i} {key} {got[k][i]} "
+                  f"against {h[key]}")
+            gaps.append(gap)
+    return max(gaps)
+
+
+def _per_step(stats, steps):
+    return {k: v / steps for k, v in sorted(stats.items())}
+
+
+def data_axis_report(gl, ref):
+    """Phase 17's lines: (a) against one process, each rank's held bytes,
+    peak and data-group traffic; (b) each Mamba config against one
+    process; (c) against phase 16 (b), the kept slots equal."""
+    da = [x["data_axis"] for x in gl]
+    out = {"phase_s": max(x["phase_s"] for x in da)}
+    a = [x["a"] for x in da]
+    for r, x in enumerate(a):
+        check(x["losses"] == a[0]["losses"], f"17a: rank {r}'s losses "
+              f"differ")
+    gap = _rel_gaps(a[0], ref["a"]["history"], DA_RTOL_BF16, "17a")
+    whole = 2 * ref["a"]["n"]
+    held = [x["param_bytes"] for x in a]
+    check(max(held) < whole // 2, f"17a: {held} B held a rank against "
+          f"{whole} whole")
+    moved = _per_step(a[0]["data_bytes"], DA_STEPS)
+    log(f"ranks-data: (a) {DA_ARCH} full width on its dense layer 0 "
+        f"({ref['a']['n']} parameters, bf16, fsdp), batch 1 x {DA_SEQ} on "
+        f"(2 data x 2 model) gloo ranks, the sequence cut over data: losses "
+        f"{a[0]['losses']} grad norms {a[0]['grad_norms']}, within "
+        f"{gap:.3e} (relative) of one process "
+        f"({[h['loss'] for h in ref['a']['history']]}, {ref['a']['s']:.2f} "
+        f"s, peak {ref['a']['peak']} B); parameter bytes a rank {held} "
+        f"against the whole's {whole}; m bytes a rank "
+        f"{[x['m_bytes'] for x in a]}; peak a rank "
+        f"{[x['peak_bytes'] for x in a]} B; the data group's bytes a step "
+        f"{moved} (calls {_per_step(a[0]['data_calls'], DA_STEPS)}); "
+        f"seconds a step {step_seconds(a[0]['wall_s'])}")
+    out["a"] = dict(losses=a[0]["losses"], grad_norms=a[0]["grad_norms"],
+                    max_rel_gap=gap, param_bytes=held, whole_bytes=whole,
+                    m_bytes=[x["m_bytes"] for x in a],
+                    peak_bytes=[x["peak_bytes"] for x in a],
+                    one_peak=ref["a"]["peak"], data_bytes_step=moved,
+                    step_s=step_seconds(a[0]["wall_s"]))
+    out["b"] = {}
+    for arch, n in DA_MAMBA:
+        b = [x["b"][arch] for x in da]
+        for r, x in enumerate(b):
+            check(x["losses"] == b[0]["losses"], f"17b {arch}: rank {r}'s "
+                  f"losses differ")
+        gap = _rel_gaps(b[0], ref[arch]["history"], DA_RTOL, f"17b {arch}")
+        log(f"ranks-data: (b) {arch} full width on {n} layers "
+            f"({ref[arch]['n']} parameters, float32, TF32 off), batch 1 x "
+            f"{DA_SEQ}, the sequence cut over 4 gloo ranks (4 data x 1 "
+            f"model): losses {b[0]['losses']} grad norms "
+            f"{b[0]['grad_norms']}, within {gap:.3e} of one process "
+            f"({ref[arch]['s']:.2f} s, peak {ref[arch]['peak']} B); peak a "
+            f"rank {[x['peak_bytes'] for x in b]} B; seconds a step "
+            f"{step_seconds(b[0]['wall_s'])}; the data group's calls a step "
+            f"{_per_step(b[0]['data_calls'], DA_STEPS)}")
+        out["b"][arch] = dict(losses=b[0]["losses"], max_rel_gap=gap,
+                              peak_bytes=[x["peak_bytes"] for x in b],
+                              one_peak=ref[arch]["peak"],
+                              step_s=step_seconds(b[0]["wall_s"]))
+    c = [x["c"] for x in da]
+    plain = [x["model_axis"]["b"] for x in gl]
+    gap = max(_rel_gaps(x, [dict(loss=l, grad_norm=g) for l, g in
+                            zip(y["losses"], y["grad_norms"])],
+                        DA_FSDP_RTOL, "17c")
+              for x, y in zip(c, plain))
+    by = {x["coords"]: x["kept"] for x in c}
+    kept = [sum(by[(d, 0)][i] for d in range(MA_MESH["data"]))
+            for i in range(len(by[(0, 0)]))]
+    by16 = {x["coords"]: x["kept"] for x in plain}
+    kept16 = [sum(by16[(d, 0)][i] for d in range(MA_MESH["data"]))
+              for i in range(len(by16[(0, 0)]))]
+    check(kept == kept16, f"17c: kept slots {kept} against 16 (b)'s "
+          f"{kept16}")
+    held = [x["param_bytes"] for x in c]
+    held16 = [x["param_bytes"] for x in plain]
+    check(max(held) < min(held16), f"17c: {held} B a rank against 16 (b)'s "
+          f"{held16}")
+    log(f"ranks-data: (c) {MOE_ARCH} on {MOE_LAYERS} layers (float32) with "
+        f"fsdp=True, batch {MOE_BATCH} x {MOE_SEQ}, {MOE_STEPS} steps on (2 "
+        f"data x 2 model): losses {c[0]['losses']}, within {gap:.3e} of phase "
+        f"16 (b)'s; kept slots a plan {kept} equal to 16 (b)'s; parameter "
+        f"bytes a rank {held} against 16 (b)'s {held16}; peak a rank "
+        f"{[x['peak_bytes'] for x in c]} B; seconds a step "
+        f"{step_seconds(c[0]['wall_s'])}; the data group's bytes a step "
+        f"{_per_step(c[0]['data_bytes'], MOE_STEPS)}")
+    out["c"] = dict(losses=c[0]["losses"], max_rel_gap=gap, kept=kept,
+                    param_bytes=held, param_bytes_16b=held16,
+                    peak_bytes=[x["peak_bytes"] for x in c],
+                    step_s=step_seconds(c[0]["wall_s"]))
+    out["parts_s"] = {k: da[0][f"{k}_s"] for k in ("a", "b", "c")}
+    counts = [x["launches"] for x in da]
+    launches = {k: sum(c_[k] for c_ in counts) for k in counts[0]}
+    log(f"ranks-data: phase 17 in {out['phase_s']:.1f} s (parts "
+        f"{json.dumps(out['parts_s'])}); launches {launches}")
+    return out, launches
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -5257,13 +5499,16 @@ def main(argv=None) -> int:
         k["launches_tools"] = tool_launches[k["name"]]
     torch.cuda.empty_cache()
     (rank_train_times, rank_train_launches, model_axis_times,
-     model_axis_launches) = training_ranks(torch, args.seed,
-                                           train_times["full"])
+     model_axis_launches, data_axis_times,
+     data_axis_launches) = training_ranks(torch, args.seed,
+                                          train_times["full"])
     log(f"ranks-train: {json.dumps(rank_train_times)}")
     log(f"ranks-model: {json.dumps(model_axis_times)}")
+    log(f"ranks-data: {json.dumps(data_axis_times)}")
     for k in kernels:
         k["launches_training_ranks"] = rank_train_launches[k["name"]]
         k["launches_model_axis"] = model_axis_launches[k["name"]]
+        k["launches_data_axis"] = data_axis_launches[k["name"]]
     torch.cuda.synchronize()
     log(f"total: {time.perf_counter() - t_start:.1f} s")
     print(smi)

@@ -8,9 +8,10 @@ numpy copy of the JAX package's stream and gives its arrays bit for bit;
 ``make_batch`` puts a batch on the device (the card unless the caller
 names another).  Over ranks (``train/dp.py``) each rank draws the global
 batch on the host, as the JAX package's ``make_batch`` does, and keeps
-its rows (``rows=dp.rows(global_batch)``, JAX's per-shard placement): a
-batch is the same whatever the number of ranks, which keeps an elastic
-resume exact.
+its rows (``rows=dp.rows(global_batch)``, JAX's per-shard placement),
+or at a global batch of 1 its block of the sequence (``seq``, the
+second of ``dp.split``): a batch is the same whatever the number of
+ranks, which keeps an elastic resume exact.
 
 The synthetic LM stream is a Zipf-ish token mixture with a short-range
 copy structure, so tiny models show a real, monotonically improving loss.
@@ -59,15 +60,17 @@ class SyntheticLM:
 
 
 def make_batch(ds: SyntheticLM, step: int, *, device=None,
-               dtype=None, rows=None) -> dict:
+               dtype=None, rows=None, seq=None) -> dict:
     """Host batch -> tensors on ``device``; with ``dtype`` the embeds are
     cast to it (round to nearest even, as numpy's cast to bfloat16 in the
     JAX package); with ``rows`` (a slice) only those rows of the global
-    batch."""
+    batch, and with ``seq`` (a slice) only those positions of each."""
     dev = _resolve_device(device, "make_batch")
     host = ds.batch(step)
-    if rows is not None:
-        host = {k: np.ascontiguousarray(v[rows]) for k, v in host.items()}
+    if rows is not None or seq is not None:
+        at = (slice(None) if rows is None else rows,
+              slice(None) if seq is None else seq)
+        host = {k: np.ascontiguousarray(v[at]) for k, v in host.items()}
     out = {k: torch.from_numpy(v).to(dev) for k, v in host.items()}
     if dtype is not None and "embeds" in out:
         out["embeds"] = out["embeds"].to(dtype)

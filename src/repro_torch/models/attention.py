@@ -67,6 +67,12 @@ only (``_sharded_cache_update``), each rank scores its slots, and the
 softmax's max and sum and the weighted partials are all-reduced.  MLA's
 cache keeps only the data cut, as JAX's constraint does.  Left out:
 ``unroll``, a knob of XLA's cost analysis.
+
+Under the sequence cut over data (``sharding/context.current_seq``, a
+global batch of 1) each rank holds a block of the queries; GQA gathers
+its keys and values, MLA its latent and rope key, from position 0 to
+the rank's last (``fsdp.seq_prefix``), and the causal masks and the
+windows take the queries' global positions.
 """
 from __future__ import annotations
 
@@ -75,8 +81,8 @@ import torch.nn.functional as F
 
 from repro_torch.models.layers import (apply_rope, dot, normal, rmsnorm,
                                        rmsnorm_init)
-from repro_torch.sharding import tp
-from repro_torch.sharding.context import current_model
+from repro_torch.sharding import fsdp, tp
+from repro_torch.sharding.context import current_model, current_seq
 
 F32 = torch.float32
 NEG_INF = -1e30
@@ -135,11 +141,13 @@ def attn_init(cfg, generator, device, kind: str = "gqa") -> dict:
 # ---------------------------------------------------------------------------
 def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
                     q_block: int = 512, kv_block: int = 512,
-                    return_stats: bool = False):
+                    return_stats: bool = False, q_offset: int = 0):
     """q: [B,Sq,H,hdq]; k: [B,Skv,Hkv,hdq]; v: [B,Skv,Hkv,hdv] -> [B,Sq,H,hdv].
 
-    ``causal`` assumes Sq == Skv.  ``window`` > 0 restricts each query to
-    the last ``window`` keys (implies causal).  With ``return_stats`` also
+    ``causal`` assumes Skv == q_offset + Sq: the queries are positions
+    q_offset .. q_offset + Sq - 1 of the keys' sequence (0 but under the
+    sequence cut).  ``window`` > 0 restricts each query to the last
+    ``window`` keys (implies causal).  With ``return_stats`` also
     returns the per-row online-softmax stats (m, l), [B, Sq, Hkv, G]
     float32 (used by the divide-and-conquer merge).
     """
@@ -155,15 +163,15 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
         0, 3, 1, 2, 4, 5).contiguous()
 
     if window:
-        assert Sq == Skv
-        return _sliding_window(qh, k, v, window, qb)
+        assert Skv == q_offset + Sq
+        return _sliding_window(qh, k, v, window, qb, q_offset)
 
     nkv = _blocks("key", Skv, kvb)
     kt = _f32(k).reshape(B, nkv, kvb, Hkv, hdq).permute(0, 3, 1, 4, 2)
     vh = v.reshape(B, nkv, kvb, Hkv, hdv).permute(0, 3, 1, 2, 4)
     step = _chunk(B * Hkv * qb * G * kvb)
     nchunk = -(-nq // step)
-    ar_q = torch.arange(Sq, device=q.device).view(nq, qb)
+    ar_q = (q_offset + torch.arange(Sq, device=q.device)).view(nq, qb)
     ar_kv = torch.arange(kvb, device=q.device)
     # chunk c of the q blocks, [c * step, (c + 1) * step), holds the
     # running (max, sum, acc) of its blocks from lo on: each kv step hands
@@ -188,7 +196,7 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
         vb = _f32(vh[:, :, kj])                             # [B,Hkv,kvb,hdv]
         # the q blocks this kv block reaches: all, or those whose last
         # position is at or past the block's first
-        first = (kj * kvb) // qb if causal else 0
+        first = max(0, (kj * kvb - q_offset) // qb) if causal else 0
         for c in sorted(state):
             if state[c][0] < first:
                 finish(c, first)
@@ -200,7 +208,8 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
             # only the q blocks before the first that sees the whole kv
             # block have masked scores (the product's own output, which
             # its backward does not read)
-            d = min(b, -(-((kj + 1) * kvb - 1) // qb)) if causal else a
+            d = (min(b, -(-((kj + 1) * kvb - 1 - q_offset) // qb))
+                 if causal else a)
             if d > a:
                 mask = ar_q[a:d, :, None] >= (kj * kvb + ar_kv)
                 s[:, :, :d - a].masked_fill_(~mask[:, :, None, :], NEG_INF)
@@ -257,8 +266,21 @@ def causal_divide_conquer(q, k, v, *, q_block: int = 512, leaf: int = 2048,
     """Exact causal attention via causal(S) = [causal(front half)] ++
     [merge(causal(back half), rect(back q x front kv))]: the strictly
     upper half of the score matrix is never computed.  The recursion
-    bottoms out at ``leaf``, where the masked flash path runs."""
+    bottoms out at ``leaf``, where the masked flash path runs.  Keys
+    longer than the queries (the sequence cut: the queries are the last
+    Sq positions) take the same merge: causal(own block) with
+    rect(q x the keys before it)."""
     S = q.shape[1]
+    off = k.shape[1] - S
+    if off:
+        diag = causal_divide_conquer(q, k[:, off:], v[:, off:],
+                                     q_block=q_block, leaf=leaf,
+                                     return_stats=True)
+        rect = flash_attention(q, k[:, :off], v[:, :off], causal=False,
+                               q_block=q_block, kv_block=q_block,
+                               return_stats=True)
+        o, m, l = _merge_two(*diag, *rect, q.dtype)
+        return (o, m, l) if return_stats else o
     if S <= leaf:
         return flash_attention(q, k, v, causal=True, q_block=q_block,
                                kv_block=q_block, return_stats=return_stats)
@@ -280,23 +302,28 @@ def causal_divide_conquer(q, k, v, *, q_block: int = 512, leaf: int = 2048,
     return out
 
 
-def _sliding_window(qh, k, v, window: int, qb: int):
+def _sliding_window(qh, k, v, window: int, qb: int, q_offset: int = 0):
     """Local attention: q block qi takes the nwin kv blocks covering
     [qi*qb - window + 1, (qi+1)*qb) and masks exactly.  O(S * window).
-    ``qh``: the scaled queries, float32 [B, Hkv, nq, qb, G, hd]."""
+    ``qh``: the scaled queries, float32 [B, Hkv, nq, qb, G, hd], at
+    positions ``q_offset`` on of the keys' sequence; only the keys a
+    window reaches are read."""
     B, Hkv, nq, _, G, hdq = qh.shape
     hdv = v.shape[3]
     S = nq * qb
     nwin = (window + qb - 1) // qb + 1           # kv blocks per q block
     pad = (nwin - 1) * qb
     L = nwin * qb
+    have = min(pad, q_offset)                    # real keys before q 0
+    k, v = k[:, q_offset - have:], v[:, q_offset - have:]
+    pad -= have
     # the windows of every q block: [B, Hkv, nq, hd, L] and [.., L, hdv]
     kw = F.pad(_f32(k), (0, 0, 0, 0, pad, 0)).unfold(1, L, qb).permute(
         0, 2, 1, 3, 4)
     vw = F.pad(v, (0, 0, 0, 0, pad, 0)).unfold(1, L, qb).permute(
         0, 2, 1, 4, 3)
-    q_pos = torch.arange(S, device=qh.device).view(nq, qb)
-    kv_pos = (q_pos[:, :1] - pad
+    q_pos = (q_offset + torch.arange(S, device=qh.device)).view(nq, qb)
+    kv_pos = (q_pos[:, :1] - (pad + have)
               + torch.arange(L, device=qh.device))        # [nq, L] logical
     out = torch.empty((B, Hkv, nq, qb, G, hdv), dtype=k.dtype,
                       device=qh.device)
@@ -397,21 +424,35 @@ def _gqa_local(cfg, params):
 
 def _attend(cfg, q, k, v, window: int = 0):
     """Causal attention by ``cfg``'s choice: the oracle, the
-    divide-and-conquer path (global layers) or the flash path."""
+    divide-and-conquer path (global layers) or the flash path.  Under
+    the sequence cut ``k`` and ``v`` run from position 0 to the queries'
+    last (``fsdp.seq_prefix``), and the blocks are JAX's, of the global
+    length, where they divide the rank's block (else the largest length
+    that divides both: the blocking changes the order of the sums
+    only)."""
+    qb, kvb = cfg.attn_q_block, cfg.attn_kv_block
+    g = current_seq()
+    off = k.shape[1] - q.shape[1]
+    if g is not None:
+        S, S_all = q.shape[1], q.shape[1] * g.world
+        _blocks("query", S_all, min(qb, S_all))
+        _blocks("key", S_all, min(kvb, S_all))
+        qb, kvb = (fsdp.local_chunk(qb, S_all, S),
+                   fsdp.local_chunk(kvb, S_all, S))
     if cfg.attn_impl == "naive":
         return _naive_attention(q, k, v, window)
     if cfg.attn_block_skip and not window:
-        return causal_divide_conquer(q, k, v, q_block=cfg.attn_q_block,
+        return causal_divide_conquer(q, k, v, q_block=qb,
                                      leaf=2 * cfg.attn_q_block)
     return flash_attention(q, k, v, causal=True, window=window,
-                           q_block=cfg.attn_q_block,
-                           kv_block=cfg.attn_kv_block)
+                           q_block=qb, kv_block=kvb, q_offset=off)
 
 
 def gqa_apply(cfg, params, x, positions, *, window: int = 0):
     B, S, _ = x.shape
     plan = _gqa_local(cfg, params)
     q, k, v = _qkv(cfg, params, x, positions, S, plan)
+    k, v = fsdp.seq_prefix(k), fsdp.seq_prefix(v)
     o = _attend(cfg, q, k, v, window)
     return tp.row(o.reshape(B, S, -1), params["wo"], plan is not None)
 
@@ -419,12 +460,12 @@ def gqa_apply(cfg, params, x, positions, *, window: int = 0):
 def _naive_attention(q, k, v, window: int = 0):
     """Materialised-scores oracle (tests and tiny shapes only)."""
     B, S, H, hd = q.shape
-    Hkv = k.shape[2]
+    Hkv, Skv = k.shape[2], k.shape[1]
     G = H // Hkv
     qg = q.reshape(B, S, Hkv, G, hd)
     s = torch.einsum("bqhgd,bkhd->bqhgk", _f32(qg), _f32(k)) * hd ** -0.5
-    qp = torch.arange(S, device=q.device)[:, None]
-    kp = torch.arange(S, device=q.device)[None, :]
+    qp = Skv - S + torch.arange(S, device=q.device)[:, None]
+    kp = torch.arange(Skv, device=q.device)[None, :]
     mask = qp >= kp
     if window:
         mask &= (qp - kp) < window
@@ -586,15 +627,18 @@ def mla_apply(cfg, params, x, positions):
                   cfg.norm_eps)
     k_rope = apply_rope(dot(x, params["w_kr"])[..., None, :], positions,
                         cfg.rope_theta)                       # [B,S,1,rope]
+    # the sequence cut: the latent and the rope key from position 0 on
+    ckv, k_rope = fsdp.seq_prefix(ckv), fsdp.seq_prefix(k_rope)
+    Skv = ckv.shape[1]
     if H_l is None:
-        k_nope = _proj(ckv, params["w_uk"]).reshape(B, S, H, nope)
-        v = _proj(ckv, params["w_uv"]).reshape(B, S, H, hv)
+        k_nope = _proj(ckv, params["w_uk"]).reshape(B, Skv, H, nope)
+        v = _proj(ckv, params["w_uv"]).reshape(B, Skv, H, hv)
     else:
         ckv, k_rope = tp.copy(ckv), tp.copy(k_rope)
-        k_nope = dot(ckv, params["w_uk"]).reshape(B, S, H_l, nope)
-        v = dot(ckv, params["w_uv"]).reshape(B, S, H_l, hv)
+        k_nope = dot(ckv, params["w_uk"]).reshape(B, Skv, H_l, nope)
+        v = dot(ckv, params["w_uv"]).reshape(B, Skv, H_l, hv)
     qf = torch.cat([q_nope, q_rope], dim=-1)
-    kf = torch.cat([k_nope, k_rope.expand(B, S, Hh, rope_d)], dim=-1)
+    kf = torch.cat([k_nope, k_rope.expand(B, Skv, Hh, rope_d)], dim=-1)
     o = _attend(cfg, qf, kf, v)
     return tp.row(o.reshape(B, S, Hh * hv), params["wo"], H_l is not None)
 

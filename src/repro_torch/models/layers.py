@@ -16,14 +16,18 @@ Over the model axis (``sharding/tp.py``) the MLP is Megatron's:
 ``wi`` and ``wg`` column-cut, ``wo`` row-cut, one all-reduce; the
 embedding's vocab rows are cut (a masked lookup, then an all-reduce),
 and so are the head's vocab columns (``logits_local``; the tied head is
-the embedding's transpose, cut the same way).
+the embedding's transpose, cut the same way).  Under FSDP the embedding
+and the head are gathered whole over data (``head_table``): the train
+step gathers the head once, outside its loss chunks, and a tied table
+once for both of its uses, so that its gradient is reduce-scattered
+once, summed.
 """
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
 
-from repro_torch.sharding import tp
+from repro_torch.sharding import fsdp, tp
 
 F32 = torch.float32
 
@@ -133,10 +137,17 @@ def logits_from_hidden(cfg, model, x):
     return tp.gather(logits, -1) if sliced else logits
 
 
-def logits_local(cfg, model, x):
+def head_table(cfg, model):
+    """The head's table, gathered whole over data where FSDP cuts it:
+    the embedding's where the two are tied, else ``lm_head``."""
+    return fsdp.whole(model.embed if cfg.tie_embeddings else model.lm_head)
+
+
+def logits_local(cfg, model, x, w=None):
     """(this rank's vocab columns of the float32 logits, whether they
-    are a slice): the whole logits where the head is whole."""
-    w = model.embed if cfg.tie_embeddings else model.lm_head
+    are a slice): the whole logits where the head is whole.  ``w``: the
+    head's table as ``head_table`` gives it (gathered here if None)."""
+    w = head_table(cfg, model) if w is None else w
     sliced = tp.cut(w) is not None
     w = w.t() if cfg.tie_embeddings else w
     return torch.matmul((tp.copy(x) if sliced else x).float(),

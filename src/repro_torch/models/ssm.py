@@ -51,6 +51,15 @@ a rank takes its heads (channels), while the 1-D ``dt_bias`` and
 Where the model axis cuts d_inner but not Mamba-2's heads, the cut
 weights are gathered whole and the block runs every head.  A decode
 cache holds the rank's channels (``cache_parts``).
+
+Under the sequence cut over data (``sharding/context.current_seq``, a
+global batch of 1) a rank holds a block of the sequence: the causal
+convs take the k - 1 positions before it from the rank before
+(``fsdp.halo``), and each scan runs its block from a zero state, then
+again from the state the lower ranks hand on (``fsdp.carry_in`` of each
+rank's total decay and end state).  The chunk is JAX's, of the global
+length, where it divides the rank's block, else the largest length that
+divides both: every chunk length gives the same function.
 """
 from __future__ import annotations
 
@@ -59,7 +68,8 @@ import torch.nn.functional as F
 
 from repro_torch.kernels.mamba_scan import mamba_scan
 from repro_torch.models.layers import normal, rmsnorm, rmsnorm_init
-from repro_torch.sharding import tp
+from repro_torch.sharding import fsdp, tp
+from repro_torch.sharding.context import current_seq
 
 F32 = torch.float32
 KERNEL_BLOCK = 128     # the Pallas kernel's default d_block and seq_chunk
@@ -67,15 +77,34 @@ SSD_ELEMS = 1 << 28    # float32 [n, T, T, H] elements of one SSD pass (1 GiB)
 
 
 def _causal_conv(x, w, b):
-    """Depthwise causal conv.  x: [B,S,C]; w: [k,C]; b: [C]."""
+    """Depthwise causal conv.  x: [B,S,C]; w: [k,C]; b: [C].  Under the
+    sequence cut the k - 1 positions before the rank's block come from
+    the rank before it (``fsdp.halo``)."""
     k = w.shape[0]
-    S = x.shape[1]
-    out = torch.zeros(x.shape, dtype=F32, device=x.device)
+    B, S, C = x.shape
+    left = fsdp.halo(x, k - 1)
+    if left is None:
+        left = x.new_zeros((B, k - 1, C))
+    x = torch.cat([left, x], dim=1)
+    out = torch.zeros((B, S, C), dtype=F32, device=x.device)
     for j in range(k):
-        shift = k - 1 - j
-        xs = F.pad(x, (0, 0, shift, 0))[:, :S]
-        out += xs.float() * w[j].float()
+        out += x[:, j:j + S].float() * w[j].float()
     return (out + b.float()).to(x.dtype)
+
+
+def _block_carry(decay, end, first):
+    """The state entering this rank's block of the sequence: ``first``
+    (a zero state) with no sequence cut; else the block's end state from
+    ``first`` (``end(c, h)``: the state after chunk c from h) and its
+    total decay (the product of ``decay[:, c]``, each chunk's), combined
+    with the lower ranks' (``fsdp.carry_in``)."""
+    if current_seq() is None:
+        return first
+    e, a = first, None
+    for c in range(decay.shape[1]):
+        e = end(c, e)
+        a = decay[:, c] if a is None else a * decay[:, c]
+    return fsdp.carry_in(a, e)
 
 
 def _conv_step(conv_state, x_t, w, b):
@@ -171,11 +200,16 @@ def _finish(p, y, x, z, u):
 
 
 def mamba1_apply(cfg, p, u):
-    """u: [B,S,D] -> [B,S,D] (full-sequence / prefill path)."""
+    """u: [B,S,D] -> [B,S,D] (full-sequence / prefill path).  Under the
+    sequence cut (``ssm_impl="jnp"``) each rank scans its block from a
+    zero state, and the state entering it comes from the lower ranks'
+    (total decay, end state) pairs."""
     B, S, D = u.shape
     N = cfg.ssm_state
     di, R = mamba1_dims(cfg)
-    _check_shapes(cfg, S, di)
+    g = current_seq()
+    S_all = S if g is None else S * g.world
+    _check_shapes(cfg, S_all, di)
     cut = tp.cut(p["in_x"]) is not None
     if cut:
         u = tp.copy(u)
@@ -199,7 +233,7 @@ def mamba1_apply(cfg, p, u):
         y = (x.float() * (1.0 + dt) + B_ssm.sum(-1, keepdim=True)
              + C_ssm.sum(-1, keepdim=True))
         return _finish(p, y, x, z, u)
-    T = min(cfg.ssm_chunk, S)
+    T = fsdp.local_chunk(cfg.ssm_chunk, S_all, S)
     nchunk = S // T
     a = torch.exp(dt[..., None] * A)                                  # [B,S,di,N]
     b = (dt * x.float())[..., None] * B_ssm.float()[:, :, None, :]
@@ -208,7 +242,10 @@ def mamba1_apply(cfg, p, u):
                                  b.to(sd).reshape(B, nchunk, T, di, N))
     del a, b
     C_c = C_ssm.to(sd).reshape(B, nchunk, T, N)
-    h = torch.zeros((B, di, N), dtype=F32, device=u.device)
+    h = _block_carry(
+        a_cum[:, :, -1].float(),
+        lambda c, e: (a_cum[:, c, -1] * e.to(sd) + b_scan[:, c, -1]).float(),
+        torch.zeros((B, di, N), dtype=F32, device=u.device))
     h_in = []
     for c in range(nchunk):
         h_in.append(h)
@@ -302,10 +339,15 @@ def _ssd_local(x, Bm, Cm, a_log, dt):
     G, N = Bm.shape[3], Bm.shape[4]
     hg = H // G
     cum = torch.cumsum(a_log, dim=2)                         # [B,n,T,H]
-    # intra-chunk: L[t,s] = exp(cum_t - cum_s), t >= s
+    # intra-chunk: L[t,s] = exp(cum_t - cum_s), t >= s.  JAX's
+    # where(tril, exp(Ldiff), 0) overflows above the diagonal where a
+    # chunk's log decays sum past float32's exp range (zamba2 at full
+    # width), and its gradient there is 0 * inf = NaN; the exp of the
+    # masked difference gives the same values, and JAX's gradient
+    # wherever JAX's is finite
     Ldiff = cum[:, :, :, None, :] - cum[:, :, None, :, :]    # [B,n,T,S,H]
     tril = torch.ones((T, T), dtype=torch.bool, device=x.device).tril()
-    L = torch.where(tril[:, :, None], torch.exp(Ldiff), 0.0)
+    L = torch.exp(torch.where(tril[:, :, None], Ldiff, -torch.inf))
     del Ldiff
     CB = torch.einsum("bctgn,bcsgn->bctsg", Cm.float(), Bm.float())
     # head h = g * hg + j takes group g's CB
@@ -397,14 +439,21 @@ def _gated_norm(p, y, dtype, eps, local):
 
 
 def mamba2_apply(cfg, p, u):
-    """u: [B,S,D] -> [B,S,D] (full-sequence / prefill path)."""
+    """u: [B,S,D] -> [B,S,D] (full-sequence / prefill path).  Under the
+    sequence cut each rank runs its block's chunks (JAX's chunk where it
+    divides the block), the carry entering its first chunk from the
+    lower ranks'."""
     B, S, D = u.shape
     di, H, G, N = mamba2_dims(cfg)
     P = cfg.ssm_head_dim
-    T = min(cfg.ssm_chunk, S)
-    if S % T:
-        raise ValueError(f"mamba2_apply: S={S} is not a multiple of the SSD "
-                         f"chunk {T} (the JAX package's reshape fails too)")
+    g = current_seq()
+    S_all = S if g is None else S * g.world
+    T = min(cfg.ssm_chunk, S_all)
+    if S_all % T:
+        raise ValueError(f"mamba2_apply: S={S_all} is not a multiple of the "
+                         f"SSD chunk {T} (the JAX package's reshape fails "
+                         f"too)")
+    T = fsdp.local_chunk(cfg.ssm_chunk, S_all, S)
     nchunk = S // T
     local = _mamba2_local(cfg, p)
     if local is None and tp.cut(p["in_x"]) is not None:
@@ -449,7 +498,10 @@ def mamba2_apply(cfg, p, u):
             xc[:, a:b], bc[:, a:b], cc[:, a:b], ac[:, a:b], dc[:, a:b])
     # the carry: the state entering each chunk, h_out = exp(cum_T) h_in + dh
     h_in = torch.empty((B, nchunk, H, P, N), dtype=F32, device=u.device)
-    h = torch.zeros((B, H, P, N), dtype=F32, device=u.device)
+    h = _block_carry(
+        decay[..., None, None],
+        lambda c, e: decay[:, c, :, None, None] * e + dh[:, c],
+        torch.zeros((B, H, P, N), dtype=F32, device=u.device))
     for c in range(nchunk):
         h_in[:, c] = h
         h = decay[:, c, :, None, None] * h + dh[:, c]

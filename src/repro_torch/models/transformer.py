@@ -30,9 +30,19 @@ built whole and cut to its rank's shard (``Model.cut_to``:
 (``sharding/tp.py``) while ``sharding/context.use_dp`` holds the model
 group.  ``init_cache`` with ``ranks`` gives the rank's rows and its cut
 of each layer's cache.
+
+Under FSDP (``cfg.fsdp`` over a data axis of more than one rank) the cut
+also keeps only each parameter's data slice (``sharding/fsdp.py``), and a
+layer gathers its block's parameters whole inside the checkpointed
+function: the recompute gathers them again, in one order on every rank,
+and the whole weights are not saved for the backward.  The weight-tied
+shared block is gathered at each call, so its gradient sums over every
+call.  Under the sequence cut (``current_seq()``) each rank runs its
+block of the sequence, with the global positions.
 """
 from __future__ import annotations
 
+import functools
 from typing import Optional
 
 import torch
@@ -48,6 +58,7 @@ from repro_torch.models.layers import (
     embed_init, embed_lookup, lm_head_init, logits_from_hidden, mlp_apply,
     mlp_init, rmsnorm, rmsnorm_init,
 )
+from repro_torch.sharding import fsdp
 
 F32 = torch.float32
 MIXERS = ("attn", "local", "mla", "mamba1", "mamba2", "mamba2+shared")
@@ -243,6 +254,7 @@ class Model(nn.Module):
                        if cfg.shared_attn_every else None)
         self.layers = nn.ModuleList(
             [_block(cfg, spec, generator, dev) for spec in specs])
+        self.model_group = self.data_group = None
 
     @property
     def device(self) -> torch.device:
@@ -250,12 +262,24 @@ class Model(nn.Module):
 
     def cut_to(self, ranks) -> list:
         """Cut the weights in place to ``ranks``' model index's slices
-        (``sharding/partition.cut_model``); returns each leaf's cut dim
-        in ``convert.param_tree`` order (None: whole)."""
+        (``sharding/partition.cut_model``) and, under ``cfg.fsdp`` over a
+        data axis of more than one rank, to their data slices
+        (``sharding/fsdp.plan``), freeing the whole; returns each leaf's
+        model cut dim in ``convert.param_tree`` order (None: whole)."""
+        from repro_torch.convert import param_tree
+        from repro_torch.pytree import leaves
         from repro_torch.sharding.partition import cut_model
         self.model_dims = cut_model(self, self.cfg, ranks.mesh,
                                     ranks.model.rank)
         self.model_group = ranks.model
+        data = getattr(ranks, "data", None)
+        if self.cfg.fsdp and data is not None and data.world > 1:
+            tree = param_tree(self, self.cfg)
+            _, _, views, owners = fsdp.plan(self.cfg, tree, data.world,
+                                            data.rank, ranks.model.world,
+                                            self.model_dims)
+            fsdp.cut(leaves(tree), views, owners)
+            self.data_group = data
         return self.model_dims
 
     def forward(self, inputs):
@@ -267,37 +291,46 @@ def init_params(cfg: ModelConfig, generator=None, *, device=None) -> Model:
     return Model(cfg, device=device, generator=generator)
 
 
-def _frontend(cfg, model, inputs):
+def _frontend(cfg, model, inputs, table=None):
     if cfg.frontend == "token":
         key = "tokens" if "tokens" in inputs else "token"
-        return embed_lookup(model.embed, inputs[key])
+        return embed_lookup(fsdp.whole(model.embed) if table is None
+                            else table, inputs[key])
     return inputs["embeds"]
 
 
 def _groups(model):
-    """The model group of a cut model for a forward the caller has not
-    put under ``use_dp`` (a decode or a prefill; the train step sets it
-    for the loss and its gradient)."""
+    """The model group of a cut model, and the data group its parameters
+    are cut over, for a forward the caller has not put under ``use_dp``
+    (a decode, a prefill or the logits; the train step sets them for the
+    loss and its gradient)."""
     import contextlib
 
-    from repro_torch.sharding.context import (current_dp, current_model,
+    from repro_torch.sharding.context import (current_dp, current_fsdp,
+                                              current_model, current_seq,
                                               use_dp)
     g = getattr(model, "model_group", None)
-    if g is None or current_model() is not None:
+    d = getattr(model, "data_group", None)
+    if ((g is None or current_model() is not None)
+            and (d is None or current_fsdp() is not None)):
         return contextlib.nullcontext()
-    return use_dp(current_dp(), g)
+    return use_dp(current_dp(), current_model() or g,
+                  fsdp=current_fsdp() or d, seq=current_seq() is not None)
 
 
-def apply_model(cfg: ModelConfig, model: Model, inputs):
-    """Train/prefill forward.  Returns (hidden [B,S,D], aux_loss)."""
+def apply_model(cfg: ModelConfig, model: Model, inputs, table=None):
+    """Train/prefill forward.  Returns (hidden [B,S,D], aux_loss).
+    ``table``: the embedding table gathered whole (the loss gathers a
+    tied table once for the embedding and the head)."""
     with _groups(model):
-        return _apply(cfg, model, inputs)
+        return _apply(cfg, model, inputs, table)
 
 
-def _apply(cfg, model, inputs):
-    x = _frontend(cfg, model, inputs)
+def _apply(cfg, model, inputs, table=None):
+    x = _frontend(cfg, model, inputs, table)
     B, S, _ = x.shape
-    positions = torch.arange(S, device=x.device).expand(B, S)
+    positions = (torch.arange(S, device=x.device)
+                 + fsdp.seq_offset(S)).expand(B, S)
     aux_total = torch.zeros((), dtype=F32, device=x.device)
     for block in model.layers:
         x, aux_total = layer_step(cfg, block, x, positions, model.shared,
@@ -306,22 +339,33 @@ def _apply(cfg, model, inputs):
     return x, aux_total
 
 
+def _run_block(block, cfg, x, positions, shared):
+    """The block, its parameters cut over data gathered whole for the
+    call, and the shared block's at each of its calls."""
+    if shared is not None:
+        shared = functools.partial(fsdp.call, shared)
+    return fsdp.call(block, cfg, x, positions, shared)
+
+
 def layer_step(cfg, block, x, positions, shared, aux_total):
     """One layer of ``apply_model``: the block (checkpointed under
-    autograd with ``cfg.remat == "unit"``), its MoE loss added to
-    ``aux_total``.  Returns (x, aux_total)."""
+    autograd with ``cfg.remat == "unit"``, the FSDP gathers inside),
+    its MoE loss added to ``aux_total``.  Returns (x, aux_total)."""
     if cfg.remat == "unit" and torch.is_grad_enabled():
-        x, aux = checkpoint(block, cfg, x, positions, shared,
+        x, aux = checkpoint(_run_block, block, cfg, x, positions, shared,
                             use_reentrant=False)
     else:
-        x, aux = block(cfg, x, positions, shared)
+        x, aux = _run_block(block, cfg, x, positions, shared)
     if aux is not None:                      # the MoE layers' losses
         aux_total = aux_total + aux
     return x, aux_total
 
 
 def hidden_to_logits(cfg, model, hidden):
-    return logits_from_hidden(cfg, model, hidden)
+    """hidden [B, T, D] -> float32 logits [B, T, V], over the groups of
+    a cut model (``logits_from_hidden``)."""
+    with _groups(model):
+        return logits_from_hidden(cfg, model, hidden)
 
 
 def _block_cache_init(cfg, spec, batch, seq_len, dev, r=0, m=1,
@@ -375,7 +419,11 @@ def init_cache(cfg: ModelConfig, batch: int, seq_len: int, *, device=None,
 @torch.no_grad()
 def decode_step(cfg: ModelConfig, model: Model, cache, inputs):
     """One decode step.  inputs: {tokens [B,1] | embeds [B,1,D], pos [B]}.
-    Returns (logits [B,V] float32, new cache)."""
+    Returns (logits [B,V] float32, new cache).  On a model cut over data
+    (FSDP) each layer's parameters are gathered for its call; where the
+    caller has split the batch's rows over the data group, it puts the
+    call under ``use_dp(ranks.data)``, so that the MoE plans over the
+    global tokens, as JAX's does."""
     with _groups(model):
         return _decode(cfg, model, cache, inputs)
 
@@ -384,9 +432,11 @@ def _decode(cfg, model, cache, inputs):
     x = _frontend(cfg, model, inputs)
     pos = inputs["pos"]
     new_cache = []
-    for block, c in zip(model.layers, cache):
-        x, c = block.decode(cfg, x, pos, c, model.shared)
-        new_cache.append(c)
+    with fsdp.gathered(model.shared):
+        for block, c in zip(model.layers, cache):
+            with fsdp.gathered(block):
+                x, c = block.decode(cfg, x, pos, c, model.shared)
+            new_cache.append(c)
     x = rmsnorm(model.final_norm, x, cfg.norm_eps)
     return logits_from_hidden(cfg, model, x)[:, 0], new_cache
 

@@ -10,11 +10,12 @@ the bias corrections are float32 powers of the int32 step count.
 
 A tree is nested dicts, lists and tuples of tensors (``pytree``); the
 leaves go in the JAX package's tree order, and the global norm sums them
-in that order.  The update runs leaf by leaf, so its float32 temporaries
-are one leaf's size.  Where the JAX function returns new arrays, this one
-writes each parameter, m and v in place (a tensor is mutable, and the
-model's parameters are the tensors to update): every leaf's new value is
-computed from the old ones as JAX computes it, then written over them.
+in that order.  The update runs leaf by leaf, a large leaf in blocks of
+rows, so its float32 temporaries are about LEAF_ELEMS elements.  Where
+the JAX function returns new arrays, this one writes each parameter, m
+and v in place (a tensor is mutable, and the model's parameters are the
+tensors to update): every leaf's new value is computed from the old ones
+as JAX computes it, then written over them.
 
 ZeRO-1 over ranks (``Zero1``, as ``cfg.zero1`` asks): each rank holds
 and updates only its slice of m and v and of the parameters, then the
@@ -41,14 +42,23 @@ the vocab), where the port's rank holds the data slice of its own
 vocab rows; a leaf whose model slice the data axis does not divide
 stays whole.  The global norm counts a cut leaf once, as the sum over model
 of its slices' sums of squares, and a whole leaf once.
+
+Under FSDP (``cfg.fsdp``, ``sharding/fsdp.py``) the parameters hold the
+same slices as m and v (``opt_pspecs`` equals ``param_pspecs`` there):
+the update writes each parameter's slice in place, and no gather
+follows; a gradient arrives as its slice, summed over data, and the
+global norm sums a sliced leaf's squares over data before it sums over
+model.
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.pytree import leaves, tree_map
+from repro_torch.sharding.fsdp import WHOLE, plan
 
 F32 = torch.float32
+LEAF_ELEMS = 1 << 26        # elements of one leaf_update's float32 temporaries
 
 
 def adamw_init(params) -> dict:
@@ -61,13 +71,18 @@ def adamw_init(params) -> dict:
             "step": torch.zeros((), dtype=torch.int32, device=dev)}
 
 
-def global_norm(tree, model=None, dims=None):
+def global_norm(tree, model=None, dims=None, data=None, sliced=None):
     """sqrt of the float32 sum, over the leaves in tree order, of each
-    leaf's float32 sum of squares; over the model group ``model`` a leaf
-    cut over it (``dims``) counts the sum of its slices' sums (one
-    all-reduce)."""
+    leaf's float32 sum of squares; over the data group ``data`` a leaf
+    cut over it (``sliced``, FSDP) counts the sum of its slices' sums,
+    and then over the model group ``model`` a leaf cut over it
+    (``dims``) the sum of its slices' sums (one all-reduce each)."""
     parts = torch.stack([torch.sum(torch.square(x.float()))
                          for x in leaves(tree)])
+    if data is not None and data.world > 1:
+        cut = torch.tensor(sliced, device=parts.device)
+        whole = data.sum_(torch.where(cut, parts, 0.0))
+        parts = torch.where(cut, whole, parts)
     if model is not None and model.world > 1:
         cut = torch.tensor([d is not None for d in dims],
                            device=parts.device)
@@ -91,11 +106,12 @@ def adamw_update(params, grads, state, *, lr=3e-4, b1=0.9, b2=0.95,
     return params, {"m": state["m"], "v": state["v"], "step": step}, gnorm
 
 
-def _step_scalars(state, grads, b1, b2, clip_norm, model=None, dims=None):
+def _step_scalars(state, grads, b1, b2, clip_norm, model=None, dims=None,
+                  data=None, sliced=None):
     """(the new step count, the gradients' global norm, the clip scale,
     the two bias corrections), float32 scalars but the int32 step."""
     step = state["step"] + 1
-    gnorm = global_norm(grads, model, dims)
+    gnorm = global_norm(grads, model, dims, data, sliced)
     one = torch.ones((), dtype=F32, device=gnorm.device)
     scale = torch.minimum(one, (one * clip_norm)
                           / torch.maximum(gnorm, one * 1e-9))
@@ -110,7 +126,16 @@ def leaf_update(p, g, m, v, scale, bc1, bc2, *, lr=3e-4, b1=0.9, b2=0.95,
                 eps=1e-8, weight_decay=0.1):
     """``adamw_update``'s step of one leaf, in place: the clip ``scale``
     and the bias corrections ``bc1``, ``bc2`` are the step's float32
-    scalars."""
+    scalars.  A leaf of more than LEAF_ELEMS elements goes in blocks of
+    rows, so that its float32 temporaries stay that size (the step is
+    elementwise: the same values)."""
+    rows = max(1, LEAF_ELEMS // max(1, p[:1].numel()))
+    if p.numel() > LEAF_ELEMS and p.shape[0] > rows:
+        for i in range(0, p.shape[0], rows):
+            leaf_update(p[i:i + rows], g[i:i + rows], m[i:i + rows],
+                        v[i:i + rows], scale, bc1, bc2, lr=lr, b1=b1,
+                        b2=b2, eps=eps, weight_decay=weight_decay)
+        return
     g = g.to(F32) * scale
     m_new = b1 * m + (1 - b1) * g
     v_new = b2 * v + (1 - b2) * g * g
@@ -126,86 +151,42 @@ def leaf_update(p, g, m, v, scale, bc1, bc2, *, lr=3e-4, b1=0.9, b2=0.95,
 # ---------------------------------------------------------------------------
 # ZeRO-1 over ranks
 # ---------------------------------------------------------------------------
-WHOLE = ()                  # a view: the whole leaf
-
-
 def _narrow(t, view):
     return t if view == WHOLE else t.narrow(*view)
 
 
-def _data_dim(spec):
-    """The dim a spec puts the data axis on, or None."""
-    for i, e in enumerate(spec):
-        if e == "data" or (isinstance(e, tuple) and "data" in e):
-            return i
-    return None
-
-
 class Zero1:
     """The ZeRO-1 plan of ``params`` (``convert.param_tree``'s layout)
-    over ``dp``'s ranks.  For each JAX leaf (a stack of layers counts as
+    over ``dp``'s ranks: ``sharding/fsdp.plan``, the one plan FSDP cuts
+    the parameters by.  For each JAX leaf (a stack of layers counts as
     one), ``shards`` holds (its first port leaf, its port leaves, whether
     it is a stack, the data dim of its stacked shape or None); for each
     port leaf, ``views`` holds this rank's slice: ``WHOLE``, (dim, start,
     size), or None where the layer is another rank's.  The state is
-    {"m": [a float32 slice or None a port leaf], "v": [...], "step"}."""
+    {"m": [a float32 slice or None a port leaf], "v": [...], "step"}.
+    With ``fsdp`` the parameters themselves hold their slices
+    (``Model.cut_to``): the update writes them, and nothing is gathered
+    after it."""
 
-    def __init__(self, cfg, params, dp, model=None, dims=None):
-        from repro_torch.convert import _is_stack, stack_like
-        from repro_torch.pytree import unflatten
-        from repro_torch.sharding.partition import opt_pspecs
-
-        self.dp, self.model = dp, model
-        W, r = dp.world, dp.rank
+    def __init__(self, cfg, params, dp, model=None, dims=None, fsdp=False):
+        self.dp, self.model, self.fsdp = dp, model, fsdp
         m = 1 if model is None else model.world
-        flat = leaves(params)
-        self.dims = dims if dims is not None else [None] * len(flat)
-        whole = unflatten(params, [
-            torch.empty(tuple(n * (m if i == d else 1)
-                              for i, n in enumerate(t.shape)),
-                        dtype=t.dtype, device="meta")
-            for t, d in zip(flat, self.dims)])
-        mesh = {"data": W, "model": m}
-        self.whole_like = stack_like(whole)   # JAX's shapes, meta tensors
-        specs = opt_pspecs(cfg, {"m": self.whole_like}, mesh)["m"]
-        self.shards, self.views = [], []
+        self.dims = (dims if dims is not None
+                     else [None] * len(leaves(params)))
+        self.whole_like, self.shards, self.views, self.owners = plan(
+            cfg, params, dp.world, dp.rank, m, self.dims)
 
-        def walk(p, s):
-            if _is_stack(p) or torch.is_tensor(p):
-                ts = p if _is_stack(p) else [p]
-                d = _data_dim(s)
-                if d is not None and not (_is_stack(p) and d == 0):
-                    e = d - 1 if _is_stack(p) else d
-                    if ts[0].shape[e] % W:      # the model slice does
-                        d = None                # not divide: kept whole
-                self.shards.append((len(self.views), len(ts), _is_stack(p),
-                                    d))
-                for j, t in enumerate(ts):
-                    if d is None:
-                        self.views.append(WHOLE)
-                    elif _is_stack(p) and d == 0:
-                        per = len(ts) // W
-                        self.views.append(WHOLE if j // per == r else None)
-                    else:
-                        e = d - 1 if _is_stack(p) else d
-                        size = t.shape[e] // W
-                        self.views.append((e, r * size, size))
-                return
-            if isinstance(p, dict):
-                for k in sorted(p):
-                    walk(p[k], s[k])
-            else:
-                for x, sx in zip(p, s):
-                    walk(x, sx)
-
-        walk(params, specs)
+    def _mine(self, t, view):
+        """This rank's slice of a parameter or gradient leaf ``t``: the
+        leaf itself under FSDP (it holds its slice)."""
+        return t if self.fsdp else _narrow(t, view)
 
     def init(self, params) -> dict:
         """Zeros of this rank's slices; step 0."""
         def zeros(p, view):
             if view is None:
                 return None
-            return torch.zeros(_narrow(p, view).shape, dtype=F32,
+            return torch.zeros(self._mine(p, view).shape, dtype=F32,
                                device=p.device)
 
         flat = leaves(params)
@@ -224,16 +205,21 @@ class Zero1:
     def update(self, params, grads, state, *, lr=3e-4, b1=0.9, b2=0.95,
                eps=1e-8, weight_decay=0.1, clip_norm=1.0):
         """``adamw_update`` on this rank's slices, then the parameters'
-        slices all-gathered.  Returns (the new state, the global norm)."""
+        slices all-gathered (under FSDP each rank keeps its slices).
+        Returns (the new state, the global norm)."""
         step, gnorm, scale, bc1, bc2 = _step_scalars(
-            state, grads, b1, b2, clip_norm, self.model, self.dims)
+            state, grads, b1, b2, clip_norm, self.model, self.dims,
+            self.dp if self.fsdp else None,
+            [v != WHOLE or o is not None
+             for v, o in zip(self.views, self.owners)])
         for p, g, m, v, view in zip(leaves(params), leaves(grads),
                                     state["m"], state["v"], self.views):
             if view is not None:
-                leaf_update(_narrow(p, view), _narrow(g, view), m, v, scale,
-                            bc1, bc2, lr=lr, b1=b1, b2=b2, eps=eps,
+                leaf_update(self._mine(p, view), self._mine(g, view), m, v,
+                            scale, bc1, bc2, lr=lr, b1=b1, b2=b2, eps=eps,
                             weight_decay=weight_decay)
-        self._gather_params([p.detach() for p in leaves(params)])
+        if not self.fsdp:
+            self._gather_params([p.detach() for p in leaves(params)])
         return {"m": state["m"], "v": state["v"], "step": step}, gnorm
 
     def _gather_params(self, flat):
@@ -260,9 +246,10 @@ class Zero1:
                     t.narrow(e, q * size, size).copy_(bufs[q])
 
     def _gather_to_root(self, k, slices, to):
-        """JAX leaf ``k``'s (``shards``' order) port leaves whole, float32
-        on ``to``, from the ranks' ``slices`` of them: a list on rank 0,
-        None on the others.  Each slice goes to rank 0 only."""
+        """JAX leaf ``k``'s (``shards``' order) port leaves whole on
+        ``to``, from the ranks' ``slices`` of them (None: another rank's
+        layer): a list on rank 0, None on the others.  Each slice goes to
+        rank 0 only."""
         dp, W = self.dp, self.dp.world
         first, n, stacked, d = self.shards[k]
         mine = slices[first:first + n]
@@ -284,41 +271,60 @@ class Zero1:
         return out if root else None
 
     @torch.no_grad()
+    def gather_tree(self, slices, to="cpu") -> list | None:
+        """The whole port leaves (``param_tree`` order) on rank 0 from
+        every rank's ``slices`` of them (this plan's views; None: another
+        rank's layer), on ``to``; None on the other ranks: a collective,
+        leaf by leaf, over data, then, on data index 0, over model on the
+        device.  Every tensor is a copy of its own."""
+        from repro_torch.sharding.partition import gather_leaves
+        over_model = self.model is not None and self.model.world > 1
+        at = (next(x.device for x in slices if x is not None)
+              if over_model else to)
+        got = [self._gather_to_root(k, slices, at)
+               for k in range(len(self.shards))]
+        flat = None if got[0] is None else [x for g in got for x in g]
+        if over_model and flat is not None:
+            flat = gather_leaves(flat, self.dims, self.model)
+            flat = None if flat is None else [x.to(to) for x in flat]
+        return flat
+
+    @torch.no_grad()
     def gather_state(self, params, state, to="cpu"):
         """The whole state on rank 0, in ``param_tree``'s structure
         ({"m", "v", "step"}, float32 tensors on ``to``), None on the
-        other ranks: a collective, leaf by leaf (over data, then, on
-        data index 0, over model on the device); no rank but 0 holds
-        more than its slices.  Every tensor is a copy of its own."""
+        other ranks (``gather_tree``): no rank but 0 holds more than its
+        slices."""
         from repro_torch.pytree import unflatten
-        from repro_torch.sharding.partition import gather_leaves
-        over_model = self.model is not None and self.model.world > 1
-        at = state["step"].device if over_model else to
         whole = {}
         for key in ("m", "v"):
-            got = [self._gather_to_root(k, state[key], at)
-                   for k in range(len(self.shards))]
-            flat = None if got[0] is None else [x for g in got for x in g]
-            if over_model and flat is not None:
-                flat = gather_leaves(flat, self.dims, self.model)
-                flat = None if flat is None else [x.to(to) for x in flat]
+            flat = self.gather_tree(state[key], to)
             whole[key] = None if flat is None else unflatten(params, flat)
         if whole["m"] is None:
             return None
         return dict(whole, step=state["step"].to(to, copy=True))
 
-    @torch.no_grad()
-    def cut(self, k, full, device) -> list:
+    def slices(self, k, full, data: bool = True) -> list:
         """This rank's slices of JAX leaf ``k`` (``shards``' order) from
-        ``full``, its whole stacked tensor on any device: float32 tensors
-        on ``device``, None for another rank's layers."""
+        ``full``, its whole stacked tensor: views of it, one a port leaf,
+        each its model slice and, with ``data``, its data slice of that
+        (None for another rank's layers)."""
         first, n, stacked, _ = self.shards[k]
         parts = list(full.unbind(0)) if stacked else [full]
         parts = [self.model_slice(x, d) for x, d in
                  zip(parts, self.dims[first:first + n])]
-        return [None if w is None else
-                _narrow(x, w).to(device, F32).contiguous().clone()
+        if not data:
+            return parts
+        return [None if w is None else _narrow(x, w)
                 for x, w in zip(parts, self.views[first:first + n])]
+
+    @torch.no_grad()
+    def cut(self, k, full, device) -> list:
+        """``slices`` of JAX leaf ``k`` as float32 tensors of their own on
+        ``device`` (None for another rank's layers): m's or v's."""
+        return [None if x is None else
+                x.to(device, F32).contiguous().clone()
+                for x in self.slices(k, full)]
 
     def model_slice(self, t, d):
         """This rank's model slice of a whole port leaf ``t`` cut on
@@ -327,4 +333,3 @@ class Zero1:
             return t
         size = t.shape[d] // self.model.world
         return t.narrow(d, self.model.rank * size, size)
-

@@ -11,8 +11,8 @@ import functools
 
 import torch
 
-from repro_torch.models.layers import logits_from_hidden
-from repro_torch.models.transformer import apply_model, decode_step, init_cache
+from repro_torch.models.transformer import (apply_model, decode_step,
+                                            hidden_to_logits, init_cache)
 
 
 @torch.no_grad()
@@ -22,7 +22,7 @@ def prefill(cfg, model, inputs):
     the fused kernel (``kernels/mamba_scan.py``)."""
     hidden, _ = apply_model(cfg, model, inputs)
     last = hidden[:, -1:]
-    return logits_from_hidden(cfg, model, last)[:, 0]
+    return hidden_to_logits(cfg, model, last)[:, 0]
 
 
 def serve_step(cfg, model, cache, inputs):

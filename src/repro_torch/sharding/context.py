@@ -2,10 +2,16 @@
 the JAX package's GSPMD partitioning and of its ``sharding/context``
 mesh):
 
-    with use_dp(dp, model):   # train/step.py's value_and_grad
-        ...                   # current_dp(): the data group (models/moe.py)
+    with use_dp(dp, model, fsdp=g, seq=True):   # train/step.py
+        ...                   # current_dp(): the data group the loss is
+                              # split over (models/moe.py)
                               # current_model(): the model group (the
                               # tensor-parallel layers)
+                              # current_fsdp(): the data group the
+                              # parameters are cut over (sharding/fsdp.py)
+                              # current_seq(): with seq, the data group,
+                              # over which the sequence is cut then
+                              # (attention, the SSM blocks)
     with use_mesh(ranks):     # JAX's use_mesh: get_mesh() is ranks
         ...                   # moe_impl="smap" and decode_cache_hint
 
@@ -29,17 +35,19 @@ from __future__ import annotations
 
 import contextlib
 
-_GROUPS = (None, None)          # (data, model)
+_GROUPS = (None, None, None, False)         # (data, model, fsdp, seq)
 _MESH = None
 
 
 @contextlib.contextmanager
-def use_dp(dp, model=None):
-    """Make ``dp`` (the data group) and ``model`` (the model group) the
-    groups ``current_dp`` and ``current_model`` answer, on every thread,
-    inside the block."""
+def use_dp(dp, model=None, *, fsdp=None, seq=False):
+    """Make ``dp`` (the data group the loss is split over), ``model``
+    (the model group) and ``fsdp`` (the data group the parameters are
+    cut over) the groups ``current_dp``, ``current_model`` and
+    ``current_fsdp`` answer, on every thread, inside the block; with
+    ``seq`` the sequence is cut over ``dp`` (``current_seq``)."""
     global _GROUPS
-    prev, _GROUPS = _GROUPS, (dp, model)
+    prev, _GROUPS = _GROUPS, (dp, model, fsdp, seq)
     try:
         yield dp
     finally:
@@ -56,6 +64,19 @@ def current_model():
     process counts as none."""
     m = _GROUPS[1]
     return m if m is not None and m.world > 1 else None
+
+
+def current_fsdp():
+    """The data group the parameters are cut over, set by ``use_dp``, or
+    None."""
+    return _GROUPS[2]
+
+
+def current_seq():
+    """The data group the sequence is cut over (``use_dp``'s ``dp`` where
+    its ``seq`` is set), or None: each rank holds a contiguous block of
+    it, in rank order."""
+    return _GROUPS[0] if _GROUPS[3] else None
 
 
 @contextlib.contextmanager

@@ -10,12 +10,13 @@ parallelism).  Here a ``DP`` is one axis's group, and ``Ranks`` the mesh
 r // m and model index r % m, the device order of
 ``jax.make_mesh((d, m), ("data", "model"))``.  Its data group is the d
 ranks of one model index, its model group the m consecutive ranks of
-one data index.  FSDP (``cfg.fsdp``) over ranks is slice 10 of the port
-and raises.
+one data index.
 
     dp = DP(dist.group.WORLD, device)      # or DP.single(device)
     batch rows: dp.rows(global_batch)      # this rank's contiguous rows
+    dp.split(global_batch, seq_len)        # (rows, sequence slice or None)
     dp.sum_(t), dp.max_(t), dp.all_gather(t, dim), dp.gather(t),
+    dp.reduce_scatter(t, dim), dp.reduce_to(t, owner),
     dp.broadcast(t, src),
     dp.shift(t, by)                        # the ring: rank r -> r + by
     dp.agree(x, op)                        # a host decision, int64
@@ -23,10 +24,22 @@ and raises.
 ``rows`` is the split of JAX's ``batch_pspec`` plus
 ``make_array_from_callback``: W equal contiguous blocks where W divides
 the global batch; where it does not, ``batch_pspec`` shards nothing and
-every rank takes the whole batch (``shards`` says which).  ``DP.single``
-is one process and calls no collective.  The store's group layout (G
-groups over W ranks) is ``core/comm.py``'s; this module is the training
-path's only.
+every rank takes the whole batch (``shards`` says which).  At a global
+batch of 1 JAX's ``input_pspecs`` cuts the sequence over the data axis
+instead: ``split`` gives each rank the contiguous block [r S / W,
+(r + 1) S / W) of the sequence, and raises ValueError where W does not
+divide S, as ``make_array_from_callback`` does.  ``DP.single`` is one
+process and calls no collective.
+
+FSDP (``cfg.fsdp``, ``sharding/fsdp.py``) gathers a parameter's slices
+with ``all_gather`` and sums their gradients with ``reduce_scatter``; a
+layer held by one rank goes out by ``broadcast`` and its gradient comes
+back by ``reduce_to``.  gloo has no reduce-scatter, so there the first
+is one ``all_to_all_single`` and a sum in rank order on each receiver;
+``reduce_to`` is that on every backend (the one receiver sums).
+
+The store's group layout (G groups over W ranks) is ``core/comm.py``'s;
+this module is the training path's only.
 
 ``sharding/context.use_dp(dp)`` sets the group that the model's
 collectives read while the loss and its gradient are taken, as the JAX
@@ -41,10 +54,6 @@ from __future__ import annotations
 from collections import Counter
 
 import torch
-
-SLICE10 = ("is slice 10 of the port (FSDP: the parameters sharded over "
-           "the data axis; the sequence over data at batch 1); the JAX "
-           "package does this work, the port does not yet")
 
 class DP:
     """Rank, world, device and process group of one mesh axis (the data
@@ -96,6 +105,25 @@ class DP:
         n = global_batch // self.world
         return slice(self.rank * n, (self.rank + 1) * n)
 
+    def split(self, global_batch: int, seq_len: int) -> tuple:
+        """(this rank's rows, its block of the sequence or None): the
+        sequence is cut where JAX's ``input_pspecs`` cuts it over the
+        data axis (no batch split, a global batch of 1, a sequence
+        longer than 1).  Raises ValueError where W does not divide the
+        sequence there."""
+        rows = self.rows(global_batch)
+        if (self.world == 1 or self.shards(global_batch)
+                or global_batch != 1 or seq_len <= 1):
+            return rows, None
+        if seq_len % self.world:
+            raise ValueError(
+                f"the sequence of {seq_len} positions is cut over a data "
+                f"axis of {self.world} at batch 1, which does not divide "
+                f"it (the JAX package's make_array_from_callback raises "
+                f"too)")
+        n = seq_len // self.world
+        return rows, slice(self.rank * n, (self.rank + 1) * n)
+
     # -- collectives ----------------------------------------------------------
     def _reduce(self, t, op: str):
         if not self.distributed:
@@ -144,6 +172,60 @@ class DP:
                                group=self.group)
         return list(recv.view((W,) + tuple(t.shape)).unbind(0)) if root \
             else None
+
+    def _gloo(self) -> bool:
+        import torch.distributed as dist
+        return dist.get_backend(self.group) == "gloo"
+
+    def reduce_scatter(self, t, dim: int = 0):
+        """The ranks' ``t`` (one shape on every rank, ``dim`` a multiple
+        of W) summed, this rank's block along ``dim``: W equal
+        contiguous blocks in rank order.  On gloo one
+        ``all_to_all_single`` of the blocks and their sum in rank order;
+        on NCCL ``reduce_scatter_tensor``."""
+        if not self.distributed:
+            return t
+        import torch.distributed as dist
+        W = self.world
+        n = t.shape[dim] // W
+        send = t.movedim(dim, 0).contiguous()
+        self._count("reduce_scatter", send.numel() * send.element_size())
+        if not self._gloo():
+            out = torch.empty((n,) + send.shape[1:], dtype=t.dtype,
+                              device=t.device)
+            dist.reduce_scatter_tensor(out, send, group=self.group)
+            return out.movedim(0, dim)
+        recv = torch.empty_like(send)
+        dist.all_to_all_single(recv, send, group=self.group)
+        parts = recv.view((W, n) + send.shape[1:])
+        out = parts[0].clone()
+        for q in range(1, W):
+            out += parts[q]
+        return out.movedim(0, dim)
+
+    def reduce_to(self, t, owner: int):
+        """The ranks' ``t`` (one shape on every rank) summed on rank
+        ``owner``, in rank order; None on the other ranks.  One
+        ``all_to_all_single`` whose only receiver is the owner, which
+        gloo runs on CUDA tensors too."""
+        if not self.distributed:
+            return t
+        import torch.distributed as dist
+        send = t.contiguous().view(-1)
+        n, W, mine = send.numel(), self.world, self.rank == owner
+        recv = torch.empty(n * W if mine else 0, dtype=send.dtype,
+                           device=send.device)
+        self._count("reduce_to", n * send.element_size())
+        dist.all_to_all_single(recv, send, [n if mine else 0] * W,
+                               [n if q == owner else 0 for q in range(W)],
+                               group=self.group)
+        if not mine:
+            return None
+        parts = recv.view((W,) + tuple(t.shape))
+        out = parts[0].clone()
+        for q in range(1, W):
+            out += parts[q]
+        return out
 
     def all_gather_into(self, outs: list, t):
         """Rank r's ``t`` into ``outs[r]`` (tensors of ``t``'s shape and
@@ -277,12 +359,3 @@ def check_mesh(mesh: dict, world: int):
     if n != world:
         raise ValueError(f"mesh {mesh}: {n} devices on its axes, "
                          f"{world} ranks")
-
-
-def check_ranks(cfg, dp):
-    """Raise for what training over ``dp`` needs of slice 10: FSDP over
-    more than one rank."""
-    world = 1 if dp is None else dp.world
-    if world > 1 and cfg.fsdp:
-        raise NotImplementedError(
-            f"{cfg.name}: cfg.fsdp over {world} ranks {SLICE10}")

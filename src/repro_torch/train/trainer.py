@@ -37,6 +37,17 @@ model cut, and the checksum sums a cut leaf's slices over model.  A
 checkpoint is still one file in JAX's format: the ZeRO slices gathered
 over data and the model slices over model to rank 0; a restore cuts by
 the mesh it runs on, whatever mesh wrote the file.
+
+Under FSDP (``cfg.fsdp`` over a data axis of more than one rank) the cut
+also frees each parameter's whole for its data slice (``Model.cut_to``,
+after rank 0's broadcast), m and v are the same slices, and the step
+gathers the weights a layer at a time (``sharding/fsdp.py``).  A restore
+reads the file a leaf at a time and keeps only each rank's slices; the
+checkpoint gathers them over data, then over model, into one JAX-format
+file, and the checksum sums a sliced leaf over data.  At a global batch
+of 1 over a data axis of more than one rank the sequence is cut instead
+of the batch (``dp.split``): each rank takes its block of the sequence,
+and the step is split as a batch split is.
 """
 from __future__ import annotations
 
@@ -55,7 +66,8 @@ from repro_torch.data.pipeline import SyntheticLM, make_batch
 from repro_torch.models.transformer import Model
 from repro_torch.optim.adamw import Zero1, adamw_init
 from repro_torch.pytree import leaves, tree_map
-from repro_torch.train.dp import DP, Ranks, check_ranks
+from repro_torch.sharding import fsdp
+from repro_torch.train.dp import DP, Ranks
 from repro_torch.train.step import check_trainable, train_step
 
 
@@ -102,11 +114,11 @@ def train(cfg: ModelConfig, shape: ShapeSpec, *, steps: int, ckpt_dir=None,
     check_trainable(cfg)
     if dp is None or not dp.distributed:
         dp = DP.single(_resolve_device(device, "train"))
-    check_ranks(cfg, dp)
     ranks = Ranks(dp, mesh)
     dev = dp.device
     data, tpg = ranks.data, ranks.model
     B = shape.global_batch
+    rows, seq = data.split(B, shape.seq_len)
     ds = SyntheticLM(cfg.vocab_size, shape.seq_len, B, seed=seed,
                      embed_dim=cfg.d_model if cfg.frontend == "embed" else 0)
     model = Model(cfg, device=dev,
@@ -122,10 +134,11 @@ def train(cfg: ModelConfig, shape: ShapeSpec, *, steps: int, ckpt_dir=None,
     if dp.distributed:
         last = int(dp.agree(-1 if last is None else last, "min"))
         last = None if last < 0 else last
-        if last is not None:
-            restore_params(ckpt_dir, last, model, cfg)
         dims = model.cut_to(ranks)
-        zero = Zero1(cfg, param_tree(model, cfg), data, tpg, dims)
+        zero = Zero1(cfg, param_tree(model, cfg), data, tpg, dims,
+                     fsdp=model.data_group is not None)
+        if last is not None:
+            restore_params(ckpt_dir, last, model, cfg, zero)
         opt = (restore_opt(ckpt_dir, last, zero, dev) if last is not None
                else zero.init(param_tree(model, cfg)))
         check_replicas(model, cfg, dp)
@@ -151,11 +164,11 @@ def train(cfg: ModelConfig, shape: ShapeSpec, *, steps: int, ckpt_dir=None,
             dp.barrier()            # the checkpoint is durable on every rank
             raise RuntimeError(f"injected failure at step {step}")
         batch = make_batch(ds, step, device=dev, dtype=cfg.param_dtype,
-                           rows=data.rows(B))
-        split = data.distributed and data.shards(B)
+                           rows=rows, seq=seq)
+        split = data.distributed and (data.shards(B) or seq is not None)
         model, opt, metrics = train_step(cfg, model, opt, batch, lr=lr,
                                          dp=data if split else None,
-                                         zero=zero)
+                                         zero=zero, seq=seq is not None)
         if step % log_every == 0 or step == steps - 1:
             m = {k: float(v) for k, v in metrics.items()}
             m["step"] = step
@@ -180,11 +193,17 @@ def train(cfg: ModelConfig, shape: ShapeSpec, *, steps: int, ckpt_dir=None,
 
 def param_checksum(model: Model, cfg: ModelConfig):
     """Each parameter leaf's float64 sum and sum of squares: [2 n]; of a
-    model cut over the model axis, a cut leaf's sums summed over its
+    model cut over the data axis (FSDP), a sliced leaf's sums summed over
+    data, and over the model axis, a cut leaf's sums summed over its
     slices."""
-    sums = torch.stack([f(p.detach().double()) for p in
-                        leaves(param_tree(model, cfg))
+    flat = leaves(param_tree(model, cfg))
+    sums = torch.stack([f(p.detach().double()) for p in flat
                         for f in (torch.sum, lambda x: torch.sum(x * x))])
+    d = getattr(model, "data_group", None)
+    if d is not None and d.world > 1:
+        cut = torch.tensor([fsdp.marked(p) for p in flat for _ in range(2)],
+                           device=sums.device)
+        sums = torch.where(cut, d.sum_(torch.where(cut, sums, 0.0)), sums)
     g = getattr(model, "model_group", None)
     if g is None or g.world == 1:
         return sums
@@ -205,11 +224,19 @@ def check_replicas(model: Model, cfg: ModelConfig, dp):
 
 
 @torch.no_grad()
-def whole_params(model: Model, cfg: ModelConfig, ranks) -> list | None:
+def whole_params(model: Model, cfg: ModelConfig, ranks,
+                 zero: Zero1 | None = None) -> list | None:
     """The parameters' whole leaves (``param_tree`` order, detached) on
-    rank 0, None on the others: the model slices gathered over data
-    index 0's model group."""
+    rank 0, None on the others: under FSDP the data slices gathered to
+    data index 0 (``zero``'s plan, made here if None), then the model
+    slices over data index 0's model group."""
     flat = [p.detach() for p in leaves(param_tree(model, cfg))]
+    if getattr(model, "data_group", None) is not None:
+        if zero is None:
+            zero = Zero1(cfg, param_tree(model, cfg), ranks.data,
+                         ranks.model, model.model_dims, fsdp=True)
+        return zero.gather_tree([None if v is None else p for p, v in
+                                 zip(flat, zero.views)], flat[0].device)
     if ranks.model.world == 1:
         return flat if ranks.rank == 0 else None
     if ranks.data.rank != 0:
@@ -226,7 +253,7 @@ def rank_state(model: Model, cfg: ModelConfig, opt: dict, zero: Zero1,
     the parameters' model slices.  Every tensor is a copy of its own."""
     from repro_torch.pytree import unflatten
     whole = zero.gather_state(param_tree(model, cfg), opt)
-    flat = whole_params(model, cfg, ranks)
+    flat = whole_params(model, cfg, ranks, zero)
     if ranks.rank != 0:
         return None
     params = unflatten(param_tree(model, cfg), flat)
@@ -235,12 +262,20 @@ def rank_state(model: Model, cfg: ModelConfig, opt: dict, zero: Zero1,
             "opt": stack_tree(whole)}
 
 
-def restore_params(ckpt_dir, step: int, model: Model, cfg: ModelConfig):
-    """Load checkpoint ``step``'s parameters into ``model`` (whole)."""
-    params = param_tree(model, cfg)
-    load_stacked(params, restore_checkpoint(ckpt_dir, step,
-                                            {"params": stack_like(params)},
-                                            device=model.device)["params"])
+@torch.no_grad()
+def restore_params(ckpt_dir, step: int, model: Model, cfg: ModelConfig,
+                   zero: Zero1):
+    """Load checkpoint ``step``'s parameters into ``model``, cut by
+    ``zero``'s plan (``Model.cut_to``): the file is read a leaf at a
+    time, and each rank keeps its model slice of each leaf and, under
+    FSDP, its data slice of that."""
+    flat = leaves(param_tree(model, cfg))
+    for k, full in enumerate(read_leaves(ckpt_dir, step,
+                                         {"params": zero.whole_like})):
+        first = zero.shards[k][0]
+        for j, x in enumerate(zero.slices(k, full, data=zero.fsdp)):
+            if x is not None:
+                flat[first + j].copy_(x)
 
 
 def restore_opt(ckpt_dir, step: int, zero: Zero1, device) -> dict:

@@ -78,9 +78,9 @@ def run(cfg, d, dp, mesh=None, *, steps=T.STEPS, batch=T.BATCH, lr=T.LR,
 def train_cases(rank, world, device, root):
     """Over 4 ranks: every arch on (2 x 2) and (1 x 4), then in one
     process (rank 1) and on a group of one with the mesh (1 x 1) (rank
-    0); the refusals; the smap-in-train repair over 2 ranks on (2 x 1)
-    (ranks 0-1), while ranks 2-3 run the sort dispatch there; decode on
-    shards.  Returns {case: record} of this rank."""
+    0); FSDP over the 4 ranks (``fsdp_trains``); the smap-in-train
+    repair over 2 ranks on (2 x 1) (ranks 0-1), while ranks 2-3 run the
+    sort dispatch there; decode on shards.  Returns {case: record} of this rank."""
     import torch.distributed as dist
 
     from repro_torch.train.dp import DP
@@ -102,7 +102,7 @@ def train_cases(rank, world, device, root):
         elif rank == 1:
             out[(arch, "one")] = run(cfg, a / "one", None)
         dp4.barrier()
-    out["refusals"] = refusals(dp4)
+    out["fsdp"] = fsdp_trains(dp4)
     impl = "smap" if rank < 2 else "sort"
     out["repair"] = run(cfg_of(T.MOE_ARCH, moe_impl=impl),
                         root / "repair" / impl, dp2, {"data": 2, "model": 1})
@@ -244,20 +244,19 @@ def decode(dp, init):
     return {"logits": logits, "slots": slots}
 
 
-def refusals(dp):
-    """FSDP over ranks raises NotImplementedError naming slice 10 on every
-    rank before any collective; a mesh with a model axis builds."""
+def fsdp_trains(dp):
+    """FSDP over the ranks trains, as JAX's ``train`` does: tiny
+    mistral-nemo-12b with ``fsdp=True`` on (2 x 2), beside the same run
+    without it (the same global step); and the (2 x 2) mesh builds.
+    Returns (both runs' losses, each rank's coordinates and axis
+    sizes)."""
     from repro_torch.train.dp import Ranks
     from repro_torch.train.trainer import train
 
-    said = []
-    calls = dict(dp.stats["calls"])
-    try:
-        train(T.cfg_of("mistral-nemo-12b", fsdp=True), T.shape_of(),
-              steps=1, device="cpu", dp=dp)
-    except NotImplementedError as e:
-        said.append(str(e))
-    assert dict(dp.stats["calls"]) == calls, dp.stats
-    r = Ranks(dp, {"data": dp.world // 2, "model": 2})
-    said.append((r.coords, r.data.world, r.model.world))
-    return said
+    mesh = {"data": dp.world // 2, "model": 2}
+    losses = [[h["loss"] for h in train(
+        T.cfg_of("mistral-nemo-12b", fsdp=f), T.shape_of(), steps=2,
+        device="cpu", dp=dp, mesh=mesh, log_every=1)["history"]]
+        for f in (True, False)]
+    r = Ranks(dp, mesh)
+    return losses, (r.coords, r.data.world, r.model.world)

@@ -39,7 +39,7 @@ import _model_axis_ranks as M
 import _train_ranks as T
 from _train_parity import METRIC_TOL, PARAM_ATOL, PARAM_OUTLIERS
 from repro_torch.launch import ranks
-from repro_torch.train.dp import SLICE10, coords
+from repro_torch.train.dp import coords
 
 ROOT = Path(__file__).resolve().parents[1]
 TIMEOUT_S = 400
@@ -197,7 +197,7 @@ def runs(tmp_path_factory):
         _, err = jax_proc.communicate(timeout=TIMEOUT_S)
         assert jax_proc.returncode == 0, err[-4000:]
         return types.SimpleNamespace(port=port, mesh=mesh,
-                                     refusals=[x["refusals"] for x in port],
+                                     fsdp=[x["fsdp"] for x in port],
                                      jax=dict(np.load(root / "jax.npz")),
                                      root=root)
     finally:
@@ -444,13 +444,17 @@ def test_rank_coords_follow_jax_mesh_order(runs):
             assert tuple(np.argwhere(devs == r)[0]) == coords(r, m)
 
 
-def test_fsdp_raises_and_model_axis_builds(runs):
-    """cfg.fsdp over 4 ranks raises NotImplementedError naming slice 10 on
-    every rank before any collective; the (2 x 2) mesh builds: each rank
-    at (r // 2, r % 2), both axes of 2."""
-    for r, said in enumerate(runs.refusals):
-        assert SLICE10 in said[0] and "slice 10" in said[0], said
-        assert said[1] == ((r // 2, r % 2), 2, 2), said
+def test_fsdp_trains_and_model_axis_builds(runs):
+    """cfg.fsdp over 4 ranks on (2 x 2) trains, as JAX's train does: every
+    rank the same losses, within ONE_PROCESS_RTOL of the same run without
+    FSDP (the same global step); the (2 x 2) mesh builds: each rank at
+    (r // 2, r % 2), both axes of 2."""
+    for r, (losses, at) in enumerate(runs.fsdp):
+        assert losses == runs.fsdp[0][0], r
+        assert len(losses[0]) == 2 and np.isfinite(losses[0]).all()
+        np.testing.assert_allclose(losses[0], losses[1],
+                                   rtol=ONE_PROCESS_RTOL, atol=0)
+        assert at == ((r // 2, r % 2), 2, 2), at
 
 
 @pytest.mark.parametrize("arch", [

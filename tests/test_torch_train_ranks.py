@@ -43,7 +43,7 @@ import torch
 import _train_ranks as R
 from _train_parity import METRIC_TOL, PARAM_ATOL, PARAM_OUTLIERS
 from repro_torch.launch import ranks
-from repro_torch.train.dp import DP, SLICE10, check_mesh, check_ranks
+from repro_torch.train.dp import DP, check_mesh
 
 ROOT = Path(__file__).resolve().parents[1]
 TIMEOUT_S = 300
@@ -237,8 +237,9 @@ def runs(tmp_path_factory):
                            timeout_s=TIMEOUT_S, args=(str(root),))
         comp = ranks.spawn(R.compressed, R.COMP_RANKS, device="cpu",
                            timeout_s=TIMEOUT_S, args=(str(root / "comp.npz"),))
-        said = ranks.spawn(R.refusals, 2, device="cpu", timeout_s=TIMEOUT_S)
-        out = {"port": port, "comp": comp, "refusals": said, "root": root}
+        said = ranks.spawn(R.smap_and_fsdp, 2, device="cpu",
+                           timeout_s=TIMEOUT_S)
+        out = {"port": port, "comp": comp, "trains": said, "root": root}
         for W in (4, 2):
             out[f"jax{W}"] = {}
         for name, p in jax_procs.items():
@@ -551,27 +552,32 @@ def test_train_lm_example_over_two_ranks(runs):
         "step_*.npz")) == ["step_00000006.npz"]
 
 
-def test_slice9_work_raises_over_ranks(runs):
-    """Slice 9's work no longer raises: moe_impl='smap' trains over 2
-    ranks (every rank the same loss), and a mesh with a model axis builds
-    and is checked against the ranks.  cfg.fsdp over 2 ranks raises
-    NotImplementedError naming slice 10, on every rank, before any
-    collective."""
-    for said in runs.refusals:
+def test_smap_and_fsdp_train_over_ranks(runs):
+    """moe_impl='smap' trains over 2 ranks (every rank the same loss);
+    cfg.fsdp trains over them, as JAX's train does, every rank the same
+    losses, within ONE_PROCESS_RTOL of the same run without FSDP; a mesh
+    with a model axis builds and is checked against the ranks.  At
+    batch 1 the sequence is cut over data, and a length the data axis
+    does not divide raises ValueError, as JAX's make_batch does."""
+    for said in runs.trains:
         assert len(said) == 3, said
-        assert said[0] == runs.refusals[0][0] and len(said[0]) == 1, said
-        assert SLICE10 in said[1] and "slice 10" in said[1], said
+        assert said[0] == runs.trains[0][0] and len(said[0]) == 1, said
+        assert said[1] == runs.trains[0][1], said
+        np.testing.assert_allclose(said[1][0], said[1][1],
+                                   rtol=ONE_PROCESS_RTOL, atol=0)
         assert said[2] == 2, said
     check_mesh({"data": 1, "model": 2}, 2)
     with pytest.raises(ValueError, match="2 ranks"):
         check_mesh({"data": 2, "model": 4}, 2)
     with pytest.raises(ValueError, match="2 ranks"):
         check_mesh({"data": 4, "model": 1}, 2)
-    one = types.SimpleNamespace(world=1)
-    check_ranks(R.cfg_of("mistral-nemo-12b", fsdp=True), one)
-    with pytest.raises(NotImplementedError, match="slice 10"):
-        check_ranks(R.cfg_of("mistral-nemo-12b", fsdp=True),
-                    types.SimpleNamespace(world=2))
+    two = DP.single("cpu")
+    two.rank, two.world = 1, 2          # rank 1's split, no collective
+    assert two.split(1, 32) == (slice(0, 1), slice(16, 32))
+    assert two.split(2, 32) == (slice(1, 2), None)
+    assert two.split(3, 32) == (slice(0, 3), None)
+    with pytest.raises(ValueError, match="does not divide"):
+        two.split(1, 31)
 
 
 def test_one_process_group_calls_no_collective(monkeypatch):
