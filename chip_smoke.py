@@ -380,8 +380,29 @@
     deepseek run again with fsdp=True: within 1e-5 of 16 (b)'s history
     (the same global step), the kept slots equal, each rank's parameter
     bytes below 16 (b)'s.
-18. The last two lines: the kernels as JSON (ten records, in the order
-    of PERF.md's kernel table), then the device as JSON.
+18. The store on int64 keys (the JAX package's x64 deployment), a
+    generator of its own from ``--seed``: HiStoreClient(LocalBackend(
+    2**24, DEFAULT, key_dtype=torch.int64)) on the card, ``--keys``
+    distinct keys from [0, 2**62) loaded, phase 3's 8 mixed rounds (4
+    SCANs of limit 128 each, spans drawn below 2**47, which holds about
+    256 of the keys), a
+    read-back; 2 chunks written and left pending, the primary failed,
+    a degraded read-back of every key, 2 degraded rounds, the online
+    rebuild, a read-back; every answer checked against a sorted-array
+    model.  The launch counts are set to 0 before it, and the four int64
+    entries' (``hash_probe_i64``, ``sorted_search_i64``, ``merge_i64``,
+    ``backup_probe_i64``) must be > 0 after, the int32 ones' 0.  Each
+    int64 entry against its plain version on the loaded state (and the
+    backup probe on the group as the failure left it), timed and bounded
+    at 8 B keys as in 4 and 6, beside the int32 entry's figures of this
+    run.  Then falcon-mamba-7b at full width on 2 of 64 layers (bf16) in
+    a ServingEngine with int32 keys and one with int64 keys over phase
+    10's kind of prompt set: equal stats and tokens, the int64
+    directory launching only the int64 entries and holding a key past
+    2**31.  Its lines start "keys64:".
+19. The last two lines: the kernels as JSON (the ten records in the
+    order of PERF.md's kernel table, then the four int64 entries'), then
+    the device as JSON.
 
 Exits nonzero, printing no result, without CUDA or outside a checkout.
 """
@@ -573,13 +594,16 @@ class Workload:
     """The client under test, the model it is checked against, and the
     seeded draws of keys and values both phases use."""
 
-    def __init__(self, torch, client, model, rng, fresh):
+    def __init__(self, torch, client, model, rng, fresh, key_hi=2 ** 31 - 1,
+                 scan_span=2 ** 16):
         self.torch = torch
         self.client = client
         self.model = model
         self.rng = rng
         self.fresh = fresh           # drawn keys not yet written
         self.W = model.vals.shape[1]
+        self.key_hi = key_hi         # keys are drawn from [0, key_hi)
+        self.scan_span = scan_span   # a SCAN's hi - lo is below it
 
     def take_fresh(self, n):
         check(len(self.fresh) >= n, "out of fresh keys")
@@ -587,9 +611,10 @@ class Workload:
         return out
 
     def absent(self, n):
-        out = np.empty(0, np.int32)
+        kd = self.model.keys.dtype
+        out = np.empty(0, kd)
         while len(out) < n:
-            c = self.rng.integers(0, 2 ** 31 - 1, 2 * n).astype(np.int32)
+            c = self.rng.integers(0, self.key_hi, 2 * n).astype(kd)
             out = np.concatenate([out, c[~self.model.known(c)]])
         return out[:n]
 
@@ -658,7 +683,7 @@ class Workload:
 
     def scan(self, label):
         lo = int(self.rng.choice(self.model.keys))
-        hi = lo + int(self.rng.integers(1, 2 ** 16))
+        hi = lo + int(self.rng.integers(1, self.scan_span))
         s = self.client.scan(lo, hi, 128)
         check(s.complete is not False, f"{label}: SCAN missed groups "
               f"{s.missing_groups}")
@@ -725,27 +750,8 @@ def main_path(torch, args, cfg, rng):
     # -- mixed rounds: one client chunk of each op per round ---------------
     B = CHUNK
     check(client.max_batch == B, f"client chunk {client.max_batch}")
-    stats = {"get_hits": 0, "gets": 0, "puts": 0, "deletes": 0,
-             "deleted_found": 0, "scans": 0, "scanned": 0}
     t0 = time.perf_counter()
-    for rnd in range(ROUNDS):
-        g = wl.get_mix(B)
-        stats["get_hits"] += wl.check_get(g, f"round {rnd} GET")
-        stats["gets"] += len(g)
-        p = np.concatenate([wl.sample(wl.live_keys(), B // 2),
-                            wl.take_fresh(B // 2)])
-        wl.put(p, f"round {rnd}")
-        stats["puts"] += len(p)
-        d = np.concatenate([wl.sample(wl.live_keys(), 3 * B // 16),
-                            wl.absent(B // 16)])
-        rng.shuffle(d)
-        stats["deleted_found"] += wl.delete(d, f"round {rnd}")
-        stats["deletes"] += len(d)
-        client.apply()
-        for _ in range(SCANS):
-            stats["scanned"] += wl.scan(f"round {rnd}")
-            stats["scans"] += 1
-        wl.check_get(d, f"round {rnd} GET after DELETE")
+    stats = mixed_rounds(wl, ROUNDS, "round")
     torch.cuda.synchronize()
     t_mixed = time.perf_counter() - t0
 
@@ -763,6 +769,55 @@ def main_path(torch, args, cfg, rng):
         check(launches[k] > 0, f"kernel {k} was not launched on the main path")
     log_metrics(client, "main")
     return wl, launches
+
+
+def mixed_rounds(wl, rounds, label):
+    """``rounds`` mixed rounds of one client chunk of each op: GETs (hits,
+    deleted keys and misses), overwriting and fresh PUTs, DELETEs (a
+    quarter of them misses), an async apply and SCANS SCANs, every answer
+    checked against the model.  Returns the counts."""
+    B = CHUNK
+    stats = {"get_hits": 0, "gets": 0, "puts": 0, "deletes": 0,
+             "deleted_found": 0, "scans": 0, "scanned": 0}
+    for rnd in range(rounds):
+        g = wl.get_mix(B)
+        stats["get_hits"] += wl.check_get(g, f"{label} {rnd} GET")
+        stats["gets"] += len(g)
+        p = np.concatenate([wl.sample(wl.live_keys(), B // 2),
+                            wl.take_fresh(B // 2)])
+        wl.put(p, f"{label} {rnd}")
+        stats["puts"] += len(p)
+        d = np.concatenate([wl.sample(wl.live_keys(), 3 * B // 16),
+                            wl.absent(B // 16)])
+        wl.rng.shuffle(d)
+        stats["deleted_found"] += wl.delete(d, f"{label} {rnd}")
+        stats["deletes"] += len(d)
+        wl.client.apply()
+        for _ in range(SCANS):
+            stats["scanned"] += wl.scan(f"{label} {rnd}")
+            stats["scans"] += 1
+        wl.check_get(d, f"{label} {rnd} GET after DELETE")
+    return stats
+
+
+def degraded_rounds(wl, rounds, label):
+    """``rounds`` mixed rounds while the primary is down: PUTs, DELETEs,
+    GETs that meet this round's writes, an apply and SCANS SCANs."""
+    B = CHUNK
+    for rnd in range(rounds):
+        p = np.concatenate([wl.sample(wl.live_keys(), B // 2),
+                            wl.take_fresh(B // 2)])
+        wl.put(p, f"{label} {rnd}")
+        d = np.concatenate([wl.sample(wl.live_keys(), 3 * B // 16),
+                            wl.absent(B // 16)])
+        wl.rng.shuffle(d)
+        wl.delete(d, f"{label} {rnd}")
+        wl.check_get(wl.get_mix(B, extra=np.concatenate([p, d])),
+                     f"{label} {rnd} GET")
+        wl.client.apply()
+        for _ in range(SCANS):
+            wl.scan(f"{label} {rnd}")
+        wl.check_get(d, f"{label} {rnd} GET after DELETE")
 
 
 def log_metrics(client, label):
@@ -822,20 +877,7 @@ def fail_recover(torch, wl, cfg):
     log(f"fail: degraded read-back of {len(model.keys)} keys ({hits} live)"
         f" in {t_deg:.3f} s ({len(model.keys) / t_deg:.0f} GET/s)")
     t0 = time.perf_counter()
-    for rnd in range(DEGRADED_ROUNDS):
-        p = np.concatenate([wl.sample(wl.live_keys(), B // 2),
-                            wl.take_fresh(B // 2)])
-        wl.put(p, f"degraded round {rnd}")
-        d = np.concatenate([wl.sample(wl.live_keys(), 3 * B // 16),
-                            wl.absent(B // 16)])
-        rng.shuffle(d)
-        wl.delete(d, f"degraded round {rnd}")
-        wl.check_get(wl.get_mix(B, extra=np.concatenate([p, d])),
-                     f"degraded round {rnd} GET")
-        client.apply()
-        for _ in range(SCANS):
-            wl.scan(f"degraded round {rnd}")
-        wl.check_get(d, f"degraded round {rnd} GET after DELETE")
+    degraded_rounds(wl, DEGRADED_ROUNDS, "degraded round")
     # a pending window for the online rebuild to replay
     wl.put(np.concatenate([wl.sample(wl.live_keys(), B // 2),
                            wl.take_fresh(B // 2)]), "before recovery")
@@ -912,23 +954,35 @@ def fail_recover(torch, wl, cfg):
     return failed_group, window, launches, times
 
 
-def compare_kernels(torch, cfg, hidx, srt, live, dead, rng, Q, label):
+def key_width(torch, keys):
+    """(numpy dtype, bytes a key, the launch-count suffix, key_inf) of a
+    state's key tensor: int32 or int64 (phase 18)."""
+    if keys.dtype == torch.int64:
+        return np.int64, 8, "_i64", 2 ** 63 - 1
+    return np.int32, 4, "", 2 ** 31 - 1
+
+
+def compare_kernels(torch, cfg, hidx, srt, live, dead, rng, Q, label,
+                    key_hi=2 ** 31 - 1):
     """The hash probe, the search and the merge against their plain
     versions on one group's hash ``hidx`` and sorted replica ``srt`` (the
-    probe at Q queries: live, dead and random keys; the search at Q = 1,
-    a SCAN's lower bound, and at Q; the merge of one 4096-entry apply
-    batch), each timed.  Returns one record per kernel."""
+    probe at Q queries: live, dead and random keys from [0, key_hi); the
+    search at Q = 1, a SCAN's lower bound, and at Q; the merge of one
+    4096-entry apply batch), each timed, at the width of ``srt``'s keys
+    (the int64 entries' records are named with ``_i64``).  Returns one
+    record per kernel."""
     from repro_torch.core import hash_index as hix
     from repro_torch.core import sorted_index as six
     from repro_torch.kernels import ops
 
     dev = hidx.sig.device
+    npk, kb, sfx, _ = key_width(torch, srt.keys)
     out = []
 
     # -- hash probe: the kernel takes the keys and hashes them --------------
     q = np.concatenate([rng.choice(live, Q // 2), rng.choice(dead, Q // 4),
-                        rng.integers(0, 2 ** 31 - 1, Q - Q // 2 - Q // 4)])
-    qt = torch.as_tensor(q.astype(np.int32), device=dev)
+                        rng.integers(0, key_hi, Q - Q // 2 - Q // 4)])
+    qt = torch.as_tensor(q.astype(npk), device=dev)
     tomb = int((hidx.sig == hix.TOMBSTONE).sum())
     want = hix.lookup(hidx, qt, cfg)
     err = max_abs_err(torch, ops.probe(cfg, hidx, qt), want,
@@ -948,9 +1002,10 @@ def compare_kernels(torch, cfg, hidx, srt, live, dead, rng, Q, label):
     cs = hidx.sig.shape[1]
     # the key in, 3 outputs, the sig and fp rows, one addr, one fill; the
     # kernel before took 3 descriptors (12 B) in place of the key
-    nbytes = Q * (4 + 12 + 2 * cs * 4 + 8)
+    nbytes = Q * (kb + 12 + 2 * cs * 4 + 8)
     nbytes_desc = Q * (12 + 12 + 2 * cs * 4 + 8)
-    log(f"kernel hash_probe ({label}): Q={Q}, table [{hidx.sig.shape[0]}, "
+    log(f"kernel hash_probe{sfx} ({label}): Q={Q}, table "
+        f"[{hidx.sig.shape[0]}, "
         f"{cs}] with {tomb} tombstones, keys hashed on the card: equal; "
         f"kernel {ms:.4f} ms per call, device {dev_ms:.4f} ms; routed "
         f"ops.probe {routed:.4f} ms per call, device {routed_dev:.4f} ms; "
@@ -958,7 +1013,7 @@ def compare_kernels(torch, cfg, hidx, srt, live, dead, rng, Q, label):
         f"{nbytes / HBM_BYTES_PER_S * 1e3:.6f} ms ({nbytes} B; with "
         f"descriptors in, as the kernel took them before, "
         f"{nbytes_desc / HBM_BYTES_PER_S * 1e3:.6f} ms for {nbytes_desc} B)")
-    out.append(dict(name="hash_probe", route="cuda",
+    out.append(dict(name="hash_probe" + sfx, route="cuda",
                     source="src/repro_torch/kernels/csrc/hash_probe.cu",
                     replaces=f"{FUSED}:204", max_abs_err=err, ms=ms,
                     plain_ms=plain,
@@ -979,13 +1034,13 @@ def compare_kernels(torch, cfg, hidx, srt, live, dead, rng, Q, label):
     res = {}
     for QS in (1, Q):
         sq = np.concatenate([rng.choice(live, QS - QS // 2),
-                             rng.integers(0, 2 ** 31 - 1, QS // 2)])
-        sqt = torch.as_tensor(sq.astype(np.int32), device=dev)
+                             rng.integers(0, key_hi, QS // 2)])
+        sqt = torch.as_tensor(sq.astype(npk), device=dev)
         got = ops.sorted_search_cuda(sqt, srt.keys, srt.addrs, cfg.fanout)
         want_lb = torch.searchsorted(srt.keys, sqt).to(torch.int32)
         err = max_abs_err(torch, (got[0], got[1].bool(), got[2], got[4]),
                           (*six.search(srt, sqt, cfg.fanout), want_lb),
-                          f"{label} sorted_search Q={QS}")
+                          f"{label} sorted_search{sfx} Q={QS}")
         iters = 500 if QS == 1 else 100
 
         def kern(keys=srt.keys, addrs=srt.addrs):
@@ -1015,7 +1070,8 @@ def compare_kernels(torch, cfg, hidx, srt, live, dead, rng, Q, label):
                        bound_by="bytes" if b_bytes >= b_ops else "operations",
                        latency_bound_ms=lat, latency_bound_levels_ms=lat_old,
                        library_same_function_device_ms=lib_same)
-        log(f"kernel sorted_search ({label}): Q={QS}, cap {cap}, {levels} "
+        log(f"kernel sorted_search{sfx} ({label}): Q={QS}, cap {cap}, "
+            f"{levels} "
             f"levels: equal; {ms:.4f} ms per call, device {dev_ms:.4f} ms, "
             f"plain {plain:.4f} ms, torch.searchsorted {lib:.4f} ms (device "
             f"{lib_dev:.4f} ms), the same function (searchsorted, gathers, "
@@ -1031,9 +1087,10 @@ def compare_kernels(torch, cfg, hidx, srt, live, dead, rng, Q, label):
     # its bounds from a generator of its own, so that the phases after
     # this one draw what they drew before it was added
     own = np.random.default_rng(cap)
-    lo_t = torch.tensor(int(own.choice(live)), dtype=torch.int32,
+    lo_t = torch.tensor(int(own.choice(live)), dtype=srt.keys.dtype,
                         device=dev)
-    hi_t = lo_t + int(own.integers(1, 2 ** 16))
+    hi_t = lo_t + int(own.integers(1, 2 ** 16 if key_hi < 2 ** 31 else
+                                   key_hi >> 16))
     lim = 128
     got = ops.range_query(cfg, srt, lo_t, hi_t, lim)
     err = max(max_abs_err(torch, got, six.range_query(srt, lo_t, hi_t, lim),
@@ -1045,12 +1102,13 @@ def compare_kernels(torch, cfg, hidx, srt, live, dead, rng, Q, label):
     r_dev = device_ms(torch, rq, 500)
     rp_ms = time_ms(torch, rq_plain, 500)
     rp_dev = device_ms(torch, rq_plain, 50)
-    log(f"kernel sorted_search ({label}): the SCAN's range at limit {lim}, "
+    log(f"kernel sorted_search{sfx} ({label}): the SCAN's range at limit "
+        f"{lim}, "
         f"count {int(got[2])}: equal to six.range_query; routed "
         f"ops.range_query {r_ms:.4f} ms per call, device {r_dev:.4f} ms; "
         f"six.range_query {rp_ms:.4f} ms per call, device {rp_dev:.4f} ms")
     one, big = res[1], res[Q]
-    out.append(dict(name="sorted_search", route="cuda",
+    out.append(dict(name="sorted_search" + sfx, route="cuda",
                     source="src/repro_torch/kernels/csrc/sorted_search.cu",
                     replaces=f"{FUSED}:246", max_abs_err=err,
                     **{x: one[x] for x in (
@@ -1069,30 +1127,31 @@ def compare_kernels(torch, cfg, hidx, srt, live, dead, rng, Q, label):
     # -- merge: one apply batch into the replica ----------------------------
     m = cfg.async_apply_batch
     bk = np.concatenate([rng.choice(live, m // 2),
-                         rng.integers(0, 2 ** 31 - 1, m - m // 2)])
+                         rng.integers(0, key_hi, m - m // 2)])
     bk[: m // 8] = bk[m // 8: m // 4]                  # duplicate keys
     rng.shuffle(bk)
     bo = rng.choice([0, 1, 1, 2], m).astype(np.int8)   # PUT, DEL, op 0
-    bkt = torch.as_tensor(bk.astype(np.int32), device=dev)
+    bkt = torch.as_tensor(bk.astype(npk), device=dev)
     bat = torch.as_tensor(rng.integers(0, cap, m).astype(np.int32),
                           device=dev)
     bot = torch.as_tensor(bo, device=dev)
     got = ops.merge(cfg, srt, bkt, bat, bot)
     want = six.merge(srt, bkt, bat, bot)
-    err = max_abs_err(torch, tuple(got), tuple(want), f"{label} merge")
+    err = max_abs_err(torch, tuple(got), tuple(want),
+                      f"{label} merge{sfx}")
     ms = time_ms(torch, lambda: ops.merge(cfg, srt, bkt, bat, bot), 20)
     dev_ms = device_ms(torch, lambda: ops.merge(cfg, srt, bkt, bat, bot), 20)
     plain = time_ms(torch, lambda: six.merge(srt, bkt, bat, bot), 5)
     split = kernel_split(torch, lambda: ops.merge(cfg, srt, bkt, bat, bot),
-                         f"kernel merge ({label}): cap {cap}, m={m}")
+                         f"kernel merge{sfx} ({label}): cap {cap}, m={m}")
     # the replica's keys and addrs read and the new ones written, the
-    # batch's keys and addrs (int32) and ops (int8) read, the size written
-    nbytes = cap * 8 + m * 9 + cap * 8 + 4
-    log(f"kernel merge ({label}): cap {cap} (size {int(srt.size)} -> "
+    # batch's keys, addrs (int32) and ops (int8) read, the size written
+    nbytes = 2 * cap * (kb + 4) + m * (kb + 5) + 4
+    log(f"kernel merge{sfx} ({label}): cap {cap} (size {int(srt.size)} -> "
         f"{int(got.size)}), m={m}: equal; {ms:.4f} ms per call, device "
         f"{dev_ms:.4f} ms, plain {plain:.4f} ms, bound "
         f"{nbytes / HBM_BYTES_PER_S * 1e3:.6f} ms ({nbytes} B)")
-    out.append(dict(name="merge", route="cuda",
+    out.append(dict(name="merge" + sfx, route="cuda",
                     source="src/repro_torch/kernels/csrc/merge.cu",
                     replaces=f"{FUSED}:404", max_abs_err=err, ms=ms,
                     plain_ms=plain,
@@ -1502,9 +1561,10 @@ def backup_work(torch, q, sel, srt, blogs, cfg):
     lanes found in a log)."""
     from repro_torch.core import log as lg
 
+    _, kb, _, inf = key_width(torch, srt[0].keys)
     Q, R = sel.shape
     chosen = np.where(sel.any(1), R - 1 - np.argmax(sel[:, ::-1] != 0, 1), -1)
-    nbytes, ops, in_logs = Q * 4 + Q * R * 4, 0, 0
+    nbytes, ops, in_logs = Q * kb + Q * R * 4, 0, 0
     for r in range(R):
         lanes = q[chosen == r]
         if not len(lanes):
@@ -1513,11 +1573,11 @@ def backup_work(torch, q, sel, srt, blogs, cfg):
         n_win = len(lkeys)
         window = set(lkeys.tolist())
         in_log = np.array([k in window for k in lanes.tolist()], bool)
-        quirk = (lanes == 2 ** 31 - 1) & (n_win < cfg.log_capacity)
+        quirk = (lanes == inf) & (n_win < cfg.log_capacity)
         hit = in_log | quirk
         in_logs += int(in_log.sum())
         ops += n_win + int((~quirk).sum())
-        nbytes += n_win * 4 + 8 + int(hit.sum()) * 5
+        nbytes += n_win * kb + 8 + int(hit.sum()) * 5
         miss = lanes[~hit]
         if len(miss):
             keys = srt[r].keys
@@ -1531,21 +1591,23 @@ def backup_work(torch, q, sel, srt, blogs, cfg):
 
 def compare_backup_probe(torch, wl, cfg, group, window, launches):
     """The backup probe against its plain version on the group as the
-    primary's failure left it (the wrapped window of 2 chunks pending),
-    Q = 16384, R = 2, cap 2^24: random replica selects, then the
-    path's select (the first live replica for every lane), timed."""
+    primary's failure left it (the window of 2 chunks pending; it wraps
+    the ring in phase 5), Q = 16384, R = 2, cap 2^24: random replica
+    selects, then the path's select (the first live replica for every
+    lane), timed, at the width of the group's keys."""
     from repro_torch.core import index_group as ig
     from repro_torch.core import log as lg
     from repro_torch.kernels import ops
 
     dev = wl.client.backend.device
     model, rng = wl.model, wl.rng
+    npk, _, sfx, inf = key_width(torch, group.sorted[0].keys)
     Q = CHUNK
     R = len(group.sorted)
     q = np.concatenate([rng.choice(window, Q // 4),
                         rng.choice(model.keys, Q // 2),
-                        rng.integers(0, 2 ** 31 - 1, Q // 4 - 2),
-                        [2 ** 31 - 1, 0]]).astype(np.int32)
+                        rng.integers(0, wl.key_hi, Q // 4 - 2),
+                        [inf, 0]]).astype(npk)
     rng.shuffle(q)
     qt = torch.as_tensor(q, device=dev)
     srt, blogs = group.sorted, group.blogs
@@ -1560,7 +1622,7 @@ def compare_backup_probe(torch, wl, cfg, group, window, launches):
         want = ops.backup_probe_plain(cfg, srt, blogs, qt, sel)
         err = max(err, max_abs_err(
             torch, (got[0], got[1].bool(), got[2]), want,
-            f"backup_probe {label}"))
+            f"backup_probe{sfx} {label}"))
 
     def kern():
         return ops.backup_probe_cuda(qt, sel_path, srt, blogs, cfg.fanout)
@@ -1570,7 +1632,8 @@ def compare_backup_probe(torch, wl, cfg, group, window, launches):
     plain = time_ms(torch, lambda: ops.backup_probe_plain(
         cfg, srt, blogs, qt, sel_path), 5, warmup=1)
     routed = time_ms(torch, lambda: ig.replica_probe(group, qt, cfg), 100)
-    split = kernel_split(torch, kern, f"kernel backup_probe: Q={Q}, R={R}")
+    split = kernel_split(torch, kern,
+                         f"kernel backup_probe{sfx}: Q={Q}, R={R}")
 
     # the bound, from this run's data (backup_work): the path selects
     # replica 0 for every lane, plus the three outputs
@@ -1582,16 +1645,18 @@ def compare_backup_probe(torch, wl, cfg, group, window, launches):
     b_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     b_ops = n_ops / SCALAR_OPS_PER_S * 1e3
     bound = max(b_bytes, b_ops)
-    log(f"kernel backup_probe: Q={Q}, R={R}, cap {cap}, window {n_win} of "
+    log(f"kernel backup_probe{sfx}: Q={Q}, R={R}, cap {cap}, window {n_win} "
+        f"of "
         f"{cfg.log_capacity} ({in_log} lanes in it): equal; "
         f"{ms:.4f} ms per call, device {dev_ms:.4f} ms, plain {plain:.4f} "
         f"ms, routed ig.replica_probe {routed:.4f} ms; bound "
         f"{bound:.6f} ms (bytes {b_bytes:.6f} ms for {nbytes} B, "
         f"operations {b_ops:.6f} ms for {n_ops}); the split's spans "
         f"{sum(split.values()) / dev_ms:.0%} of the device time")
-    return dict(name="backup_probe", route="cuda",
+    return dict(name="backup_probe" + sfx, route="cuda",
                 source="src/repro_torch/kernels/csrc/backup_probe.cu",
-                replaces=f"{FUSED}:283", launches=launches["backup_probe"],
+                replaces=f"{FUSED}:283",
+                launches=launches["backup_probe" + sfx],
                 max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=bound,
                 bound_by="bytes" if b_bytes >= b_ops else "operations",
                 library_ms=None, device_ms=dev_ms, routed_ms=routed,
@@ -1787,7 +1852,8 @@ def search_work(torch, keys, queries, fanout, n_out):
     read once, n_out int32 outputs written, and the descent as
     descent_work counts it."""
     nbytes, compares = descent_work(torch, keys, queries, fanout)
-    return queries.shape[0] * 4 * (1 + n_out) + nbytes, compares
+    kb = keys.element_size()
+    return queries.shape[0] * (kb + 4 * n_out) + nbytes, compares
 
 
 def descent_work(torch, keys, queries, fanout):
@@ -1798,6 +1864,8 @@ def descent_work(torch, keys, queries, fanout):
     read of each hit.  Compares: one per node key read."""
     cap = keys.shape[0]
     Q = queries.shape[0]
+    per_sector = 32 // keys.element_size()
+    inf = torch.iinfo(keys.dtype).max
     offs = torch.arange(fanout, device=keys.device)
     pos = torch.zeros((Q,), dtype=torch.int64, device=keys.device)
     stride = 1
@@ -1806,16 +1874,16 @@ def descent_work(torch, keys, queries, fanout):
     sectors = compares = 0
     while stride >= 1:
         gi = torch.unique(pos)[:, None] + offs[None, :] * stride
-        sectors += int(torch.unique(gi[gi < cap] // 8).numel())
+        sectors += int(torch.unique(gi[gi < cap] // per_sector).numel())
         gq = pos[:, None] + offs[None, :] * stride
         compares += int((gq < cap).sum())
-        node = torch.where(gq < cap, keys[gq.clamp(max=cap - 1)], 2**31 - 1)
+        node = torch.where(gq < cap, keys[gq.clamp(max=cap - 1)], inf)
         cnt = (node <= queries[:, None]).sum(1)
         pos = pos + (cnt - 1).clamp(min=0) * stride
         stride //= fanout
     at = pos.clamp(max=cap - 1)
     hit = keys[at] == queries
-    sectors += int(torch.unique(at // 8).numel())
+    sectors += int(torch.unique(at // per_sector).numel())
     sectors += int(torch.unique(at[hit] // 8).numel())
     return sectors * 32, compares
 
@@ -5388,6 +5456,170 @@ def data_axis_report(gl, ref):
     return out, launches
 
 
+# ---------------------------------------------------------------------------
+# Phase 18: the store on int64 keys (the JAX package's x64 deployment)
+# ---------------------------------------------------------------------------
+K64_UNIVERSE = 2 ** 62            # keys drawn from [0, 2^62)
+K64_SPAN = 2 ** 47                # a SCAN's span is below it: 2^47 holds
+#                                   about 256 of the 2^23 keys
+K64_DEGRADED_ROUNDS = 2
+K64_KERNELS = ("hash_probe_i64", "sorted_search_i64", "merge_i64",
+               "backup_probe_i64")
+K64_LAYERS = 2                    # the engine's falcon-mamba-7b, 2 of 64
+
+
+def keys64(torch, args, cfg):
+    """Phase 18: HiStoreClient(LocalBackend(2**24, cfg, key_dtype=int64))
+    on the card, ``args.keys`` distinct keys from [0, 2**62) (a generator
+    of its own), the main path's mixed rounds, a pending window of 2
+    chunks, the primary's failure with a degraded read-back and degraded
+    rounds, the online rebuild and a read-back, every answer checked
+    against a sorted-array model; the launch counts set to 0 before it
+    and the four int64 entries' > 0 after, the int32 ones' 0.  Then each
+    int64 kernel against its plain version on the loaded state.  Returns
+    (the four kernel records, timings)."""
+    from repro_torch.core.client import HiStoreClient, LocalBackend
+    from repro_torch.kernels import ops
+
+    rng = np.random.default_rng([args.seed, 18])
+    B = CHUNK
+    n_load = args.keys
+    n_fresh = (ROUNDS + K64_DEGRADED_ROUNDS) * B // 2 + B
+    need = n_load + n_fresh
+    uniq = np.unique(rng.integers(0, K64_UNIVERSE, int(need * 1.001) + 1024,
+                                  dtype=np.int64))
+    check(len(uniq) >= need, "18: not enough distinct keys drawn")
+    keys_all = uniq[rng.permutation(len(uniq))[:need]]
+    model = Model(keys_all, cfg.value_words)
+    t_phase = time.perf_counter()
+    client = HiStoreClient(LocalBackend(CAPACITY, cfg, device="cuda",
+                                        key_dtype=torch.int64))
+    backend = client.backend
+    wl = Workload(torch, client, model, rng, keys_all[n_load:],
+                  key_hi=K64_UNIVERSE, scan_span=K64_SPAN)
+    zero_launches(ops)
+    t0 = time.perf_counter()
+    vals = wl.new_vals(n_load)
+    r = client.put(keys_all[:n_load], vals)
+    check(bool(r.ok.all()), "18: load not acknowledged")
+    model.put(keys_all[:n_load], vals)
+    torch.cuda.synchronize()
+    t_load = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    stats = mixed_rounds(wl, ROUNDS, "18 round")
+    torch.cuda.synchronize()
+    t_mixed = time.perf_counter() - t0
+    _, t_read = wl.read_back("18 read-back")
+    log(f"keys64: LocalBackend({CAPACITY}, key_dtype=torch.int64) loaded "
+        f"{n_load} keys from [0, 2^62) in {t_load:.3f} s ({n_load / t_load:.0f}"
+        f" PUT/s); {ROUNDS} mixed rounds in {t_mixed:.3f} s: {stats}; read "
+        f"back {len(model.keys)} keys in {t_read:.3f} s "
+        f"({len(model.keys) / t_read:.0f} GET/s)")
+
+    # the primary fails with 2 chunks pending; degraded reads and rounds
+    client.drain()
+    window = np.concatenate([wl.sample(wl.live_keys(), B // 2),
+                             wl.take_fresh(B // 2),
+                             wl.sample(wl.live_keys(), B // 2),
+                             wl.take_fresh(B // 2)])
+    wl.put(window[:B], "18 window chunk 0")
+    wl.put(window[B:], "18 window chunk 1")
+    client.fail_server(0)
+    failed = backend.group
+    _, t_deg = wl.read_back("18 degraded read-back")
+    t0 = time.perf_counter()
+    degraded_rounds(wl, K64_DEGRADED_ROUNDS, "18 degraded round")
+    torch.cuda.synchronize()
+    t_rounds = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    client.recover_server(0)
+    torch.cuda.synchronize()
+    t_rec = time.perf_counter() - t0
+    hits, t_read0 = wl.read_back("18 read-back after the rebuild")
+    launches = dict(ops.LAUNCHES)
+    t_path = time.perf_counter() - t_phase
+    log(f"keys64: primary failed with 2 chunks pending; degraded read-back "
+        f"of {len(model.keys)} keys in {t_deg:.3f} s "
+        f"({len(model.keys) / t_deg:.0f} GET/s); {K64_DEGRADED_ROUNDS} "
+        f"degraded rounds in {t_rounds:.3f} s; rebuilt online in "
+        f"{t_rec:.3f} s; read back {len(model.keys)} keys ({hits} live) in "
+        f"{t_read0:.3f} s; the path {t_path:.1f} s; launches {launches}")
+    for k in K64_KERNELS:
+        check(launches[k] > 0, f"18: kernel {k} was not launched")
+        check(launches[k[:-4]] == 0, f"18: the int32 {k[:-4]} was launched")
+
+    # each int64 kernel against its plain version on the loaded state
+    g = backend.group
+    recs = compare_kernels(torch, cfg, g.hash, g.sorted[0],
+                           model.keys[model.live], model.keys[~model.live],
+                           rng, CHUNK, "keys64", key_hi=K64_UNIVERSE)
+    recs.append(compare_backup_probe(torch, wl, cfg, failed, window,
+                                     launches))
+    for rec in recs:
+        rec["launches"] = launches[rec["name"]]
+    times = dict(load_s=t_load, put_per_s=n_load / t_load,
+                 mixed_rounds_s=t_mixed, read_back_s=t_read,
+                 get_per_s=len(model.keys) / t_read,
+                 degraded_read_s=t_deg, degraded_rounds_s=t_rounds,
+                 recover_primary_s=t_rec, path_s=t_path)
+    return recs, times
+
+
+def keys64_engine(torch, seed):
+    """Phase 18's engine: falcon-mamba-7b at full width on K64_LAYERS
+    layers (bf16, weights drawn on the card from ``seed``), a
+    ServingEngine with int32 keys and one with int64 keys over the same
+    requests, each launch count set to 0 before it: the int64 engine's
+    stats and tokens equal the int32 one's, its directory launched only
+    int64 entries and holds keys past the int32 range.  Returns
+    timings."""
+    from repro_torch.configs import get_config
+    from repro_torch.core import sorted_index as six
+    from repro_torch.kernels import ops
+    from repro_torch.models import transformer as tr
+    from repro_torch.serving.engine import ServingEngine
+
+    cfg = get_config(SERVE_ARCH).scaled(ssm_impl="pallas",
+                                        n_layers=K64_LAYERS)
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    model = tr.init_params(cfg, gen, device=dev)
+    first, again = prompt_set(np.random.default_rng([seed, 18]),
+                              cfg.vocab_size)
+    runs = {}
+    for kd in (torch.int32, torch.int64):
+        e = ServingEngine(cfg, model, batch_slots=SERVE_SLOTS,
+                          max_len=SERVE_MAX_LEN, page_size=SERVE_PAGE,
+                          device=dev, key_dtype=kd)
+        zero_launches(ops)
+        reqs, _, t_eng, _ = drive_engine(torch, e, first, again)
+        launches = dict(ops.LAUNCHES)
+        check_engine(e, reqs, f"18 engine {kd}")
+        e.client.drain()
+        keys, _, valid = six.items(e.directory.sorted[0])
+        runs[kd] = dict(stats=dict(e.stats), s=t_eng, launches=launches,
+                        tokens=[list(r.tokens) for r in reqs],
+                        top_key=int(keys[valid].max()))
+    a, b = runs[torch.int32], runs[torch.int64]
+    check(a["stats"] == b["stats"], f"18 engine: stats {b['stats']} against "
+          f"the int32 engine's {a['stats']}")
+    check(a["tokens"] == b["tokens"], "18 engine: tokens differ")
+    check(b["top_key"] >= 2 ** 31, f"18 engine: its top key {b['top_key']}")
+    for k in ("hash_probe", "sorted_search", "merge"):
+        check(a["launches"][k] > 0 and a["launches"][k + "_i64"] == 0
+              and b["launches"][k + "_i64"] > 0 and b["launches"][k] == 0,
+              f"18 engine: {k} launches {a['launches']} {b['launches']}")
+    log(f"keys64: ServingEngine({SERVE_SLOTS} slots, max_len "
+        f"{SERVE_MAX_LEN}, page {SERVE_PAGE}) on {SERVE_ARCH} at {K64_LAYERS} "
+        f"layers, int32 keys {a['s']:.3f} s and int64 keys {b['s']:.3f} s "
+        f"over the same {len(a['tokens'])} requests: stats equal "
+        f"({json.dumps(b['stats'])}), tokens equal, the int64 directory's "
+        f"top key {b['top_key']} (page bits 20, prefix modulus 2^40); "
+        f"launches {({k: v for k, v in b['launches'].items() if v})}")
+    return dict(engine_int32_s=a["s"], engine_int64_s=b["s"],
+                launches_int64=b["launches"])
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -5509,6 +5741,22 @@ def main(argv=None) -> int:
         k["launches_training_ranks"] = rank_train_launches[k["name"]]
         k["launches_model_axis"] = model_axis_launches[k["name"]]
         k["launches_data_axis"] = data_axis_launches[k["name"]]
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    recs64, k64_times = keys64(torch, args, cfg)
+    k64_times.update(keys64_engine(torch, args.seed))
+    k64_times["phase_s"] = time.perf_counter() - t0
+    by_name = {k["name"]: k for k in kernels}
+    for rec in recs64:
+        base = by_name[rec["name"][:-len("_i64")]]
+        for x in ("ms", "device_ms", "bound_ms"):
+            rec["int32_" + x] = base[x]
+        log(f"keys64: {rec['name']}: {rec['ms']:.4f} ms per call, device "
+            f"{rec['device_ms']:.4f} ms, bound {rec['bound_ms']:.6f} ms at 8 "
+            f"B keys; the int32 entry in this run {base['ms']:.4f} ms, device "
+            f"{base['device_ms']:.4f} ms, bound {base['bound_ms']:.6f} ms")
+    kernels.extend(recs64)
+    log(f"keys64: {json.dumps(k64_times)}")
     torch.cuda.synchronize()
     log(f"total: {time.perf_counter() - t_start:.1f} s")
     print(smi)

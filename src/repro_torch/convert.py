@@ -56,14 +56,17 @@ def backend_from_numpy(group, vals, used, cfg, device, *,
     """A LocalBackend on ``device`` holding a JAX LocalBackend's state:
     its group plus the value shard ``vals`` [cap, W] and the slot bitmap
     ``used`` [cap].  The servers' liveness comes from ``group.alive``, so
-    a store in the middle of a failure carries across whole.
-    ``pending_bound`` is the host-side bound on the backup logs' pending
-    entries (default: their exact count)."""
+    a store in the middle of a failure carries across whole, and its key
+    dtype comes from the carried keys (int64 from a JAX backend built
+    under ``jax_enable_x64``).  ``pending_bound`` is the host-side bound
+    on the backup logs' pending entries (default: their exact count)."""
     from repro_torch.core.client import LocalBackend
 
     vals = np.asarray(vals)
-    be = LocalBackend(vals.shape[0], cfg, vals.shape[1], device=device)
-    be.group = group_from_numpy(group, be.device)
+    carried = group_from_numpy(group, device)
+    be = LocalBackend(vals.shape[0], cfg, vals.shape[1], device=device,
+                      key_dtype=carried.sorted[0].keys.dtype)
+    be.group = carried
     be.vals = _t(vals, be.device)
     be.used = _t(used, be.device).bool()
     alive = [bool(a) for a in np.asarray(group.alive)]

@@ -146,16 +146,22 @@ class LocalBackend:
     plain PyTorch path, as the tests do).  Server liveness is tracked on
     the host (the paper's client knows which servers are up): a healthy
     primary's GETs run the hash probe alone, a dead one's also the
-    replica probe."""
+    replica probe.  ``key_dtype`` is the width of the store's keys:
+    int32 (the default, the JAX package's x32 mode) or int64 (its x64
+    mode, ``jax_enable_x64``); the client casts keys to it."""
 
     def __init__(self, capacity: int, cfg, value_words: Optional[int] = None,
-                 *, device=None):
+                 *, device=None, key_dtype=torch.int32):
+        if key_dtype not in (torch.int32, torch.int64):
+            raise ValueError(f"LocalBackend: keys are torch.int32 or "
+                             f"torch.int64, got {key_dtype}")
         self.device = _resolve_device(device)
         self.cfg = cfg
         self.telemetry = tm.Telemetry(getattr(cfg, "telemetry",
                                               "counters"))
         self.capacity = capacity
-        self.group = ig.create(capacity, cfg, self.device)
+        self.key_dtype = key_dtype
+        self.group = ig.create(capacity, cfg, self.device, key_dtype)
         self.value_words = value_words or cfg.value_words
         self.vals = torch.zeros((capacity, self.value_words), dtype=I32,
                                 device=self.device)
@@ -959,7 +965,7 @@ class HiStoreClient:
                             torch.cat(reps))
 
     def scan(self, lo, hi, limit: Optional[int] = None) -> ScanResult:
-        kd = key_dtype()
+        kd = self._key_dtype
         if limit is None:
             limit = getattr(self.backend, "scan_limit", 128)
         if limit <= 0:
@@ -1088,9 +1094,14 @@ class HiStoreClient:
     def _empty(self, dtype):
         return torch.zeros((0,), dtype=dtype, device=self.device)
 
+    @property
+    def _key_dtype(self):
+        """The backend's key dtype (int32 where it names none)."""
+        return getattr(self.backend, "key_dtype", None) or key_dtype()
+
     def _as_keys(self, keys):
         k = torch.as_tensor(np.asarray(keys) if not torch.is_tensor(keys)
-                            else keys, device=self.device).to(key_dtype())
+                            else keys, device=self.device).to(self._key_dtype)
         return k[None] if k.dim() == 0 else k
 
     def _as_values(self, values, q):

@@ -207,8 +207,10 @@ def rebuild(idx: HashIndex, keys, addrs, cfg, valid) -> HashIndex:
     fresh table), in lane-order chunks of REBUILD_CHUNK valid lanes.
 
     The same slots as the one batch the JAX package inserts: every key is
-    new (the fingerprint is a bijection of the int32 key, so no key
-    matches another's slot), and the rank-th new key of a bucket takes
+    new (the fingerprint is a bijection of an int32 key, so no key
+    matches another's slot; two int64 keys match only where their bucket,
+    signature and fingerprint all collide, about 2^-62 a pair in a
+    bucket), and the rank-th new key of a bucket takes
     the bucket's rank-th free slot in slot order, which is where it lands
     when the keys before it come in earlier chunks.  One batch of 2^24
     lanes would build [2^24, chain_slots] intermediates (4 GiB for the

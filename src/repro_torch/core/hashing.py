@@ -1,6 +1,8 @@
 """Key hashing for the hybrid index (port of ``repro/core/hashing.py``).
 
-Keys are int32.  The murmur3 ``fmix32`` mixing is uint32 arithmetic
+Keys are int32 by default (the JAX package's x32 mode) and int64 where a
+store is built so (its x64 mode); each state carries its own key dtype.
+The murmur3 ``fmix32`` mixing is uint32 arithmetic
 with wrap-around; PyTorch's uint32 support is thin, so every value is
 held in int64 in [0, 2**32) and each product is reduced with
 ``& 0xFFFFFFFF``.  A product of two such values does not fit in int64,
@@ -20,7 +22,9 @@ M32 = 0xFFFFFFFF
 
 
 def key_dtype() -> torch.dtype:
-    """Canonical key dtype: int32 (the JAX package's x32 mode)."""
+    """The default key dtype: int32 (the JAX package's x32 mode).  A store
+    built with ``key_dtype=torch.int64`` (its x64 mode) carries int64 keys
+    in its own states."""
     return I32
 
 
@@ -56,15 +60,21 @@ def _fmix32_int(x: int) -> int:
     return x ^ (x >> 16)
 
 
-# the high word of an int32 key is 0, so fmix32(hi ^ 0x9E3779B9) is a
-# constant and ``hi ^ x`` is ``x``
+# the high word of an int32 key is 0, so for such keys
+# fmix32(hi ^ 0x9E3779B9) is a constant and ``hi ^ x`` is ``x``
 _H1_SALT = _fmix32_int(0x9E3779B9)
 
 
 def key_mix(keys):
-    """keys: int32 -> (h1, h2), uint32 values held in int64:
+    """keys: int32 or int64 -> (h1, h2), uint32 values held in int64:
     h1 = fmix32(lo ^ fmix32(hi ^ 0x9E3779B9)),
-    h2 = fmix32(hi ^ fmix32(lo ^ 0x85EBCA77)), with hi = 0."""
+    h2 = fmix32(hi ^ fmix32(lo ^ 0x85EBCA77)), lo and hi the low and high
+    words of the key's two's-complement bits (hi = 0 for int32 keys)."""
+    if keys.dtype == I64:
+        lo = keys & M32
+        hi = (keys >> 32) & M32      # the logical shift's bits
+        return (fmix32(lo ^ fmix32(hi ^ 0x9E3779B9)),
+                fmix32(hi ^ fmix32(lo ^ 0x85EBCA77)))
     lo = keys.to(I64) & M32          # the two's-complement bits of the key
     return fmix32(lo ^ _H1_SALT), fmix32(fmix32(lo ^ 0x85EBCA77))
 

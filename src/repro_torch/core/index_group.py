@@ -43,13 +43,17 @@ class IndexGroup(NamedTuple):
     alive: torch.Tensor         # bool [1 + R]: primary, backup_0..R-1
 
 
-def create(capacity: int, cfg, device) -> IndexGroup:
+def create(capacity: int, cfg, device, key_dtype=None) -> IndexGroup:
+    """A fresh group whose logs and sorted replicas hold ``key_dtype``
+    keys (default int32, ``hashing.key_dtype``)."""
     R = cfg.n_backups
     return IndexGroup(
         hash=hi.create(capacity, cfg, device),
-        plog=lg.create(cfg.log_capacity, device),
-        sorted=tuple(si.create(capacity, device) for _ in range(R)),
-        blogs=tuple(lg.create(cfg.log_capacity, device) for _ in range(R)),
+        plog=lg.create(cfg.log_capacity, device, key_dtype),
+        sorted=tuple(si.create(capacity, device, key_dtype)
+                     for _ in range(R)),
+        blogs=tuple(lg.create(cfg.log_capacity, device, key_dtype)
+                    for _ in range(R)),
         alive=torch.ones((1 + R,), dtype=torch.bool, device=device),
     )
 
@@ -57,6 +61,13 @@ def create(capacity: int, cfg, device) -> IndexGroup:
 def pending_max(g: IndexGroup) -> int:
     """The most pending entries in any backup log (one host sync)."""
     return int(torch.stack([lg.pending_count(b) for b in g.blogs]).max())
+
+
+def _store_keys(g: IndexGroup, keys):
+    """``keys`` at the width of the group's keys: the hash mixes a key by
+    its width and the replicas compare it at theirs, so every entry that
+    takes keys first casts them, on every device."""
+    return keys.to(g.sorted[0].keys.dtype)
 
 
 def _first_live_backup(alive):
@@ -98,6 +109,7 @@ def put(g: IndexGroup, keys, addrs, cfg, valid=None,
         ) -> tuple:
     """PUT/UPDATE batch: primary log -> backup logs -> hash table.
     Returns (group, ok) — or (group, ok, nrep) with ``with_nrep``."""
+    keys = _store_keys(g, keys)
     if valid is None:
         valid = torch.ones(keys.shape, dtype=torch.bool, device=keys.device)
     ops = torch.where(valid, OP_PUT, 0).to(torch.int8)
@@ -121,6 +133,7 @@ def delete(g: IndexGroup, keys, cfg, valid=None,
     True answers found from the hash alone; False/None also run the
     replica probe, before this batch's tombstones land, so found stays
     honest while the primary is down (None selects by ``alive[0]``)."""
+    keys = _store_keys(g, keys)
     if valid is None:
         valid = torch.ones(keys.shape, dtype=torch.bool, device=keys.device)
     ops = torch.where(valid, OP_DEL, 0).to(torch.int8)
@@ -178,6 +191,7 @@ def replica_probe(g: IndexGroup, keys, cfg):
     """Degraded lookup via the first live sorted replica: its pending log
     first (newest wins), then the sorted index.  Returns (addr, found,
     n_accesses)."""
+    keys = _store_keys(g, keys)
     R = len(g.sorted)
     rep = _first_live_backup(g.alive)
     rep_sel = (torch.arange(R, device=keys.device) == rep).to(I32)
@@ -193,6 +207,7 @@ def owner_addr_probe(g: IndexGroup, keys, cfg,
     so the old slot is still found while the primary's table is wiped
     (writes issued after the failure land in the hash, earlier ones only
     in the replicas: the hash wins when it knows the key)."""
+    keys = _store_keys(g, keys)
     a_h, f_h, _ = kops.probe(cfg, g.hash, keys)
     if primary_alive is True:
         return a_h, f_h
@@ -206,6 +221,7 @@ def get(g: IndexGroup, keys, cfg, *, primary_alive: bool | None = None):
     True runs the hash probe alone, False the replica probe alone, None
     runs both and selects by ``alive[0]``.  Returns (addr, found,
     n_accesses)."""
+    keys = _store_keys(g, keys)
     if primary_alive is True:
         return kops.probe(cfg, g.hash, keys)
     addr_h, found_h, acc_h = kops.probe(cfg, g.hash, keys)

@@ -17,7 +17,7 @@ from repro_torch.core.scatter import drop_set
 
 
 class UpdateLog(NamedTuple):
-    keys: torch.Tensor     # int32 [cap]
+    keys: torch.Tensor     # int32 or int64 [cap]
     addrs: torch.Tensor    # int32 [cap]
     ops: torch.Tensor      # int8  [cap]   (0 invalid / 1 PUT / 2 DEL)
     tail: torch.Tensor     # int32 scalar: total appended

@@ -26,7 +26,7 @@ OP_DEL = 2
 
 
 class SortedIndex(NamedTuple):
-    keys: torch.Tensor    # int32 [cap], ascending, empty = key_inf
+    keys: torch.Tensor    # int32 or int64 [cap], ascending, empty = key_inf
     addrs: torch.Tensor   # int32 [cap]
     size: torch.Tensor    # int32 scalar
 

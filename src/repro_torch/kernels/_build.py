@@ -60,9 +60,9 @@ SIGNATURES = {
     },
     "sorted_search": {
         "histore_sorted_search": ([P] * 8 + [I64, I64, INT, INT, P], INT),
-        "histore_range_query": ([P, P] + [I64] * 4 + [P, I64, P, I64, P, I64,
-                                                      INT, I64, INT, INT, I64,
-                                                      P], INT),
+        "histore_range_query": ([P, P] + [I64] * 4 + [P, I64, P, I64, P, P,
+                                                      P, I64, INT, I64, INT,
+                                                      INT, I64, P], INT),
     },
     "merge": {
         "histore_merge_scratch_bytes": ([I64, I64], I64),
@@ -96,6 +96,16 @@ SIGNATURES = {
         "histore_mamba_scan": ([P] * 7 + [I64] + [INT] * 4 + [P], INT),
     },
 }
+
+# the int64-key entry point of each int32 one above that has one: the same
+# template instantiated for int64_t keys, with the same arguments
+for _lib, _fn in (("hash_probe", "histore_hash_probe"),
+                  ("sorted_search", "histore_sorted_search"),
+                  ("sorted_search", "histore_range_query"),
+                  ("merge", "histore_merge_scratch_bytes"),
+                  ("merge", "histore_merge"),
+                  ("backup_probe", "histore_backup_probe")):
+    SIGNATURES[_lib][_fn + "_i64"] = SIGNATURES[_lib][_fn]
 
 _lock = threading.Lock()
 _libs: dict = {}

@@ -5,7 +5,8 @@
 // legacy_sorted_search.cu launch.  Also the probe result the hash walk
 // and the backup finish return.
 //
-// Over ascending, INF-padded int32 keys, the descent walks the implicit
+// Over ascending, INF-padded keys (int32 or int64, K below; key_type.cuh),
+// the descent walks the implicit
 // fanout-ary directory: at level l (stride fanout^l) it reads the node
 // keys[pos + j * stride], j < fanout (INF past the end), counts those
 // <= q, and moves pos by max(cnt - 1, 0) * stride.  For q = KEY_INF every
@@ -42,14 +43,21 @@
 //    query where a warp a level read about 268.  descent_split is the same
 //    from the root, no top grid staged: the backup probe's finish, whose
 //    queries each pick their replica.
+// At int64 keys every form is the same template: a 16 B load holds 2 keys
+// (load16, key_type.cuh), so level 0's node is 32 sectors, not 16, and
+// 57 a query at cap 2^24; the scattered keys above it cost a sector each
+// at either width; the staged top grid and the block form's window hold
+// 8 B keys (8 KB and 16 KB of keys, not 4 and 8).
 #pragma once
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "key_type.cuh"
+
 namespace histore {
 
-constexpr int32_t KEY_INF = 0x7fffffff;
+constexpr int32_t KEY_INF = key_inf<int32_t>();
 
 // one query's answer: value address (-1 on a miss), found, n_accesses
 struct Probe {
@@ -65,10 +73,10 @@ __device__ __forceinline__ unsigned group_mask() {
   return ((1u << W) - 1u) << ((threadIdx.x & 31) & ~(W - 1));
 }
 
-template <int W>
+template <int W, class K>
 __device__ __forceinline__ int64_t descent_lanes(
-    const int32_t* __restrict__ keys, int32_t q, int64_t cap, int fanout,
-    int levels, int lane) {
+    const K* __restrict__ keys, K q, int64_t cap, int fanout, int levels,
+    int lane) {
   const unsigned mask = group_mask<W>();
   int64_t stride = 1;
   for (int l = 1; l < levels; ++l) stride *= fanout;
@@ -78,7 +86,7 @@ __device__ __forceinline__ int64_t descent_lanes(
 #pragma unroll 4
     for (int j = lane; j < fanout; j += W) {
       const int64_t gi = pos + int64_t(j) * stride;
-      le += (gi < cap ? keys[gi] : KEY_INF) <= q ? 1 : 0;
+      le += (gi < cap ? keys[gi] : key_inf<K>()) <= q ? 1 : 0;
     }
     const int cnt = int(__reduce_add_sync(mask, unsigned(le)));
     pos += int64_t(max(cnt - 1, 0)) * stride;
@@ -129,8 +137,9 @@ inline Grid make_grid(long long cap, int fanout, int levels) {
 }
 
 // -- the block form --------------------------------------------------------
+template <class K>
 struct BlockShared {
-  int32_t k[SPAN_MAX];
+  K k[SPAN_MAX];
   int32_t a[SPAN_MAX];
   int red[BLOCK_THREADS / 32];
 };
@@ -151,18 +160,19 @@ __device__ __forceinline__ int block_sum(int c, int* red) {
 // 0's node and leaves the keys and addrs of [node, node + span) in sm
 // (KEY_INF and -1 past cap), span <= SPAN_MAX; for q = KEY_INF returns -1
 // and reads nothing more.  Every thread must call it.
+template <class K>
 __device__ __forceinline__ int64_t block_node(
-    const int32_t* __restrict__ keys, const int32_t* __restrict__ addrs,
-    const int32_t* qp, const Grid& g, int span, BlockShared& sm,
-    int32_t& q) {
+    const K* __restrict__ keys, const int32_t* __restrict__ addrs,
+    const K* qp, const Grid& g, int span, BlockShared<K>& sm, K& q) {
   constexpr int PER = TOP_MAX / BLOCK_THREADS;
+  constexpr K INF = key_inf<K>();
   const int t = threadIdx.x;
   q = *qp;
-  int32_t tk[PER];
+  K tk[PER];
 #pragma unroll
   for (int u = 0; u < PER; ++u) {
     const int j = u * BLOCK_THREADS + t;
-    tk[u] = j < g.top_n ? keys[int64_t(j) * g.top_stride] : KEY_INF;
+    tk[u] = j < g.top_n ? keys[int64_t(j) * g.top_stride] : INF;
   }
   int c = 0;
 #pragma unroll
@@ -170,17 +180,17 @@ __device__ __forceinline__ int64_t block_node(
   // the sum's barrier comes before the branch on q, so that the top
   // grid's loads are issued with q's
   const int top = g.top_n > 0 ? block_sum(c, sm.red) : 0;
-  if (q == KEY_INF) return -1;  // block-uniform
+  if (q == INF) return -1;  // block-uniform
   int64_t pos = g.top_stride * max(top - 1, 0);
   int64_t s = g.top_stride;
   for (int l = g.top_level - 1; l >= 1; --l) {
     s /= g.fanout;
-    int32_t nk[MAX_FANOUT / BLOCK_THREADS];
+    K nk[MAX_FANOUT / BLOCK_THREADS];
 #pragma unroll
     for (int u = 0; u < MAX_FANOUT / BLOCK_THREADS; ++u) {
       const int j = u * BLOCK_THREADS + t;
       const int64_t gi = pos + int64_t(j) * s;
-      nk[u] = j < g.fanout && gi < g.cap ? keys[gi] : KEY_INF;
+      nk[u] = j < g.fanout && gi < g.cap ? keys[gi] : INF;
     }
     int c = 0;
 #pragma unroll
@@ -192,7 +202,7 @@ __device__ __forceinline__ int64_t block_node(
   for (int i = t; i < span; i += BLOCK_THREADS) {
     const int64_t gi = pos + i;
     const bool in = gi < g.cap;
-    sm.k[i] = in ? keys[gi] : KEY_INF;
+    sm.k[i] = in ? keys[gi] : INF;
     sm.a[i] = in ? addrs[gi] : -1;
   }
   __syncthreads();
@@ -201,8 +211,9 @@ __device__ __forceinline__ int64_t block_node(
 
 // the offset in level 0's node (left in sm by block_node) of the last key
 // <= q, or 0; every thread must call it
-__device__ __forceinline__ int block_leaf(int32_t q, const Grid& g,
-                                          BlockShared& sm) {
+template <class K>
+__device__ __forceinline__ int block_leaf(K q, const Grid& g,
+                                          BlockShared<K>& sm) {
   int c = 0;
   for (int i = threadIdx.x; i < g.fanout; i += BLOCK_THREADS)
     c += sm.k[i] <= q ? 1 : 0;
@@ -211,8 +222,9 @@ __device__ __forceinline__ int block_leaf(int32_t q, const Grid& g,
 
 // the search's outputs for query qi: the descent's pos, the key k at
 // min(pos, cap - 1) and its addr a
+template <class K>
 __device__ __forceinline__ void search_out(
-    int64_t qi, int64_t pos, int32_t q, int32_t k, int32_t a, int levels,
+    int64_t qi, int64_t pos, K q, K k, int32_t a, int levels,
     int32_t* __restrict__ out_addr, int32_t* __restrict__ out_found,
     int32_t* __restrict__ out_acc, int32_t* __restrict__ out_pos,
     int32_t* __restrict__ out_lb) {
@@ -229,18 +241,19 @@ __device__ __forceinline__ void search_out(
 // One block a query.  Writes addr (or -1), found and n_accesses = levels;
 // where out_pos is not null also the unclamped pos and the lower bound
 // pos + (keys[min(pos, cap - 1)] < q).
+template <class K>
 __global__ void __launch_bounds__(BLOCK_THREADS)
-    search_block_kernel(const int32_t* __restrict__ queries,
-                        const int32_t* __restrict__ keys,
+    search_block_kernel(const K* __restrict__ queries,
+                        const K* __restrict__ keys,
                         const int32_t* __restrict__ addrs,
                         int32_t* __restrict__ out_addr,
                         int32_t* __restrict__ out_found,
                         int32_t* __restrict__ out_acc,
                         int32_t* __restrict__ out_pos,
                         int32_t* __restrict__ out_lb, Grid g) {
-  __shared__ BlockShared sm;
+  __shared__ BlockShared<K> sm;
   const int64_t qi = blockIdx.x;
-  int32_t q;
+  K q;
   const int64_t node =
       block_node(keys, addrs, queries + qi, g, g.fanout, sm, q);
   if (node < 0) {  // KEY_INF: pos past the end, the read clamped
@@ -258,15 +271,19 @@ __global__ void __launch_bounds__(BLOCK_THREADS)
 // The SCAN [lo, hi] of replica r of group gi, block gi * R + r: leaves of
 // [R, G, cap] read in place by element strides (0 for one replica), lo
 // and hi [G] by their strides (0 when expanded).  Output: keys [G, R,
-// limit], then addrs [G, R, limit], then the counts [G, R], int32.
+// limit] (K) at out_k, addrs [G, R, limit] at out_a and the counts [G, R]
+// at out_n, int32.
+template <class K>
 struct RangeArgs {
-  const int32_t* keys;
+  const K* keys;
   const int32_t* addrs;
   int64_t ks_r, ks_g, as_r, as_g;
-  const int32_t* lo;
-  const int32_t* hi;
+  const K* lo;
+  const K* hi;
   int64_t lo_s, hi_s;
-  int32_t* out;
+  K* out_k;
+  int32_t* out_a;
+  int32_t* out_n;
   int64_t G, limit;
   int R;
 };
@@ -275,21 +292,23 @@ struct RangeArgs {
 // pos + (keys[min(pos, cap - 1)] < lo), then the take of
 // sorted_index.range_from_start: `limit` entries from the bound, each
 // masked where at >= cap, k > hi or k == KEY_INF, and their count.
+template <class K>
 __global__ void __launch_bounds__(BLOCK_THREADS)
-    range_kernel(RangeArgs p, Grid g) {
-  __shared__ BlockShared sm;
+    range_kernel(RangeArgs<K> p, Grid g) {
+  __shared__ BlockShared<K> sm;
+  constexpr K INF = key_inf<K>();
   const int64_t b = blockIdx.x;
   const int64_t gi = b / p.R, r = b % p.R;
-  const int32_t* __restrict__ keys = p.keys + r * p.ks_r + gi * p.ks_g;
+  const K* __restrict__ keys = p.keys + r * p.ks_r + gi * p.ks_g;
   const int32_t* __restrict__ addrs = p.addrs + r * p.as_r + gi * p.as_g;
-  const int32_t hi = p.hi[gi * p.hi_s];
+  const K hi = p.hi[gi * p.hi_s];
   const int64_t want = g.fanout + p.limit;
   const int span = want < SPAN_MAX ? int(want) : SPAN_MAX;
-  int32_t q;
+  K q;
   int64_t node = block_node(keys, addrs, p.lo + gi * p.lo_s, g, span, sm, q);
   int have = span;  // entries of the window in sm
   int64_t pos;
-  int32_t k_at;
+  K k_at;
   if (node < 0) {  // KEY_INF
     pos = node = g.inf_pos;
     k_at = keys[g.cap - 1];
@@ -300,13 +319,14 @@ __global__ void __launch_bounds__(BLOCK_THREADS)
     k_at = sm.k[c];
   }
   const int64_t lb = pos + (k_at < q ? 1 : 0);
-  int32_t* __restrict__ ok = p.out + b * p.limit;
-  int32_t* __restrict__ oa = ok + p.G * p.R * p.limit;
+  K* __restrict__ ok = p.out_k + b * p.limit;
+  int32_t* __restrict__ oa = p.out_a + b * p.limit;
   int n = 0;
   for (int64_t i = threadIdx.x; i < p.limit; i += BLOCK_THREADS) {
     const int64_t at = lb + i;
     const int64_t w = at - node;
-    int32_t k = KEY_INF, a = -1;
+    K k = INF;
+    int32_t a = -1;
     if (w < have) {
       k = sm.k[w];
       a = sm.a[w];
@@ -314,22 +334,22 @@ __global__ void __launch_bounds__(BLOCK_THREADS)
       k = keys[at];
       a = addrs[at];
     }
-    const bool valid = at < g.cap && k <= hi && k != KEY_INF;
-    ok[i] = valid ? k : KEY_INF;
+    const bool valid = at < g.cap && k <= hi && k != INF;
+    ok[i] = valid ? k : INF;
     oa[i] = valid ? a : -1;
     n += valid ? 1 : 0;
   }
   n = block_sum(n, sm.red);
-  if (threadIdx.x == 0) p.out[2 * p.G * p.R * p.limit + b] = n;
+  if (threadIdx.x == 0) p.out_n[b] = n;
 }
 
 // -- the lane form ---------------------------------------------------------
 // count of the node keys[pos + j s] <= q, j < fanout, below cap, on W
 // lanes: every SPLIT-th key, then the SPLIT - 1 keys after the last of
 // them <= q
-template <int W>
-__device__ __forceinline__ int split_count(const int32_t* __restrict__ keys,
-                                           int64_t pos, int64_t s, int32_t q,
+template <int W, class K>
+__device__ __forceinline__ int split_count(const K* __restrict__ keys,
+                                           int64_t pos, int64_t s, K q,
                                            int64_t cap, int fanout, int lane,
                                            unsigned mask) {
   const int nco = (fanout + SPLIT - 1) / SPLIT;
@@ -353,32 +373,30 @@ __device__ __forceinline__ int split_count(const int32_t* __restrict__ keys,
 }
 
 // level 0's node [pos, pos + fanout) in one round on W lanes (VEC: in 16 B
-// loads; fanout % 4 == 0, keys 16-byte aligned): c returns the offset of
-// the last key <= q (0 when none is); returns the key at that offset
-template <int W, bool VEC>
-__device__ __forceinline__ int32_t leaf_lanes(
-    const int32_t* __restrict__ keys, int64_t pos, int32_t q, int64_t cap,
-    int fanout, int lane, unsigned mask, int& c) {
+// loads of E = per16<K>() keys, 4 int32 or 2 int64; fanout % 4 == 0, keys
+// 16-byte aligned): c returns the offset of the last key <= q (0 when none
+// is); returns the key at that offset
+template <int W, bool VEC, class K>
+__device__ __forceinline__ K leaf_lanes(
+    const K* __restrict__ keys, int64_t pos, K q, int64_t cap, int fanout,
+    int lane, unsigned mask, int& c) {
+  constexpr K INF = key_inf<K>();
   int best = -1;
-  int32_t bestv = 0, firstv = KEY_INF;
+  K bestv = 0, firstv = INF;
   if constexpr (VEC) {
+    constexpr int E = per16<K>();
 #pragma unroll 4
-    for (int j4 = lane * 4; j4 < fanout; j4 += W * 4) {
+    for (int j4 = lane * E; j4 < fanout; j4 += W * E) {
       const int64_t gi = pos + j4;
-      int32_t v[4];
-      if (gi + 3 < cap) {
-        const int4 x = *reinterpret_cast<const int4*>(keys + gi);
-        v[0] = x.x;
-        v[1] = x.y;
-        v[2] = x.z;
-        v[3] = x.w;
+      K v[E];
+      if (gi + E - 1 < cap) {
+        load16(keys + gi, v);
       } else {
 #pragma unroll
-        for (int e = 0; e < 4; ++e)
-          v[e] = gi + e < cap ? keys[gi + e] : KEY_INF;
+        for (int e = 0; e < E; ++e) v[e] = gi + e < cap ? keys[gi + e] : INF;
       }
 #pragma unroll
-      for (int e = 0; e < 4; ++e) {
+      for (int e = 0; e < E; ++e) {
         if (v[e] <= q) {
           best = j4 + e;
           bestv = v[e];
@@ -390,7 +408,7 @@ __device__ __forceinline__ int32_t leaf_lanes(
 #pragma unroll 4
     for (int j = lane; j < fanout; j += W) {
       const int64_t gi = pos + j;
-      const int32_t v = gi < cap ? keys[gi] : KEY_INF;
+      const K v = gi < cap ? keys[gi] : INF;
       if (v <= q) {
         best = j;
         bestv = v;
@@ -408,11 +426,10 @@ __device__ __forceinline__ int32_t leaf_lanes(
 // for q < KEY_INF on W lanes: from pos at level `from` (stride s there),
 // the levels from - 1 .. 1 split-searched, then level 0's node; returns
 // the descent's pos, k the key there
-template <int W, bool VEC>
+template <int W, bool VEC, class K>
 __device__ __forceinline__ int64_t split_from(
-    const int32_t* __restrict__ keys, int64_t pos, int64_t s, int from,
-    int32_t q, int64_t cap, int fanout, int lane, unsigned mask,
-    int32_t& k) {
+    const K* __restrict__ keys, int64_t pos, int64_t s, int from, K q,
+    int64_t cap, int fanout, int lane, unsigned mask, K& k) {
   for (int l = from - 1; l >= 1; --l) {
     s /= fanout;
     pos += s * max(split_count<W>(keys, pos, s, q, cap, fanout, lane, mask) -
@@ -429,13 +446,13 @@ __device__ __forceinline__ int64_t split_from(
 // every level split-searched, level 0 in 16 B loads where the keys allow.
 // Returns pos (fanout^levels - 1 for KEY_INF), k the key at min(pos,
 // cap - 1).  Every lane of the group must call it.
-template <int W>
+template <int W, class K>
 __device__ __forceinline__ int64_t descent_split(
-    const int32_t* __restrict__ keys, int32_t q, int64_t cap, int fanout,
-    int levels, int lane, int32_t& k) {
+    const K* __restrict__ keys, K q, int64_t cap, int fanout, int levels,
+    int lane, K& k) {
   int64_t s = 1;
   for (int l = 0; l < levels; ++l) s *= fanout;
-  if (q == KEY_INF) {
+  if (q == key_inf<K>()) {
     k = keys[cap - 1];
     return s - 1;
   }
@@ -448,28 +465,28 @@ __device__ __forceinline__ int64_t descent_split(
 }
 
 // LANES lanes a query; the block stages the top grid in shared memory
-template <bool VEC>
+template <bool VEC, class K>
 __global__ void __launch_bounds__(1024)
-    search_lanes_kernel(const int32_t* __restrict__ queries,
-                        const int32_t* __restrict__ keys,
+    search_lanes_kernel(const K* __restrict__ queries,
+                        const K* __restrict__ keys,
                         const int32_t* __restrict__ addrs,
                         int32_t* __restrict__ out_addr,
                         int32_t* __restrict__ out_found,
                         int32_t* __restrict__ out_acc,
                         int32_t* __restrict__ out_pos,
                         int32_t* __restrict__ out_lb, int64_t Q, Grid g) {
-  __shared__ int32_t top[TOP_MAX];
+  __shared__ K top[TOP_MAX];
   const int t = threadIdx.x;
   const int64_t qi = (int64_t(blockIdx.x) * blockDim.x + t) / LANES;
   const int lane = t & (LANES - 1);
-  const int32_t q = qi < Q ? queries[qi] : KEY_INF;
+  const K q = qi < Q ? queries[qi] : key_inf<K>();
   for (int j = t; j < g.top_n; j += blockDim.x)
     top[j] = keys[int64_t(j) * g.top_stride];
   __syncthreads();
   if (qi >= Q) return;  // uniform over the query's lanes
   int64_t pos;
-  int32_t k;
-  if (q == KEY_INF) {
+  K k;
+  if (q == key_inf<K>()) {
     pos = g.inf_pos;
     k = keys[g.cap - 1];
   } else {
@@ -494,14 +511,14 @@ __global__ void __launch_bounds__(1024)
   }
 }
 
-template <bool VEC>
+template <bool VEC, class K>
 inline void launch_lanes(unsigned blocks, int threads, cudaStream_t st,
                          const void* queries, const void* keys,
                          const void* addrs, void* out_addr, void* out_found,
                          void* out_acc, void* out_pos, void* out_lb,
                          long long Q, const Grid& g) {
-  search_lanes_kernel<VEC><<<blocks, threads, 0, st>>>(
-      (const int32_t*)queries, (const int32_t*)keys, (const int32_t*)addrs,
+  search_lanes_kernel<VEC, K><<<blocks, threads, 0, st>>>(
+      (const K*)queries, (const K*)keys, (const int32_t*)addrs,
       (int32_t*)out_addr, (int32_t*)out_found, (int32_t*)out_acc,
       (int32_t*)out_pos, (int32_t*)out_lb, (int64_t)Q, g);
 }
@@ -510,9 +527,11 @@ inline bool grid_ok(long long cap, int fanout, int levels) {
   return cap >= 1 && fanout >= 1 && fanout <= MAX_FANOUT && levels >= 1;
 }
 
-// the search of Q queries: the block form at Q <= BLOCK_FORM_MAX_Q, else
-// the lane form with 128 to 1024 threads a block, so that about 128
-// blocks share the top grid's staging; returns the launch status
+// the search of Q queries of K keys: the block form at Q <=
+// BLOCK_FORM_MAX_Q, else the lane form with 128 to 1024 threads a block,
+// so that about 128 blocks share the top grid's staging; returns the
+// launch status
+template <class K>
 inline int launch_search(const void* queries, const void* keys,
                          const void* addrs, void* out_addr, void* out_found,
                          void* out_acc, void* out_pos, void* out_lb,
@@ -523,8 +542,8 @@ inline int launch_search(const void* queries, const void* keys,
     const Grid g = make_grid(cap, fanout, levels);
     cudaStream_t st = (cudaStream_t)stream;
     if (Q <= BLOCK_FORM_MAX_Q) {
-      search_block_kernel<<<(unsigned)Q, BLOCK_THREADS, 0, st>>>(
-          (const int32_t*)queries, (const int32_t*)keys,
+      search_block_kernel<K><<<(unsigned)Q, BLOCK_THREADS, 0, st>>>(
+          (const K*)queries, (const K*)keys,
           (const int32_t*)addrs, (int32_t*)out_addr, (int32_t*)out_found,
           (int32_t*)out_acc, (int32_t*)out_pos, (int32_t*)out_lb, g);
     } else {
@@ -536,27 +555,29 @@ inline int launch_search(const void* queries, const void* keys,
       const bool vec =
           fanout % 4 == 0 && (reinterpret_cast<uintptr_t>(keys) & 15) == 0;
       if (vec)
-        launch_lanes<true>(blocks, threads, st, queries, keys, addrs,
-                           out_addr, out_found, out_acc, out_pos, out_lb, Q,
-                           g);
+        launch_lanes<true, K>(blocks, threads, st, queries, keys, addrs,
+                              out_addr, out_found, out_acc, out_pos, out_lb,
+                              Q, g);
       else
-        launch_lanes<false>(blocks, threads, st, queries, keys, addrs,
-                            out_addr, out_found, out_acc, out_pos, out_lb, Q,
-                            g);
+        launch_lanes<false, K>(blocks, threads, st, queries, keys, addrs,
+                               out_addr, out_found, out_acc, out_pos, out_lb,
+                               Q, g);
     }
   }
   return (int)cudaGetLastError();
 }
 
 // the SCANs of G groups x R replicas, one block each
-inline int launch_range(const RangeArgs& p, long long cap, int fanout,
+template <class K>
+inline int launch_range(const RangeArgs<K>& p, long long cap, int fanout,
                         int levels, void* stream) {
   if (!grid_ok(cap, fanout, levels) || p.G < 0 || p.R < 1 || p.limit < 0)
     return (int)cudaErrorInvalidValue;
   const long long blocks = p.G * p.R;
   if (blocks > 0)
-    range_kernel<<<(unsigned)blocks, BLOCK_THREADS, 0,
-                   (cudaStream_t)stream>>>(p, make_grid(cap, fanout, levels));
+    range_kernel<K><<<(unsigned)blocks, BLOCK_THREADS, 0,
+                      (cudaStream_t)stream>>>(p,
+                                              make_grid(cap, fanout, levels));
   return (int)cudaGetLastError();
 }
 

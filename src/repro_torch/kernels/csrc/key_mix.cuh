@@ -3,9 +3,11 @@
 // src/repro/core/hashing.py:36-60, and of the owner-group hash of
 // src/repro/core/kvstore.py:173).
 //
-// Keys are int32, so the high word of the reference's key is 0 and
-// fmix32(hi ^ 0x9E3779B9) is a constant.  All of it is wrapping uint32
-// arithmetic, native here (the PyTorch version emulates it in int64).
+// Keys are int32 or int64 (key_type.cuh).  The mix takes the key's two
+// 32-bit words, lo and hi, of its two's-complement bits; an int32 key has
+// hi = 0, so for it fmix32(hi ^ 0x9E3779B9) is a constant and hi ^ x is x.
+// All of it is wrapping uint32 arithmetic, native here (the PyTorch
+// version emulates it in int64).
 #pragma once
 
 #include <stdint.h>
@@ -24,14 +26,24 @@ __host__ __device__ constexpr uint32_t fmix32(uint32_t x) {
 
 constexpr uint32_t H1_SALT = fmix32(0x9E3779B9u);
 
-// h1 = fmix32(lo ^ fmix32(0x9E3779B9)), h2 = fmix32(fmix32(lo ^ 0x85EBCA77))
+// h1 = fmix32(lo ^ fmix32(hi ^ 0x9E3779B9)),
+// h2 = fmix32(hi ^ fmix32(lo ^ 0x85EBCA77))
 struct KeyMix {
   uint32_t h1, h2;
 };
 
+// int32 keys: hi = 0
 __device__ __forceinline__ KeyMix key_mix(int32_t key) {
   const uint32_t lo = uint32_t(key);
   return KeyMix{fmix32(lo ^ H1_SALT), fmix32(fmix32(lo ^ 0x85EBCA77u))};
+}
+
+// int64 keys: both words (hi the logical shift's, for negative keys too)
+__device__ __forceinline__ KeyMix key_mix(int64_t key) {
+  const uint64_t k = uint64_t(key);
+  const uint32_t lo = uint32_t(k), hi = uint32_t(k >> 32);
+  return KeyMix{fmix32(lo ^ fmix32(hi ^ 0x9E3779B9u)),
+                fmix32(hi ^ fmix32(lo ^ 0x85EBCA77u))};
 }
 
 // a probe's descriptors: the bucket (n_buckets a power of two), the 31-bit

@@ -34,7 +34,8 @@ extern "C" int histore_legacy_sorted_search(const void* queries,
                                             void* out_acc, long long Q,
                                             long long cap, int fanout,
                                             int levels, void* stream) {
-  return histore::launch_search(queries, keys, addrs, out_addr, out_found,
-                                out_acc, nullptr, nullptr, Q, cap, fanout,
-                                levels, stream);
+  return histore::launch_search<int32_t>(queries, keys, addrs, out_addr,
+                                         out_found, out_acc, nullptr,
+                                         nullptr, Q, cap, fanout, levels,
+                                         stream);
 }

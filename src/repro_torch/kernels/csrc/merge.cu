@@ -8,8 +8,17 @@
 // them.
 //
 // Bound: bytes.  The existing keys and addrs are read once and the new
-// ones written once, 16 B a slot (268 MB at cap = 2^24); the batch (9 B
-// an entry) is noise at m = 4096.
+// ones written once, 16 B a slot at int32 keys and 24 B at int64 (268 MB
+// and 403 MB at cap = 2^24: 0.0801 and 0.1202 ms at 3.35 TB/s); the batch
+// (9 B an entry, 13 at int64) is noise at m = 4096.
+//
+// histore_merge_i64 is the same template on int64 keys (key_type.cuh).
+// Its tiles of keys double in shared memory (the 2048-entry parts, 16 KB
+// each), so part A's addrs are read from device memory where the place
+// step stores them (coalesced, in entry order) and not staged: a block
+// holds 42 KB of static shared memory, under the 48 KB limit (int32: 34
+// KB), so at most five blocks an SM by shared memory.  The copies are 16 B of 2
+// keys, and the batch's sort moves 8 B keys.
 //
 // Design: a merge-path apply, five steps on the caller's stream, each
 // launched with programmatic dependent launch (pdl.cuh) so that a kernel
@@ -57,13 +66,15 @@ namespace histore {
 
 // the batch as the sort reads it: key INF on op-0 lanes, payload
 // arrival << 1 | is-DELETE
+template <class K>
 struct BatchLoad {
-  const int32_t* keys;
+  const K* keys;
   const int8_t* ops;
-  __device__ __forceinline__ void operator()(long long, long long i,
-                                             int32_t& k, int32_t& v) const {
-    const int32_t key = keys[i], op = ops[i];  // both reads in flight
-    k = op > 0 ? key : 0x7fffffff;
+  __device__ __forceinline__ void operator()(long long, long long i, K& k,
+                                             int32_t& v) const {
+    const K key = keys[i];
+    const int32_t op = ops[i];  // both reads in flight
+    k = op > 0 ? key : key_inf<K>();
     v = int32_t(i << 1) | (op == 2 ? 1 : 0);
   }
 };
@@ -72,7 +83,6 @@ struct BatchLoad {
 
 namespace {
 
-constexpr int32_t KEY_INF = 0x7fffffff;
 constexpr int THREADS = histore::MS_THREADS;
 constexpr int ITEMS = histore::MS_ITEMS;
 constexpr int TILE = histore::MS_TILE;
@@ -80,11 +90,12 @@ constexpr int WARPS = THREADS / 32;
 constexpr int SCAN_THREADS = 1024;
 constexpr int SCAN_ITEMS = 16;
 
+template <class K>
 struct Args {
-  const int32_t* ek;      // [cap] existing keys, ascending, INF-padded
+  const K* ek;            // [cap] existing keys, ascending, INF-padded
   const int32_t* ea;      // [cap] existing addrs
   long long cap;
-  const int32_t* sk;      // [m] sorted batch keys
+  const K* sk;            // [m] sorted batch keys
   const int32_t* sp;      // [m] sorted batch payloads
   const int32_t* baddrs;  // [m] batch addrs, in arrival order
   long long m;
@@ -97,14 +108,17 @@ struct Args {
   long long* total;       // [1] kept entries in all
 };
 
+template <class K>
 struct Scratch {
-  int32_t *sk, *sp, *tk, *tp, *bcnt;
+  K *sk, *tk;
+  int32_t *sp, *tp, *bcnt;
   long long *split, *gpre, *total;
 };
 
 size_t align256(size_t x) { return (x + 255) & ~size_t(255); }
 
-size_t carve(char* base, long long m, long long ntiles, Scratch* s) {
+template <class K>
+size_t carve(char* base, long long m, long long ntiles, Scratch<K>* s) {
   size_t off = 0;
   auto take = [&](size_t bytes) {
     char* p = base ? base + off : nullptr;
@@ -112,9 +126,9 @@ size_t carve(char* base, long long m, long long ntiles, Scratch* s) {
     return p;
   };
   const long long mt = m > TILE ? m : 0;  // the sort's second buffer
-  s->sk = (int32_t*)take(m * 4);
+  s->sk = (K*)take(m * sizeof(K));
   s->sp = (int32_t*)take(m * 4);
-  s->tk = (int32_t*)take(mt * 4);
+  s->tk = (K*)take(mt * sizeof(K));
   s->tp = (int32_t*)take(mt * 4);
   s->split = (long long*)take((ntiles + 1) * 8);
   s->bcnt = (int32_t*)take(ntiles * 4);
@@ -123,10 +137,10 @@ size_t carve(char* base, long long m, long long ntiles, Scratch* s) {
   return off;
 }
 
-// 4- and 16-byte asynchronous copies from device to shared memory
+// 4-, 8- and 16-byte asynchronous copies from device to shared memory
 // (cp.async): the copies of a whole tile are in flight at once and hold
 // no registers
-__device__ __forceinline__ void copy4(int32_t* dst, const int32_t* src) {
+__device__ __forceinline__ void copy_entry(int32_t* dst, const int32_t* src) {
 #if defined(__CUDA_ARCH__)
   asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(
                    (unsigned)__cvta_generic_to_shared(dst)),
@@ -136,34 +150,47 @@ __device__ __forceinline__ void copy4(int32_t* dst, const int32_t* src) {
 #endif
 }
 
-__device__ __forceinline__ void copy16(int32_t* dst, const int32_t* src) {
+__device__ __forceinline__ void copy_entry(int64_t* dst, const int64_t* src) {
+#if defined(__CUDA_ARCH__)
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n" ::"r"(
+                   (unsigned)__cvta_generic_to_shared(dst)),
+               "l"(src));
+#else
+  *dst = *src;
+#endif
+}
+
+template <class K>
+__device__ __forceinline__ void copy16(K* dst, const K* src) {
 #if defined(__CUDA_ARCH__)
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
                    (unsigned)__cvta_generic_to_shared(dst)),
                "l"(src));
 #else
-  for (int q = 0; q < 4; ++q) dst[q] = src[q];
+  for (int q = 0; q < histore::per16<K>(); ++q) dst[q] = src[q];
 #endif
 }
 
 // src[lo, hi) (src holds n entries) into shared memory at dst, 16-byte
 // aligned: dst[g - lo + off] = src[g], for the returned off.  Where src
-// is 16-byte aligned the copies are 16 bytes from lo rounded down to a
-// multiple of 4 (off = lo % 4), else 4 bytes (off = 0).
-__device__ __forceinline__ int copy_range(int32_t* dst, const int32_t* src,
-                                          long long lo, long long hi,
-                                          long long n) {
+// is 16-byte aligned the copies are 16 bytes (E = 4 int32 or 2 int64
+// keys) from lo rounded down to a multiple of E (off = lo % E), else one
+// entry each (copy4: 4 or 8 bytes; off = 0).
+template <class K>
+__device__ __forceinline__ int copy_range(K* dst, const K* src, long long lo,
+                                          long long hi, long long n) {
+  constexpr long long E = histore::per16<K>();
   if ((reinterpret_cast<uintptr_t>(src) & 15) != 0) {
     for (long long g = lo + threadIdx.x; g < hi; g += THREADS)
-      copy4(dst + (g - lo), src + g);
+      copy_entry(dst + (g - lo), src + g);
     return 0;
   }
-  const long long a0 = lo & ~3LL;
-  for (long long g = a0 + 4LL * threadIdx.x; g < hi; g += 4LL * THREADS) {
-    if (g + 4 <= n) {
+  const long long a0 = lo & ~(E - 1);
+  for (long long g = a0 + E * threadIdx.x; g < hi; g += E * THREADS) {
+    if (g + E <= n) {
       copy16(dst + (g - a0), src + g);
     } else {
-      for (long long q = g; q < n; ++q) copy4(dst + (q - a0), src + q);
+      for (long long q = g; q < n; ++q) copy_entry(dst + (q - a0), src + q);
     }
   }
   return int(lo - a0);
@@ -217,14 +244,18 @@ __device__ __forceinline__ void scan_kept(Kept& s, int scanner) {
 // existing entry x has x + #(B < its key) entries before it and batch
 // entry y has y + #(A <= its key).  Batch parts are short (m entries over
 // (cap + m) / TILE tiles), so B is walked in a loop that usually turns
-// once.
-template <bool PLACE>
-__device__ __forceinline__ void apply_tile(const Args& a, long long t,
-                                           int32_t* __restrict__ nk,
+// once.  With int64 keys the place step reads part A's addrs from device
+// memory (coalesced, in entry order), not staged: the tile's shared
+// memory would pass 48 KB.
+template <bool PLACE, class K>
+__device__ __forceinline__ void apply_tile(const Args<K>& a, long long t,
+                                           K* __restrict__ nk,
                                            int32_t* __restrict__ nv) {
-  __shared__ __align__(16) int32_t akeys_s[TILE + 8];
-  __shared__ __align__(16) int32_t avals_s[PLACE ? TILE + 8 : 4];
-  __shared__ int32_t bkeys[TILE + 1];
+  constexpr K KEY_INF = histore::key_inf<K>();
+  constexpr bool STAGE_A = PLACE && sizeof(K) == 4;
+  __shared__ __align__(16) K akeys_s[TILE + 8];
+  __shared__ __align__(16) int32_t avals_s[STAGE_A ? TILE + 8 : 4];
+  __shared__ K bkeys[TILE + 1];
   __shared__ int32_t bpay[TILE];
   __shared__ Kept ke, kb;
   __shared__ int wsum[WARPS];
@@ -238,14 +269,13 @@ __device__ __forceinline__ void apply_tile(const Args& a, long long t,
   const int nax = na + (i1 < a.cap ? 1 : 0);
   const int nbx = nb + (j1 < a.m ? 1 : 0);
   // part A and the existing key past it, in 16-byte copies
-  const int32_t* akeys =
-      akeys_s + copy_range(akeys_s, a.ek, i0, i0 + nax, a.cap);
+  const K* akeys = akeys_s + copy_range(akeys_s, a.ek, i0, i0 + nax, a.cap);
   const int32_t* avals =
-      PLACE ? avals_s + copy_range(avals_s, a.ea, i0, i0 + na, a.cap)
-            : nullptr;
+      STAGE_A ? avals_s + copy_range(avals_s, a.ea, i0, i0 + na, a.cap)
+              : a.ea + i0;
   for (int y = tid; y < nbx; y += THREADS) {
-    copy4(bkeys + y, a.sk + j0 + y);
-    if (y < nb) copy4(bpay + y, a.sp + j0 + y);
+    copy_entry(bkeys + y, a.sk + j0 + y);
+    if (y < nb) copy_entry(bpay + y, a.sp + j0 + y);
   }
   // (PLACE) the tile's offset: its group's prefix and the counts of the
   // tiles before it in the group, summed by warp 0 while the copies fly
@@ -258,7 +288,7 @@ __device__ __forceinline__ void apply_tile(const Args& a, long long t,
   copy_wait();
   __syncthreads();
   // part A: key[k] is entry k THREADS + tid; c[k] = #(B and past < key)
-  int32_t key[ITEMS];
+  K key[ITEMS];
   int c[ITEMS];
   unsigned be[ITEMS];
 #pragma unroll
@@ -281,7 +311,7 @@ __device__ __forceinline__ void apply_tile(const Args& a, long long t,
   int nbk = 0;
   for (int k = 0; k < rounds; ++k) {
     const int y = k * THREADS + tid;
-    const int32_t bk = bkeys[y < nb ? y : 0];
+    const K bk = bkeys[y < nb ? y : 0];
     const bool del = (bpay[y < nb ? y : 0] & 1) != 0;
     const bool dup = y + 1 < nbx && bkeys[y + 1 < nbx ? y + 1 : 0] == bk;
     const unsigned bal = __ballot_sync(
@@ -332,7 +362,7 @@ __device__ __forceinline__ void apply_tile(const Args& a, long long t,
     const int y = k * THREADS + tid;
     const unsigned bal = kb.bal[k * WARPS + warp];
     if (bal & (1u << lane)) {
-      const int32_t bk = bkeys[y];
+      const K bk = bkeys[y];
       int e;
       histore::ranks<1, true>(akeys, na, &bk, &e);
       const long long dest = off + kb.base[k * WARPS + warp] +
@@ -359,7 +389,8 @@ __device__ __forceinline__ void apply_tile(const Args& a, long long t,
 // (b) ---------------------------------------------------------------------
 // split[t] = the existing entries before merged position t TILE: one
 // warp a tile boundary
-__global__ void __launch_bounds__(THREADS) partition_kernel(Args a) {
+template <class K>
+__global__ void __launch_bounds__(THREADS) partition_kernel(Args<K> a) {
   histore::pdl_trigger();
   histore::pdl_wait();
   const long long t = ((long long)blockIdx.x * THREADS + threadIdx.x) >> 5;
@@ -370,10 +401,11 @@ __global__ void __launch_bounds__(THREADS) partition_kernel(Args a) {
 }
 
 // (c) ---------------------------------------------------------------------
-__global__ void __launch_bounds__(THREADS) count_kernel(Args a) {
+template <class K>
+__global__ void __launch_bounds__(THREADS) count_kernel(Args<K> a) {
   histore::pdl_trigger();
   histore::pdl_wait();
-  apply_tile<false>(a, blockIdx.x, nullptr, nullptr);
+  apply_tile<false, K>(a, blockIdx.x, nullptr, nullptr);
 }
 
 // (d) ---------------------------------------------------------------------
@@ -382,8 +414,9 @@ __global__ void __launch_bounds__(THREADS) count_kernel(Args a) {
 // group's counts as int4s, one block-wide scan of the group sums, and
 // gpre[group] is written (a place block adds the counts of the tiles
 // before it in its group)
+template <class K>
 __global__ void __launch_bounds__(SCAN_THREADS)
-    scan_kernel(Args a, int32_t* __restrict__ size_out) {
+    scan_kernel(Args<K> a, int32_t* __restrict__ size_out) {
   histore::pdl_trigger();
   histore::pdl_wait();
   __shared__ long long wsum[SCAN_THREADS / 32];
@@ -427,19 +460,63 @@ __global__ void __launch_bounds__(SCAN_THREADS)
 }
 
 // (e) ---------------------------------------------------------------------
+template <class K>
 __global__ void __launch_bounds__(THREADS)
-    place_kernel(Args a, int32_t* __restrict__ nk, int32_t* __restrict__ nv) {
+    place_kernel(Args<K> a, K* __restrict__ nk, int32_t* __restrict__ nv) {
   histore::pdl_trigger();
   histore::pdl_wait();
-  apply_tile<true>(a, blockIdx.x, nk, nv);
+  apply_tile<true, K>(a, blockIdx.x, nk, nv);
+}
+
+template <class K>
+long long scratch_bytes(long long cap, long long m) {
+  Scratch<K> s;
+  return (long long)carve(nullptr, m, (cap + m + TILE - 1) / TILE, &s);
+}
+
+template <class K>
+int merge(const void* ekeys, const void* eaddrs, const void* bkeys,
+          const void* baddrs, const void* bops, void* nkeys, void* naddrs,
+          void* size_out, void* scratch, long long cap, long long m,
+          void* stream) {
+  if (cap < 1 || m < 1 || m >= (1LL << 30)) return (int)cudaErrorInvalidValue;
+  const long long L = cap + m;
+  const long long ntiles = (L + TILE - 1) / TILE;
+  if (ntiles > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  cudaStream_t st = (cudaStream_t)stream;
+  Scratch<K> s;
+  carve((char*)scratch, m, ntiles, &s);
+  const Args<K> a{(const K*)ekeys, (const int32_t*)eaddrs, cap, s.sk,
+                  s.sp, (const int32_t*)baddrs, m, L, ntiles, s.split,
+                  s.bcnt, s.gpre, s.total};
+  cudaError_t e = histore::stable_sort_rows(
+      histore::BatchLoad<K>{(const K*)bkeys, (const int8_t*)bops}, 1, m,
+      s.sk, s.sp, s.tk, s.tp, st);
+  if (e != cudaSuccess) return (int)e;
+  e = histore::launch(partition_kernel<K>,
+                      unsigned((ntiles + 1 + WARPS - 1) / WARPS), THREADS, st,
+                      a);
+  if (e == cudaSuccess)
+    e = histore::launch(count_kernel<K>, unsigned(ntiles), THREADS, st, a);
+  if (e == cudaSuccess)
+    e = histore::launch(scan_kernel<K>, 1, SCAN_THREADS, st, a,
+                        (int32_t*)size_out);
+  if (e == cudaSuccess)
+    e = histore::launch(place_kernel<K>, unsigned(ntiles), THREADS, st, a,
+                        (K*)nkeys, (int32_t*)naddrs);
+  return (int)e;
 }
 
 }  // namespace
 
 extern "C" long long histore_merge_scratch_bytes(long long cap,
                                                  long long m) {
-  Scratch s;
-  return (long long)carve(nullptr, m, (cap + m + TILE - 1) / TILE, &s);
+  return scratch_bytes<int32_t>(cap, m);
+}
+
+extern "C" long long histore_merge_scratch_bytes_i64(long long cap,
+                                                     long long m) {
+  return scratch_bytes<int64_t>(cap, m);
 }
 
 // ekeys, eaddrs, nkeys, naddrs: [cap] int32; bkeys, baddrs: [m] int32;
@@ -450,30 +527,17 @@ extern "C" int histore_merge(const void* ekeys, const void* eaddrs,
                              const void* bops, void* nkeys, void* naddrs,
                              void* size_out, void* scratch, long long cap,
                              long long m, void* stream) {
-  if (cap < 1 || m < 1 || m >= (1LL << 30)) return (int)cudaErrorInvalidValue;
-  const long long L = cap + m;
-  const long long ntiles = (L + TILE - 1) / TILE;
-  if (ntiles > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
-  cudaStream_t st = (cudaStream_t)stream;
-  Scratch s;
-  carve((char*)scratch, m, ntiles, &s);
-  const Args a{(const int32_t*)ekeys, (const int32_t*)eaddrs, cap, s.sk,
-               s.sp, (const int32_t*)baddrs, m, L, ntiles, s.split, s.bcnt,
-               s.gpre, s.total};
-  cudaError_t e = histore::stable_sort_rows(
-      histore::BatchLoad{(const int32_t*)bkeys, (const int8_t*)bops}, 1, m,
-      s.sk, s.sp, s.tk, s.tp, st);
-  if (e != cudaSuccess) return (int)e;
-  e = histore::launch(partition_kernel,
-                      unsigned((ntiles + 1 + WARPS - 1) / WARPS), THREADS, st,
-                      a);
-  if (e == cudaSuccess)
-    e = histore::launch(count_kernel, unsigned(ntiles), THREADS, st, a);
-  if (e == cudaSuccess)
-    e = histore::launch(scan_kernel, 1, SCAN_THREADS, st, a,
-                        (int32_t*)size_out);
-  if (e == cudaSuccess)
-    e = histore::launch(place_kernel, unsigned(ntiles), THREADS, st, a,
-                        (int32_t*)nkeys, (int32_t*)naddrs);
-  return (int)e;
+  return merge<int32_t>(ekeys, eaddrs, bkeys, baddrs, bops, nkeys, naddrs,
+                        size_out, scratch, cap, m, stream);
+}
+
+// the same with int64 ekeys, bkeys and nkeys; scratch: the bytes
+// histore_merge_scratch_bytes_i64(cap, m) asks for.
+extern "C" int histore_merge_i64(const void* ekeys, const void* eaddrs,
+                                 const void* bkeys, const void* baddrs,
+                                 const void* bops, void* nkeys, void* naddrs,
+                                 void* size_out, void* scratch,
+                                 long long cap, long long m, void* stream) {
+  return merge<int64_t>(ekeys, eaddrs, bkeys, baddrs, bops, nkeys, naddrs,
+                        size_out, scratch, cap, m, stream);
 }

@@ -1,5 +1,6 @@
-// Merge-path partitions and stable rank merges of int32 keys, shared by
-// merge_sort.cuh (the rowwise stable sort) and merge.cu (the async apply).
+// Merge-path partitions and stable rank merges of keys K (int32 or int64,
+// key_type.cuh) with int32 payloads, shared by merge_sort.cuh (the rowwise
+// stable sort) and merge.cu (the async apply).
 //
 // Every merge here is STABLE with the left run A first: A[x] precedes
 // B[y] iff A[x] <= B[y].  So an element of A lands at x + #(B < A[x]) and
@@ -19,14 +20,16 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "key_type.cuh"
+
 namespace histore {
 
 // rank[k] = #(a[0, n) < key[k]), or #(a[0, n) <= key[k]) with LEQ, for a
 // thread's N keys at once: branch-free bisections in lockstep, so the N
 // reads of a step are in flight together.
-template <int N, bool LEQ>
-__device__ __forceinline__ void ranks(const int32_t* a, int n,
-                                      const int32_t* key, int* rank) {
+template <int N, bool LEQ, class K>
+__device__ __forceinline__ void ranks(const K* a, int n, const K* key,
+                                      int* rank) {
 #pragma unroll
   for (int k = 0; k < N; ++k) rank[k] = 0;
   if (n <= 0) return;
@@ -34,13 +37,13 @@ __device__ __forceinline__ void ranks(const int32_t* a, int n,
     const int h = n >> 1;
 #pragma unroll
     for (int k = 0; k < N; ++k) {
-      const int32_t v = a[rank[k] + h];
+      const K v = a[rank[k] + h];
       rank[k] += (LEQ ? v <= key[k] : v < key[k]) ? h : 0;
     }
   }
 #pragma unroll
   for (int k = 0; k < N; ++k) {
-    const int32_t v = a[rank[k]];
+    const K v = a[rank[k]];
     rank[k] += LEQ ? v <= key[k] : v < key[k];
   }
 }
@@ -54,10 +57,10 @@ __device__ __forceinline__ int pad(int i) { return i + (i >> 5); }
 // (padded indices), A first on equal keys: a bisection for the split,
 // then N steps of a serial merge.  Past the end of the merge the outputs
 // are unspecified.
-template <int N>
-__device__ __forceinline__ void merge_n(const int32_t* k, const int32_t* v,
+template <int N, class K>
+__device__ __forceinline__ void merge_n(const K* k, const int32_t* v,
                                         int a0, int na, int b0, int nb,
-                                        int d, int32_t* ok, int32_t* ov) {
+                                        int d, K* ok, int32_t* ov) {
   int lo = d > nb ? d - nb : 0, hi = d < na ? d : na;
   while (lo < hi) {
     const int mid = (lo + hi) >> 1;
@@ -65,8 +68,8 @@ __device__ __forceinline__ void merge_n(const int32_t* k, const int32_t* v,
     else hi = mid;
   }
   int i = lo, j = d - lo;
-  int32_t x = i < na ? k[pad(a0 + i)] : 0;
-  int32_t y = j < nb ? k[pad(b0 + j)] : 0;
+  K x = i < na ? k[pad(a0 + i)] : 0;
+  K y = j < nb ? k[pad(b0 + j)] : 0;
 #pragma unroll
   for (int n = 0; n < N; ++n) {
     const bool take_a = j >= nb || (i < na && x <= y);
@@ -89,10 +92,9 @@ __device__ __forceinline__ void merge_n(const int32_t* k, const int32_t* v,
 // candidate in [max(0, d - b), min(d, a)] with A[i] > B[d - 1 - i]; the
 // test is true below i and false from i on.  Every lane of the warp
 // calls it and gets the same i.
-__device__ __forceinline__ long long warp_merge_path(const int32_t* A,
-                                                     long long a,
-                                                     const int32_t* B,
-                                                     long long b,
+template <class K>
+__device__ __forceinline__ long long warp_merge_path(const K* A, long long a,
+                                                     const K* B, long long b,
                                                      long long d) {
   const int lane = threadIdx.x & 31;
   long long lo = d > b ? d - b : 0;

@@ -1,5 +1,6 @@
-// Rowwise stable sort of (int32 key, int32 payload) pairs, shared by
-// sort_stable.cu and merge.cu (the apply batch's sort by key, arrival).
+// Rowwise stable sort of (key, int32 payload) pairs, shared by
+// sort_stable.cu (int32 keys) and merge.cu (the apply batch's sort by key,
+// arrival; int32 or int64 keys, K, key_type.cuh).
 //
 // A merge sort, stable by construction: keys and payloads move together
 // and ties keep their input order, so no (key, index) packing and no
@@ -11,8 +12,8 @@
 //     merge runs of 8, 16, ... 1024 pairwise: each thread finds where its
 //     8 outputs start with a bisection and merges them serially
 //     (merge_path.cuh's merge_n), O(1) work an entry a round.  A short
-//     tile is padded with key INT32_MAX after its entries; stability keeps
-//     the padding after a real INT32_MAX, and it is never stored.
+//     tile is padded with key key_inf<K>() after its entries; stability
+//     keeps the padding after a real key_inf, and it is never stored.
 //  2. merge_pass_kernel, once per doubling of the run length W = 2048,
 //     4096, ... < T: every pair of runs of every row at once is cut into
 //     MS_TILE-entry slices of the output, one block a slice.  A block
@@ -38,14 +39,13 @@ namespace histore {
 constexpr int MS_THREADS = 256;
 constexpr int MS_ITEMS = 8;
 constexpr int MS_TILE = MS_THREADS * MS_ITEMS;
-constexpr int32_t MS_PAD = 0x7fffffff;
 
-template <class Load>
+template <class Load, class K>
 __global__ void __launch_bounds__(MS_THREADS)
-    tile_sort_kernel(Load load, int32_t* __restrict__ ok,
+    tile_sort_kernel(Load load, K* __restrict__ ok,
                      int32_t* __restrict__ ov, long long T,
                      long long tiles_per_row) {
-  __shared__ int32_t sk[MS_TILE + MS_TILE / 32];
+  __shared__ K sk[MS_TILE + MS_TILE / 32];
   __shared__ int32_t sv[MS_TILE + MS_TILE / 32];
   const int tid = threadIdx.x;
   pdl_trigger();
@@ -54,7 +54,8 @@ __global__ void __launch_bounds__(MS_THREADS)
   const long long base = (blockIdx.x % tiles_per_row) * MS_TILE;
   const int n = T - base < MS_TILE ? int(T - base) : MS_TILE;
   // every load first (coalesced), then the stores to shared memory
-  int32_t key[MS_ITEMS], val[MS_ITEMS];
+  K key[MS_ITEMS];
+  int32_t val[MS_ITEMS];
 #pragma unroll
   for (int k = 0; k < MS_ITEMS; ++k) {
     const int x = k * MS_THREADS + tid;
@@ -63,7 +64,7 @@ __global__ void __launch_bounds__(MS_THREADS)
 #pragma unroll
   for (int k = 0; k < MS_ITEMS; ++k) {
     const int x = k * MS_THREADS + tid;
-    sk[pad(x)] = x < n ? key[k] : MS_PAD;
+    sk[pad(x)] = x < n ? key[k] : key_inf<K>();
     sv[pad(x)] = val[k];
   }
   __syncthreads();
@@ -79,7 +80,8 @@ __global__ void __launch_bounds__(MS_THREADS)
 #pragma unroll
     for (int k = p & 1; k + 1 < MS_ITEMS; k += 2) {
       if (key[k] > key[k + 1]) {
-        const int32_t tk = key[k], tv = val[k];
+        const K tk = key[k];
+        const int32_t tv = val[k];
         key[k] = key[k + 1];
         val[k] = val[k + 1];
         key[k + 1] = tk;
@@ -125,12 +127,13 @@ __global__ void __launch_bounds__(MS_THREADS)
 
 // one merge pass: runs of W (a multiple of MS_TILE) of ik / iv [R, T]
 // merged pairwise into ok / ov
+template <class K>
 __global__ void __launch_bounds__(MS_THREADS)
-    merge_pass_kernel(const int32_t* __restrict__ ik,
+    merge_pass_kernel(const K* __restrict__ ik,
                       const int32_t* __restrict__ iv,
-                      int32_t* __restrict__ ok, int32_t* __restrict__ ov,
+                      K* __restrict__ ok, int32_t* __restrict__ ov,
                       long long T, long long W, long long tiles_per_row) {
-  __shared__ int32_t sk[MS_TILE + MS_TILE / 32];
+  __shared__ K sk[MS_TILE + MS_TILE / 32];
   __shared__ int32_t sv[MS_TILE + MS_TILE / 32];
   __shared__ long long split[2];
   const int tid = threadIdx.x;
@@ -142,8 +145,8 @@ __global__ void __launch_bounds__(MS_THREADS)
   const long long s = base & ~(2 * W - 1);          // the pair's start
   const long long a = T - s < W ? T - s : W;
   const long long b = T - s - a < W ? T - s - a : W;
-  const int32_t* A = ik + r * T + s;
-  const int32_t* B = A + a;
+  const K* A = ik + r * T + s;
+  const K* B = A + a;
   const long long d0 = base - s;
   if (tid < 64) {
     const long long i = warp_merge_path(A, a, B, b, d0 + (tid >> 5) * n);
@@ -157,7 +160,8 @@ __global__ void __launch_bounds__(MS_THREADS)
   const int32_t* Bv = Av + a;
   // every load first (past n, A[0] again), then the stores to shared
   // memory: the slice's piece of A, then its piece of B
-  int32_t key[MS_ITEMS], val[MS_ITEMS];
+  K key[MS_ITEMS];
+  int32_t val[MS_ITEMS];
 #pragma unroll
   for (int k = 0; k < MS_ITEMS; ++k) {
     const int x = k * MS_THREADS + tid;
@@ -210,24 +214,24 @@ inline int merge_passes(long long T) {
 // Sort each row of the [R, T] pairs that load(r, i, key, val) yields
 // into ok / ov [R, T], on stream st.  sk / sv: [R, T] scratch, used only
 // when T > MS_TILE.
-template <class Load>
-cudaError_t stable_sort_rows(Load load, long long R, long long T,
-                             int32_t* ok, int32_t* ov, int32_t* sk,
-                             int32_t* sv, cudaStream_t st) {
+template <class Load, class K>
+cudaError_t stable_sort_rows(Load load, long long R, long long T, K* ok,
+                             int32_t* ov, K* sk, int32_t* sv,
+                             cudaStream_t st) {
   if (R < 1 || T < 1) return cudaSuccess;
   const long long tiles = (T + MS_TILE - 1) / MS_TILE;
   if (R * tiles > 0x7fffffffLL) return cudaErrorInvalidValue;
   const unsigned blocks = unsigned(R * tiles);
   const int passes = merge_passes(T);
   // the buffers alternate so that the last launch writes ok / ov
-  int32_t* dk[2] = {ok, sk};
+  K* dk[2] = {ok, sk};
   int32_t* dv[2] = {ov, sv};
   int cur = passes & 1;
-  cudaError_t e = launch(tile_sort_kernel<Load>, blocks, MS_THREADS, st,
+  cudaError_t e = launch(tile_sort_kernel<Load, K>, blocks, MS_THREADS, st,
                          load, dk[cur], dv[cur], T, tiles);
   for (long long W = MS_TILE; e == cudaSuccess && W < T; W <<= 1) {
-    e = launch(merge_pass_kernel, blocks, MS_THREADS, st, dk[cur], dv[cur],
-               dk[cur ^ 1], dv[cur ^ 1], T, W, tiles);
+    e = launch(merge_pass_kernel<K>, blocks, MS_THREADS, st, dk[cur],
+               dv[cur], dk[cur ^ 1], dv[cur ^ 1], T, W, tiles);
     cur ^= 1;
   }
   return e;

@@ -15,9 +15,30 @@ given:
     group probes', ``backup_probe_plain``, ``group_probe_plain`` and
     ``group_probe_stacked_plain``, are here).
 
-The probe kernels take raw int32 keys and hash them on the card; the
-group probe and the stacked SCAN read the store's stacked leaves by base
+The probe kernels take raw keys and hash them on the card; the group
+probe and the stacked SCAN read the store's stacked leaves by base
 pointer and strides; a SCAN reads its lo and hi on the card.
+
+Keys are int32 or int64, the dtype of the state's keys (``index.keys``,
+``log.keys``), as the JAX package's ``ops`` reads ``index.keys.dtype``.
+The hash probe, the search, the SCAN's range, the merge and the backup
+probe have a CUDA entry point for each width (``histore_*`` and
+``histore_*_i64``, one template instantiated twice), and each width's
+launches are counted apart (``LAUNCHES["merge"]``,
+``LAUNCHES["merge_i64"]``).  The CUDA wrappers take the tensors a call's
+keys meet in at one dtype; a mix raises TypeError.  Where JAX's x64 path
+falls back to jnp (its TPU kernels take int32 keys), the card launches
+the int64 kernel: the answers are the same bits.
+
+The routed ops cast the queries to the store's key width before they
+choose a device, so both devices answer alike: ``search``, ``merge``,
+``backup_probe`` and the group probes to their index's keys' dtype;
+``probe``, whose hash table holds no keys, hashes them at their own
+width (int32 or int64, other integer dtypes as int32), and the index
+group passes them at its own.  The group probes and the stacked SCAN
+have int32 kernels only and raise TypeError for an int64 store on every
+device; the legacy ``hash_probe`` takes its keys as int32 on every
+device, as ``sorted_search`` does.
 
 ``cfg.use_kernels`` keeps its values so configs compare field for field
 with the JAX package: "on" and "auto" allow the routing above, "off"
@@ -58,7 +79,10 @@ from repro_torch.kernels import _build, ref
 LAUNCHES = {"hash_probe": 0, "sorted_search": 0, "merge": 0,
             "backup_probe": 0, "group_probe": 0, "sort_stable": 0,
             "legacy_hash_probe": 0, "legacy_sorted_search": 0,
-            "bitonic_sort": 0}
+            "bitonic_sort": 0, "hash_probe_i64": 0, "sorted_search_i64": 0,
+            "merge_i64": 0, "backup_probe_i64": 0}
+
+KEY_DTYPES = (I32, torch.int64)
 
 
 def kernels_enabled(cfg, device) -> bool:
@@ -120,6 +144,36 @@ def _raise_on(status: int, kernel: str):
                            f"cudaError {status}")
 
 
+def _key_width(kernel, *named):
+    """The key dtype the (name, tensor) pairs ``named`` share, int32 or
+    int64; anything else, or a mix, raises TypeError."""
+    kinds = {t.dtype for _, t in named}
+    if len(kinds) != 1 or not kinds <= set(KEY_DTYPES):
+        raise TypeError(f"{kernel}: keys must share one dtype, torch.int32 "
+                        f"or torch.int64; got " + ", ".join(
+                            f"{n} {t.dtype}" for n, t in named))
+    return kinds.pop()
+
+
+def _wide(name: str, kd) -> str:
+    """The int64 entry point or launch count of ``name`` for int64 keys."""
+    return name if kd == I32 else name + "_i64"
+
+
+def _as_key(keys):
+    """Keys of an int32 or int64 store as they are; any other integer
+    dtype as int32, the default width."""
+    return keys if keys.dtype in KEY_DTYPES else keys.to(I32)
+
+
+def _int32_store(kernel, keys):
+    """The group probes' and the stacked SCAN's rule: their kernels take
+    int32 keys only, so an int64 store raises on every device."""
+    if keys.dtype != I32:
+        raise TypeError(f"{kernel}: takes a store of int32 keys, got "
+                        f"{keys.dtype} (its kernel has no int64 entry)")
+
+
 # ---------------------------------------------------------------------------
 # the CUDA wrappers
 # ---------------------------------------------------------------------------
@@ -137,11 +191,12 @@ def _table_shape(kernel, sig, fp, addr, fill):
 
 
 def hash_probe_cuda(keys, sig, fp, addr, fill, slots_per_bucket: int):
-    """keys: [Q] int32 (hashed on the card); sig/fp/addr: [nb, CS] int32
-    with nb a power of two; fill: [nb] int32.  Returns (addr int32, found
-    bool, n_accesses int32)."""
-    for n, t in (("keys", keys), ("fill", fill)):
-        _check(n, t, I32)
+    """keys: [Q] int32 or int64 (hashed on the card); sig/fp/addr: [nb,
+    CS] int32 with nb a power of two; fill: [nb] int32.  Returns (addr
+    int32, found bool, n_accesses int32)."""
+    kd = _key_width("hash_probe", ("keys", keys))
+    _check("keys", keys, kd)
+    _check("fill", fill, I32)
     for n, t in (("sig", sig), ("fp", fp), ("addr", addr)):
         _check(n, t, I32, 2)
     nb, cs = _table_shape("hash_probe", sig, fp, addr, fill)
@@ -149,67 +204,77 @@ def hash_probe_cuda(keys, sig, fp, addr, fill, slots_per_bucket: int):
     out = torch.empty((2, Q), dtype=I32, device=keys.device)
     found = torch.empty((Q,), dtype=torch.bool, device=keys.device)
     with torch.cuda.device(keys.device):
-        st = _c("hash_probe", "histore_hash_probe")(
+        st = _c("hash_probe", _wide("histore_hash_probe", kd))(
             keys.data_ptr(), sig.data_ptr(), fp.data_ptr(), addr.data_ptr(),
             fill.data_ptr(), out[0].data_ptr(), found.data_ptr(),
             out[1].data_ptr(), Q, nb, cs, slots_per_bucket, _stream(keys))
     _raise_on(st, "hash_probe")
-    LAUNCHES["hash_probe"] += 1
+    LAUNCHES[_wide("hash_probe", kd)] += 1
     return out[0], found, out[1]
 
 
 def sorted_search_cuda(queries, keys, addrs, fanout: int):
-    """queries: [Q] int32; keys/addrs: [cap] int32 (ascending,
-    INF-padded).  Returns (addr, found int32, n_accesses, pos,
-    lower_bound), each [Q] int32."""
-    for n, t in (("queries", queries), ("keys", keys), ("addrs", addrs)):
-        _check(n, t, I32)
+    """queries: [Q] and keys: [cap] (ascending, INF-padded), both int32 or
+    both int64; addrs: [cap] int32.  Returns (addr, found int32,
+    n_accesses, pos, lower_bound), each [Q] int32."""
+    kd = _key_width("sorted_search", ("queries", queries), ("keys", keys))
+    for n, t in (("queries", queries), ("keys", keys)):
+        _check(n, t, kd)
+    _check("addrs", addrs, I32)
     cap = keys.shape[0]
     if addrs.shape[0] != cap or cap < 1:
         raise ValueError("sorted_search: inconsistent shapes")
     Q = queries.shape[0]
     out = torch.empty((5, Q), dtype=I32, device=queries.device)
     p = out.data_ptr()
-    st = _launch(queries.device, _c("sorted_search", "histore_sorted_search"),
+    st = _launch(queries.device,
+                 _c("sorted_search", _wide("histore_sorted_search", kd)),
                  queries.data_ptr(), keys.data_ptr(), addrs.data_ptr(), p,
                  p + 4 * Q, p + 8 * Q, p + 12 * Q, p + 16 * Q, Q, cap, fanout,
                  _levels(cap, fanout))
     _raise_on(st, "sorted_search")
-    LAUNCHES["sorted_search"] += 1
+    LAUNCHES[_wide("sorted_search", kd)] += 1
     return out.unbind(0)
 
 
-def _range_bounds(kernel, lo, hi, shape):
+def _range_bounds(kernel, lo, hi, shape, kd=I32):
     for n, t in (("lo", lo), ("hi", hi)):
         if not t.is_cuda:
             raise ValueError(f"{kernel}: {n}: expected a CUDA tensor, got "
                              f"{t.device}")
-        if t.dtype != I32:
-            raise TypeError(f"{kernel}: {n}: expected {I32}, got {t.dtype}")
+        if t.dtype != kd:
+            raise TypeError(f"{kernel}: {n}: expected {kd}, got {t.dtype}")
         if tuple(t.shape) not in shape:
             raise ValueError(f"{kernel}: {n} has shape {tuple(t.shape)}, "
                              f"expected {shape[0]}")
 
 
 def range_query_cuda(keys, addrs, lo, hi, limit: int, fanout: int):
-    """The SCAN [lo, hi] of one replica in one launch.  keys/addrs: [cap]
-    int32 (ascending, INF-padded); lo, hi: 0-d (or [1]) int32 CUDA
-    tensors, read on the card.  Returns (keys [limit], addrs [limit],
-    count 0-d), int32, as sorted_index.range_query."""
-    for n, t in (("keys", keys), ("addrs", addrs)):
-        _check(n, t, I32)
-    _range_bounds("range_query", lo, hi, ((), (1,)))
+    """The SCAN [lo, hi] of one replica in one launch.  keys: [cap] int32
+    or int64 (ascending, INF-padded), addrs: [cap] int32; lo, hi: 0-d (or
+    [1]) CUDA tensors of the keys' dtype, read on the card.  Returns (keys
+    [limit] of the keys' dtype, addrs [limit] int32, count 0-d int32), as
+    sorted_index.range_query."""
+    kd = _key_width("range_query", ("keys", keys))
+    _check("keys", keys, kd)
+    _check("addrs", addrs, I32)
+    _range_bounds("range_query", lo, hi, ((), (1,)), kd)
     cap = keys.shape[0]
     if addrs.shape[0] != cap or cap < 1 or limit < 0:
         raise ValueError("range_query: inconsistent shapes")
-    out = torch.empty((2 * limit + 1,), dtype=I32, device=keys.device)
-    st = _launch(keys.device, _c("sorted_search", "histore_range_query"),
+    dev = keys.device
+    out = torch.empty((2 * limit + 1,), dtype=I32, device=dev)
+    ok = out[:limit] if kd == I32 else torch.empty((limit,), dtype=kd,
+                                                    device=dev)
+    p = out.data_ptr()
+    st = _launch(dev, _c("sorted_search", _wide("histore_range_query", kd)),
                  keys.data_ptr(), addrs.data_ptr(), 0, 0, 0, 0,
-                 lo.data_ptr(), 0, hi.data_ptr(), 0, out.data_ptr(), 1, 1,
-                 cap, fanout, _levels(cap, fanout), limit)
+                 lo.data_ptr(), 0, hi.data_ptr(), 0, ok.data_ptr(),
+                 p + 4 * limit, p + 8 * limit, 1, 1, cap, fanout,
+                 _levels(cap, fanout), limit)
     _raise_on(st, "range_query")
-    LAUNCHES["sorted_search"] += 1
-    return out[:limit], out[limit:2 * limit], out[2 * limit]
+    LAUNCHES[_wide("sorted_search", kd)] += 1
+    return ok, out[limit:2 * limit], out[2 * limit]
 
 
 def range_query_stacked_cuda(keys, addrs, lo, hi, limit: int, fanout: int):
@@ -231,10 +296,11 @@ def range_query_stacked_cuda(keys, addrs, lo, hi, limit: int, fanout: int):
                          f"of {cap} slots, limit {limit}")
     n = G * R * limit
     out = torch.empty((2 * n + G * R,), dtype=I32, device=keys.device)
+    p = out.data_ptr()
     st = _launch(keys.device, _c("sorted_search", "histore_range_query"),
                  kl.p, al.p, kl.sr, kl.sg, al.sr, al.sg, lo.data_ptr(),
-                 lo.stride(0), hi.data_ptr(), hi.stride(0), out.data_ptr(),
-                 G, R, cap, fanout, _levels(cap, fanout), limit)
+                 lo.stride(0), hi.data_ptr(), hi.stride(0), p, p + 4 * n,
+                 p + 8 * n, G, R, cap, fanout, _levels(cap, fanout), limit)
     _raise_on(st, "range_query_stacked")
     LAUNCHES["sorted_search"] += 1
     return (out[:n].view(G, R, limit), out[n:2 * n].view(G, R, limit),
@@ -242,12 +308,14 @@ def range_query_stacked_cuda(keys, addrs, lo, hi, limit: int, fanout: int):
 
 
 def merge_cuda(ekeys, eaddrs, bkeys, baddrs, bops):
-    """ekeys/eaddrs: [cap] int32 (ascending, INF-padded); bkeys/baddrs:
-    [m] int32 and bops: [m] int8, the log batch (op 0 invalid / 1 PUT /
-    2 DEL).  Returns (new_keys [cap], new_addrs [cap], size [1])."""
-    for n, t in (("ekeys", ekeys), ("eaddrs", eaddrs), ("bkeys", bkeys),
-                 ("baddrs", baddrs)):
-        _check(n, t, I32)
+    """ekeys: [cap] (ascending, INF-padded) and bkeys: [m], both int32 or
+    both int64; eaddrs: [cap] and baddrs: [m] int32; bops: [m] int8, the
+    log batch (op 0 invalid / 1 PUT / 2 DEL).  Returns (new_keys [cap] of
+    the keys' dtype, new_addrs [cap], size [1])."""
+    kd = _key_width("merge", ("ekeys", ekeys), ("bkeys", bkeys))
+    for n, t, dt in (("ekeys", ekeys, kd), ("eaddrs", eaddrs, I32),
+                     ("bkeys", bkeys, kd), ("baddrs", baddrs, I32)):
+        _check(n, t, dt)
     _check("bops", bops, torch.int8)
     cap = ekeys.shape[0]
     m = bkeys.shape[0]
@@ -255,18 +323,18 @@ def merge_cuda(ekeys, eaddrs, bkeys, baddrs, bops):
             or bops.shape[0] != m or cap < 1 or m < 1):
         raise ValueError("merge: inconsistent shapes")
     dev = ekeys.device
-    nbytes = _c("merge", "histore_merge_scratch_bytes")(cap, m)
+    nbytes = _c("merge", _wide("histore_merge_scratch_bytes", kd))(cap, m)
     scratch = torch.empty((nbytes,), dtype=torch.uint8, device=dev)
-    nk = torch.empty((cap,), dtype=I32, device=dev)
+    nk = torch.empty((cap,), dtype=kd, device=dev)
     na = torch.empty((cap,), dtype=I32, device=dev)
     size = torch.empty((1,), dtype=I32, device=dev)
     with torch.cuda.device(dev):
-        st = _c("merge", "histore_merge")(
+        st = _c("merge", _wide("histore_merge", kd))(
             ekeys.data_ptr(), eaddrs.data_ptr(), bkeys.data_ptr(),
             baddrs.data_ptr(), bops.data_ptr(), nk.data_ptr(), na.data_ptr(),
             size.data_ptr(), scratch.data_ptr(), cap, m, _stream(ekeys))
     _raise_on(st, "merge")
-    LAUNCHES["merge"] += 1
+    LAUNCHES[_wide("merge", kd)] += 1
     return nk, na, size
 
 
@@ -278,10 +346,10 @@ def _ptr_table(dev, ptrs):
     return torch.tensor(ptrs, dtype=torch.int64).to(dev, non_blocking=True)
 
 
-def _replica_ptrs(kernel, sorted_r, blogs_r):
+def _replica_ptrs(kernel, sorted_r, blogs_r, kd=I32):
     """(R, cap, lcap, a device int64 table of the 7 R device pointers) of
-    the R replica and log states the backup probe takes; the kernel reads
-    the table, so it takes any R."""
+    the R replica and log states the backup probe takes, their keys of
+    dtype ``kd``; the kernel reads the table, so it takes any R."""
     R = len(sorted_r)
     if R < 1 or len(blogs_r) != R:
         raise ValueError(f"{kernel}: at least one replica with one log "
@@ -293,9 +361,9 @@ def _replica_ptrs(kernel, sorted_r, blogs_r):
     ptrs = []
     for srt, blog in zip(sorted_r, blogs_r):
         for n, t, dtype, shape in (
-                ("sorted keys", srt.keys, I32, (cap,)),
+                ("sorted keys", srt.keys, kd, (cap,)),
                 ("sorted addrs", srt.addrs, I32, (cap,)),
-                ("log keys", blog.keys, I32, (lcap,)),
+                ("log keys", blog.keys, kd, (lcap,)),
                 ("log addrs", blog.addrs, I32, (lcap,)),
                 ("log ops", blog.ops, torch.int8, (lcap,)),
                 ("log applied", blog.applied, I32, ()),
@@ -309,28 +377,34 @@ def _replica_ptrs(kernel, sorted_r, blogs_r):
 
 
 def backup_probe_cuda(keys, rep_sel, sorted_r, blogs_r, fanout: int):
-    """keys: [Q] int32; rep_sel: [Q, R] int32; sorted_r / blogs_r: R
-    SortedIndex / UpdateLog states (keys and addrs int32, ops int8,
-    applied and tail 0-d int32 on the card, read there).  One call takes
-    the R pointer sets, as a table on the card: nothing is stacked.
-    Returns (addr, found int32, n_accesses), each [Q] int32."""
-    _check("keys", keys, I32)
+    """keys: [Q] int32 or int64; rep_sel: [Q, R] int32; sorted_r / blogs_r:
+    R SortedIndex / UpdateLog states (keys of the queries' dtype, addrs
+    int32, ops int8, applied and tail 0-d int32 on the card, read there).
+    One call takes the R pointer sets, as a table on the card: nothing is
+    stacked.  Returns (addr, found int32, n_accesses), each [Q] int32."""
+    kd = _key_width("backup_probe", ("keys", keys),
+                    *[(f"replica {r} keys", s.keys)
+                      for r, s in enumerate(sorted_r)],
+                    *[(f"log {r} keys", b.keys)
+                      for r, b in enumerate(blogs_r)])
+    _check("keys", keys, kd)
     _check("rep_sel", rep_sel, I32, 2)
-    R, cap, lcap, table = _replica_ptrs("backup_probe", sorted_r, blogs_r)
+    R, cap, lcap, table = _replica_ptrs("backup_probe", sorted_r, blogs_r,
+                                        kd)
     Q = keys.shape[0]
     if rep_sel.shape != (Q, R):
         raise ValueError("backup_probe: inconsistent shapes")
     levels = six.directory_levels(cap, fanout)
     out = torch.empty((4, Q), dtype=I32, device=keys.device)
     with torch.cuda.device(keys.device):
-        st = _c("backup_probe", "histore_backup_probe")(
+        st = _c("backup_probe", _wide("histore_backup_probe", kd))(
             keys.data_ptr(), rep_sel.data_ptr(),
             table.data_ptr(),
             out[0].data_ptr(), out[1].data_ptr(), out[2].data_ptr(),
             out[3].data_ptr(), Q, R, cap, lcap, fanout, levels,
             _stream(keys))
     _raise_on(st, "backup_probe")
-    LAUNCHES["backup_probe"] += 1
+    LAUNCHES[_wide("backup_probe", kd)] += 1
     return out[0], out[1], out[2]
 
 
@@ -652,39 +726,42 @@ legacy_sorted_search_plain = ref.ref_sorted_search
 # ---------------------------------------------------------------------------
 def probe(cfg, index, keys):
     """GET probe on a HashIndex -> (addr, found bool, n_accesses); on the
-    card the kernel hashes the keys.  Bit-exact with hash_index.lookup."""
+    card the kernel hashes the keys, at their own width on both devices
+    (the table holds no keys).  Bit-exact with hash_index.lookup."""
+    keys = _as_key(keys)
     if not kernels_enabled(cfg, keys.device):
         return hix.lookup(index, keys, cfg)
-    return hash_probe_cuda(keys.to(I32).contiguous(), *index,
-                           cfg.slots_per_bucket)
+    return hash_probe_cuda(keys.contiguous(), *index, cfg.slots_per_bucket)
 
 
 def search(cfg, index, queries):
     """Point lookup on a SortedIndex -> (addr, found bool, n_accesses).
     Bit-exact with sorted_index.search."""
+    queries = queries.to(index.keys.dtype)
     if not kernels_enabled(cfg, queries.device):
         return six.search(index, queries, cfg.fanout)
     addr, found, acc, _, _ = sorted_search_cuda(
-        queries.to(I32).contiguous(), index.keys, index.addrs, cfg.fanout)
+        queries.contiguous(), index.keys, index.addrs, cfg.fanout)
     return addr, found.bool(), acc
 
 
 def merge(cfg, index, keys, addrs, ops):
     """Apply a log batch to a SortedIndex (newest-wins, tombstones
     compact away) -> SortedIndex.  Bit-exact with sorted_index.merge."""
+    keys = keys.to(index.keys.dtype)
     if not kernels_enabled(cfg, keys.device):
         return six.merge(index, keys, addrs, ops)
-    nk, na, size = merge_cuda(index.keys, index.addrs, keys.to(I32),
-                              addrs.to(I32), ops.to(torch.int8))
+    nk, na, size = merge_cuda(index.keys, index.addrs, keys, addrs.to(I32),
+                              ops.to(torch.int8))
     return six.SortedIndex(nk, na, size[0])
 
 
-def _bound(x, dev):
-    """lo or hi as an int32 tensor on ``dev``: the caller's own tensor
+def _bound(x, dev, kd=I32):
+    """lo or hi as a ``kd`` tensor on ``dev``: the caller's own tensor
     when it is one already (no copy), else a copy."""
-    if torch.is_tensor(x) and x.dtype == I32 and x.device == dev:
+    if torch.is_tensor(x) and x.dtype == kd and x.device == dev:
         return x
-    return torch.as_tensor(x, dtype=I32, device=dev)
+    return torch.as_tensor(x, dtype=kd, device=dev)
 
 
 def range_query(cfg, index, lo, hi, limit: int):
@@ -695,8 +772,9 @@ def range_query(cfg, index, lo, hi, limit: int):
     dev = index.keys.device
     if not kernels_enabled(cfg, dev):
         return six.range_query(index, lo, hi, limit)
-    return range_query_cuda(index.keys, index.addrs, _bound(lo, dev),
-                            _bound(hi, dev), limit, cfg.fanout)
+    kd = index.keys.dtype
+    return range_query_cuda(index.keys, index.addrs, _bound(lo, dev, kd),
+                            _bound(hi, dev, kd), limit, cfg.fanout)
 
 
 def range_query_stacked_plain(cfg, bsorted, lo, hi, limit: int):
@@ -717,6 +795,7 @@ def range_query_stacked(cfg, bsorted, lo, hi, limit: int):
     addrs [G, R, limit], counts [G, R]).  Bit-exact with
     range_query_stacked_plain."""
     dev = bsorted.keys.device
+    _int32_store("range_query_stacked", bsorted.keys)
     if not kernels_enabled(cfg, dev):
         return range_query_stacked_plain(cfg, bsorted, lo, hi, limit)
     return range_query_stacked_cuda(bsorted.keys, bsorted.addrs,
@@ -729,11 +808,12 @@ def backup_probe(cfg, sorted_r, blogs_r, keys, rep_sel):
     logs, combined by ``rep_sel`` [Q, R] (later selected replicas
     overwrite earlier ones) -> (addr, found bool, n_accesses).
     Bit-exact with backup_probe_plain."""
+    keys = keys.to(sorted_r[0].keys.dtype)
     if not kernels_enabled(cfg, keys.device):
         return backup_probe_plain(cfg, sorted_r, blogs_r, keys, rep_sel)
     addr, found, acc = backup_probe_cuda(
-        keys.to(I32).contiguous(), rep_sel.to(I32).contiguous(),
-        sorted_r, blogs_r, cfg.fanout)
+        keys.contiguous(), rep_sel.to(I32).contiguous(), sorted_r, blogs_r,
+        cfg.fanout)
     return addr, found.bool(), acc
 
 
@@ -749,6 +829,8 @@ def group_probe(cfg, hidx, sorted_r, blogs_r, keys, rep_sel):
     The store's GET reads its stacked leaves in place through
     ``group_probe_stacked``; this signature serves callers that hold
     the replicas as separate states."""
+    _int32_store("group_probe", sorted_r[0].keys)
+    keys = keys.to(I32)
     if not kernels_enabled(cfg, keys.device):
         return group_probe_plain(cfg, hidx, sorted_r, blogs_r, keys, rep_sel)
     if len(sorted_r) < 1 or len(blogs_r) != len(sorted_r):
@@ -760,7 +842,7 @@ def group_probe(cfg, hidx, sorted_r, blogs_r, keys, rep_sel):
                                  for x in zip(*states)])
 
     out = group_probe_cuda(
-        keys.to(I32).contiguous()[None], rep_sel.to(I32).contiguous()[None],
+        keys.contiguous()[None], rep_sel.to(I32).contiguous()[None],
         type(hidx)(*[a[None] for a in hidx]), one_group(sorted_r),
         one_group(blogs_r), cfg.slots_per_bucket, cfg.fanout)
     return tuple(t[0] for t in out[:6])
@@ -777,10 +859,12 @@ def group_probe_stacked(cfg, hidx, bsorted, blog, rk, groups=None,
     h_found bool, h_acc, b_addr, b_found bool, b_acc, owner group), each
     [G, Q]; row g of the first six is group_probe's answer for server g.
     Bit-exact with group_probe_stacked_plain."""
+    _int32_store("group_probe_stacked", bsorted.keys)
+    rk = rk.to(I32)
     if not kernels_enabled(cfg, rk.device):
         return group_probe_stacked_plain(cfg, hidx, bsorted, blog, rk,
                                          groups, g0)
-    return group_probe_cuda(rk.to(I32).contiguous(), None, hidx, bsorted,
+    return group_probe_cuda(rk.contiguous(), None, hidx, bsorted,
                             blog, cfg.slots_per_bucket, cfg.fanout, groups,
                             g0)
 
@@ -807,13 +891,16 @@ def hash_probe(index, keys, cfg, *, q_block: int = 256):
     keys: [Q].  Returns (addr, found bool, n_accesses); a miss counts
     ceil(occ / S) reads with occ the chain row's nonzero signatures (the
     fill the index keeps, so on its tables it equals ``probe``).  On the
-    card the kernel hashes the keys (one launch).  ``q_block`` is JAX's
-    query tile: the card needs none, any Q is taken."""
+    card the kernel hashes the keys (one launch).  The keys are taken as
+    int32 on every device, as ``sorted_search`` takes its queries.
+    ``q_block`` is JAX's query tile: the card needs none, any Q is
+    taken."""
     if q_block < 1:
         raise ValueError(f"hash_probe: q_block must be >= 1, got {q_block}")
+    keys = keys.to(I32)
     if keys.is_cuda:
         return legacy_hash_probe_keys_cuda(
-            keys.to(I32).contiguous(), index.sig, index.fp, index.addr,
+            keys.contiguous(), index.sig, index.fp, index.addr,
             cfg.slots_per_bucket)
     b, sig, fp = hix.descriptors(index, keys)
     addr, found, acc = legacy_hash_probe_plain(

@@ -15,10 +15,12 @@ sorted index + log), behind the port's ``HiStoreClient`` over
   * prefix reuse                      -> GET on hash(prompt tokens): a hit
     maps a new request onto existing pages.
 
-Keys pack (seq_id, page_no) into an int32 key (``PAGE_BITS = 12`` and
-``_PREFIX_MOD = 1 << 30``, the JAX package's values in x32 mode).  The
-model decodes over per-slot caches while the directory tracks page
-ownership.
+Keys pack (seq_id, page_no) into the directory's key: the engine's
+``key_dtype`` chooses the key space as the JAX package's x64 flag does.
+int32 keys (the default, x32 mode) take ``page_bits = 12`` and
+``prefix_mod = 1 << 30``; int64 keys (``jax_enable_x64``) take 20 and
+``1 << 40``.  The model decodes over per-slot caches while the directory
+tracks page ownership.
 
 Mirrored from the reference, not fixed: ``_admit`` gives a request a freed
 slot without resetting that slot's cache, so a Mamba request admitted to
@@ -38,16 +40,20 @@ from repro_torch.configs.histore import HiStoreConfig, scaled
 from repro_torch.core.client import HiStoreClient, LocalBackend, _resolve_device
 from repro_torch.models.transformer import decode_step, init_cache
 
+# the key space of int32 keys; int64 keys take KEY_SPACE[torch.int64]
 PAGE_BITS = 12
 _PREFIX_MOD = 1 << 30
+KEY_SPACE = {torch.int32: (PAGE_BITS, _PREFIX_MOD),
+             torch.int64: (20, 1 << 40)}
 
 
-def page_key(seq_id: int, page_no: int):
-    return (int(seq_id) << PAGE_BITS) | int(page_no)
+def page_key(seq_id: int, page_no: int, page_bits: int = PAGE_BITS):
+    return (int(seq_id) << page_bits) | int(page_no)
 
 
-def prefix_key(prompt) -> int:
-    return abs(hash(tuple(prompt))) % _PREFIX_MOD | (1 << (PAGE_BITS - 1))
+def prefix_key(prompt, page_bits: int = PAGE_BITS,
+               prefix_mod: int = _PREFIX_MOD) -> int:
+    return abs(hash(tuple(prompt))) % prefix_mod | (1 << (page_bits - 1))
 
 
 @dataclasses.dataclass
@@ -65,12 +71,19 @@ class Request:
 class ServingEngine:
     """Greedy continuous-batching engine over decode_step.  The decode
     cache and the page directory live on ``device`` (the card unless the
-    caller names another), where ``model`` must be too."""
+    caller names another), where ``model`` must be too.  The directory
+    holds ``key_dtype`` keys, int32 or int64, in the key space
+    ``KEY_SPACE`` gives that width (``page_bits``, ``prefix_mod``)."""
 
     def __init__(self, cfg, model, *, batch_slots: int = 4,
                  max_len: int = 256, page_size: int = 16,
-                 store_cfg: Optional[HiStoreConfig] = None, device=None):
+                 store_cfg: Optional[HiStoreConfig] = None, device=None,
+                 key_dtype=torch.int32):
         self.device = _resolve_device(device, "ServingEngine")
+        if key_dtype not in KEY_SPACE:
+            raise ValueError(f"ServingEngine: keys are torch.int32 or "
+                             f"torch.int64, got {key_dtype}")
+        self.page_bits, self.prefix_mod = KEY_SPACE[key_dtype]
         self.cfg = cfg
         self.model = model
         self.B = batch_slots
@@ -84,7 +97,7 @@ class ServingEngine:
         self.n_pages = batch_slots * (max_len // page_size) * 2
         self.client = HiStoreClient(
             LocalBackend(max(self.n_pages * 4, 1024), self.store_cfg,
-                         device=self.device),
+                         device=self.device, key_dtype=key_dtype),
             batch_quantum=8, apply_every_n_ops=64)
         self.free_pages = list(range(self.n_pages, 0, -1))
         self.cache = init_cache(cfg, batch_slots, max_len,
@@ -102,12 +115,18 @@ class ServingEngine:
         """The page-directory index group (introspection / tests)."""
         return self.client.backend.group
 
+    def page_key(self, seq_id: int, page_no: int) -> int:
+        return page_key(seq_id, page_no, self.page_bits)
+
+    def prefix_key(self, prompt) -> int:
+        return prefix_key(prompt, self.page_bits, self.prefix_mod)
+
     # -- request lifecycle -------------------------------------------------
     def submit(self, prompt: list[int], max_new: int = 16) -> int:
         r = Request(self._rid, list(prompt), max_new)
         self._rid += 1
         # prefix reuse probe: GET on the prompt hash
-        res = self.client.get([prefix_key(prompt)])
+        res = self.client.get([self.prefix_key(prompt)])
         self.stats["index_gets"] += 1
         if bool(res.found[0]):
             r.prefix_hit = True
@@ -124,7 +143,7 @@ class ServingEngine:
                 r.tokens = []
                 self.slots[i] = r
                 # register the prompt-prefix key for future reuse
-                self.client.put([prefix_key(r.prompt)], [r.slot])
+                self.client.put([self.prefix_key(r.prompt)], [r.slot])
                 self.stats["index_puts"] += 1
 
     def _register_page(self, r: Request):
@@ -132,7 +151,7 @@ class ServingEngine:
         if not self.free_pages:
             return
         addr = self.free_pages.pop()
-        self.client.put([page_key(r.rid, page_no)], [addr])
+        self.client.put([self.page_key(r.rid, page_no)], [addr])
         self.stats["index_puts"] += 1
         self.stats["pages_registered"] += 1
 
@@ -142,8 +161,8 @@ class ServingEngine:
         sequence's page budget and the scan repeats until the range
         drains, so long sequences cannot leak pages."""
         max_pages = max(self.max_len // self.page_size, 1)
-        lo = page_key(r.rid, 0)
-        hi = page_key(r.rid, max_pages - 1)
+        lo = self.page_key(r.rid, 0)
+        hi = self.page_key(r.rid, max_pages - 1)
         while True:
             res = self.client.scan(lo, hi, max_pages)
             self.stats["index_scans"] += 1
