@@ -382,10 +382,11 @@
     bytes below 16 (b)'s.
 18. The store on int64 keys (the JAX package's x64 deployment), a
     generator of its own from ``--seed``: HiStoreClient(LocalBackend(
-    2**24, DEFAULT, key_dtype=torch.int64)) on the card, ``--keys``
-    distinct keys from [0, 2**62) loaded, phase 3's 8 mixed rounds (4
-    SCANs of limit 128 each, spans drawn below 2**47, which holds about
-    256 of the keys), a
+    2**24, DEFAULT, key_dtype=torch.int64)) on the card, half of
+    ``--keys`` distinct keys from [0, 2**62) loaded (2**22: cut from
+    2**23 to keep the script inside its time with phase 19), phase 3's 8
+    mixed rounds (4 SCANs of limit 128 each, spans drawn below 2**47,
+    which holds about 128 of the keys), a
     read-back; 2 chunks written and left pending, the primary failed,
     a degraded read-back of every key, 2 degraded rounds, the online
     rebuild, a read-back; every answer checked against a sorted-array
@@ -400,8 +401,34 @@
     10's kind of prompt set: equal stats and tokens, the int64
     directory launching only the int64 entries and holding a key past
     2**31.  Its lines start "keys64:".
-19. The last two lines: the kernels as JSON (the ten records in the
-    order of PERF.md's kernel table, then the four int64 entries'), then
+19. The distributed store on int64 keys (JAX's x64 deployment of
+    DistributedBackend), a generator of its own from ``--seed``:
+    HiStoreClient(DistributedBackend(8, DEFAULT, 2**21, capacity_q=1024,
+    key_dtype=torch.int64)) on the card, leases off: 2**21 keys from
+    [0, 2**62) loaded (phase 9b's size), 4 mixed rounds as in phase 7
+    (SCAN spans below 2**47, as in phase 18); index server 3 fails: a
+    degraded read-back and 2 degraded rounds, its recovery; data server
+    5 fails: a PUT chunk and a read-back, its recovery; a read-back, a
+    drain and ``parity_report``; every answer checked against the
+    phase's own model.  The launch counts are set to 0 before it, and
+    ``group_probe_i64``, ``hash_probe_i64``, ``merge_i64`` and
+    ``sorted_search_i64`` must be > 0 after, their int32 counterparts 0
+    (every kernel record gets ``launches_keys64_dist``).  Then, not
+    counted, each against its plain version, timed per call and on the
+    device, its bound at 8 B keys beside the int32 figures of this run:
+    the int64 group probe on the last GET chunk as routed and on the last
+    degraded one (split by kernel), the stacked int64 SCAN on the live
+    store as phase 8 holds the int32 one, and the legacy probe's int64
+    entry on one group's hash (its public call counted alone).  Its part
+    over ranks runs inside phase 9c's NCCL spawn: the same int64 store at
+    2**19 keys through 9c's workload (2 mixed rounds healthy and
+    degraded, index server 3 failed and recovered), every answer's and
+    every gathered leaf's sha256 equal to its one-process run, the four
+    int64 kernels launched on every rank.  Its lines start
+    "keys64-dist:".
+20. The last two lines: the kernels as JSON (the ten records in the
+    order of PERF.md's kernel table, then the four int64 entries of
+    phase 18, then the int64 group probe's and the legacy probe's), then
     the device as JSON.
 
 Exits nonzero, printing no result, without CUDA or outside a checkout.
@@ -1663,6 +1690,42 @@ def compare_backup_probe(torch, wl, cfg, group, window, launches):
                 window=n_win, operations=n_ops, device_ms_by_kernel=split)
 
 
+def dist_rounds(wl, backend, rounds, label, replicas=None):
+    """``rounds`` mixed rounds of one client chunk of each op on the
+    distributed store: overwriting and fresh PUTs (each with ``replicas``
+    replicas where given), DELETEs (a quarter of them misses), a GET
+    chunk after the writes (it meets pending log windows), an apply, a
+    GC round, SCANS SCANs and a GET of the deleted keys, every answer
+    checked against the model.  Returns (the counts, (the store the last
+    GET chunk read, its keys))."""
+    B = CHUNK
+    stats = {"get_hits": 0, "gets": 0, "puts": 0, "deletes": 0,
+             "deleted_found": 0, "scans": 0, "scanned": 0}
+    for rnd in range(rounds):
+        p = np.concatenate([wl.sample(wl.live_keys(), B // 2),
+                            wl.take_fresh(B // 2)])
+        wl.put(p, f"{label} {rnd}", replicas=replicas)
+        stats["puts"] += len(p)
+        d = np.concatenate([wl.sample(wl.live_keys(), 3 * B // 16),
+                            wl.absent(B // 16)])
+        wl.rng.shuffle(d)
+        stats["deleted_found"] += wl.delete(d, f"{label} {rnd}")
+        stats["deletes"] += len(d)
+        # the GETs follow the writes, so they meet pending log windows;
+        # the state a GET chunk reads is never written in place
+        g = wl.get_mix(B)
+        probe_at = (backend.store, g)
+        stats["get_hits"] += wl.check_get(g, f"{label} {rnd} GET")
+        stats["gets"] += len(g)
+        wl.client.apply()
+        backend.gc_round()
+        for _ in range(SCANS):
+            stats["scanned"] += wl.scan(f"{label} {rnd}")
+            stats["scans"] += 1
+        wl.check_get(d, f"{label} {rnd} GET after DELETE")
+    return stats, probe_at
+
+
 def distributed(torch, cfg, rng):
     """The distributed store on the card: load, mixed rounds with an
     apply, a GC round and SCANs, a read-back, then the drain and the
@@ -1708,34 +1771,11 @@ def distributed(torch, cfg, rng):
     log(f"dist: loaded {n_load} keys in {t_load:.3f} s "
         f"({n_load / t_load:.0f} PUT/s, {load_retries} retries)")
 
-    # -- mixed rounds ------------------------------------------------------
-    stats = {"get_hits": 0, "gets": 0, "puts": 0, "deletes": 0,
-             "deleted_found": 0, "scans": 0, "scanned": 0}
+    # -- mixed rounds (the last GET chunk and the state it read are kept
+    # for the group probe's check) ----------------------------------------
     t0 = time.perf_counter()
-    for rnd in range(ROUNDS):
-        p = np.concatenate([wl.sample(wl.live_keys(), B // 2),
-                            wl.take_fresh(B // 2)])
-        wl.put(p, f"dist round {rnd}", replicas=cfg.n_backups)
-        stats["puts"] += len(p)
-        d = np.concatenate([wl.sample(wl.live_keys(), 3 * B // 16),
-                            wl.absent(B // 16)])
-        rng.shuffle(d)
-        stats["deleted_found"] += wl.delete(d, f"dist round {rnd}")
-        stats["deletes"] += len(d)
-        # the GETs follow the writes, so they meet pending log windows;
-        # the last round's GET chunk and the state it reads are kept for
-        # the group probe's check (the state is never written in place)
-        g = wl.get_mix(B)
-        if rnd == ROUNDS - 1:
-            probe_at = (backend.store, g)
-        stats["get_hits"] += wl.check_get(g, f"dist round {rnd} GET")
-        stats["gets"] += len(g)
-        client.apply()
-        backend.gc_round()
-        for _ in range(SCANS):
-            stats["scanned"] += wl.scan(f"dist round {rnd}")
-            stats["scans"] += 1
-        wl.check_get(d, f"dist round {rnd} GET after DELETE")
+    stats, probe_at = dist_rounds(wl, backend, ROUNDS, "dist round",
+                                  replicas=cfg.n_backups)
     torch.cuda.synchronize()
     t_mixed = time.perf_counter() - t0
 
@@ -1916,44 +1956,69 @@ def dist_kernels(torch, wl, cfg):
         f"dist group {gp}")
 
 
-def compare_range_stacked(torch, wl, cfg):
+def range_stacked_work(torch, bsorted, lo, counts, limit, fanout):
+    """Bytes and operations the stacked SCAN needs for this run's data:
+    lo and hi read, each (group, replica) row's descent to lo (its
+    distinct 32 B sectors, ``descent_work``), the ``count`` entries it
+    takes (key and addr), and the outputs written (limit keys and addrs
+    a row, its count).  Returns (bytes, operations)."""
+    R, G = bsorted.keys.shape[:2]
+    _, kb, _, _ = key_width(torch, bsorted.keys)
+    nbytes, n_ops = G * 2 * kb, 0
+    for g in range(G):
+        for r in range(R):
+            d_bytes, d_ops = descent_work(torch, bsorted.keys[r, g],
+                                          lo[g:g + 1], fanout)
+            n = int(counts[g, r])
+            nbytes += d_bytes + n * (kb + 4) + limit * (kb + 4) + 4
+            n_ops += d_ops + n
+    return nbytes, n_ops
+
+
+def compare_range_stacked(torch, wl, cfg, label="dist"):
     """The distributed SCAN's one launch, ops.range_query_stacked, against
     range_query_stacked_plain on the live store's [R, G, 2^21] leaves read
     by strides: every (group, replica) row's keys, addrs and count, at the
     bounds the client passes (0-d, expanded to [G]) and at bounds of each
-    group's own (lo = -2**31, hi = 2**31 - 1, lo > hi, lo past the last
-    key, wide and narrow ranges); timed per call and on the device."""
+    group's own (lo at the key width's least value, hi at key_inf, lo >
+    hi, lo past the last key, wide and narrow ranges; the spans 2^23 times
+    wider at int64 keys, drawn from [0, 2^62)); timed per call and on the
+    device, its bound the larger of ``range_stacked_work``'s bytes and
+    operations."""
     from repro_torch.kernels import ops
 
     store, model = wl.client.backend.store, wl.model
     G, dev = DIST_GROUPS, store.hb.device
     R = store.bsorted.keys.shape[0]
     lim = wl.client.backend.scan_limit
+    kd = store.bsorted.keys.dtype
+    _, _, sfx, inf = key_width(torch, store.bsorted.keys)
+    sh = 23 if sfx else 0
     # a generator of its own, so that the phases after this one draw what
     # they drew before it was added
     own = np.random.default_rng(G)
     live = model.keys[model.live]
     lo0 = int(own.choice(live))
     top = int(live.max())
-    lo = [-2 ** 31, 5, top + 1, lo0, int(own.choice(live)),
+    lo = [-inf - 1, 5, top + 1, lo0, int(own.choice(live)),
           int(own.choice(live)), top, 0][:G]
-    hi = [2 ** 31 - 1, 4, 2 ** 31 - 1, lo0 + (1 << 24), lo[4] + (1 << 16),
-          lo[5] + 64, 2 ** 31 - 1, 2 ** 31 - 1][:G]
-    t32 = lambda x: torch.tensor(x, dtype=torch.int32, device=dev)  # noqa
+    hi = [inf, 4, inf, lo0 + (1 << 24 + sh), lo[4] + (1 << 16 + sh),
+          lo[5] + (64 << sh), inf, inf][:G]
+    tk = lambda x: torch.tensor(x, dtype=kd, device=dev)  # noqa: E731
     cases = {"client bounds (0-d, expanded)": (
-        t32(lo0).reshape(1).expand(G), t32(lo0 + (1 << 16)).reshape(1)
-        .expand(G)), "bounds per group": (t32(lo), t32(hi))}
+        tk(lo0).reshape(1).expand(G), tk(lo0 + (1 << 16 + sh)).reshape(1)
+        .expand(G)), "bounds per group": (tk(lo), tk(hi))}
     err, rec = 0, {}
-    for label, (lo_t, hi_t) in cases.items():
+    for case, (lo_t, hi_t) in cases.items():
         got = ops.range_query_stacked(cfg, store.bsorted, lo_t, hi_t, lim)
         want = ops.range_query_stacked_plain(cfg, store.bsorted, lo_t, hi_t,
                                              lim)
-        e = max_abs_err(torch, got, want, f"dist range_query_stacked, "
-                        f"{label}")
+        e = max_abs_err(torch, got, want, f"{label} range_query_stacked"
+                        f"{sfx}, {case}")
         err = max(err, e)
         n = want[2]
-        check(bool((n[:, 0] > 0).any()), f"dist range_query_stacked, "
-              f"{label}: every replica-0 row empty")
+        check(bool((n[:, 0] > 0).any()), f"{label} range_query_stacked, "
+              f"{case}: every replica-0 row empty")
         fn = lambda lo_t=lo_t, hi_t=hi_t: ops.range_query_stacked(  # noqa
             cfg, store.bsorted, lo_t, hi_t, lim)
         ms = time_ms(torch, fn, 200)
@@ -1961,14 +2026,21 @@ def compare_range_stacked(torch, wl, cfg):
         plain = time_ms(torch, lambda lo_t=lo_t, hi_t=hi_t:
                         ops.range_query_stacked_plain(
                             cfg, store.bsorted, lo_t, hi_t, lim), 20)
-        rec[label] = dict(ms=ms, device_ms=dev_ms, plain_ms=plain,
-                          max_abs_err=e, counts=n.tolist())
-        log(f"kernel sorted_search (dist range_query_stacked, {label}): "
-            f"[G, R] = [{G}, {R}] rows of cap {store.bsorted.keys.shape[2]},"
-            f" limit {lim}, counts {n.tolist()}: keys, addrs and counts "
-            f"equal to range_query_stacked_plain (max_abs_err {e}); "
-            f"{ms:.4f} ms per call, device {dev_ms:.4f} ms, plain "
-            f"{plain:.4f} ms")
+        nbytes, n_ops = range_stacked_work(torch, store.bsorted, lo_t, n,
+                                           lim, cfg.fanout)
+        bound, b_bytes, b_ops = bound_of(nbytes, n_ops)
+        rec[case] = dict(ms=ms, device_ms=dev_ms, plain_ms=plain,
+                         max_abs_err=e, counts=n.tolist(), bound_ms=bound,
+                         bound_by="bytes" if b_bytes >= b_ops
+                         else "operations", bytes=nbytes, operations=n_ops)
+        log(f"kernel sorted_search{sfx} ({label} range_query_stacked, "
+            f"{case}): [G, R] = [{G}, {R}] rows of cap "
+            f"{store.bsorted.keys.shape[2]}, limit {lim}, counts "
+            f"{n.tolist()}: keys, addrs and counts equal to "
+            f"range_query_stacked_plain (max_abs_err {e}); {ms:.4f} ms per "
+            f"call, device {dev_ms:.4f} ms, plain {plain:.4f} ms; bound "
+            f"{bound:.6f} ms (bytes {b_bytes:.6f} ms for {nbytes} B, "
+            f"operations {b_ops:.6f} ms for {n_ops})")
     return err, rec
 
 
@@ -2434,9 +2506,10 @@ def probe_get_chunk(torch, cfg, probe_at, label):
     calls it: a GET chunk routed as that GET routed it, one stacked call
     for the G servers' exchange buffers (Q = G * capacity_q each, mostly
     key_inf padding) against the state that GET read, each server's six
-    halves equal to its per-server plain result; timed per call, on the
-    device and routed (from the buffers to the halves).  Returns (max
-    abs err, the record, the kernel's launch as a closure)."""
+    halves equal to its per-server plain result, at the store's key
+    width; timed per call, on the device and routed (from the buffers to
+    the halves).  Returns (max abs err, the record, the kernel's launch
+    as a closure)."""
     from repro_torch.core import kvstore as kv
     from repro_torch.kernels import ops
 
@@ -2467,7 +2540,7 @@ def probe_get_chunk(torch, cfg, probe_at, label):
 
     # lanes selecting a replica, padding among them (key_inf's lanes at
     # the pad server select its replica 0), and those that are keys
-    pad = rk == 2 ** 31 - 1
+    pad = rk == key_width(torch, rk)[3]
     sel_lanes = torch.stack([(ops.replica_select(got[6][g], g, G,
                                                  cfg.n_backups) != 0).any(1)
                              for g in range(G)])
@@ -2528,6 +2601,12 @@ RANK_KERNELS = ("hash_probe", "sorted_search", "group_probe", "merge")
 RANK_SIZES = {"keys": DIST_KEYS // 2, "capacity": DIST_CAPACITY,
               "capacity_q": DIST_CAPACITY_Q, "chunk": CHUNK,
               "fault_keys": 1 << 19}
+# phase 19's part over ranks, in 9c's NCCL spawn: the workload on a store
+# of int64 keys from [0, 2^62), 2^19 of them, 2 mixed rounds healthy and
+# degraded, SCAN spans below 2^49 (about 64 keys)
+RANK64_SIZES = {**RANK_SIZES, "keys": 1 << 19, "rounds": 2,
+                "key_dtype": "int64", "key_hi": 2 ** 62,
+                "scan_span": 2 ** 49}
 FAULT_DATA = 5                   # the data server failed (wiped)
 FAULT_ROUNDS = 2                 # degraded mixed rounds while it is down
 FAULT_SEVER_DATA = 2             # the data server severed, then detected
@@ -2547,11 +2626,14 @@ def _digest(*xs):
 
 
 def rank_client(cfg, sizes, device, comm=None):
+    import torch
+
     from repro_torch.core.client import DistributedBackend, HiStoreClient
 
-    be = DistributedBackend(DIST_GROUPS, cfg, sizes["capacity"],
-                            capacity_q=sizes["capacity_q"], device=device,
-                            comm=comm)
+    be = DistributedBackend(
+        DIST_GROUPS, cfg, sizes["capacity"], capacity_q=sizes["capacity_q"],
+        device=device, comm=comm,
+        key_dtype=getattr(torch, sizes.get("key_dtype", "int32")))
     return HiStoreClient(be, max_batch=sizes["chunk"])
 
 
@@ -2561,18 +2643,20 @@ class _RankRun:
     same wherever they run: a key pool with its values and live mask,
     the sha256 of every answer in order, and figures."""
 
-    def __init__(self, torch, client, cfg, seed, n_load, extra):
+    def __init__(self, torch, client, cfg, seed, n_load, extra,
+                 key_hi=2 ** 31 - 1, scan_span=2 ** 24):
         self.torch, self.client, self.cfg = torch, client, cfg
         self.be = client.backend
         self.comm, self.dev = self.be.comm, self.be.device
         self.CH = client.max_batch
         self.rng = np.random.default_rng(seed)
+        self.key_hi, self.span = key_hi, scan_span
         need = n_load + extra
-        uniq = np.unique(self.rng.integers(0, 2 ** 31 - 1,
+        uniq = np.unique(self.rng.integers(0, key_hi,
                                            int(need * 1.02) + 1024))
         check(len(uniq) >= need, "9c: not enough distinct keys drawn")
         self.keys = uniq[self.rng.permutation(len(uniq))[:need]].astype(
-            np.int32)
+            np.int32 if key_hi < 2 ** 31 else np.int64)
         self.live = np.zeros(need, bool)
         self.vals = (self.keys.astype(np.int64)[:, None]
                      * np.arange(1, cfg.value_words + 1)
@@ -2650,12 +2734,12 @@ class _RankRun:
             client.apply()
             self.be.gc_round()
             for _ in range(SCANS):
-                lo = int(rng.integers(0, 2 ** 31 - 2 ** 25))
-                r = client.scan(lo, lo + 2 ** 24)
+                lo = int(rng.integers(0, self.key_hi - 2 * self.span))
+                r = client.scan(lo, lo + self.span)
                 self.answers.append(_digest(r.keys, r.addrs, r.count))
                 n = int(r.count)
                 want = np.sort(keys[live & (keys >= lo)
-                                    & (keys <= lo + 2 ** 24)])[:128]
+                                    & (keys <= lo + self.span)])[:128]
                 check(n == len(want) and np.array_equal(
                     r.keys.cpu().numpy()[:n], want),
                     f"9c {label} round {rnd}: SCAN")
@@ -2691,26 +2775,29 @@ def rank_workload(torch, client, cfg, seed, sizes):
     from repro_torch.kernels import mamba_scan as ms
     from repro_torch.kernels import ops
 
+    rounds = sizes.get("rounds", RANK_ROUNDS)
     run = _RankRun(torch, client, cfg, seed, sizes["keys"],
-                   2 * RANK_ROUNDS * sizes["chunk"] // 2)
+                   2 * rounds * sizes["chunk"] // 2,
+                   sizes.get("key_hi", 2 ** 31 - 1),
+                   sizes.get("scan_span", 2 ** 24))
     fig = run.fig
     zero_launches(ops)
     ms.LAUNCHES["mamba_scan"] = 0
     run.load()
     t0 = time.perf_counter()
-    run.rounds("healthy", RANK_ROUNDS)
+    run.rounds("healthy", rounds)
     run.sync()
     fig["healthy_rounds_s"] = time.perf_counter() - t0
     run.read_back("read_back")
     scan = client.metrics().latency["scan"]
     fig["scan_ms"] = scan.mean * 1e3
     run.comm.reset_stats()
-    client.scan(0, 2 ** 31 - 2)
+    client.scan(0, run.key_hi - 1)
     fig["collectives_per_scan"] = run.per_op(1)
     run.parity("healthy")
     client.fail_server(RANK_FAIL)
     t0 = time.perf_counter()
-    run.rounds("degraded", RANK_ROUNDS)
+    run.rounds("degraded", rounds)
     run.sync()
     fig["degraded_rounds_s"] = time.perf_counter() - t0
     t0 = time.perf_counter()
@@ -2864,9 +2951,11 @@ def collective_ms(torch, comm, sizes, iters=50):
     return out
 
 
-def rank_phase(rank, world, device, seed, sizes):
+def rank_phase(rank, world, device, seed, sizes, sizes64=None):
     """One rank of phase 9c (run by ``launch/ranks.spawn``): the workload,
-    then the data-plane and ticker segment on a store of its own."""
+    then the data-plane and ticker segment on a store of its own, then,
+    given ``sizes64``, phase 19's part: the workload on a store of int64
+    keys (None where not given)."""
     import torch
 
     from repro_torch.configs.histore import scaled
@@ -2888,7 +2977,14 @@ def rank_phase(rank, world, device, seed, sizes):
     client = rank_client(fcfg, sizes, device, comm)
     faults = rank_faults(torch, client, fcfg, seed, sizes["fault_keys"])
     faults[2]["peak_bytes"] = torch.cuda.max_memory_allocated(device)
-    return answers, leaves, fig, faults
+    wide = None
+    if sizes64 is not None:
+        del client
+        torch.cuda.empty_cache()
+        comm.reset_stats()
+        client = rank_client(cfg, sizes64, device, comm)
+        wide = rank_workload(torch, client, cfg, seed + 19, sizes64)
+    return answers, leaves, fig, faults, wide
 
 
 def _same_answers(got, want, what):
@@ -2934,19 +3030,51 @@ def dist_ranks(torch, seed):
         out[f"one_process_faults_{sz['fault_keys']}"] = faults[2]
         return answers, leaves, faults
 
-    runs = [("nccl", W, "nccl", RANK_SIZES)]
+    def one_process64(sz):
+        client = rank_client(cfg, sz, torch.device("cuda"))
+        t0 = time.perf_counter()
+        wide = rank_workload(torch, client, cfg, seed + 19, sz)
+        wide[2]["wall_s"] = time.perf_counter() - t0
+        del client
+        torch.cuda.empty_cache()
+        log(f"keys64-dist: one process at {sz['keys']} int64 keys, "
+            f"{len(wide[0])} answers, {len(wide[1])} leaves: "
+            f"{json.dumps(wide[2])}")
+        return wide
+
+    runs = [("nccl", W, "nccl", RANK_SIZES, RANK64_SIZES)]
     if GLOO_CUDA:
         runs.append(("gloo4", 4, "gloo", {
             **RANK_SIZES, "keys": RANK_SIZES["keys"] // GLOO_LOAD_CUT,
-            "fault_keys": RANK_SIZES["fault_keys"] // GLOO_LOAD_CUT}))
+            "fault_keys": RANK_SIZES["fault_keys"] // GLOO_LOAD_CUT}, None))
     launches = faults_launches = None
-    for name, world, backend, sz in runs:
+    for name, world, backend, sz, sz64 in runs:
         answers, leaves, faults = one_process(sz)
+        wide = None if sz64 is None else one_process64(sz64)
         t0 = time.perf_counter()
         res = ranks.spawn(rank_phase, world, device="cuda", backend=backend,
-                          timeout_s=RANK_TIMEOUT_S, args=(seed, sz))
+                          timeout_s=RANK_TIMEOUT_S, args=(seed, sz, sz64))
         wall = time.perf_counter() - t0
-        for r, (a, _, f, (fa, _, ff)) in enumerate(res):
+        if wide is not None:
+            for r, x in enumerate(res):
+                _same_answers(x[4][0], wide[0], f"19 {name} rank {r}")
+                got = x[4][2]["launches"]
+                for k in K64D_KERNELS:
+                    check(got[k] > 0 and got[k[:-4]] == 0,
+                          f"19 {name} rank {r}: launches {got}")
+            got = res[0][4][1]
+            differ = sorted(k for k in set(got) | set(wide[1])
+                            if got.get(k) != wide[1].get(k))
+            check(not differ, f"19 {name}: gathered leaves differ: "
+                  f"{differ[:5]}")
+            out["keys64_dist"] = {"world": world, "keys": sz64["keys"],
+                                  "one_process": wide[2],
+                                  "ranks": [x[4][2] for x in res]}
+            log(f"keys64-dist: over {world} {backend} rank(s) in 9c's "
+                f"spawn at {sz64['keys']} int64 keys: {len(wide[0])} answers "
+                f"(sha256) and {len(wide[1])} gathered leaves bit-equal to "
+                f"one process; " + json.dumps([x[4][2] for x in res]))
+        for r, (a, _, f, (fa, _, ff), _) in enumerate(res):
             _same_answers(a, answers, f"9c {name} rank {r}")
             _same_answers(fa, faults[0], f"9c {name} faults rank {r}")
             for k in RANK_KERNELS:
@@ -2958,8 +3086,8 @@ def dist_ranks(torch, seed):
                                 (" faults", res[0][3][1], faults[1])):
             check(got == want, f"9c {name}{what}: gathered leaves differ: "
                   f"{[k for k in want if got.get(k) != want[k]][:5]}")
-        figs = [f for _, _, f, _ in res]
-        ffigs = [x[2] for _, _, _, x in res]
+        figs = [x[2] for x in res]
+        ffigs = [x[3][2] for x in res]
         out[name] = {"world": world, "backend": backend, "keys": sz["keys"],
                      "fault_keys": sz["fault_keys"], "wall_s": wall,
                      "ranks": figs, "faults": ffigs}
@@ -5461,8 +5589,11 @@ def data_axis_report(gl, ref):
 # ---------------------------------------------------------------------------
 K64_UNIVERSE = 2 ** 62            # keys drawn from [0, 2^62)
 K64_SPAN = 2 ** 47                # a SCAN's span is below it: 2^47 holds
-#                                   about 256 of the 2^23 keys
+#                                   about 128 of the 2^22 keys
 K64_DEGRADED_ROUNDS = 2
+# phase 18 loads half the main path's keys (2^22 of 2^23), to keep the
+# script inside its time with phase 19
+K64_LOAD_CUT = 2
 K64_KERNELS = ("hash_probe_i64", "sorted_search_i64", "merge_i64",
                "backup_probe_i64")
 K64_LAYERS = 2                    # the engine's falcon-mamba-7b, 2 of 64
@@ -5470,7 +5601,8 @@ K64_LAYERS = 2                    # the engine's falcon-mamba-7b, 2 of 64
 
 def keys64(torch, args, cfg):
     """Phase 18: HiStoreClient(LocalBackend(2**24, cfg, key_dtype=int64))
-    on the card, ``args.keys`` distinct keys from [0, 2**62) (a generator
+    on the card, ``args.keys // K64_LOAD_CUT`` distinct keys from [0,
+    2**62) (a generator
     of its own), the main path's mixed rounds, a pending window of 2
     chunks, the primary's failure with a degraded read-back and degraded
     rounds, the online rebuild and a read-back, every answer checked
@@ -5483,7 +5615,7 @@ def keys64(torch, args, cfg):
 
     rng = np.random.default_rng([args.seed, 18])
     B = CHUNK
-    n_load = args.keys
+    n_load = args.keys // K64_LOAD_CUT
     n_fresh = (ROUNDS + K64_DEGRADED_ROUNDS) * B // 2 + B
     need = n_load + n_fresh
     uniq = np.unique(rng.integers(0, K64_UNIVERSE, int(need * 1.001) + 1024,
@@ -5618,6 +5750,234 @@ def keys64_engine(torch, seed):
         f"launches {({k: v for k, v in b['launches'].items() if v})}")
     return dict(engine_int32_s=a["s"], engine_int64_s=b["s"],
                 launches_int64=b["launches"])
+
+
+# ---------------------------------------------------------------------------
+# Phase 19: the distributed store on int64 keys (JAX's x64 deployment of
+# DistributedBackend)
+# ---------------------------------------------------------------------------
+K64D_KEYS = FAULT_KEYS            # phase 9b's load, 2^21 keys
+K64D_ROUNDS = 4
+K64D_DEGRADED_ROUNDS = 2
+K64D_FAIL, K64D_DATA = 3, 5       # the index and the data server failed
+K64D_KERNELS = ("group_probe_i64", "hash_probe_i64", "merge_i64",
+                "sorted_search_i64")
+
+
+def legacy_probe_i64(torch, cfg, wl, hidx):
+    """The legacy probe's int64 entry (``ops.hash_probe`` on int64 keys,
+    one launch of ``histore_legacy_hash_probe_keys_i64``) on one group's
+    hash of the int64 store, a client chunk of live, deleted and absent
+    keys, negative keys and key_inf among them, against its plain version
+    (the descriptors at the keys' width and ``ref_hash_probe``); the
+    public call counted alone, then timed per call, on the device and
+    plain.  Returns the record."""
+    from repro_torch.core import hash_index as hix
+    from repro_torch.kernels import ops
+
+    dev, S, Q = hidx.sig.device, cfg.slots_per_bucket, CHUNK
+    q = np.concatenate([wl.get_mix(Q - 4),
+                        [-1, -(2 ** 40) - 7, 2 ** 63 - 1, 0]]).astype(np.int64)
+    qh = torch.as_tensor(q, device=dev)
+    tab = (hidx.sig, hidx.fp, hidx.addr)
+    zero_launches(ops)
+    h = ops.hash_probe(hidx, qh, cfg)
+    torch.cuda.synchronize()
+    launches = dict(ops.LAUNCHES)
+    check(launches["legacy_hash_probe_i64"] == 1 and
+          launches["legacy_hash_probe"] == 0,
+          f"19: the legacy probe's launches {launches}")
+    b, sg, fp = hix.descriptors(hidx, qh)
+    want = ops.legacy_hash_probe_plain(b, sg, fp, *tab, slots_per_bucket=S)
+    err = max_abs_err(torch, (h[0], h[1].int(), h[2]), want,
+                      "19 legacy hash_probe int64 keys")
+    found = h[1].cpu().numpy()
+    check(np.array_equal(found, ops.probe(cfg, hidx, qh)[1].cpu().numpy())
+          and found.any() and wl.model.is_live(q[found])[0].all(),
+          "19 legacy hash_probe: found differs from the group's own probe")
+    kern = lambda: ops.legacy_hash_probe_keys_cuda(qh, *tab, S)  # noqa
+    ms, dev_ms = time_ms(torch, kern, 200), device_ms(torch, kern, 200)
+    plain = time_ms(torch, lambda: ops.legacy_hash_probe_plain(
+        *hix.descriptors(hidx, qh), *tab, slots_per_bucket=S), 50)
+    nbytes, _, hits = legacy_probe_work(torch, hidx, b, sg, fp, h)
+    nbytes += Q * 4                     # the key in is 8 B, not 4
+    bound = nbytes / HBM_BYTES_PER_S * 1e3
+    log(f"keys64-dist: kernel legacy_hash_probe_i64: Q={Q} ({hits} hits, "
+        f"negative keys and key_inf among the queries), int64 keys hashed "
+        f"on the card at their width: equal to the plain version; {ms:.4f} "
+        f"ms per call, device {dev_ms:.4f} ms, plain {plain:.4f} ms, bound "
+        f"{bound:.6f} ms ({nbytes} B)")
+    return dict(name="legacy_hash_probe_i64", route="cuda",
+                source="src/repro_torch/kernels/csrc/legacy_hash_probe.cu",
+                replaces=f"{LEGACY}/_hash_probe.py:77",
+                launches=launches["legacy_hash_probe_i64"], max_abs_err=err,
+                ms=ms, plain_ms=plain, bound_ms=bound, bound_by="bytes",
+                library_ms=None, device_ms=dev_ms, Q=Q)
+
+
+def keys64_dist(torch, seed, cfg):
+    """Phase 19: HiStoreClient(DistributedBackend(8, cfg, 2**21,
+    capacity_q=1024, key_dtype=torch.int64)) on the card (``cfg`` with
+    leases off), a generator of its own from ``seed``: 2**21 keys from
+    [0, 2**62) loaded, 4 mixed rounds (SCAN spans below 2**47, as in
+    phase 18), index server 3 failed with a degraded read-back and 2
+    degraded rounds, its recovery, data server 5 failed (a PUT chunk and
+    a read-back while it is down) and recovered, a read-back, a drain
+    and ``parity_report``, every answer checked against the phase's own
+    model; the launch counts set to 0 before it and the int64 group
+    probe's, hash probe's, merge's and search's > 0 after, the int32
+    ones' 0.  Then, not counted: the int64 group probe against its plain
+    version on the last healthy GET chunk as routed and on the last
+    degraded one, the stacked int64 SCAN on the live store, and the
+    legacy probe's int64 entry.  Returns (the two new kernel records,
+    the stacked SCAN's figures, the launches, timings)."""
+    from repro_torch.core import kvstore as kv
+    from repro_torch.core import tree
+    from repro_torch.core.client import DistributedBackend, HiStoreClient
+    from repro_torch.kernels import mamba_scan as ms
+    from repro_torch.kernels import ops
+
+    rng = np.random.default_rng([seed, 19])
+    B = CHUNK
+    n_load = K64D_KEYS
+    need = n_load + (K64D_ROUNDS + K64D_DEGRADED_ROUNDS + 2) * B // 2
+    uniq = np.unique(rng.integers(0, K64_UNIVERSE, int(need * 1.001) + 1024,
+                                  dtype=np.int64))
+    check(len(uniq) >= need, "19: not enough distinct keys drawn")
+    keys_all = uniq[rng.permutation(len(uniq))[:need]]
+    model = Model(keys_all, cfg.value_words)
+    t_phase = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    backend = DistributedBackend(DIST_GROUPS, cfg, DIST_CAPACITY,
+                                 capacity_q=DIST_CAPACITY_Q, device="cuda",
+                                 key_dtype=torch.int64)
+    client = HiStoreClient(backend)
+    st = backend.store
+    check(st.bsorted.keys.dtype == st.blog.keys.dtype == st.plog.keys.dtype
+          == st.data.keys.dtype == st.data.freeq.keys.dtype == torch.int64,
+          "19: the store's keys are not int64")
+    wl = Workload(torch, client, model, rng, keys_all[n_load:],
+                  key_hi=K64_UNIVERSE, scan_span=K64_SPAN)
+    zero_launches(ops)
+    ms.LAUNCHES["mamba_scan"] = 0
+
+    t0 = time.perf_counter()
+    vals = wl.new_vals(n_load)
+    r = client.put(keys_all[:n_load], vals)
+    ok = r.ok.cpu().numpy()
+    torch.cuda.synchronize()
+    t_load = time.perf_counter() - t0
+    check(ok.all(), f"19 load: {(~ok).sum()} PUTs not acknowledged")
+    model.put(keys_all[:n_load], vals)
+    t0 = time.perf_counter()
+    stats, probe_at = dist_rounds(wl, backend, K64D_ROUNDS, "19 round",
+                                  replicas=cfg.n_backups)
+    torch.cuda.synchronize()
+    t_mixed = time.perf_counter() - t0
+    _, t_read = wl.read_back("19 read-back")
+    log(f"keys64-dist: DistributedBackend({DIST_GROUPS} groups x "
+        f"{DIST_CAPACITY}, capacity_q {DIST_CAPACITY_Q}, key_dtype="
+        f"torch.int64) loaded {n_load} keys from [0, 2^62) in {t_load:.3f} s "
+        f"({n_load / t_load:.0f} PUT/s, {client.stats['retries']} retries); "
+        f"{K64D_ROUNDS} mixed rounds in {t_mixed:.3f} s: {stats}; read back "
+        f"{len(model.keys)} keys in {t_read:.3f} s "
+        f"({len(model.keys) / t_read:.0f} GET/s)")
+
+    # index server 3 fails: degraded reads and rounds, then its recovery
+    fr = client.fail_server(K64D_FAIL)
+    check(tuple(fr) == (K64D_FAIL, True), f"19: fail_server {fr}")
+    _, t_deg_read = wl.read_back("19 degraded read-back")
+    t0 = time.perf_counter()
+    _, degraded_at = dist_rounds(wl, backend, K64D_DEGRADED_ROUNDS,
+                                 "19 degraded round")
+    torch.cuda.synchronize()
+    t_deg = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    client.recover_server(K64D_FAIL)
+    torch.cuda.synchronize()
+    t_rec = time.perf_counter() - t0
+    # data server 5 fails: a PUT chunk (group 5's land one hop on) and a
+    # read-back (its shard from the mirror), then its recovery
+    client.fail_data_server(K64D_DATA)
+    wl.put(np.concatenate([wl.sample(wl.live_keys(), B // 2),
+                           wl.take_fresh(B // 2)]), "19 PUT, data 5 down")
+    _, t_dread = wl.read_back("19 read-back, data server 5 down")
+    t0 = time.perf_counter()
+    client.recover_data_server(K64D_DATA)
+    torch.cuda.synchronize()
+    t_drec = time.perf_counter() - t0
+    hits, t_read2 = wl.read_back("19 read-back after the recoveries")
+    t0 = time.perf_counter()
+    client.drain()
+    report = kv.parity_report(backend.store, cfg)
+    t_audit = time.perf_counter() - t0
+    slots = report[-1]
+    check(slots["kind"] == "value_slots" and slots["agree"]
+          and slots["fq_spill"] == 0, f"19 value-slot audit: {slots}")
+    bad = [e for e in report[:-1] if not e["agree"]]
+    check(not bad, f"19 parity: {bad[:3]}")
+    n_live = sum(e["n_hash"] for e in report[:-1] if e["replica"] == 0)
+    check(n_live == int(model.live.sum()) == slots["live"] == hits,
+          f"19 parity: {n_live} live items, model {int(model.live.sum())}")
+    torch.cuda.synchronize()
+    launches = dict(ops.LAUNCHES, mamba_scan=ms.LAUNCHES["mamba_scan"])
+    t_path = time.perf_counter() - t_phase
+    peak = torch.cuda.max_memory_allocated()
+    for k in K64D_KERNELS:
+        check(launches[k] > 0, f"19: kernel {k} was not launched")
+        check(launches[k[:-4]] == 0, f"19: the int32 {k[:-4]} was launched")
+    log(f"keys64-dist: server {K64D_FAIL} failed: degraded read-back in "
+        f"{t_deg_read:.3f} s ({len(model.keys) / t_deg_read:.0f} GET/s), "
+        f"{K64D_DEGRADED_ROUNDS} degraded rounds in {t_deg:.3f} s, "
+        f"recovered in {t_rec:.3f} s; data server {K64D_DATA} failed: "
+        f"read-back in {t_dread:.3f} s, recovered in {t_drec:.3f} s; read "
+        f"back {len(model.keys)} keys ({hits} live) in {t_read2:.3f} s; "
+        f"drain + parity_report in {t_audit:.3f} s: {len(report) - 1} "
+        f"entries agree, value slots {json.dumps(slots)}; the path "
+        f"{t_path:.1f} s, peak {peak} B; launches "
+        f"{({k: v for k, v in launches.items() if v})}")
+
+    # -- the kernels against their plain versions (not counted) --------------
+    gp = []
+    for tag, at in (("GET chunk", probe_at), ("degraded GET chunk",
+                                              degraded_at)):
+        err, c, kern = probe_get_chunk(torch, cfg, at, f"keys64-dist {tag}")
+        c["device_ms_by_kernel"] = kernel_split(
+            torch, kern, f"keys64-dist: kernel group_probe_i64: {tag}")
+        gp.append((err, c))
+        log(f"keys64-dist: kernel group_probe_i64: the last {tag} of "
+            f"{len(at[1])} int64 keys, one call for {DIST_GROUPS} servers "
+            f"of Q={c['Q']}, every server equal to its plain result; "
+            f"{c['padding_lanes']} padding lanes, {c['selecting_keys']} keys "
+            f"selecting a replica ({c['selecting_found']} found there): "
+            f"{c['ms']:.4f} ms per call, device {c['device_ms']:.4f} ms, "
+            f"routed {c['routed_ms']:.4f} ms, plain {c['plain_ms']:.4f} ms, "
+            f"bound {c['bound_ms']:.6f} ms (bytes {c['bound_bytes_ms']:.6f} "
+            f"ms for {c['bytes']} B, operations {c['bound_ops_ms']:.6f} ms "
+            f"for {c['operations']})")
+    check(gp[1][1]["selecting_found"] > 0, "19 degraded GET chunk: no lane "
+          "found its key in a replica")
+    (err_h, c), (err_d, d) = gp
+    g_rec = dict(name="group_probe_i64", route="cuda",
+                 source="src/repro_torch/kernels/csrc/group_probe.cu",
+                 replaces=f"{FUSED}:332",
+                 launches=launches["group_probe_i64"],
+                 max_abs_err=max(err_h, err_d), library_ms=None,
+                 **{x: c[x] for x in ("ms", "plain_ms", "bound_ms",
+                                      "bound_by", "device_ms", "routed_ms",
+                                      "device_ms_by_kernel", "Q",
+                                      "padding_lanes", "selecting_lanes")},
+                 degraded=d)
+    s_err, stacked = compare_range_stacked(torch, wl, cfg, "keys64-dist")
+    l_rec = legacy_probe_i64(torch, cfg, wl, tree.at(backend.store.hash, 0))
+    times = dict(load_s=t_load, put_per_s=n_load / t_load,
+                 mixed_rounds_s=t_mixed, read_back_s=t_read,
+                 get_per_s=len(model.keys) / t_read,
+                 degraded_read_s=t_deg_read, degraded_rounds_s=t_deg,
+                 recover_server_s=t_rec, data_down_read_s=t_dread,
+                 recover_data_s=t_drec, audit_s=t_audit, path_s=t_path,
+                 peak_bytes=peak, retries=client.stats["retries"])
+    return [g_rec, l_rec], (s_err, stacked), launches, times
 
 
 def main(argv=None) -> int:
@@ -5757,6 +6117,38 @@ def main(argv=None) -> int:
             f"{base['device_ms']:.4f} ms, bound {base['bound_ms']:.6f} ms")
     kernels.extend(recs64)
     log(f"keys64: {json.dumps(k64_times)}")
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    new64, (s_err, stacked64), d64_launches, d64_times = keys64_dist(
+        torch, args.seed, dist_cfg)
+    d64_times["phase_s"] = time.perf_counter() - t0
+    d64_times["ranks"] = rank_times.get("keys64_dist")
+    by_name = {k["name"]: k for k in kernels}
+    s64 = by_name["sorted_search_i64"]
+    s64["max_abs_err"] = max(s64["max_abs_err"], s_err)
+    s64["distributed_stacked"] = stacked64
+    for case, x in stacked64.items():
+        y = by_name["sorted_search"]["distributed_stacked"][case]
+        log(f"keys64-dist: kernel sorted_search_i64, the stacked SCAN "
+            f"({case}): {x['ms']:.4f} ms per call, device "
+            f"{x['device_ms']:.4f} ms, bound {x['bound_ms']:.6f} ms at 8 B "
+            f"keys; the int32 stacked SCAN in this run {y['ms']:.4f} ms, "
+            f"device {y['device_ms']:.4f} ms, bound {y['bound_ms']:.6f} ms")
+    for rec, base in zip(new64, ("group_probe", "legacy_hash_probe")):
+        b = by_name[base]
+        for x in ("ms", "device_ms", "bound_ms"):
+            rec["int32_" + x] = b[x]
+        if "degraded" in b:
+            rec["int32_degraded"] = {x: b["degraded"][x] for x in (
+                "ms", "device_ms", "bound_ms")}
+        log(f"keys64-dist: {rec['name']}: {rec['ms']:.4f} ms per call, "
+            f"device {rec['device_ms']:.4f} ms, bound {rec['bound_ms']:.6f} "
+            f"ms at 8 B keys; the int32 entry in this run {b['ms']:.4f} ms, "
+            f"device {b['device_ms']:.4f} ms, bound {b['bound_ms']:.6f} ms")
+    kernels.extend(new64)
+    for k in kernels:
+        k["launches_keys64_dist"] = d64_launches[k["name"]]
+    log(f"keys64-dist: {json.dumps(d64_times)}")
     torch.cuda.synchronize()
     log(f"total: {time.perf_counter() - t_start:.1f} s")
     print(smi)

@@ -153,14 +153,18 @@ def distributed_backend_from_numpy(store, cfg, device, *,
     servers dead and severed, the same stalled rounds, the stall timers
     as old as they were.  With ``comm`` (every rank calls it with the
     same leaves) each rank holds its L groups' rows and the whole
-    replicated host state, as the backend over ranks does."""
+    replicated host state, as the backend over ranks does.  Its key
+    dtype comes from the carried keys (int64 from a JAX store built under
+    ``jax_enable_x64``), as ``backend_from_numpy``'s does."""
     import time
 
     from repro_torch.core.client import DistributedBackend
 
     G, dcap = np.asarray(store.data.used).shape
     be = DistributedBackend(G, cfg, dcap, capacity_q=capacity_q,
-                            scan_limit=scan_limit, device=device, comm=comm)
+                            scan_limit=scan_limit, device=device, comm=comm,
+                            key_dtype=torch.as_tensor(
+                                np.asarray(store.plog.keys)[:0]).dtype)
     be.store = store_from_numpy(store, cfg, be.device, comm)
     be._pending_bound = (be.pending_ops() if pending_bound is None
                          else pending_bound)

@@ -138,6 +138,12 @@ def _local_delete(cfg, g, used, keys, valid, backups_alive, primary_alive):
     return g, used, found & valid
 
 
+def _check_key_dtype(key_dtype, backend: str):
+    if key_dtype not in (torch.int32, torch.int64):
+        raise ValueError(f"{backend}: keys are torch.int32 or torch.int64, "
+                         f"got {key_dtype}")
+
+
 class LocalBackend:
     """One index group (1 hash + n_backups sorted replicas + logs) plus
     the value shard a single-node deployment owns, slot-allocated and
@@ -152,9 +158,7 @@ class LocalBackend:
 
     def __init__(self, capacity: int, cfg, value_words: Optional[int] = None,
                  *, device=None, key_dtype=torch.int32):
-        if key_dtype not in (torch.int32, torch.int64):
-            raise ValueError(f"LocalBackend: keys are torch.int32 or "
-                             f"torch.int64, got {key_dtype}")
+        _check_key_dtype(key_dtype, "LocalBackend")
         self.device = _resolve_device(device)
         self.cfg = cfg
         self.telemetry = tm.Telemetry(getattr(cfg, "telemetry",
@@ -397,11 +401,14 @@ class DistributedBackend:
     are stacked on one device; with one (``comm.py``), over its ranks,
     each holding G / W of them, every rank running the same calls.  All
     state lives on ``device``: the card (the comm's) unless the caller
-    passes another."""
+    passes another.  ``key_dtype`` is the width of the store's keys, as
+    ``LocalBackend``'s: int32 (the default) or int64 (JAX's x64
+    deployment); the client casts keys to it."""
 
     def __init__(self, groups: int, cfg, capacity_per_group: int = 4096, *,
                  capacity_q: int = 64, scan_limit: int = 128, device=None,
-                 comm=None):
+                 comm=None, key_dtype=torch.int32):
+        _check_key_dtype(key_dtype, "DistributedBackend")
         self.comm = comm if comm is not None else Comm.single(groups)
         if device is None:
             device = self.comm.device
@@ -410,8 +417,9 @@ class DistributedBackend:
         self.telemetry = tm.Telemetry(getattr(cfg, "telemetry",
                                               "counters"))
         self.G = groups
+        self.key_dtype = key_dtype
         self.store = kv.create(groups, capacity_per_group, cfg, self.device,
-                               self.comm)
+                               self.comm, key_dtype)
         self.capacity_q = capacity_q
         self.scan_limit = scan_limit
         self.ops = kv.make_ops(cfg, groups, capacity_q, scan_limit,

@@ -46,7 +46,7 @@ from repro_torch.core import log as lg
 from repro_torch.core import sorted_index as six
 from repro_torch.core import tree
 from repro_torch.core.comm import Comm
-from repro_torch.core.hashing import I32, key_dtype
+from repro_torch.core.hashing import I32
 from repro_torch.core.scatter import drop_set
 from repro_torch.kernels import ops as kops
 
@@ -87,19 +87,22 @@ GROUP_AXES = DataPlane(vals=0, used=0, mirror=1, freeq=0, alive=None,
                        keys=0, kmirror=1, fq_spill=0, hb=0, sever=None)
 
 
-def create(G: int, dcap: int, cfg, device, L=None) -> DataPlane:
-    """The value plane of G groups, the L (default G) of one rank."""
+def create(G: int, dcap: int, cfg, device, L=None,
+           key_dtype=I32) -> DataPlane:
+    """The value plane of G groups, the L (default G) of one rank; the
+    slots' keys, their mirrors and the free queues at ``key_dtype``, the
+    store's key width, as JAX's ``create(..., key_dt)``."""
     W, Rv = cfg.value_words, cfg.n_value_replicas
     L = G if L is None else L
     return DataPlane(
         vals=torch.zeros((L, dcap, W), dtype=I32, device=device),
         used=torch.zeros((L, dcap), dtype=torch.bool, device=device),
         mirror=torch.zeros((Rv, L, dcap, W), dtype=I32, device=device),
-        freeq=tree.replicate(lg.create(cfg.log_capacity, device), L),
+        freeq=tree.replicate(lg.create(cfg.log_capacity, device, key_dtype),
+                             L),
         alive=torch.ones((G,), dtype=torch.bool, device=device),
-        keys=torch.zeros((L, dcap), dtype=key_dtype(), device=device),
-        kmirror=torch.zeros((Rv, L, dcap), dtype=key_dtype(),
-                            device=device),
+        keys=torch.zeros((L, dcap), dtype=key_dtype, device=device),
+        kmirror=torch.zeros((Rv, L, dcap), dtype=key_dtype, device=device),
         fq_spill=torch.zeros((L,), dtype=I32, device=device),
         hb=torch.zeros((L,), dtype=I32, device=device),
         sever=torch.zeros((G,), dtype=torch.bool, device=device),

@@ -1,7 +1,7 @@
 """Distributed KV-store self-test (port of ``repro/core/dist_selftest.py``):
 the protocol battery on G = 8 index groups over W ranks.
 
-    PYTHONPATH=src python -m repro_torch.core.dist_selftest [--ranks W] [--device cpu]
+    PYTHONPATH=src python -m repro_torch.core.dist_selftest [--ranks W] [--device cpu] [--key-dtype int64]
     PYTHONPATH=src torchrun --nproc-per-node W -m repro_torch.core.dist_selftest [--device cpu]
 
 W is 1, 2, 4 or 8 (8 is the JAX package's layout, one group a device).
@@ -10,7 +10,9 @@ NCCL with rank r on ``cuda:r``, gloo on the CPU); under torchrun each
 process joins torchrun's group; with W = 1 one process holds the 8
 groups and no process group is made.  Every rank runs the same calls and
 checks the same answers; rank 0 prints.  On the card unless ``--device``
-names another device.
+names another device.  ``--key-dtype int64`` runs the battery on a store
+of int64 keys, as JAX's runs under ``jax_enable_x64`` (its keys drawn at
+``key_dtype()``); int32 by default.
 
 Checks, as JAX's: routed PUT/GET roundtrip, value payload integrity,
 distributed DELETE round-trip (PUT -> DELETE -> GET miss -> SCAN
@@ -36,22 +38,22 @@ from repro_torch.core import kvstore as kv
 from repro_torch.core import sorted_index as six
 from repro_torch.core.client import DistributedBackend, HiStoreClient
 from repro_torch.core.comm import Comm
-from repro_torch.core.hashing import key_dtype
 from repro_torch.launch import ranks
 
 G = 8
+KEY_DTYPES = {"int32": torch.int32, "int64": torch.int64}
 
 
 def _np(t):
     return t.cpu().numpy()
 
 
-def run(comm, device, say=print) -> None:
-    """The battery over ``comm``'s ranks on ``device``; ``say`` prints a
-    progress line."""
+def run(comm, device, say=print, key_dtype=torch.int32) -> None:
+    """The battery over ``comm``'s ranks on ``device`` on a store of
+    ``key_dtype`` keys; ``say`` prints a progress line."""
     cfg = scaled(log_capacity=512, async_apply_batch=128)
-    KD = key_dtype()
-    store = kv.create(G, 4096, cfg, device, comm)
+    KD = key_dtype
+    store = kv.create(G, 4096, cfg, device, comm, KD)
     ops = kv.make_ops(cfg, G, capacity_q=64, scan_limit=128, comm=comm)
 
     def own_of(k):
@@ -172,7 +174,7 @@ def run(comm, device, say=print) -> None:
     # ------------------------------------------------------------------
     client = HiStoreClient(
         DistributedBackend(G, cfg, 4096, capacity_q=2, scan_limit=128,
-                           device=device, comm=comm),
+                           device=device, comm=comm, key_dtype=KD),
         batch_quantum=8 * G, max_retries=32)
     ck = rng.choice(10 ** 6, 300, replace=False) + 4 * 10 ** 7
     res = client.put(ck, np.arange(300))
@@ -222,7 +224,8 @@ def run(comm, device, say=print) -> None:
                   lease_clock="rounds")
     client3 = HiStoreClient(
         DistributedBackend(G, cfg3, 512, capacity_q=64, scan_limit=512,
-                           device=device, comm=comm), batch_quantum=4 * G)
+                           device=device, comm=comm, key_dtype=KD),
+        batch_quantum=4 * G)
     k3 = np.random.RandomState(3).choice(10 ** 6, 12 * G,
                                          replace=False) + 1
     assert client3.put(k3, np.arange(12 * G)).all_ok
@@ -240,10 +243,10 @@ def run(comm, device, say=print) -> None:
     say("R=3 scan serve-duty ok (no double-serve, count exact)")
 
 
-def _rank_main(rank, world, device):
+def _rank_main(rank, world, device, key_dtype=torch.int32):
     run(ranks.comm(G, device), device,
         say=(lambda m: print(m, flush=True)) if rank == 0 else
-        (lambda m: None))
+        (lambda m: None), key_dtype=key_dtype)
 
 
 def main(argv=None) -> int:
@@ -255,12 +258,16 @@ def main(argv=None) -> int:
     ap.add_argument("--timeout", type=float, default=600.0,
                     help="seconds before a rank's collective or the whole "
                          "spawned run gives up")
+    ap.add_argument("--key-dtype", choices=sorted(KEY_DTYPES),
+                    default="int32",
+                    help="the store's key width (int64: JAX's x64 store)")
     args = ap.parse_args(argv)
+    kd = KEY_DTYPES[args.key_dtype]
     if "RANK" in os.environ and "WORLD_SIZE" in os.environ:
         import torch.distributed as dist
         rank, world, dev = ranks.init_from_env(args.device,
                                                timeout_s=args.timeout)
-        _rank_main(rank, world, dev)
+        _rank_main(rank, world, dev, kd)
         dist.destroy_process_group()
         if rank != 0:
             return 0
@@ -270,10 +277,10 @@ def main(argv=None) -> int:
             raise RuntimeError("the self-test runs on the card by default "
                                "and CUDA is not available; pass --device "
                                "cpu")
-        run(Comm.single(G), dev)
+        run(Comm.single(G), dev, key_dtype=kd)
     else:
         ranks.spawn(_rank_main, args.ranks, device=args.device,
-                    timeout_s=args.timeout)
+                    timeout_s=args.timeout, args=(kd,))
     print("DIST-SELFTEST-OK", flush=True)
     return 0
 

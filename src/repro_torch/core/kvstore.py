@@ -88,22 +88,24 @@ GROUP_AXES = KVStore(hash=0, plog=0, bsorted=1, blog=1, data=dp.GROUP_AXES,
                      alive=None, sever=None, hb=0)
 
 
-def create(G: int, capacity_per_group: int, cfg, device,
-           comm=None) -> KVStore:
+def create(G: int, capacity_per_group: int, cfg, device, comm=None,
+           key_dtype=I32) -> KVStore:
     """An empty store of G groups: all of them (one process), or the
-    L = G / W of ``comm``'s rank."""
+    L = G / W of ``comm``'s rank.  ``key_dtype`` is the width of its
+    keys in every state (logs, sorted replicas, the slots' keys): int32,
+    or int64 as JAX's ``create(..., key_dt)`` under ``jax_enable_x64``."""
     cm = comm if comm is not None else Comm.single(G)
     if cm.G != G:
         raise ValueError(f"a store of {G} groups over a comm of {cm.G}")
-    R, L = cfg.n_backups, cm.L
+    R, L, kd = cfg.n_backups, cm.L, key_dtype
     return KVStore(
         hash=tree.replicate(hix.create(capacity_per_group, cfg, device), L),
-        plog=tree.replicate(lg.create(cfg.log_capacity, device), L),
+        plog=tree.replicate(lg.create(cfg.log_capacity, device, kd), L),
         bsorted=tree.replicate(tree.replicate(
-            six.create(capacity_per_group, device), L), R),
+            six.create(capacity_per_group, device, kd), L), R),
         blog=tree.replicate(tree.replicate(
-            lg.create(cfg.log_capacity, device), L), R),
-        data=dp.create(G, capacity_per_group, cfg, device, L),
+            lg.create(cfg.log_capacity, device, kd), L), R),
+        data=dp.create(G, capacity_per_group, cfg, device, L, kd),
         alive=torch.ones((G,), dtype=torch.bool, device=device),
         sever=torch.zeros((G,), dtype=torch.bool, device=device),
         hb=torch.zeros((L,), dtype=I32, device=device),

@@ -46,8 +46,9 @@ class HashTables(ctypes.Structure):
 
 
 class StackedReplicas(ctypes.Structure):
-    """histore::StackedReplicas (csrc/window_scan.cuh): the [R, G]
-    stacked backups."""
+    """histore::StackedReplicas<K> (csrc/window_scan.cuh): the [R, G]
+    stacked backups; one layout at both key widths (a Leaf is a pointer
+    and two strides in elements)."""
     _fields_ = [(n, Leaf) for n in ("skeys", "saddrs", "lkeys", "laddrs",
                                     "lops", "applied", "tail")]
 
@@ -104,7 +105,9 @@ for _lib, _fn in (("hash_probe", "histore_hash_probe"),
                   ("sorted_search", "histore_range_query"),
                   ("merge", "histore_merge_scratch_bytes"),
                   ("merge", "histore_merge"),
-                  ("backup_probe", "histore_backup_probe")):
+                  ("backup_probe", "histore_backup_probe"),
+                  ("group_probe", "histore_group_probe"),
+                  ("legacy_hash_probe", "histore_legacy_hash_probe_keys")):
     SIGNATURES[_lib][_fn + "_i64"] = SIGNATURES[_lib][_fn]
 
 _lock = threading.Lock()

@@ -21,11 +21,15 @@
 // g0 + G - 1 of the store: all of them on one process (g0 = 0, groups =
 // G), a rank's L of them over W ranks.  The store's
 // stacked leaves are read by base pointer and strides: nothing is copied
-// or built per call.
+// or built per call.  Keys are int32 (histore_group_probe) or int64
+// (histore_group_probe_i64, the same template on K, JAX's x64 store): the
+// raw keys and the replicas' sorted and log keys take the store's width;
+// the hash table, addresses, ops and the outputs stay int32 at both.
 //
-// Bound: bytes.  The hash half reads a key and two 128 B chain rows per
-// lane; the backup half, for each selected lane, the window's keys and
-// the descent's levels x fanout keys.  On the store's healthy GET only
+// Bound: bytes.  The hash half reads a key (4 B, or 8 B at int64) and
+// two 128 B chain rows per lane; the backup half, for each selected lane,
+// the window's keys and the descent's levels x fanout keys (a 16 B load
+// holds 4 int32 keys or 2 int64 ones).  On the store's healthy GET only
 // the padding lanes of the exchange buffers select a replica.
 // Design: a memset of `best` for all G, then two kernels on one stream.
 // window_scan.cuh's scan_kernel over (query blocks, slices, G), whose
@@ -54,9 +58,10 @@ struct HashTables {
   histore::Leaf<int32_t> sig, fp, addr, fill;
 };
 
-__global__ void group_finish_kernel(const int32_t* __restrict__ rkeys,
+template <class K>
+__global__ void group_finish_kernel(const K* __restrict__ rkeys,
                                     histore::Select select, HashTables ht,
-                                    histore::StackedReplicas rp,
+                                    histore::StackedReplicas<K> rp,
                                     const int32_t* __restrict__ best,
                                     int32_t* __restrict__ out,
                                     uint8_t* __restrict__ found, int64_t Q,
@@ -68,7 +73,7 @@ __global__ void group_finish_kernel(const int32_t* __restrict__ rkeys,
   if (qi >= GQ) return;  // whole groups exit together
   const int g = int(qi / Q);
   const int lane = threadIdx.x & (W - 1);
-  const int32_t key = rkeys[qi];
+  const K key = rkeys[qi];
   const histore::KeyMix m = histore::key_mix(key);
   const histore::Desc d = histore::descriptors(m, nb);
   const histore::Probe h = histore::hash_walk<W>(
@@ -93,6 +98,40 @@ bool aligned16(const void* p, int64_t stride) {
   return (uintptr_t(p) & 15) == 0 && stride % 4 == 0;
 }
 
+template <class K>
+int group_probe(const void* rkeys, const void* rep_sel, const void* tables,
+                const void* replicas, void* out, void* found, void* best,
+                long long Q, int G, long long nb, int cs, int S, int R,
+                long long cap, long long lcap, int fanout, int levels,
+                int groups, int g0, void* stream) {
+  if (G < 1 || R < 1 || cap < 1 || lcap < 1 || nb < 1 || (nb & (nb - 1)) ||
+      cs < 1 || S < 1 || g0 < 0 || groups < g0 + G)
+    return (int)cudaErrorInvalidValue;
+  const HashTables ht = *(const HashTables*)tables;
+  const histore::StackedReplicas<K> rp =
+      *(const histore::StackedReplicas<K>*)replicas;
+  const histore::Select select{(const int32_t*)rep_sel, R, groups, g0};
+  if (Q > 0) {
+    cudaStream_t s = (cudaStream_t)stream;
+    cudaError_t e = histore::launch_window_scan(rkeys, select, rp, best, Q, G,
+                                                R, lcap, s);
+    if (e != cudaSuccess) return (int)e;
+    const bool vec = cs % 4 == 0 && aligned16(ht.sig.p, ht.sig.sg) &&
+                     aligned16(ht.fp.p, ht.fp.sg) &&
+                     aligned16(ht.addr.p, ht.addr.sg);
+    const int threads = 256;  // 256 / W queries a block
+    const long long blocks = ((long long)G * Q * W + threads - 1) / threads;
+    e = histore::launch(group_finish_kernel<K>, (unsigned)blocks, threads, s,
+                        (const K*)rkeys, select, ht, rp,
+                        (const int32_t*)best, (int32_t*)out,
+                        (uint8_t*)found, (int64_t)Q, G,
+                        (int64_t)nb, cs, S, vec, (int64_t)cap, (int64_t)lcap,
+                        fanout, levels);
+    if (e != cudaSuccess) return (int)e;
+  }
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 // rkeys: [G, Q] int32; rep_sel: [G, Q, R] int32 or null; tables: the
@@ -109,30 +148,23 @@ extern "C" int histore_group_probe(const void* rkeys, const void* rep_sel,
                                    long long cap, long long lcap, int fanout,
                                    int levels, int groups, int g0,
                                    void* stream) {
-  if (G < 1 || R < 1 || cap < 1 || lcap < 1 || nb < 1 || (nb & (nb - 1)) ||
-      cs < 1 || S < 1 || g0 < 0 || groups < g0 + G)
-    return (int)cudaErrorInvalidValue;
-  const HashTables ht = *(const HashTables*)tables;
-  const histore::StackedReplicas rp =
-      *(const histore::StackedReplicas*)replicas;
-  const histore::Select select{(const int32_t*)rep_sel, R, groups, g0};
-  if (Q > 0) {
-    cudaStream_t s = (cudaStream_t)stream;
-    cudaError_t e = histore::launch_window_scan(rkeys, select, rp, best, Q, G,
-                                                R, lcap, s);
-    if (e != cudaSuccess) return (int)e;
-    const bool vec = cs % 4 == 0 && aligned16(ht.sig.p, ht.sig.sg) &&
-                     aligned16(ht.fp.p, ht.fp.sg) &&
-                     aligned16(ht.addr.p, ht.addr.sg);
-    const int threads = 256;  // 256 / W queries a block
-    const long long blocks = ((long long)G * Q * W + threads - 1) / threads;
-    e = histore::launch(group_finish_kernel, (unsigned)blocks, threads, s,
-                        (const int32_t*)rkeys, select, ht, rp,
-                        (const int32_t*)best, (int32_t*)out,
-                        (uint8_t*)found, (int64_t)Q, G,
-                        (int64_t)nb, cs, S, vec, (int64_t)cap, (int64_t)lcap,
-                        fanout, levels);
-    if (e != cudaSuccess) return (int)e;
-  }
-  return (int)cudaGetLastError();
+  return group_probe<int32_t>(rkeys, rep_sel, tables, replicas, out, found,
+                              best, Q, G, nb, cs, S, R, cap, lcap, fanout,
+                              levels, groups, g0, stream);
+}
+
+// the same with rkeys [G, Q] int64 and the replicas' sorted and log keys
+// int64 (the same host struct: only the pointees' type differs); the
+// outputs as above
+extern "C" int histore_group_probe_i64(const void* rkeys, const void* rep_sel,
+                                       const void* tables,
+                                       const void* replicas, void* out,
+                                       void* found, void* best, long long Q,
+                                       int G, long long nb, int cs, int S,
+                                       int R, long long cap, long long lcap,
+                                       int fanout, int levels, int groups,
+                                       int g0, void* stream) {
+  return group_probe<int64_t>(rkeys, rep_sel, tables, replicas, out, found,
+                              best, Q, G, nb, cs, S, R, cap, lcap, fanout,
+                              levels, groups, g0, stream);
 }

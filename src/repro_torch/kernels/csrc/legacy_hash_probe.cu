@@ -13,15 +13,18 @@
 // group probe keep); where the index keeps occ == fill its outputs equal
 // hash_probe.cu's.
 //
-// Two entry points, one template: histore_legacy_hash_probe_keys takes the
-// raw int32 keys and hashes them on the card (key_mix.cuh: the key mix,
-// then bucket = h1 & (nb - 1), the signature and the fingerprint, as
+// Three entry points, one template: histore_legacy_hash_probe_keys takes
+// the raw int32 keys and hashes them on the card (key_mix.cuh: the key
+// mix, then bucket = h1 & (nb - 1), the signature and the fingerprint, as
 // core/hashing.py computes them for any nb), so the routed
-// ops.hash_probe is one launch; histore_legacy_hash_probe takes the three
-// descriptors, as the JAX kernel does.
+// ops.hash_probe is one launch; histore_legacy_hash_probe_keys_i64 does
+// the same for int64 keys, both words mixed (JAX's bucket_of / sig_fp_of
+// at the keys' width); histore_legacy_hash_probe takes the three int32
+// descriptors, as the JAX kernel does.  The table is int32 at every
+// width.
 //
-// Bound: memory.  Per query 4 B of key in (12 B of descriptors for the
-// other entry) and 9 B out (12 B), one 128 B sig row at cs = 32, and a
+// Bound: memory.  Per query 4 B of key in (8 B at int64, 12 B of
+// descriptors for the descriptor entry) and 9 B out (12 B), one 128 B sig row at cs = 32, and a
 // 32 B sector for each fp word the function needs (the slots up to the
 // first match whose sig matches: almost only a hit's) and for the addr
 // word of a hit; every row read is a gather at a random bucket, so
@@ -47,11 +50,12 @@ namespace {
 
 constexpr int W = 8;  // lanes a query
 
-// KEYS: q0 holds the keys, else the buckets (and qsig, qfp the other two
-// descriptors).  F: the type of found (bool for the keys-in entry, int32
-// as JAX's kernel returns it for the descriptor-in one).
-template <bool KEYS, typename F>
-__global__ void legacy_hash_probe_kernel(const int32_t* __restrict__ q0,
+// KEYS: q0 holds the keys (of type Q0: int32 or int64), else the buckets
+// (int32, and qsig, qfp the other two descriptors).  F: the type of found
+// (bool for the keys-in entries, int32 as JAX's kernel returns it for the
+// descriptor-in one).
+template <bool KEYS, typename Q0, typename F>
+__global__ void legacy_hash_probe_kernel(const Q0* __restrict__ q0,
                                          const int32_t* __restrict__ qsig,
                                          const int32_t* __restrict__ qfp,
                                          const int32_t* __restrict__ sig,
@@ -73,7 +77,7 @@ __global__ void legacy_hash_probe_kernel(const int32_t* __restrict__ q0,
     s = d.sig;
     f = d.fp;
   } else {
-    b = q0[q];
+    b = int64_t(q0[q]);
     s = qsig[q];
     f = qfp[q];
   }
@@ -129,7 +133,7 @@ __global__ void legacy_hash_probe_kernel(const int32_t* __restrict__ q0,
 
 bool aligned16(const void* p) { return (uintptr_t(p) & 15) == 0; }
 
-template <bool KEYS, typename F>
+template <bool KEYS, typename Q0, typename F>
 int launch(const void* q0, const void* qsig, const void* qfp, const void* sig,
            const void* fp, const void* addr, void* out_addr, void* out_found,
            void* out_acc, long long Q, long long nb, int cs, int S,
@@ -139,9 +143,9 @@ int launch(const void* q0, const void* qsig, const void* qfp, const void* sig,
     const bool vec = cs % 4 == 0 && aligned16(sig);
     const int threads = 256;  // 256 / W queries a block
     const long long blocks = (Q * W + threads - 1) / threads;
-    legacy_hash_probe_kernel<KEYS, F><<<(unsigned)blocks, threads, 0,
-                                        (cudaStream_t)stream>>>(
-        (const int32_t*)q0, (const int32_t*)qsig, (const int32_t*)qfp,
+    legacy_hash_probe_kernel<KEYS, Q0, F><<<(unsigned)blocks, threads, 0,
+                                            (cudaStream_t)stream>>>(
+        (const Q0*)q0, (const int32_t*)qsig, (const int32_t*)qfp,
         (const int32_t*)sig, (const int32_t*)fp, (const int32_t*)addr,
         (int32_t*)out_addr, (F*)out_found, (int32_t*)out_acc, (int64_t)Q,
         (int64_t)nb, cs, S, vec);
@@ -157,9 +161,19 @@ extern "C" int histore_legacy_hash_probe_keys(
     const void* keys, const void* sig, const void* fp, const void* addr,
     void* out_addr, void* out_found, void* out_acc, long long Q,
     long long nb, int cs, int S, void* stream) {
-  return launch<true, uint8_t>(keys, nullptr, nullptr, sig, fp, addr,
-                               out_addr, out_found, out_acc, Q, nb, cs, S,
-                               stream);
+  return launch<true, int32_t, uint8_t>(keys, nullptr, nullptr, sig, fp,
+                                        addr, out_addr, out_found, out_acc,
+                                        Q, nb, cs, S, stream);
+}
+
+// the same with keys [Q] int64
+extern "C" int histore_legacy_hash_probe_keys_i64(
+    const void* keys, const void* sig, const void* fp, const void* addr,
+    void* out_addr, void* out_found, void* out_acc, long long Q,
+    long long nb, int cs, int S, void* stream) {
+  return launch<true, int64_t, uint8_t>(keys, nullptr, nullptr, sig, fp,
+                                        addr, out_addr, out_found, out_acc,
+                                        Q, nb, cs, S, stream);
 }
 
 // bucket/qsig/qfp: [Q] int32 descriptors; sig/fp/addr: [nb, cs] int32;
@@ -170,6 +184,7 @@ extern "C" int histore_legacy_hash_probe(const void* bucket, const void* qsig,
                                          void* out_addr, void* out_found,
                                          void* out_acc, long long Q, int cs,
                                          int S, void* stream) {
-  return launch<false, int32_t>(bucket, qsig, qfp, sig, fp, addr, out_addr,
-                                out_found, out_acc, Q, 1, cs, S, stream);
+  return launch<false, int32_t, int32_t>(bucket, qsig, qfp, sig, fp, addr,
+                                         out_addr, out_found, out_acc, Q, 1,
+                                         cs, S, stream);
 }

@@ -20,7 +20,7 @@
 // Both probes share the code below.  The backup probe reads its R replica
 // states through a device table of pointers (Replicas) and rep_sel from
 // memory, one group; the group probe reads the store's stacked [R, G]
-// leaves by base pointer and strides (StackedReplicas) for G groups along
+// leaves by base pointer and strides (StackedReplicas<K>) for G groups along
 // blockIdx.z, and each lane's replica comes from its key's owner group
 // (Select, key_mix.cuh) unless rep_sel is given.
 //
@@ -107,21 +107,21 @@ struct Leaf {
 
 // the store's backups as they lie on the card: SortedIndex keys and addrs
 // [R, G, cap], UpdateLog keys, addrs and ops [R, G, lcap], applied and
-// tail [R, G]; int32 keys
+// tail [R, G]; the keys K (int32 or int64), the rest as at either width
+template <class K>
 struct StackedReplicas {
-  using Key = int32_t;
-  Leaf<int32_t> skeys_, saddrs_, lkeys_, laddrs_;
+  using Key = K;
+  Leaf<K> skeys_;
+  Leaf<int32_t> saddrs_;
+  Leaf<K> lkeys_;
+  Leaf<int32_t> laddrs_;
   Leaf<int8_t> lops_;
   Leaf<int32_t> applied_, tail_;
-  __device__ const int32_t* skeys(int r, int g) const {
-    return skeys_.at(r, g);
-  }
+  __device__ const K* skeys(int r, int g) const { return skeys_.at(r, g); }
   __device__ const int32_t* saddrs(int r, int g) const {
     return saddrs_.at(r, g);
   }
-  __device__ const int32_t* lkeys(int r, int g) const {
-    return lkeys_.at(r, g);
-  }
+  __device__ const K* lkeys(int r, int g) const { return lkeys_.at(r, g); }
   __device__ const int32_t* laddrs(int r, int g) const {
     return laddrs_.at(r, g);
   }

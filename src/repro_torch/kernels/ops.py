@@ -21,24 +21,25 @@ pointer and strides; a SCAN reads its lo and hi on the card.
 
 Keys are int32 or int64, the dtype of the state's keys (``index.keys``,
 ``log.keys``), as the JAX package's ``ops`` reads ``index.keys.dtype``.
-The hash probe, the search, the SCAN's range, the merge and the backup
-probe have a CUDA entry point for each width (``histore_*`` and
-``histore_*_i64``, one template instantiated twice), and each width's
-launches are counted apart (``LAUNCHES["merge"]``,
-``LAUNCHES["merge_i64"]``).  The CUDA wrappers take the tensors a call's
-keys meet in at one dtype; a mix raises TypeError.  Where JAX's x64 path
-falls back to jnp (its TPU kernels take int32 keys), the card launches
-the int64 kernel: the answers are the same bits.
+Every kernel on keys but the legacy search and the two sorts has a CUDA
+entry point for each width (``histore_*`` and ``histore_*_i64``, one
+template instantiated twice): the hash probe, the search and the SCAN's
+range (single and stacked), the merge, the backup and group probes and
+the legacy probe's keys-in entry; each width's launches are counted
+apart (``LAUNCHES["merge"]``, ``LAUNCHES["merge_i64"]``).  The CUDA
+wrappers take the tensors a call's keys meet in at one dtype; a mix
+raises TypeError.  Where JAX's x64 path falls back to jnp (its TPU
+kernels take int32 keys), the card launches the int64 kernel: the
+answers are the same bits.
 
 The routed ops cast the queries to the store's key width before they
 choose a device, so both devices answer alike: ``search``, ``merge``,
 ``backup_probe`` and the group probes to their index's keys' dtype;
-``probe``, whose hash table holds no keys, hashes them at their own
-width (int32 or int64, other integer dtypes as int32), and the index
-group passes them at its own.  The group probes and the stacked SCAN
-have int32 kernels only and raise TypeError for an int64 store on every
-device; the legacy ``hash_probe`` takes its keys as int32 on every
-device, as ``sorted_search`` does.
+``probe`` and the legacy ``hash_probe``, whose hash table holds no keys,
+hash them at their own width (int32 or int64, other integer dtypes as
+int32), as JAX's ``bucket_of`` / ``sig_fp_of`` do, and the index group
+passes them at its own.  The legacy ``sorted_search`` takes int32 keys
+only, as JAX asserts.
 
 ``cfg.use_kernels`` keeps its values so configs compare field for field
 with the JAX package: "on" and "auto" allow the routing above, "off"
@@ -80,7 +81,8 @@ LAUNCHES = {"hash_probe": 0, "sorted_search": 0, "merge": 0,
             "backup_probe": 0, "group_probe": 0, "sort_stable": 0,
             "legacy_hash_probe": 0, "legacy_sorted_search": 0,
             "bitonic_sort": 0, "hash_probe_i64": 0, "sorted_search_i64": 0,
-            "merge_i64": 0, "backup_probe_i64": 0}
+            "merge_i64": 0, "backup_probe_i64": 0, "group_probe_i64": 0,
+            "legacy_hash_probe_i64": 0}
 
 KEY_DTYPES = (I32, torch.int64)
 
@@ -164,14 +166,6 @@ def _as_key(keys):
     """Keys of an int32 or int64 store as they are; any other integer
     dtype as int32, the default width."""
     return keys if keys.dtype in KEY_DTYPES else keys.to(I32)
-
-
-def _int32_store(kernel, keys):
-    """The group probes' and the stacked SCAN's rule: their kernels take
-    int32 keys only, so an int64 store raises on every device."""
-    if keys.dtype != I32:
-        raise TypeError(f"{kernel}: takes a store of int32 keys, got "
-                        f"{keys.dtype} (its kernel has no int64 entry)")
 
 
 # ---------------------------------------------------------------------------
@@ -279,31 +273,36 @@ def range_query_cuda(keys, addrs, lo, hi, limit: int, fanout: int):
 
 def range_query_stacked_cuda(keys, addrs, lo, hi, limit: int, fanout: int):
     """The SCANs [lo[g], hi[g]] of every replica r of every group g in one
-    launch.  keys/addrs: [R, G, cap] int32, the store's stacked sorted
-    leaves, read in place through their strides (each row contiguous);
-    lo, hi: [G] int32 CUDA tensors, any stride (an expanded 0-d works).
-    Returns (keys [G, R, limit], addrs [G, R, limit], counts [G, R]),
-    int32."""
+    launch.  keys: [R, G, cap] int32 or int64 and addrs: [R, G, cap]
+    int32, the store's stacked sorted leaves, read in place through their
+    strides (each row contiguous); lo, hi: [G] CUDA tensors of the keys'
+    dtype, any stride (an expanded 0-d works).  Returns (keys [G, R,
+    limit] of the keys' dtype, addrs [G, R, limit] int32, counts [G, R]
+    int32)."""
     if keys.dim() != 3:
         raise ValueError(f"range_query_stacked: expected [R, G, cap] "
                          f"leaves, got {tuple(keys.shape)}")
+    kd = _key_width("range_query_stacked", ("keys", keys))
     R, G, cap = keys.shape
-    kl = _leaf("sorted keys", keys, I32, (R, G, cap), 2)
+    kl = _leaf("sorted keys", keys, kd, (R, G, cap), 2)
     al = _leaf("sorted addrs", addrs, I32, (R, G, cap), 2)
-    _range_bounds("range_query_stacked", lo, hi, ((G,),))
+    _range_bounds("range_query_stacked", lo, hi, ((G,),), kd)
     if R < 1 or G < 1 or cap < 1 or limit < 0:
         raise ValueError(f"range_query_stacked: {G} groups, {R} replicas "
                          f"of {cap} slots, limit {limit}")
     n = G * R * limit
-    out = torch.empty((2 * n + G * R,), dtype=I32, device=keys.device)
+    dev = keys.device
+    out = torch.empty((2 * n + G * R,), dtype=I32, device=dev)
+    ok = out[:n] if kd == I32 else torch.empty((n,), dtype=kd, device=dev)
     p = out.data_ptr()
-    st = _launch(keys.device, _c("sorted_search", "histore_range_query"),
+    st = _launch(dev, _c("sorted_search", _wide("histore_range_query", kd)),
                  kl.p, al.p, kl.sr, kl.sg, al.sr, al.sg, lo.data_ptr(),
-                 lo.stride(0), hi.data_ptr(), hi.stride(0), p, p + 4 * n,
-                 p + 8 * n, G, R, cap, fanout, _levels(cap, fanout), limit)
+                 lo.stride(0), hi.data_ptr(), hi.stride(0), ok.data_ptr(),
+                 p + 4 * n, p + 8 * n, G, R, cap, fanout,
+                 _levels(cap, fanout), limit)
     _raise_on(st, "range_query_stacked")
-    LAUNCHES["sorted_search"] += 1
-    return (out[:n].view(G, R, limit), out[n:2 * n].view(G, R, limit),
+    LAUNCHES[_wide("sorted_search", kd)] += 1
+    return (ok.view(G, R, limit), out[n:2 * n].view(G, R, limit),
             out[2 * n:].view(G, R))
 
 
@@ -442,8 +441,11 @@ def group_probe_cuda(rkeys, rep_sel, hidx, bsorted, blog,
     stack's G servers are the store's groups g0 .. g0 + G - 1 of
     ``groups`` (default G: the whole store).  Returns (h_addr, h_found,
     h_acc, b_addr, b_found, b_acc, owner group), each [G, Q], the found
-    flags bool and the rest int32."""
-    _check("rkeys", rkeys, I32, 2)
+    flags bool and the rest int32.  The keys (rkeys, the sorted and log
+    keys) are int32 or int64, one width."""
+    kd = _key_width("group_probe", ("rkeys", rkeys),
+                    ("sorted keys", bsorted.keys), ("log keys", blog.keys))
+    _check("rkeys", rkeys, kd, 2)
     G, Q = rkeys.shape
     groups = G if groups is None else int(groups)
     if g0 < 0 or groups < g0 + G:
@@ -464,9 +466,9 @@ def group_probe_cuda(rkeys, rep_sel, hidx, bsorted, blog,
           for n, t in zip(("sig", "fp", "addr"), hidx[:3])],
         _leaf("fill", hidx.fill, I32, (G, nb), 1))
     reps = _build.StackedReplicas(
-        _leaf("sorted keys", bsorted.keys, I32, (R, G, cap), 2),
+        _leaf("sorted keys", bsorted.keys, kd, (R, G, cap), 2),
         _leaf("sorted addrs", bsorted.addrs, I32, (R, G, cap), 2),
-        _leaf("log keys", blog.keys, I32, (R, G, lcap), 2),
+        _leaf("log keys", blog.keys, kd, (R, G, lcap), 2),
         _leaf("log addrs", blog.addrs, I32, (R, G, lcap), 2),
         _leaf("log ops", blog.ops, torch.int8, (R, G, lcap), 2),
         _leaf("log applied", blog.applied, I32, (R, G), 2),
@@ -475,7 +477,7 @@ def group_probe_cuda(rkeys, rep_sel, hidx, bsorted, blog,
     found = torch.empty((2, G, Q), dtype=torch.bool, device=rkeys.device)
     best = torch.empty((G, Q), dtype=I32, device=rkeys.device)
     with torch.cuda.device(rkeys.device):
-        st = _c("group_probe", "histore_group_probe")(
+        st = _c("group_probe", _wide("histore_group_probe", kd))(
             rkeys.data_ptr(), None if rep_sel is None else rep_sel.data_ptr(),
             ctypes.addressof(tables), ctypes.addressof(reps),
             out.data_ptr(), found.data_ptr(), best.data_ptr(), Q, G, nb, cs,
@@ -483,7 +485,7 @@ def group_probe_cuda(rkeys, rep_sel, hidx, bsorted, blog,
             six.directory_levels(cap, fanout), groups, int(g0),
             _stream(rkeys))
     _raise_on(st, "group_probe")
-    LAUNCHES["group_probe"] += 1
+    LAUNCHES[_wide("group_probe", kd)] += 1
     return out[0], found[0], out[1], out[2], found[1], out[3], out[4]
 
 
@@ -532,11 +534,12 @@ def bitonic_sort_cuda(keys, vals):
 
 
 def legacy_hash_probe_keys_cuda(keys, sig, fp, addr, slots_per_bucket: int):
-    """keys: [Q] int32 (hashed on the card, the bucket h1 & (nb - 1) as
-    ``hashing.descriptors`` takes it for any nb); sig/fp/addr: [nb, CS]
-    int32 (no fill: a miss counts the row's nonzero signatures).  Returns
-    (addr int32, found bool, n_accesses int32)."""
-    _check("keys", keys, I32)
+    """keys: [Q] int32 or int64 (hashed on the card at their width, the
+    bucket h1 & (nb - 1) as ``hashing.descriptors`` takes it for any nb);
+    sig/fp/addr: [nb, CS] int32 (no fill: a miss counts the row's nonzero
+    signatures).  Returns (addr int32, found bool, n_accesses int32)."""
+    kd = _key_width("legacy_hash_probe", ("keys", keys))
+    _check("keys", keys, kd)
     for n, t in (("sig", sig), ("fp", fp), ("addr", addr)):
         _check(n, t, I32, 2)
     if fp.shape != sig.shape or addr.shape != sig.shape:
@@ -546,12 +549,13 @@ def legacy_hash_probe_keys_cuda(keys, sig, fp, addr, slots_per_bucket: int):
     out = torch.empty((2, Q), dtype=I32, device=keys.device)
     found = torch.empty((Q,), dtype=torch.bool, device=keys.device)
     st = _launch(keys.device,
-                 _c("legacy_hash_probe", "histore_legacy_hash_probe_keys"),
+                 _c("legacy_hash_probe",
+                    _wide("histore_legacy_hash_probe_keys", kd)),
                  keys.data_ptr(), sig.data_ptr(), fp.data_ptr(),
                  addr.data_ptr(), out[0].data_ptr(), found.data_ptr(),
                  out[1].data_ptr(), Q, nb, cs, slots_per_bucket)
     _raise_on(st, "legacy_hash_probe")
-    LAUNCHES["legacy_hash_probe"] += 1
+    LAUNCHES[_wide("legacy_hash_probe", kd)] += 1
     return out[0], found, out[1]
 
 
@@ -792,15 +796,14 @@ def range_query_stacked(cfg, bsorted, lo, hi, limit: int):
     """The distributed SCAN's range queries in one call: replica r of
     group g (the store's [R, G] sorted leaves, read in place on the card)
     over [lo[g], hi[g]] (lo, hi: [G]).  Returns (keys [G, R, limit],
-    addrs [G, R, limit], counts [G, R]).  Bit-exact with
-    range_query_stacked_plain."""
-    dev = bsorted.keys.device
-    _int32_store("range_query_stacked", bsorted.keys)
+    addrs [G, R, limit], counts [G, R]); the bounds and the keys at the
+    store's key width.  Bit-exact with range_query_stacked_plain."""
+    dev, kd = bsorted.keys.device, bsorted.keys.dtype
+    lo, hi = _bound(lo, dev, kd), _bound(hi, dev, kd)
     if not kernels_enabled(cfg, dev):
         return range_query_stacked_plain(cfg, bsorted, lo, hi, limit)
-    return range_query_stacked_cuda(bsorted.keys, bsorted.addrs,
-                                    _bound(lo, dev), _bound(hi, dev), limit,
-                                    cfg.fanout)
+    return range_query_stacked_cuda(bsorted.keys, bsorted.addrs, lo, hi,
+                                    limit, cfg.fanout)
 
 
 def backup_probe(cfg, sorted_r, blogs_r, keys, rep_sel):
@@ -817,22 +820,34 @@ def backup_probe(cfg, sorted_r, blogs_r, keys, rep_sel):
     return addr, found.bool(), acc
 
 
+def _x64_hash_acc(out, kd):
+    """The group probes' answers of a store of ``kd`` keys: at int64 the
+    hash half's n_accesses as int64, the dtype JAX's jnp path gives under
+    x64 (its ``hash_index.lookup`` counts from an int64 argmax there);
+    the kernel and the plain version write int32, the same values."""
+    if kd == I32:
+        return out
+    return (*out[:2], out[2].to(torch.int64), *out[3:])
+
+
 def group_probe(cfg, hidx, sorted_r, blogs_r, keys, rep_sel):
     """The fused GET probe of one group with JAX's signature: the hash
     chain walk and the replica-select backup probe (``rep_sel`` [Q, R])
     in one kernel call, the stacked kernel at G = 1 over copies of the R
     replica states.  Returns (h_addr, h_found bool, h_acc, b_addr,
-    b_found bool, b_acc).  Bit-exact with group_probe_plain.
+    b_found bool, b_acc), h_acc int64 at int64 keys (``_x64_hash_acc``).
+    Bit-exact with group_probe_plain.
 
     On the card each call copies every leaf of the R replica states
     (torch.stack: R x (cap + lcap) entries and more) before the launch.
     The store's GET reads its stacked leaves in place through
     ``group_probe_stacked``; this signature serves callers that hold
     the replicas as separate states."""
-    _int32_store("group_probe", sorted_r[0].keys)
-    keys = keys.to(I32)
+    kd = sorted_r[0].keys.dtype
+    keys = keys.to(kd)
     if not kernels_enabled(cfg, keys.device):
-        return group_probe_plain(cfg, hidx, sorted_r, blogs_r, keys, rep_sel)
+        return _x64_hash_acc(group_probe_plain(cfg, hidx, sorted_r, blogs_r,
+                                               keys, rep_sel), kd)
     if len(sorted_r) < 1 or len(blogs_r) != len(sorted_r):
         raise ValueError(f"group_probe: at least one replica with one log "
                          f"each, got {len(sorted_r)} and {len(blogs_r)}")
@@ -845,7 +860,7 @@ def group_probe(cfg, hidx, sorted_r, blogs_r, keys, rep_sel):
         keys.contiguous()[None], rep_sel.to(I32).contiguous()[None],
         type(hidx)(*[a[None] for a in hidx]), one_group(sorted_r),
         one_group(blogs_r), cfg.slots_per_bucket, cfg.fanout)
-    return tuple(t[0] for t in out[:6])
+    return _x64_hash_acc(tuple(t[0] for t in out[:6]), kd)
 
 
 def group_probe_stacked(cfg, hidx, bsorted, blog, rk, groups=None,
@@ -858,15 +873,17 @@ def group_probe_stacked(cfg, hidx, bsorted, blog, rk, groups=None,
     groups g0 .. g0 + L - 1 of ``groups``); rk: [G, Q].  Returns (h_addr,
     h_found bool, h_acc, b_addr, b_found bool, b_acc, owner group), each
     [G, Q]; row g of the first six is group_probe's answer for server g.
-    Bit-exact with group_probe_stacked_plain."""
-    _int32_store("group_probe_stacked", bsorted.keys)
-    rk = rk.to(I32)
+    The lanes take the store's key width.  Bit-exact with
+    group_probe_stacked_plain (h_acc int64 at int64 keys, as
+    ``group_probe``'s)."""
+    kd = bsorted.keys.dtype
+    rk = rk.to(kd)
     if not kernels_enabled(cfg, rk.device):
-        return group_probe_stacked_plain(cfg, hidx, bsorted, blog, rk,
-                                         groups, g0)
-    return group_probe_cuda(rk.contiguous(), None, hidx, bsorted,
-                            blog, cfg.slots_per_bucket, cfg.fanout, groups,
-                            g0)
+        return _x64_hash_acc(group_probe_stacked_plain(
+            cfg, hidx, bsorted, blog, rk, groups, g0), kd)
+    return _x64_hash_acc(group_probe_cuda(
+        rk.contiguous(), None, hidx, bsorted, blog, cfg.slots_per_bucket,
+        cfg.fanout, groups, g0), kd)
 
 
 def sort(cfg, keys, vals):
@@ -891,13 +908,14 @@ def hash_probe(index, keys, cfg, *, q_block: int = 256):
     keys: [Q].  Returns (addr, found bool, n_accesses); a miss counts
     ceil(occ / S) reads with occ the chain row's nonzero signatures (the
     fill the index keeps, so on its tables it equals ``probe``).  On the
-    card the kernel hashes the keys (one launch).  The keys are taken as
-    int32 on every device, as ``sorted_search`` takes its queries.
-    ``q_block`` is JAX's query tile: the card needs none, any Q is
-    taken."""
+    card the kernel hashes the keys (one launch).  The table holds no
+    keys, so the keys are hashed at their own width (int32 or int64,
+    other integer dtypes as int32) on every device, as JAX's
+    ``bucket_of`` / ``sig_fp_of`` hash them.  ``q_block`` is JAX's query
+    tile: the card needs none, any Q is taken."""
     if q_block < 1:
         raise ValueError(f"hash_probe: q_block must be >= 1, got {q_block}")
-    keys = keys.to(I32)
+    keys = _as_key(keys)
     if keys.is_cuda:
         return legacy_hash_probe_keys_cuda(
             keys.contiguous(), index.sig, index.fp, index.addr,

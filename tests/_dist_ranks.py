@@ -21,6 +21,7 @@ import numpy as np
 import torch
 
 import _dist_battery as battery
+from _answers import plain
 import _dist_fault_schedules as S
 from oracle import FaultInjector
 from repro_torch.configs.histore import scaled
@@ -197,6 +198,30 @@ def answered(rank, world, device):
     assert out[0] == out[1], out
     _store_equal(mine, comm, be.store, "answered")
     return out[0]
+
+
+def keys64_store(rank, world, device, events):
+    """The int64 store of ``tests/test_torch_dist_keys64.py`` (case 1's
+    config) over the ranks and on one process, through ``events``: the
+    same answers on every rank as on one process, and the gathered store
+    bit-equal to the one-process store, dtypes included.  Returns the
+    answers and the store's key dtype."""
+    import _dist_keys64_jax as D
+
+    comm = ranks.comm(G, device)
+    out = []
+    for cm in (comm, None):
+        c = HiStoreClient(DistributedBackend(
+            G, scaled(**D.cfg_kw(1)), D.DCAP, capacity_q=D.CASES[1][2],
+            scan_limit=128, device=device, comm=cm, key_dtype=torch.int64),
+            batch_quantum=D.QUANTUM, max_retries=32)
+        out.append(D.drive(c, events))
+        if cm is not None:
+            mine = c.backend.store
+    assert out[0] == out[1]
+    _store_equal(mine, comm, c.backend.store, "keys64")
+    return {"answers": plain(out[0]),
+            "key_dtype": str(mine.bsorted.keys.dtype)}
 
 
 def fault_env(comm, device):

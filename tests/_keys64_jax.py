@@ -234,6 +234,19 @@ def main(out_path):
                                              jnp.asarray(sel))}
     for i, (lo, hi) in enumerate(bounds):
         res[f"range_query/{i}"] = kops.range_query(cfg, srt0, lo, hi, 64)
+    # the group probes (its jnp path at int64) and every replica's SCAN:
+    # the ops the distributed store runs, on this group
+    R = g.blogs.tail.shape[0]
+    res["group_probe"] = kops.group_probe(cfg, g.hash, g.sorted, g.blogs, q,
+                                          jnp.asarray(sel))
+    res["group_probe_all"] = kops.group_probe(
+        cfg, g.hash, g.sorted, g.blogs, q, jnp.ones((len(queries), R),
+                                                    jnp.int32))
+    for r in range(1, R):
+        srt_r = jax.tree.map(lambda a: a[r], g.sorted)
+        for i, (lo, hi) in enumerate(bounds):
+            res[f"range_query_r{r}/{i}"] = kops.range_query(cfg, srt_r, lo,
+                                                            hi, 64)
     for name, outs in res.items():
         for i, a in enumerate(outs):
             out[f"ops/{name}/{i}"] = np.asarray(a)

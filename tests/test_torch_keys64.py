@@ -308,31 +308,75 @@ def test_int64_queries_take_an_int32_stores_width(op):
     """int64 queries on an int32 store answer as the same queries cast to
     int32 (as JAX's x32 mode takes them): the hash and the replicas see
     one key, so a GET that consults both, a degraded GET and a write
-    agree with the store's own keys, negative ones included."""
+    agree with the store's own keys, negative ones included.  The legacy
+    ``hash_probe``, like ``probe``, hashes at the keys' own width (its
+    table holds no keys; JAX's bucket_of / sig_fp_of do so): queries in
+    [0, 2**32), whose high word is 0 as an int32 key's is, answer as
+    their casts, and the rest miss."""
     g, q = _int32_group("cpu")
     got = _width_answers(g, q, op)
-    _same_answers(got, _width_answers(g, q.to(torch.int32), op), op)
+    want = _width_answers(g, q.to(torch.int32), op)
+    if op == "hash_probe":
+        same = (q >= 0) & (q < 2 ** 32)
+        assert not bool(got[1][~same].any()), op
+        for x, y in zip(got, ops.probe(CFG, g.hash, q)):
+            assert torch.equal(x[got[1]], y[got[1]]), op
+        got, want = ([x[same] for x in t] for t in (got, want))
+    _same_answers(got, want, op)
     if op in ("get", "get_degraded", "replica_probe"):
         found = got[1]
         assert bool(found[:1100].all()) and not bool(found.all()), op
 
 
-def test_group_probes_refuse_an_int64_store():
-    """The group probes and the stacked SCAN have int32 kernels only: an
-    int64 store raises TypeError on the CPU as on the card."""
-    g = ig.create(256, CFG, "cpu", I64)
-    q = torch.zeros((4,), dtype=I64)
-    sel = torch.zeros((4, len(g.sorted)), dtype=torch.int32)
+def _int64_group_ops(a):
+    """The int64 group of the ops' cases (JAX's, carried across), its
+    queries and its SCAN bounds."""
+    g = convert.group_from_numpy(_jgroup(a, "ops/group"), "cpu")
+    _, _, queries, bounds, _, sel = J.group_inputs()
+    return g, torch.as_tensor(queries), bounds, torch.as_tensor(sel)
+
+
+@pytest.mark.parametrize("op", ("group_probe", "group_probe_stacked",
+                                "range_query_stacked"))
+def test_group_probes_answer_an_int64_store(jx, op):
+    """The group probes and the stacked SCAN answer an int64 store, as
+    JAX's answer under x64 (its jnp path): the same values and dtypes as
+    JAX's group_probe (the stacked probe at G = 1 selects every replica,
+    the one server holding them all) and range_query of each replica,
+    and the values of their plain versions."""
+    a = jx.a
+    g, q, bounds, sel = _int64_group_ops(a)
+    R = len(g.sorted)
     bs = tree.stack([[s] for s in g.sorted])
-    with pytest.raises(TypeError, match="int32 keys"):
-        ops.group_probe(CFG, g.hash, g.sorted, g.blogs, q, sel)
-    with pytest.raises(TypeError, match="int32 keys"):
-        ops.group_probe_stacked(CFG, hi.HashIndex(*[a[None] for a in g.hash]),
-                                bs, tree.stack([[b] for b in g.blogs]),
-                                q[None])
-    with pytest.raises(TypeError, match="int32 keys"):
-        ops.range_query_stacked(CFG, bs, torch.zeros((1,), dtype=I64),
-                                torch.ones((1,), dtype=I64), 4)
+    bl = tree.stack([[b] for b in g.blogs])
+    if op == "group_probe":
+        got = ops.group_probe(CFG, g.hash, g.sorted, g.blogs, q, sel)
+        plain = ops.group_probe_plain(CFG, g.hash, g.sorted, g.blogs, q, sel)
+        want = [a[f"ops/group_probe/{i}"] for i in range(6)]
+    elif op == "group_probe_stacked":
+        got = ops.group_probe_stacked(
+            CFG, hi.HashIndex(*[x[None] for x in g.hash]), bs, bl, q[None])
+        plain = ops.group_probe_stacked_plain(
+            CFG, hi.HashIndex(*[x[None] for x in g.hash]), bs, bl, q[None])
+        _same(got[6][0], np.zeros(len(q), np.int32), "owner group")
+        got, plain = [x[0] for x in got[:6]], [x[0] for x in plain[:6]]
+        want = [a[f"ops/group_probe_all/{i}"] for i in range(6)]
+    else:
+        got, plain, want = [], [], []
+        for i, (lo, hi_) in enumerate(bounds):
+            lo_t, hi_t = (torch.tensor([x], dtype=I64) for x in (lo, hi_))
+            out = ops.range_query_stacked(CFG, bs, lo_t, hi_t, 64)
+            pl = ops.range_query_stacked_plain(CFG, bs, lo_t, hi_t, 64)
+            for r in range(R):
+                name = "range_query" if r == 0 else f"range_query_r{r}"
+                for k in range(3):
+                    got.append(out[k][0, r])
+                    plain.append(pl[k][0, r])
+                    want.append(a[f"ops/{name}/{i}/{k}"])
+    for i, (x, p, w) in enumerate(zip(got, plain, want)):
+        _same(x, w, f"{op} output {i}")
+        assert torch.equal(x, p.to(x.dtype)), f"{op} output {i} vs plain"
+    assert len(got) == len(want) > 0
 
 
 # ---------------------------------------------------------------------------
